@@ -1,0 +1,197 @@
+"""The port's training slice on the CPU: data, the Coordinator's exact
+invariance, and the loss trajectory against the JAX package.
+
+The port's Coordinator must bit-match the port's own sequential references
+for any worker count (the paper's Table-4 invariance, as
+``tests/test_invariance.py`` checks it for the JAX package). Against JAX the
+comparison is within a stated tolerance: the two frameworks sum in different
+orders.
+"""
+from __future__ import annotations
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.paper_lstm import TrainParams as JTrainParams
+from repro.core.mapreduce import TrainingProblem as JProblem
+from repro.core.mapreduce import sequential_accumulated as j_seq_acc
+from repro.data import text as jtext
+from repro_torch import bridge, tree
+from repro_torch.checkpoint import serialize
+from repro_torch.configs.paper_lstm import TrainParams
+from repro_torch.core import protocol
+from repro_torch.core.coordinator import Coordinator
+from repro_torch.core.mapreduce import (TrainingProblem,
+                                        sequential_accumulated,
+                                        sequential_async, sequential_local)
+from repro_torch.core.tasks import GradResult
+from repro_torch.data import text as ttext
+
+# tests/test_invariance.py's reduced schedule: 4 versions of 4 mini-batches
+TP_ARGS = dict(batch_size=16, examples_per_epoch=64, num_epochs=1,
+               sample_len=20, mini_batch_size=4, mini_batches_to_accumulate=4)
+TP = TrainParams(**TP_ARGS)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These shapes are tiny: one intra-op thread is as fast, and it leaves
+    the other cores to the timing-sensitive tests running beside these."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def problem():
+    return TrainingProblem.paper_problem(corpus=ttext.synthetic_corpus(6000),
+                                         tp=TP, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def sequential(problem):
+    return sequential_accumulated(problem)
+
+
+def _bitmatch(a, b) -> bool:
+    return all(torch.equal(x, y)
+               for x, y in zip(tree.leaves(a), tree.leaves(b), strict=True))
+
+
+# ---------------------------------------------------------------------------
+# (d) the same corpus, vocabulary and batches as the JAX package
+# ---------------------------------------------------------------------------
+
+def test_repo_corpus_and_batches_match_jax():
+    text = ttext.repo_corpus()
+    assert text == jtext.repo_corpus()
+    t_task = ttext.TextTask.build(text, sample_len=40, seed=99)
+    j_task = jtext.TextTask.build(text, sample_len=40, seed=99)
+    assert t_task.vocab.chars == j_task.vocab.chars
+    assert t_task.vocab.size == 95
+    for e, b, mb in [(0, 0, 0), (1, 7, 15), (4, 15, 3)]:
+        tb = t_task.minibatch(e, b, 128, mb, 8)
+        jb = j_task.minibatch(e, b, 128, mb, 8)
+        for k in ("x", "y"):
+            assert tb[k].dtype == jb[k].dtype
+            np.testing.assert_array_equal(tb[k], jb[k])
+
+
+def test_paper_problem_sizes():
+    prob = TrainingProblem.paper_problem(device="cpu")
+    assert prob.cfg.vocab == 95 and prob.cfg.d_model == 50
+    assert prob.n_params == 54_245
+    assert prob.grad_bytes == 216_980
+    assert prob.model_bytes == 2 * 216_980 + 4        # + int32 step
+    assert prob.cell_launches_per_map == 80
+    assert prob.n_versions == 80
+
+
+# ---------------------------------------------------------------------------
+# (e) Coordinator == sequential references, bit for bit
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_worker_count_invariance(problem, sequential, k):
+    res = Coordinator(problem, n_workers=k).run()
+    assert res.final_version == problem.n_versions
+    assert _bitmatch((res.params, res.opt_state),
+                     (sequential[0], sequential[1]))
+    assert res.losses == sequential[2]
+
+
+def test_churn_and_sharding_invariance(problem, sequential):
+    churn = [(5, "leave", "w0"), (9, "leave", "w1"), (12, "join", "w9"),
+             (20, "join", "w10"), (14, "add_shard", "0")]
+    res = Coordinator(problem, n_workers=4, churn=churn, n_shards=2).run()
+    assert _bitmatch(res.params, sequential[0])
+
+
+@pytest.mark.parametrize("spec,reference", [
+    ("staleness:2", lambda p: sequential_async(p)),
+    ("local:4", lambda p: sequential_local(p, k=4)),
+], ids=["staleness", "local"])
+def test_barrierless_policies_match_their_reference(problem, spec, reference):
+    ref_params, ref_state, _ = reference(problem)
+    res = Coordinator(problem, n_workers=3, policy=spec).run()
+    assert res.policy == spec
+    assert _bitmatch((res.params, res.opt_state), (ref_params, ref_state))
+
+
+def test_unported_paths_refuse(problem):
+    with pytest.raises(NotImplementedError):
+        Coordinator(problem, n_workers=2, transport="wire")
+    with pytest.raises(NotImplementedError):
+        Coordinator(problem, n_workers=2, codec="ternary")
+
+
+def test_wire_codec_round_trips_host_tensors():
+    g = {"w": torch.arange(6, dtype=torch.float32).reshape(2, 3),
+         "layers": [torch.ones(4)]}
+    msg = protocol.PublishResult("map-results:v0",
+                                 GradResult(0, 1, (g, 7), 36, 0.5, "w0", 0))
+    back = protocol.decode_message(protocol.encode_message(msg))
+    assert isinstance(back.result, GradResult)
+    payload, seven = back.result.payload
+    assert seven == 7
+    np.testing.assert_array_equal(payload["w"], g["w"].numpy())
+    np.testing.assert_array_equal(payload["layers"][0], np.ones(4, np.float32))
+    assert serialize.loads(serialize.dumps({"a": 1}, codec="zlib")) == {"a": 1}
+
+
+# ---------------------------------------------------------------------------
+# (f) loss trajectory against the JAX package, params carried across
+# ---------------------------------------------------------------------------
+
+def test_sequential_losses_match_jax():
+    """Per-version losses of ``sequential_accumulated`` from JAX's params0,
+    and each version's reduce input compared from JAX's own state.
+
+    The trajectory is held to 1e-4. The weights are not compared element by
+    element after a step: RMSprop at lr 0.1 with eps 1e-7 outside the sqrt
+    has a step ``lr*g/(sqrt(ms)+eps)`` whose slope in ``g`` is ~1e5-1e6
+    where the mean gradient cancels to ~1e-7, so the two frameworks'
+    last-bit differences there become 1e-3 moves in a few weights (measured
+    on this problem: 37 of 17,600 elements after four versions). So each
+    version is checked one at a time from JAX's state instead: the mean
+    gradient (the reduce input) within 2e-5 and the mini-batch loss within
+    2e-5; the optimizer step itself is checked from identical gradients in
+    ``tests/test_torch_lstm.py::test_rmsprop_apply_matches_jax``."""
+    jprob = JProblem.paper_problem(corpus=jtext.synthetic_corpus(6000),
+                                   tp=JTrainParams(**TP_ARGS))
+    tprob = TrainingProblem.paper_problem(
+        corpus=ttext.synthetic_corpus(6000), tp=TP, device="cpu")
+
+    def carried(params, state):
+        return (bridge.params_from_jax(jax.tree.map(np.asarray, params),
+                                       "cpu"),
+                bridge.opt_state_from_jax(jax.tree.map(np.asarray, state),
+                                          "cpu"))
+
+    tprob.params0, tprob.opt_state0 = carried(jprob.params0,
+                                              jprob.opt_state0)
+    _, _, tl = sequential_accumulated(tprob)
+    _, _, jl = j_seq_acc(jprob)
+    assert len(tl) == len(jl) == 4
+    np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
+
+    params, state = jprob.params0, jprob.opt_state0
+    n_mb = TP.mini_batches_to_accumulate
+    for v in range(4):
+        tparams, _ = carried(params, state)
+        jg, tg = {}, {}
+        for mb in range(n_mb):
+            jg[mb], jloss = jprob.map_compute(params, v, mb)
+            tg[mb], tloss = tprob.map_compute(tparams, v, mb)
+            np.testing.assert_allclose(tloss, jloss, rtol=2e-5, atol=2e-5)
+        t_mean = tree.map(lambda *xs: torch.stack(xs).mean(0),
+                          *(tg[i] for i in range(n_mb)))
+        j_mean = jax.tree.map(lambda *xs: np.mean(np.stack(xs), 0),
+                              *(jg[i] for i in range(n_mb)))
+        for a, b in zip(tree.leaves(bridge.to_numpy(t_mean)),
+                        jax.tree.leaves(j_mean), strict=True):
+            np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-5)
+        params, state = jprob.reduce_compute(params, state, jg)
