@@ -8,17 +8,32 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each printing its result; any failure exits non-zero:
 
 1. the card's name and power limit, then the build of every kernel of the
-   port's main path from the sources in this checkout (timed);
-2. each kernel against its plain PyTorch version on the card over the JAX
-   package's test sweep and the paper's shapes (fp32 and bf16), and its time
+   port's paths from the sources in this checkout, one ``nvcc`` per source,
+   all started together (timed);
+2. each kernel against its plain PyTorch version on the card, and its time
    at the paper's shapes beside the plain version, the one-call PyTorch
-   equivalent and the card's bound;
+   equivalent (where one exists) and the card's bound: ``lstm_cell`` over
+   the JAX package's test sweep and the paper's shapes (fp32 and bf16);
+   ``ternary_encode`` byte for byte and ``ternary_decode`` bit for bit over
+   the JAX sweep and the six paper leaves (padded, with values planted at
+   ``±s/2`` and their neighbours);
 3. the gradient of ``lstm_loss`` at the paper width through the kernel
-   against the plain-PyTorch path on the card;
-4. the main path: ``repro_torch.launch.train.run_paper`` (3 volunteers, 3
-   versions, the Coordinator) on the card, with its kernel launches counted,
-   its model bit-equal to ``sequential_accumulated`` on the card, and its
-   per-version losses against the same run on the CPU;
+   against the plain-PyTorch path on the card, and the ternary codec's
+   error-feedback round trip (three steps) on the card against the CPU, bit
+   for bit;
+4. the main paths, each through ``repro_torch.launch.train.run_paper`` (3
+   volunteers, 3 versions, the Coordinator) on the card with every launch
+   count set to 0 just before and read just after: dense in process (model
+   bit-equal to ``sequential_accumulated`` on the card, per-version losses
+   against the CPU), dense over the wire (bit-equal to the same reference),
+   TernGrad over the wire (the codec's byte count ``bytes_sent`` = maps x
+   the ternary size of one gradient + reduces x the model; the bytes the
+   wire moved, ``wire_bytes``, printed beside the dense wire run's), its
+   in-process twin (bit-equal), and a short top-k run under deterministic
+   mode, each run's launch counts held to its path (80 ``lstm_cell`` and,
+   under TernGrad, 6 of each ternary kernel per map, else none); then the
+   four dense/ternary x inproc/wire runs once more in reverse order, for
+   their seconds per version;
 5. where one map's time goes: wall time, and a ``torch.profiler`` window's
    device busy share and kernels.
 
@@ -42,6 +57,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # outside the tensor cores — the kernel does its fp32 math on CUDA cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
+
+# the paper's gradient: 6 leaves; the codec counts ceil(n/4) + 4 bytes a
+# leaf under TernGrad, 13,586 bytes in all against 216,980 dense
+PAPER_N_LEAVES = 6
+TERNARY_GRAD_BYTES = 13_586
 
 # tolerances of the JAX package's kernel tests (tests/test_kernels.py::_tol)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -154,6 +174,109 @@ def phase_kernel(torch, K, ref):
     return worst, rows
 
 
+# the six leaves of the paper's gradient (head b, head w, layer 0 bias and
+# kernel, layer 1 bias and kernel), their element counts before padding
+PAPER_LEAVES = [95, 4750, 200, 29000, 200, 20000]
+TERNARY_SWEEP = [4, 128, 4096, 10000]      # tests/test_kernels.py
+
+
+def ternary_bound_ms(n):
+    """Least time for one encode or decode of n (padded) elements: fp32
+    [n] and uint8 [n/4] and the scale each crossed once at HBM rate; the
+    ~4 operations per element (abs, compare, select, shift-or) at fp32
+    peak."""
+    moved = 4 * n + n // 4 + 4
+    ops = 4 * n
+    t_b, t_o = moved / PEAK_BYTES_S, ops / PEAK_FP32_FLOP_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def planted_leaf(torch, n, seed, s=None):
+    """A padded leaf of n values with the threshold's edge planted: s
+    itself first (so it is the max), then s/2, its two float neighbours and
+    their negatives. ``s`` given (a power of two, say) scales the leaf to
+    it."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, generator=g)
+    n4 = -(-n // 4) * 4
+    x = torch.cat([x, torch.zeros(n4 - n)])
+    scale = torch.tensor(float(s) if s is not None else 1.7, dtype=torch.float32)
+    x = (x / x.abs().max() * scale * 0.999).float()
+    half = scale / 2
+    edge = torch.stack([half, torch.nextafter(half, torch.tensor(0.0)),
+                        torch.nextafter(half, torch.tensor(float("inf")))])
+    plant = torch.cat([scale.reshape(1), edge, -edge])
+    k = min(len(plant), n)
+    x[:k] = plant[:k]
+    return x
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Bit-for-bit equality of two fp32 tensors (+0.0 and -0.0 differ)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def phase_ternary(torch, T, ref):
+    """ternary_encode byte for byte and ternary_decode bit for bit against
+    their plain versions; times at the paper's largest leaf."""
+    cases = [(f"sweep N={n}", planted_leaf(torch, n, seed=n)) for n in
+             TERNARY_SWEEP]
+    cases += [(f"paper leaf n={n}", planted_leaf(torch, n, seed=7 + i))
+              for i, n in enumerate(PAPER_LEAVES)]
+    cases += [(f"paper leaf n={n} s=2.0", planted_leaf(torch, n, seed=11,
+                                                       s=2.0))
+              for n in (95, 29000)]
+    worst = {"enc": 0, "dec": 0.0}
+    for name, x in cases:
+        g = x.cuda()
+        s = torch.clamp_min(g.abs().max(), 1e-12)
+        pk, pp = T.ternary_encode(g, s), ref.ternary_encode_packed(g, s)
+        dk, dp = T.ternary_decode(pk, s), ref.ternary_decode_packed(pk, s)
+        torch.cuda.synchronize()
+        enc_ok = torch.equal(pk, pp)
+        dec_ok = bits_equal(torch, dk, dp)
+        worst["enc"] = max(worst["enc"], (pk.int() - pp.int()).abs()
+                           .max().item())
+        worst["dec"] = max(worst["dec"], (dk - dp).abs().max().item())
+        print(f"[kernel] ternary {name}: encode bytes equal {enc_ok}, "
+              f"decode bits equal {dec_ok}, {int((pk != 0).sum())} nonzero "
+              f"bytes")
+        check(enc_ok, f"ternary_encode differs from its plain version "
+                      f"({name})")
+        check(dec_ok, f"ternary_decode differs from its plain version "
+                      f"({name})")
+    # every byte value, codes 0b11 included, decodes as the plain version
+    every = torch.arange(256, dtype=torch.uint8, device="cuda")
+    s = torch.tensor(0.37, device="cuda")
+    ok = bits_equal(torch, T.ternary_decode(every, s),
+                    ref.ternary_decode_packed(every, s))
+    print(f"[kernel] ternary_decode of all 256 byte values bit-equal: {ok}")
+    check(ok, "ternary_decode differs from its plain version on some byte")
+
+    n = max(PAPER_LEAVES)
+    g = planted_leaf(torch, n, seed=3).cuda()
+    s = g.abs().max()
+    pk = T.ternary_encode(g, s)
+    bound, by = ternary_bound_ms(n)
+    rows = {}
+    for key, kern, plain in (
+            ("encode", lambda: T.ternary_encode(g, s),
+             lambda: ref.ternary_encode_packed(g, s)),
+            ("decode", lambda: T.ternary_decode(pk, s),
+             lambda: ref.ternary_decode_packed(pk, s))):
+        ms = median_ms(kern, torch)
+        plain_ms = median_ms(plain, torch)
+        print(f"[kernel] ternary_{key} time N={n} fp32: kernel {ms:.5f} ms, "
+              f"plain {plain_ms:.5f} ms, no one-call PyTorch equivalent, "
+              f"bound {bound:.6f} ms ({by})")
+        rows[key] = dict(n=n, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by)
+    rows["encode"]["max_abs_err"] = worst["enc"]
+    rows["decode"]["max_abs_err"] = worst["dec"]
+    return rows
+
+
 def plain_loss(torch, ref, params, batch):
     """lstm_loss with every cell step in the plain version (autograd
     differentiates it directly): the reference for the gradient phase."""
@@ -201,13 +324,61 @@ def phase_grad(torch, ref):
     check(ok, "kernel-forward gradients disagree with the plain path")
 
 
-def phase_main_path(torch, K):
+def reset_counts(K, T):
+    K.lstm_cell.launches = 0
+    T.ternary_encode.launches = 0
+    T.ternary_decode.launches = 0
+
+
+def same_model(torch, res, ref_params, ref_state) -> bool:
+    """The run's (params, opt_state) equal the reference's bit for bit."""
     from repro_torch import tree
+    return all(a.dtype == b.dtype and (
+        bits_equal(torch, a, b) if a.dtype == torch.float32
+        else torch.equal(a, b)) for a, b in
+        zip(tree.leaves((res.params, res.opt_state)),
+            tree.leaves((ref_params, ref_state)), strict=True))
+
+
+def phase_codec(torch):
+    """The ternary codec's error-feedback chain on the card against the same
+    chain on the CPU, from the same three paper-width map gradients: the
+    decoded gradients, the residuals and the byte counts must be equal bit
+    for bit (the encode/decode kernels against their plain versions, inside
+    the codec)."""
+    from repro_torch import tree
+    from repro_torch.core.mapreduce import TrainingProblem
+    from repro_torch.optim import ef_compress, ef_init, make_codec
+
+    prob = TrainingProblem.paper_problem(seed=0, device="cuda")
+    codec = make_codec("ternary")
+    r_gpu, r_cpu = ef_init(prob.params0), ef_init(tree.to_device(
+        prob.params0, "cpu"))
+    for mb in range(3):
+        g, _ = prob.map_compute(prob.params0, 0, mb)
+        d_gpu, r_gpu, n_gpu = ef_compress(codec, g, r_gpu)
+        d_cpu, r_cpu, n_cpu = ef_compress(codec, tree.to_device(g, "cpu"),
+                                          r_cpu)
+        torch.cuda.synchronize()
+        same = all(bits_equal(torch, a.cpu(), b) for a, b in zip(
+            tree.leaves((d_gpu, r_gpu)), tree.leaves((d_cpu, r_cpu)),
+            strict=True))
+        print(f"[codec] ternary ef_compress step {mb + 1}: decoded and "
+              f"residual card == cpu bit for bit: {same}; nbytes "
+              f"{n_gpu} (cpu {n_cpu}, dense {prob.grad_bytes})")
+        check(same, f"ternary codec step {mb + 1} differs between the card "
+                    f"and the CPU")
+        check(n_gpu == n_cpu == TERNARY_GRAD_BYTES,
+              f"ternary nbytes {n_gpu}/{n_cpu}, expected "
+              f"{TERNARY_GRAD_BYTES}")
+
+
+def phase_main_path(torch, K, T):
     from repro_torch.core.mapreduce import TrainingProblem, sequential_accumulated
     from repro_torch.launch.train import run_paper
 
     workers, versions = 3, 3
-    K.lstm_cell.launches = 0
+    reset_counts(K, T)
     t0 = time.time()
     prob, res = run_paper(workers=workers, versions=versions, seed=0,
                           device="cuda")
@@ -228,10 +399,10 @@ def phase_main_path(torch, K):
           f"{launches} kernel launches, expected "
           f"{prob.cell_launches_per_map} x {maps}")
 
+    check(T.ternary_encode.launches == T.ternary_decode.launches == 0,
+          "the dense path launched a ternary kernel")
     p_seq, s_seq, l_seq = sequential_accumulated(prob, n_versions=versions)
-    same = all(torch.equal(a, b) for a, b in
-               zip(tree.leaves((res.params, res.opt_state)),
-                   tree.leaves((p_seq, s_seq)), strict=True))
+    same = same_model(torch, res, p_seq, s_seq)
     print(f"[main] Coordinator == sequential_accumulated on the card, bit for "
           f"bit: {same}")
     check(same, "Coordinator run on the card differs from "
@@ -243,16 +414,132 @@ def phase_main_path(torch, K):
     print(f"[main] per-version losses card {res.losses} vs cpu {l_cpu}: "
           f"max diff {diff:.3e} tol={CPU_LOSS_TOL}")
     check(diff <= CPU_LOSS_TOL, "card and CPU loss trajectories differ")
-    return prob, launches
+    return prob, launches, (p_seq, s_seq), dt / versions
+
+
+def phase_wire_paths(torch, K, T, prob, seq, dense_s):
+    """The gradient wire: dense over the wire, TernGrad over the wire and in
+    process, and a short top-k run, each through ``run_paper`` with every
+    count set to 0 just before and read just after, and held to its path."""
+    from repro_torch.launch.train import run_paper
+
+    workers, versions = 3, 3
+    n_mb = prob.tp.mini_batches_to_accumulate
+    maps = versions * n_mb
+
+    def run(codec, transport, w=workers, v=versions):
+        reset_counts(K, T)
+        t0 = time.time()
+        _, res = run_paper(workers=w, versions=v, seed=0, device="cuda",
+                           codec=codec, transport=transport)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        counts = (K.lstm_cell.launches, T.ternary_encode.launches,
+                  T.ternary_decode.launches)
+        tag = f"{codec}/{transport}"
+        check(res.final_version == v, f"{tag}: final version "
+                                      f"{res.final_version}, expected {v}")
+        check(all(math.isfinite(l) for l in res.losses),
+              f"{tag}: non-finite loss")
+        n_maps = sum(res.tasks_by_worker.values()) - v
+        check(n_maps == v * n_mb, f"{tag}: {n_maps} maps, expected "
+                                  f"{v * n_mb}")
+        per_leaf = PAPER_N_LEAVES * n_maps if codec == "ternary" else 0
+        want = (prob.cell_launches_per_map * n_maps, per_leaf, per_leaf)
+        check(counts == want, f"{tag}: launches lstm_cell/encode/decode "
+                              f"{counts}, expected {want}")
+        check((res.wire_bytes is not None) == (transport == "wire"),
+              f"{tag}: wire_bytes {res.wire_bytes}")
+        print(f"[wire] codec={codec} transport={transport}: "
+              f"{dt / v:.3f} s per version (dense inproc {dense_s:.3f}), "
+              f"launches lstm_cell/encode/decode {counts} (expected), "
+              f"codec bytes_sent {res.bytes_sent}, wire_bytes "
+              f"{res.wire_bytes}, losses {res.losses}")
+        return res, counts, dt / v
+
+    dense_wire, _, dense_wire_s = run("none", "wire")
+    same = same_model(torch, dense_wire, *seq)
+    print(f"[wire] dense wire run == sequential_accumulated on the card, bit "
+          f"for bit: {same}")
+    check(same, "dense wire run differs from sequential_accumulated")
+
+    tern_wire, counts, tern_wire_s = run("ternary", "wire")
+    want = maps * TERNARY_GRAD_BYTES + versions * prob.model_bytes
+    print(f"[wire] ternary codec bytes_sent {tern_wire.bytes_sent} = {maps} "
+          f"maps x {TERNARY_GRAD_BYTES} + {versions} reduces x "
+          f"{prob.model_bytes} (dense gradients would count "
+          f"{prob.grad_bytes} each): {tern_wire.bytes_sent == want}")
+    check(tern_wire.bytes_sent == want, f"ternary bytes_sent "
+                                        f"{tern_wire.bytes_sent}, want {want}")
+    wire_bytes = {"none/wire": dense_wire.wire_bytes,
+                  "ternary/wire": tern_wire.wire_bytes}
+    print(f"[wire] bytes the wire moved (requests, replies, notifications): "
+          f"dense {dense_wire.wire_bytes}, ternary {tern_wire.wire_bytes} "
+          f"(the gradient crosses decoded; ratio "
+          f"{tern_wire.wire_bytes / dense_wire.wire_bytes:.4f})")
+
+    tern_inproc, _, tern_inproc_s = run("ternary", "inproc")
+    same = same_model(torch, tern_wire, tern_inproc.params,
+                      tern_inproc.opt_state)
+    print(f"[wire] ternary wire run == ternary inproc run, bit for bit: "
+          f"{same}")
+    check(same, "the wire changed the ternary run's model")
+
+    run("topk", "inproc", w=2, v=1)
+
+    # the four paths once more in the reverse order, for time only, so each
+    # path's seconds per version is a mean over an early and a late slot
+    first = {"ternary/inproc": tern_inproc_s, "ternary/wire": tern_wire_s,
+             "none/wire": dense_wire_s, "none/inproc": dense_s}
+    per_version = {}
+    for key, s1 in first.items():
+        _, _, s2 = run(*key.split("/"))
+        per_version[key] = dict(runs=[s1, s2], mean=(s1 + s2) / 2)
+    base = per_version["none/inproc"]["mean"]
+    for key, row in per_version.items():
+        print(f"[wire] {key}: {row['mean']:.3f} s per version (runs "
+              f"{row['runs'][0]:.3f}, {row['runs'][1]:.3f}), "
+              f"{100 * (row['mean'] / base - 1):+.1f}% against dense inproc")
+    return counts, per_version, wire_bytes
+
+
+def profiled(torch, fn):
+    """Run ``fn`` once under ``torch.profiler``: (window ms on the host
+    clock, device busy ms, kernel count, {kernel name: (launches, ms)})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    return window_ms, busy_ms, len(kernels), by_name
+
+
+def per_launch_ms(by_name, fragment):
+    hits = [(n, t) for name, (n, t) in by_name.items() if fragment in name]
+    return sum(t for _, t in hits) / sum(n for n, _ in hits) if hits else None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.5f} ms"
 
 
 def phase_profile(torch, prob):
-    """Where one map's time goes on the card: its wall time without and
+    """Where the time goes on the card: one map's wall time without and
     with ``torch.profiler``, the device's busy share inside the profiled
-    window, and the kernels that fill it. Runs after the launch count was
-    read, so its launches are not the main path's."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    window and the kernels that fill it; then the same for one ternary
+    error-feedback round trip of a paper gradient. Runs after the launch
+    counts were read, so its launches are not the main paths'."""
+    from repro_torch.optim import ef_compress, ef_init, make_codec
 
     params = prob.params0
     walls = []
@@ -263,31 +550,41 @@ def phase_profile(torch, prob):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     map_ms = statistics.median(walls[1:])
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prob.map_compute(params, 0, 0)
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    by_name = {}
-    for e in kernels:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    window_ms, busy_ms, n_kernels, by_name = profiled(
+        torch, lambda: prob.map_compute(params, 0, 0))
     print(f"[profile] one map (B=8, T=40): {map_ms:.3f} ms wall (median of "
           f"5, no profiler); profiled window {window_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / window_ms:.1f}%), "
-          f"{len(kernels)} kernels")
+          f"{n_kernels} kernels")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"[profile]   {t:.3f} ms in {n} x {name[:90]}")
-    cell = [(n, t) for name, (n, t) in by_name.items()
-            if "lstm_cell_kernel" in name]
-    cell_ms = sum(t for _, t in cell) / max(sum(n for n, _ in cell), 1) \
-        if cell else None
+    cell_ms = per_launch_ms(by_name, "lstm_cell_kernel")
     print(f"[profile] lstm_cell kernel device time per launch: "
-          f"{'not measured' if cell_ms is None else f'{cell_ms:.5f} ms'}")
-    return map_ms, cell_ms
+          f"{fmt_ms(cell_ms)}")
+
+    codec = make_codec("ternary")
+    grads, _ = prob.map_compute(params, 0, 0)
+    residual = ef_init(params)
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ef_compress(codec, grads, residual)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    codec_ms = statistics.median(walls[1:])
+    window_ms, busy_ms, n_kernels, by_name = profiled(
+        torch, lambda: ef_compress(codec, grads, residual))
+    enc_ms = per_launch_ms(by_name, "ternary_encode_kernel")
+    dec_ms = per_launch_ms(by_name, "ternary_decode_kernel")
+    print(f"[profile] one ternary ef_compress of a paper gradient: "
+          f"{codec_ms:.3f} ms wall (median of 5, no profiler); profiled "
+          f"window {window_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / window_ms:.1f}%), {n_kernels} kernels; device "
+          f"time per launch: ternary_encode {fmt_ms(enc_ms)}, "
+          f"ternary_decode {fmt_ms(dec_ms)}")
+    return dict(map_ms=map_ms, cell_ms=cell_ms, codec_ms=codec_ms,
+                enc_ms=enc_ms, dec_ms=dec_ms)
 
 
 def main() -> int:
@@ -302,8 +599,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import device as D
+    from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import lstm_cell as K
     from repro_torch.kernels import ref
+    from repro_torch.kernels import ternary as T
 
     D.resolve("cuda")          # deterministic kernels, before cuBLAS starts
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -313,17 +612,24 @@ def main() -> int:
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.time()
+    kbuild.compile_sources([K.SOURCE, T.SOURCE])
     K.build()
-    print(f"[build] lstm_cell.cu built and loaded in {time.time() - t0:.1f} s")
-    for log in sorted(K.BUILD_DIR.glob("*.log")):
-        for line in log.read_text().splitlines():
+    T.build()
+    print(f"[build] lstm_cell.cu and ternary.cu built (in parallel) and "
+          f"loaded in {time.time() - t0:.1f} s")
+    for src in (K.SOURCE, T.SOURCE):
+        for line in kbuild.log_path(src).read_text().splitlines():
             if "registers" in line or "spill" in line:
-                print(f"[build] {line.strip()}")
+                print(f"[build] {src.name}: {line.strip()}")
 
     worst, rows = phase_kernel(torch, K, ref)
+    tern = phase_ternary(torch, T, ref)
     phase_grad(torch, ref)
-    prob, launches = phase_main_path(torch, K)
-    map_ms, cell_device_ms = phase_profile(torch, prob)
+    phase_codec(torch)
+    prob, launches, seq, dense_s = phase_main_path(torch, K, T)
+    tern_counts, per_version, wire_bytes = phase_wire_paths(
+        torch, K, T, prob, seq, dense_s)
+    prof = phase_profile(torch, prob)
 
     layer0 = rows[0]
     kernels = [{
@@ -334,8 +640,24 @@ def main() -> int:
         "ms": layer0["ms"], "plain_ms": layer0["plain_ms"],
         "bound_ms": layer0["bound_ms"], "bound_by": layer0["bound_by"],
         "library_ms": layer0["library_ms"], "shape": layer0["shape"],
-        "device_ms": cell_device_ms, "layer1": rows[1], "map_ms": map_ms,
+        "device_ms": prof["cell_ms"], "layer1": rows[1],
+        "map_ms": prof["map_ms"],
     }]
+    for key, line, n_launch, dev_ms in (
+            ("encode", 21, tern_counts[1], prof["enc_ms"]),
+            ("decode", 31, tern_counts[2], prof["dec_ms"])):
+        r = tern[key]
+        kernels.append({
+            "name": f"ternary_{key}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ternary.cu",
+            "replaces": f"src/repro/kernels/ternary.py:{line}",
+            "launches": n_launch, "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "n": r["n"], "device_ms": dev_ms,
+            "codec_ms": prof["codec_ms"]})
+    print(json.dumps({"s_per_version": per_version,
+                      "wire_bytes": wire_bytes}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

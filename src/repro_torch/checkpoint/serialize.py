@@ -1,8 +1,16 @@
 """Pytree <-> bytes via msgpack (+ optional compression): the byte codec of
-the protocol's wire messages (gradient/model messages). Array leaves go
-through ``np.asarray``, so host tensors encode as they are and decode as
-numpy arrays; the file, op-log and checkpoint-store helpers of the reference
-module come with the port's durable store.
+the protocol's wire messages (gradient/model messages). The file, op-log and
+checkpoint-store helpers of the reference module come with the port's
+durable store.
+
+Leaves use the JAX package's leaf format (``{"__nd__", "d", "s", "b"}``:
+dtype name, shape, raw bytes), so either package reads the other's blobs. A
+``torch.Tensor`` leaf — on the card, requiring grad, or bfloat16 — is
+detached and copied to the host first. A bfloat16 leaf ships its raw 16-bit
+words under the dtype name ``bfloat16`` and decodes to a CPU bfloat16 tensor
+(numpy has no bfloat16 of its own, and the port does not need
+``ml_dtypes``); every other leaf decodes to a numpy array, as in the JAX
+package.
 
 The first byte of every blob is the codec header, so either side can decode
 regardless of which codecs it has installed:
@@ -18,6 +26,7 @@ from typing import Any, Optional
 
 import msgpack
 import numpy as np
+import torch
 
 try:  # optional: zstd compresses better/faster, but the stdlib must suffice
     import zstandard
@@ -32,17 +41,16 @@ _ARR = "__nd__"
 DEFAULT_CODEC = "zstd" if zstandard is not None else "zlib"
 
 
-def _dtype_of(name: str) -> np.dtype:
-    """Resolve a dtype by name, including ml_dtypes extension types (bfloat16
-    et al.), which numpy's ``dtype.str`` cannot round-trip."""
-    try:
-        return np.dtype(name)
-    except TypeError:
-        import ml_dtypes
-        return np.dtype(getattr(ml_dtypes, name))
+_BF16 = "bfloat16"
 
 
 def _pack_leaf(x):
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return {_ARR: True, "d": _BF16, "s": list(t.shape),
+                    "b": t.view(torch.int16).numpy().tobytes()}
+        x = t.numpy()
     if isinstance(x, (np.ndarray, np.generic)) or hasattr(x, "__array__"):
         a = np.asarray(x)
         return {_ARR: True, "d": a.dtype.name, "s": list(a.shape),
@@ -52,7 +60,10 @@ def _pack_leaf(x):
 
 def _unpack_leaf(x):
     if isinstance(x, dict) and x.get(_ARR):
-        return np.frombuffer(x["b"], _dtype_of(x["d"])).reshape(x["s"]).copy()
+        if x["d"] == _BF16:
+            words = np.frombuffer(x["b"], np.int16).reshape(x["s"]).copy()
+            return torch.from_numpy(words).view(torch.bfloat16)
+        return np.frombuffer(x["b"], np.dtype(x["d"])).reshape(x["s"]).copy()
     return x
 
 

@@ -5,10 +5,11 @@ RMSprop updates with PyTorch (on the card, through the port's kernels).
 Each volunteer is a ``protocol.VolunteerSession`` —
 the sans-IO state machine owning every protocol rule (lease, model-version
 wait, reduce barrier, duplicate ack, requeue) — speaking typed messages to the
-QueueServer/DataServer through a ``transport`` ("inproc": direct zero-copy
-calls). The Coordinator itself owns only engine policy: the logical clock
-(scheduler iteration count, used for visibility timeouts), real compute, and
-churn.
+QueueServer/DataServer through a ``transport`` ("inproc" for direct
+zero-copy calls, "wire" to round-trip every message through canonical bytes;
+either way the final model is identical). The Coordinator itself owns only
+engine policy: the logical clock (scheduler iteration count, used for
+visibility timeouts), real compute + gradient compression, and churn.
 
 Churn is injected as (step, kind, arg) events: 'leave'/'join' of a volunteer
 (a leaving volunteer Byes — its leased tasks requeue, exactly like closing the
@@ -29,9 +30,10 @@ policy's sequential reference (``sequential_async`` / ``sequential_local``):
 the round-robin scheduler serializes barrierless tickets, so worker count
 cannot change the float stream.
 
-Port of ``repro/core/coordinator.py``. Gradient compression (``codec=``)
-needs the port of ``repro/optim/compression.py`` and its ternary kernels,
-which come with a later slice; until then a codec is refused.
+Port of ``repro/core/coordinator.py``. Under ``codec=make_codec("ternary")``
+on the card, every gradient leaf's encode and decode runs in the port's
+ternary kernels. The result's model is on the problem's device whatever the
+transport (over the wire the DataServer holds host copies).
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from repro_torch import tree
 from repro_torch.core.aggregation import PolicyLike, make_policy
 from repro_torch.core.dataserver import DataServer
 from repro_torch.core.initiator import enqueue_problem
@@ -51,12 +54,14 @@ from repro_torch.core.protocol import (Blocked, KickQueue, LocalWork, MapWork,
 from repro_torch.core.queue import QueueServer, ShardedQueueServer, VirtualClock
 from repro_torch.core.tasks import INITIAL_QUEUE
 from repro_torch.core.transport import make_transport
+from repro_torch.optim.compression import Codec, ef_compress, ef_init
 
 
 @dataclass
 class _Volunteer:
     vid: str
     sess: VolunteerSession
+    ef_residual: Any = None     # error-feedback state (when codec is set)
     blocked: bool = False       # waiting on a Wake/VersionReady notification
 
 
@@ -71,6 +76,11 @@ class RunResult:
     final_version: int
     stale_discards: int = 0               # barrierless results refused as stale
     policy: str = "sync"
+    bytes_sent: int = 0                   # gradient (codec) + model bytes
+    # bytes the transport moved both ways (None: it measures none). The codec
+    # round-trips on the volunteer, so a gradient crosses the wire decoded:
+    # dense fp32 under every codec, unlike ``bytes_sent``'s codec count
+    wire_bytes: Optional[int] = None
 
 
 class Coordinator:
@@ -78,14 +88,12 @@ class Coordinator:
                  n_versions: Optional[int] = None,
                  churn: Optional[List[Tuple[int, str, str]]] = None,
                  visibility_timeout: float = float("inf"),
-                 codec: Any = None, n_shards: int = 1,
+                 codec: Optional[Codec] = None, n_shards: int = 1,
                  transport: Union[str, Callable, None] = "inproc",
                  policy: PolicyLike = None,
                  placement: Optional[Callable[[str], str]] = None):
-        if codec is not None:
-            raise NotImplementedError("gradient compression (codec=) is not "
-                                      "ported yet")
         self.problem = problem
+        self.codec = codec
         self.policy = make_policy(policy)
         self.qs: Union[QueueServer, ShardedQueueServer] = (
             QueueServer(default_timeout=visibility_timeout) if n_shards <= 1
@@ -186,12 +194,16 @@ class Coordinator:
                     "coordinator deadlock: all volunteers blocked with no "
                     "pending churn or visibility deadline")
             step = max(step + 1, min(candidates))
-        params, opt_state = self.ds.get_model(self.ds.latest_version)
+        params, opt_state = tree.to_device(
+            self.ds.get_model(self.ds.latest_version), self.problem.device)
         losses = [float(np.mean(self.version_losses[k]))
                   for k in sorted(self.version_losses)]
         return RunResult(params, opt_state, losses, step, dict(self.tasks_done),
                          self.qs.total_requeued, self.ds.latest_version,
-                         self.stale_discards, self.policy.spec)
+                         self.stale_discards, self.policy.spec,
+                         self.bytes_sent,
+                         int(self.port.take_bytes())
+                         if self.port.measures_bytes else None)
 
     # ------------------------------------------------------------------ compute
     def _step_volunteer(self, v: _Volunteer, now: float):
@@ -226,9 +238,16 @@ class Coordinator:
 
     def _compute_grads(self, v: _Volunteer, params, version: int,
                        mb_index: int):
-        """One mini-batch gradient. Returns (grads, loss, wire nbytes)."""
+        """One mini-batch gradient (+ optional codec round-trip with error
+        feedback). Returns (grads, loss, wire nbytes)."""
         grads, loss = self.problem.map_compute(params, version, mb_index)
-        return grads, loss, self.problem.grad_bytes
+        nbytes = self.problem.grad_bytes
+        if self.codec is not None:
+            if v.ef_residual is None:
+                v.ef_residual = ef_init(self.problem.params0)
+            grads, v.ef_residual, nbytes = ef_compress(self.codec, grads,
+                                                       v.ef_residual)
+        return grads, loss, nbytes
 
     def _do_map(self, v: _Volunteer, work: MapWork):
         t = work.task

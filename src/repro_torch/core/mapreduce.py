@@ -87,10 +87,13 @@ class TrainingProblem:
         return divmod(i % (self.n_versions * n_mb), n_mb)
 
     # ------------------------------------------------------------------ compute
+    # Every compute entry takes tensor or numpy leaves (a message decoded off
+    # the wire carries numpy) and moves them to ``self.device`` on entry.
+
     def loss_and_grads(self, params, batch):
         """(loss tensor, grads tree) of ``lstm_loss`` at ``params`` on a
         numpy batch."""
-        leaves, spec = tree.flatten(params)
+        leaves, spec = tree.flatten(tree.to_device(params, self.device))
         leaves = [p.detach().requires_grad_(True) for p in leaves]
         b = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
         loss = LSTM.lstm_loss(tree.unflatten(spec, leaves), b)
@@ -105,17 +108,21 @@ class TrainingProblem:
 
     def reduce_compute(self, params, opt_state, grads_by_mb: Dict[int, Any]):
         """grads_by_mb: mb_index -> grads. Deterministic order via sort."""
-        ordered = [grads_by_mb[i] for i in sorted(grads_by_mb)]
+        params, opt_state, ordered = tree.to_device(
+            (params, opt_state, [grads_by_mb[i] for i in sorted(grads_by_mb)]),
+            self.device)
         g_mean = tree.map(lambda *xs: torch.stack(xs).mean(dim=0), *ordered)
         return self.optimizer.update(params, opt_state, g_mean)
 
     def apply_one(self, params, opt_state, grads):
         """BoundedStaleness commit: apply one (possibly stale) gradient."""
-        return self.optimizer.update(params, opt_state, grads)
+        return self.optimizer.update(
+            *tree.to_device((params, opt_state, grads), self.device))
 
     def local_compute(self, params, opt_state, start: int, k: int):
         """LocalSteps ticket: k local optimizer steps from stream offset
         ``start``. Returns ((delta_params, delta_opt_state), mean_loss)."""
+        params, opt_state = tree.to_device((params, opt_state), self.device)
         p0, s0 = params, opt_state
         losses: List[float] = []
         for j in range(k):
@@ -129,8 +136,8 @@ class TrainingProblem:
     def apply_delta(self, params, opt_state, delta, weight: float = 1.0):
         """LocalSteps commit: current blob + weight * delta (dtype-preserving,
         so the int32 optimizer step counter survives a fractional weight)."""
-        return tree.map(lambda c, d: (c + weight * d).to(c.dtype),
-                        (params, opt_state), delta)
+        blob, delta = tree.to_device(((params, opt_state), delta), self.device)
+        return tree.map(lambda c, d: (c + weight * d).to(c.dtype), blob, delta)
 
     # ------------------------------------------------------------------ sizes
     @functools.cached_property

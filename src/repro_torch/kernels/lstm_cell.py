@@ -2,9 +2,8 @@
 
 Replaces the Pallas kernel ``repro/kernels/lstm_cell.py::_cell_kernel``; the
 source's header note gives the design and its bound. The shared library is
-compiled with ``nvcc`` for ``sm_90a`` at first use into ``build/kernels/`` at
-the repository root (named by the source's hash, so an edited source is
-rebuilt) and bound with ``ctypes`` through a plain C interface.
+compiled with ``nvcc`` for ``sm_90a`` at first use (``kernels/build.py``)
+and bound with ``ctypes`` through a plain C interface.
 
 ``lstm_cell.launches`` counts the launches this wrapper made, so a run can
 show that its path went through the kernel.
@@ -13,52 +12,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 
 import torch
 
+from repro_torch.kernels import build as kbuild
+
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "lstm_cell.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _FNS = {torch.float32: "lstm_cell_f32", torch.bfloat16: "lstm_cell_bf16"}
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is not None:
-        cand = pathlib.Path(CUDA_HOME) / "bin" / "nvcc"
-        if cand.exists():
-            return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the lstm_cell kernel is built "
-                           "from source and needs the CUDA toolkit")
-    return found
-
-
 @functools.cache
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library. The
-    compiler's ``-Xptxas -v`` report is kept beside it as ``<name>.log``."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"lstm_cell_{tag}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    """Compile (once per source hash) and load the kernel library."""
+    lib = kbuild.load(SOURCE)
     for name in _FNS.values():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + \

@@ -8,9 +8,27 @@ from __future__ import annotations
 
 from repro_torch.kernels import lstm_cell as _lstm
 from repro_torch.kernels import ref
+from repro_torch.kernels import ternary as _tern
 
 
 def lstm_cell(x, h, c, kernel, bias):
     if x.device.type == "cpu":
         return ref.lstm_cell(x, h, c, kernel, bias)
     return _lstm.lstm_cell(x, h, c, kernel, bias)
+
+
+def ternary_encode(g_flat, s):
+    """fp32 [N] (N % 4 == 0), fp32 scale -> packed uint8 [N/4]."""
+    if g_flat.device.type == "cpu":
+        if g_flat.numel() % 4:
+            raise ValueError(f"ternary_encode: N={g_flat.numel()} is not a "
+                             f"multiple of 4")
+        return ref.ternary_encode_packed(g_flat, s)
+    return _tern.ternary_encode(g_flat, s)
+
+
+def ternary_decode(packed, s):
+    """packed uint8 [N/4], fp32 scale -> fp32 [N] of +s, -s and +0.0."""
+    if packed.device.type == "cpu":
+        return ref.ternary_decode_packed(packed, s)
+    return _tern.ternary_decode(packed, s)

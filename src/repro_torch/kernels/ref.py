@@ -20,3 +20,41 @@ def lstm_cell(x, h, c, kernel, bias):
     c_new = torch.sigmoid(f) * c.float() + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
     return h_new.to(h.dtype), c_new.to(c.dtype)
+
+
+def ternary_encode(g, scale):
+    """Threshold ternarization: t = sign(g) * (|g| >= scale/2), int8."""
+    return (torch.sign(g) * (g.abs() >= scale / 2)).to(torch.int8)
+
+
+def ternary_pack(t_flat):
+    """Pack int8 {-1,0,1} (len % 4 == 0) into uint8, 2 bits each:
+    {0 -> 0b00, 1 -> 0b01, -1 -> 0b10}, little-endian within the byte."""
+    codes = torch.where(t_flat < 0, 2, t_flat).to(torch.uint8)
+    c = codes.reshape(-1, 4)
+    return c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)
+
+
+def ternary_unpack(packed, n):
+    parts = [(packed >> (2 * i)) & 3 for i in range(4)]
+    codes = torch.stack(parts, dim=1).reshape(-1)[:n].to(torch.int8)
+    return torch.where(codes == 2, -1, codes)
+
+
+def ternary_encode_packed(g_flat, s):
+    """What the encode kernel computes, as the Pallas body
+    (``repro/kernels/ternary.py::_encode_kernel``) writes it: g_flat fp32
+    [N] (N % 4 == 0), s fp32 -> uint8 [N/4]."""
+    g = g_flat.float().reshape(-1, 4)
+    code = torch.where(g.abs() >= s / 2,
+                       torch.where(g > 0, 1, 2), 0).to(torch.uint8)
+    return code[:, 0] | (code[:, 1] << 2) | (code[:, 2] << 4) | \
+        (code[:, 3] << 6)
+
+
+def ternary_decode_packed(packed, s):
+    """What the decode kernel computes, as ``_decode_kernel`` writes it:
+    codes 0b01 -> +s, 0b10 -> -s, anything else -> +0.0; fp32 [4 * len]."""
+    code = torch.stack([(packed >> (2 * i)) & 3 for i in range(4)], dim=1)
+    val = torch.where(code == 1, 1.0, torch.where(code == 2, -1.0, 0.0))
+    return (val * s).reshape(-1).to(torch.float32)

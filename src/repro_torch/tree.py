@@ -6,19 +6,27 @@ model has the same leaf order on both sides of the bridge.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+IsLeaf = Optional[Callable[[Any], bool]]
 
 
 def _is_node(x) -> bool:
     return isinstance(x, (dict, list, tuple))
 
 
-def leaves(tree) -> List[Any]:
-    """Leaves in ``jax.tree.leaves`` order."""
+def leaves(tree, is_leaf: IsLeaf = None) -> List[Any]:
+    """Leaves in ``jax.tree.leaves`` order. ``is_leaf`` marks containers
+    that count as one leaf, as in ``jax.tree``."""
     out: List[Any] = []
 
     def walk(t):
-        if isinstance(t, dict):
+        if is_leaf is not None and is_leaf(t):
+            out.append(t)
+        elif isinstance(t, dict):
             for k in sorted(t):
                 walk(t[k])
         elif isinstance(t, (list, tuple)):
@@ -54,17 +62,32 @@ def unflatten(spec, new_leaves) -> Any:
     return out
 
 
-def map(fn: Callable, tree, *rest) -> Any:  # noqa: A001 - mirrors jax.tree.map
+def map(fn: Callable, tree, *rest, is_leaf: IsLeaf = None) -> Any:  # noqa: A001 - mirrors jax.tree.map
     """``fn`` over corresponding leaves of trees of one structure."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
         if any(not isinstance(r, dict) or r.keys() != tree.keys() for r in rest):
             raise ValueError("tree.map: dict keys differ")
-        return {k: map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+        return {k: map(fn, tree[k], *(r[k] for r in rest), is_leaf=is_leaf)
+                for k in tree}
     if isinstance(tree, (list, tuple)):
         if any(not isinstance(r, (list, tuple)) or len(r) != len(tree)
                for r in rest):
             raise ValueError("tree.map: sequence structure differs")
-        return type(tree)(map(fn, *xs) for xs in zip(tree, *rest))
+        return type(tree)(map(fn, *xs, is_leaf=is_leaf)
+                          for xs in zip(tree, *rest))
     if any(_is_node(r) for r in rest):
         raise ValueError("tree.map: leaf against container")
     return fn(tree, *rest)
+
+
+def to_device(tree, device) -> Any:
+    """Every leaf as a tensor on ``device``, its dtype kept: tensors are
+    moved (a no-op where they already are), numpy arrays — the leaves of a
+    message decoded off the wire — are copied in."""
+    def one(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        return torch.from_numpy(np.array(x)).to(device)
+    return map(one, tree)

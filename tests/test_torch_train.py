@@ -121,13 +121,6 @@ def test_barrierless_policies_match_their_reference(problem, spec, reference):
     assert _bitmatch((res.params, res.opt_state), (ref_params, ref_state))
 
 
-def test_unported_paths_refuse(problem):
-    with pytest.raises(NotImplementedError):
-        Coordinator(problem, n_workers=2, transport="wire")
-    with pytest.raises(NotImplementedError):
-        Coordinator(problem, n_workers=2, codec="ternary")
-
-
 def test_wire_codec_round_trips_host_tensors():
     g = {"w": torch.arange(6, dtype=torch.float32).reshape(2, 3),
          "layers": [torch.ones(4)]}
