@@ -6,8 +6,10 @@ fallback: a card without a working kernel is an error, not a slow path.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lstm_cell as _lstm
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import ternary as _tern
 
 
@@ -15,6 +17,23 @@ def lstm_cell(x, h, c, kernel, bias):
     if x.device.type == "cpu":
         return ref.lstm_cell(x, h, c, kernel, bias)
     return _lstm.lstm_cell(x, h, c, kernel, bias)
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    """x [..., D], scale [D] -> ``x * rsqrt(mean(x^2) + eps) * scale``."""
+    if x.device.type == "cpu":
+        return ref.rmsnorm(x, scale, eps)
+    return _rms.rmsnorm(x, scale, eps)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Self-attention, q [B,S,H,hd], k/v [B,S,Kv,hd] -> [B,S,H,hd]."""
+    if q.device.type == "cpu":
+        if k.shape[1] != q.shape[1]:
+            raise ValueError(f"flash_attention: Sq={q.shape[1]} != "
+                             f"Skv={k.shape[1]} (self-attention only)")
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def ternary_encode(g_flat, s):

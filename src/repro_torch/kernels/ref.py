@@ -6,6 +6,8 @@ a kernel bug cannot hide behind a mirrored bug here. The CPU path runs these;
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -20,6 +22,39 @@ def lstm_cell(x, h, c, kernel, bias):
     c_new = torch.sigmoid(f) * c.float() + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
     return h_new.to(h.dtype), c_new.to(c.dtype)
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    """``x * rsqrt(mean(x^2) + eps) * scale`` over the last dim, in fp32,
+    stored in x's dtype (``repro/kernels/ref.py::rmsnorm``)."""
+    xf = x.float()
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Exact softmax attention (materialised scores), as
+    ``repro/kernels/ref.py::flash_attention``. q [B,Sq,H,hd]; k/v
+    [B,Skv,Kv,hd] with GQA head grouping (query head h reads kv head
+    h // (H/Kv)). q positions are aligned to the end of kv
+    (q_pos = Skv - Sq + i). The scores are scaled after the product."""
+    B, Sq, H, hd = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    qg = q.reshape(B, Sq, Kv, G, hd).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    s = s / math.sqrt(hd)
+    qpos = torch.arange(Sq, device=q.device) + (Skv - Sq)
+    kpos = torch.arange(Skv, device=q.device)
+    ok = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos[None, :] <= qpos[:, None]
+    if window:
+        ok &= kpos[None, :] > qpos[:, None] - window
+    s = torch.where(ok[None, None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
 def ternary_encode(g, scale):

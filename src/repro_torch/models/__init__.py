@@ -1,1 +1,2 @@
-"""Models of the port (the paper LSTM in this slice)."""
+"""Models of the port: the paper's LSTM and the dense transformer family
+(``layers``, ``blocks``, ``model``)."""
