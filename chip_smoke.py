@@ -11,7 +11,8 @@ Phases, each printing its result; any failure exits non-zero:
    port's paths from the sources in this checkout (``lstm_cell``,
    ``ternary``, ``rmsnorm``, ``flash_attention``), one ``nvcc`` per source,
    all started together (timed), with each kernel's registers, shared
-   memory and spills;
+   memory and spills, and the count of HGMMA (tensor-core) instructions in
+   the flash library's SASS where ``cuobjdump`` exists;
 2. each kernel against its plain PyTorch version on the card, and its time
    at the main path's shapes beside the plain version, the one-call PyTorch
    equivalent (where one exists) and the card's bound: ``lstm_cell`` over
@@ -20,12 +21,14 @@ Phases, each printing its result; any failure exits non-zero:
    the JAX sweep and the six paper leaves (padded, with values planted at
    ``±s/2`` and their neighbours); ``rmsnorm`` over the JAX sweep (fp32,
    bf16, rows aligned or not) and qwen1.5-110b's prefill and decode rows
-   ``[4096, 8192]`` / ``[4, 8192]`` bf16 (against ``F.rms_norm``);
+   ``[4096, 8192]`` / ``[4, 8192]`` bf16 (against ``F.rms_norm``), with
+   the wrapper's host cost step by step at the decode rows;
    ``flash_attention`` over the JAX sweep x {causal, window 37, full} x
-   {fp32, bf16} and qwen1.5-110b's prefill, q ``[4,1024,64,128]``, k/v
-   ``[4,1024,8,128]``, causal, in bf16 and fp32 with a near-uniform and a
-   peaked softmax (the peaked fp32 case against an fp64 attention), timed
-   in bf16 against SDPA;
+   {fp32, bf16}, the sweep again at hd = 128 in bf16, and qwen1.5-110b's
+   prefill, q ``[4,1024,64,128]``, k/v ``[4,1024,8,128]``, causal, in bf16
+   and fp32 with a near-uniform and a peaked softmax (the peaked fp32 case
+   against an fp64 attention), timed in bf16 (the tensor-core kernel)
+   against SDPA and in fp32 (the CUDA-core kernel);
 3. the gradient of ``lstm_loss`` at the paper width through the kernel
    against the plain-PyTorch path on the card, and the ternary codec's
    error-feedback round trip (three steps) on the card against the CPU, bit
@@ -50,8 +53,9 @@ Phases, each printing its result; any failure exits non-zero:
    (7,927,349,248 parameters, bf16, random weights from seed 0) served by
    ``repro_torch.launch.serve.serve`` (8 requests in batches of 4, 1,024
    prompt tokens, 16 generated) with every count set to 0 just before and
-   read just after: exactly 8 ``flash_attention`` and 288 ``rmsnorm``
-   launches and no other; prefill ms, decode ms per token, tokens/s and
+   read just after: exactly 8 ``flash_attention`` launches, all on the
+   tensor-core route, and 288 ``rmsnorm`` launches and no other; prefill
+   ms, decode ms per token, tokens/s and
    peak memory; then the same weights through the plain versions on the
    card, teacher-forced on the served tokens, every step's logits within
    the stated share of the logits' scale (beside the noise floor: the plain
@@ -72,6 +76,7 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -357,6 +362,8 @@ def reset_counts(K, T):
     for fn in (K.lstm_cell, T.ternary_encode, T.ternary_decode, RN.rmsnorm,
                FA.flash_attention):
         fn.launches = 0
+    FA.flash_attention.route_launches = dict.fromkeys(
+        FA.flash_attention.route_launches, 0)
 
 
 def same_model(torch, res, ref_params, ref_state) -> bool:
@@ -624,12 +631,14 @@ def phase_profile(torch, prob):
 # ---------------------------------------------------------------------------
 
 PEAK_BF16_FLOP_S = 989e12          # H100 SXM tensor cores, dense bf16
+HOST_STEP_REPS = 20_000
 
 # tests/test_kernels.py's sweeps; rmsnorm's last two have rows that are not
 # 16-byte aligned (the kernel's one-element-at-a-time path)
 RMS_SWEEP = [(4, 64), (2, 17, 256), (1, 3, 5, 128), (3, 129), (2, 130)]
 FLASH_SWEEP = [(1, 64, 4, 4, 32), (2, 129, 8, 4, 64), (1, 200, 8, 1, 16)]
 FLASH_MASKS = [(True, 0), (True, 37), (False, 0)]
+FLASH_HD_WIDE = 128        # the sweep's cases again at qwen's head dim
 # tests/test_kernels.py::test_flash_attention_sweep (fp32)
 FLASH_RTOL, FLASH_ATOL = 5e-5, 5e-6
 # at the qwen prefill shape in bf16: both paths compute in fp32 from the same
@@ -734,6 +743,74 @@ def flash_bound_ms(B, S, H, Kv, hd, elem_bytes):
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
+def hgmma_count(source):
+    """HGMMA (Hopper tensor-core) instructions in a built library's SASS,
+    read with cuobjdump; None where the toolkit has no cuobjdump."""
+    import shutil
+    from repro_torch.kernels import build as kbuild
+    tool = shutil.which("cuobjdump") or str(pathlib.Path(kbuild.nvcc())
+                                             .parent / "cuobjdump")
+    if not pathlib.Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(kbuild.library_path(source))],
+                          capture_output=True, text=True, check=True).stdout
+    return len(re.findall(r"\sHGMMA\.", sass))
+
+
+def rms_host_steps(torch, RN, x, s):
+    """Host microseconds of each step of one ``rmsnorm`` call at x's shape,
+    each step alone in a loop, beside the whole call and ``F.rms_norm``: the
+    wrapper's cost is host time when the device work is a few microseconds.
+    """
+    import torch.nn.functional as F
+    from repro_torch.kernels import build as kbuild
+    fn = RN.build()[x.dtype]
+    y = torch.empty_like(x)
+    xp, sp, yp = x.data_ptr(), s.data_ptr(), y.data_ptr()
+    dev = x.get_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def in_context():
+        with torch.cuda.device(dev):
+            pass
+
+    # the whole call, each step of it, and beside them the steps that the
+    # lean path replaced (torch.empty_like with deterministic mode's NaN
+    # fill, the device context, current_stream) and the library call
+    steps = {
+        "whole call": lambda: RN.rmsnorm(x, s),
+        "checks": lambda: RN._check(x, s),
+        "bind": lambda: RN.build()[x.dtype],
+        "output (no fill)": lambda: kbuild.empty_like(x),
+        "alignment": lambda: (xp | sp | yp) % 16,
+        "current device test": lambda: dev == torch.cuda.current_device(),
+        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(dev),
+        "C call and launch": lambda: fn(xp, sp, yp, x.shape[0], x.shape[1],
+                                        1e-6, 1, stream),
+        "was: torch.empty_like": lambda: torch.empty_like(x),
+        "was: torch.cuda.device context": in_context,
+        "was: current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "F.rms_norm": lambda: F.rms_norm(x, (x.shape[-1],), s, 1e-6),
+    }
+    before = RN.rmsnorm.launches
+    us = {}
+    for name, step in steps.items():
+        for _ in range(200):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_STEP_REPS):
+            step()
+        us[name] = (time.perf_counter() - t0) / HOST_STEP_REPS * 1e6
+        torch.cuda.synchronize()
+    RN.rmsnorm.launches = before          # timing calls are not the path's
+    print(f"[host] rmsnorm wrapper steps at {list(x.shape)} "
+          f"{str(x.dtype).split('.')[-1]}, us per call: " +
+          ", ".join(f"{k} {v:.3f}" for k, v in us.items()))
+    return us
+
+
 def phase_rmsnorm(torch, RN, ref):
     """rmsnorm against its plain version over the JAX sweep and the serve
     path's shapes; times at those shapes beside the plain version,
@@ -766,6 +843,8 @@ def phase_rmsnorm(torch, RN, ref):
               f"{lib_ms:.5f} ms, bound {bound:.6f} ms ({by})")
         rows[key] = dict(shape=[n_rows, d], ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound, bound_by=by)
+        if key == "decode":
+            rows[key]["host_us"] = rms_host_steps(torch, RN, x, s)
     return worst, rows
 
 
@@ -797,6 +876,17 @@ def phase_flash(torch, FA, ref):
                      FA.flash_attention(q, k, v, causal=causal, window=window),
                      ref.flash_attention(q, k, v, causal=causal,
                                          window=window), rtol, atol)
+            # the same folds and masks at qwen's head width, in bf16 (the
+            # tensor-core kernel's two-box rows)
+            q, k, v = (randn(torch, (B, S, n, FLASH_HD_WIDE),
+                             torch.bfloat16, 10 * i + j, 0.5)
+                       for j, n in enumerate((H, Kv, Kv)))
+            held(torch, f"flash_attention B={B} S={S} H={H} Kv={Kv} "
+                 f"hd={FLASH_HD_WIDE} causal={causal} window={window} "
+                 f"bfloat16", FA.flash_attention(q, k, v, causal=causal,
+                                                 window=window),
+                 ref.flash_attention(q, k, v, causal=causal, window=window),
+                 TOL["bfloat16"], TOL["bfloat16"])
     B, S, H, Kv, hd = SERVE["batch"], SERVE["prompt"], 64, 8, 128
     worst = 0.0
     for scale in QWEN_FLASH_SCALES:
@@ -821,6 +911,10 @@ def phase_flash(torch, FA, ref):
                      QWEN_FLASH_SCALES[0]) for j, n in enumerate((H, Kv, Kv)))
     ms = median_ms(lambda: FA.flash_attention(q, k, v), torch, reps=10,
                    inner=3)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    fp32_ms = median_ms(lambda: FA.flash_attention(q32, k32, v32), torch,
+                        reps=5, inner=2)
+    del q32, k32, v32
     plain_ms = median_ms(lambda: ref.flash_attention(q, k, v), torch,
                          reps=10, inner=3)
     # SDPA picks kernels that deterministic mode may refuse: off for it only
@@ -834,11 +928,13 @@ def phase_flash(torch, FA, ref):
         torch.use_deterministic_algorithms(True)
     bound, by = flash_bound_ms(B, S, H, Kv, hd, 2)
     print(f"[kernel] flash_attention time B={B} S={S} H={H} Kv={Kv} "
-          f"hd={hd} causal bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, SDPA {lib_ms:.4f} ms (max|SDPA-plain| {lib_err:.3e}), bound "
-          f"{bound:.5f} ms ({by})")
+          f"hd={hd} causal bf16 (tensor-core kernel): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (max|SDPA-plain| "
+          f"{lib_err:.3e}), bound {bound:.5f} ms ({by}); the fp32 inputs "
+          f"(CUDA-core kernel) {fp32_ms:.4f} ms")
     return worst, dict(shape=[B, S, H, Kv, hd], ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bound, bound_by=by)
+                       library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                       fp32_ms=fp32_ms)
 
 
 def plain_kernels(rmsnorm=None):
@@ -936,6 +1032,7 @@ def phase_serve(torch, K, T):
                   flash_attention=FA.flash_attention.launches,
                   others=K.lstm_cell.launches + T.ternary_encode.launches +
                   T.ternary_decode.launches)
+    routes = dict(FA.flash_attention.route_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_batches = -(-SERVE["requests"] // SERVE["batch"])
     per_pass = 2 * SERVE_LAYERS + 1
@@ -955,10 +1052,13 @@ def phase_serve(torch, K, T):
           f"token step {', '.join(f'{t:.3f}' for t in decode_ms)}; "
           f"{tok_s:.1f} tok/s over the run (wall {wall_s:.1f} s with the "
           f"weights' init); peak memory {peak_gb:.2f} GB; launches {counts} "
-          f"(expected {want})")
+          f"(expected {want}), flash_attention by route {routes}")
     check(counts == want and res["launches"] == {
         k: v for k, v in want.items() if k != "others"},
         f"serve launches {counts} / {res['launches']}, expected {want}")
+    check(routes == {"wgmma": want["flash_attention"], "cuda_core": 0},
+          f"serve flash_attention routes {routes}: every bf16 launch should "
+          f"run the tensor-core kernel")
     check(tuple(toks.shape) == (SERVE["requests"], SERVE["tokens"]) and
           bool(((toks >= 0) & (toks < cfg.vocab)).all()),
           f"served tokens {tuple(toks.shape)} out of shape or range")
@@ -980,8 +1080,9 @@ def phase_serve(torch, K, T):
                                 f"requests {b0}-{b0 + SERVE['batch'] - 1}")
         check(same, "the kernel path gave other tokens on a second run")
         worst = max(worst, err)
-    return dict(counts=counts, prefill_ms=prefill_ms, decode_ms=decode_ms,
-                tok_s=tok_s, peak_gb=peak_gb, logit_err=worst,
+    return dict(counts=counts, routes=routes, prefill_ms=prefill_ms,
+                decode_ms=decode_ms, tok_s=tok_s, peak_gb=peak_gb,
+                logit_err=worst,
                 params=params, cfg=cfg, prompts=prompts)
 
 
@@ -1054,7 +1155,8 @@ def phase_serve_profile(torch, served):
                       f"{name[:80]}")
             out[key] = dict(
                 window_ms=window_ms, busy_ms=busy_ms,
-                rmsnorm_ms=per_launch_ms(by_name, "rmsnorm_kernel"),
+                # rmsnorm_{row,warp,}kernel; flash_kernel_wgmma (bf16)
+                rmsnorm_ms=per_launch_ms(by_name, "rmsnorm_"),
                 flash_ms=per_launch_ms(by_name, "flash_kernel"))
             print(f"[profile] device time per launch in the {key}: rmsnorm "
                   f"{fmt_ms(out[key]['rmsnorm_ms'])}, flash_attention "
@@ -1141,6 +1243,10 @@ def main() -> int:
         for line in kbuild.log_path(src).read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {src.name}: {line.strip()}")
+    hgmma = hgmma_count(FA.SOURCE)
+    print(f"[build] {FA.SOURCE.name}: "
+          f"{'not measured (no cuobjdump)' if hgmma is None else hgmma} "
+          f"HGMMA (wgmma) instructions in the library's SASS")
 
     worst, rows = phase_kernel(torch, K, ref)
     tern = phase_ternary(torch, T, ref)
@@ -1200,7 +1306,14 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:30",
         "launches": served["counts"]["flash_attention"],
         "max_abs_err": fa_err, **fa,
-        "device_ms": serve_prof["prefill"]["flash_ms"]})
+        "device_ms": serve_prof["prefill"]["flash_ms"],
+        "routes": {
+            "wgmma": {"kernel": "flash_kernel_wgmma", "dtype": "bfloat16",
+                      "launches": served["routes"]["wgmma"], "ms": fa["ms"]},
+            "cuda_core": {"kernel": "flash_kernel", "dtype": "float32",
+                          "launches": served["routes"]["cuda_core"],
+                          "ms": fa["fp32_ms"]}},
+        "hgmma_in_sass": hgmma})
     serve_line = {k: served[k] for k in ("prefill_ms", "decode_ms", "tok_s",
                                          "peak_gb", "logit_err")}
     serve_line["fp32_logit_err"] = fp32_err

@@ -9,6 +9,7 @@ shared memory, spills) is kept beside it as ``<name>.log``.
 
 ``compile_sources`` starts one ``nvcc`` per missing library, all at once, and
 waits for them together; ``load`` builds one source if needed and loads it.
+``empty_like`` allocates a kernel's output.
 """
 from __future__ import annotations
 
@@ -20,6 +21,9 @@ import pathlib
 import shutil
 import subprocess
 from typing import Iterable, List, Tuple
+
+import torch
+import torch.utils.deterministic as _det
 
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -80,3 +84,19 @@ def load(source: pathlib.Path) -> ctypes.CDLL:
     """The loaded library of ``source``, compiled first if needed."""
     compile_sources([source])
     return ctypes.CDLL(str(library_path(source)))
+
+
+def empty_like(x):
+    """``torch.empty_like(x)`` for an output that a kernel writes in full.
+    Under deterministic algorithms (``device.resolve`` turns them on for
+    the card) PyTorch fills every fresh tensor with NaN, a launch and a
+    full write of the tensor; here nothing can read the memory before the
+    kernel has written it, so the fill is skipped."""
+    if not (torch.are_deterministic_algorithms_enabled() and
+            _det.fill_uninitialized_memory):
+        return torch.empty_like(x)
+    _det.fill_uninitialized_memory = False
+    try:
+        return torch.empty_like(x)
+    finally:
+        _det.fill_uninitialized_memory = True

@@ -13,14 +13,21 @@
 // [4096, 8192] bf16: 134 MB, ~40 us at 3.35 TB/s; a decode norm, [4, 8192],
 // moves 147 KB and is launch-latency bound).
 //
-// Design (simple and exact first): one block of 256 threads per row. Pass 1
-// reads the row with 16-byte loads where the wrapper found the row 16-byte
-// aligned (else one element at a time) and sums x^2 in fp32 in a fixed
-// order: each thread over its strided elements, then a butterfly of warp
-// shuffles, then warp 0's eight partials in order. No atomics, no split
-// reduction: the same bits on every run. Pass 2 reads the row again (from
-// L1/L2: 16 KB for D = 8192 bf16) and writes y. The Pallas kernel keeps a
-// block of rows in VMEM; here a row is small enough for the cache.
+// Design: one pass over device memory. Where the wrapper found every row
+// 16-byte aligned, each thread loads its slice of a row with 16-byte loads
+// into registers, sums its squares, and after the row's reduction scales
+// and writes the same registers: x is read once. Rows of up to 2,048
+// 16-byte pieces (D <= 16,384 bf16 / 8,192 fp32) take a block of 256
+// threads each, with 1, 2, 4 or 8 pieces a thread (D = 8,192 bf16: 4);
+// rows of up to 128 pieces take one warp each, eight rows a block. Either
+// kernel keeps its slice of scale in registers, loaded once, and walks
+// rows with a grid stride. Other rows (wider, or not 16-byte aligned: D =
+// 5, 129, 130 in the JAX sweep) take the two-pass kernel: pass 1 sums, pass
+// 2 reads the row again (from L1/L2) and writes y. The sum of squares runs
+// in a fixed order in every kernel: each thread over its elements, a
+// butterfly of warp shuffles, then (for a block per row) the warps'
+// partials in order. No atomics, no split reduction: the same bits on every
+// run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,6 +107,141 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kRowBlocks = 1024;    // grid cap of the one-pass kernels
+
+// Sum of squares of a packed piece.
+template <typename T, int VEC>
+__device__ __forceinline__ float sum_sq(const Pack<T, VEC>& p) {
+  float ss = 0.0f;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const float f = to_float(p.v[j]);
+    ss += f * f;
+  }
+  return ss;
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> scaled(const Pack<T, VEC>& x,
+                                               const Pack<T, VEC>& s,
+                                               float r) {
+  Pack<T, VEC> out;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+    out.v[j] = from_float<T>(to_float(x.v[j]) * r * to_float(s.v[j]));
+  return out;
+}
+
+// One pass, a block per row: thread t holds pieces t, t + 256, ... of the
+// row (NV of them, the last ones possibly past the row's end).
+template <typename T, int NV>
+__global__ void __launch_bounds__(kThreads)
+    rmsnorm_row_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                       T* __restrict__ y, int rows, int d, float eps) {
+  constexpr int VEC = 16 / sizeof(T);
+  using P = Pack<T, VEC>;
+  const int nvec = d / VEC;
+  const P* sv = reinterpret_cast<const P*>(scale);
+  P s[NV];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    if (i < nvec) s[k] = sv[i];
+  }
+  __shared__ float part[kWarps];
+  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
+    const P* xv = reinterpret_cast<const P*>(x + row * d);
+    P* yv = reinterpret_cast<P*>(y + row * d);
+    P v[NV];
+    float ss = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      if (i < nvec) {
+        v[k] = xv[i];
+        ss += sum_sq(v[k]);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = ss;
+    __syncthreads();
+    float total = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += part[w];
+    const float r = 1.0f / sqrtf(total / static_cast<float>(d) + eps);
+    __syncthreads();     // part is read before the next row writes it
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      if (i < nvec) yv[i] = scaled(v[k], s[k], r);
+    }
+  }
+}
+
+// One pass, a warp per row (narrow rows): lane l holds pieces l, l + 32, ...
+template <typename T, int NV>
+__global__ void __launch_bounds__(kThreads)
+    rmsnorm_warp_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                        T* __restrict__ y, int rows, int d, float eps) {
+  constexpr int VEC = 16 / sizeof(T);
+  using P = Pack<T, VEC>;
+  const int nvec = d / VEC;
+  const int lane = threadIdx.x % 32;
+  const P* sv = reinterpret_cast<const P*>(scale);
+  P s[NV];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int i = lane + 32 * k;
+    if (i < nvec) s[k] = sv[i];
+  }
+  for (int64_t row = static_cast<int64_t>(blockIdx.x) * kWarps +
+                     threadIdx.x / 32;
+       row < rows; row += static_cast<int64_t>(gridDim.x) * kWarps) {
+    const P* xv = reinterpret_cast<const P*>(x + row * d);
+    P* yv = reinterpret_cast<P*>(y + row * d);
+    P v[NV];
+    float ss = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = lane + 32 * k;
+      if (i < nvec) {
+        v[k] = xv[i];
+        ss += sum_sq(v[k]);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    const float r = 1.0f / sqrtf(ss / static_cast<float>(d) + eps);
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = lane + 32 * k;
+      if (i < nvec) yv[i] = scaled(v[k], s[k], r);
+    }
+  }
+}
+
+template <typename T, int NV>
+int launch_row(const T* x, const T* s, T* y, int rows, int d, float eps,
+               cudaStream_t st) {
+  const int blocks = rows < kRowBlocks ? rows : kRowBlocks;
+  rmsnorm_row_kernel<T, NV><<<blocks, kThreads, 0, st>>>(x, s, y, rows,
+                                                            d, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int NV>
+int launch_warp(const T* x, const T* s, T* y, int rows, int d, float eps,
+                cudaStream_t st) {
+  const int want = (rows + kWarps - 1) / kWarps;
+  const int blocks = want < kRowBlocks ? want : kRowBlocks;
+  rmsnorm_warp_kernel<T, NV><<<blocks, kThreads, 0, st>>>(x, s, y, rows, d,
+                                                          eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* x, const void* scale, void* y, int rows, int d,
            float eps, int vec, void* stream) {
@@ -108,10 +250,23 @@ int launch(const void* x, const void* scale, void* y, int rows, int d,
   const T* xp = static_cast<const T*>(x);
   const T* sp = static_cast<const T*>(scale);
   T* yp = static_cast<T*>(y);
-  if (vec)
+  const int nvec = d / kVec;
+  if (vec) {
+    if (nvec <= 32) return launch_warp<T, 1>(xp, sp, yp, rows, d, eps, st);
+    if (nvec <= 64) return launch_warp<T, 2>(xp, sp, yp, rows, d, eps, st);
+    if (nvec <= 128) return launch_warp<T, 4>(xp, sp, yp, rows, d, eps, st);
+    if (nvec <= kThreads)
+      return launch_row<T, 1>(xp, sp, yp, rows, d, eps, st);
+    if (nvec <= 2 * kThreads)
+      return launch_row<T, 2>(xp, sp, yp, rows, d, eps, st);
+    if (nvec <= 4 * kThreads)
+      return launch_row<T, 4>(xp, sp, yp, rows, d, eps, st);
+    if (nvec <= 8 * kThreads)
+      return launch_row<T, 8>(xp, sp, yp, rows, d, eps, st);
     rmsnorm_kernel<T, kVec><<<rows, kThreads, 0, st>>>(xp, sp, yp, d, eps);
-  else
+  } else {
     rmsnorm_kernel<T, 1><<<rows, kThreads, 0, st>>>(xp, sp, yp, d, eps);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

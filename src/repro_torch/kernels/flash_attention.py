@@ -8,8 +8,11 @@ kv): q ``[B, S, H, hd]``, k/v ``[B, S, Kv, hd]`` with H a multiple of Kv
 (query head h reads kv head ``h // (H // Kv)``), causal and/or a sliding
 window, output like q.
 
-``flash_attention.launches`` counts the launches this wrapper made, so a run
-can show that its path went through the kernel.
+The dtype picks the kernel (``ROUTES``): bfloat16 runs on the tensor cores
+(``wgmma``, k/v tiles by TMA), float32 on the CUDA cores, whose fp32
+products the fp32 tolerances need. ``flash_attention.launches`` counts the
+launches this wrapper made, ``flash_attention.route_launches`` the same by
+route, so a run can show that its path went through the kernel it expects.
 """
 from __future__ import annotations
 
@@ -27,20 +30,25 @@ SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / \
 
 _FNS = {torch.float32: "flash_attention_f32",
         torch.bfloat16: "flash_attention_bf16"}
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda_core"}
+_ROUTE_NAMES = {"wgmma": "tensor-core kernel", "cuda_core": "CUDA-core kernel"}
 HEAD_DIMS = (16, 32, 64, 128)
 _GRID_YZ = 65535                   # CUDA's limit on gridDim.y and .z
 
 
 @functools.cache
-def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+def build() -> dict:
+    """Compile (once per source hash) and load the kernel library; the
+    bound C function of each dtype."""
     lib = kbuild.load(SOURCE)
-    for name in _FNS.values():
+    fns = {}
+    for dtype, name in _FNS.items():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib
+        fns[dtype] = fn
+    return fns
 
 
 def _check(q, k, v, window):
@@ -79,34 +87,46 @@ def _check(q, k, v, window):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention kernel: {name} is not "
                              f"contiguous")
+    route = ROUTES[q.dtype]
+    if route == "wgmma":
+        # TMA reads k and v, 16-byte loads q; the output is allocated aligned
+        for name, t in ts.items():
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention kernel: {name} is not "
+                                 f"16-byte aligned ({q.dtype} runs the "
+                                 f"{_ROUTE_NAMES[route]})")
     for name, t in ts.items():
         if t.device.type != "cuda":
-            raise ValueError(f"flash_attention kernel: {name} is on "
+            raise ValueError(f"flash_attention kernel ({q.dtype}: "
+                             f"{_ROUTE_NAMES[route]}): {name} is on "
                              f"{t.device}, not a CUDA device")
         if t.device != q.device:
             raise ValueError(f"flash_attention kernel: {name} on {t.device}, "
                              f"q on {q.device}")
-    return B, S, H, Kv, hd
+    return B, S, H, Kv, hd, route
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """Launch the kernel on CUDA tensors q [B,S,H,hd], k/v [B,S,Kv,hd].
-    Returns the attention output like q. Raises on any other input."""
-    B, S, H, Kv, hd = _check(q, k, v, window)
-    lib = build()
-    out = torch.empty_like(q)
+    """Launch the kernel of q's dtype on CUDA tensors q [B,S,H,hd], k/v
+    [B,S,Kv,hd]. Returns the attention output like q. Raises on any other
+    input."""
+    B, S, H, Kv, hd, route = _check(q, k, v, window)
+    fn = build()[q.dtype]
+    out = kbuild.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, _FNS[q.dtype])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            H, Kv, hd, int(bool(causal)), window, 1.0 / math.sqrt(hd),
-            stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                 S, H, Kv, hd, int(bool(causal)), window, 1.0 / math.sqrt(hd),
+                 stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err} (B={B} S={S} H={H} Kv={Kv} hd={hd} "
-                           f"{q.dtype})")
+        why = "CUDA error" if err > 0 else "TMA tensor map error"
+        raise RuntimeError(f"flash_attention kernel launch failed: {why} "
+                           f"{err} (B={B} S={S} H={H} Kv={Kv} hd={hd} "
+                           f"{q.dtype}, {_ROUTE_NAMES[route]})")
     flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES.values(), 0)

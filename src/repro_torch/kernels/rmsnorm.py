@@ -22,49 +22,57 @@ from repro_torch.kernels import build as kbuild
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu"
 
 _FNS = {torch.float32: "rmsnorm_f32", torch.bfloat16: "rmsnorm_bf16"}
+_VEC = {torch.float32: 4, torch.bfloat16: 8}    # elements in 16 bytes
 
 
 @functools.cache
-def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+def build() -> dict:
+    """Compile (once per source hash) and load the kernel library; the
+    bound C function of each dtype."""
     lib = kbuild.load(SOURCE)
-    for name in _FNS.values():
+    fns = {}
+    for dtype, name in _FNS.items():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + \
             [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib
+        fns[dtype] = fn
+    return fns
 
 
 def _check(x, scale):
-    """Refuse what the kernel does not take; the device check comes last,
-    so every other refusal shows without a card."""
+    """Refuse what the kernel does not take, cheapest checks first; the
+    device check comes last, so every other refusal shows without a card."""
     if not isinstance(x, torch.Tensor) or not isinstance(scale, torch.Tensor):
         raise TypeError("rmsnorm kernel: takes torch tensors")
-    if x.dim() < 1 or x.numel() == 0:
-        raise ValueError(f"rmsnorm kernel: x has shape {tuple(x.shape)}, "
+    dtype = x.dtype
+    if dtype not in _FNS:
+        raise ValueError(f"rmsnorm kernel: dtype {dtype} not supported "
+                         f"(float32, bfloat16)")
+    if scale.dtype != dtype:
+        raise ValueError(f"rmsnorm kernel: scale is {scale.dtype}, x is "
+                         f"{dtype}")
+    shape = x.shape
+    n = x.numel()
+    if not shape or n == 0:
+        raise ValueError(f"rmsnorm kernel: x has shape {tuple(shape)}, "
                          f"want a non-empty [..., D]")
-    D = x.shape[-1]
-    rows = x.numel() // D
-    if tuple(scale.shape) != (D,):
+    D = shape[-1]
+    if scale.shape != (D,):
         raise ValueError(f"rmsnorm kernel: scale has shape "
                          f"{tuple(scale.shape)}, want ({D},)")
-    if x.dtype not in _FNS:
-        raise ValueError(f"rmsnorm kernel: dtype {x.dtype} not supported "
-                         f"(float32, bfloat16)")
-    if scale.dtype != x.dtype:
-        raise ValueError(f"rmsnorm kernel: scale is {scale.dtype}, x is "
-                         f"{x.dtype}")
     if not x.is_contiguous() or not scale.is_contiguous():
         raise ValueError("rmsnorm kernel: x and scale must be contiguous")
+    rows = n // D
     if rows >= 2 ** 31 or D >= 2 ** 31:
         raise ValueError(f"rmsnorm kernel: {rows} rows of {D}, want fewer "
                          f"than 2**31 of each")
-    for name, t in (("x", x), ("scale", scale)):
-        if t.device.type != "cuda":
-            raise ValueError(f"rmsnorm kernel: {name} is on {t.device}, not "
-                             f"a CUDA device")
-    if scale.device != x.device:
+    if not x.is_cuda or not scale.is_cuda:
+        for name, t in (("x", x), ("scale", scale)):
+            if not t.is_cuda:
+                raise ValueError(f"rmsnorm kernel: {name} is on {t.device}, "
+                                 f"not a CUDA device")
+    if scale.get_device() != x.get_device():
         raise ValueError(f"rmsnorm kernel: scale on {scale.device}, x on "
                          f"{x.device}")
     return rows, D
@@ -72,18 +80,28 @@ def _check(x, scale):
 
 def rmsnorm(x, scale, eps: float = 1e-6):
     """Launch the kernel on CUDA tensors x [..., D], scale [D]. Returns y
-    like x. Raises on any other input."""
+    like x. Raises on any other input.
+
+    The launch path is lean, since at decode rows ([4, 8192]) the device
+    works ~3 us and the call's cost is host time: the C function is bound
+    once per dtype, y skips deterministic mode's NaN fill (a launch of its
+    own), the stream is read raw (``torch.cuda.current_stream`` builds a
+    Stream object), and the device context is entered only when x is not
+    on the current device."""
     rows, D = _check(x, scale)
-    lib = build()
-    y = torch.empty_like(x)
+    fn = build()[x.dtype]
+    y = kbuild.empty_like(x)
+    xp, sp, yp = x.data_ptr(), scale.data_ptr(), y.data_ptr()
     # 16-byte loads when every row starts on a 16-byte boundary
-    vec = D % (16 // x.element_size()) == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (x, scale, y))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, _FNS[x.dtype])(
-            x.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, D, eps,
-            int(vec), stream)
+    vec = D % _VEC[x.dtype] == 0 and (xp | sp | yp) % 16 == 0
+    dev = x.get_device()
+    if dev == torch.cuda.current_device():
+        err = fn(xp, sp, yp, rows, D, eps, vec,
+                 torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(xp, sp, yp, rows, D, eps, vec,
+                     torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {err} "
                            f"(rows={rows} D={D} {x.dtype})")

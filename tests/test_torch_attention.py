@@ -7,7 +7,9 @@ are held to the JAX oracles (``repro/kernels/ref.py``) over the sweeps of
 few cases (the JAX package's own tests hold Pallas against its oracles over
 the whole sweep). The CUDA kernels run only on the card (``chip_smoke.py``);
 here the dispatch sends CPU tensors to the plain versions and the wrappers
-refuse what their kernels do not take.
+refuse what their kernels do not take. A model of the bf16 tensor-core
+kernel's rounding (``_tc_model``) is held to the JAX oracle at the
+tolerances ``chip_smoke.py`` holds the kernel to on the card.
 """
 from __future__ import annotations
 
@@ -151,6 +153,116 @@ def test_flash_gqa_head_order():
 
 
 # ---------------------------------------------------------------------------
+# the bf16 tensor-core kernel's arithmetic (csrc/flash_attention.cu,
+# flash_kernel_wgmma), modelled on the CPU
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's gates at qwen's prefill shape in bf16: rtol of _tol, atol
+# QWEN_FLASH_BF16_ATOL
+QWEN_RTOL, QWEN_ATOL = 2e-2, 5e-4
+TC_KV_TILE = 64        # kv positions a tile of flash_kernel_wgmma
+
+
+def _tc_model(q, k, v, *, causal=True, window=0, split_p=True):
+    """What the tensor-core kernel computes, in its rounding: q and k raw
+    bf16, fp32 dot products scaled after the product into the log2 domain
+    (p = 2^(s * c - m), masked scores -1e30), the online softmax tile by
+    tile over kv tiles of TC_KV_TILE positions, P in bf16 before P.V (when
+    ``split_p``, as the kernel does, hi = p truncated to bf16 and lo = p -
+    hi rounded to bf16, both through P.V; otherwise p rounded once to
+    bf16), fp32 accumulation, one rounding of the output to q's dtype. Tiles the kernel skips are fully masked for all of
+    a block's rows and change nothing here."""
+    B, S, H, hd = q.shape
+    Kv = k.shape[2]
+    G = H // Kv
+    qf = q.float().reshape(B, S, Kv, G, hd).permute(0, 2, 1, 3, 4) \
+        .reshape(B, Kv, S * G, hd)                       # folded rows
+    kf, vf = (t.float().permute(0, 2, 1, 3) for t in (k, v))
+    c = torch.tensor((1.0 / math.sqrt(hd)) * 1.4426950408889634,
+                     dtype=torch.float32)
+    qpos = (torch.arange(S * G) // G)[:, None]
+    m = torch.full((B, Kv, S * G, 1), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(B, Kv, S * G, hd)
+    for k0 in range(0, S, TC_KV_TILE):
+        kt, vt = kf[:, :, k0:k0 + TC_KV_TILE], vf[:, :, k0:k0 + TC_KV_TILE]
+        s = (qf @ kt.transpose(-1, -2)) * c
+        kp = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        ok = torch.ones(S * G, kt.shape[2], dtype=torch.bool)
+        if causal:
+            ok &= kp <= qpos
+        if window:
+            ok &= kp > qpos - window
+        s = torch.where(ok, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if split_p:
+            hi = (p.view(torch.int32) & -65536).view(torch.float32)
+            pv = hi @ vt + (p - hi).bfloat16().float() @ vt
+        else:
+            pv = p.bfloat16().float() @ vt
+        acc = acc * alpha + pv
+        m = m_new
+    out = acc / torch.where(l == 0, torch.ones_like(l), l)
+    return out.reshape(B, Kv, S, G, hd).permute(0, 2, 1, 3, 4) \
+        .reshape(B, S, H, hd).to(q.dtype)
+
+
+def _gate_excess(got, want, rtol):
+    """max(|got - want| - rtol * |want|): allclose at (rtol, atol) holds
+    iff this is at most atol."""
+    w = np.asarray(want, np.float32)
+    return float(np.max(np.abs(got.float().numpy() - w) - rtol * np.abs(w)))
+
+
+@pytest.mark.parametrize("B,S,H,Kv,hd", FLASH_SHAPES)
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("at_128", [False, True], ids=["hd", "hd128"])
+def test_flash_tc_model_matches_jax_oracle_bf16(B, S, H, Kv, hd, causal,
+                                                 window, at_128):
+    """The sweep in bf16, at its own head dim and at qwen's 128, within
+    _tol's 2e-2."""
+    hd = 128 if at_128 else hd
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(B, S, H, Kv, hd, "bfloat16", S + H)
+    got = _tc_model(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    _close(got, jref.flash_attention(jq, jk, jv, causal=causal,
+                                     window=window), TOL["bfloat16"],
+           TOL["bfloat16"])
+
+
+def _qwen_cut(Kv, scale, seed):
+    """qwen1.5-110b's prefill attention cut in width: S = 1,024, G = 8,
+    hd = 128, Kv kv heads, inputs N(0, 1) x scale, bf16."""
+    rng = np.random.RandomState(seed)
+    return [_both((rng.randn(1, 1024, n, 128) * scale).astype(np.float32),
+                  "bfloat16") for n in (8 * Kv, Kv, Kv)]
+
+
+@pytest.mark.parametrize("Kv", [1, 2])
+@pytest.mark.parametrize("scale", [0.5, 2.0])
+def test_flash_tc_model_meets_qwen_gate(Kv, scale):
+    """At a qwen-like shape, x0.5 (near-uniform softmax) and x2 (peaked),
+    the modelled kernel meets chip_smoke.py's bf16 gate against the JAX
+    oracle: rtol 2e-2, atol 5e-4."""
+    (jq, tq), (jk, tk), (jv, tv) = _qwen_cut(Kv, scale, seed=Kv)
+    want = jref.flash_attention(jq, jk, jv)
+    assert _gate_excess(_tc_model(tq, tk, tv), want, QWEN_RTOL) <= QWEN_ATOL
+
+
+def test_flash_tc_model_single_bf16_p_misses_qwen_gate():
+    """Why the kernel splits P into bf16 hi + lo (2^-16 relative): P
+    rounded once to bf16 (2^-9 relative on each p) misses the same gate at
+    the same inputs."""
+    (jq, tq), (jk, tk), (jv, tv) = _qwen_cut(1, 2.0, seed=1)
+    want = jref.flash_attention(jq, jk, jv)
+    assert _gate_excess(_tc_model(tq, tk, tv, split_p=False), want,
+                        QWEN_RTOL) > QWEN_ATOL
+
+
+# ---------------------------------------------------------------------------
 # dispatch and the CUDA wrappers' refusals
 # ---------------------------------------------------------------------------
 
@@ -193,13 +305,33 @@ def test_rmsnorm_wrapper_raises(bad, why):
     assert RN.rmsnorm.launches == before
 
 
+@pytest.mark.parametrize("dtype,route,kernel", [
+    (torch.bfloat16, "wgmma", "tensor-core kernel"),
+    (torch.float32, "cuda_core", "CUDA-core kernel")])
+def test_flash_wrapper_routes_by_dtype(dtype, route, kernel):
+    """bf16 goes to the tensor-core kernel, fp32 to the CUDA-core one: the
+    wrapper picks the route before its device check, whose refusal names
+    it, and counts nothing."""
+    assert FA.ROUTES[dtype] == route
+    q, k, v = (torch.ones(1, 8, n, 16, dtype=dtype) for n in (4, 2, 2))
+    before = (FA.flash_attention.launches,
+              dict(FA.flash_attention.route_launches))
+    with pytest.raises(ValueError, match=f"{dtype}: {kernel}.*not a CUDA "
+                                         f"device"):
+        FA.flash_attention(q, k, v)
+    assert (FA.flash_attention.launches,
+            FA.flash_attention.route_launches) == before
+
+
 @pytest.mark.parametrize("bad,why", [("cpu", "not a CUDA device"),
                                      ("seq", "Sq == Skv"),
                                      ("groups", "not a positive multiple"),
                                      ("head_dim", "head dim 48"),
                                      ("dtype", "v is torch.bfloat16"),
                                      ("strided", "k is not contiguous"),
-                                     ("window", "window -1")])
+                                     ("window", "window -1"),
+                                     ("misaligned", "q is not 16-byte "
+                                                    "aligned")])
 def test_flash_wrapper_raises(bad, why):
     q, k, v = torch.ones(1, 8, 4, 16), torch.ones(1, 8, 2, 16), \
         torch.ones(1, 8, 2, 16)
@@ -216,6 +348,10 @@ def test_flash_wrapper_raises(bad, why):
         k = torch.ones(1, 2, 8, 16).transpose(1, 2)
     elif bad == "window":
         window = -1
+    elif bad == "misaligned":       # TMA and 16-byte loads (the bf16 route)
+        q = torch.ones(1 * 8 * 4 * 16 + 1, dtype=torch.bfloat16)[1:] \
+            .view(1, 8, 4, 16)
+        k, v = k.bfloat16(), v.bfloat16()
     before = FA.flash_attention.launches
     with pytest.raises(ValueError, match=why):
         FA.flash_attention(q, k, v, window=window)
