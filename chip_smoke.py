@@ -17,6 +17,11 @@ Phases, each printing its result; any failure exits non-zero:
    at the main path's shapes beside the plain version, the one-call PyTorch
    equivalent (where one exists) and the card's bound: ``lstm_cell`` over
    the JAX package's test sweep and the paper's shapes (fp32 and bf16);
+   ``lstm_seq`` (the whole-sequence kernel the model runs) over the same
+   shapes at T = 40, against its plain version and bit for bit against 40
+   chained ``lstm_cell`` launches, timed at the paper's two layers beside
+   its bound, the plain version, a CUDA graph replaying 40 ``lstm_cell``
+   launches and cuDNN's ``torch.nn.LSTM`` on the same weights;
    ``ternary_encode`` byte for byte and ``ternary_decode`` bit for bit over
    the JAX sweep and the six paper leaves (padded, with values planted at
    ``±s/2`` and their neighbours); ``rmsnorm`` over the JAX sweep (fp32,
@@ -24,13 +29,19 @@ Phases, each printing its result; any failure exits non-zero:
    ``[4096, 8192]`` / ``[4, 8192]`` bf16 (against ``F.rms_norm``), with
    the wrapper's host cost step by step at the decode rows;
    ``flash_attention`` over the JAX sweep x {causal, window 37, full} x
-   {fp32, bf16}, the sweep again at hd = 128 in bf16, and qwen1.5-110b's
-   prefill, q ``[4,1024,64,128]``, k/v ``[4,1024,8,128]``, causal, in bf16
-   and fp32 with a near-uniform and a peaked softmax (the peaked fp32 case
-   against an fp64 attention), timed in bf16 (the tensor-core kernel)
-   against SDPA and in fp32 (the CUDA-core kernel);
-3. the gradient of ``lstm_loss`` at the paper width through the kernel
-   against the plain-PyTorch path on the card, and the ternary codec's
+   {fp32, bf16}, the sweep again at hd = 128 in bf16, at hd = 192 (built
+   natively, nemotron-4-340b's width) and at hd = 80 (zero-padded to 128)
+   in both dtypes, one call of more than 2^31 elements (q
+   ``[257,1024,64,128]`` bf16, split over batch; entries held bit for bit
+   against the kernel on that entry alone and against the plain version),
+   and qwen1.5-110b's prefill, q ``[4,1024,64,128]``, k/v
+   ``[4,1024,8,128]``, causal, in bf16 and fp32 with a near-uniform and a
+   peaked softmax (the peaked fp32 case against an fp64 attention), timed
+   in bf16 (the tensor-core kernel) against SDPA and in fp32 (the CUDA-core
+   kernel) against SDPA in fp32;
+3. the gradient of ``lstm_loss`` at the paper width through the sequence
+   kernel and its backpropagation through time against autograd through the
+   per-step plain path on the card, and the ternary codec's
    error-feedback round trip (three steps) on the card against the CPU, bit
    for bit;
 4. the LSTM training paths, each through
@@ -43,12 +54,13 @@ Phases, each printing its result; any failure exits non-zero:
    ternary size of one gradient + reduces x the model; the bytes the wire
    moved, ``wire_bytes``, printed beside the dense wire run's), its
    in-process twin (bit-equal), and a short top-k run under deterministic
-   mode, each run's launch counts held to its path (80 ``lstm_cell`` and,
-   under TernGrad, 6 of each ternary kernel per map, else none); then the
+   mode, each run's launch counts held to its path (2 ``lstm_seq``, one a
+   layer, and no ``lstm_cell`` per map and, under TernGrad, 6 of each
+   ternary kernel per map, else none); then the
    four dense/ternary x inproc/wire runs once more in reverse order, for
    their seconds per version;
 5. where one map's time goes: wall time, and a ``torch.profiler`` window's
-   device busy share and kernels;
+   device busy share, kernels and ``lstm_seq``'s device time a launch;
 6. the serving path: qwen1.5-110b at full width cut to 4 of its 80 layers
    (7,927,349,248 parameters, bf16, random weights from seed 0) served by
    ``repro_torch.launch.serve.serve`` (8 requests in batches of 4, 1,024
@@ -156,15 +168,20 @@ def cell_bound_ms(B, Din, H, elem_bytes):
         "operations"
 
 
-def phase_kernel(torch, K, ref):
-    """Kernel vs plain version over the sweep and the paper shapes; times at
-    the paper shapes. Returns the numbers of the kernel line."""
+def paper_shapes():
+    """(B, Din, H) of the paper's two layers: mini-batch 8, one-hot input
+    over the corpus's vocabulary, then 50 cells."""
     from repro_torch.configs.paper_lstm import CONFIG
     from repro_torch.data.text import CharVocab, repo_corpus
 
     vocab = CharVocab.from_text(repo_corpus()).size
     H = CONFIG.d_model
-    paper = [(8, vocab, H), (8, H, H)]          # layer 0, layer 1
+    return [(8, vocab, H), (8, H, H)]          # layer 0, layer 1
+
+
+def phase_kernel(torch, K, ref, paper):
+    """Kernel vs plain version over the sweep and the paper shapes; times at
+    the paper shapes. Returns the numbers of the kernel line."""
     worst = 0.0
     for B, Din, Hh in SWEEP + paper:
         for dtype in (torch.float32, torch.bfloat16):
@@ -202,6 +219,142 @@ def phase_kernel(torch, K, ref):
               f"({by})")
         rows.append(dict(shape=[B, Din, Hh], ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound, bound_by=by))
+    return worst, rows
+
+
+SEQ_T = 40             # the paper's sample length: a sequence launch's steps
+
+
+def seq_inputs(torch, T, B, Din, H, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(T, B, Din, generator=g)
+    h = torch.randn(B, H, generator=g) * 0.5
+    c = torch.randn(B, H, generator=g) * 0.5
+    w = torch.randn(Din + H, 4 * H, generator=g) * 0.1
+    b = torch.randn(4 * H, generator=g) * 0.1
+    return [t.to(device="cuda", dtype=dtype).contiguous()
+            for t in (x, h, c, w, b)]
+
+
+def seq_bound_ms(T, B, Din, H, elem_bytes):
+    """Least time for one layer over a sequence: x_seq, W, b, h0 and c0 read
+    once, hs and cs (input type) and the gates (fp32) written once, over
+    HBM; T steps of the gate product and gate math at the fp32 peak."""
+    moved = elem_bytes * (T * B * Din + (Din + H) * 4 * H + 4 * H + 2 * B * H
+                          + 2 * T * B * H) + 4 * T * B * 4 * H
+    ops = T * (2 * B * (Din + H) * 4 * H + 16 * B * H)
+    t_b, t_o = moved / PEAK_BYTES_S, ops / PEAK_FP32_FLOP_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def chained_cells(K, x, h, c, w, b):
+    """len(x) lstm_cell launches, each fed the last one's outputs."""
+    hs, cs = [], []
+    for xt in x:
+        h, c = K.lstm_cell(xt, h, c, w, b)
+        hs.append(h)
+        cs.append(c)
+    return hs, cs
+
+
+def cell_graph(torch, K, x, h, c, w, b):
+    """A CUDA graph of len(x) chained lstm_cell launches on these (static)
+    inputs: (replay, the graph's hs, cs)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chained_cells(K, x, h, c, w, b)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        hs, cs = chained_cells(K, x, h, c, w, b)
+    return graph.replay, hs, cs
+
+
+def cudnn_lstm(torch, x, h, c, w, b):
+    """cuDNN's LSTM (``torch.nn.LSTM``, gate order i, f, g, o as Keras's)
+    over x [T,B,Din] with W and b carried across: the one-call yardstick,
+    for comparison only. Returns the call, which gives hs."""
+    Din, H = x.shape[-1], h.shape[1]
+    lstm = torch.nn.LSTM(Din, H).cuda()
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(w[:Din].t())
+        lstm.weight_hh_l0.copy_(w[Din:].t())
+        lstm.bias_ih_l0.copy_(b)
+        lstm.bias_hh_l0.zero_()
+
+    def run():
+        with torch.no_grad():
+            return lstm(x, (h[None], c[None]))[0]
+    return run
+
+
+def phase_lstm_seq(torch, K, ref, paper):
+    """lstm_seq against its plain version and bit for bit against SEQ_T
+    chained lstm_cell launches, over the sweep and the paper's layers (fp32,
+    bf16); its time at the paper's layers beside its bound, the plain
+    version, a CUDA graph of SEQ_T lstm_cell launches and cuDNN's LSTM.
+    The launches here are comparisons, made before any path's counts are
+    reset. Returns (worst fp32 error at the paper's layers, rows)."""
+    worst = 0.0
+    for B, Din, Hh in SWEEP + paper:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x, h, c, w, b = seq_inputs(torch, SEQ_T, B, Din, Hh, dtype,
+                                       seed=B * 1000 + Din)
+            got = K.lstm_seq(x, h, c, w, b)
+            want = ref.lstm_seq(x, h, c, w, b)
+            hs, cs = chained_cells(K, x, h, c, w, b)
+            torch.cuda.synchronize()
+            tol = TOL[name]
+            err = max((a.float() - p.float()).abs().max().item()
+                      for a, p in zip(got, want))
+            ok = all(torch.allclose(a.float(), p.float(), rtol=tol, atol=tol)
+                     for a, p in zip(got, want))
+            same = all(torch.equal(got[0][t], hs[t]) and
+                       torch.equal(got[1][t], cs[t]) for t in range(SEQ_T))
+            print(f"[kernel] lstm_seq T={SEQ_T} B={B} Din={Din} H={Hh} "
+                  f"{name}: max|kernel-plain| over hs, cs, gates={err:.3e} "
+                  f"tol={tol} {'ok' if ok else 'FAIL'}; bit-equal to "
+                  f"{SEQ_T} chained lstm_cell launches: {same}")
+            check(ok, f"lstm_seq disagrees with its plain version at B={B} "
+                      f"Din={Din} H={Hh} {name}")
+            check(same, f"lstm_seq differs from {SEQ_T} chained lstm_cell "
+                        f"launches at B={B} Din={Din} H={Hh} {name}")
+            if name == "float32" and (B, Din, Hh) in paper:
+                worst = max(worst, err)
+
+    rows = []
+    for B, Din, Hh in paper:
+        x, h, c, w, b = seq_inputs(torch, SEQ_T, B, Din, Hh, torch.float32,
+                                   seed=7)
+        ms = median_ms(lambda: K.lstm_seq(x, h, c, w, b), torch)
+        plain_ms = median_ms(lambda: ref.lstm_seq(x, h, c, w, b), torch,
+                             reps=10, inner=5)
+        replay, g_hs, _ = cell_graph(torch, K, x, h, c, w, b)
+        graph_ms = median_ms(replay, torch)
+        same = torch.equal(g_hs[-1], K.lstm_seq(x, h, c, w, b)[0][-1])
+        check(same, "the CUDA graph of lstm_cell launches and lstm_seq "
+                    "end on different h")
+        # cuDNN may pick algorithms that deterministic mode refuses: off for
+        # it alone (timed, never run by the port)
+        torch.use_deterministic_algorithms(False)
+        try:
+            lib = cudnn_lstm(torch, x, h, c, w, b)
+            lib_err = (lib() - ref.lstm_seq(x, h, c, w, b)[0]).abs().max() \
+                .item()
+            cudnn_ms = median_ms(lib, torch)
+        finally:
+            torch.use_deterministic_algorithms(True)
+        bound, by = seq_bound_ms(SEQ_T, B, Din, Hh, 4)
+        print(f"[kernel] lstm_seq time T={SEQ_T} B={B} Din={Din} H={Hh} fp32: "
+              f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, CUDA graph of "
+              f"{SEQ_T} lstm_cell launches {graph_ms:.5f} ms (same last h: "
+              f"{same}), cuDNN nn.LSTM {cudnn_ms:.5f} ms (max|cuDNN-plain| "
+              f"{lib_err:.3e}), bound {bound:.6f} ms ({by})")
+        rows.append(dict(shape=[SEQ_T, B, Din, Hh], ms=ms, plain_ms=plain_ms,
+                         graph_ms=graph_ms, cudnn_ms=cudnn_ms,
+                         cudnn_err=lib_err, bound_ms=bound, bound_by=by))
     return worst, rows
 
 
@@ -359,11 +512,12 @@ def reset_counts(K, T):
     """Set every kernel's launch count to 0."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
-    for fn in (K.lstm_cell, T.ternary_encode, T.ternary_decode, RN.rmsnorm,
-               FA.flash_attention):
+    for fn in (K.lstm_cell, K.lstm_seq, T.ternary_encode, T.ternary_decode,
+               RN.rmsnorm, FA.flash_attention):
         fn.launches = 0
     FA.flash_attention.route_launches = dict.fromkeys(
         FA.flash_attention.route_launches, 0)
+    FA.flash_attention.padded_launches = 0
 
 
 def same_model(torch, res, ref_params, ref_state) -> bool:
@@ -420,20 +574,23 @@ def phase_main_path(torch, K, T):
                           device="cuda")
     torch.cuda.synchronize()
     dt = time.time() - t0
-    launches = K.lstm_cell.launches
+    launches, cell_launches = K.lstm_seq.launches, K.lstm_cell.launches
     maps = sum(res.tasks_by_worker.values()) - versions
     print(f"[main] Coordinator workers={workers} versions={versions}: "
           f"{dt / versions:.3f} s per version, {maps} maps, "
-          f"{launches} lstm_cell launches, losses {res.losses}")
+          f"{launches} lstm_seq launches ({prob.seq_launches_per_map} a map), "
+          f"{cell_launches} lstm_cell launches, losses {res.losses}")
     check(res.final_version == versions,
           f"final version {res.final_version}, expected {versions}")
     check(all(math.isfinite(l) for l in res.losses), "non-finite loss")
     check(maps == versions * prob.tp.mini_batches_to_accumulate,
           f"{maps} maps ran, expected "
           f"{versions * prob.tp.mini_batches_to_accumulate}")
-    check(launches == prob.cell_launches_per_map * maps,
-          f"{launches} kernel launches, expected "
-          f"{prob.cell_launches_per_map} x {maps}")
+    check(launches == prob.seq_launches_per_map * maps,
+          f"{launches} lstm_seq launches, expected "
+          f"{prob.seq_launches_per_map} x {maps}")
+    check(cell_launches == 0, f"{cell_launches} lstm_cell launches on the "
+                              f"training path, expected none")
 
     check(T.ternary_encode.launches == T.ternary_decode.launches == 0,
           "the dense path launched a ternary kernel")
@@ -450,7 +607,7 @@ def phase_main_path(torch, K, T):
     print(f"[main] per-version losses card {res.losses} vs cpu {l_cpu}: "
           f"max diff {diff:.3e} tol={CPU_LOSS_TOL}")
     check(diff <= CPU_LOSS_TOL, "card and CPU loss trajectories differ")
-    return prob, launches, (p_seq, s_seq), dt / versions
+    return prob, (launches, cell_launches), (p_seq, s_seq), dt / versions
 
 
 def phase_wire_paths(torch, K, T, prob, seq, dense_s):
@@ -470,8 +627,8 @@ def phase_wire_paths(torch, K, T, prob, seq, dense_s):
                            codec=codec, transport=transport)
         torch.cuda.synchronize()
         dt = time.time() - t0
-        counts = (K.lstm_cell.launches, T.ternary_encode.launches,
-                  T.ternary_decode.launches)
+        counts = (K.lstm_seq.launches, K.lstm_cell.launches,
+                  T.ternary_encode.launches, T.ternary_decode.launches)
         tag = f"{codec}/{transport}"
         check(res.final_version == v, f"{tag}: final version "
                                       f"{res.final_version}, expected {v}")
@@ -481,14 +638,15 @@ def phase_wire_paths(torch, K, T, prob, seq, dense_s):
         check(n_maps == v * n_mb, f"{tag}: {n_maps} maps, expected "
                                   f"{v * n_mb}")
         per_leaf = PAPER_N_LEAVES * n_maps if codec == "ternary" else 0
-        want = (prob.cell_launches_per_map * n_maps, per_leaf, per_leaf)
-        check(counts == want, f"{tag}: launches lstm_cell/encode/decode "
-                              f"{counts}, expected {want}")
+        want = (prob.seq_launches_per_map * n_maps, 0, per_leaf, per_leaf)
+        check(counts == want, f"{tag}: launches lstm_seq/lstm_cell/encode/"
+                              f"decode {counts}, expected {want}")
         check((res.wire_bytes is not None) == (transport == "wire"),
               f"{tag}: wire_bytes {res.wire_bytes}")
         print(f"[wire] codec={codec} transport={transport}: "
               f"{dt / v:.3f} s per version (dense inproc {dense_s:.3f}), "
-              f"launches lstm_cell/encode/decode {counts} (expected), "
+              f"launches lstm_seq/lstm_cell/encode/decode {counts} "
+              f"(expected), "
               f"codec bytes_sent {res.bytes_sent}, wire_bytes "
               f"{res.wire_bytes}, losses {res.losses}")
         return res, counts, dt / v
@@ -569,6 +727,10 @@ def per_launch_ms(by_name, fragment):
     return sum(t for _, t in hits) / sum(n for n, _ in hits) if hits else None
 
 
+def launches_named(by_name, fragment):
+    return sum(n for name, (n, _) in by_name.items() if fragment in name)
+
+
 def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.5f} ms"
 
@@ -598,9 +760,13 @@ def phase_profile(torch, prob):
           f"{n_kernels} kernels")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"[profile]   {t:.3f} ms in {n} x {name[:90]}")
-    cell_ms = per_launch_ms(by_name, "lstm_cell_kernel")
-    print(f"[profile] lstm_cell kernel device time per launch: "
-          f"{fmt_ms(cell_ms)}")
+    seq_ms = per_launch_ms(by_name, "lstm_seq_kernel")
+    print(f"[profile] lstm_seq kernel device time per launch: "
+          f"{fmt_ms(seq_ms)} ({launches_named(by_name, 'lstm_seq_kernel')} "
+          f"launches in the map; lstm_cell kernel launches "
+          f"{launches_named(by_name, 'lstm_cell_kernel')})")
+    map_prof = dict(window_ms=window_ms, busy_ms=busy_ms, kernels=n_kernels,
+                    busy_share=busy_ms / window_ms)
 
     codec = make_codec("ternary")
     grads, _ = prob.map_compute(params, 0, 0)
@@ -623,8 +789,8 @@ def phase_profile(torch, prob):
           f"({100 * busy_ms / window_ms:.1f}%), {n_kernels} kernels; device "
           f"time per launch: ternary_encode {fmt_ms(enc_ms)}, "
           f"ternary_decode {fmt_ms(dec_ms)}")
-    return dict(map_ms=map_ms, cell_ms=cell_ms, codec_ms=codec_ms,
-                enc_ms=enc_ms, dec_ms=dec_ms)
+    return dict(map_ms=map_ms, seq_ms=seq_ms, map_profile=map_prof,
+                codec_ms=codec_ms, enc_ms=enc_ms, dec_ms=dec_ms)
 
 # ---------------------------------------------------------------------------
 # the dense transformer serving path (qwen1.5-110b at full width, 4 layers)
@@ -639,6 +805,11 @@ RMS_SWEEP = [(4, 64), (2, 17, 256), (1, 3, 5, 128), (3, 129), (2, 130)]
 FLASH_SWEEP = [(1, 64, 4, 4, 32), (2, 129, 8, 4, 64), (1, 200, 8, 1, 16)]
 FLASH_MASKS = [(True, 0), (True, 37), (False, 0)]
 FLASH_HD_WIDE = 128        # the sweep's cases again at qwen's head dim
+# ... at nemotron-4-340b's 192 (built natively) and at 80 (zero-padded to
+# 128 by the wrapper), both dtypes
+FLASH_HD_MORE = (192, 80)
+# one call of more than 2^31 elements (2^31 + 2^23 in q), split over batch
+FLASH_SPLIT = (257, 1024, 64, 8, 128)
 # tests/test_kernels.py::test_flash_attention_sweep (fp32)
 FLASH_RTOL, FLASH_ATOL = 5e-5, 5e-6
 # at the qwen prefill shape in bf16: both paths compute in fp32 from the same
@@ -741,6 +912,24 @@ def flash_bound_ms(B, S, H, Kv, hd, elem_bytes):
     moved = elem_bytes * (2 * B * S * H * hd + 2 * B * S * Kv * hd)
     t_b, t_o = moved / PEAK_BYTES_S, flops / PEAK_BF16_FLOP_S
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def ptxas_report(log):
+    """[(kernel, "spills, registers")] from an ``-Xptxas -v`` log, each
+    kernel named with its mangled template arguments (``fLi192``: float,
+    hd 192)."""
+    out = []
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '(\w+)'", line)
+        if hit:
+            m = re.search(r"\d+((?:lstm|flash|rmsnorm|ternary)[a-z0-9_]*)"
+                          r"(I\w*?E)?", hit.group(1))
+            name = (m.group(1) + (f"<{m.group(2)[1:-1]}>" if m.group(2)
+                                  else "")) if m else hit.group(1)
+            out.append([name, {}])
+        elif out and ("registers" in line or "spill" in line):
+            out[-1][1][line.split(":", 1)[-1].strip()] = None
+    return [(name, ", ".join(parts)) for name, parts in out]
 
 
 def hgmma_count(source):
@@ -887,6 +1076,25 @@ def phase_flash(torch, FA, ref):
                                                  window=window),
                  ref.flash_attention(q, k, v, causal=causal, window=window),
                  TOL["bfloat16"], TOL["bfloat16"])
+            # hd 192 (built natively: three 64-column boxes, m64n192k16) and
+            # a width padded to the next built one, in both dtypes
+            for hd_x in FLASH_HD_MORE:
+                for dtype in (torch.float32, torch.bfloat16):
+                    name = str(dtype).split(".")[-1]
+                    q, k, v = (randn(torch, (B, S, n, hd_x), dtype,
+                                     10 * i + j, 0.5)
+                               for j, n in enumerate((H, Kv, Kv)))
+                    rtol, atol = (FLASH_RTOL, FLASH_ATOL) \
+                        if name == "float32" else (TOL[name], TOL[name])
+                    held(torch, f"flash_attention B={B} S={S} H={H} Kv={Kv} "
+                         f"hd={hd_x} causal={causal} window={window} {name}",
+                         FA.flash_attention(q, k, v, causal=causal,
+                                            window=window),
+                         ref.flash_attention(q, k, v, causal=causal,
+                                             window=window), rtol, atol)
+    print(f"[kernel] flash_attention sweep launches by route "
+          f"{FA.flash_attention.route_launches}, of them on padded inputs "
+          f"{FA.flash_attention.padded_launches}")
     B, S, H, Kv, hd = SERVE["batch"], SERVE["prompt"], 64, 8, 128
     worst = 0.0
     for scale in QWEN_FLASH_SCALES:
@@ -914,7 +1122,6 @@ def phase_flash(torch, FA, ref):
     q32, k32, v32 = (t.float() for t in (q, k, v))
     fp32_ms = median_ms(lambda: FA.flash_attention(q32, k32, v32), torch,
                         reps=5, inner=2)
-    del q32, k32, v32
     plain_ms = median_ms(lambda: ref.flash_attention(q, k, v), torch,
                          reps=10, inner=3)
     # SDPA picks kernels that deterministic mode may refuse: off for it only
@@ -924,17 +1131,58 @@ def phase_flash(torch, FA, ref):
         lib_err = (lib().float() - ref.flash_attention(q, k, v).float()) \
             .abs().max().item()
         lib_ms = median_ms(lib, torch, reps=10, inner=3)
+        lib32_ms = median_ms(sdpa(torch, q32, k32, v32), torch, reps=5,
+                             inner=2)
     finally:
         torch.use_deterministic_algorithms(True)
+    del q32, k32, v32
     bound, by = flash_bound_ms(B, S, H, Kv, hd, 2)
     print(f"[kernel] flash_attention time B={B} S={S} H={H} Kv={Kv} "
           f"hd={hd} causal bf16 (tensor-core kernel): kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (max|SDPA-plain| "
           f"{lib_err:.3e}), bound {bound:.5f} ms ({by}); the fp32 inputs "
-          f"(CUDA-core kernel) {fp32_ms:.4f} ms")
+          f"(CUDA-core kernel) {fp32_ms:.4f} ms, SDPA in fp32 "
+          f"{lib32_ms:.4f} ms")
     return worst, dict(shape=[B, S, H, Kv, hd], ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound, bound_by=by,
-                       fp32_ms=fp32_ms)
+                       fp32_ms=fp32_ms, fp32_library_ms=lib32_ms)
+
+
+def phase_flash_split(torch, FA, ref):
+    """One bf16 call of more than 2^31 elements (FLASH_SPLIT: q
+    [257,1024,64,128], ~10 GB in all), which the wrapper splits over batch:
+    exactly len(_batch_chunks) launches, and entries at both ends and at the
+    seam held bit for bit against the kernel run on that entry alone and
+    against the plain version at the qwen gate. Returns the launches."""
+    B, S, H, Kv, hd = FLASH_SPLIT
+    q, k, v = (randn(torch, (B, S, n, hd), torch.bfloat16, 60 + j, 0.5)
+               for j, n in enumerate((H, Kv, Kv)))
+    chunks = FA._batch_chunks(B, S, H, Kv, hd)
+    before = FA.flash_attention.launches
+    out = FA.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    n = FA.flash_attention.launches - before
+    print(f"[kernel] flash_attention B={B} S={S} H={H} Kv={Kv} hd={hd} "
+          f"causal bf16: {q.numel():,} elements of q (2^31 = {2 ** 31:,}), "
+          f"{n} launches over batch {chunks}")
+    check(q.numel() >= 2 ** 31 and n == len(chunks) == 2,
+          f"the split call made {n} launches over {chunks}")
+    for b in sorted({0, chunks[0][1] - 1, chunks[1][0], B // 2, B - 1}):
+        one = (t[b:b + 1].contiguous() for t in (q, k, v))
+        alone = FA.flash_attention(*one)
+        torch.cuda.synchronize()
+        same = torch.equal(out[b:b + 1], alone)
+        print(f"[kernel] split call, batch entry {b}: bit-equal to the kernel "
+              f"on that entry alone: {same}")
+        check(same, f"batch entry {b} of the split call differs from the "
+                    f"kernel run on it alone")
+        held(torch, f"split call, batch entry {b} vs plain",
+             out[b:b + 1], ref.flash_attention(q[b:b + 1], k[b:b + 1],
+                                               v[b:b + 1]),
+             TOL["bfloat16"], QWEN_FLASH_BF16_ATOL)
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return n
 
 
 def plain_kernels(rmsnorm=None):
@@ -1030,8 +1278,8 @@ def phase_serve(torch, K, T):
     wall_s = time.perf_counter() - t0
     counts = dict(rmsnorm=RN.rmsnorm.launches,
                   flash_attention=FA.flash_attention.launches,
-                  others=K.lstm_cell.launches + T.ternary_encode.launches +
-                  T.ternary_decode.launches)
+                  others=K.lstm_cell.launches + K.lstm_seq.launches +
+                  T.ternary_encode.launches + T.ternary_decode.launches)
     routes = dict(FA.flash_attention.route_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_batches = -(-SERVE["requests"] // SERVE["batch"])
@@ -1240,21 +1488,24 @@ def main() -> int:
     print(f"[build] {', '.join(src.name for src in sources)} built (in "
           f"parallel) and loaded in {time.time() - t0:.1f} s")
     for src in sources:
-        for line in kbuild.log_path(src).read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {src.name}: {line.strip()}")
+        for name, report in ptxas_report(kbuild.log_path(src).read_text()):
+            print(f"[build] {src.name} {name}: {report}")
     hgmma = hgmma_count(FA.SOURCE)
     print(f"[build] {FA.SOURCE.name}: "
           f"{'not measured (no cuobjdump)' if hgmma is None else hgmma} "
           f"HGMMA (wgmma) instructions in the library's SASS")
 
-    worst, rows = phase_kernel(torch, K, ref)
+    paper = paper_shapes()
+    worst, rows = phase_kernel(torch, K, ref, paper)
+    seq_err, seq_rows = phase_lstm_seq(torch, K, ref, paper)
     tern = phase_ternary(torch, T, ref)
     rms_err, rms = phase_rmsnorm(torch, RN, ref)
     fa_err, fa = phase_flash(torch, FA, ref)
+    split_launches = phase_flash_split(torch, FA, ref)
     phase_grad(torch, ref)
     phase_codec(torch)
-    prob, launches, seq, dense_s = phase_main_path(torch, K, T)
+    prob, (launches, cell_launches), seq, dense_s = phase_main_path(
+        torch, K, T)
     tern_counts, per_version, wire_bytes = phase_wire_paths(
         torch, K, T, prob, seq, dense_s)
     prof = phase_profile(torch, prob)
@@ -1266,21 +1517,38 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_smoke_cpu(torch)
 
-    layer0 = rows[0]
+    layer0, seq0 = rows[0], seq_rows[0]
+    # a map's forward: one sequence launch per layer
+    seq_map = {key: sum(r[key] for r in seq_rows) for key in (
+        "ms", "plain_ms", "graph_ms", "cudnn_ms", "bound_ms")}
     kernels = [{
         "name": "lstm_cell", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
         "replaces": "src/repro/kernels/lstm_cell.py:26",
-        "launches": launches, "max_abs_err": worst,
+        # the training path runs lstm_seq: no step launches there
+        "launches": cell_launches, "max_abs_err": worst,
         "ms": layer0["ms"], "plain_ms": layer0["plain_ms"],
         "bound_ms": layer0["bound_ms"], "bound_by": layer0["bound_by"],
         "library_ms": layer0["library_ms"], "shape": layer0["shape"],
-        "device_ms": prof["cell_ms"], "layer1": rows[1],
-        "map_ms": prof["map_ms"],
+        "layer1": rows[1], "map_ms": prof["map_ms"],
+        "seq_ms": seq0["ms"], "seq_bound_ms": seq0["bound_ms"],
+        "graph_ms": seq0["graph_ms"], "cudnn_ms": seq0["cudnn_ms"],
+        "seq_launches": launches, "seq_map": seq_map,
+    }, {
+        "name": "lstm_seq", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
+        "replaces": "src/repro/kernels/lstm_cell.py:26",
+        "launches": launches, "max_abs_err": seq_err,
+        "ms": seq0["ms"], "plain_ms": seq0["plain_ms"],
+        "bound_ms": seq0["bound_ms"], "bound_by": seq0["bound_by"],
+        "library_ms": seq0["cudnn_ms"], "graph_ms": seq0["graph_ms"],
+        "shape": seq0["shape"], "layer1": seq_rows[1], "map": seq_map,
+        "device_ms": prof["seq_ms"], "map_ms": prof["map_ms"],
+        "map_profile": prof["map_profile"],
     }]
     for key, line, n_launch, dev_ms in (
-            ("encode", 21, tern_counts[1], prof["enc_ms"]),
-            ("decode", 31, tern_counts[2], prof["dec_ms"])):
+            ("encode", 21, tern_counts[2], prof["enc_ms"]),
+            ("decode", 31, tern_counts[3], prof["dec_ms"])):
         r = tern[key]
         kernels.append({
             "name": f"ternary_{key}", "route": "cuda",
@@ -1307,6 +1575,7 @@ def main() -> int:
         "launches": served["counts"]["flash_attention"],
         "max_abs_err": fa_err, **fa,
         "device_ms": serve_prof["prefill"]["flash_ms"],
+        "split_launches": split_launches,
         "routes": {
             "wgmma": {"kernel": "flash_kernel_wgmma", "dtype": "bfloat16",
                       "launches": served["routes"]["wgmma"], "ms": fa["ms"]},

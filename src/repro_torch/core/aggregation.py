@@ -238,7 +238,7 @@ def make_policy(spec: PolicyLike) -> AggregationPolicy:
 
 
 # ---------------------------------------------------------------------------
-# CI smoke: 3 policies on the reduced real problem, in process
+# CI smoke: 3 policies x 2 transports on the reduced real problem
 # ---------------------------------------------------------------------------
 
 def _bitmatch(a, b) -> bool:
@@ -250,11 +250,11 @@ def _bitmatch(a, b) -> bool:
 
 
 def main(n_workers: int = 3, device=None) -> None:
-    """CI smoke: for each policy, a real Coordinator run on the reduced
-    problem must (a) commit every scheduled update and (b) bit-match the
-    policy's sequential reference. SyncBSP's reference is
-    ``sequential_accumulated`` — the paper's Table-4 equality, one row of a
-    matrix. (The wire transport with tensor leaves comes with a later slice.)"""
+    """CI smoke: for each policy and each transport, a real Coordinator run
+    on the reduced problem must (a) commit every scheduled update, (b)
+    bit-match the policy's sequential reference, and (c) be
+    transport-invariant. SyncBSP's reference is ``sequential_accumulated`` —
+    the paper's Table-4 equality, one row of a matrix."""
     from repro_torch.configs.paper_lstm import TrainParams
     from repro_torch.core.coordinator import Coordinator
     from repro_torch.core.mapreduce import (TrainingProblem,
@@ -278,26 +278,29 @@ def main(n_workers: int = 3, device=None) -> None:
     for spec in ("sync", "staleness:2", "local:4"):
         policy = make_policy(spec)
         expected = policy.n_updates(problem, problem.n_versions)
-        res = Coordinator(problem, n_workers=n_workers, policy=policy).run()
-        ok = _bitmatch(res.params, refs[spec])
-        print(f"aggregation_smoke,{spec},inproc,{res.final_version},"
-              f"{expected},{sum(res.tasks_by_worker.values())},"
-              f"{res.stale_discards},{ok}")
-        if res.final_version != expected:
-            raise SystemExit(f"{spec}: final version {res.final_version}, "
-                             f"expected {expected}")
-        if not ok:
-            raise SystemExit(f"{spec} diverged from the sequential reference")
-    print(f"# OK: every policy commits its full schedule and bit-matches its "
-          f"sequential reference with {n_workers} volunteers on "
-          f"{problem.device}")
+        for transport in ("inproc", "wire"):
+            res = Coordinator(problem, n_workers=n_workers, policy=policy,
+                              transport=transport).run()
+            ok = _bitmatch(res.params, refs[spec])
+            print(f"aggregation_smoke,{spec},{transport},{res.final_version},"
+                  f"{expected},{sum(res.tasks_by_worker.values())},"
+                  f"{res.stale_discards},{ok}")
+            if res.final_version != expected:
+                raise SystemExit(f"{spec}/{transport}: final version "
+                                 f"{res.final_version}, expected {expected}")
+            if not ok:
+                raise SystemExit(f"{spec}/{transport} diverged from the "
+                                 f"sequential reference")
+    print(f"# OK: 3-policy x 2-transport matrix green: every policy commits "
+          f"its full schedule and bit-matches its sequential reference with "
+          f"{n_workers} volunteers on {problem.device}")
 
 
 if __name__ == "__main__":
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--smoke", action="store_true",
-                    help="run the 3-policy matrix")
+                    help="run the 3-policy x 2-transport matrix")
     ap.add_argument("--workers", type=int, default=3)
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")

@@ -161,9 +161,10 @@ class TrainingProblem:
         return 8.0 * self.n_params * self.tp.mini_batches_to_accumulate
 
     @property
-    def cell_launches_per_map(self) -> int:
-        """LSTM cell steps (kernel launches on the card) per map compute."""
-        return self.cfg.n_layers * self.tp.sample_len
+    def seq_launches_per_map(self) -> int:
+        """``lstm_seq`` launches on the card per map compute: one a layer,
+        each over the whole sample."""
+        return self.cfg.n_layers
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@ shared memory, spills) is kept beside it as ``<name>.log``.
 
 ``compile_sources`` starts one ``nvcc`` per missing library, all at once, and
 waits for them together; ``load`` builds one source if needed and loads it.
-``empty_like`` allocates a kernel's output.
+``empty`` and ``empty_like`` allocate a kernel's output.
 """
 from __future__ import annotations
 
@@ -86,17 +86,28 @@ def load(source: pathlib.Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(source)))
 
 
-def empty_like(x):
-    """``torch.empty_like(x)`` for an output that a kernel writes in full.
-    Under deterministic algorithms (``device.resolve`` turns them on for
-    the card) PyTorch fills every fresh tensor with NaN, a launch and a
-    full write of the tensor; here nothing can read the memory before the
-    kernel has written it, so the fill is skipped."""
+def _unfilled(make, *args, **kwargs):
+    """``make(*args, **kwargs)`` (``torch.empty`` or ``torch.empty_like``)
+    for an output that a kernel writes in full. Under deterministic
+    algorithms (``device.resolve`` turns them on for the card) PyTorch fills
+    every fresh tensor with NaN, a launch and a full write of the tensor;
+    here nothing can read the memory before the kernel has written it, so
+    the fill is skipped."""
     if not (torch.are_deterministic_algorithms_enabled() and
             _det.fill_uninitialized_memory):
-        return torch.empty_like(x)
+        return make(*args, **kwargs)
     _det.fill_uninitialized_memory = False
     try:
-        return torch.empty_like(x)
+        return make(*args, **kwargs)
     finally:
         _det.fill_uninitialized_memory = True
+
+
+def empty(*shape, dtype, device):
+    """A kernel's output of this shape, not filled (``_unfilled``)."""
+    return _unfilled(torch.empty, *shape, dtype=dtype, device=device)
+
+
+def empty_like(x):
+    """A kernel's output like x, not filled (``_unfilled``)."""
+    return _unfilled(torch.empty_like, x)

@@ -37,8 +37,9 @@
 // the swizzled layout that TMA gives k and v. The producer's first lane
 // streams k and v tiles of 64 positions by TMA (cp.async.bulk.tensor over a
 // [B][S][Kv * hd] view, one box per 64 columns of a head: the 128-byte
-// swizzle holds 64 bf16; hd 16 and 32 use the 32- and 64-byte swizzles;
-// rows past S arrive as zeros) into a ring of kStages stages, each with a
+// swizzle holds 64 bf16, so hd 128 and 192 take two and three boxes; hd 16
+// and 32 use the 32- and 64-byte swizzles; rows past S arrive as zeros)
+// into a ring of kStages stages, each with a
 // "full" mbarrier (expect_tx) and an "empty" one that all 8 consumer warps
 // arrive on once their products have read it, so tile i + 1 loads while
 // tile i computes. Per tile each consumer warpgroup runs
@@ -49,7 +50,8 @@
 //               differs from Pallas's "scale q first" in the last fp32 bits
 //               only), masked only where the tile crosses the diagonal, the
 //               window's lower edge or S;
-//   O += P V    wgmma m64n{hd}k16 with A = P from registers (the score
+//   O += P V    wgmma m64n{hd}k16 (N = 192 at hd 192: 96 fp32
+//               accumulators a thread) with A = P from registers (the score
 //               accumulator's layout is wgmma's A-register layout, so P never
 //               touches shared memory) and B = v, MN-major (transpose bit).
 // P is split into bf16 hi + lo and both go through the P V product: hi is
@@ -99,6 +101,7 @@ constexpr int kLanes = kThreads / kRows;    // threads per row
 constexpr int kCols = 32;                   // kv positions per tile
 constexpr int kColsPerLane = kCols / kLanes;
 constexpr float kNegInf = -1e30f;
+constexpr int kMaxSmem = 232448;            // a block's dynamic opt-in bytes
 
 static_assert(kLanes == 4, "the shuffles below combine 4 lanes");
 
@@ -123,6 +126,7 @@ struct Smem {
   static constexpr int kV = kCols * HD;
   static constexpr int kPs = kRows * kP;
   static constexpr size_t kBytes = sizeof(float) * (kQ + kK + kV + kPs);
+  static_assert(kBytes <= kMaxSmem, "over the 227 KB a block may opt in to");
 };
 
 template <typename T, int HD>
@@ -312,6 +316,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     case 128:
       return launch_hd<T, 128>(q, k, v, o, B, seq, H, Kv, causal, window,
                                scale, st);
+    case 192:
+      return launch_hd<T, 192>(q, k, v, o, B, seq, H, Kv, causal, window,
+                               scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -351,6 +358,7 @@ struct Cfg {
   static constexpr int kTile = kChunks * kKvChunk;     // one k or v tile
   static constexpr int kBar = kQBytes + 2 * kStages * kTile;
   static constexpr int kSmem = kBar + 2 * kStages * 8 + 1024;
+  static_assert(kSmem <= kMaxSmem, "over the 227 KB a block may opt in to");
   static_assert(kQChunk % 1024 == 0 && kKvChunk % 1024 == 0,
                 "swizzled regions must stay 1024-byte aligned");
 };
@@ -575,6 +583,47 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[96],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {%0, "
+      "%1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "
+      "%23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, "
+      "%63, %64, %65, %66, %67, %68, %69, %70, %71, %72, "
+      "%73, %74, %75, %76, %77, %78, %79, %80, %81, %82, "
+      "%83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95}, {%96, %97, %98, %99}, %100, "
+      "p, 1, 1, 1;\n "
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -997,6 +1046,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     case 128:
       return launch_hd<128>(q, k, v, o, B, seq, H, Kv, causal, window, scale,
                             st);
+    case 192:
+      return launch_hd<192>(q, k, v, o, B, seq, H, Kv, causal, window, scale,
+                            st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1012,8 +1064,10 @@ extern "C" {
 // bf16 a negative code when the TMA tensor map could not be built (-1: no
 // cuTensorMapEncodeTiled in the driver; -1000 - CUresult: it refused). q
 // and o hold B * seq * H * hd contiguous elements, k and v B * seq * Kv *
-// hd; H % Kv == 0; hd in {16, 32, 64, 128}; window >= 0 (0: no window);
-// bf16 pointers 16-byte aligned.
+// hd; H % Kv == 0; hd in {16, 32, 64, 128, 192}; window >= 0 (0: no
+// window); bf16 pointers 16-byte aligned. The wrapper zero-pads any other
+// hd up to 192 to the next of these widths and splits a batch of 2^31
+// elements or more into launches below it.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int seq, int H, int Kv, int hd, int causal,
                         int window, float scale, void* stream) {

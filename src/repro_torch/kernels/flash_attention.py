@@ -10,9 +10,14 @@ window, output like q.
 
 The dtype picks the kernel (``ROUTES``): bfloat16 runs on the tensor cores
 (``wgmma``, k/v tiles by TMA), float32 on the CUDA cores, whose fp32
-products the fp32 tolerances need. ``flash_attention.launches`` counts the
-launches this wrapper made, ``flash_attention.route_launches`` the same by
-route, so a run can show that its path went through the kernel it expects.
+products the fp32 tolerances need. Both are built for the head widths
+``HEAD_DIMS``; any other width up to the widest is zero-padded to the next
+one (``_padded``). A call of 2^31 elements or more is split over batch into
+launches below it (``_batch_chunks``), so rows inside a block keep their
+32-bit math. ``flash_attention.launches`` counts the launches this wrapper
+made, ``flash_attention.route_launches`` the same by route and
+``flash_attention.padded_launches`` those on padded inputs, so a run can
+show that its path went through the kernel it expects.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import math
 import pathlib
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build as kbuild
 
@@ -32,8 +38,9 @@ _FNS = {torch.float32: "flash_attention_f32",
         torch.bfloat16: "flash_attention_bf16"}
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda_core"}
 _ROUTE_NAMES = {"wgmma": "tensor-core kernel", "cuda_core": "CUDA-core kernel"}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 192)  # the widths the kernels are built for
 _GRID_YZ = 65535                   # CUDA's limit on gridDim.y and .z
+_MAX_ELEMS = 2 ** 31               # a launch's q holds fewer elements
 
 
 @functools.cache
@@ -68,12 +75,14 @@ def _check(q, k, v, window):
     if min(B, S, H, Kv) < 1 or H % Kv:
         raise ValueError(f"flash_attention kernel: H={H} is not a positive "
                          f"multiple of Kv={Kv} (or a dimension is empty)")
-    if hd not in HEAD_DIMS:
+    if not 1 <= hd <= HEAD_DIMS[-1]:
         raise ValueError(f"flash_attention kernel: head dim {hd} not "
-                         f"supported {HEAD_DIMS}")
-    if B > _GRID_YZ or Kv > _GRID_YZ or B * S * H * hd >= 2 ** 31:
-        raise ValueError(f"flash_attention kernel: B={B} S={S} H={H} "
-                         f"hd={hd} is too large")
+                         f"supported (1..{HEAD_DIMS[-1]}; the kernels are "
+                         f"built for {HEAD_DIMS} and zero-pad to them)")
+    if Kv > _GRID_YZ:
+        raise ValueError(f"flash_attention kernel: Kv={Kv} is too large")
+    # refuses a batch entry that alone holds 2^31 elements or more
+    _batch_chunks(B, S, H, Kv, native_head_dim(hd))
     if not isinstance(window, int) or window < 0:
         raise ValueError(f"flash_attention kernel: window {window!r}, want "
                          f"an int >= 0")
@@ -106,27 +115,77 @@ def _check(q, k, v, window):
     return B, S, H, Kv, hd, route
 
 
+def native_head_dim(hd: int) -> int:
+    """The narrowest width in ``HEAD_DIMS`` that holds hd."""
+    return next(w for w in HEAD_DIMS if w >= hd)
+
+
+def _batch_chunks(B, S, H, Kv, hd):
+    """[(b0, b1), ...]: the launches that cover batch entries 0..B-1, each
+    holding fewer than 2^31 elements of q and out (k and v hold fewer, Kv <=
+    H) and at most CUDA's 65,535 grid rows, as evenly split as they can be.
+    One launch where the whole batch fits. Raises where one batch entry
+    alone reaches 2^31 elements."""
+    per = S * max(H, Kv) * hd
+    if per >= _MAX_ELEMS:
+        raise ValueError(f"flash_attention kernel: one batch entry of S={S} "
+                         f"H={H} hd={hd} holds {per} >= 2^31 elements, too "
+                         f"large for a launch")
+    n = -(-B // min((_MAX_ELEMS - 1) // per, _GRID_YZ))
+    bounds = [B * i // n for i in range(n + 1)]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def _padded(attend, q, k, v, causal, window):
+    """``attend(q, k, v, causal, window, scale)`` on q, k and v zero-padded
+    along hd to ``native_head_dim(hd)``, with the true scale 1/sqrt(hd), and
+    its output cut back to hd. The zero columns add exact zeros to every
+    score, and the padded columns of v only reach the columns cut off."""
+    hd = q.shape[-1]
+    wide = native_head_dim(hd)
+    scale = 1.0 / math.sqrt(hd)
+    if wide == hd:
+        return attend(q, k, v, causal, window, scale)
+    q, k, v = (F.pad(t, (0, wide - hd)) for t in (q, k, v))
+    return attend(q, k, v, causal, window, scale)[..., :hd].contiguous()
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Launch the kernel of q's dtype on CUDA tensors q [B,S,H,hd], k/v
     [B,S,Kv,hd]. Returns the attention output like q. Raises on any other
     input."""
     B, S, H, Kv, hd, route = _check(q, k, v, window)
     fn = build()[q.dtype]
-    out = kbuild.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                 S, H, Kv, hd, int(bool(causal)), window, 1.0 / math.sqrt(hd),
-                 stream)
-    if err != 0:
-        why = "CUDA error" if err > 0 else "TMA tensor map error"
-        raise RuntimeError(f"flash_attention kernel launch failed: {why} "
-                           f"{err} (B={B} S={S} H={H} Kv={Kv} hd={hd} "
-                           f"{q.dtype}, {_ROUTE_NAMES[route]})")
-    flash_attention.launches += 1
-    flash_attention.route_launches[route] += 1
-    return out
+    padded = native_head_dim(hd) != hd
+
+    def attend(q, k, v, causal, window, scale):
+        width = q.shape[-1]
+        out = kbuild.empty_like(q)
+        elem = q.element_size()
+        q_entry, kv_entry = S * H * width * elem, S * Kv * width * elem
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            for b0, b1 in _batch_chunks(B, S, H, Kv, width):
+                err = fn(q.data_ptr() + b0 * q_entry,
+                         k.data_ptr() + b0 * kv_entry,
+                         v.data_ptr() + b0 * kv_entry,
+                         out.data_ptr() + b0 * q_entry, b1 - b0, S, H, Kv,
+                         width, int(bool(causal)), window, scale, stream)
+                if err != 0:
+                    why = "CUDA error" if err > 0 else "TMA tensor map error"
+                    raise RuntimeError(
+                        f"flash_attention kernel launch failed: {why} {err} "
+                        f"(batch {b0}..{b1 - 1} of B={B}, S={S} H={H} "
+                        f"Kv={Kv} hd={hd} run at {width}, {q.dtype}, "
+                        f"{_ROUTE_NAMES[route]})")
+                flash_attention.launches += 1
+                flash_attention.route_launches[route] += 1
+                flash_attention.padded_launches += int(padded)
+        return out
+
+    return _padded(attend, q, k, v, causal, window)
 
 
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES.values(), 0)
+flash_attention.padded_launches = 0

@@ -1,12 +1,16 @@
 """The fused LSTM cell on Hopper: build, bind and launch ``csrc/lstm_cell.cu``.
 
 Replaces the Pallas kernel ``repro/kernels/lstm_cell.py::_cell_kernel``; the
-source's header note gives the design and its bound. The shared library is
-compiled with ``nvcc`` for ``sm_90a`` at first use (``kernels/build.py``)
-and bound with ``ctypes`` through a plain C interface.
+source's header note gives the design and its bound. Two entry points:
+``lstm_cell`` runs one step (the Pallas kernel's own contract), and
+``lstm_seq`` runs a whole sequence of steps in one launch, bit-equal to
+chained ``lstm_cell`` launches; the model runs ``lstm_seq``. The shared
+library is compiled with ``nvcc`` for ``sm_90a`` at first use
+(``kernels/build.py``) and bound with ``ctypes`` through a plain C
+interface.
 
-``lstm_cell.launches`` counts the launches this wrapper made, so a run can
-show that its path went through the kernel.
+``lstm_cell.launches`` and ``lstm_seq.launches`` count the launches each
+wrapper made, so a run can show that its path went through the kernel.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from repro_torch.kernels import build as kbuild
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "lstm_cell.cu"
 
 _FNS = {torch.float32: "lstm_cell_f32", torch.bfloat16: "lstm_cell_bf16"}
+_SEQ_FNS = {torch.float32: "lstm_seq_f32", torch.bfloat16: "lstm_seq_bf16"}
 
 
 @functools.cache
@@ -32,39 +37,48 @@ def build() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    for name in _SEQ_FNS.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
-def _check(x, h, c, kernel, bias):
+def _check(x, h, c, kernel, bias, what="lstm_cell"):
+    """Refuse what the kernel does not take: x [B,Din] (``lstm_seq``:
+    [T,B,Din]), h/c [B,H], kernel [Din+H,4H], bias [4H], one dtype,
+    contiguous, on one CUDA device (checked last). Returns (B, Din, H)."""
     ts = {"x": x, "h": h, "c": c, "kernel": kernel, "bias": bias}
-    if x.dim() != 2 or h.dim() != 2:
-        raise ValueError("lstm_cell kernel: x and h must be 2-D")
-    B, Din = x.shape
+    x_dims = 3 if what == "lstm_seq" else 2
+    if x.dim() != x_dims or h.dim() != 2:
+        raise ValueError(f"{what} kernel: x must be {x_dims}-D and h 2-D")
+    B, Din = x.shape[-2:]
     H = h.shape[1]
-    if B < 1 or Din < 1 or H < 1:
-        raise ValueError(f"lstm_cell kernel: empty shape B={B} Din={Din} "
-                         f"H={H}")
+    if min(x.shape) < 1 or H < 1:
+        raise ValueError(f"{what} kernel: empty shape x "
+                         f"{tuple(x.shape)} H={H}")
     want = {"h": (B, H), "c": (B, H), "kernel": (Din + H, 4 * H),
             "bias": (4 * H,)}
     for name, shape in want.items():
         if tuple(ts[name].shape) != shape:
-            raise ValueError(f"lstm_cell kernel: {name} has shape "
+            raise ValueError(f"{what} kernel: {name} has shape "
                              f"{tuple(ts[name].shape)}, want {shape}")
     if x.dtype not in _FNS:
-        raise ValueError(f"lstm_cell kernel: dtype {x.dtype} not supported "
+        raise ValueError(f"{what} kernel: dtype {x.dtype} not supported "
                          f"(float32, bfloat16)")
     for name, t in ts.items():
         if t.dtype != x.dtype:
-            raise ValueError(f"lstm_cell kernel: {name} is {t.dtype}, "
+            raise ValueError(f"{what} kernel: {name} is {t.dtype}, "
                              f"x is {x.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"lstm_cell kernel: {name} is not contiguous")
+            raise ValueError(f"{what} kernel: {name} is not contiguous")
     for name, t in ts.items():
         if t.device.type != "cuda":
-            raise ValueError(f"lstm_cell kernel: {name} is on {t.device}, "
+            raise ValueError(f"{what} kernel: {name} is on {t.device}, "
                              f"not a CUDA device")
         if t.device != x.device:
-            raise ValueError(f"lstm_cell kernel: {name} on {t.device}, "
+            raise ValueError(f"{what} kernel: {name} on {t.device}, "
                              f"x on {x.device}")
     return B, Din, H
 
@@ -75,8 +89,8 @@ def lstm_cell(x, h, c, kernel, bias):
     Returns (h_new, c_new) in the input dtype. Raises on any other input."""
     B, Din, H = _check(x, h, c, kernel, bias)
     lib = build()
-    h_out = torch.empty_like(h)
-    c_out = torch.empty_like(c)
+    h_out = kbuild.empty_like(h)
+    c_out = kbuild.empty_like(c)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, _FNS[x.dtype])(
@@ -91,3 +105,32 @@ def lstm_cell(x, h, c, kernel, bias):
 
 
 lstm_cell.launches = 0
+
+
+def lstm_seq(x_seq, h0, c0, kernel, bias):
+    """Launch the sequence kernel on CUDA tensors: x_seq [T,B,Din], h0/c0
+    [B,H], kernel [Din+H, 4H], bias [4H], all float32 or all bfloat16,
+    contiguous. Returns (hs, cs, gates): hs and cs [T,B,H] in the input
+    dtype, gates [T,B,4H] float32 (sigmoid(i), sigmoid(f), tanh(g),
+    sigmoid(o) of every step). Raises on any other input."""
+    B, Din, H = _check(x_seq, h0, c0, kernel, bias, what="lstm_seq")
+    n_t = x_seq.shape[0]
+    lib = build()
+    hs = kbuild.empty(n_t, B, H, dtype=x_seq.dtype, device=x_seq.device)
+    cs = kbuild.empty(n_t, B, H, dtype=x_seq.dtype, device=x_seq.device)
+    gates = kbuild.empty(n_t, B, 4 * H, dtype=torch.float32,
+                         device=x_seq.device)
+    with torch.cuda.device(x_seq.device):
+        stream = torch.cuda.current_stream(x_seq.device).cuda_stream
+        err = getattr(lib, _SEQ_FNS[x_seq.dtype])(
+            x_seq.data_ptr(), h0.data_ptr(), c0.data_ptr(), kernel.data_ptr(),
+            bias.data_ptr(), hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
+            n_t, B, Din, H, stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_seq kernel launch failed: CUDA error {err} "
+                           f"(T={n_t} B={B} Din={Din} H={H} {x_seq.dtype})")
+    lstm_seq.launches += 1
+    return hs, cs, gates
+
+
+lstm_seq.launches = 0

@@ -19,6 +19,14 @@ def lstm_cell(x, h, c, kernel, bias):
     return _lstm.lstm_cell(x, h, c, kernel, bias)
 
 
+def lstm_seq(x_seq, h0, c0, kernel, bias):
+    """x_seq [T,B,Din] from (h0, c0) [B,H] -> (hs, cs [T,B,H], gates
+    [T,B,4H] fp32), in one launch on the card."""
+    if x_seq.device.type == "cpu":
+        return ref.lstm_seq(x_seq, h0, c0, kernel, bias)
+    return _lstm.lstm_seq(x_seq, h0, c0, kernel, bias)
+
+
 def rmsnorm(x, scale, eps: float = 1e-6):
     """x [..., D], scale [D] -> ``x * rsqrt(mean(x^2) + eps) * scale``."""
     if x.device.type == "cpu":

@@ -11,17 +11,40 @@ import math
 import torch
 
 
+def _cell(x, h, c, kernel, bias):
+    """One Keras-gate-order LSTM step: (h', c', gates [B,4H] fp32, the
+    activated sigmoid(i), sigmoid(f), tanh(g), sigmoid(o))."""
+    z = torch.cat([x, h], dim=-1).float() @ kernel.float() + bias.float()
+    i, f, g, o = z.chunk(4, dim=-1)
+    i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), \
+        torch.sigmoid(o)
+    c_new = f * c.float() + i * g
+    h_new = o * torch.tanh(c_new)
+    return h_new.to(h.dtype), c_new.to(c.dtype), torch.cat([i, f, g, o], -1)
+
+
 def lstm_cell(x, h, c, kernel, bias):
     """Keras-gate-order LSTM cell. x [B,Din], h/c [B,H], kernel [(Din+H),4H].
 
     As the TPU kernel (``repro/kernels/lstm_cell.py::_cell_kernel``) does,
     everything is computed in fp32 and the outputs are stored in the input
     dtype. For fp32 inputs this is ``repro/kernels/ref.py::lstm_cell``."""
-    z = torch.cat([x, h], dim=-1).float() @ kernel.float() + bias.float()
-    i, f, g, o = z.chunk(4, dim=-1)
-    c_new = torch.sigmoid(f) * c.float() + torch.sigmoid(i) * torch.tanh(g)
-    h_new = torch.sigmoid(o) * torch.tanh(c_new)
-    return h_new.to(h.dtype), c_new.to(c.dtype)
+    h_new, c_new, _ = _cell(x, h, c, kernel, bias)
+    return h_new, c_new
+
+
+def lstm_seq(x_seq, h0, c0, kernel, bias):
+    """``lstm_cell`` over x_seq [T,B,Din] from (h0, c0), each step fed the
+    last one's outputs in the input dtype (as chained kernel launches are):
+    (hs, cs) [T,B,H] in the input dtype and gates [T,B,4H] fp32."""
+    h, c = h0, c0
+    hs, cs, gates = [], [], []
+    for x in x_seq:
+        h, c, g = _cell(x, h, c, kernel, bias)
+        hs.append(h)
+        cs.append(c)
+        gates.append(g)
+    return torch.stack(hs), torch.stack(cs), torch.stack(gates)
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
@@ -32,18 +55,20 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale=None):
     """Exact softmax attention (materialised scores), as
     ``repro/kernels/ref.py::flash_attention``. q [B,Sq,H,hd]; k/v
     [B,Skv,Kv,hd] with GQA head grouping (query head h reads kv head
     h // (H/Kv)). q positions are aligned to the end of kv
-    (q_pos = Skv - Sq + i). The scores are scaled after the product."""
+    (q_pos = Skv - Sq + i). The scores are scaled after the product, by
+    ``scale`` where given, else by 1/sqrt(hd)."""
     B, Sq, H, hd = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
     G = H // Kv
     qg = q.reshape(B, Sq, Kv, G, hd).float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
-    s = s / math.sqrt(hd)
+    s = s / math.sqrt(hd) if scale is None else s * scale
     qpos = torch.arange(Sq, device=q.device) + (Skv - Sq)
     kpos = torch.arange(Skv, device=q.device)
     ok = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)

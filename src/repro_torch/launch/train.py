@@ -2,8 +2,9 @@
 
 ``--paper`` runs the paper's exact experiment — queue-scheduled distributed
 training of the 2x50 LSTM on the reference package's own source text (JSDoop
-§V), through the Coordinator with K simulated volunteers, every LSTM cell
-step's forward in the hand-written CUDA kernel. ``--codec ternary`` puts
+§V), through the Coordinator with K simulated volunteers, each LSTM layer's
+forward over the whole sample one launch of the hand-written CUDA sequence
+kernel (``lstm_seq``). ``--codec ternary`` puts
 each volunteer's gradient through TernGrad with error feedback (encode and
 decode in the hand-written ternary kernels, on the volunteer) and counts
 its packed size in ``bytes_sent``; ``--transport wire`` round-trips every
@@ -41,7 +42,7 @@ def run_paper(*, workers: int = 4, versions: int = 8, seed: int = 0,
     print(f"[paper] vocab={prob.cfg.vocab} params={prob.grad_bytes // 4} "
           f"versions={n_versions} workers={workers} device={prob.device} "
           f"codec={codec} transport={transport}")
-    launches0 = K.lstm_cell.launches
+    seq0, cell0 = K.lstm_seq.launches, K.lstm_cell.launches
     enc0, dec0 = T.ternary_encode.launches, T.ternary_decode.launches
     t0 = time.time()
     coord = Coordinator(prob, n_workers=workers, n_versions=n_versions,
@@ -55,9 +56,10 @@ def run_paper(*, workers: int = 4, versions: int = 8, seed: int = 0,
           f"loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f}; "
           f"requeues={res.requeues}")
     maps = sum(res.tasks_by_worker.values()) - n_versions
-    print(f"[paper] lstm_cell kernel launches="
-          f"{K.lstm_cell.launches - launches0} over {maps} maps "
-          f"({prob.cell_launches_per_map} cell steps per map); "
+    print(f"[paper] lstm_seq kernel launches="
+          f"{K.lstm_seq.launches - seq0} over {maps} maps "
+          f"({prob.seq_launches_per_map} per map, one a layer), lstm_cell "
+          f"launches={K.lstm_cell.launches - cell0}; "
           f"ternary encode/decode launches="
           f"{T.ternary_encode.launches - enc0}/"
           f"{T.ternary_decode.launches - dec0}; bytes_sent={res.bytes_sent}"

@@ -7,9 +7,11 @@ cross-entropy on the next char. Keras/TF gate order (i, f, c, o) and unit
 forget-gate bias, matching TensorFlow.js semantics.
 
 Params are plain dicts of tensors, the JAX package's pytree layout, so the
-control plane passes them around unchanged. Every cell step's forward goes
-through ``kernels.ops.lstm_cell`` (the CUDA kernel on the card); its gradient
-is plain PyTorch (the JAX package has no backward kernel either).
+control plane passes them around unchanged. Each layer's forward over the
+whole sequence is one ``kernels.ops.lstm_seq`` call (one launch of the CUDA
+sequence kernel on the card); its gradient is backpropagation through time
+in plain PyTorch from the gates the forward saved (the JAX package has no
+backward kernel either).
 """
 from __future__ import annotations
 
@@ -17,7 +19,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels import ref
 
 
 def _dense_init(generator, shape, scale):
@@ -47,43 +48,72 @@ def init_lstm_model(generator: torch.Generator, cfg, vocab: int, device):
     return {"layers": layers, "head": head}
 
 
-class _Cell(torch.autograd.Function):
-    """Kernel forward; plain-torch backward recomputing the cell from the
-    saved inputs (z = [x,h] @ W + b and the gates)."""
+class _Seq(torch.autograd.Function):
+    """One layer over the whole sequence: the kernel's forward, and
+    backpropagation through time in plain PyTorch from the saved gates.
+
+    Per step t, from the last: dh = dhs[t] + dh_next, dc = dc_next + dh *
+    o * (1 - tanh(c_t)^2), dz_t = (dc * g * i(1-i), dc * c_{t-1} * f(1-f),
+    dc * i * (1-g^2), dh * tanh(c_t) * o(1-o)), then dh_next = dz_t @
+    W_h^T and dc_next = dc * f. After the loop one product each gives dW =
+    [x; h_prev]^T dZ over all T*B rows and dx = dZ W_x^T (skipped where
+    x needs no gradient, as layer 0's one-hot input), and db = dZ.sum(0)."""
 
     @staticmethod
-    def forward(ctx, x, h, c, kernel, bias):
-        ctx.save_for_backward(x, h, c, kernel, bias)
-        return ops.lstm_cell(x, h, c, kernel, bias)
+    def forward(ctx, x_seq, h0, c0, kernel, bias):
+        hs, cs, gates = ops.lstm_seq(x_seq, h0, c0, kernel, bias)
+        ctx.save_for_backward(x_seq, h0, c0, kernel, hs, cs, gates)
+        return hs
 
     @staticmethod
-    def backward(ctx, dh, dc):
-        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            h_new, c_new = ref.lstm_cell(*inputs)
-        return torch.autograd.grad((h_new, c_new), inputs, (dh, dc))
-
-
-def lstm_cell(p, x, hc):
-    """One step. x [B, d_in]; hc = (h [B,H], c [B,H])."""
-    h, c = hc
-    return _Cell.apply(x, h, c, p["kernel"], p["bias"])
+    def backward(ctx, dhs):
+        x_seq, h0, c0, kernel, hs, cs, gates = ctx.saved_tensors
+        T, B, Din = x_seq.shape
+        H = h0.shape[1]
+        f32 = torch.float32
+        w = kernel.to(f32)
+        c = cs.to(f32)
+        c_prev = torch.cat([c0.to(f32)[None], c[:-1]])
+        i, f, g, o = gates.split(H, dim=-1)
+        tanh_c = torch.tanh(c)
+        # the factors of the chain that do not depend on it, for all t
+        dz_dc = torch.stack([g * i * (1 - i), c_prev * f * (1 - f),
+                             i * (1 - g * g)], -2)           # [T, B, 3, H]
+        dz_dh = tanh_c * o * (1 - o)
+        dc_dh = o * (1 - tanh_c * tanh_c)
+        w_h_t = w[Din:].t()
+        dz = torch.empty(T, B, 4 * H, dtype=f32, device=dhs.device)
+        dh = torch.zeros(B, H, dtype=f32, device=dhs.device)
+        dc = torch.zeros(B, H, dtype=f32, device=dhs.device)
+        dhs = dhs.to(f32)
+        for t in range(T - 1, -1, -1):
+            dh = dhs[t] + dh
+            dc = torch.addcmul(dc, dh, dc_dh[t])
+            torch.mul(dz_dc[t], dc[:, None], out=dz[t, :, :3 * H].view(B, 3, H))
+            torch.mul(dz_dh[t], dh, out=dz[t, :, 3 * H:])
+            dc = dc * f[t]
+            dh = dz[t] @ w_h_t
+        dz2 = dz.view(T * B, 4 * H)
+        h_prev = torch.cat([h0.to(f32)[None], hs.to(f32)[:-1]])
+        xh = torch.cat([x_seq.to(f32), h_prev], -1).view(T * B, Din + H)
+        d_kernel = (xh.t() @ dz2).to(kernel.dtype)
+        d_bias = dz2.sum(0).to(kernel.dtype)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = (dz2 @ w[:Din].t()).view(T, B, Din).to(x_seq.dtype)
+        return dx, dh.to(h0.dtype), dc.to(c0.dtype), d_kernel, d_bias
 
 
 def apply_lstm_model(params, onehot):
-    """onehot [B, T, V] -> next-char logits [B, V]. A Python loop over T
-    stands in for ``lax.scan``."""
+    """onehot [B, T, V] -> next-char logits [B, V]. Each layer runs the
+    whole sequence in one ``lstm_seq`` call, where JAX runs ``lax.scan``."""
     B = onehot.shape[0]
     x_seq = onehot.transpose(0, 1).contiguous()              # [T, B, V]
     for lp in params["layers"]:
         H = lp["kernel"].shape[1] // 4
         h = torch.zeros(B, H, dtype=onehot.dtype, device=onehot.device)
-        c = torch.zeros_like(h)
-        hs = []
-        for x in x_seq:
-            h, c = lstm_cell(lp, x, (h, c))
-            hs.append(h)
-        x_seq = torch.stack(hs)                               # [T, B, H]
+        x_seq = _Seq.apply(x_seq, h, torch.zeros_like(h), lp["kernel"],
+                           lp["bias"])                        # [T, B, H]
     last = x_seq[-1]                                          # [B, H]
     return last @ params["head"]["w"] + params["head"]["b"]
 

@@ -22,6 +22,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch import configs as C
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as RN
@@ -326,7 +327,7 @@ def test_flash_wrapper_routes_by_dtype(dtype, route, kernel):
 @pytest.mark.parametrize("bad,why", [("cpu", "not a CUDA device"),
                                      ("seq", "Sq == Skv"),
                                      ("groups", "not a positive multiple"),
-                                     ("head_dim", "head dim 48"),
+                                     ("head_dim", "head dim 200"),
                                      ("dtype", "v is torch.bfloat16"),
                                      ("strided", "k is not contiguous"),
                                      ("window", "window -1"),
@@ -340,8 +341,8 @@ def test_flash_wrapper_raises(bad, why):
         q = torch.ones(1, 6, 4, 16)
     elif bad == "groups":
         k = v = torch.ones(1, 8, 3, 16)
-    elif bad == "head_dim":
-        q, k, v = (torch.ones(1, 8, n, 48) for n in (4, 2, 2))
+    elif bad == "head_dim":         # above the widest kernel (192)
+        q, k, v = (torch.ones(1, 8, n, 200) for n in (4, 2, 2))
     elif bad == "dtype":
         v = v.bfloat16()
     elif bad == "strided":
@@ -356,3 +357,111 @@ def test_flash_wrapper_raises(bad, why):
     with pytest.raises(ValueError, match=why):
         FA.flash_attention(q, k, v, window=window)
     assert FA.flash_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# head widths the kernels are not built for, and calls of 2^31 elements
+# ---------------------------------------------------------------------------
+
+def _plain_attend(q, k, v, causal, window, scale):
+    return ref.flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
+
+
+@pytest.mark.parametrize("arch", [a for a in C.ARCH_IDS
+                                  if C.get(a).family == "dense"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_config_head_dims_reach_the_device_check(arch, dtype):
+    """Every dense config's head width passes the wrapper's checks up to the
+    device refusal (nemotron-4-340b's hd 192 was refused before)."""
+    hd = C.get(arch).hd
+    q, k, v = (torch.ones(1, 4, n, hd, dtype=dtype) for n in (2, 1, 1))
+    with pytest.raises(ValueError, match="q is on cpu, not a CUDA device"):
+        FA._check(q, k, v, 0)
+    assert FA.native_head_dim(hd) == hd
+
+
+@pytest.mark.parametrize("hd", [8, 48, 80, 96, 160])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_padded_path_equals_unpadded_plain(hd, causal, window):
+    """The wrapper's padding (zero columns up to the next built width, the
+    true 1/sqrt(hd) passed as the scale, the output cut back), run with the
+    plain version, against the plain version at hd itself; fp32 at the
+    sweep's tolerance (the scale is multiplied, not divided: last bits)."""
+    (_, tq), (_, tk), (_, tv) = _qkv(2, 33, 4, 2, hd, "float32", hd)
+    seen = []
+
+    def attend(q, k, v, causal, window, scale):
+        seen.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
+        return _plain_attend(q, k, v, causal, window, scale)
+
+    got = FA._padded(attend, tq, tk, tv, causal, window)
+    wide = FA.native_head_dim(hd)
+    assert wide > hd and seen == [(wide, wide, wide, 1.0 / math.sqrt(hd))]
+    assert got.shape == tq.shape and got.is_contiguous()
+    want = ref.flash_attention(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=FLASH_RTOL,
+                               atol=FLASH_ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_hd192_plain_matches_jax(dtype):
+    """hd 192 is built natively: the path runs unpadded, and the plain
+    version there meets the JAX oracle and the Pallas kernel (interpret
+    mode) at the sweep's tolerance (fp32) and _tol (bf16)."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 64, 4, 2, 192, dtype, 192)
+    calls = []
+
+    def attend(q, k, v, causal, window, scale):
+        calls.append(q.shape[-1])
+        return _plain_attend(q, k, v, causal, window, scale)
+
+    got = FA._padded(attend, tq, tk, tv, True, 0)
+    assert calls == [192] and got.dtype == tq.dtype
+    rtol, atol = (FLASH_RTOL, FLASH_ATOL) if dtype == "float32" else \
+        (TOL[dtype], TOL[dtype])
+    _close(got, jref.flash_attention(jq, jk, jv), rtol, atol)
+    _close(got, jops.flash_attention(jq, jk, jv, blk_q=64, blk_k=64,
+                                     interpret=True), rtol, atol)
+
+
+@pytest.mark.parametrize("B,S,H,Kv,hd,n", [
+    (4, 1024, 64, 8, 128, 1),           # qwen's prefill: one launch
+    (32, 32768, 32, 32, 64, 2),         # stablelm prefill_32k: exactly 2^31
+    (257, 1024, 64, 8, 128, 2),         # chip_smoke's split case
+    (70000, 8, 2, 1, 16, 2),            # past the grid's 65,535 rows
+    (1, 1, 1, 1, 16, 1)])
+def test_batch_chunks_cover_the_batch_below_2_31(B, S, H, Kv, hd, n):
+    chunks = FA._batch_chunks(B, S, H, Kv, hd)
+    assert len(chunks) == n
+    assert chunks[0][0] == 0 and chunks[-1][1] == B
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    sizes = [b1 - b0 for b0, b1 in chunks]
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+    assert all(s * S * H * hd < 2 ** 31 and s <= 65535 for s in sizes)
+
+
+def test_batch_chunks_refuse_one_entry_of_2_31():
+    with pytest.raises(ValueError, match="one batch entry .* 2\\^31"):
+        FA._batch_chunks(1, 2 ** 16, 128, 8, 256)
+    q, k, v = (torch.empty(1, 2 ** 18, n, 128, device="meta")
+               for n in (64, 8, 8))
+    with pytest.raises(ValueError, match="one batch entry"):
+        FA._check(q, k, v, 0)
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+def test_flash_check_takes_2_31_elements(hd):
+    """stablelm-1.6b's prefill_32k shape (2^31 elements at hd 64) passes
+    every check up to the device refusal (meta tensors: no memory), and
+    expanded tensors are refused for their strides, not their size."""
+    shape = (32, 32768, 32, hd)
+    q, k, v = (torch.empty(*shape, dtype=torch.bfloat16, device="meta")
+               for _ in range(3))
+    assert q.numel() >= 2 ** 31
+    with pytest.raises(ValueError, match="q is on meta, not a CUDA device"):
+        FA._check(q, k, v, 0)
+    q, k, v = (torch.ones(1, 1, 1, 1, dtype=torch.bfloat16).expand(*shape)
+               for _ in range(3))
+    with pytest.raises(ValueError, match="q is not contiguous"):
+        FA._check(q, k, v, 0)

@@ -86,7 +86,7 @@ def test_paper_problem_sizes():
     assert prob.n_params == 54_245
     assert prob.grad_bytes == 216_980
     assert prob.model_bytes == 2 * 216_980 + 4        # + int32 step
-    assert prob.cell_launches_per_map == 80
+    assert prob.seq_launches_per_map == 2
     assert prob.n_versions == 80
 
 

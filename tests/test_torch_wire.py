@@ -25,9 +25,10 @@ from repro_torch.core import protocol as P
 from repro_torch.core.coordinator import Coordinator
 from repro_torch.core.dataserver import DataServer
 from repro_torch.core.initiator import enqueue_problem
+from repro_torch.core import aggregation
 from repro_torch.core.mapreduce import (TrainingProblem,
                                         sequential_accumulated,
-                                        sequential_async)
+                                        sequential_async, sequential_local)
 from repro_torch.core.queue import QueueServer
 from repro_torch.core.tasks import GradResult, results_queue
 from repro_torch.core.transport import (FaultSpec, FaultyTransport,
@@ -103,6 +104,29 @@ def test_wire_async_matches_sequential_async(problem, k):
                       transport="wire").run()
     assert res.final_version == 16          # 4 versions x 4 mini-batches
     assert _bitmatch((res.params, res.opt_state), (ref_params, ref_state))
+
+
+def test_wire_local_matches_sequential_local(problem):
+    """LocalSteps(k=4) over the wire: the policy-matrix cell the smoke
+    below runs, bit-equal to ``sequential_local``."""
+    ref_params, ref_state, _ = sequential_local(problem, k=4)
+    res = Coordinator(problem, n_workers=3, policy="local:4",
+                      transport="wire").run()
+    assert res.final_version == 4            # 16 mini-batches in rounds of 4
+    assert _bitmatch((res.params, res.opt_state), (ref_params, ref_state))
+
+
+def test_aggregation_smoke_runs_every_policy_over_both_transports(capsys):
+    """``python -m repro_torch.core.aggregation --smoke`` on the CPU: three
+    policies x {inproc, wire}, each cell bit-equal to its reference, as
+    ``repro/core/aggregation.py::main`` runs them."""
+    aggregation.main(n_workers=3, device="cpu")
+    rows = [line.split(",") for line in capsys.readouterr().out.splitlines()
+            if line.startswith("aggregation_smoke,")]
+    assert [(r[1], r[2]) for r in rows] == [
+        (p, t) for p in ("sync", "staleness:2", "local:4")
+        for t in ("inproc", "wire")]
+    assert all(r[-1] == "True" and r[3] == r[4] for r in rows)
 
 
 # ---------------------------------------------------------------------------
