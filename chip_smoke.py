@@ -22,28 +22,44 @@ Phases, each printing its result; any failure exits non-zero:
    chained ``lstm_cell`` launches, timed at the paper's two layers beside
    its bound, the plain version, a CUDA graph replaying 40 ``lstm_cell``
    launches and cuDNN's ``torch.nn.LSTM`` on the same weights;
-   ``ternary_encode`` byte for byte and ``ternary_decode`` bit for bit over
-   the JAX sweep and the six paper leaves (padded, with values planted at
-   ``±s/2`` and their neighbours); ``rmsnorm`` over the JAX sweep (fp32,
+   ``ternary_encode`` byte for byte and ``ternary_decode`` bit for bit (the
+   single-leaf counterparts of the Pallas bodies) over the JAX sweep and the
+   six paper leaves (padded, with values planted at ``±s/2`` and their
+   neighbours), every byte value decoded at s = 0.37, inf and NaN (NaN as
+   NaN); the gradient-level kernels (error feedback, encode, decode: every
+   leaf in one launch) over the planted leaves as one 6-leaf tree, against
+   their plain versions and the per-leaf chain of single-leaf launches, bit
+   for bit, and the codec on leaves holding inf and NaN, card vs CPU; their
+   times per call at the paper's gradient, at one leaf of 2^26 and at 64
+   leaves summing to 2^26, beside the plain versions, the per-leaf chain
+   and the bound, with error feedback's kernels and device time per launch
+   under the profiler; ``rmsnorm`` over the JAX sweep (fp32,
    bf16, rows aligned or not) and qwen1.5-110b's prefill and decode rows
    ``[4096, 8192]`` / ``[4, 8192]`` bf16 (against ``F.rms_norm``), with
    the wrapper's host cost step by step at the decode rows;
    ``flash_attention`` over the JAX sweep x {causal, window 37, full} x
    {fp32, bf16}, the sweep again at hd = 128 in bf16, at hd = 192 (built
    natively, nemotron-4-340b's width) and at hd = 80 (zero-padded to 128)
-   in both dtypes, one call of more than 2^31 elements (q
-   ``[257,1024,64,128]`` bf16, split over batch; entries held bit for bit
-   against the kernel on that entry alone and against the plain version),
+   in both dtypes, at hd = 200 (padded to 256), 256, 576 and 1,024 in both
+   dtypes on the CUDA cores (causal, with and without a window), one call
+   of more than 2^31 elements (q ``[257,1024,64,128]`` bf16, one launch;
+   entries held bit for bit against the kernel on that entry alone and
+   against the plain version), one batch entry of exactly 2^31 elements (q
+   ``[1,131072,128,128]``, window 256, bf16 and fp32; its first and last
+   1,024 rows against the plain version on slices), a batch past the
+   grid's 65,535 entries (two launches),
    and qwen1.5-110b's prefill, q ``[4,1024,64,128]``, k/v
    ``[4,1024,8,128]``, causal, in bf16 and fp32 with a near-uniform and a
    peaked softmax (the peaked fp32 case against an fp64 attention), timed
    in bf16 (the tensor-core kernel) against SDPA and in fp32 (the CUDA-core
-   kernel) against SDPA in fp32;
+   kernel) against SDPA in fp32, and at hd 256 in both dtypes (the CUDA-core
+   kernel) against SDPA;
 3. the gradient of ``lstm_loss`` at the paper width through the sequence
    kernel and its backpropagation through time against autograd through the
    per-step plain path on the card, and the ternary codec's
-   error-feedback round trip (three steps) on the card against the CPU, bit
-   for bit;
+   error-feedback round trip (three steps) on the card against the CPU and
+   against the per-leaf chain of single-leaf launches on the card, bit for
+   bit;
 4. the LSTM training paths, each through
    ``repro_torch.launch.train.run_paper`` (3 volunteers, 3 versions, the
    Coordinator) on the card with every launch count set to 0 just before
@@ -55,12 +71,15 @@ Phases, each printing its result; any failure exits non-zero:
    moved, ``wire_bytes``, printed beside the dense wire run's), its
    in-process twin (bit-equal), and a short top-k run under deterministic
    mode, each run's launch counts held to its path (2 ``lstm_seq``, one a
-   layer, and no ``lstm_cell`` per map and, under TernGrad, 6 of each
-   ternary kernel per map, else none); then the
+   layer, and no ``lstm_cell`` per map and, under TernGrad, 2 ternary
+   error-feedback launches per map and no ternary encode or decode launch,
+   else none); then the
    four dense/ternary x inproc/wire runs once more in reverse order, for
    their seconds per version;
 5. where one map's time goes: wall time, and a ``torch.profiler`` window's
-   device busy share, kernels and ``lstm_seq``'s device time a launch;
+   device busy share, kernels and ``lstm_seq``'s device time a launch; the
+   same for one ternary error feedback of a paper gradient (exactly 2
+   kernels);
 6. the serving path: qwen1.5-110b at full width cut to 4 of its 80 layers
    (7,927,349,248 parameters, bf16, random weights from seed 0) served by
    ``repro_torch.launch.serve.serve`` (8 requests in batches of 4, 1,024
@@ -102,9 +121,11 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
 
 # the paper's gradient: 6 leaves; the codec counts ceil(n/4) + 4 bytes a
-# leaf under TernGrad, 13,586 bytes in all against 216,980 dense
-PAPER_N_LEAVES = 6
+# leaf under TernGrad, 13,586 bytes in all against 216,980 dense; its error
+# feedback is two launches (a scale pass, then codes, decoded gradient and
+# residual) for the whole gradient
 TERNARY_GRAD_BYTES = 13_586
+TERNARY_EF_LAUNCHES = 2
 
 # tolerances of the JAX package's kernel tests (tests/test_kernels.py::_tol)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -362,14 +383,21 @@ def phase_lstm_seq(torch, K, ref, paper):
 # kernel, layer 1 bias and kernel), their element counts before padding
 PAPER_LEAVES = [95, 4750, 200, 29000, 200, 20000]
 TERNARY_SWEEP = [4, 128, 4096, 10000]      # tests/test_kernels.py
+# the large sizes the gradient-level kernels are timed at: one leaf of 2^26
+# fp32 and 64 leaves summing to 2^26
+TERNARY_LARGE = {"1 x 2^26": [2 ** 26], "64 x 2^20": [2 ** 20] * 64}
+# bytes an element each gradient-level call must move: encode reads g and
+# writes its 2-bit code; decode the reverse; error feedback reads g and r
+# and writes the decoded value, the residual and the code
+TERNARY_BYTES = {"encode": 4.25, "decode": 4.25, "ef_compress": 16.25}
 
 
-def ternary_bound_ms(n):
-    """Least time for one encode or decode of n (padded) elements: fp32
-    [n] and uint8 [n/4] and the scale each crossed once at HBM rate; the
-    ~4 operations per element (abs, compare, select, shift-or) at fp32
+def ternary_bound_ms(n, per_elem=4.25, n_leaves=1):
+    """Least time for a call over n (padded) elements: ``per_elem`` bytes
+    an element and a scale a leaf crossed once at HBM rate; the ~4
+    operations per element (abs, compare, select, shift-or) at fp32
     peak."""
-    moved = 4 * n + n // 4 + 4
+    moved = per_elem * n + 4 * n_leaves
     ops = 4 * n
     t_b, t_o = moved / PEAK_BYTES_S, ops / PEAK_FP32_FLOP_S
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
@@ -401,9 +429,57 @@ def bits_equal(torch, a, b) -> bool:
                                               b.view(torch.int32))
 
 
+def nan_equal(torch, a, b) -> bool:
+    """Bit-for-bit equality of two fp32 tensors, except that any NaN
+    matches any NaN (the card's canonical NaN is not the CPU's)."""
+    a, b = a.float().cpu(), b.float().cpu()
+    if a.shape != b.shape or not torch.equal(a.isnan(), b.isnan()):
+        return False
+    keep = ~a.isnan()
+    return torch.equal(a[keep].view(torch.int32), b[keep].view(torch.int32))
+
+
+def max_finite_err(torch, got, want) -> float:
+    """max |got - want| over the values both hold finite (0 where none)."""
+    pairs = [(a.float().cpu().reshape(-1), b.float().cpu().reshape(-1))
+             for a, b in zip(got, want)]
+    errs = [(a - b)[a.isfinite() & b.isfinite()].abs() for a, b in pairs]
+    return max((e.max().item() for e in errs if e.numel()), default=0.0)
+
+
+def per_leaf_chain(torch, T, gs, rs):
+    """Error feedback leaf by leaf through the single-leaf wrappers (the
+    Pallas bodies' counterparts), as the codec ran before the gradient-level
+    pass: (packed, s, decoded, residual) per leaf, on the card."""
+    out = []
+    for g, r in zip(gs, rs):
+        c = g + r
+        n = c.numel()
+        s = torch.clamp_min(c.abs().max(), 1e-12)
+        flat = torch.cat([c.reshape(-1), c.new_zeros(-n % 4)])
+        packed = T.ternary_encode(flat, s)
+        d = T.ternary_decode(packed, s)[:n].reshape(c.shape)
+        out.append((packed[:-(-n // 4)], s, d, c - d))
+    return out
+
+
+def ternary_leaves(torch, sizes, seed, scale=1.0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(n, generator=g, device="cuda") * scale
+            for n in sizes]
+
+
 def phase_ternary(torch, T, ref):
-    """ternary_encode byte for byte and ternary_decode bit for bit against
-    their plain versions; times at the paper's largest leaf."""
+    """The single-leaf wrappers (the Pallas bodies' counterparts) byte for
+    byte and bit for bit against their plain versions, every byte value
+    decoded at s = 0.37, inf and NaN; the gradient-level kernels (error
+    feedback, encode, decode) against theirs and against the per-leaf chain
+    over the planted leaves as a 6-leaf tree, and at non-finite scales.
+    Then times: the single-leaf pair at the paper's largest leaf, and every
+    gradient-level call at the paper's gradient and at 2^26 elements (one
+    leaf, 64 leaves) beside its plain version, the per-leaf chain and its
+    bound. The launches here are comparisons, made before any path's
+    counts are reset."""
     cases = [(f"sweep N={n}", planted_leaf(torch, n, seed=n)) for n in
              TERNARY_SWEEP]
     cases += [(f"paper leaf n={n}", planted_leaf(torch, n, seed=7 + i))
@@ -430,13 +506,20 @@ def phase_ternary(torch, T, ref):
                       f"({name})")
         check(dec_ok, f"ternary_decode differs from its plain version "
                       f"({name})")
-    # every byte value, codes 0b11 included, decodes as the plain version
+    # every byte value, codes 0b11 included, decodes as the plain version,
+    # at a finite scale and at the two non-finite ones (0 * s is NaN there)
     every = torch.arange(256, dtype=torch.uint8, device="cuda")
-    s = torch.tensor(0.37, device="cuda")
-    ok = bits_equal(torch, T.ternary_decode(every, s),
-                    ref.ternary_decode_packed(every, s))
-    print(f"[kernel] ternary_decode of all 256 byte values bit-equal: {ok}")
-    check(ok, "ternary_decode differs from its plain version on some byte")
+    for sv in (0.37, float("inf"), float("nan")):
+        s = torch.tensor(sv, device="cuda")
+        ok = nan_equal(torch, T.ternary_decode(every, s),
+                       ref.ternary_decode_packed(every, s))
+        print(f"[kernel] ternary_decode of all 256 byte values at s={sv} "
+              f"equal to the plain version (NaN as NaN): {ok}")
+        check(ok, f"ternary_decode differs from its plain version at "
+                  f"s={sv}")
+
+    grad_err = phase_ternary_leaves(torch, T, ref)
+    phase_ternary_non_finite(torch)
 
     n = max(PAPER_LEAVES)
     g = planted_leaf(torch, n, seed=3).cuda()
@@ -451,14 +534,189 @@ def phase_ternary(torch, T, ref):
              lambda: ref.ternary_decode_packed(pk, s))):
         ms = median_ms(kern, torch)
         plain_ms = median_ms(plain, torch)
-        print(f"[kernel] ternary_{key} time N={n} fp32: kernel {ms:.5f} ms, "
-              f"plain {plain_ms:.5f} ms, no one-call PyTorch equivalent, "
-              f"bound {bound:.6f} ms ({by})")
-        rows[key] = dict(n=n, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                         bound_by=by)
-    rows["encode"]["max_abs_err"] = worst["enc"]
-    rows["decode"]["max_abs_err"] = worst["dec"]
+        print(f"[kernel] ternary_{key} (single leaf) time N={n} fp32: kernel "
+              f"{ms:.5f} ms, plain {plain_ms:.5f} ms, no one-call PyTorch "
+              f"equivalent, bound {bound:.6f} ms ({by})")
+        rows[key] = dict(single_leaf=dict(n=n, ms=ms, plain_ms=plain_ms,
+                                          bound_ms=bound, bound_by=by))
+    rows["encode"]["max_abs_err"] = max(worst["enc"], grad_err["encode"])
+    rows["decode"]["max_abs_err"] = max(worst["dec"], grad_err["decode"])
+    rows["ef_compress"] = {"max_abs_err": grad_err["ef_compress"]}
+    for name, sizes in [("paper", PAPER_LEAVES)] + list(TERNARY_LARGE.items()):
+        for key, row in ternary_times(torch, T, ref, sizes, name).items():
+            if name == "paper":
+                rows[key].update(row)
+            else:
+                rows[key][name] = row
     return rows
+
+
+def phase_ternary_leaves(torch, T, ref):
+    """The gradient-level kernels over the planted leaves as one 6-leaf
+    tree (leaves of the paper's sizes, each with the threshold's edge) and
+    over a tree of leaves of 1, 3, 4, 5 and 4,750: error feedback (packed
+    codes, scales, decoded, residual), encode (scales found and given) and
+    decode, bit for bit against the plain versions and the per-leaf chain
+    on the card. Returns the worst |kernel - plain| of each."""
+    worst = {"encode": 0.0, "decode": 0.0, "ef_compress": 0.0}
+    trees = {"planted paper leaves": PAPER_LEAVES,
+             "leaves of 1, 3, 4, 5, 4750": [1, 3, 4, 5, 4750]}
+    for name, sizes in trees.items():
+        gs = [planted_leaf(torch, n, seed=70 + i)[:n].cuda()
+              for i, n in enumerate(sizes)]
+        rs = [x * 0.01 for x in ternary_leaves(torch, sizes, seed=5)]
+        got = T.ef_compress_leaves(gs, rs, payload=True)
+        want = ref.ternary_ef(gs, rs, payload=True)
+        chain = list(zip(*per_leaf_chain(torch, T, gs, rs)))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got[0], want[0])) and \
+            all(bits_equal(torch, a.reshape(-1), b.reshape(-1))
+                for k in (1, 2, 3) for a, b in zip(got[k], want[k]))
+        as_chain = all(torch.equal(a, b) for a, b in zip(got[0], chain[0])) \
+            and all(bits_equal(torch, a.reshape(-1), b.reshape(-1))
+                    for k in (1, 2, 3) for a, b in zip(got[k], chain[k]))
+        worst["ef_compress"] = max(worst["ef_compress"], max_finite_err(
+            torch, got[2] + got[3], want[2] + want[3]))
+        pk, sk = T.encode_leaves(gs)
+        pw, sw = ref.ternary_encode_leaves(gs)
+        pk2, _ = T.encode_leaves(gs, sw)
+        dk = T.decode_leaves(pk, sk, [g.shape for g in gs])
+        dw = ref.ternary_decode_leaves(pw, sw, [g.shape for g in gs])
+        torch.cuda.synchronize()
+        enc = all(torch.equal(a, b) for a, b in zip(pk, pw)) and \
+            all(torch.equal(a, b) for a, b in zip(pk2, pw)) and \
+            all(bits_equal(torch, a.reshape(-1), b.reshape(-1))
+                for a, b in zip(sk, sw))
+        dec = all(bits_equal(torch, a, b) for a, b in zip(dk, dw))
+        worst["decode"] = max(worst["decode"], max_finite_err(torch, dk, dw))
+        print(f"[kernel] ternary gradient level, {name}: error feedback "
+              f"(codes, scales, decoded, residual) bit-equal to the plain "
+              f"version {same} and to the per-leaf chain of single-leaf "
+              f"launches {as_chain}; encode (scales found, given) "
+              f"{enc}; decode {dec}")
+        check(same and as_chain and enc and dec,
+              f"gradient-level ternary kernels differ ({name})")
+    return worst
+
+
+def phase_ternary_non_finite(torch):
+    """The codec on a gradient with a leaf holding inf and one holding NaN:
+    error feedback, encode and decode on the card against the CPU, NaN as
+    NaN (every value of such a leaf decodes to 0 * s = NaN, as in the JAX
+    codec), the finite leaves bit for bit."""
+    from repro_torch import tree
+    from repro_torch.optim import compression as TC
+    g = torch.Generator().manual_seed(9)
+    grads = {"inf": torch.randn(4750, generator=g),
+             "nan": torch.randn(200, generator=g),
+             "ok": torch.randn(50, 95, generator=g)}
+    grads["inf"][17] = float("inf")
+    grads["nan"][3] = float("nan")
+    codec = TC.make_codec("ternary")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        gd = tree.to_device(grads, dev)
+        r = tree.map(lambda x: x * 0.01, gd)
+        d, r2, n = TC.ef_compress(codec, gd, r)
+        p, nb = TC.ternary_encode(gd)
+        res[dev] = (tree.leaves((d, r2, TC.ternary_decode(p))),
+                    [q["s"] for q in tree.leaves(p, is_leaf=TC._is_payload)],
+                    [q["packed"] for q in tree.leaves(p,
+                                                      is_leaf=TC._is_payload)],
+                    (n, nb))
+    torch.cuda.synchronize()
+    (lc, sc, pc, nc), (lp, sp, pp, np_) = res["cuda"], res["cpu"]
+    ok = all(nan_equal(torch, a, b) for a, b in zip(lc + sc, lp + sp)) and \
+        all(torch.equal(a.cpu(), b) for a, b in zip(pc, pp)) and nc == np_
+    nan_leaves = all(bool(x.isnan().all()) for x in
+                     (res["cuda"][0][0], res["cuda"][0][1]))
+    print(f"[codec] ternary codec with an inf leaf and a NaN leaf, card vs "
+          f"CPU (NaN as NaN): equal {ok}; those leaves decode to NaN "
+          f"throughout {nan_leaves}; nbytes {nc}")
+    check(ok and nan_leaves, "the ternary codec at a non-finite scale "
+                             "differs between the card and the CPU")
+
+
+def ternary_times(torch, T, ref, sizes, name):
+    """Per-call times of the gradient-level wrappers over leaves of these
+    sizes, each beside its plain version (at the paper's size), the
+    per-leaf chain of single-leaf launches and its bound; and error
+    feedback under the profiler: kernels, device time per launch, host
+    ms around a synchronize."""
+    n = sum(sizes)
+    large = n > 10 ** 6
+    timing = dict(reps=10, inner=5) if large else {}
+    gs = ternary_leaves(torch, sizes, seed=len(sizes))
+    rs = [x * 0.01 for x in ternary_leaves(torch, sizes, seed=99)]
+    pk, sk = T.encode_leaves(gs)
+    shapes = [g.shape for g in gs]
+    calls = {
+        "encode": (lambda: T.encode_leaves(gs),
+                   lambda: ref.ternary_encode_leaves(gs)),
+        "decode": (lambda: T.decode_leaves(pk, sk, shapes),
+                   lambda: ref.ternary_decode_leaves(pk, sk, shapes)),
+        "ef_compress": (lambda: T.ef_compress_leaves(gs, rs),
+                        lambda: ref.ternary_ef(gs, rs))}
+    out = {}
+    for key, (kern, plain) in calls.items():
+        ms = median_ms(kern, torch, **timing)
+        plain_ms = None if large else median_ms(plain, torch, reps=10,
+                                                 inner=5)
+        bound, by = ternary_bound_ms(n, TERNARY_BYTES[key], len(sizes))
+        out[key] = dict(sizes=name, n=n, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound, bound_by=by)
+    out["ef_compress"]["chain_ms"] = median_ms(
+        lambda: per_leaf_chain(torch, T, gs, rs), torch, reps=10, inner=2)
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.ef_compress_leaves(gs, rs)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    reps = 10
+    window_ms, busy_ms, n_kernels, by_name, _ = profiled(
+        torch, lambda: T.ef_compress_leaves(gs, rs), reps)
+    window_ms, busy_ms, n_kernels = (window_ms / reps, busy_ms / reps,
+                                     n_kernels / reps)
+    out["ef_compress"].update(
+        host_ms=statistics.median(walls[1:]), kernels=n_kernels,
+        busy_ms=busy_ms, window_ms=window_ms,
+        scale_device_ms=per_launch_ms(by_name, "ternary_scale_kernel"),
+        ef_device_ms=per_launch_ms(by_name, "ternary_ef_kernel"))
+    for key, kern, frag in (("encode", calls["encode"][0],
+                             "ternary_encode_kernel"),
+                            ("decode", calls["decode"][0],
+                             "ternary_decode_kernel")):
+        _, busy, n_k, names, _ = profiled(torch, kern, reps)
+        out[key].update(kernels=n_k / reps, busy_ms=busy / reps,
+                        device_ms=per_launch_ms(names, frag),
+                        scale_device_ms=per_launch_ms(
+                            names, "ternary_scale_kernel"))
+    e = out["ef_compress"]
+    print(f"[kernel] ternary gradient level, {len(sizes)} leaves ({name}): "
+          f"device time a launch: encode {fmt_ms(out['encode']['device_ms'])}"
+          f" (after a scale pass of "
+          f"{fmt_ms(out['encode']['scale_device_ms'])}), decode "
+          f"{fmt_ms(out['decode']['device_ms'])}")
+    print(f"[kernel] ternary gradient level, {len(sizes)} leaves ({name}), "
+          f"n={n}: per call encode {out['encode']['ms']:.5f} ms, decode "
+          f"{out['decode']['ms']:.5f} ms, error feedback {e['ms']:.5f} ms "
+          f"(bound {e['bound_ms']:.6f} ms at {TERNARY_BYTES['ef_compress']} "
+          f"B an element, {100 * e['bound_ms'] / e['ms']:.1f}% of it; "
+          f"encode/decode bound {out['encode']['bound_ms']:.6f} ms); plain "
+          f"encode/decode/ef {fmt_ms(out['encode']['plain_ms'])} / "
+          f"{fmt_ms(out['decode']['plain_ms'])} / {fmt_ms(e['plain_ms'])}; "
+          f"per-leaf chain of single-leaf launches {e['chain_ms']:.5f} ms; "
+          f"error feedback under the profiler: {n_kernels:g} kernels, device "
+          f"time a launch scale {fmt_ms(e['scale_device_ms'])}, ef "
+          f"{fmt_ms(e['ef_device_ms'])}; host {e['host_ms']:.4f} ms around "
+          f"a synchronize")
+    check(ternary_only(by_name) and
+          0 < n_kernels <= TERNARY_EF_LAUNCHES * -(-len(sizes) // 64),
+          f"error feedback over {len(sizes)} leaves ran {n_kernels:g} "
+          f"kernels a call: {sorted(by_name)}")
+    return out
 
 
 def plain_loss(torch, ref, params, batch):
@@ -513,7 +771,7 @@ def reset_counts(K, T):
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
     for fn in (K.lstm_cell, K.lstm_seq, T.ternary_encode, T.ternary_decode,
-               RN.rmsnorm, FA.flash_attention):
+               T.ef_compress_leaves, RN.rmsnorm, FA.flash_attention):
         fn.launches = 0
     FA.flash_attention.route_launches = dict.fromkeys(
         FA.flash_attention.route_launches, 0)
@@ -530,12 +788,13 @@ def same_model(torch, res, ref_params, ref_state) -> bool:
             tree.leaves((ref_params, ref_state)), strict=True))
 
 
-def phase_codec(torch):
+def phase_codec(torch, T):
     """The ternary codec's error-feedback chain on the card against the same
-    chain on the CPU, from the same three paper-width map gradients: the
-    decoded gradients, the residuals and the byte counts must be equal bit
-    for bit (the encode/decode kernels against their plain versions, inside
-    the codec)."""
+    chain on the CPU and against the per-leaf chain of single-leaf launches
+    on the card, from the same three paper-width map gradients: the decoded
+    gradients, the residuals and the byte counts must be equal bit for bit
+    (the gradient-level kernels against their plain versions and against
+    the previous per-leaf design, inside the codec)."""
     from repro_torch import tree
     from repro_torch.core.mapreduce import TrainingProblem
     from repro_torch.optim import ef_compress, ef_init, make_codec
@@ -544,20 +803,29 @@ def phase_codec(torch):
     codec = make_codec("ternary")
     r_gpu, r_cpu = ef_init(prob.params0), ef_init(tree.to_device(
         prob.params0, "cpu"))
+    r_chain = tree.leaves(r_gpu)
     for mb in range(3):
         g, _ = prob.map_compute(prob.params0, 0, mb)
         d_gpu, r_gpu, n_gpu = ef_compress(codec, g, r_gpu)
         d_cpu, r_cpu, n_cpu = ef_compress(codec, tree.to_device(g, "cpu"),
                                           r_cpu)
+        chain = per_leaf_chain(torch, T, tree.leaves(g), r_chain)
+        r_chain = [c[3] for c in chain]
         torch.cuda.synchronize()
         same = all(bits_equal(torch, a.cpu(), b) for a, b in zip(
             tree.leaves((d_gpu, r_gpu)), tree.leaves((d_cpu, r_cpu)),
             strict=True))
+        as_chain = all(bits_equal(torch, a, b) for a, b in zip(
+            tree.leaves((d_gpu, r_gpu)),
+            [c[2] for c in chain] + r_chain, strict=True))
         print(f"[codec] ternary ef_compress step {mb + 1}: decoded and "
-              f"residual card == cpu bit for bit: {same}; nbytes "
-              f"{n_gpu} (cpu {n_cpu}, dense {prob.grad_bytes})")
+              f"residual card == cpu bit for bit: {same}; == the per-leaf "
+              f"chain of single-leaf launches on the card: {as_chain}; "
+              f"nbytes {n_gpu} (cpu {n_cpu}, dense {prob.grad_bytes})")
         check(same, f"ternary codec step {mb + 1} differs between the card "
                     f"and the CPU")
+        check(as_chain, f"ternary codec step {mb + 1} differs from the "
+                        f"per-leaf chain")
         check(n_gpu == n_cpu == TERNARY_GRAD_BYTES,
               f"ternary nbytes {n_gpu}/{n_cpu}, expected "
               f"{TERNARY_GRAD_BYTES}")
@@ -592,7 +860,8 @@ def phase_main_path(torch, K, T):
     check(cell_launches == 0, f"{cell_launches} lstm_cell launches on the "
                               f"training path, expected none")
 
-    check(T.ternary_encode.launches == T.ternary_decode.launches == 0,
+    check(T.ternary_encode.launches == T.ternary_decode.launches ==
+          T.ef_compress_leaves.launches == 0,
           "the dense path launched a ternary kernel")
     p_seq, s_seq, l_seq = sequential_accumulated(prob, n_versions=versions)
     same = same_model(torch, res, p_seq, s_seq)
@@ -628,7 +897,8 @@ def phase_wire_paths(torch, K, T, prob, seq, dense_s):
         torch.cuda.synchronize()
         dt = time.time() - t0
         counts = (K.lstm_seq.launches, K.lstm_cell.launches,
-                  T.ternary_encode.launches, T.ternary_decode.launches)
+                  T.ef_compress_leaves.launches, T.ternary_encode.launches,
+                  T.ternary_decode.launches)
         tag = f"{codec}/{transport}"
         check(res.final_version == v, f"{tag}: final version "
                                       f"{res.final_version}, expected {v}")
@@ -637,16 +907,19 @@ def phase_wire_paths(torch, K, T, prob, seq, dense_s):
         n_maps = sum(res.tasks_by_worker.values()) - v
         check(n_maps == v * n_mb, f"{tag}: {n_maps} maps, expected "
                                   f"{v * n_mb}")
-        per_leaf = PAPER_N_LEAVES * n_maps if codec == "ternary" else 0
-        want = (prob.seq_launches_per_map * n_maps, 0, per_leaf, per_leaf)
-        check(counts == want, f"{tag}: launches lstm_seq/lstm_cell/encode/"
-                              f"decode {counts}, expected {want}")
+        # error feedback: a scale pass and one encode-decode-residual
+        # launch a gradient, no encode or decode launch of their own
+        ef = TERNARY_EF_LAUNCHES * n_maps if codec == "ternary" else 0
+        want = (prob.seq_launches_per_map * n_maps, 0, ef, 0, 0)
+        check(counts == want, f"{tag}: launches lstm_seq/lstm_cell/"
+                              f"ternary ef/encode/decode {counts}, expected "
+                              f"{want}")
         check((res.wire_bytes is not None) == (transport == "wire"),
               f"{tag}: wire_bytes {res.wire_bytes}")
         print(f"[wire] codec={codec} transport={transport}: "
               f"{dt / v:.3f} s per version (dense inproc {dense_s:.3f}), "
-              f"launches lstm_seq/lstm_cell/encode/decode {counts} "
-              f"(expected), "
+              f"launches lstm_seq/lstm_cell/ternary ef/encode/decode "
+              f"{counts} (expected), "
               f"codec bytes_sent {res.bytes_sent}, wire_bytes "
               f"{res.wire_bytes}, losses {res.losses}")
         return res, counts, dt / v
@@ -697,21 +970,31 @@ def phase_wire_paths(torch, K, T, prob, seq, dense_s):
     return counts, per_version, wire_bytes
 
 
-def profiled(torch, fn):
-    """Run ``fn`` once under ``torch.profiler``: (window ms on the host
-    clock, device busy ms, kernel count, {kernel name: (launches, ms)},
-    [(host op or runtime call, calls, self host ms)] by self time)."""
+def profiled(torch, fn, reps: int = 1, tries: int = 3):
+    """Run ``fn`` ``reps`` times under ``torch.profiler``: (window ms on the
+    host clock, device busy ms, kernel count, {kernel name: (launches,
+    ms)}, [(host op or runtime call, calls, self host ms)] by self time),
+    over all ``reps`` runs. A window that recorded no device event at all
+    (the profiler now and then loses a short window's whole device trace)
+    is taken again, up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()       # the window holds fn's work alone
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for attempt in range(tries):
+        torch.cuda.synchronize()   # the window holds fn's work alone
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+        print(f"[profile] window {attempt + 1} of {tries} recorded no "
+              f"device event; taken again")
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_name = {}
     for e in kernels:
@@ -720,6 +1003,13 @@ def profiled(torch, fn):
     host = sorted(((a.key, a.count, a.self_cpu_time_total / 1e3)
                    for a in prof.key_averages()), key=lambda r: -r[2])
     return window_ms, busy_ms, len(kernels), by_name, host
+
+
+def ternary_only(by_name) -> bool:
+    """Every kernel of a profiled window is the ternary scale pass or the
+    error-feedback kernel: no torch op launched anything around them."""
+    return all("ternary_scale_kernel" in name or "ternary_ef_kernel" in name
+               for name in by_name)
 
 
 def per_launch_ms(by_name, fragment):
@@ -779,18 +1069,26 @@ def phase_profile(torch, prob):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     codec_ms = statistics.median(walls[1:])
+    reps = 10
     window_ms, busy_ms, n_kernels, by_name, _ = profiled(
-        torch, lambda: ef_compress(codec, grads, residual))
-    enc_ms = per_launch_ms(by_name, "ternary_encode_kernel")
-    dec_ms = per_launch_ms(by_name, "ternary_decode_kernel")
+        torch, lambda: ef_compress(codec, grads, residual), reps)
+    window_ms, busy_ms, n_kernels = (window_ms / reps, busy_ms / reps,
+                                     n_kernels / reps)
+    scale_ms = per_launch_ms(by_name, "ternary_scale_kernel")
+    ef_ms = per_launch_ms(by_name, "ternary_ef_kernel")
     print(f"[profile] one ternary ef_compress of a paper gradient: "
-          f"{codec_ms:.3f} ms wall (median of 5, no profiler); profiled "
-          f"window {window_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / window_ms:.1f}%), {n_kernels} kernels; device "
-          f"time per launch: ternary_encode {fmt_ms(enc_ms)}, "
-          f"ternary_decode {fmt_ms(dec_ms)}")
+          f"{codec_ms:.4f} ms wall (median of 5, no profiler); profiled "
+          f"({reps} in a window) {window_ms:.4f} ms, device busy "
+          f"{busy_ms:.4f} ms ({100 * busy_ms / window_ms:.1f}%), "
+          f"{n_kernels:g} kernels; device "
+          f"time per launch: scale pass {fmt_ms(scale_ms)}, codes + decoded "
+          f"+ residual {fmt_ms(ef_ms)}")
+    check(ternary_only(by_name) and 0 < n_kernels <= TERNARY_EF_LAUNCHES,
+          f"one ternary ef_compress ran {n_kernels:g} kernels, expected "
+          f"{TERNARY_EF_LAUNCHES}: {sorted(by_name)}")
     return dict(map_ms=map_ms, seq_ms=seq_ms, map_profile=map_prof,
-                codec_ms=codec_ms, enc_ms=enc_ms, dec_ms=dec_ms)
+                codec_ms=codec_ms, codec_kernels=n_kernels,
+                codec_busy_ms=busy_ms, scale_ms=scale_ms, ef_ms=ef_ms)
 
 # ---------------------------------------------------------------------------
 # the dense transformer serving path (qwen1.5-110b at full width, 4 layers)
@@ -808,8 +1106,19 @@ FLASH_HD_WIDE = 128        # the sweep's cases again at qwen's head dim
 # ... at nemotron-4-340b's 192 (built natively) and at 80 (zero-padded to
 # 128 by the wrapper), both dtypes
 FLASH_HD_MORE = (192, 80)
-# one call of more than 2^31 elements (2^31 + 2^23 in q), split over batch
+# ... above the tensor-core kernel's 192, both dtypes on the CUDA cores: 200
+# (zero-padded to the 256 tier), 256, and 576 and 1,024 (the kernel that
+# sums over hd in chunks)
+FLASH_HD_WIDE_MORE = (200, 256, 576, 1024)
+# one call of more than 2^31 elements (2^31 + 2^23 in q), one launch
 FLASH_SPLIT = (257, 1024, 64, 8, 128)
+# one batch entry of exactly 2^31 elements of q, sliding window 256: the
+# last 1,024 rows, whose offsets lie past 2^31, and the first 1,024 held
+# against the plain version on a slice that holds every key they see
+FLASH_ENTRY = (1, 131072, 128, 16, 128)
+FLASH_ENTRY_WINDOW = 256
+# a batch past the grid's 65,535 entries a launch: two launches
+FLASH_GRID_SPLIT = (70000, 8, 2, 1, 16)
 # tests/test_kernels.py::test_flash_attention_sweep (fp32)
 FLASH_RTOL, FLASH_ATOL = 5e-5, 5e-6
 # at the qwen prefill shape in bf16: both paths compute in fp32 from the same
@@ -1092,9 +1401,32 @@ def phase_flash(torch, FA, ref):
                                             window=window),
                          ref.flash_attention(q, k, v, causal=causal,
                                              window=window), rtol, atol)
+            # widths above 192, on the CUDA cores in both dtypes, causal
+            # with and without a window
+            if not causal:
+                continue
+            for hd_x in FLASH_HD_WIDE_MORE:
+                for dtype in (torch.float32, torch.bfloat16):
+                    name = str(dtype).split(".")[-1]
+                    q, k, v = (randn(torch, (B, S, n, hd_x), dtype,
+                                     10 * i + j, 0.5)
+                               for j, n in enumerate((H, Kv, Kv)))
+                    rtol, atol = (FLASH_RTOL, FLASH_ATOL) \
+                        if name == "float32" else (TOL[name], TOL[name])
+                    held(torch, f"flash_attention B={B} S={S} H={H} Kv={Kv} "
+                         f"hd={hd_x} causal={causal} window={window} {name} "
+                         f"({FA.route(dtype, hd_x, S, H // Kv)})",
+                         FA.flash_attention(q, k, v, causal=causal,
+                                            window=window),
+                         ref.flash_attention(q, k, v, causal=causal,
+                                             window=window), rtol, atol)
     print(f"[kernel] flash_attention sweep launches by route "
           f"{FA.flash_attention.route_launches}, of them on padded inputs "
           f"{FA.flash_attention.padded_launches}")
+    check(all(FA.flash_attention.route_launches[r] > 0
+              for r in FA.flash_attention.route_launches),
+          f"a flash route was never taken: "
+          f"{FA.flash_attention.route_launches}")
     B, S, H, Kv, hd = SERVE["batch"], SERVE["prompt"], 64, 8, 128
     worst = 0.0
     for scale in QWEN_FLASH_SCALES:
@@ -1136,6 +1468,7 @@ def phase_flash(torch, FA, ref):
     finally:
         torch.use_deterministic_algorithms(True)
     del q32, k32, v32
+    wide = flash_wide_times(torch, FA, ref, B, S, H, Kv, 256)
     bound, by = flash_bound_ms(B, S, H, Kv, hd, 2)
     print(f"[kernel] flash_attention time B={B} S={S} H={H} Kv={Kv} "
           f"hd={hd} causal bf16 (tensor-core kernel): kernel {ms:.4f} ms, "
@@ -1145,44 +1478,136 @@ def phase_flash(torch, FA, ref):
           f"{lib32_ms:.4f} ms")
     return worst, dict(shape=[B, S, H, Kv, hd], ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound, bound_by=by,
-                       fp32_ms=fp32_ms, fp32_library_ms=lib32_ms)
+                       fp32_ms=fp32_ms, fp32_library_ms=lib32_ms,
+                       hd256=wide)
+
+
+def flash_wide_times(torch, FA, ref, B, S, H, Kv, hd):
+    """Per-call times at a head width above the tensor-core kernel's, both
+    dtypes (the CUDA-core kernel), beside SDPA in the same dtype and the
+    bound; each held to its plain version first at the qwen gate (bf16)
+    or the sweep's tolerance (fp32)."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        q, k, v = (randn(torch, (B, S, n, hd), dtype, 80 + j, 0.5)
+                   for j, n in enumerate((H, Kv, Kv)))
+        rtol, atol = (FLASH_RTOL, FLASH_ATOL) if name == "float32" \
+            else (TOL[name], QWEN_FLASH_BF16_ATOL)
+        err = held(torch, f"flash_attention B={B} S={S} H={H} Kv={Kv} "
+                   f"hd={hd} causal {name} ({FA.route(dtype, hd, S, H // Kv)})",
+                   FA.flash_attention(q, k, v), ref.flash_attention(q, k, v),
+                   rtol, atol)
+        ms = median_ms(lambda: FA.flash_attention(q, k, v), torch, reps=5,
+                       inner=2)
+        torch.use_deterministic_algorithms(False)
+        try:
+            lib_ms = median_ms(sdpa(torch, q, k, v), torch, reps=5, inner=2)
+        finally:
+            torch.use_deterministic_algorithms(True)
+        bound, by = flash_bound_ms(B, S, H, Kv, hd, q.element_size())
+        print(f"[kernel] flash_attention time B={B} S={S} H={H} Kv={Kv} "
+              f"hd={hd} causal {name} ({FA.route(dtype, hd, S, H // Kv)}): "
+              f"kernel {ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bound:.5f} "
+              f"ms ({by})")
+        out[name] = dict(ms=ms, library_ms=lib_ms, bound_ms=bound,
+                         bound_by=by, max_abs_err=err,
+                         route=FA.route(dtype, hd, S, H // Kv))
+        del q, k, v
+    return out
 
 
 def phase_flash_split(torch, FA, ref):
-    """One bf16 call of more than 2^31 elements (FLASH_SPLIT: q
-    [257,1024,64,128], ~10 GB in all), which the wrapper splits over batch:
-    exactly len(_batch_chunks) launches, and entries at both ends and at the
-    seam held bit for bit against the kernel run on that entry alone and
-    against the plain version at the qwen gate. Returns the launches."""
+    """Calls of 2^31 elements or more: one bf16 call of more than 2^31
+    elements over batch (FLASH_SPLIT, ~10 GB) in one launch, entries at
+    both ends and in the middle held bit for bit against the kernel run on
+    that entry alone and against the plain version at the qwen gate; one
+    batch entry of exactly 2^31 elements (FLASH_ENTRY, window 256) in bf16
+    and fp32, its first and last 1,024 rows held against the plain version
+    on slices holding every key they see; and a batch past the grid's
+    65,535 entries (FLASH_GRID_SPLIT), two launches, entries bit for bit
+    against the kernel alone. Returns the launches of each."""
+    launches = {}
     B, S, H, Kv, hd = FLASH_SPLIT
     q, k, v = (randn(torch, (B, S, n, hd), torch.bfloat16, 60 + j, 0.5)
                for j, n in enumerate((H, Kv, Kv)))
-    chunks = FA._batch_chunks(B, S, H, Kv, hd)
     before = FA.flash_attention.launches
     out = FA.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    n = FA.flash_attention.launches - before
+    n = launches["over_batch"] = FA.flash_attention.launches - before
     print(f"[kernel] flash_attention B={B} S={S} H={H} Kv={Kv} hd={hd} "
           f"causal bf16: {q.numel():,} elements of q (2^31 = {2 ** 31:,}), "
-          f"{n} launches over batch {chunks}")
-    check(q.numel() >= 2 ** 31 and n == len(chunks) == 2,
-          f"the split call made {n} launches over {chunks}")
-    for b in sorted({0, chunks[0][1] - 1, chunks[1][0], B // 2, B - 1}):
+          f"{n} launch(es)")
+    check(q.numel() >= 2 ** 31 and n == 1,
+          f"the call of {q.numel()} elements made {n} launches, expected 1")
+    for b in sorted({0, 1, B // 2, B - 1}):
         one = (t[b:b + 1].contiguous() for t in (q, k, v))
         alone = FA.flash_attention(*one)
         torch.cuda.synchronize()
         same = torch.equal(out[b:b + 1], alone)
-        print(f"[kernel] split call, batch entry {b}: bit-equal to the kernel "
-              f"on that entry alone: {same}")
-        check(same, f"batch entry {b} of the split call differs from the "
-                    f"kernel run on it alone")
-        held(torch, f"split call, batch entry {b} vs plain",
+        print(f"[kernel] call over 2^31 elements, batch entry {b}: bit-equal "
+              f"to the kernel on that entry alone: {same}")
+        check(same, f"batch entry {b} of the call differs from the kernel "
+                    f"run on it alone")
+        held(torch, f"call over 2^31 elements, batch entry {b} vs plain",
              out[b:b + 1], ref.flash_attention(q[b:b + 1], k[b:b + 1],
                                                v[b:b + 1]),
              TOL["bfloat16"], QWEN_FLASH_BF16_ATOL)
-    del q, k, v, out
+    del q, k, v, out, one, alone
     torch.cuda.empty_cache()
-    return n
+
+    B, S, H, Kv, hd = FLASH_ENTRY
+    w, rows = FLASH_ENTRY_WINDOW, 1024
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        q, k, v = (randn(torch, (B, S, n, hd), dtype, 90 + j, 0.5)
+                   for j, n in enumerate((H, Kv, Kv)))
+        before = FA.flash_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = FA.flash_attention(q, k, v, window=w)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = launches[f"entry_{name}"] = FA.flash_attention.launches - before
+        print(f"[kernel] flash_attention one batch entry S={S} H={H} Kv={Kv} "
+              f"hd={hd} causal window {w} {name} "
+              f"({FA.route(dtype, hd, S, H // Kv)}): {q.numel():,} elements "
+              f"of q, {n} launch, {secs:.3f} s")
+        check(q.numel() >= 2 ** 31 and n == 1,
+              f"the 2^31-element entry made {n} launches")
+        lo = S - rows - w            # keys of the last rows start here
+        rtol, atol = (FLASH_RTOL, FLASH_ATOL) if name == "float32" \
+            else (TOL[name], QWEN_FLASH_BF16_ATOL)
+        held(torch, f"2^31-element entry {name}, last {rows} rows (offsets "
+             f"past 2^31) vs plain on positions {lo}..{S - 1}",
+             out[:, S - rows:],
+             ref.flash_attention(q[:, lo:], k[:, lo:], v[:, lo:],
+                                 window=w)[:, w:], rtol, atol)
+        held(torch, f"2^31-element entry {name}, first {rows} rows vs plain",
+             out[:, :rows], ref.flash_attention(q[:, :rows], k[:, :rows],
+                                                v[:, :rows], window=w),
+             rtol, atol)
+        del q, k, v, out
+        torch.cuda.empty_cache()
+
+    B, S, H, Kv, hd = FLASH_GRID_SPLIT
+    q, k, v = (randn(torch, (B, S, n, hd), torch.bfloat16, 95 + j, 0.5)
+               for j, n in enumerate((H, Kv, Kv)))
+    chunks = FA._batch_chunks(B)
+    before = FA.flash_attention.launches
+    out = FA.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    n = launches["grid"] = FA.flash_attention.launches - before
+    check(n == len(chunks) == 2, f"B={B}: {n} launches over {chunks}")
+    for b in sorted({0, chunks[0][1] - 1, chunks[1][0], B - 1}):
+        alone = FA.flash_attention(*(t[b:b + 1].contiguous()
+                                     for t in (q, k, v)))
+        check(torch.equal(out[b:b + 1], alone),
+              f"batch entry {b} of B={B} differs from the kernel alone")
+    held(torch, f"flash_attention B={B} S={S} H={H} Kv={Kv} hd={hd} "
+         f"({n} launches over {chunks}) vs plain", out,
+         ref.flash_attention(q, k, v), TOL["bfloat16"], TOL["bfloat16"])
+    return launches
 
 
 def plain_kernels(rmsnorm=None):
@@ -1279,7 +1704,8 @@ def phase_serve(torch, K, T):
     counts = dict(rmsnorm=RN.rmsnorm.launches,
                   flash_attention=FA.flash_attention.launches,
                   others=K.lstm_cell.launches + K.lstm_seq.launches +
-                  T.ternary_encode.launches + T.ternary_decode.launches)
+                  T.ternary_encode.launches + T.ternary_decode.launches +
+                  T.ef_compress_leaves.launches)
     routes = dict(FA.flash_attention.route_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_batches = -(-SERVE["requests"] // SERVE["batch"])
@@ -1304,7 +1730,8 @@ def phase_serve(torch, K, T):
     check(counts == want and res["launches"] == {
         k: v for k, v in want.items() if k != "others"},
         f"serve launches {counts} / {res['launches']}, expected {want}")
-    check(routes == {"wgmma": want["flash_attention"], "cuda_core": 0},
+    check(routes == {"wgmma": want["flash_attention"], "cuda_core": 0,
+                     "hd_chunked": 0},
           f"serve flash_attention routes {routes}: every bf16 launch should "
           f"run the tensor-core kernel")
     check(tuple(toks.shape) == (SERVE["requests"], SERVE["tokens"]) and
@@ -1503,7 +1930,7 @@ def main() -> int:
     fa_err, fa = phase_flash(torch, FA, ref)
     split_launches = phase_flash_split(torch, FA, ref)
     phase_grad(torch, ref)
-    phase_codec(torch)
+    phase_codec(torch, T)
     prob, (launches, cell_launches), seq, dense_s = phase_main_path(
         torch, K, T)
     tern_counts, per_version, wire_bytes = phase_wire_paths(
@@ -1546,19 +1973,29 @@ def main() -> int:
         "device_ms": prof["seq_ms"], "map_ms": prof["map_ms"],
         "map_profile": prof["map_profile"],
     }]
-    for key, line, n_launch, dev_ms in (
-            ("encode", 21, tern_counts[2], prof["enc_ms"]),
-            ("decode", 31, tern_counts[3], prof["dec_ms"])):
+    # the main path's ternary counts: (ef, encode, decode) of the TernGrad
+    # wire run
+    for key, name, line, n_launch in (
+            ("encode", "ternary_encode", 21, tern_counts[3]),
+            ("decode", "ternary_decode", 31, tern_counts[4]),
+            ("ef_compress", "ternary_ef_compress", 21, tern_counts[2])):
         r = tern[key]
         kernels.append({
-            "name": f"ternary_{key}", "route": "cuda",
+            "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ternary.cu",
             "replaces": f"src/repro/kernels/ternary.py:{line}",
             "launches": n_launch, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "n": r["n"], "device_ms": dev_ms,
-            "codec_ms": prof["codec_ms"]})
+            "library_ms": None, "n": r["n"], "sizes": r["sizes"],
+            **{k: r[k] for k in r if k not in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "n", "sizes",
+                "max_abs_err")}})
+    kernels[-1].update(
+        also_replaces="src/repro/kernels/ternary.py:31",
+        codec_ms=prof["codec_ms"], codec_kernels=prof["codec_kernels"],
+        codec_busy_ms=prof["codec_busy_ms"],
+        device_ms={"scale": prof["scale_ms"], "ef": prof["ef_ms"]})
     kernels.append({
         "name": "rmsnorm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -1579,9 +2016,14 @@ def main() -> int:
         "routes": {
             "wgmma": {"kernel": "flash_kernel_wgmma", "dtype": "bfloat16",
                       "launches": served["routes"]["wgmma"], "ms": fa["ms"]},
-            "cuda_core": {"kernel": "flash_kernel", "dtype": "float32",
+            "cuda_core": {"kernel": "flash_kernel", "dtype": "float32 "
+                          "(bfloat16 at hd 256)",
                           "launches": served["routes"]["cuda_core"],
-                          "ms": fa["fp32_ms"]}},
+                          "ms": fa["fp32_ms"]},
+            "hd_chunked": {"kernel": "flash_kernel_chunked",
+                           "dtype": "float32, bfloat16 (hd above 256)",
+                           "launches": served["routes"]["hd_chunked"],
+                           "ms": None}},
         "hgmma_in_sass": hgmma})
     serve_line = {k: served[k] for k in ("prefill_ms", "decode_ms", "tok_s",
                                          "peak_gb", "logit_err")}

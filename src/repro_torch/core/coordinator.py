@@ -31,8 +31,9 @@ the round-robin scheduler serializes barrierless tickets, so worker count
 cannot change the float stream.
 
 Port of ``repro/core/coordinator.py``. Under ``codec=make_codec("ternary")``
-on the card, every gradient leaf's encode and decode runs in the port's
-ternary kernels. The result's model is on the problem's device whatever the
+on the card, each gradient's error feedback (encode, decode and residual,
+every leaf at once) runs in two launches of the port's ternary kernels.
+The result's model is on the problem's device whatever the
 transport (over the wire the DataServer holds host copies).
 """
 from __future__ import annotations

@@ -1,8 +1,13 @@
 // Flash attention (GQA, causal and/or sliding window, forward) for Hopper
-// (sm_90a), bound to Python with ctypes. Two kernels, chosen by dtype:
-// bfloat16 runs on the tensor cores (flash_kernel_wgmma), float32 on the
-// CUDA cores (flash_kernel, whose fp32 products the fp32 tolerances need:
-// TF32 would break them).
+// (sm_90a), bound to Python with ctypes. Three kernels: bfloat16 at head
+// widths up to 192 runs on the tensor cores (flash_kernel_wgmma), float32
+// on the CUDA cores (flash_kernel, whose fp32 products the fp32 tolerances
+// need: TF32 would break them), and so does bfloat16 at 256 (wgmma's
+// accumulators at hd 256 exceed two consumer warpgroups' registers) and
+// where a (batch, kv head) holds 2^31 - 256 folded rows or more; any width
+// above 256 runs flash_kernel_chunked in either type, which sums over hd
+// in chunks. The kernels are built for hd 16, 32, 64, 128, 192 and 256; the
+// wrapper zero-pads a width between them to the next.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_fa_kernel
 // (Pallas). For q [B, S, H, hd] and k, v [B, S, Kv, hd] (self-attention,
@@ -106,12 +111,19 @@ constexpr int kMaxSmem = 232448;            // a block's dynamic opt-in bytes
 static_assert(kLanes == 4, "the shuffles below combine 4 lanes");
 
 __device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
 template <>
 __device__ __forceinline__ float from_float<float>(float v) {
   return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
 }
 
 // Shared memory, in floats: q [kRows][HD + 4], k [kCols][HD + 4],
@@ -298,9 +310,213 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Any head width (the wrapper sends those above the widest tier): the
+// same tiles, rows and online softmax as flash_kernel, but hd is a runtime
+// value and neither q nor an output row lives in a thread whole. A block
+// owns kChunkCols output columns of its q tile (blockIdx.x = q tile *
+// column chunks + chunk). Per kv tile it sums each score over hd in chunks
+// of kChunkD columns (q scaled and k staged in shared memory a chunk at a
+// time), then runs the softmax and adds P times its columns of v. Each
+// column chunk's block recomputes the scores, so the products q k cost
+// ceil(hd / kChunkCols) times over: exact, simple, not fast.
+constexpr int kChunkD = 64;                 // hd columns a score step sums
+constexpr int kChunkCols = 128;             // output columns a block owns
+
+struct ChunkSmem {
+  static constexpr int kQK = kChunkD + 4;
+  static constexpr int kP = kCols + 4;
+  static constexpr int kQ = kRows * kQK;
+  static constexpr int kK = kCols * kQK;
+  static constexpr int kV = kCols * kChunkCols;
+  static constexpr int kPs = kRows * kP;
+  static constexpr size_t kBytes = sizeof(float) * (kQ + kK + kV + kPs);
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_kernel_chunked(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, T* __restrict__ o, int seq,
+                         int H, int Kv, long long hd, int causal, int window,
+                         float scale, int n_chunks) {
+  using S = ChunkSmem;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* Ks = Qs + S::kQ;
+  float* Vs = Ks + S::kK;
+  float* Ps = Vs + S::kV;
+
+  const int G = H / Kv;
+  const int b = blockIdx.z;
+  const int kvh = blockIdx.y;
+  const long long c0 = static_cast<long long>(blockIdx.x % n_chunks) *
+                       kChunkCols;
+  const int64_t n_rows = static_cast<int64_t>(seq) * G;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x / n_chunks) * kRows;
+  const int tr = threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const int64_t row = r0 + tr;
+  const bool row_ok = row < n_rows;
+  const int qpos = row_ok ? static_cast<int>(row / G) : 0;
+  // element offset of each folded row's q (and out) row, -1 past the last
+  __shared__ int64_t row_off[kRows];
+  if (threadIdx.x < kRows) {
+    const int64_t grow = r0 + threadIdx.x;
+    row_off[threadIdx.x] =
+        grow < n_rows ? ((b * static_cast<int64_t>(seq) + grow / G) * H +
+                         static_cast<int64_t>(kvh) * G + grow % G) * hd
+                      : -1;
+  }
+  __syncthreads();
+
+  const int64_t last_row = (r0 + kRows < n_rows ? r0 + kRows : n_rows) - 1;
+  const int q_lo = static_cast<int>(r0 / G);
+  const int q_hi = static_cast<int>(last_row / G);
+  const int kv_end = causal ? min(seq, q_hi + 1) : seq;
+  const int kv_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int t_begin = kv_begin / kCols;
+  const int t_end = (kv_end + kCols - 1) / kCols;
+
+  float m = kNegInf, l = 0.0f;
+  float acc[kChunkCols / kLanes];  // columns c0 + 16 * i + 4 * lane + e
+#pragma unroll
+  for (int i = 0; i < kChunkCols / kLanes; ++i) acc[i] = 0.0f;
+  const float* qrow = Qs + tr * S::kQK;
+  float* prow = Ps + tr * S::kP;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kCols;
+    float s[kColsPerLane];
+#pragma unroll
+    for (int c = 0; c < kColsPerLane; ++c) s[c] = 0.0f;
+    for (long long d0 = 0; d0 < hd; d0 += kChunkD) {
+      __syncthreads();   // the last chunk (or tile) is read
+      for (int idx = threadIdx.x; idx < kRows * kChunkD; idx += kThreads) {
+        const int rr = idx / kChunkD, d = idx % kChunkD;
+        const int64_t off = row_off[rr];
+        Qs[rr * S::kQK + d] = off >= 0 && d0 + d < hd
+                                  ? to_float(q[off + d0 + d]) * scale
+                                  : 0.0f;
+      }
+      for (int idx = threadIdx.x; idx < kCols * kChunkD; idx += kThreads) {
+        const int c = idx / kChunkD, d = idx % kChunkD;
+        const int kp = k0 + c;
+        float kval = 0.0f;
+        if (kp < seq && d0 + d < hd)
+          kval = to_float(k[((b * static_cast<int64_t>(seq) + kp) * Kv + kvh) *
+                                hd + d0 + d]);
+        Ks[c * S::kQK + d] = kval;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < kChunkD; d += 4) {
+        const float4 qa = *reinterpret_cast<const float4*>(qrow + d);
+#pragma unroll
+        for (int c = 0; c < kColsPerLane; ++c) {
+          const float4 ka = *reinterpret_cast<const float4*>(
+              Ks + (lane + kLanes * c) * S::kQK + d);
+          s[c] = fmaf(qa.x, ka.x, s[c]);
+          s[c] = fmaf(qa.y, ka.y, s[c]);
+          s[c] = fmaf(qa.z, ka.z, s[c]);
+          s[c] = fmaf(qa.w, ka.w, s[c]);
+        }
+      }
+    }
+
+    float tmax = kNegInf;
+#pragma unroll
+    for (int c = 0; c < kColsPerLane; ++c) {
+      const int kp = k0 + lane + kLanes * c;
+      bool ok = kp < seq;
+      if (causal) ok = ok && kp <= qpos;
+      if (window > 0) ok = ok && kp > qpos - window;
+      s[c] = ok ? s[c] : kNegInf;
+      tmax = fmaxf(tmax, s[c]);
+    }
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+    const float m_new = fmaxf(m, tmax);
+    float psum = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kColsPerLane; ++c) {
+      s[c] = expf(s[c] - m_new);
+      psum += s[c];
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+    const float alpha = expf(m - m_new);
+    l = l * alpha + psum;
+    m = m_new;
+#pragma unroll
+    for (int c = 0; c < kColsPerLane; ++c) prow[lane + kLanes * c] = s[c];
+    // this block's columns of the tile's v
+    for (int idx = threadIdx.x; idx < kCols * kChunkCols; idx += kThreads) {
+      const int c = idx / kChunkCols, d = idx % kChunkCols;
+      const int kp = k0 + c;
+      float vval = 0.0f;
+      if (kp < seq && c0 + d < hd)
+        vval = to_float(v[((b * static_cast<int64_t>(seq) + kp) * Kv + kvh) *
+                              hd + c0 + d]);
+      Vs[c * kChunkCols + d] = vval;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < kChunkCols / kLanes; ++i) acc[i] *= alpha;
+    const float* vcol = Vs + 4 * lane;
+#pragma unroll 4
+    for (int j = 0; j < kCols; ++j) {
+      const float p = prow[j];
+#pragma unroll
+      for (int i = 0; i < kChunkCols / 16; ++i) {
+        const float4 va =
+            *reinterpret_cast<const float4*>(vcol + j * kChunkCols + 16 * i);
+        acc[4 * i + 0] = fmaf(p, va.x, acc[4 * i + 0]);
+        acc[4 * i + 1] = fmaf(p, va.y, acc[4 * i + 1]);
+        acc[4 * i + 2] = fmaf(p, va.z, acc[4 * i + 2]);
+        acc[4 * i + 3] = fmaf(p, va.w, acc[4 * i + 3]);
+      }
+    }
+  }
+
+  if (!row_ok) return;
+  const float l_safe = l == 0.0f ? 1.0f : l;
+  T* orow = o + row_off[tr] + c0;
+#pragma unroll
+  for (int i = 0; i < kChunkCols / 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 16 * i + 4 * lane + e;
+      if (c0 + col < hd) orow[col] = from_float<T>(acc[4 * i + e] / l_safe);
+    }
+}
+
+template <typename T>
+int launch_chunked(const void* q, const void* k, const void* v, void* o,
+                   int B, int seq, int H, int Kv, long long hd, int causal,
+                   int window, float scale, cudaStream_t st) {
+  constexpr size_t bytes = ChunkSmem::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel_chunked<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n_rows = static_cast<int64_t>(seq) * (H / Kv);
+  const int64_t n_chunks = (hd + kChunkCols - 1) / kChunkCols;
+  const int64_t blocks = (n_rows + kRows - 1) / kRows * n_chunks;
+  if (blocks >= (int64_t{1} << 31) || n_chunks >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks), Kv, B);
+  flash_kernel_chunked<T><<<grid, kThreads, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), seq, H, Kv, hd, causal,
+      window, scale, static_cast<int>(n_chunks));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The CUDA-core kernels of type T: flash_kernel at the built widths
+// (16 .. 256), flash_kernel_chunked at any other.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int seq, int H, int Kv, int hd, int causal, int window,
+           int seq, int H, int Kv, long long hd, int causal, int window,
            float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
@@ -319,8 +535,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     case 192:
       return launch_hd<T, 192>(q, k, v, o, B, seq, H, Kv, causal, window,
                                scale, st);
+    case 256:
+      return launch_hd<T, 256>(q, k, v, o, B, seq, H, Kv, causal, window,
+                               scale, st);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_chunked<T>(q, k, v, o, B, seq, H, Kv, hd, causal, window,
+                               scale, st);
   }
 }
 
@@ -1030,7 +1250,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int seq, int H, int Kv, int hd, int causal, int window,
+           int seq, int H, int Kv, long long hd, int causal, int window,
            float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
@@ -1061,23 +1281,37 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // Each returns 0 when the kernel was launched, else a cudaError_t, or for
-// bf16 a negative code when the TMA tensor map could not be built (-1: no
-// cuTensorMapEncodeTiled in the driver; -1000 - CUresult: it refused). q
-// and o hold B * seq * H * hd contiguous elements, k and v B * seq * Kv *
-// hd; H % Kv == 0; hd in {16, 32, 64, 128, 192}; window >= 0 (0: no
-// window); bf16 pointers 16-byte aligned. The wrapper zero-pads any other
-// hd up to 192 to the next of these widths and splits a batch of 2^31
-// elements or more into launches below it.
+// the tensor-core kernel a negative code when the TMA tensor map could not
+// be built (-1: no cuTensorMapEncodeTiled in the driver; -1000 - CUresult:
+// it refused). q and o hold B * seq * H * hd contiguous elements, k and v
+// B * seq * Kv * hd; H % Kv == 0; window >= 0 (0: no window). Element
+// offsets are 64-bit in every kernel; rows of a (batch, kv head) are
+// 64-bit in the CUDA-core kernels and 32-bit in the tensor-core one
+// (seq * H / Kv below 2^31 - 256, the wrapper routes larger ones to the
+// CUDA cores). The CUDA-core functions (_f32, _bf16_cc) take any hd:
+// {16, 32, 64, 128, 192, 256} run flash_kernel, any other
+// flash_kernel_chunked. The tensor-core one (_bf16) takes hd in {16, 32,
+// 64, 128, 192} and 16-byte aligned pointers. The wrapper zero-pads other
+// widths up to 256 to the next built one and splits a batch only where a
+// launch's grid would be too large.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                        int B, int seq, int H, int Kv, int hd, int causal,
-                        int window, float scale, void* stream) {
+                        int B, int seq, int H, int Kv, long long hd,
+                        int causal, int window, float scale, void* stream) {
   return launch<float>(q, k, v, o, B, seq, H, Kv, hd, causal, window, scale,
                        stream);
 }
 
+int flash_attention_bf16_cc(const void* q, const void* k, const void* v,
+                            void* o, int B, int seq, int H, int Kv,
+                            long long hd, int causal, int window, float scale,
+                            void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, o, B, seq, H, Kv, hd, causal, window,
+                               scale, stream);
+}
+
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                         int B, int seq, int H, int Kv, int hd, int causal,
-                         int window, float scale, void* stream) {
+                         int B, int seq, int H, int Kv, long long hd,
+                         int causal, int window, float scale, void* stream) {
   return tc::launch(q, k, v, o, B, seq, H, Kv, hd, causal, window, scale,
                     stream);
 }

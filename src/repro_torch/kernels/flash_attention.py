@@ -8,14 +8,16 @@ kv): q ``[B, S, H, hd]``, k/v ``[B, S, Kv, hd]`` with H a multiple of Kv
 (query head h reads kv head ``h // (H // Kv)``), causal and/or a sliding
 window, output like q.
 
-The dtype picks the kernel (``ROUTES``): bfloat16 runs on the tensor cores
-(``wgmma``, k/v tiles by TMA), float32 on the CUDA cores, whose fp32
-products the fp32 tolerances need. Both are built for the head widths
-``HEAD_DIMS``; any other width up to the widest is zero-padded to the next
-one (``_padded``). A call of 2^31 elements or more is split over batch into
-launches below it (``_batch_chunks``), so rows inside a block keep their
-32-bit math. ``flash_attention.launches`` counts the launches this wrapper
-made, ``flash_attention.route_launches`` the same by route and
+The dtype and the head width pick the kernel (``route``): bfloat16 up to
+hd 192 runs on the tensor cores (``wgmma``, k/v tiles by TMA), float32 and
+bfloat16 at 256 on the CUDA cores, whose fp32 products the fp32 tolerances
+need, and any width above 256 on the CUDA-core kernel that sums over hd in
+chunks. The kernels are built for the head widths ``HEAD_DIMS``; a width
+between two of them is zero-padded to the next (``_padded``). Every element
+offset is 64-bit, so one batch entry may hold 2^31 elements or more; a
+batch is split into launches only past the grid's 65,535 entries
+(``_batch_chunks``). ``flash_attention.launches`` counts the launches this
+wrapper made, ``flash_attention.route_launches`` the same by route and
 ``flash_attention.padded_launches`` those on padded inputs, so a run can
 show that its path went through the kernel it expects.
 """
@@ -34,28 +36,51 @@ from repro_torch.kernels import build as kbuild
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / \
     "flash_attention.cu"
 
-_FNS = {torch.float32: "flash_attention_f32",
-        torch.bfloat16: "flash_attention_bf16"}
-ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda_core"}
-_ROUTE_NAMES = {"wgmma": "tensor-core kernel", "cuda_core": "CUDA-core kernel"}
-HEAD_DIMS = (16, 32, 64, 128, 192)  # the widths the kernels are built for
+# the C function of each (dtype, route)
+_FNS = {(torch.float32, "cuda_core"): "flash_attention_f32",
+        (torch.float32, "hd_chunked"): "flash_attention_f32",
+        (torch.bfloat16, "wgmma"): "flash_attention_bf16",
+        (torch.bfloat16, "cuda_core"): "flash_attention_bf16_cc",
+        (torch.bfloat16, "hd_chunked"): "flash_attention_bf16_cc"}
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda_core"}  # hd <= 192
+_ROUTE_NAMES = {"wgmma": "tensor-core kernel", "cuda_core": "CUDA-core kernel",
+                "hd_chunked": "CUDA-core kernel, hd in chunks"}
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)  # the widths the kernels are built for
+_WGMMA_DIMS = 192                  # the tensor-core kernel's widest
 _GRID_YZ = 65535                   # CUDA's limit on gridDim.y and .z
-_MAX_ELEMS = 2 ** 31               # a launch's q holds fewer elements
+# the tensor-core kernel keeps a (batch, kv head)'s folded rows in 32 bits,
+# with room for a block's rounding past the last
+_WGMMA_MAX_ROWS = 2 ** 31 - 256
+# every kernel keeps positions in 32 bits, as the Pallas kernel does (its
+# int32 iotas), with room for a tile's rounding past the last
+_MAX_SEQ = 2 ** 31 - 1024
 
 
 @functools.cache
 def build() -> dict:
     """Compile (once per source hash) and load the kernel library; the
-    bound C function of each dtype."""
+    bound C function of each (dtype, route)."""
     lib = kbuild.load(SOURCE)
     fns = {}
-    for dtype, name in _FNS.items():
+    for key, name in _FNS.items():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+            [ctypes.c_longlong] + [ctypes.c_int] * 2 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        fns[dtype] = fn
+        fns[key] = fn
     return fns
+
+
+def route(dtype, hd: int, S: int, G: int) -> str:
+    """The kernel a call of this dtype, head width, length and group size
+    runs on: ``wgmma`` (bf16 up to hd 192 where its 32-bit rows hold the
+    S * G folded rows of a kv head), ``cuda_core`` (any other width up to
+    256) or ``hd_chunked`` (wider)."""
+    if dtype == torch.bfloat16 and hd <= _WGMMA_DIMS and \
+            S * G < _WGMMA_MAX_ROWS:
+        return "wgmma"
+    return "cuda_core" if hd <= HEAD_DIMS[-1] else "hd_chunked"
 
 
 def _check(q, k, v, window):
@@ -72,21 +97,20 @@ def _check(q, k, v, window):
         raise ValueError(f"flash_attention kernel: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}; want k and "
                          f"v [B, S, Kv, hd] with q's B, S and hd (Sq == Skv)")
-    if min(B, S, H, Kv) < 1 or H % Kv:
+    if min(B, S, H, Kv, hd) < 1 or H % Kv:
         raise ValueError(f"flash_attention kernel: H={H} is not a positive "
                          f"multiple of Kv={Kv} (or a dimension is empty)")
-    if not 1 <= hd <= HEAD_DIMS[-1]:
-        raise ValueError(f"flash_attention kernel: head dim {hd} not "
-                         f"supported (1..{HEAD_DIMS[-1]}; the kernels are "
-                         f"built for {HEAD_DIMS} and zero-pad to them)")
+    if S > _MAX_SEQ:
+        raise ValueError(f"flash_attention kernel: S={S} positions; the "
+                         f"kernels index positions in 32 bits, as the Pallas "
+                         f"kernel does (at most {_MAX_SEQ})")
     if Kv > _GRID_YZ:
         raise ValueError(f"flash_attention kernel: Kv={Kv} is too large")
-    # refuses a batch entry that alone holds 2^31 elements or more
-    _batch_chunks(B, S, H, Kv, native_head_dim(hd))
+    path = route(q.dtype, hd, S, H // Kv)
     if not isinstance(window, int) or window < 0:
         raise ValueError(f"flash_attention kernel: window {window!r}, want "
                          f"an int >= 0")
-    if q.dtype not in _FNS:
+    if q.dtype not in ROUTES:
         raise ValueError(f"flash_attention kernel: dtype {q.dtype} not "
                          f"supported (float32, bfloat16)")
     for name, t in ts.items():
@@ -96,42 +120,39 @@ def _check(q, k, v, window):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention kernel: {name} is not "
                              f"contiguous")
-    route = ROUTES[q.dtype]
-    if route == "wgmma":
+    if path == "wgmma":
         # TMA reads k and v, 16-byte loads q; the output is allocated aligned
         for name, t in ts.items():
             if t.data_ptr() % 16:
                 raise ValueError(f"flash_attention kernel: {name} is not "
                                  f"16-byte aligned ({q.dtype} runs the "
-                                 f"{_ROUTE_NAMES[route]})")
+                                 f"{_ROUTE_NAMES[path]})")
     for name, t in ts.items():
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention kernel ({q.dtype}: "
-                             f"{_ROUTE_NAMES[route]}): {name} is on "
+                             f"{_ROUTE_NAMES[path]}): {name} is on "
                              f"{t.device}, not a CUDA device")
         if t.device != q.device:
             raise ValueError(f"flash_attention kernel: {name} on {t.device}, "
                              f"q on {q.device}")
-    return B, S, H, Kv, hd, route
+    return B, S, H, Kv, hd, path
 
 
 def native_head_dim(hd: int) -> int:
-    """The narrowest width in ``HEAD_DIMS`` that holds hd."""
-    return next(w for w in HEAD_DIMS if w >= hd)
+    """The narrowest width in ``HEAD_DIMS`` that holds hd; above the widest,
+    hd itself (the chunked kernel takes any width)."""
+    return next((w for w in HEAD_DIMS if w >= hd), hd)
 
 
-def _batch_chunks(B, S, H, Kv, hd):
-    """[(b0, b1), ...]: the launches that cover batch entries 0..B-1, each
-    holding fewer than 2^31 elements of q and out (k and v hold fewer, Kv <=
-    H) and at most CUDA's 65,535 grid rows, as evenly split as they can be.
-    One launch where the whole batch fits. Raises where one batch entry
-    alone reaches 2^31 elements."""
-    per = S * max(H, Kv) * hd
-    if per >= _MAX_ELEMS:
-        raise ValueError(f"flash_attention kernel: one batch entry of S={S} "
-                         f"H={H} hd={hd} holds {per} >= 2^31 elements, too "
-                         f"large for a launch")
-    n = -(-B // min((_MAX_ELEMS - 1) // per, _GRID_YZ))
+def _batch_chunks(B):
+    """[(b0, b1), ...]: the launches that cover batch entries 0..B-1, at
+    most CUDA's 65,535 grid rows each (the CUDA-core kernels' grid has one
+    z per entry), as evenly split as they can be: one launch unless B is
+    larger. Every offset in the kernels is 64-bit, so a launch may hold any
+    number of elements; the rest of a grid (2^31 blocks along x) outgrows
+    CUDA's limits only for tensors larger than an 80 GB card holds, and
+    the C function refuses such a launch."""
+    n = -(-B // _GRID_YZ)
     bounds = [B * i // n for i in range(n + 1)]
     return list(zip(bounds[:-1], bounds[1:]))
 
@@ -151,11 +172,11 @@ def _padded(attend, q, k, v, causal, window):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """Launch the kernel of q's dtype on CUDA tensors q [B,S,H,hd], k/v
-    [B,S,Kv,hd]. Returns the attention output like q. Raises on any other
-    input."""
-    B, S, H, Kv, hd, route = _check(q, k, v, window)
-    fn = build()[q.dtype]
+    """Launch the kernel of q's dtype and head width on CUDA tensors q
+    [B,S,H,hd], k/v [B,S,Kv,hd]. Returns the attention output like q.
+    Raises on any other input."""
+    B, S, H, Kv, hd, path = _check(q, k, v, window)
+    fn = build()[q.dtype, path]
     padded = native_head_dim(hd) != hd
 
     def attend(q, k, v, causal, window, scale):
@@ -165,7 +186,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         q_entry, kv_entry = S * H * width * elem, S * Kv * width * elem
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            for b0, b1 in _batch_chunks(B, S, H, Kv, width):
+            for b0, b1 in _batch_chunks(B):
                 err = fn(q.data_ptr() + b0 * q_entry,
                          k.data_ptr() + b0 * kv_entry,
                          v.data_ptr() + b0 * kv_entry,
@@ -177,9 +198,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                         f"flash_attention kernel launch failed: {why} {err} "
                         f"(batch {b0}..{b1 - 1} of B={B}, S={S} H={H} "
                         f"Kv={Kv} hd={hd} run at {width}, {q.dtype}, "
-                        f"{_ROUTE_NAMES[route]})")
+                        f"{_ROUTE_NAMES[path]})")
                 flash_attention.launches += 1
-                flash_attention.route_launches[route] += 1
+                flash_attention.route_launches[path] += 1
                 flash_attention.padded_launches += int(padded)
         return out
 
@@ -187,5 +208,5 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 flash_attention.launches = 0
-flash_attention.route_launches = dict.fromkeys(ROUTES.values(), 0)
+flash_attention.route_launches = dict.fromkeys(_ROUTE_NAMES, 0)
 flash_attention.padded_launches = 0

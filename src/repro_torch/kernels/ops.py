@@ -55,7 +55,35 @@ def ternary_encode(g_flat, s):
 
 
 def ternary_decode(packed, s):
-    """packed uint8 [N/4], fp32 scale -> fp32 [N] of +s, -s and +0.0."""
+    """packed uint8 [N/4], fp32 scale -> fp32 [N] of +s, -s and 0 * s."""
     if packed.device.type == "cpu":
         return ref.ternary_decode_packed(packed, s)
     return _tern.ternary_decode(packed, s)
+
+
+# The gradient-level codec: lists of flat leaves, one device (the first
+# leaf's decides). On the card each call is one or two launches for the
+# whole gradient (``kernels/ternary.py``).
+
+def ternary_ef(gs, rs, payload: bool = False):
+    """Error feedback over fp32 leaves gs, rs -> (decoded, residual) per
+    leaf, shaped like gs; with ``payload``, (packed, s, decoded,
+    residual)."""
+    if gs[0].device.type == "cpu":
+        return ref.ternary_ef(gs, rs, payload)
+    return _tern.ef_compress_leaves(gs, rs, payload)
+
+
+def ternary_encode_leaves(gs, scales=None):
+    """fp32 leaves, contiguous (and their scales, or None: max|g| clamped) ->
+    (packed [ceil(n/4)] uint8, s) per leaf."""
+    if gs[0].device.type == "cpu":
+        return ref.ternary_encode_leaves(gs, scales)
+    return _tern.encode_leaves(gs, scales)
+
+
+def ternary_decode_leaves(packed, scales, shapes):
+    """Packed leaves and scales -> fp32 ``shapes[i]`` per leaf."""
+    if packed[0].device.type == "cpu":
+        return ref.ternary_decode_leaves(packed, scales, shapes)
+    return _tern.decode_leaves(packed, scales, shapes)

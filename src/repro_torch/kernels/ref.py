@@ -105,16 +105,74 @@ def ternary_encode_packed(g_flat, s):
     """What the encode kernel computes, as the Pallas body
     (``repro/kernels/ternary.py::_encode_kernel``) writes it: g_flat fp32
     [N] (N % 4 == 0), s fp32 -> uint8 [N/4]."""
-    g = g_flat.float().reshape(-1, 4)
-    code = torch.where(g.abs() >= s / 2,
-                       torch.where(g > 0, 1, 2), 0).to(torch.uint8)
-    return code[:, 0] | (code[:, 1] << 2) | (code[:, 2] << 4) | \
-        (code[:, 3] << 6)
+    g = g_flat.float()
+    return _pack_codes(torch.where(g.abs() >= s / 2,
+                                   torch.where(g > 0, 1, 2), 0)
+                       .to(torch.uint8))
 
 
 def ternary_decode_packed(packed, s):
     """What the decode kernel computes, as ``_decode_kernel`` writes it:
-    codes 0b01 -> +s, 0b10 -> -s, anything else -> +0.0; fp32 [4 * len]."""
+    codes 0b01 -> +s, 0b10 -> -s, anything else -> 0 * s (+0.0 for a
+    finite s > 0, NaN for s = inf or NaN); fp32 [4 * len]."""
     code = torch.stack([(packed >> (2 * i)) & 3 for i in range(4)], dim=1)
     val = torch.where(code == 1, 1.0, torch.where(code == 2, -1.0, 0.0))
     return (val * s).reshape(-1).to(torch.float32)
+
+
+# The gradient-level codec (``kernels/ternary.py``'s ``*_leaves``): the
+# same per-leaf arithmetic as the JAX codec, one leaf at a time. The codes
+# are gated on isfinite(s): for a finite s, |c| >= s/2 is the JAX codec's
+# |c|/s >= 0.5; for s = inf or NaN the JAX codec keeps no code.
+
+def ternary_scale(c):
+    """A leaf's scale: max|c| (NaN propagates) clamped to 1e-12."""
+    return torch.clamp_min(c.abs().max(), 1e-12)
+
+
+def ternary_codes(c, s):
+    """uint8 codes of flat c under scale s: 0b01 / 0b10 where isfinite(s)
+    and |c| >= s/2, by the sign of c, else 0b00."""
+    keep = torch.isfinite(s) & (c.abs() >= s / 2)
+    return torch.where(keep, torch.where(c > 0, 1, 2), 0).to(torch.uint8)
+
+
+def _pack_codes(code):
+    """uint8 codes [n] -> packed bytes [ceil(n/4)] (pad codes 0b00)."""
+    code = torch.cat([code, code.new_zeros(-code.numel() % 4)]).reshape(-1, 4)
+    return code[:, 0] | (code[:, 1] << 2) | (code[:, 2] << 4) | \
+        (code[:, 3] << 6)
+
+
+def ternary_encode_leaves(gs, scales=None):
+    """Leaves -> (packed [ceil(n/4)] uint8, s) per leaf; ``scales`` given:
+    used as they are, else ``ternary_scale`` of each leaf."""
+    packed, out_s = [], []
+    for i, g in enumerate(gs):
+        c = g.reshape(-1).float()
+        s = ternary_scale(c) if scales is None else scales[i]
+        packed.append(_pack_codes(ternary_codes(c, s)))
+        out_s.append(s)
+    return packed, out_s
+
+
+def ternary_decode_leaves(packed, scales, shapes):
+    """Packed leaves and their scales -> fp32 ``shapes[i]`` per leaf (code
+    * s)."""
+    return [ternary_decode_packed(p, s)[:math.prod(sh)].reshape(sh)
+            for p, s, sh in zip(packed, scales, shapes, strict=True)]
+
+
+def ternary_ef(gs, rs, payload: bool = False):
+    """Error feedback over leaves: c = g + r; -> (decoded, residual
+    c - decoded) per leaf, shaped like g; with ``payload``, (packed, s,
+    decoded, residual)."""
+    out = ([], [], [], [])
+    for g, r in zip(gs, rs, strict=True):
+        c = g.float() + r
+        s = ternary_scale(c)
+        packed = _pack_codes(ternary_codes(c.reshape(-1), s))
+        d = ternary_decode_packed(packed, s)[:c.numel()].reshape(c.shape)
+        for lst, v in zip(out, (packed, s, d, c - d)):
+            lst.append(v)
+    return out if payload else out[2:]

@@ -5,8 +5,9 @@ training of the 2x50 LSTM on the reference package's own source text (JSDoop
 §V), through the Coordinator with K simulated volunteers, each LSTM layer's
 forward over the whole sample one launch of the hand-written CUDA sequence
 kernel (``lstm_seq``). ``--codec ternary`` puts
-each volunteer's gradient through TernGrad with error feedback (encode and
-decode in the hand-written ternary kernels, on the volunteer) and counts
+each volunteer's gradient through TernGrad with error feedback (two
+launches of the hand-written ternary kernels a gradient, on the volunteer:
+the scale pass, then codes, decoded gradient and residual) and counts
 its packed size in ``bytes_sent``; ``--transport wire`` round-trips every
 protocol message through bytes and reports them as ``wire_bytes`` (the
 gradient crosses decoded, as in the JAX package). The ``--arch`` path
@@ -43,7 +44,8 @@ def run_paper(*, workers: int = 4, versions: int = 8, seed: int = 0,
           f"versions={n_versions} workers={workers} device={prob.device} "
           f"codec={codec} transport={transport}")
     seq0, cell0 = K.lstm_seq.launches, K.lstm_cell.launches
-    enc0, dec0 = T.ternary_encode.launches, T.ternary_decode.launches
+    tern0 = (T.ef_compress_leaves.launches, T.ternary_encode.launches,
+             T.ternary_decode.launches)
     t0 = time.time()
     coord = Coordinator(prob, n_workers=workers, n_versions=n_versions,
                         codec=None if codec == "none" else make_codec(codec),
@@ -60,9 +62,11 @@ def run_paper(*, workers: int = 4, versions: int = 8, seed: int = 0,
           f"{K.lstm_seq.launches - seq0} over {maps} maps "
           f"({prob.seq_launches_per_map} per map, one a layer), lstm_cell "
           f"launches={K.lstm_cell.launches - cell0}; "
-          f"ternary encode/decode launches="
-          f"{T.ternary_encode.launches - enc0}/"
-          f"{T.ternary_decode.launches - dec0}; bytes_sent={res.bytes_sent}"
+          f"ternary ef/encode/decode launches="
+          f"{T.ef_compress_leaves.launches - tern0[0]}/"
+          f"{T.ternary_encode.launches - tern0[1]}/"
+          f"{T.ternary_decode.launches - tern0[2]}; "
+          f"bytes_sent={res.bytes_sent}"
           f" wire_bytes={res.wire_bytes}")
     return prob, res
 

@@ -11,14 +11,20 @@ cites the standard fixes; both are invertible codecs with error feedback:
   b ~ Bernoulli(|g|/s) when a ``torch.Generator`` is given.
 
 Codecs work leaf-wise on gradient trees and report exact wire byte counts.
-The ternary codec runs through the port's kernels (``kernels/ops.py``): on
-the card every leaf's encode and decode is one launch of the hand-written
-``ternary_encode``/``ternary_decode``, on the CPU their plain versions. Its
-payload leaf is ``{"packed": uint8 [ceil(n/4)], "s": fp32, "shape"}`` — the
-2-bit byte stream whose size the JAX package's byte count already states
+The ternary codec runs through the port's gradient-level kernels
+(``kernels/ops.py``): on the card a whole gradient's encode is one scale
+pass and one encode launch, its decode one launch, and its error feedback
+(``Codec.ef``, which ``ef_compress`` takes when a codec has it) one scale
+pass and one launch that writes the codes, the decoded gradient and the
+residual; on the CPU their plain versions, leaf by leaf. Its payload leaf is
+``{"packed": uint8 [ceil(n/4)], "s": fp32, "shape"}`` — the 2-bit byte
+stream whose size the JAX package's byte count already states
 (``ceil(n/4) + 4`` per leaf) — where the JAX package ships unpacked int8
-codes. The decoded gradient, the error-feedback residual and the byte count
-equal the JAX package's bit for bit; the payload's layout need not.
+codes; on the card the leaves' ``packed`` are views into one buffer. The
+decoded gradient, the error-feedback residual and the byte count equal the
+JAX package's on every input (NaN where it gives NaN: a leaf whose scale is
+inf or NaN decodes to NaN), every other value bit for bit; the payload's
+layout need not.
 """
 from __future__ import annotations
 
@@ -86,42 +92,62 @@ def topk_decode(payload, device=None):
     return tree.map(dec, payload, is_leaf=_is_payload)
 
 
+def _ternary_nbytes(sizes) -> int:
+    return sum(-(-n // 4) + 4 for n in sizes)
+
+
+def _fp32(leaf) -> torch.Tensor:
+    """The leaf as contiguous fp32 (itself where it already is)."""
+    return leaf.float().contiguous()
+
+
 def ternary_encode(g, generator: Optional[torch.Generator] = None):
     """TernGrad: per-leaf scale s = max|g| (at least 1e-12), 2-bit codes.
 
     Deterministic when ``generator`` is None: b = 1 iff |g| >= s/2 (the
     threshold variant). With a generator, b ~ Bernoulli(|g|/s) from its
     stream; the drawn codes then go through the same encode kernel as
-    ``sign(g) * s * b``. Each leaf is flattened and zero-padded to a multiple
-    of 4 (zeros encode as 0b00 and are dropped on decode). Wire size: ceil(n/4)
-    bytes + one fp32 scale per leaf."""
-    def enc(leaf):
-        flat = leaf.reshape(-1).float()
-        n = flat.numel()
-        s = torch.clamp_min(flat.abs().max(), 1e-12)
-        if generator is not None:
-            u = torch.rand(n, generator=generator, device=generator.device)
-            keep = u.to(flat.device) < flat.abs() / s
-            flat = torch.where(keep, torch.sign(flat) * s, 0.0)
-        pad = -n % 4
-        if pad:
-            flat = torch.cat([flat, flat.new_zeros(pad)])
-        return {"packed": ops.ternary_encode(flat, s), "s": s,
-                "shape": tuple(leaf.shape)}
-    payload = tree.map(enc, g)
-    nbytes = sum(-(-math.prod(p["shape"]) // 4) + 4
-                 for p in tree.leaves(payload, is_leaf=_is_payload))
-    return payload, nbytes
+    ``sign(g) * s * b`` with the scales given. Every code is 0 where s is
+    inf or NaN. Wire size: ceil(n/4) bytes + one fp32 scale per leaf."""
+    leaves = tree.leaves(g)
+    flats = [_fp32(leaf) for leaf in leaves]
+    scales = None
+    if generator is not None:
+        scales = [torch.clamp_min(f.abs().max(), 1e-12) for f in flats]
+        drawn = []
+        for f, s in zip(flats, scales):
+            u = torch.rand(f.shape, generator=generator,
+                           device=generator.device)
+            keep = u.to(f.device) < f.abs() / s
+            drawn.append(torch.where(keep, torch.sign(f) * s, 0.0))
+        flats = drawn
+    packed, s = ops.ternary_encode_leaves(flats, scales)
+    payload = tree.unflatten(g, [
+        {"packed": p, "s": sv, "shape": tuple(leaf.shape)}
+        for p, sv, leaf in zip(packed, s, leaves)])
+    return payload, _ternary_nbytes(f.numel() for f in flats)
 
 
 def ternary_decode(payload, device=None):
     """Dense gradients on ``device`` (None: the payload's own)."""
-    def dec(p):
-        shape = tuple(p["shape"])
-        flat = ops.ternary_decode(_tensor(p["packed"], device),
-                                  _tensor(p["s"], device))
-        return flat[:math.prod(shape)].reshape(shape)
-    return tree.map(dec, payload, is_leaf=_is_payload)
+    ps = tree.leaves(payload, is_leaf=_is_payload)
+    dec = ops.ternary_decode_leaves(
+        [_tensor(p["packed"], device) for p in ps],
+        [_tensor(p["s"], device) for p in ps],
+        [tuple(p["shape"]) for p in ps])
+    out = {id(p): d for p, d in zip(ps, dec)}
+    return tree.map(lambda p: out[id(p)], payload, is_leaf=_is_payload)
+
+
+def ternary_ef(grads, residual):
+    """``ef_compress`` of the ternary codec over the whole gradient at once:
+    (decoded, new residual, nbytes), equal to encode-then-decode with the
+    residual carried, and on the card two launches."""
+    leaves = tree.leaves(grads)
+    dec, res = ops.ternary_ef([_fp32(leaf) for leaf in leaves],
+                              tree.leaves(residual))
+    return tree.unflatten(grads, dec), tree.unflatten(grads, res), \
+        _ternary_nbytes(leaf.numel() for leaf in leaves)
 
 
 # ---------------------------------------------------------------------------
@@ -133,6 +159,9 @@ class Codec:
     name: str
     encode: Callable  # (grads) -> (payload, nbytes)
     decode: Callable  # (payload, device=None) -> grads
+    # (grads, residual) -> (decoded, new residual, nbytes) in one pass,
+    # where the codec has one; else ef_compress encodes, then decodes
+    ef: Optional[Callable] = None
 
 
 def make_codec(name: str, **kw) -> Codec:
@@ -145,7 +174,8 @@ def make_codec(name: str, **kw) -> Codec:
         return Codec(f"topk({frac})",
                      lambda g: topk_encode(g, frac), topk_decode)
     if name == "ternary":
-        return Codec("ternary", lambda g: ternary_encode(g), ternary_decode)
+        return Codec("ternary", lambda g: ternary_encode(g), ternary_decode,
+                     ternary_ef)
     raise KeyError(name)
 
 
@@ -158,6 +188,8 @@ def ef_compress(codec: Codec, grads, residual):
     """Error feedback: compress (g + residual); carry the quantization error.
 
     Returns (decoded_grads, new_residual, nbytes)."""
+    if codec.ef is not None:
+        return codec.ef(grads, residual)
     corrected = tree.map(lambda g, r: g.float() + r, grads, residual)
     payload, nbytes = codec.encode(corrected)
     decoded = codec.decode(payload)

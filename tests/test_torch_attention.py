@@ -327,7 +327,12 @@ def test_flash_wrapper_routes_by_dtype(dtype, route, kernel):
 @pytest.mark.parametrize("bad,why", [("cpu", "not a CUDA device"),
                                      ("seq", "Sq == Skv"),
                                      ("groups", "not a positive multiple"),
-                                     ("head_dim", "head dim 200"),
+                                     # hd 200 passes every check up to the
+                                     # device's (padded to 256, CUDA cores)
+                                     pytest.param(
+                                         "head_dim", r"CUDA-core kernel\): q "
+                                         r"is on cpu, not a CUDA device",
+                                         id="head_dim-head dim 200"),
                                      ("dtype", "v is torch.bfloat16"),
                                      ("strided", "k is not contiguous"),
                                      ("window", "window -1"),
@@ -341,7 +346,7 @@ def test_flash_wrapper_raises(bad, why):
         q = torch.ones(1, 6, 4, 16)
     elif bad == "groups":
         k = v = torch.ones(1, 8, 3, 16)
-    elif bad == "head_dim":         # above the widest kernel (192)
+    elif bad == "head_dim":         # above the tensor-core kernel's 192
         q, k, v = (torch.ones(1, 8, n, 200) for n in (4, 2, 2))
     elif bad == "dtype":
         v = v.bfloat16()
@@ -425,29 +430,48 @@ def test_flash_hd192_plain_matches_jax(dtype):
                                      interpret=True), rtol, atol)
 
 
+# ids as first written (B-S-H-Kv-hd-launches when a launch held fewer than
+# 2^31 elements); a batch is now split only for the grid's 65,535 entries
 @pytest.mark.parametrize("B,S,H,Kv,hd,n", [
-    (4, 1024, 64, 8, 128, 1),           # qwen's prefill: one launch
-    (32, 32768, 32, 32, 64, 2),         # stablelm prefill_32k: exactly 2^31
-    (257, 1024, 64, 8, 128, 2),         # chip_smoke's split case
-    (70000, 8, 2, 1, 16, 2),            # past the grid's 65,535 rows
-    (1, 1, 1, 1, 16, 1)])
+    pytest.param(4, 1024, 64, 8, 128, 1, id="4-1024-64-8-128-1"),
+    # stablelm prefill_32k: exactly 2^31 elements, one launch
+    pytest.param(32, 32768, 32, 32, 64, 1, id="32-32768-32-32-64-2"),
+    # more than 2^31 elements, one launch
+    pytest.param(257, 1024, 64, 8, 128, 1, id="257-1024-64-8-128-2"),
+    # past the grid's 65,535 batch entries a launch
+    pytest.param(70000, 8, 2, 1, 16, 2, id="70000-8-2-1-16-2"),
+    pytest.param(1, 1, 1, 1, 16, 1, id="1-1-1-1-16-1")])
 def test_batch_chunks_cover_the_batch_below_2_31(B, S, H, Kv, hd, n):
-    chunks = FA._batch_chunks(B, S, H, Kv, hd)
+    chunks = FA._batch_chunks(B)
     assert len(chunks) == n
     assert chunks[0][0] == 0 and chunks[-1][1] == B
     assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
     sizes = [b1 - b0 for b0, b1 in chunks]
     assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
-    assert all(s * S * H * hd < 2 ** 31 and s <= 65535 for s in sizes)
+    assert all(s <= 65535 for s in sizes)
+    # a launch's grid stays inside CUDA's limits for these shapes: below
+    # 2^31 blocks along x on either kind of kernel
+    for s in sizes:
+        assert -(-S * (H // Kv) // 128) * Kv * s < 2 ** 31
+        assert -(-S * (H // Kv) // 64) * -(-hd // 128) < 2 ** 31
 
 
 def test_batch_chunks_refuse_one_entry_of_2_31():
-    with pytest.raises(ValueError, match="one batch entry .* 2\\^31"):
-        FA._batch_chunks(1, 2 ** 16, 128, 8, 256)
-    q, k, v = (torch.empty(1, 2 ** 18, n, 128, device="meta")
-               for n in (64, 8, 8))
-    with pytest.raises(ValueError, match="one batch entry"):
-        FA._check(q, k, v, 0)
+    """One batch entry of 2^31 elements or more is taken whole: the
+    launches split only over batch, for the grid, and every element offset
+    is 64-bit (shown with meta tensors: no memory)."""
+    assert FA._batch_chunks(1) == [(0, 1)]
+    for S, H, Kv, hd in ((2 ** 18, 64, 8, 128), (131072, 128, 16, 128),
+                         (2 ** 16, 128, 8, 256)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.empty(1, S, n, hd, dtype=dtype, device="meta")
+                       for n in (H, Kv, Kv))
+            assert q.numel() >= 2 ** 31
+            path = FA.route(dtype, hd, S, H // Kv)
+            with pytest.raises(ValueError,
+                               match=f"{FA._ROUTE_NAMES[path]}\\): q is on "
+                                     f"meta, not a CUDA device"):
+                FA._check(q, k, v, 256)
 
 
 @pytest.mark.parametrize("hd", [64, 80])
@@ -464,4 +488,83 @@ def test_flash_check_takes_2_31_elements(hd):
     q, k, v = (torch.ones(1, 1, 1, 1, dtype=torch.bfloat16).expand(*shape)
                for _ in range(3))
     with pytest.raises(ValueError, match="q is not contiguous"):
+        FA._check(q, k, v, 0)
+
+
+# ---------------------------------------------------------------------------
+# head widths above the tensor-core kernel's 192
+# ---------------------------------------------------------------------------
+
+WIDE_HDS = [200, 256, 576, 1024]
+
+
+@pytest.mark.parametrize("hd", WIDE_HDS)
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_wide_path_plain_matches_jax(hd, causal, window):
+    """The wrapper's path at a wide head width (200 zero-padded to 256;
+    256, 576 and 1,024 unpadded), run with the plain version, against the
+    JAX oracle in fp32 at the sweep's tolerance."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 33, 4, 2, hd, "float32", hd)
+    widths = []
+
+    def attend(q, k, v, causal, window, scale):
+        widths.append(q.shape[-1])
+        return _plain_attend(q, k, v, causal, window, scale)
+
+    got = FA._padded(attend, tq, tk, tv, causal, window)
+    assert widths == [FA.native_head_dim(hd)] == [256 if hd <= 256 else hd]
+    assert got.shape == tq.shape and got.is_contiguous()
+    _close(got, jref.flash_attention(jq, jk, jv, causal=causal,
+                                     window=window), FLASH_RTOL, FLASH_ATOL)
+
+
+@pytest.mark.parametrize("hd", WIDE_HDS)
+def test_flash_wide_path_plain_matches_pallas(hd):
+    """The same path against the Pallas kernel in interpret mode at one
+    small shape (causal, window 5)."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 24, 2, 1, hd, "float32", 3 * hd)
+    got = FA._padded(_plain_attend, tq, tk, tv, True, 5)
+    _close(got, jops.flash_attention(jq, jk, jv, window=5, blk_q=8,
+                                     blk_k=8, interpret=True),
+           FLASH_RTOL, FLASH_ATOL)
+
+
+@pytest.mark.parametrize("hd", WIDE_HDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_check_takes_wide_head_dims(hd, dtype):
+    """Every width above 192 passes the checks up to the device refusal
+    (meta tensors), on the CUDA cores: the tier kernel up to 256, the
+    chunked one above."""
+    q, k, v = (torch.empty(2, 64, n, hd, dtype=dtype, device="meta")
+               for n in (8, 2, 2))
+    path = "cuda_core" if hd <= 256 else "hd_chunked"
+    assert FA.route(dtype, hd, 64, 4) == path
+    with pytest.raises(ValueError, match=f"{FA._ROUTE_NAMES[path]}\\): q is "
+                                         f"on meta, not a CUDA device"):
+        FA._check(q, k, v, 0)
+
+
+def test_flash_route_by_dtype_width_and_rows():
+    """bf16 takes the tensor cores up to hd 192 while a kv head's folded
+    rows fit 32 bits; fp32 always the CUDA cores; above 256 the chunked
+    kernel; every route has a C function."""
+    assert FA.route(torch.bfloat16, 192, 1024, 8) == "wgmma"
+    assert FA.route(torch.bfloat16, 16, 1024, 8) == "wgmma"
+    assert FA.route(torch.bfloat16, 200, 1024, 8) == "cuda_core"
+    assert FA.route(torch.bfloat16, 128, 2 ** 28, 8) == "cuda_core"
+    assert FA.route(torch.float32, 128, 1024, 8) == "cuda_core"
+    assert FA.route(torch.float32, 257, 1024, 8) == "hd_chunked"
+    assert FA.route(torch.bfloat16, 1024, 1024, 8) == "hd_chunked"
+    assert set(FA.flash_attention.route_launches) == set(FA._ROUTE_NAMES)
+    for dtype in (torch.float32, torch.bfloat16):
+        for path in ("cuda_core", "hd_chunked"):
+            assert (dtype, path) in FA._FNS
+    assert FA.native_head_dim(1) == 16 and FA.native_head_dim(193) == 256
+    assert FA.native_head_dim(257) == 257
+
+
+def test_flash_check_refuses_positions_past_32_bits():
+    q, k, v = (torch.empty(1, 2 ** 31, 1, 1, dtype=torch.bfloat16,
+                           device="meta") for _ in range(3))
+    with pytest.raises(ValueError, match="positions in 32 bits"):
         FA._check(q, k, v, 0)
