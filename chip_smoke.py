@@ -52,8 +52,9 @@ Phases, each printing its result; any failure exits non-zero:
    ``[4,1024,8,128]``, causal, in bf16 and fp32 with a near-uniform and a
    peaked softmax (the peaked fp32 case against an fp64 attention), timed
    in bf16 (the tensor-core kernel) against SDPA and in fp32 (the CUDA-core
-   kernel) against SDPA in fp32, and at hd 256 in both dtypes (the CUDA-core
-   kernel) against SDPA;
+   kernel) against SDPA in fp32, and at hd 256 (the CUDA-core kernel), 576
+   and 1,024 (the kernel that sums over hd in chunks) in both dtypes
+   against the plain version and SDPA (naming the backend SDPA picked);
 3. the gradient of ``lstm_loss`` at the paper width through the sequence
    kernel and its backpropagation through time against autograd through the
    per-step plain path on the card, and the ternary codec's
@@ -80,6 +81,22 @@ Phases, each printing its result; any failure exits non-zero:
    device busy share, kernels and ``lstm_seq``'s device time a launch; the
    same for one ternary error feedback of a paper gradient (exactly 2
    kernels);
+5b. the gateway: a real-apply ``GatewayServer`` on a thread serving the
+   paper's LSTM at full width over loopback TCP and WebSocket to volunteer
+   threads that compute real maps (``staleness:2``, 2 versions, 32
+   updates): one TCP and one WS volunteer, each run's wire-fetched final
+   model bit-equal to ``sequential_async`` on the card, ``local:4``
+   bit-equal to ``sequential_local``, three racing volunteers ending at the
+   final version with contiguous versions; every run with the counts set
+   to 0 just before and read just after, ``map_compute`` counted by a
+   wrapper: exactly 2 ``lstm_seq`` launches a map and no ``lstm_cell``;
+   the server's applier alone on 16 staged paper gradients, batched and
+   single, bit-equal to each other and to chained ``apply_one``, ms per
+   drain; ``python -m repro_torch.core.gateway --serve --real-apply`` as a
+   subprocess on the card with one volunteer, bit-equal to
+   ``sequential_async`` and exiting 0; seconds per update beside the
+   Coordinator's seconds per version, and the card's busy share over a
+   profiled gateway run of 16 updates;
 6. the serving path: qwen1.5-110b at full width cut to 4 of its 80 layers
    (7,927,349,248 parameters, bf16, random weights from seed 0) served by
    ``repro_torch.launch.serve.serve`` (8 requests in batches of 4, 1,024
@@ -106,11 +123,14 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -1091,6 +1111,264 @@ def phase_profile(torch, prob):
                 codec_busy_ms=busy_ms, scale_ms=scale_ms, ef_ms=ef_ms)
 
 # ---------------------------------------------------------------------------
+# the gateway: real volunteers over TCP and WebSocket, the server's applier
+# ---------------------------------------------------------------------------
+
+GATEWAY_VERSIONS = 2          # x 16 mini-batches: 32 updates under staleness
+GATEWAY_DRAIN = 16            # staged gradients in one applier drain
+GATEWAY_JOIN_S = 300          # bound on any volunteer thread of the phase
+GATEWAY_CLI_S = 180           # bound on the CLI server subprocess
+
+
+def counted(fn, box):
+    """``fn`` with each call counted in ``box[0]``."""
+    def wrapper(*a, **k):
+        box[0] += 1
+        return fn(*a, **k)
+    return wrapper
+
+
+def gateway_run(torch, G, prob, policy, specs, n_versions=GATEWAY_VERSIONS):
+    """One real-apply ``GatewayServer`` on a thread with a volunteer thread
+    per (vid, transport class) of ``specs``; returns (seconds, the final
+    model fetched over the wire by the first volunteer, {vid: final
+    version}, the server's versions, n_updates)."""
+    from repro_torch.core.protocol import FetchModel
+
+    server = G.GatewayServer(prob, n_versions=n_versions, policy=policy,
+                             real_apply=True)
+    n = server.n_updates
+    results, errors, blobs = {}, [], {}
+
+    def drive(vid, cls, first):
+        try:
+            tr = cls("127.0.0.1", server.port, vid)
+            try:
+                results[vid] = G.run_volunteer(tr, vid, n, policy=policy,
+                                               problem=prob)[0]
+                if first:
+                    blobs["final"] = tr.call(FetchModel(n)).blob
+            finally:
+                tr.close()
+        except Exception as e:                  # re-raised by the check
+            errors.append(repr(e))
+
+    server.start()
+    try:
+        threads = [threading.Thread(target=drive, args=(vid, cls, i == 0),
+                                    daemon=True)
+                   for i, (vid, cls) in enumerate(specs)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=GATEWAY_JOIN_S)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads),
+              f"gateway {policy}: a volunteer did not finish in "
+              f"{GATEWAY_JOIN_S} s")
+        check(not errors, f"gateway {policy}: volunteer failed: {errors}")
+    finally:
+        server.close()
+    return dt, blobs["final"], results, sorted(server.ds._models), n
+
+
+def phase_gateway(torch, K, T, coord_s):
+    """The JSDoop deployment on the card: volunteers join a
+    ``GatewayServer`` over real loopback TCP and WebSocket sockets, compute
+    real maps at the paper's full width (each through the ``lstm_seq``
+    kernel, 2 launches a map), and the server's batched applier commits
+    every gradient. Launch counts are set to 0 just before each gateway
+    run and read just after; the references (``sequential_async`` /
+    ``sequential_local`` on the card) run outside those windows."""
+    from repro_torch import tree
+    from repro_torch.core import gateway as G
+    from repro_torch.core.aggregation import make_policy
+    from repro_torch.core.applier import make_real_applier
+    from repro_torch.core.dataserver import DataServer
+    from repro_torch.core.mapreduce import (TrainingProblem,
+                                            sequential_async,
+                                            sequential_local)
+    from repro_torch.core.protocol import FetchModel, ServerEndpoint, \
+        SubmitUpdate
+    from repro_torch.core.queue import QueueServer
+    from repro_torch.core.tasks import GradResult, INITIAL_QUEUE
+
+    t_phase = time.perf_counter()
+    prob = TrainingProblem.paper_problem(seed=0, device="cuda")
+    n_params = sum(x.numel() for x in tree.leaves(prob.params0))
+    maps = [0]
+    prob.map_compute = counted(prob.map_compute, maps)
+    out = {"n_params": n_params}
+
+    def held_run(tag, policy, specs, ref):
+        maps[0] = 0
+        reset_counts(K, T)
+        dt, blob, finals, versions, n = gateway_run(torch, G, prob, policy,
+                                                    specs)
+        seq, cell = K.lstm_seq.launches, K.lstm_cell.launches
+        n_maps = maps[0]
+        same = None if ref is None else G.same_bits(blob, ref)
+        print(f"[gateway] {tag} ({policy}, {len(specs)} volunteer(s): "
+              f"{', '.join(c.__name__ for _, c in specs)}): {n} updates in "
+              f"{dt:.3f} s ({dt / n * 1e3:.2f} ms an update), finals "
+              f"{finals}; {n_maps} maps, lstm_seq launches {seq} "
+              f"({prob.seq_launches_per_map} a map), lstm_cell {cell}; "
+              f"wire-fetched final model == reference bit for bit: {same}")
+        check(set(finals.values()) == {n}, f"{tag}: finals {finals}, "
+                                           f"expected {n}")
+        check(versions == list(range(versions[0], n + 1)),
+              f"{tag}: versions not contiguous: {versions}")
+        check(n_maps > 0 and seq == prob.seq_launches_per_map * n_maps,
+              f"{tag}: {seq} lstm_seq launches for {n_maps} maps")
+        check(cell == 0, f"{tag}: {cell} lstm_cell launches")
+        check(ref is None or same, f"{tag}: final model differs from the "
+                                   f"reference")
+        return dict(s=dt, updates=n, maps=n_maps, lstm_seq=seq,
+                    lstm_cell=cell, bit_equal=same)
+
+    n_async = GATEWAY_VERSIONS * prob.tp.mini_batches_to_accumulate
+    ref_async = sequential_async(prob, n_updates=n_async)[:2]
+    ref_local = sequential_local(prob, k=4, n_updates=n_async // 4)[:2]
+    out["tcp"] = held_run("tcp", "staleness:2",
+                          [("tcp0", G.SocketTransport)], ref_async)
+    out["ws"] = held_run("ws", "staleness:2",
+                         [("ws0", G.WsClientTransport)], ref_async)
+    out["local"] = held_run("local", "local:4",
+                            [("tcp0", G.SocketTransport)], ref_local)
+    out["race"] = held_run("race", "staleness:2",
+                           [("r0", G.SocketTransport),
+                            ("r1", G.SocketTransport),
+                            ("r2", G.WsClientTransport)], None)
+
+    # the applier alone: one drain of 16 staged paper gradients (numpy, the
+    # form they arrive in off the wire), batched and single, against the
+    # chain of apply_one on the card
+    grads, (p, s) = [], (prob.params0, prob.opt_state0)
+    for i in range(GATEWAY_DRAIN):
+        v, mb = prob.stream_slot(i)
+        g, _ = prob.map_compute(p, v, mb)
+        grads.append(tree.map(lambda t: t.cpu().numpy(), g))
+        p, s = prob.apply_one(p, s, g)
+    chain = (p, s)
+
+    def drain(batch):
+        qs, ds = QueueServer(), DataServer()
+        qs.declare(INITIAL_QUEUE, timeout=float("inf"))
+        ds.publish_model(0, (prob.params0, prob.opt_state0), nbytes=0)
+        ap = make_real_applier(prob, make_policy("staleness:2"), batch=batch)
+        ep = ServerEndpoint(qs, ds, applier=ap)
+        msgs = []
+        for i, g in enumerate(grads):
+            qs.publish(INITIAL_QUEUE, "t")
+            tag, _ = qs.lease(INITIAL_QUEUE, "w", 0.0)
+            msgs.append(SubmitUpdate(INITIAL_QUEUE, tag, GradResult(
+                version=i, mb_index=0, payload=g, computed_at=i)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ep.submit_batch(msgs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return ms, ep.handle(FetchModel(GATEWAY_DRAIN)).blob, ap
+
+    applier = {}
+    finals = {}
+    for batch in (True, False, False, True):
+        ms, blob, ap = drain(batch)
+        applier.setdefault(batch, []).append(ms)
+        finals[batch] = blob
+        check(ap.batches == (1 if batch else 0),
+              f"applier batch={batch}: {ap.batches} batched drains")
+    for _ in range(4):                       # >= 5 timed drains a mode
+        for batch in (True, False):
+            applier[batch].append(drain(batch)[0])
+    same = G.same_bits(finals[True], finals[False]) and \
+        G.same_bits(finals[True], chain)
+    med = {b: statistics.median(applier[b][1:]) for b in applier}
+    print(f"[gateway] applier, one drain of {GATEWAY_DRAIN} paper gradients "
+          f"({n_params} parameters): batched {med[True]:.3f} ms, single "
+          f"{med[False]:.3f} ms a drain (median of {len(applier[True]) - 1} "
+          f"after a warm-up; host clock around a synchronize); batched == "
+          f"single == chained apply_one bit for bit: {same}")
+    check(same, "batched and single applies differ on the card")
+    out["applier_ms"] = {"batched": med[True], "single": med[False],
+                         "runs_batched": applier[True],
+                         "runs_single": applier[False]}
+
+    # the CLI: a --serve --real-apply server process on the card (the
+    # shrunk problem), one volunteer from here
+    real = G._real_problem(device="cuda")
+    n_cli = 2 * real.tp.mini_batches_to_accumulate
+    ref_cli = sequential_async(real, n_updates=n_cli)[:2]
+    with tempfile.TemporaryDirectory() as td:
+        port_file = os.path.join(td, "gw.port")
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m",
+                                 "repro_torch.core.gateway",
+                                 "--serve", "--real-apply", "--policy",
+                                 "staleness:2", "--n-versions", "2",
+                                 "--n-mb", "4", "--port-file", port_file,
+                                 "--timeout", str(GATEWAY_CLI_S)],
+                                env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            port = G._wait_port(port_file, proc, timeout=GATEWAY_CLI_S)
+            tr = G.SocketTransport("127.0.0.1", port, "cli0")
+            try:
+                final, _ = G.run_volunteer(tr, "cli0", n_cli,
+                                           policy="staleness:2",
+                                           problem=real)
+                blob = tr.call(FetchModel(n_cli)).blob
+            finally:
+                tr.close()
+            text, _ = proc.communicate(timeout=GATEWAY_CLI_S)
+        finally:
+            G._reap(proc)
+        cli_s = time.perf_counter() - t0
+    same = G.same_bits(blob, ref_cli)
+    print(f"[gateway] CLI: python -m repro_torch.core.gateway --serve "
+          f"--real-apply on the card exited {proc.returncode} in "
+          f"{cli_s:.1f} s (limit {GATEWAY_CLI_S} s); final version {final}; "
+          f"wire-fetched model == sequential_async bit for bit: {same}; "
+          f"server said: {text.strip().splitlines()[-1]!r}")
+    check(proc.returncode == 0, f"CLI gateway exited {proc.returncode}: "
+                                f"{text[-2000:]}")
+    check(final == n_cli and same, "CLI gateway run differs from "
+                                   "sequential_async")
+    out["cli_s"] = cli_s
+
+    # seconds per update over the gateway against the in-process
+    # Coordinator's seconds per version (16 maps + 1 reduce)
+    per_update = out["tcp"]["s"] / out["tcp"]["updates"]
+    out["s_per_update"] = per_update
+    out["s_per_16_updates"] = 16 * per_update
+    print(f"[gateway] one TCP volunteer: {per_update:.4f} s an update, "
+          f"{16 * per_update:.3f} s per 16 updates; the in-process "
+          f"Coordinator: {coord_s:.3f} s a version (16 maps + 1 reduce)")
+
+    # the card's busy share over a few updates through the gateway
+    window_ms, busy_ms, n_kernels, by_name, _ = profiled(
+        torch, lambda: gateway_run(torch, G, prob, "staleness:2",
+                                   [("p0", G.SocketTransport)],
+                                   n_versions=1))
+    print(f"[gateway] profiled run of 16 updates over TCP: window "
+          f"{window_ms:.1f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / window_ms:.2f}%), {n_kernels} kernels, "
+          f"lstm_seq {launches_named(by_name, 'lstm_seq_kernel')}")
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
+        print(f"[gateway]   {t:.3f} ms in {n} x {name[:90]}")
+    out["profile"] = dict(window_ms=window_ms, busy_ms=busy_ms,
+                          kernels=n_kernels,
+                          busy_share=busy_ms / window_ms)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[gateway] phase took {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the dense transformer serving path (qwen1.5-110b at full width, 4 layers)
 # ---------------------------------------------------------------------------
 
@@ -1110,6 +1388,9 @@ FLASH_HD_MORE = (192, 80)
 # (zero-padded to the 256 tier), 256, and 576 and 1,024 (the kernel that
 # sums over hd in chunks)
 FLASH_HD_WIDE_MORE = (200, 256, 576, 1024)
+# ... and timed at qwen's prefill shape: 256 on the CUDA-core kernel, 576
+# and 1,024 on the kernel that sums over hd in chunks
+FLASH_HD_TIMED = (256, 576, 1024)
 # one call of more than 2^31 elements (2^31 + 2^23 in q), one launch
 FLASH_SPLIT = (257, 1024, 64, 8, 128)
 # one batch entry of exactly 2^31 elements of q, sliding window 256: the
@@ -1215,11 +1496,12 @@ def rms_bound_ms(rows, d, elem_bytes):
 
 def flash_bound_ms(B, S, H, Kv, hd, elem_bytes):
     """The causal pairs' two products (S(S+1)/2 pairs a head, 2 flops a
-    multiply-add) at the bf16 tensor-core rate; q, k, v and out each
-    crossed once."""
+    multiply-add) at the peak rate of the inputs' type (bf16: the tensor
+    cores; fp32: the CUDA cores); q, k, v and out each crossed once."""
     flops = 4 * B * H * hd * S * (S + 1) // 2
     moved = elem_bytes * (2 * B * S * H * hd + 2 * B * S * Kv * hd)
-    t_b, t_o = moved / PEAK_BYTES_S, flops / PEAK_BF16_FLOP_S
+    peak = PEAK_BF16_FLOP_S if elem_bytes == 2 else PEAK_FP32_FLOP_S
+    t_b, t_o = moved / PEAK_BYTES_S, flops / peak
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
@@ -1355,6 +1637,23 @@ def sdpa(torch, q, k, v):
         qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
 
 
+def sdpa_backend(torch, fn) -> str:
+    """The implementation SDPA dispatched ``fn`` to, read from the
+    profiler's op names (``aten::_scaled_dot_product_flash_attention``,
+    ``..._efficient_attention``, ``..._cudnn_attention``,
+    ``..._attention_math``)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.key.startswith("aten::_scaled_dot_product_")})
+    for tag in ("flash", "efficient", "cudnn", "math"):
+        if any(tag in n for n in names):
+            return tag
+    return "unknown (" + ", ".join(names) + ")"
+
+
 def phase_flash(torch, FA, ref):
     """flash_attention against its plain version over the JAX sweep (fp32
     at the sweep's tolerance, bf16 at _tol) and at the qwen prefill shape
@@ -1468,7 +1767,8 @@ def phase_flash(torch, FA, ref):
     finally:
         torch.use_deterministic_algorithms(True)
     del q32, k32, v32
-    wide = flash_wide_times(torch, FA, ref, B, S, H, Kv, 256)
+    wide = {f"hd{w}": flash_wide_times(torch, FA, ref, B, S, H, Kv, w)
+            for w in FLASH_HD_TIMED}
     bound, by = flash_bound_ms(B, S, H, Kv, hd, 2)
     print(f"[kernel] flash_attention time B={B} S={S} H={H} Kv={Kv} "
           f"hd={hd} causal bf16 (tensor-core kernel): kernel {ms:.4f} ms, "
@@ -1479,14 +1779,15 @@ def phase_flash(torch, FA, ref):
     return worst, dict(shape=[B, S, H, Kv, hd], ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound, bound_by=by,
                        fp32_ms=fp32_ms, fp32_library_ms=lib32_ms,
-                       hd256=wide)
+                       **wide)
 
 
 def flash_wide_times(torch, FA, ref, B, S, H, Kv, hd):
     """Per-call times at a head width above the tensor-core kernel's, both
-    dtypes (the CUDA-core kernel), beside SDPA in the same dtype and the
-    bound; each held to its plain version first at the qwen gate (bf16)
-    or the sweep's tolerance (fp32)."""
+    dtypes (the CUDA-core kernels), beside the plain version, SDPA in the
+    same dtype (and the backend SDPA picked) and the bound; each held to
+    its plain version first at the qwen gate (bf16) or the sweep's
+    tolerance (fp32)."""
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
@@ -1498,20 +1799,27 @@ def flash_wide_times(torch, FA, ref, B, S, H, Kv, hd):
                    f"hd={hd} causal {name} ({FA.route(dtype, hd, S, H // Kv)})",
                    FA.flash_attention(q, k, v), ref.flash_attention(q, k, v),
                    rtol, atol)
-        ms = median_ms(lambda: FA.flash_attention(q, k, v), torch, reps=5,
-                       inner=2)
+        reps, inner = (5, 2) if hd <= 256 else (3, 1)
+        ms = median_ms(lambda: FA.flash_attention(q, k, v), torch, reps=reps,
+                       inner=inner)
+        plain_ms = median_ms(lambda: ref.flash_attention(q, k, v), torch,
+                             reps=3, inner=1)
         torch.use_deterministic_algorithms(False)
         try:
-            lib_ms = median_ms(sdpa(torch, q, k, v), torch, reps=5, inner=2)
+            lib = sdpa(torch, q, k, v)
+            backend = sdpa_backend(torch, lib)
+            lib_ms = median_ms(lib, torch, reps=reps, inner=inner)
         finally:
             torch.use_deterministic_algorithms(True)
         bound, by = flash_bound_ms(B, S, H, Kv, hd, q.element_size())
         print(f"[kernel] flash_attention time B={B} S={S} H={H} Kv={Kv} "
               f"hd={hd} causal {name} ({FA.route(dtype, hd, S, H // Kv)}): "
-              f"kernel {ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bound:.5f} "
-              f"ms ({by})")
-        out[name] = dict(ms=ms, library_ms=lib_ms, bound_ms=bound,
-                         bound_by=by, max_abs_err=err,
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+              f"{lib_ms:.4f} ms ({backend} backend), bound {bound:.5f} ms "
+              f"({by})")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         library_backend=backend,
+                         bound_ms=bound, bound_by=by, max_abs_err=err,
                          route=FA.route(dtype, hd, S, H // Kv))
         del q, k, v
     return out
@@ -1936,6 +2244,7 @@ def main() -> int:
     tern_counts, per_version, wire_bytes = phase_wire_paths(
         torch, K, T, prob, seq, dense_s)
     prof = phase_profile(torch, prob)
+    gw = phase_gateway(torch, K, T, per_version["none/inproc"]["mean"])
     served = phase_serve(torch, K, T)
     serve_prof = phase_serve_profile(torch, served)
     del served["params"]
@@ -1972,6 +2281,8 @@ def main() -> int:
         "shape": seq0["shape"], "layer1": seq_rows[1], "map": seq_map,
         "device_ms": prof["seq_ms"], "map_ms": prof["map_ms"],
         "map_profile": prof["map_profile"],
+        "gateway_launches": {k: gw[k]["lstm_seq"] for k in (
+            "tcp", "ws", "local", "race")},
     }]
     # the main path's ternary counts: (ef, encode, decode) of the TernGrad
     # wire run
@@ -2023,14 +2334,16 @@ def main() -> int:
             "hd_chunked": {"kernel": "flash_kernel_chunked",
                            "dtype": "float32, bfloat16 (hd above 256)",
                            "launches": served["routes"]["hd_chunked"],
-                           "ms": None}},
+                           "ms": fa["hd576"]["bfloat16"]["ms"],
+                           "ms_hd1024": fa["hd1024"]["bfloat16"]["ms"]}},
         "hgmma_in_sass": hgmma})
     serve_line = {k: served[k] for k in ("prefill_ms", "decode_ms", "tok_s",
                                          "peak_gb", "logit_err")}
     serve_line["fp32_logit_err"] = fp32_err
     serve_line["profile"] = serve_prof
     print(json.dumps({"s_per_version": per_version,
-                      "wire_bytes": wire_bytes, "serve": serve_line}))
+                      "wire_bytes": wire_bytes, "serve": serve_line,
+                      "gateway": gw}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -87,3 +87,49 @@ class DataServer:
         for v in sorted(self._models):
             if v <= self._latest - keep_last:
                 del self._models[v]
+
+    # -- durability ------------------------------------------------------------
+    def snapshot(self) -> Dict[str, Any]:
+        """Serializable full state: the KV store, every LIVE model version
+        (GC'd versions are gone and stay gone — restoring must not resurrect
+        them), the latest-version cursor, and the accounting counters.
+        Pending watchers are live callbacks and never serialize; see
+        ``restore`` for how in-process watchers survive."""
+        # lazily-published blobs (the real applier's LazyModelBlob)
+        # solidify here: a checkpoint must hold values, not live thunks
+        return {"kind": "DataServer",
+                "kv": dict(self._kv),
+                "models": [[v, b.materialize()
+                            if hasattr(b, "materialize") else b]
+                           for v, b in sorted(self._models.items())],
+                "latest": self._latest,
+                "reads": self.reads, "writes": self.writes,
+                "bytes_read": self.bytes_read,
+                "bytes_written": self.bytes_written,
+                "watch_fires": self.watch_fires}
+
+    def restore(self, state: Dict[str, Any]) -> None:
+        """Replace this server's state with a snapshot, in place.
+
+        Watchers registered on THIS object survive the restore (they are
+        connection/session-bound callbacks, not state): any watch whose
+        version the restored state has already committed fires immediately —
+        the same guarantee ``watch_version`` makes for an already-published
+        version — and watches on still-future versions stay pending. After a
+        process crash there are no watchers to keep; reconnecting clients
+        re-issue ``WatchVersion``."""
+        if state.get("kind") != "DataServer":
+            raise ValueError(f"not a DataServer snapshot: {state.get('kind')!r}")
+        self._kv = dict(state["kv"])
+        self._models = {v: blob for v, blob in state["models"]}
+        self._latest = state["latest"]
+        self.reads = state["reads"]
+        self.writes = state["writes"]
+        self.bytes_read = state["bytes_read"]
+        self.bytes_written = state["bytes_written"]
+        self.watch_fires = state["watch_fires"]
+        for v in sorted(list(self._watchers)):
+            if v <= self._latest:
+                for cb in self._watchers.pop(v):
+                    self.watch_fires += 1
+                    cb()

@@ -13,8 +13,13 @@ reduce(version, *) = mean of the n_mb gradients (sorted by mb_index so the sum
 the Initiator and Coordinator consume it. PyTorch runs eagerly, so each step
 is the same sequence of kernels every time; on the card the bit-equality with
 the sequential references rests on ``repro_torch.device`` keeping every
-product's summation order fixed. The batched server applier's flat-carry
-methods (``repro/core/mapreduce.py:172-313``) come with a later slice.
+product's summation order fixed.
+
+The batched server applier's flat carry (``apply_batch_flat``) packs params
+and each params-shaped optimizer-state entry into one contiguous vector and
+runs the optimizer's own update once per gradient row: the same elementwise
+kernels, in the same order, on the same values as the per-leaf
+``apply_one``, so the two are bit-equal.
 """
 from __future__ import annotations
 
@@ -116,8 +121,9 @@ class TrainingProblem:
 
     def apply_one(self, params, opt_state, grads):
         """BoundedStaleness commit: apply one (possibly stale) gradient."""
-        return self.optimizer.update(
-            *tree.to_device((params, opt_state, grads), self.device))
+        params, opt_state, grads = tree.to_device((params, opt_state, grads),
+                                                  self.device)
+        return self.optimizer.update(params, opt_state, grads)
 
     def local_compute(self, params, opt_state, start: int, k: int):
         """LocalSteps ticket: k local optimizer steps from stream offset
@@ -138,6 +144,146 @@ class TrainingProblem:
         so the int32 optimizer step counter survives a fractional weight)."""
         blob, delta = tree.to_device(((params, opt_state), delta), self.device)
         return tree.map(lambda c, d: (c + weight * d).to(c.dtype), blob, delta)
+
+    # ------------------------------------------------------------- flat batch
+    # The batched server applier applies a whole drain of gradients in one
+    # call: params and every params-shaped optimizer-state entry are packed
+    # into single contiguous vectors on ``self.device``, and the optimizer's
+    # update runs once per gradient row. Bit-equality with the chained
+    # ``apply_one`` reference holds because (a) flatten/unflatten is pure
+    # data movement and (b) each row runs the same elementwise kernels on the
+    # same values as the per-leaf update. Nothing fuses across rows or
+    # across ops (no ``torch.compile``, no ``_foreach_*``): a fused multiply-
+    # add would round differently from the per-leaf reference.
+
+    @functools.cached_property
+    def _flat_spec(self):
+        """(spec, shapes, sizes, dtype, tree_keys, scalar_keys) when the
+        problem qualifies for the flat fast path, else None. Qualifying means:
+        one shared float dtype across params leaves, and an optimizer state
+        that is a dict of params-structured subtrees plus scalars."""
+        leaves = tree.leaves(self.params0)
+        if not leaves:
+            return None
+        dtype = leaves[0].dtype
+        if any(l.dtype != dtype for l in leaves):
+            return None
+        if not isinstance(self.opt_state0, dict):
+            return None
+        tree_keys, scalar_keys = [], []
+        for k in sorted(self.opt_state0):
+            v = self.opt_state0[k]
+            sl = tree.leaves(v)
+            if _same_structure(v, self.params0) and \
+                    all(a.shape == b.shape and a.dtype == dtype
+                        for a, b in zip(sl, leaves)):
+                tree_keys.append(k)
+            elif len(sl) == 1 and sl[0].ndim == 0:
+                scalar_keys.append(k)
+            else:
+                return None
+        shapes = tuple(tuple(l.shape) for l in leaves)
+        sizes = tuple(int(np.prod(s)) for s in shapes)
+        return (self.params0, shapes, sizes, dtype, tuple(tree_keys),
+                tuple(scalar_keys))
+
+    @property
+    def supports_flat_apply(self) -> bool:
+        return self._flat_spec is not None
+
+    def _grad_leaves(self, grads) -> list:
+        if not _same_structure(grads, self._flat_spec[0]):
+            raise ValueError("gradient tree does not match the params tree")
+        return tree.leaves(grads)
+
+    def pack_grads(self, grads) -> torch.Tensor:
+        """Flatten a gradient tree into one contiguous row on
+        ``self.device`` (exact: pure reshape/concat, no arithmetic)."""
+        return self.pack_grad_rows([grads])[0]
+
+    def pack_grad_rows(self, grads_seq) -> torch.Tensor:
+        """``[B, n]`` stacked ``pack_grads`` rows on ``self.device``, built
+        with one concatenate — the hot drain path. Gradients off the wire
+        (numpy leaves) are joined on the host and cross to the card in one
+        copy."""
+        leaves = [x for g in grads_seq for x in self._grad_leaves(g)]
+        if all(isinstance(x, (np.ndarray, np.generic)) for x in leaves):
+            flat = torch.from_numpy(
+                np.concatenate([np.ravel(x) for x in leaves]))
+        else:
+            flat = torch.cat([tree.to_device(x, self.device).reshape(-1)
+                              for x in leaves])
+        return flat.to(self.device).reshape(len(grads_seq), -1)
+
+    def _flatten_tree(self, t) -> torch.Tensor:
+        # torch.cat always allocates: the vector never aliases ``t``
+        return torch.cat([x.reshape(-1)
+                          for x in tree.leaves(tree.to_device(t, self.device))])
+
+    def _unflatten_tree(self, vec):
+        spec, shapes, sizes = self._flat_spec[:3]
+        return tree.unflatten(spec, [p.view(s) for p, s in
+                                     zip(vec.split(sizes), shapes)])
+
+    def flat_carry(self, params, opt_state):
+        """Pack (params, opt_state) into the flat carry ``(flat params,
+        {key: flat vector}, {key: scalar})``. Every tensor in the carry is
+        freshly allocated (copied): it never aliases the trees it packs."""
+        _, _, _, _, tree_keys, scalar_keys = self._flat_spec
+        vecs = {k: self._flatten_tree(opt_state[k]) for k in tree_keys}
+        scalars = {k: tree.to_device(opt_state[k], self.device).clone()
+                   for k in scalar_keys}
+        return (self._flatten_tree(params), vecs, scalars)
+
+    def unflatten_carry(self, carry):
+        """Inverse of ``flat_carry``: (params, opt_state) trees whose leaves
+        are views of the carry's vectors (no copy, no arithmetic)."""
+        fp, vecs, scalars = carry
+        state = {k: self._unflatten_tree(v) for k, v in vecs.items()}
+        state.update(scalars)
+        return self._unflatten_tree(fp), state
+
+    def unflatten_step(self, steps, i: int):
+        """(params, opt_state) after update ``i`` of ``apply_batch_flat``:
+        views of that step's flat state split into the leaves' shapes."""
+        return self.unflatten_carry(steps[i])
+
+    def _flat_step(self, carry, g):
+        fp, vecs, scalars = carry
+        # single-leaf trees as LISTS, the optimizer's own tree shape for one
+        # leaf: its update runs exactly as on a one-leaf params tree
+        state = {k: [v] for k, v in vecs.items()}
+        state.update(scalars)
+        new_p, new_s = self.optimizer.update([fp], state, [g])
+        return (new_p[0], {k: new_s[k][0] for k in vecs},
+                {k: new_s[k] for k in scalars})
+
+    def apply_batch_flat(self, carry, grad_rows):
+        """Apply ``B`` stacked flat gradient rows, one optimizer update each.
+
+        Returns ``(carry', steps)``: ``steps[i]`` is the full flat
+        model/optimizer state after update i (a drain publishes every
+        intermediate version) and ``carry'`` is the last step (the carry
+        itself when there are no rows). Each update returns fresh tensors,
+        so no step aliases the carry passed in, and nothing here writes in
+        place: a later drain never changes a published step."""
+        rows = tree.to_device(grad_rows, self.device)
+        steps, cur = [], carry
+        for i in range(rows.shape[0]):
+            cur = self._flat_step(cur, rows[i])
+            steps.append(cur)
+        return cur, steps
+
+    def apply_batch(self, params, opt_state, grads_seq):
+        """Tree-level batched apply: one ``apply_batch_flat`` over a sequence
+        of gradient trees. Returns the list of per-step (params, opt_state)
+        — bit-identical to folding ``apply_one`` over ``grads_seq``."""
+        if not grads_seq:
+            return []
+        rows = self.pack_grad_rows(grads_seq)
+        carry = self.flat_carry(params, opt_state)
+        _, steps = self.apply_batch_flat(carry, rows)
+        return [self.unflatten_step(steps, i) for i in range(len(grads_seq))]
 
     # ------------------------------------------------------------------ sizes
     @functools.cached_property
@@ -165,6 +311,14 @@ class TrainingProblem:
         """``lstm_seq`` launches on the card per map compute: one a layer,
         each over the whole sample."""
         return self.cfg.n_layers
+
+
+def _same_structure(a, b) -> bool:
+    try:
+        tree.map(lambda x, y: None, a, b)
+    except ValueError:
+        return False
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -222,4 +376,26 @@ def sequential_local(problem: TrainingProblem, *, k: int = 4,
         params, opt_state = problem.apply_delta(params, opt_state, delta,
                                                 weight)
         losses.append(l)
+    return params, opt_state, losses
+
+
+def sequential_fullbatch(problem: TrainingProblem, *, batch_size=None,
+                         n_versions=None):
+    """TFJS-Sequential-N: plain minibatch SGD at the given batch size (128 for
+    the paper's headline sequential baseline, 8 for TFJS-Sequential-8)."""
+    tp = problem.tp
+    bs = batch_size or tp.batch_size
+    params, opt_state = problem.params0, problem.opt_state0
+    losses: List[float] = []
+    n = n_versions if n_versions is not None else problem.n_versions
+    steps_per_version = tp.batch_size // bs
+    for v in range(n):
+        e, b = problem.version_to_epoch_batch(v)
+        starts = problem.data.starts(e, b, tp.batch_size)
+        for s in range(steps_per_version):
+            batch = problem.data.make_batch(starts[s * bs:(s + 1) * bs])
+            loss, grads = problem.loss_and_grads(params, batch)
+            params, opt_state = problem.optimizer.update(params, opt_state,
+                                                         grads)
+            losses.append(float(loss))
     return params, opt_state, losses

@@ -20,19 +20,24 @@ DistML.js's serializable command API do:
   Subscriptions are registered here; their fires are delivered as ``Wake`` /
   ``VersionReady`` notification messages through a ``notify(consumer, msg)``
   sink (the transport's downstream half). An optional ``LeaseClock`` makes
-  the server the lease-time authority (an engine's virtual clock).
+  the server the lease-time authority (the gateway's wall clock, an engine's
+  virtual clock), and an optional ``ServerApplier`` serves the barrierless
+  ``SubmitUpdate`` fast path: admission -> apply -> publish -> ack in one
+  dispatch, so thin volunteers never fetch the admission-time model or push
+  the updated blob.
 
 - **VolunteerSession** — the sans-IO client state machine owning every
   protocol rule the engines used to duplicate: lease from the task queue ->
   (map) fetch model version, compute, publish gradient -> ack, or (reduce)
   check the barrier, drain + dedup the results queue, publish model v+1 ->
   ack — including the at-least-once edges (obsolete-duplicate ack without
-  compute, incomplete-barrier nack + re-wait). The session performs **no IO
-  and no compute**: server effects go through a ``Transport``
-  (``repro_torch.core.transport``) one message at a time, and compute is
-  handed back to the engine as ``MapWork``/``ReduceWork`` outcomes — the
-  Coordinator answers them with real PyTorch gradients. Waiting is likewise
-  the engine's policy: the session
+  compute, incomplete-barrier nack + re-wait, dead-volunteer abort). The
+  session performs **no IO and no compute**: server effects go through a
+  ``Transport`` (``repro_torch.core.transport``) one message at a time, and compute
+  is handed back to the engine as ``MapWork``/``ReduceWork`` outcomes — the
+  Coordinator answers them with real PyTorch gradients, the Simulator with virtual
+  time, and ``repro_torch.core.gateway``'s out-of-process volunteer with synthetic
+  blobs over a socket. Waiting is likewise the engine's policy: the session
   says *what* to wait for (a ``Blocked`` outcome); the engine decides push
   (``subscribe``) vs poll.
 
@@ -43,17 +48,16 @@ DistML.js's serializable command API do:
   admission on the version-stamped result -> ``commit_update`` — a too-stale
   result is discarded and its ticket nacked for a fresh recompute.
 
-Port of ``repro/core/protocol.py`` with the parts the Coordinator reaches:
-the gateway's messages and routing (``Hello``, ``Forward*``, ``ExpireAll``,
-the op log), the server-side applier (``SubmitUpdate``, ``ServerApplier``),
-the lease-renewal and abort edges of out-of-process volunteers, and the
-model checker's introspection come with the port's gateway.
+Port of ``repro/core/protocol.py``, whole: the messages and the endpoint are
+framework-neutral. A tensor leaf crosses the wire as a host copy
+(``checkpoint/serialize.py``); the ``ServerApplier``'s real backend is
+``repro_torch.core.applier``.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from repro_torch.checkpoint import serialize
 from repro_torch.core.aggregation import AggregationPolicy, make_policy
@@ -134,6 +138,13 @@ def wire_size(msg, *, codec: Optional[str] = None) -> int:
 
 @wire
 @dataclass(frozen=True)
+class Hello:
+    """Bind this connection to a consumer id (gateway registration)."""
+    consumer: str
+
+
+@wire
+@dataclass(frozen=True)
 class LeaseReq:
     queue: str
     consumer: str
@@ -155,6 +166,23 @@ class Nack:
     queue: str
     tag: int
     front: bool = True
+
+
+@wire
+@dataclass(frozen=True)
+class ExtendLease:
+    """Lease renewal (heartbeat): re-stamp the held tag's visibility deadline
+    to now + timeout. A live consumer whose compute — or whose barrier wait —
+    outlasts the visibility timeout sends this periodically so only DEAD
+    consumers' leases expire. With a server clock installed ``now`` is
+    ignored, like ``LeaseReq``. ``consumer`` is the receipt check: if the
+    lease meanwhile expired and was re-granted to someone else, the renewal
+    is refused (Ok(False)) instead of hijacking the new holder's lease."""
+    queue: str
+    tag: int
+    now: float = 0.0
+    timeout: Optional[float] = None
+    consumer: str = ""
 
 
 @wire
@@ -210,7 +238,19 @@ class KickQueue:
 
 @wire
 @dataclass(frozen=True)
+class DropConsumer:
+    consumer: str
+
+
+@wire
+@dataclass(frozen=True)
 class DepthReq:
+    queue: str
+
+
+@wire
+@dataclass(frozen=True)
+class DrainedReq:
     queue: str
 
 
@@ -222,10 +262,58 @@ class LatestReq:
 
 @wire
 @dataclass(frozen=True)
+class SubmitUpdate:
+    """Barrierless fast path: hand the server a version-stamped result
+    (``GradResult``/``DeltaResult``) and let IT run admission -> apply ->
+    commit -> ack, so the volunteer never fetches the admission-time model or
+    pushes the updated blob. Requires the endpoint to host a
+    ``ServerApplier``; ``queue``/``tag`` name the ticket to ack (admitted) or
+    nack to the front (too stale)."""
+    queue: str
+    tag: int
+    result: Any
+
+
+@wire
+@dataclass(frozen=True)
 class Bye:
     """Volunteer leaves: unsubscribe everywhere + requeue held leases."""
     consumer: str
 
+
+@wire
+@dataclass(frozen=True)
+class ExpireAll:
+    """Server-authority lease sweep as a PROTOCOL message: requeue every
+    lease whose visibility deadline is <= ``now``. ``now`` is stamped by the
+    caller that owns time (the gateway's sweeper thread, an engine's virtual
+    clock) and is applied verbatim — never re-stamped by the endpoint clock —
+    because the op log records this message and failover replay must expire
+    exactly the leases the live server expired, at exactly the recorded
+    times."""
+    now: float
+
+
+@wire
+@dataclass(frozen=True)
+class Forward:
+    """Inter-gateway routing envelope: gateway ``origin`` did not own the
+    ring slice for ``inner``'s routing key, so it forwards the request to the
+    owner verbatim. The owner dispatches ``inner`` as if the client were
+    local and returns its reply in a ``ForwardReply`` with the same ``seq``
+    (the origin runs many forwards concurrently over one peer link).
+    Forwards never nest — the origin resolves the final owner before
+    sending — and the envelope itself is never op-logged: the dispatched
+    ``inner`` is, so failover replay is identical whether traffic arrived
+    locally or forwarded."""
+    seq: int
+    origin: str
+    inner: Any
+
+
+# ---------------------------------------------------------------------------
+# messages: replies
+# ---------------------------------------------------------------------------
 
 @wire
 @dataclass(frozen=True)
@@ -267,6 +355,35 @@ class LatestVersion:
 
 @wire
 @dataclass(frozen=True)
+class UpdateCommitted:
+    """``SubmitUpdate`` reply: the result passed admission; the server
+    applied it and published model ``version``, and the ticket is acked."""
+    version: int
+
+
+@wire
+@dataclass(frozen=True)
+class UpdateRejected:
+    """``SubmitUpdate`` reply: too stale at ``latest``; the payload was
+    discarded and the ticket nacked to the queue front for a recompute."""
+    latest: int
+
+
+@wire
+@dataclass(frozen=True)
+class ForwardReply:
+    """The owner's reply to a ``Forward``, correlated by ``seq``; ``inner``
+    is the reply the dispatched request produced."""
+    seq: int
+    inner: Any
+
+
+# ---------------------------------------------------------------------------
+# messages: async notifications (server -> client)
+# ---------------------------------------------------------------------------
+
+@wire
+@dataclass(frozen=True)
 class Wake:
     """A queue subscription fired (publish, or requeue for kind="any")."""
     queue: str
@@ -280,28 +397,116 @@ class VersionReady:
     version: int
 
 
+@wire
+@dataclass(frozen=True)
+class ForwardNotify:
+    """A notification (``Wake``/``VersionReady``) owed to consumer
+    ``consumer`` whose connection lives on ANOTHER gateway: the slice owner
+    wraps the fire and sends it to the consumer's home gateway, which unwraps
+    and delivers ``inner`` down the consumer's local connection."""
+    consumer: str
+    inner: Any
+
+
+NOTIFICATION_TYPES = (Wake, VersionReady, ForwardNotify)
+
+REQUEST_TYPES = (Hello, LeaseReq, Ack, Nack, ExtendLease, PublishResult,
+                 FetchModel, PublishModel, GcModels, WatchVersion,
+                 SubscribeQueue, KickQueue, DropConsumer, DepthReq,
+                 DrainedReq, LatestReq, SubmitUpdate, Bye, ExpireAll,
+                 Forward)
+
+REPLY_TYPES = (LeaseGrant, LeaseEmpty, Ok, ModelBlob, LatestVersion,
+               UpdateCommitted, UpdateRejected, ForwardReply)
+
+#: requests that read server state without mutating it — safe to dispatch
+#: outside the gateway's guard lock, and never worth op-logging
+READONLY_TYPES = (LatestReq, DepthReq, DrainedReq, FetchModel, Hello)
+
+#: requests the op log records (state-changing, connection-independent).
+#: ``SubscribeQueue``/``WatchVersion`` are deliberately absent: waiters are
+#: session-bound (snapshots exclude them for the same reason) and replaying
+#: one would register a phantom waiter against a dead connection.
+#: ``SubmitUpdate`` is logged too, but at the ``submit_batch`` layer so a
+#: batched drain logs its updates in exact application order. ``Forward``
+#: envelopes are never logged — their dispatched ``inner`` is.
+OPLOG_TYPES = (LeaseReq, Ack, Nack, ExtendLease, PublishResult, PublishModel,
+               GcModels, KickQueue, DropConsumer, Bye, ExpireAll)
+
+
 # ---------------------------------------------------------------------------
 # server half
 # ---------------------------------------------------------------------------
+
+@dataclass
+class ServerApplier:
+    """Server-side async applier (the DistML.js shape: thin clients push
+    contributions; the parameter server applies them). Hosted by a
+    ``ServerEndpoint``, it serves ``SubmitUpdate`` for barrierless policies:
+    admission by ``policy.admit``, then ``apply(model_blob, result, version)``
+    produces the next blob, which the endpoint publishes as ``version + 1``
+    and acks the ticket — one round-trip where the client-applied path costs
+    three (admission LatestReq + model fetch + model push)."""
+
+    policy: Any
+    apply: Callable[[Any, Any, int], Any]
+    model_nbytes: int = 0
+    gc_keep: Optional[int] = None
+    applied: int = 0
+    rejected: int = 0
+    # measured wire size: when set, every publish re-measures the encoded
+    # blob instead of trusting the constructor constant (which lies as soon
+    # as the blob is a real serialized model rather than a synthetic token)
+    measure: Optional[Callable[[Any], int]] = None
+    # batched fast path: (blob, results, base_version) -> [blob_1..blob_B],
+    # the successive post-update blobs for a homogeneous admitted run —
+    # installed by appliers that can chain B updates in one call
+    apply_batch: Optional[Callable[[Any, List[Any], int], List[Any]]] = None
+    batches: int = 0           # drains that applied >= 2 updates in one go
+    batched_updates: int = 0   # updates that rode such drains
+
+    def nbytes_for(self, blob) -> int:
+        """Wire-accounting size of a freshly produced blob: measured when a
+        ``measure`` hook is installed, else the constructor constant."""
+        if self.measure is not None:
+            self.model_nbytes = int(self.measure(blob))
+        return self.model_nbytes
+
 
 class ServerEndpoint:
     """Dispatch one request message onto (QueueServer, DataServer) and return
     the reply message. Subscription/watch fires leave as ``Wake`` /
     ``VersionReady`` notifications through ``notify(consumer, msg)`` — which a
-    transport routes back to the owning engine.
+    transport routes back to the owning engine (possibly over bytes, possibly
+    through injected faults).
 
     ``clock`` (a ``queue.LeaseClock``) makes the SERVER the lease-time
     authority: when set, every ``LeaseReq`` is stamped with ``clock.now()``
     instead of the client-supplied ``now`` — a remote client's idea of time
     never reaches the deadline table. Engines install a ``VirtualClock`` over
-    their own event time."""
+    their own event time; the gateway installs a ``WallClock`` plus a sweeper
+    thread that drives ``expire_all`` on real deadlines.
+
+    ``applier`` (a ``ServerApplier``) enables the ``SubmitUpdate`` fast path
+    for barrierless policies."""
 
     def __init__(self, qs, ds: DataServer,
                  notify: Optional[Callable[[str, Any], None]] = None, *,
-                 clock=None):
+                 clock=None, applier: Optional[ServerApplier] = None):
         self.qs = qs
         self.ds = ds
         self.clock = clock
+        self.applier = applier
+        # op log sink: when set (the gateway installs one), every successfully
+        # dispatched state-changing request (``OPLOG_TYPES`` + each
+        # ``SubmitUpdate`` in batch order) is handed to it AFTER dispatch, so
+        # a failover replay of the recorded stream reconstructs this
+        # endpoint's durable state exactly
+        self.op_sink: Optional[Callable[[Any], None]] = None
+        # consumers whose connection lives on another gateway (registered by
+        # a forwarded SubscribeQueue/WatchVersion): consumer -> origin gid;
+        # their notification fires leave as ForwardNotify to the home gateway
+        self._remote_consumers: Dict[str, str] = {}
         self._notify = notify if notify is not None else (lambda c, m: None)
         # live (consumer, version) watches: lossy/timed clients re-subscribe
         # defensively, and the queue side dedupes waiters per consumer — this
@@ -313,12 +518,136 @@ class ServerEndpoint:
     def set_notify(self, notify: Callable[[str, Any], None]) -> None:
         self._notify = notify
 
+    def watch_view(self) -> Tuple[Tuple[str, int], ...]:
+        """Live ``(consumer, version)`` watches, sorted. Introspection hook
+        for ``repro_torch.analysis.mc`` (no-lost-wake invariant + state
+        fingerprint); the watcher callbacks themselves stay private."""
+        return tuple(sorted(self._watch_keys))
+
+    def disconnect(self, consumer: str) -> int:
+        """Server-side cleanup for a consumer whose CONNECTION died (not a
+        ``Bye``: that is the volunteer leaving voluntarily, and it also
+        requeues held leases). Drops the consumer's queue waiters so they
+        stop consuming one-shot wakes nobody can deliver; leases stay —
+        lease recovery is deliberately the sweeper's (the volunteer may
+        reconnect and heartbeat; only real death expires them)."""
+        self._remote_consumers.pop(consumer, None)
+        return self.qs.unsubscribe(consumer)
+
+    def _deliver(self, consumer: str, msg) -> None:
+        """Route one notification fire: locally-connected consumers get the
+        message as-is; a consumer registered through a ``Forward`` gets it
+        wrapped in ``ForwardNotify`` addressed to its home gateway's peer
+        link (consumer id ``gw:<origin>``)."""
+        origin = self._remote_consumers.get(consumer)
+        if origin is None:
+            self._notify(consumer, msg)
+        else:
+            self._notify(f"gw:{origin}", ForwardNotify(consumer, msg))
+
     def now(self, client_now: float = 0.0) -> float:
         """Lease-authority time: the installed clock, else the client's."""
         return client_now if self.clock is None else self.clock.now()
 
+    def _submit_update(self, m: SubmitUpdate):
+        return self.submit_batch([m])[0]
+
+    def submit_batch(self, msgs: List[SubmitUpdate]) -> List[Any]:
+        """Drained ``SubmitUpdate`` batch — the server-apply fast path.
+
+        Admission is precomputed Python-side in arrival order: within a drain
+        the published version advances by exactly one per admitted update, so
+        element i is admitted against (and a rejection reports) the version it
+        would have observed under one-at-a-time handling. The admitted run is
+        then applied — in ONE batched apply per homogeneous segment when the
+        applier installs ``apply_batch`` — and every intermediate version is
+        published, with measured nbytes, and acked in arrival order.
+
+        Replies are bit-identical to sequential ``handle`` calls per client;
+        batching is invisible on the wire. The only internal difference is
+        that ``gc_keep`` pruning runs once at drain end instead of after each
+        publish — the surviving version set is the same either way, and no
+        client observes mid-drain state (the endpoint is held by one drainer).
+        An empty or all-rejected drain publishes nothing."""
+        ap = self.applier
+        if ap is None:
+            raise TypeError("SubmitUpdate needs a ServerApplier on the "
+                            "endpoint (server-side apply is not enabled)")
+        if self.op_sink is not None:
+            # arrival order IS application order (admission is precomputed in
+            # arrival order), so replaying these one-at-a-time reproduces the
+            # drain's state exactly — the batching is invisible to the log
+            # just as it is on the wire
+            for m in msgs:
+                self.op_sink(m)
+        replies: List[Any] = [None] * len(msgs)
+        base = self.ds.latest_version
+        v = base
+        admitted: List[Tuple[int, SubmitUpdate]] = []
+        for i, m in enumerate(msgs):
+            if ap.policy.admit(m.result.computed_at, v):
+                admitted.append((i, m))
+                v += 1
+            else:
+                ap.rejected += 1
+                self.qs.nack(m.queue, m.tag, front=True)
+                replies[i] = UpdateRejected(v)
+        if not admitted:
+            return replies
+        blob = self.ds.get_model(base)
+        blobs: List[Any] = []
+        pos = 0
+        while pos < len(admitted):
+            # homogeneous segment: apply_batch chains one result kind only
+            # (GradResult vs DeltaResult take different apply paths)
+            kind = type(admitted[pos][1].result)
+            end = pos + 1
+            while end < len(admitted) and \
+                    type(admitted[end][1].result) is kind:
+                end += 1
+            seg = [m.result for _, m in admitted[pos:end]]
+            if len(seg) >= 2 and ap.apply_batch is not None:
+                out = ap.apply_batch(blob, seg, base + pos)
+                ap.batches += 1
+                ap.batched_updates += len(seg)
+            else:
+                out = []
+                for j, r in enumerate(seg):
+                    blob = ap.apply(blob, r, base + pos + j)
+                    out.append(blob)
+            blobs.extend(out)
+            blob = out[-1]
+            pos = end
+        for k, ((i, m), b) in enumerate(zip(admitted, blobs)):
+            self.ds.publish_model(base + k + 1, b, nbytes=ap.nbytes_for(b))
+            self.qs.ack(m.queue, m.tag)
+            ap.applied += 1
+            replies[i] = UpdateCommitted(base + k + 1)
+        if ap.gc_keep is not None:
+            self.ds.gc_models(keep_last=ap.gc_keep)
+        return replies
+
     def handle(self, m):
-        """Dispatch one request and return its reply."""
+        """Dispatch one request and return its reply, feeding the op log.
+
+        ``Forward`` unwraps here: the envelope records the origin gateway for
+        any session-binding inner (so notification fires route home), then
+        the inner request dispatches through this same method — op-logging
+        included — and the reply goes back wrapped with the envelope's seq.
+        """
+        if isinstance(m, Forward):
+            inner = m.inner
+            if isinstance(inner, (SubscribeQueue, WatchVersion)):
+                self._remote_consumers[inner.consumer] = m.origin
+            return ForwardReply(m.seq, self.handle(inner))
+        reply = self._dispatch(m)
+        # logged only after a successful dispatch: a request that raised
+        # must not survive into the replay stream
+        if self.op_sink is not None and isinstance(m, OPLOG_TYPES):
+            self.op_sink(m)
+        return reply
+
+    def _dispatch(self, m):
         if isinstance(m, LeaseReq):
             got = self.qs.lease(m.queue, m.consumer, self.now(m.now),
                                 m.timeout)
@@ -329,10 +658,17 @@ class ServerEndpoint:
             return Ok(self.qs.ack(m.queue, m.tag))
         if isinstance(m, Nack):
             return Ok(self.qs.nack(m.queue, m.tag, front=m.front))
+        if isinstance(m, ExtendLease):
+            return Ok(self.qs.extend(m.queue, m.tag, self.now(m.now),
+                                     m.timeout, m.consumer or None))
         if isinstance(m, PublishResult):
             return Ok(self.qs.publish(m.queue, m.result))
         if isinstance(m, FetchModel):
             blob = self.ds.get_model(m.version, nbytes=m.nbytes)
+            if blob is not None and hasattr(blob, "materialize"):
+                # a batched real applier publishes lazy blobs; a fetch is
+                # exactly the moment the pytree form is actually needed
+                blob = blob.materialize()
             return ModelBlob(m.version, blob is not None, blob)
         if isinstance(m, PublishModel):
             return Ok(self.ds.publish_model(m.version, m.blob,
@@ -348,26 +684,39 @@ class ServerEndpoint:
 
             def fire(key=key, consumer=m.consumer, version=m.version):
                 self._watch_keys.discard(key)
-                self._notify(consumer, VersionReady(version))
+                self._deliver(consumer, VersionReady(version))
 
             self.ds.watch_version(m.version, fire)
             return Ok(True)
         if isinstance(m, SubscribeQueue):
             self.qs.subscribe(
                 m.queue, m.consumer,
-                lambda: self._notify(m.consumer, Wake(m.queue, m.kind)),
+                lambda: self._deliver(m.consumer, Wake(m.queue, m.kind)),
                 kind=m.kind)
             return Ok()
         if isinstance(m, KickQueue):
             self.qs.kick(m.queue)
             return Ok()
+        if isinstance(m, DropConsumer):
+            self._remote_consumers.pop(m.consumer, None)
+            return Ok(self.qs.drop_consumer(m.consumer))
         if isinstance(m, DepthReq):
             return Ok(self.qs.depth(m.queue))
+        if isinstance(m, DrainedReq):
+            return Ok(self.qs.drained([m.queue]))
         if isinstance(m, LatestReq):
             return LatestVersion(self.ds.latest_version)
+        if isinstance(m, SubmitUpdate):
+            return self._submit_update(m)
         if isinstance(m, Bye):
+            self._remote_consumers.pop(m.consumer, None)
             self.qs.unsubscribe(m.consumer)
             return Ok(self.qs.drop_consumer(m.consumer))
+        if isinstance(m, ExpireAll):
+            # m.now applied verbatim (see ExpireAll): replay authority
+            return Ok(self.qs.expire_all(m.now))
+        if isinstance(m, Hello):
+            return Ok(m.consumer)
         raise TypeError(f"unknown protocol message {type(m).__name__}")
 
 
@@ -444,6 +793,16 @@ class TaskDone:
 
 
 @dataclass(frozen=True)
+class UpdateDone:
+    """Outcome of ``submit_update`` (server-applied barrierless commit):
+    ``version`` is the model version the server published (-1 when the result
+    was rejected as stale — the ticket is already nacked server-side)."""
+    task: Any
+    stale: bool
+    version: int = -1
+
+
+@dataclass(frozen=True)
 class Busy:
     """A compute was already handed out (``MapWork``/``ReduceWork``) and not
     finished: the wake that triggered this advance is spurious (duplicate or
@@ -486,6 +845,37 @@ class VolunteerSession:
         self._rtags = []
         self._handed = False
         self._base = self._apply_version = -1
+
+    # -- introspection (repro_torch.analysis.mc) ----------------------------------
+    @property
+    def holding(self) -> bool:
+        """True while a leased ticket is held (heartbeat/release are legal)."""
+        return self.tag is not None
+
+    @property
+    def computing(self) -> bool:
+        """True while compute is handed out and not yet finished."""
+        return self._handed
+
+    def state_view(self) -> Dict[str, Any]:
+        """The session's protocol-visible state as plain data, for the model
+        checker's state fingerprint. ``load_view`` is the inverse; together
+        they let an explorer branch a session without deep-copying the
+        transport it is bound to."""
+        return {"tag": self.tag, "task": self.task,
+                "lease_latest": self.lease_latest,
+                "rtags": list(self._rtags), "handed": self._handed,
+                "base": self._base, "apply_version": self._apply_version}
+
+    def load_view(self, view: Dict[str, Any]) -> None:
+        """Restore state captured by ``state_view`` (model-checker replay)."""
+        self.tag = view["tag"]
+        self.task = view["task"]
+        self.lease_latest = view["lease_latest"]
+        self._rtags = list(view["rtags"])
+        self._handed = view["handed"]
+        self._base = view["base"]
+        self._apply_version = view["apply_version"]
 
     # -- protocol: lease ----------------------------------------------------
     def lease(self, now: float):
@@ -611,6 +1001,20 @@ class VolunteerSession:
         self._clear()
         return done
 
+    def submit_update(self, result) -> UpdateDone:
+        """Server-applied barrierless commit: one ``SubmitUpdate`` round-trip
+        replaces the client-applied ``finish_update`` -> ``commit_update``
+        pair — the server runs admission, applies the payload to the current
+        model, publishes, and acks/nacks the ticket itself, so the volunteer
+        pays a result push instead of a model push. Requires the endpoint to
+        host a ``ServerApplier``."""
+        t = self.task
+        r = self._call(SubmitUpdate(INITIAL_QUEUE, self.tag, result))
+        self._clear()
+        if isinstance(r, UpdateRejected):
+            return UpdateDone(t, stale=True)
+        return UpdateDone(t, stale=False, version=r.version)
+
     # -- protocol: completions ----------------------------------------------
     def finish_map(self, payload, nbytes: int, loss: float):
         """Publish the gradient and ack the map task (re-checking admission:
@@ -634,6 +1038,19 @@ class VolunteerSession:
         """Fetch the held (reduce) task's model blob — engine compute input."""
         return self._call(FetchModel(self.task.version, nbytes)).blob
 
+    def result_message(self, payload, nbytes: int, loss: float) -> PublishResult:
+        """The PublishResult ``finish_map`` would send — lets a measuring
+        engine price the push before committing to it."""
+        t = self.task
+        return PublishResult(
+            results_queue(t.version),
+            GradResult(t.version, t.mb_index, payload, nbytes, loss, self.vid,
+                       computed_at=t.version))
+
+    def model_message(self, blob, nbytes: int = 0) -> PublishModel:
+        """The PublishModel ``finish_reduce`` would send (pricing, as above)."""
+        return PublishModel(self.task.version + 1, blob, nbytes)
+
     def finish_reduce(self, blob, nbytes: int = 0,
                       gc_keep: Optional[int] = None):
         """Publish model version+1, then ack the drained results and the
@@ -650,6 +1067,32 @@ class VolunteerSession:
         self._clear()
         return done
 
+    def release(self, *, front: bool = False) -> bool:
+        """Voluntarily give the held ticket back (nack) and go idle. The
+        liveness escape hatch for a version-blocked map: stepping aside to
+        the BACK of the queue is order-safe (the task cannot run before its
+        model version commits anyway) and frees this volunteer to take the
+        front task — which may be the very map the open reduce barrier is
+        missing. Safe on an already-expired lease (the nack is a no-op)."""
+        ok = self._call(Nack(INITIAL_QUEUE, self.tag, front=front)).value
+        self._clear()
+        return ok
+
+    def queue_depth(self) -> int:
+        """Pending tasks on the task queue (is there other leasable work?)."""
+        return self._call(DepthReq(INITIAL_QUEUE)).value
+
+    # -- protocol: lease renewal ---------------------------------------------
+    def heartbeat(self, now: float = 0.0) -> bool:
+        """Renew the held ticket's visibility deadline (see ``ExtendLease``).
+        Call periodically from long computes or long barrier waits so the
+        sweeper only ever expires DEAD volunteers. Returns False when the
+        renewal lost the race (the lease already expired and requeued)."""
+        if self.tag is None:
+            return False
+        return self._call(ExtendLease(INITIAL_QUEUE, self.tag, now,
+                                      consumer=self.vid)).value
+
     # -- protocol: waits ----------------------------------------------------
     def subscribe(self, blocked: Blocked) -> None:
         """Push-mode wait: register for exactly the wake ``blocked`` names."""
@@ -661,6 +1104,22 @@ class VolunteerSession:
     def subscribe_idle(self) -> None:
         """Idle wait: wake on the next task-queue publish or requeue."""
         self._call(SubscribeQueue(INITIAL_QUEUE, self.vid, "any"))
+
+    def queue_drained(self) -> bool:
+        return self._call(DrainedReq(INITIAL_QUEUE)).value
+
+    # -- protocol: departure -------------------------------------------------
+    def abort(self, *, kick_if_empty: bool = False) -> int:
+        """The volunteer died mid-protocol: requeue everything it held —
+        DropConsumer covers the task lease AND any drained results-queue
+        leases in one sweep. A consumed wake it can no longer serve is passed
+        on (``kick_if_empty``) so no event is lost. Returns the number of
+        requeued leases."""
+        n = self._call(DropConsumer(self.vid)).value
+        if n == 0 and kick_if_empty:
+            self._call(KickQueue(INITIAL_QUEUE))
+        self._clear()
+        return n
 
     def bye(self) -> int:
         """Clean departure: unsubscribe everywhere + requeue held leases."""

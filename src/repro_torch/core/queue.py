@@ -30,7 +30,8 @@ a rebalance is invisible to consumers except that ~1/K of queue names change
 owner. Cross-queue side-effect order (expiry requeues, consumer drops) is
 defined by (deadline, queue-name) / queue-name, NOT by shard layout, so a
 sharded run is bit-identical to a single-server run — asserted by the chaos
-metamorphic suite of the reference package.
+metamorphic suite (the reference's ``core/chaos.py``; the port's copy is
+ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ import bisect
 import hashlib
 import heapq
 import math
+import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
@@ -57,6 +59,14 @@ class LeaseClock:
 
     def now(self) -> float:
         raise NotImplementedError
+
+
+class WallClock(LeaseClock):
+    """Real deployments: visibility deadlines are wall-clock seconds
+    (monotonic, so a system clock step cannot mass-expire leases)."""
+
+    def now(self) -> float:
+        return time.monotonic()
 
 
 class VirtualClock(LeaseClock):
@@ -292,6 +302,111 @@ class Queue:
     def peek_all(self) -> List[Any]:
         return [b for _, b in self._pending]
 
+    def waiter_view(self) -> Dict[str, Tuple[str, ...]]:
+        """Registered waiter consumers in FIFO order, per kind. Introspection
+        hook for ``repro_torch.analysis.mc`` (no-lost-wake invariant, state
+        fingerprint, waiter re-registration on restore); the one-shot
+        callbacks themselves stay private."""
+        return {"any": tuple(c for c, _ in self._waiters),
+                "publish": tuple(c for c, _ in self._pub_waiters)}
+
+    def check_invariants(self) -> None:
+        """Structural invariants that must hold at every quiescent point.
+
+        - a tag is pending XOR in flight (never both, never duplicated),
+        - every finite-deadline in-flight message has a live entry in the
+          deadline heap (stale heap entries are allowed — they are lazily
+          discarded — but a deadline the heap does not cover would never
+          expire),
+        - conservation: every publish is accounted for — acked, still
+          pending, or in flight; nothing is lost to nothing.
+        """
+        pending_tags = [t for t, _ in self._pending]
+        assert len(pending_tags) == len(set(pending_tags)), \
+            f"{self.name}: duplicate tag in pending"
+        overlap = set(pending_tags) & set(self._in_flight)
+        assert not overlap, f"{self.name}: tags both pending and in flight: {overlap}"
+        heap_entries = set(self._deadlines)
+        for tag, inf in self._in_flight.items():
+            if math.isfinite(inf.deadline):
+                assert (inf.deadline, tag) in heap_entries, \
+                    f"{self.name}: in-flight tag {tag} deadline " \
+                    f"{inf.deadline} missing from deadline heap"
+        assert self.published == self.acked + self.depth + self.in_flight, \
+            f"{self.name}: conservation violated: published={self.published} " \
+            f"!= acked={self.acked} + depth={self.depth} + " \
+            f"in_flight={self.in_flight}"
+        assert self._waiter_names == {c for c, _ in self._waiters}, \
+            f"{self.name}: waiter name set out of sync"
+        assert self._pub_waiter_names == {c for c, _ in self._pub_waiters}, \
+            f"{self.name}: publish-waiter name set out of sync"
+
+    # -- durability ------------------------------------------------------------
+    def snapshot(self) -> Dict[str, Any]:
+        """Full serializable live state: pending FIFO (order + tags), the
+        in-flight table with deadlines and requeue counts, banked signals,
+        the tag counter, and all counters. Registered WAITERS are deliberately
+        excluded — they are live callbacks bound to connections/sessions that
+        do not survive a process, so a restored server starts with none and
+        clients re-subscribe (which the protocol already requires of lossy
+        transports)."""
+        return {
+            "name": self.name,
+            "default_timeout": self.default_timeout,
+            "pending": [[tag, body] for tag, body in self._pending],
+            "in_flight": [[tag, inf.body, inf.consumer, inf.deadline,
+                           inf.requeues]
+                          for tag, inf in sorted(self._in_flight.items())],
+            "next_tag": self._next_tag,
+            "signal": self._signal,
+            "pub_signal": self._pub_signal,
+            "published": self.published,
+            "acked": self.acked,
+            "requeued": self.requeued,
+            "wakeups": self.wakeups,
+        }
+
+    @classmethod
+    def from_snapshot(cls, state: Dict[str, Any]) -> "Queue":
+        q = cls(state["name"], state["default_timeout"])
+        q._pending = deque((tag, body) for tag, body in state["pending"])
+        for tag, body, consumer, deadline, requeues in state["in_flight"]:
+            q._in_flight[tag] = _InFlight(body, consumer, deadline, requeues)
+            if math.isfinite(deadline):
+                q._deadlines.append((deadline, tag))
+        heapq.heapify(q._deadlines)
+        q._next_tag = state["next_tag"]
+        q._signal = bool(state["signal"])
+        q._pub_signal = bool(state["pub_signal"])
+        q.published = state["published"]
+        q.acked = state["acked"]
+        q.requeued = state["requeued"]
+        q.wakeups = state["wakeups"]
+        return q
+
+    def adopt_waiters(self, src: "Queue") -> None:
+        """Carry another queue object's live waiter registrations into this
+        one (in-place restore: the snapshot cannot hold callbacks, but the
+        process may still hold the subscribers)."""
+        self._waiters = src._waiters
+        self._pub_waiters = src._pub_waiters
+        self._waiter_names = src._waiter_names
+        self._pub_waiter_names = src._pub_waiter_names
+
+    def adopt_session_state(self, src: "Queue") -> None:
+        """Adopt ALL of another queue object's session-coupled wake state:
+        waiter registrations plus the banked signal flags. An op-log replay
+        reconstructs the durable half of a queue but not its wake state —
+        subscriptions are never logged (they are connection-bound), so a
+        replayed queue over-banks signals that a live subscriber already
+        consumed. A gateway adopting a slice takes the wake state from the
+        LIVE session side (volunteers that are still connected), exactly as
+        ``restore(waiters_from=...)`` does for waiters."""
+        self.adopt_waiters(src)
+        self._signal = src._signal
+        self._pub_signal = src._pub_signal
+
+
 class QueueServer:
     """Named queues. Multiple QueueServers are modelled by multiple instances
     (the paper's load-balancing story — see ShardedQueueServer); the API is
@@ -339,6 +454,43 @@ class QueueServer:
             heapq.heappush(self._dl_heap, (dl, q.name))
         q._server_note = self._note_deadline
         self.queues[q.name] = q
+
+    # -- durability ------------------------------------------------------------
+    def snapshot(self) -> Dict[str, Any]:
+        """Serializable state of every queue, in name order (deterministic
+        bytes for identical state). See ``Queue.snapshot`` for what rides
+        along and why waiters do not."""
+        return {"kind": "QueueServer",
+                "default_timeout": self.default_timeout,
+                "queues": [self.queues[n].snapshot()
+                           for n in sorted(self.queues)]}
+
+    def restore(self, state: Dict[str, Any], *,
+                waiters_from: Optional[Dict[str, Queue]] = None) -> None:
+        """Replace this server's entire state with a snapshot, in place (the
+        object identity survives, so endpoints/transports keep working).
+
+        ``waiters_from`` maps queue names to live Queue objects whose waiter
+        registrations should be adopted by the restored queues — defaults to
+        this server's own current queues, which makes a same-process
+        snapshot -> restore round-trip invisible to subscribed consumers.
+        After a process crash there are no live waiters to adopt and restored
+        queues start with none; reconnecting clients re-subscribe, and any
+        lease the dead clients held expires via the visibility sweeper."""
+        if state.get("kind") != "QueueServer":
+            raise ValueError(f"not a QueueServer snapshot: {state.get('kind')!r}")
+        old = self.queues if waiters_from is None else waiters_from
+        self.default_timeout = state["default_timeout"]
+        self.queues = {}
+        self._dl_heap = []
+        for qstate in state["queues"]:
+            q = Queue.from_snapshot(qstate)
+            if q.name in old:
+                q.adopt_waiters(old[q.name])
+            q._server_note = self._note_deadline
+            for dl, _ in q._deadlines:
+                heapq.heappush(self._dl_heap, (dl, q.name))
+            self.queues[q.name] = q
 
     def publish(self, qname: str, body: Any) -> int:
         return self.declare(qname).publish(body)
@@ -408,6 +560,10 @@ class QueueServer:
 
     def depth(self, qname: str) -> int:
         return self.declare(qname).depth
+
+    def waiter_views(self) -> Dict[str, Dict[str, Tuple[str, ...]]]:
+        """Per-queue ``waiter_view``s, sorted by queue name (model checker)."""
+        return {n: self.queues[n].waiter_view() for n in sorted(self.queues)}
 
     @property
     def total_requeued(self) -> int:
@@ -513,6 +669,46 @@ class ShardedQueueServer:
             self.shards[self.shard_of(name)].attach(src.detach(name))
             migrated.append(name)
         return migrated
+
+    # -- durability ------------------------------------------------------------
+    def snapshot(self) -> Dict[str, Any]:
+        """Per-shard snapshots plus the ring membership (stable shard ids and
+        the id counter), so a restore reproduces the exact queue->shard
+        placement — including ids burned by shards that have since left."""
+        return {"kind": "ShardedQueueServer",
+                "default_timeout": self.default_timeout,
+                "vnodes": self._vnodes,
+                "next_sid": self._next_sid,
+                "sids": list(self._sids),
+                "shards": [s.snapshot() for s in self.shards]}
+
+    def restore(self, state: Dict[str, Any]) -> None:
+        """Rebuild the ring and every shard's state in place. The placement
+        rule is code, not state — the restoring server keeps its own (it must
+        be constructed with the same rule, like the same codebase). Live
+        waiters are adopted by queue NAME across the whole federation, so a
+        same-process round-trip stays invisible even though queue->shard
+        ownership is reconstructed rather than copied."""
+        if state.get("kind") != "ShardedQueueServer":
+            raise ValueError(
+                f"not a ShardedQueueServer snapshot: {state.get('kind')!r}")
+        if state["vnodes"] != self._vnodes:
+            raise ValueError(f"vnodes mismatch: snapshot {state['vnodes']}, "
+                             f"server {self._vnodes}")
+        live = dict(self.queues)              # merged name -> Queue view
+        self.default_timeout = state["default_timeout"]
+        self._next_sid = state["next_sid"]
+        self._sids = list(state["sids"])
+        self._ring = []
+        for sid in self._sids:
+            for r in range(self._vnodes):
+                bisect.insort(self._ring,
+                              (_stable_hash(f"qshard-{sid}#{r}"), sid))
+        self._reindex()
+        self.shards = [QueueServer(self.default_timeout)
+                       for _ in self._sids]
+        for shard, sstate in zip(self.shards, state["shards"]):
+            shard.restore(sstate, waiters_from=live)
 
     def shard_of(self, qname: str) -> int:
         """Index of the shard owning this queue name (clockwise successor of

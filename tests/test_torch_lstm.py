@@ -7,8 +7,11 @@ its tolerance. The CUDA kernel itself runs only on the card
 """
 from __future__ import annotations
 
+import os
 import pathlib
 import re
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -258,6 +261,27 @@ _FORBIDDEN = re.compile(
     r"from\s+repro(\.|\s))", re.M)
 
 
+# run in a fresh interpreter: any import of jax or of the reference package
+# raises, then every module of repro_torch is imported (walked, not listed)
+# and the gateway's CLI runs as ``python -m``
+_IMPORT_ALL = """
+import importlib, pkgutil, runpy, sys
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError("the port imported " + name)
+sys.meta_path.insert(0, _Refuse())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+print("modules", len(names), " ".join(sorted(names)))
+sys.argv = ["gateway", "--help"]
+runpy.run_module("repro_torch.core.gateway", run_name="__main__")
+"""
+
+
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
@@ -265,6 +289,21 @@ def test_port_imports_neither_jax_nor_the_reference():
     hits = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
             for p in files for m in _FORBIDDEN.finditer(p.read_text())]
     assert not hits, hits
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    first = out.stdout.splitlines()[0].split()
+    names = set(first[2:])
+    assert int(first[1]) == len(names) == len(files) - 1 - sum(
+        p.name == "__init__.py" and p.parent.name == "repro_torch"
+        for p in files)
+    for mod in ("checkpoint.serialize", "core.applier", "core.browser",
+                "core.elastic", "core.gateway", "core.simulator",
+                "core.traces", "core.wsframing", "analysis.base",
+                "analysis.runtime"):
+        assert f"repro_torch.{mod}" in names
+    assert "--real-apply" in out.stdout and "--device" in out.stdout
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -281,4 +320,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "qwen1.5-110b", "--requests", "1"])
+    from repro_torch.core import gateway
+    for mode in ("--serve", "--volunteer"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            gateway.main([mode, "--real-apply", "--port", "1"])
     assert D.resolve("cpu") == torch.device("cpu")
