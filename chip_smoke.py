@@ -113,7 +113,30 @@ Phases, each printing its result; any failure exits non-zero:
    logits' scale;
 7. qwen1.5-110b's smoke config in fp32, the kernel path on the card
    against the plain path on the CPU: equal greedy tokens and logits within
-   the stated tolerance.
+   the stated tolerance;
+8. the transformer kernels as training runs them, at full width:
+   ``FlashAttention`` (the kernel's forward writing lse, then the plain
+   chunked backward) at stablelm-1.6b's shape (B=1, S=4,096, 32 heads, hd
+   64) and qwen1.5-110b's (S=1,024, 64 over 8 heads, hd 128), bf16, causal:
+   the lse against the plain lse, dq/dk/dv against the plain forward's
+   within 2e-2 of max |grad| beside the bf16 plain path's distance from an
+   fp32 one; ``RMSNorm`` forward + backward at ``[4096, 8192]`` bf16; the
+   forward with and without lse, the plain backward and SDPA's forward +
+   backward timed beside their bounds;
+9. the training path: stablelm-1.6b at its full published size (24
+   layers, d_model 2,048, 1,644,367,872 parameters, bf16, random weights
+   from seed 0) through ``repro_torch.launch.train.run_arch``: AdamW,
+   batch 8 x 4,096 tokens in 8 microbatches, remat on, 4 steps (the first
+   a warm-up), with every count set to 0 just before and read just after:
+   exactly 384 ``flash_attention`` launches a step, all on the
+   tensor-core route and all writing lse, no other kernel launch; seconds
+   per step, tokens/s, model FLOP/s and peak memory; one step without
+   remat (192 launches); a profiled step (busy share, top kernels); that
+   step's gradients against every kernel swapped for its plain version
+   (``plain_kernels``), beside an fp32 plain step; a ``--ckpt`` run
+   of the smoke config loading back bit for bit; the stablelm and qwen
+   smoke configs' step gradients card vs CPU (fp32) and their exact
+   launch counts.
 
 The line before the last is a JSON object of per-kernel numbers; the last is
 ``{"ok": true, "device": {...}}``. With no CUDA card, or outside a checkout
@@ -796,6 +819,7 @@ def reset_counts(K, T):
     FA.flash_attention.route_launches = dict.fromkeys(
         FA.flash_attention.route_launches, 0)
     FA.flash_attention.padded_launches = 0
+    FA.flash_attention.lse_launches = 0
 
 
 def same_model(torch, res, ref_params, ref_state) -> bool:
@@ -1920,8 +1944,10 @@ def phase_flash_split(torch, FA, ref):
 
 def plain_kernels(rmsnorm=None):
     """Route the model's kernel calls to the plain versions, on any device,
-    for the ``with`` block (the comparison runs of the serve phase);
-    ``rmsnorm`` replaces the plain RMSNorm (the noise-floor run)."""
+    for the ``with`` block (the comparison runs of the serve and training
+    phases: ``ops.FlashAttention`` and ``ops.RMSNorm`` call the patched
+    names too); ``rmsnorm`` replaces the plain RMSNorm (the noise-floor
+    run)."""
     import contextlib
     from unittest import mock
     from repro_torch.kernels import ops, ref
@@ -1936,15 +1962,16 @@ def plain_kernels(rmsnorm=None):
 def teacher_forced(torch, M, params, cfg, prompt_toks, gen_toks):
     """Prefill, then decode fed ``gen_toks`` [B, T] (the served tokens):
     the logits of the prefill and of each decode step, [T, B, V]."""
+    from repro_torch.models.runtime import DEFAULT
     B, P = prompt_toks.shape
     T = gen_toks.shape[1]
     cache = M.init_cache(cfg, B, P + T + 8, device="cuda")
-    logits, cache = M.prefill(params, cfg, {"tokens": prompt_toks},
+    logits, cache = M.prefill(params, cfg, DEFAULT, {"tokens": prompt_toks},
                               cache)
     out = [logits]
     for t in range(T - 1):
-        logits, cache = M.decode_step(params, cfg, gen_toks[:, t], cache,
-                                      P + t)
+        logits, cache = M.decode_step(params, cfg, DEFAULT, gen_toks[:, t],
+                                      cache, P + t)
         out.append(logits)
     return torch.stack(out)
 
@@ -2015,6 +2042,7 @@ def phase_serve(torch, K, T):
                   T.ternary_encode.launches + T.ternary_decode.launches +
                   T.ef_compress_leaves.launches)
     routes = dict(FA.flash_attention.route_launches)
+    lse_launches = FA.flash_attention.lse_launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_batches = -(-SERVE["requests"] // SERVE["batch"])
     per_pass = 2 * SERVE_LAYERS + 1
@@ -2042,6 +2070,9 @@ def phase_serve(torch, K, T):
                      "hd_chunked": 0},
           f"serve flash_attention routes {routes}: every bf16 launch should "
           f"run the tensor-core kernel")
+    print(f"[serve] flash_attention launches that wrote lse: {lse_launches} "
+          f"(serving passes the kernels a null lse)")
+    check(lse_launches == 0, f"{lse_launches} serve launches wrote lse")
     check(tuple(toks.shape) == (SERVE["requests"], SERVE["tokens"]) and
           bool(((toks >= 0) & (toks < cfg.vocab)).all()),
           f"served tokens {tuple(toks.shape)} out of shape or range")
@@ -2078,6 +2109,7 @@ def phase_serve_fp32(torch):
     import repro_torch.configs as C
     from repro_torch.launch.serve import greedy, make_prompts
     from repro_torch.models import model as M
+    from repro_torch.models.runtime import DEFAULT
 
     cfg = C.get(SERVE_ARCH).replace(n_layers=SERVE_LAYERS, dtype="float32")
     B, P, Tn = SERVE_FP32["batch"], SERVE_FP32["prompt"], SERVE_FP32["tokens"]
@@ -2087,11 +2119,12 @@ def phase_serve_fp32(torch):
         .cuda()
     with torch.no_grad():
         cache = M.init_cache(cfg, B, P + Tn + 8, device="cuda")
-        logits, cache = M.prefill(params, cfg, {"tokens": p}, cache)
+        logits, cache = M.prefill(params, cfg, DEFAULT, {"tokens": p},
+                                  cache)
         toks = [greedy(logits)]
         for t in range(Tn - 1):
-            logits, cache = M.decode_step(params, cfg, toks[-1], cache,
-                                          P + t)
+            logits, cache = M.decode_step(params, cfg, DEFAULT, toks[-1],
+                                          cache, P + t)
             toks.append(greedy(logits))
     err, _ = hold_logits(torch, M, params, cfg, p, torch.stack(toks, 1),
                          f"fp32, batch {B}, prompt {P}")
@@ -2105,6 +2138,7 @@ def phase_serve_profile(torch, served):
     import numpy as np
     from repro_torch.launch.serve import greedy
     from repro_torch.models import model as M
+    from repro_torch.models.runtime import DEFAULT
 
     cfg, params = served["cfg"], served["params"]
     B, P = SERVE["batch"], SERVE["prompt"]
@@ -2113,12 +2147,13 @@ def phase_serve_profile(torch, served):
 
     def pre():
         cache = M.init_cache(cfg, B, P + SERVE["tokens"] + 8, device="cuda")
-        logits, state["cache"] = M.prefill(params, cfg,
+        logits, state["cache"] = M.prefill(params, cfg, DEFAULT,
                                            {"tokens": toks}, cache)
         state["tok"] = greedy(logits)
 
     def dec():
-        M.decode_step(params, cfg, state["tok"], state["cache"], P)
+        M.decode_step(params, cfg, DEFAULT, state["tok"], state["cache"],
+                      P)
 
     out = {}
     with torch.no_grad():
@@ -2158,6 +2193,7 @@ def phase_smoke_cpu(torch):
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.launch.serve import greedy
     from repro_torch.models import model as M
+    from repro_torch.models.runtime import DEFAULT
 
     cfg = C.get_smoke(SERVE_ARCH)
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -2168,11 +2204,12 @@ def phase_smoke_cpu(torch):
     for dev in ("cuda", "cpu"):
         p = tree.to_device(params, dev)
         cache = M.init_cache(cfg, 2, 20, device=dev)
-        logits, cache = M.prefill(p, cfg, {"tokens": toks.to(dev)}, cache)
+        logits, cache = M.prefill(p, cfg, DEFAULT, {"tokens": toks.to(dev)},
+                                  cache)
         outs = [logits]
         for t in range(3):
-            logits, cache = M.decode_step(p, cfg, greedy(outs[-1]), cache,
-                                          9 + t)
+            logits, cache = M.decode_step(p, cfg, DEFAULT, greedy(outs[-1]),
+                                          cache, 9 + t)
             outs.append(logits)
         runs[dev] = torch.stack(outs).cpu()
     launched = (RN.rmsnorm.launches - before[0],
@@ -2187,6 +2224,494 @@ def phase_smoke_cpu(torch):
                                            "size")
     check(launched == (20, 2), f"smoke launches {launched}, expected (20, 2)")
 
+
+
+# ---------------------------------------------------------------------------
+# transformer training (launch/train.py --arch): the kernels under autograd,
+# then stablelm-1.6b at its full published size
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "stablelm-1.6b"
+# the full-width leg: 8 microbatches of 1 x 4,096 tokens a step, AdamW,
+# remat on; one warm-up step, then TRAIN_STEPS - 1 timed
+TRAIN = dict(batch=8, seq=4096, micro=8, lr=1e-3, optimizer="adamw", seed=0)
+TRAIN_STEPS = 4
+TRAIN_PARAMS = 1_644_367_872
+TRAIN_LAYERS = 24
+# flash launches a step: one a layer a microbatch, and once more under remat
+# (the layer's forward recomputed in the backward); every one writes lse
+TRAIN_FLASH = {True: TRAIN_LAYERS * 8 * 2, False: TRAIN_LAYERS * 8}
+# kernel step against the plain step on the card, bf16: the two forwards
+# round bf16 activations at other places (the flash output through the
+# tensor cores' hi + lo P V against the plain softmax), and 24 layers of
+# bf16 carry that into every gradient; as the served logits, each gradient
+# leaf is held to 2e-2 of its max |g| (tests/test_kernels.py::_tol, bf16),
+# the loss to 2e-2 relative, with the bf16 plain step's own distance from
+# an fp32 plain step printed beside
+TRAIN_GRAD_TOL = 2e-2
+TRAIN_LOSS_RTOL = 2e-2
+# the smoke configs' step, card against CPU, fp32: the same math summed in
+# other orders (cuBLAS, the kernels' trees)
+TRAIN_SMOKE_TOL = 1e-4
+TRAIN_SMOKE = dict(batch=4, seq=16, micro=2)
+# kernel-level shapes of the training path: stablelm-1.6b's attention (B=1
+# microbatch, S=4,096, MHA, hd 64) and qwen1.5-110b's (GQA 64/8, hd 128),
+# bf16, causal; RMSNorm at qwen's [4096, 8192]
+TRAIN_FLASH_SHAPES = {"stablelm-1.6b": (1, 4096, 32, 32, 64),
+                      "qwen1.5-110b": (1, 1024, 64, 8, 128)}
+TRAIN_RMS_SHAPE = (4096, 8192)
+# the kernel's lse against the plain lse (fp32 scores of bf16 inputs, summed
+# in another order; the tensor-core kernel's ex2.approx and log2 in the log2
+# domain): |lse - plain| <= rtol * |plain| + atol
+TRAIN_LSE_TOL = (1e-5, 1e-5)
+# the other two routes' lse (B, S, H, Kv, hd, dtype, route), GQA G = 2,
+# causal: flash_kernel at hd 256 (fp32, and bf16 at that width) and
+# flash_kernel_chunked at hd 576 (bf16, fp32)
+TRAIN_LSE_ROUTES = ((1, 256, 4, 2, 256, "float32", "cuda_core"),
+                    (1, 256, 4, 2, 256, "bfloat16", "cuda_core"),
+                    (1, 256, 4, 2, 576, "bfloat16", "hd_chunked"),
+                    (1, 256, 4, 2, 576, "float32", "hd_chunked"))
+
+
+def flash_bwd_bound_ms(B, S, H, Kv, hd):
+    """The causal backward's work: five products over the S(S+1)/2 visible
+    pairs of each head (s = q k^T recomputed, dv, dp, dq, dk; 2 flops a
+    multiply-add) at the bf16 tensor-core rate of its inputs; q, k, v, out
+    and dout read once (bf16), lse once (fp32), dq, dk and dv written once
+    (bf16)."""
+    flops = 5 * 2 * B * H * hd * S * (S + 1) // 2
+    moved = 2 * (3 * B * S * H * hd + 4 * B * S * Kv * hd) + 4 * B * H * S
+    t_b, t_o = moved / PEAK_BYTES_S, flops / PEAK_BF16_FLOP_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def grads_of(torch, fn, leaves, cot):
+    """Gradients of ``fn(*leaves)`` (leaves made to require grad) for the
+    cotangent ``cot``."""
+    xs = [t.detach().clone().requires_grad_() for t in leaves]
+    return torch.autograd.grad(fn(*xs), xs, cot)
+
+
+def rel_err(torch, got, want) -> float:
+    """max|got - want| over max|want|."""
+    return ((got.float() - want.float()).abs().max() /
+            want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def phase_train_kernels(torch, FA, RN, ref):
+    """The two kernels as the training path runs them, at full width:
+    ``FlashAttention`` forward (the kernel, writing lse) and backward (the
+    plain chunked math) against the plain forward and backward on the
+    card; ``RMSNorm`` forward and backward likewise. Times beside the
+    bounds and SDPA's forward + backward."""
+    import contextlib
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    out = {}
+    for arch, (B, S, H, Kv, hd) in TRAIN_FLASH_SHAPES.items():
+        q, k, v, do = (randn(torch, (B, S, n, hd), torch.bfloat16, 200 + j)
+                       for j, n in enumerate((H, Kv, Kv, H)))
+        before = (FA.flash_attention.launches,
+                  FA.flash_attention.lse_launches)
+        o, lse = FA.flash_attention(q, k, v, with_lse=True)
+        po, plse = ref.flash_attention(q, k, v, with_lse=True)
+        torch.cuda.synchronize()
+        check((FA.flash_attention.launches - before[0],
+               FA.flash_attention.lse_launches - before[1]) == (1, 1),
+              "the lse launch was not counted")
+        rtol, atol = TRAIN_LSE_TOL
+        lse_err = (lse - plse).abs().max().item()
+        lse_ok = bool(((lse - plse).abs() <=
+                       rtol * plse.abs() + atol).all())
+        print(f"[train] {arch} flash B={B} S={S} H={H} Kv={Kv} hd={hd} "
+              f"bf16 causal: lse [B, H, S] max|kernel-plain| {lse_err:.3e} "
+              f"(|lse| up to {plse.abs().max().item():.2f}; rtol {rtol} "
+              f"atol {atol}) {'ok' if lse_ok else 'FAIL'}")
+        check(lse_ok, f"{arch}: the kernel's lse disagrees with the plain "
+                      f"lse")
+        check(torch.equal(o, FA.flash_attention(q, k, v)),
+              f"{arch}: out differs with and without lse")
+        chunk = min(ops.KV_CHUNK, S)
+
+        def attend(*xs):
+            return ops.attention(*xs, causal=True)
+
+        gk = grads_of(torch, attend, (q, k, v), do)
+        with plain_kernels():
+            gp = grads_of(torch, attend, (q, k, v), do)
+            g32 = grads_of(torch, attend, (q.float(), k.float(), v.float()),
+                           do.float())
+        errs = {}
+        for name, a, b, c in zip(("dq", "dk", "dv"), gk, gp, g32):
+            errs[name] = (rel_err(torch, a, b), rel_err(torch, b, c))
+        ok = all(e[0] <= TRAIN_GRAD_TOL for e in errs.values())
+        print(f"[train] {arch} flash backward, kernel forward vs plain "
+              f"forward, max|diff| / max|grad|: " + ", ".join(
+                  f"{n} {e[0]:.3e} (bf16 plain vs fp32 plain {e[1]:.3e})"
+                  for n, e in errs.items()) +
+              f"; tol {TRAIN_GRAD_TOL} {'ok' if ok else 'FAIL'}")
+        check(ok, f"{arch}: flash gradients through the kernel disagree "
+                  f"with the plain path")
+        ms_lse = median_ms(lambda: FA.flash_attention(q, k, v,
+                                                      with_lse=True),
+                           torch, reps=10, inner=5)
+        ms = median_ms(lambda: FA.flash_attention(q, k, v), torch, reps=10,
+                       inner=5)
+        bwd_ms = median_ms(lambda: ref.flash_attention_bwd(
+            q, k, v, o, lse, do, chunk=chunk), torch, reps=3, inner=2)
+        plain_ms = median_ms(lambda: ref.flash_attention(
+            q, k, v, with_lse=True), torch, reps=3, inner=2)
+        fwd_bound, fwd_by = flash_bound_ms(B, S, H, Kv, hd, 2)
+        fwd_bound = max(fwd_bound, 4 * B * H * S / PEAK_BYTES_S * 1e3)
+        bwd_bound, bwd_by = flash_bwd_bound_ms(B, S, H, Kv, hd)
+        qt, kt, vt = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+        def sdpa_fb():
+            y = F.scaled_dot_product_attention(
+                qt.transpose(1, 2), kt.transpose(1, 2), vt.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
+            torch.autograd.grad(y, (qt, kt, vt), do.transpose(1, 2))
+
+        # SDPA's backward kernels are not all deterministic: timed with the
+        # switch off, used nowhere in the port
+        torch.use_deterministic_algorithms(False)
+        try:
+            lib_ms = median_ms(sdpa_fb, torch, reps=5, inner=3)
+            lib_backend = sdpa_backend(torch, sdpa(torch, q, k, v))
+        finally:
+            torch.use_deterministic_algorithms(True)
+        print(f"[train] {arch} flash times: forward with lse {ms_lse:.4f} "
+              f"ms (without lse {ms:.4f} ms; bound {fwd_bound:.4f} ms, "
+              f"{fwd_by}), plain forward with lse {plain_ms:.3f} ms, plain "
+              f"backward {bwd_ms:.3f} ms (bound {bwd_bound:.4f} ms, "
+              f"{bwd_by}), SDPA forward + backward ({lib_backend}) "
+              f"{lib_ms:.4f} ms")
+        out[arch] = dict(shape=[B, S, H, Kv, hd], lse_err=lse_err,
+                         grad_err={n: e[0] for n, e in errs.items()},
+                         grad_noise={n: e[1] for n, e in errs.items()},
+                         fwd_lse_ms=ms_lse, fwd_ms=ms, fwd_bound_ms=fwd_bound,
+                         bwd_plain_ms=bwd_ms, bwd_bound_ms=bwd_bound,
+                         bwd_bound_by=bwd_by, plain_fwd_ms=plain_ms,
+                         sdpa_fwd_bwd_ms=lib_ms, sdpa_backend=lib_backend)
+        del q, k, v, do, o, lse, po, plse, gk, gp, g32, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    out["lse_routes"] = {}
+    for B, S, H, Kv, hd, dt, path in TRAIN_LSE_ROUTES:
+        dtype = getattr(torch, dt)
+        q, k, v = (randn(torch, (B, S, n, hd), dtype, 220 + j)
+                   for j, n in enumerate((H, Kv, Kv)))
+        check(FA.route(dtype, hd, S, H // Kv) == path,
+              f"hd {hd} {dt} does not route to {path}")
+        before = (FA.flash_attention.route_launches[path],
+                  FA.flash_attention.lse_launches)
+        o, lse = FA.flash_attention(q, k, v, with_lse=True)
+        po, plse = ref.flash_attention(q, k, v, with_lse=True)
+        torch.cuda.synchronize()
+        check((FA.flash_attention.route_launches[path] - before[0],
+               FA.flash_attention.lse_launches - before[1]) == (1, 1),
+              f"the {path} lse launch was not counted")
+        rtol, atol = TRAIN_LSE_TOL
+        lse_err = (lse - plse).abs().max().item()
+        lse_ok = bool(((lse - plse).abs() <=
+                       rtol * plse.abs() + atol).all())
+        print(f"[train] {path} flash B={B} S={S} H={H} Kv={Kv} hd={hd} {dt} "
+              f"causal: lse [B, H, S] max|kernel-plain| {lse_err:.3e} "
+              f"(|lse| up to {plse.abs().max().item():.2f}; rtol {rtol} "
+              f"atol {atol}) {'ok' if lse_ok else 'FAIL'}")
+        check(lse_ok, f"{path} hd {hd} {dt}: the kernel's lse disagrees "
+                      f"with the plain lse")
+        check(torch.equal(o, FA.flash_attention(q, k, v)),
+              f"{path} hd {hd} {dt}: out differs with and without lse")
+        out["lse_routes"][f"{path}/hd{hd}/{dt}"] = lse_err
+
+    rows, d = TRAIN_RMS_SHAPE
+    x = randn(torch, (rows, d), torch.bfloat16, 210)
+    s = randn(torch, (d,), torch.bfloat16, 211, 0.1) + 1
+    dy = randn(torch, (rows, d), torch.bfloat16, 212)
+
+    def norm(x_, s_):
+        return ops.rms_norm(x_, s_, 1e-6)
+
+    before = RN.rmsnorm.launches
+    yk = norm(x, s)
+    gk = grads_of(torch, norm, (x, s), dy)
+    check(RN.rmsnorm.launches - before == 2, "RMSNorm did not launch")
+    with plain_kernels():
+        yp = norm(x, s)
+        gp = grads_of(torch, norm, (x, s), dy)
+    errs = [rel_err(torch, a, b) for a, b in zip((yk, *gk), (yp, *gp))]
+    ok = all(e <= TOL["bfloat16"] for e in errs)
+    print(f"[train] RMSNorm [{rows}, {d}] bf16 forward + backward, kernel "
+          f"forward vs plain, max|diff| / max|value|: y {errs[0]:.3e}, dx "
+          f"{errs[1]:.3e}, dscale {errs[2]:.3e}; tol {TOL['bfloat16']} "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "RMSNorm gradients through the kernel disagree with the plain "
+              "path")
+    bwd_ms = median_ms(lambda: ref.rmsnorm_bwd(x, s, dy), torch, reps=10,
+                       inner=5)
+    lib = (x.detach().clone().requires_grad_(),
+           s.detach().clone().requires_grad_())
+
+    def lib_fb():
+        y = F.rms_norm(lib[0], (d,), lib[1], 1e-6)
+        torch.autograd.grad(y, lib, dy)
+
+    lib_ms = median_ms(lib_fb, torch, reps=10, inner=5)
+    # the backward reads x, scale and dy and writes dx and dscale once
+    bound = 2 * (3 * rows * d + 2 * d) / PEAK_BYTES_S * 1e3
+    print(f"[train] RMSNorm [{rows}, {d}] bf16: plain backward {bwd_ms:.4f} "
+          f"ms (bound {bound:.4f} ms, bytes), F.rms_norm forward + backward "
+          f"{lib_ms:.4f} ms")
+    out["rmsnorm"] = dict(shape=[rows, d], errs=errs, bwd_plain_ms=bwd_ms,
+                          bwd_bound_ms=bound, lib_fwd_bwd_ms=lib_ms)
+    return out
+
+
+# kernels of a profiled training step by kind, first match wins
+TRAIN_KERNEL_KINDS = (
+    ("flash_kernel_wgmma", r"flash_kernel"),
+    ("fp32 GEMMs (the plain flash backward, the fp32 logits)",
+     r"f32f32_f32f32|sgemm"),
+    ("bf16 GEMMs", r"bf16|nvjet|gemm"),
+    ("NaN fills (deterministic mode)", r"[Ff]ill"),
+    ("other", r""))
+
+
+def train_profile(torch, fn):
+    """One call of ``fn`` (a training step's gradients) under
+    ``torch.profiler``: window and device busy ms, kernel count, device ms
+    by kind (``TRAIN_KERNEL_KINDS``) and the device ms under the plain
+    flash backward's autograd node; prints the top kernels. Returns them
+    with fn's result under ``out``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(bool(kernels), "the profiled training step recorded no kernel")
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    busy_ms = sum(t for _, t in by_name.values())
+    kinds = dict.fromkeys((k for k, _ in TRAIN_KERNEL_KINDS), 0.0)
+    for name, (_, t) in by_name.items():
+        kind = next(k for k, pat in TRAIN_KERNEL_KINDS if re.search(pat, name))
+        kinds[kind] += t
+    bwd_ms = sum(getattr(e, "device_time_total", 0.0) for e in
+                 prof.key_averages() if e.key == "FlashAttentionBackward")
+    bwd_ms /= 1e3
+    print(f"[profile] one training step's gradients: window {window_ms:.1f} "
+          f"ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / window_ms:.1f}%), {len(kernels)} kernels; "
+          f"under FlashAttentionBackward (the plain backward) {bwd_ms:.1f} ms "
+          f"of device time ({100 * bwd_ms / window_ms:.1f}% of the window); "
+          f"by kind: " + ", ".join(f"{k} {t:.1f} ms" for k, t in
+                                   kinds.items()))
+    for name, (cnt, t) in sorted(by_name.items(),
+                                 key=lambda kv: -kv[1][1])[:12]:
+        print(f"[profile]   {t:.2f} ms in {cnt} x {name[:100]}")
+    return dict(out=out, window_ms=window_ms, busy_ms=busy_ms,
+                kernels=len(kernels), kinds=kinds, flash_bwd_ms=bwd_ms)
+
+
+def model_flops(n_params, tokens, layers, heads, hd, seq):
+    """A step's model FLOPs: 6 per parameter per token, plus causal
+    attention's products (forward 2, backward 4 of the S/2 visible keys a
+    query, 2 flops a multiply-add, per head and layer). Remat's recomputed
+    forward is not counted."""
+    return 6 * n_params * tokens + 6 * layers * heads * hd * seq * tokens
+
+
+def phase_train(torch, K, T):
+    """stablelm-1.6b at its full published size through
+    ``repro_torch.launch.train.run_arch`` (AdamW, 8 microbatches of
+    4,096 tokens, remat on) with every count set to 0 just before and read
+    just after; then one step without remat, a profiled step, the step's
+    gradients against every kernel swapped for its plain version, a
+    checkpoint round trip and the smoke configs' step card vs CPU."""
+    import numpy as np
+    from repro_torch import tree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import steps as ST
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.launch import train as TR
+    from repro_torch.models import model as M
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.optim import make as make_opt
+
+    cfg = TR.arch_config(TRAIN_ARCH, full=True)
+    n_params = M.param_count(cfg)
+    check(n_params == TRAIN_PARAMS, f"{n_params} parameters, expected "
+                                    f"{TRAIN_PARAMS}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(K, T)
+    res = TR.run_arch(cfg, steps=TRAIN_STEPS, label="full", remat=True,
+                      device="cuda", **TRAIN)
+    counts = dict(flash=FA.flash_attention.launches,
+                  lse=FA.flash_attention.lse_launches,
+                  routes=dict(FA.flash_attention.route_launches),
+                  rmsnorm=RN.rmsnorm.launches,
+                  others=K.lstm_cell.launches + K.lstm_seq.launches +
+                  T.ternary_encode.launches + T.ternary_decode.launches +
+                  T.ef_compress_leaves.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = TRAIN_FLASH[True]
+    want = dict(flash=per_step * TRAIN_STEPS, lse=per_step * TRAIN_STEPS,
+                routes={"wgmma": per_step * TRAIN_STEPS, "cuda_core": 0,
+                        "hd_chunked": 0}, rmsnorm=0, others=0)
+    print(f"[train] launches over {TRAIN_STEPS} steps {counts} (expected "
+          f"{want}); per step {res['launches']}")
+    check(counts == want and all(
+        s == {"flash_attention": per_step, "flash_lse": per_step,
+              "rmsnorm": 0} for s in res["launches"]),
+          f"training launches {counts}, per step {res['launches']}, "
+          f"expected {want}")
+    check(all(math.isfinite(x) for x in res["losses"]),
+          f"non-finite losses {res['losses']}")
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    timed = res["step_s"][1:]
+    step_s = statistics.mean(timed)
+    mflops = model_flops(n_params, tokens, cfg.n_layers, cfg.n_heads,
+                         cfg.hd, TRAIN["seq"])
+    mfu = mflops / step_s / PEAK_BF16_FLOP_S
+    print(f"[train] {cfg.name} full ({n_params:,} parameters, bf16), batch "
+          f"{TRAIN['batch']} x {TRAIN['seq']} in {res['n_micro']} "
+          f"microbatches, AdamW, remat: s per step "
+          f"{', '.join(f'{t:.3f}' for t in res['step_s'])} (first: "
+          f"warm-up); timed mean {step_s:.3f} s, {tokens / step_s:.0f} "
+          f"tokens/s; model FLOPs {mflops / 1e12:.1f} T a step, "
+          f"{mflops / step_s / 1e12:.1f} TFLOP/s = {100 * mfu:.1f}% of the "
+          f"bf16 peak; peak memory {peak_gb:.2f} GB; losses "
+          f"{[round(x, 4) for x in res['losses']]}")
+    params = res["params"]
+    del res
+    torch.cuda.empty_cache()
+
+    # one step without remat: one flash launch a layer a microbatch
+    shape = InputShape("train", TRAIN["seq"], TRAIN["batch"], "train")
+    opt = make_opt(TRAIN["optimizer"], TRAIN["lr"])
+    batch = TR.sample_batch(np.random.RandomState(TRAIN["seed"]),
+                            M.train_batch_spec(cfg, shape), cfg.vocab,
+                            "cuda")
+    bound = ST.bind_train(cfg, Runtime(remat=False), opt, shape,
+                          num_microbatches=TRAIN["micro"])
+    before = FA.flash_attention.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bound["grads"](params, batch)
+    torch.cuda.synchronize()
+    no_remat_s = time.perf_counter() - t0
+    n = FA.flash_attention.launches - before
+    print(f"[train] without remat: {n} flash launches a step (expected "
+          f"{TRAIN_FLASH[False]}), the gradients in {no_remat_s:.3f} s")
+    check(n == TRAIN_FLASH[False], f"no-remat flash launches {n}")
+
+    # one profiled step's gradients (remat on, the training path's)
+    grads_fn = ST.bind_train(cfg, Runtime(), opt, shape,
+                             num_microbatches=TRAIN["micro"])["grads"]
+    prof = train_profile(torch, lambda: grads_fn(params, batch))
+    grads_k, mets_k = prof.pop("out")
+
+    # every kernel swapped for its plain version: the same step's gradients
+    with plain_kernels():
+        grads_p, mets_p = grads_fn(params, batch)
+    loss_k, loss_p = float(mets_k["loss"]), float(mets_p["loss"])
+    worst = max(rel_err(torch, a, b) for a, b in zip(tree.leaves(grads_k),
+                                                     tree.leaves(grads_p)))
+    del grads_k
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(dtype="float32")
+    params32 = tree.map(lambda t: t.float(), params)
+    with plain_kernels():
+        grads_32, mets_32 = ST.bind_train(
+            cfg32, Runtime(), opt, shape,
+            num_microbatches=TRAIN["micro"])["grads"](params32, batch)
+    noise = max(rel_err(torch, a, b) for a, b in zip(tree.leaves(grads_p),
+                                                     tree.leaves(grads_32)))
+    loss_32 = float(mets_32["loss"])
+    del grads_p, grads_32, params32
+    torch.cuda.empty_cache()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    ok = worst <= TRAIN_GRAD_TOL and loss_rel <= TRAIN_LOSS_RTOL
+    print(f"[train] kernel step vs plain step on the card: loss {loss_k:.6f}"
+          f" vs {loss_p:.6f} (rel {loss_rel:.3e}, tol {TRAIN_LOSS_RTOL}); "
+          f"worst gradient leaf max|diff| / max|g| {worst:.3e} (tol "
+          f"{TRAIN_GRAD_TOL}); the bf16 plain step vs an fp32 plain step: "
+          f"loss {loss_32:.6f}, worst leaf {noise:.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "the training step through the kernels disagrees with the "
+              "plain step")
+    del params, batch
+    torch.cuda.empty_cache()
+    smoke = phase_train_smoke(torch, TR, FA, RN)
+    return dict(step_s=step_s, steps_s=timed, tokens_s=tokens / step_s,
+                model_tflop_s=mflops / step_s / 1e12, mfu=mfu,
+                peak_gb=peak_gb, counts=counts, no_remat_flash=n,
+                no_remat_grads_s=no_remat_s, profile=prof,
+                grad_err=worst, grad_noise=noise, loss_rel=loss_rel,
+                smoke=smoke)
+
+
+def phase_train_smoke(torch, TR, FA, RN):
+    """The smoke configs (fp32) on the card: a ``--ckpt`` run through
+    ``run_arch`` whose saved state loads back bit for bit; each config's
+    step gradients on the card against the CPU; qwen1.5-110b's RMSNorm and
+    flash launches exact."""
+    import tempfile
+    from repro_torch import tree
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        res = TR.run_arch(TR.arch_config(TRAIN_ARCH), steps=2, ckpt=d,
+                          ckpt_every=2, device="cuda", **TRAIN_SMOKE)
+        saved, meta = res["store"].load(res["store"].latest())
+        same = all(torch.equal(a, b) and a.dtype == b.dtype for a, b in zip(
+            tree.leaves({"params": res["params"], "opt": res["opt_state"]}),
+            tree.leaves(tree.to_device(saved, "cuda")), strict=True))
+        print(f"[train] checkpoint of the smoke run on the card "
+              f"({len(tree.leaves(saved))} leaves, meta {meta}): loaded "
+              f"state bit-equal {same}")
+        check(same and meta == {"step": 2}, "checkpoint round trip differs")
+    for arch in (TRAIN_ARCH, SERVE_ARCH):
+        cfg = TR.arch_config(arch)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            run = TR.setup_arch(cfg, device=dev, **TRAIN_SMOKE)
+            if dev == "cuda":
+                params0 = run["params"]
+            batch = TR.sample_batch(run["rng"], run["bound"]["batch_shape"],
+                                    cfg.vocab, dev)
+            before = (FA.flash_attention.launches, RN.rmsnorm.launches)
+            g, m = run["bound"]["grads"](tree.to_device(params0, dev), batch)
+            runs[dev] = (tree.to_device(g, "cpu"), float(m["loss"]),
+                         (FA.flash_attention.launches - before[0],
+                          RN.rmsnorm.launches - before[1]))
+        worst = max(rel_err(torch, a, b) for a, b in zip(
+            tree.leaves(runs["cuda"][0]), tree.leaves(runs["cpu"][0])))
+        loss_rel = abs(runs["cuda"][1] - runs["cpu"][1]) / runs["cpu"][1]
+        # per microbatch: the layers' flash (x2 under remat); the norms: 2
+        # a layer (again under remat) and the final one
+        L, n = cfg.n_layers, TRAIN_SMOKE["micro"]
+        want = (2 * L * n, (4 * L + 1) * n if cfg.norm == "rmsnorm" else 0)
+        ok = worst <= TRAIN_SMOKE_TOL and loss_rel <= TRAIN_SMOKE_TOL
+        print(f"[train] {arch} smoke fp32 step, card vs CPU: loss rel "
+              f"{loss_rel:.3e}, worst gradient leaf {worst:.3e} (tol "
+              f"{TRAIN_SMOKE_TOL}) {'ok' if ok else 'FAIL'}; card launches "
+              f"flash/rmsnorm {runs['cuda'][2]} (expected {want})")
+        check(ok, f"{arch}: the smoke step differs card vs CPU")
+        check(runs["cuda"][2] == want and runs["cpu"][2] == (0, 0),
+              f"{arch}: smoke launches {runs['cuda'][2]}, expected {want}")
+        out[arch] = dict(grad_err=worst, loss_rel=loss_rel)
+    return out
 
 
 def main() -> int:
@@ -2252,6 +2777,9 @@ def main() -> int:
     fp32_err = phase_serve_fp32(torch)
     torch.cuda.empty_cache()
     phase_smoke_cpu(torch)
+    torch.cuda.empty_cache()
+    train_kern = phase_train_kernels(torch, FA, RN, ref)
+    train = phase_train(torch, K, T)
 
     layer0, seq0 = rows[0], seq_rows[0]
     # a map's forward: one sequence launch per layer
@@ -2315,7 +2843,12 @@ def main() -> int:
         **rms["prefill"],
         "device_ms": serve_prof["prefill"]["rmsnorm_ms"],
         "decode": dict(rms["decode"],
-                       device_ms=serve_prof["decode"]["rmsnorm_ms"])})
+                       device_ms=serve_prof["decode"]["rmsnorm_ms"]),
+        # the training path: stablelm-1.6b uses LayerNorm (no launch); the
+        # qwen smoke config's counts are gated in phase_train_smoke
+        "train": dict(train_kern["rmsnorm"],
+                      launches_per_step=train["counts"]["rmsnorm"] //
+                      TRAIN_STEPS)})
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2324,6 +2857,12 @@ def main() -> int:
         "max_abs_err": fa_err, **fa,
         "device_ms": serve_prof["prefill"]["flash_ms"],
         "split_launches": split_launches,
+        "train": dict({a: train_kern[a] for a in TRAIN_FLASH_SHAPES},
+                      lse_route_err=train_kern["lse_routes"],
+                      launches_per_step=train["counts"]["flash"] //
+                      TRAIN_STEPS,
+                      lse_launches=train["counts"]["lse"],
+                      no_remat_launches_per_step=train["no_remat_flash"]),
         "routes": {
             "wgmma": {"kernel": "flash_kernel_wgmma", "dtype": "bfloat16",
                       "launches": served["routes"]["wgmma"], "ms": fa["ms"]},
@@ -2341,9 +2880,10 @@ def main() -> int:
                                          "peak_gb", "logit_err")}
     serve_line["fp32_logit_err"] = fp32_err
     serve_line["profile"] = serve_prof
+    train_line = {k: v for k, v in train.items() if k != "counts"}
     print(json.dumps({"s_per_version": per_version,
                       "wire_bytes": wire_bytes, "serve": serve_line,
-                      "gateway": gw}))
+                      "gateway": gw, "train": train_line}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

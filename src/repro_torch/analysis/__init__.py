@@ -6,7 +6,7 @@ parked-holder monitor that ``repro_torch.core.gateway``'s ``_make_lock`` /
 ``_monitor`` seam installs under ``ANALYSIS_INSTRUMENT=1``: LOCK-ORDER /
 LOCK-SELF / LOCK-BLOCK / PARKED-HOLDER). The static passes of the reference
 (``rules``, ``locks``, ``schema``) and its model checker (``mc``) are not
-ported yet (ROADMAP Queue 1 item 4); without ``locks`` the monitor checks
+ported yet (ROADMAP Queue 1 item 5); without ``locks`` the monitor checks
 runtime-against-runtime lock orders only.
 """
 from repro_torch.analysis.base import Violation

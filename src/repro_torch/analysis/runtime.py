@@ -108,7 +108,7 @@ class Analysis:
         if cls._singleton is None:
             try:
                 # the static pass (``analysis/locks.py``) is not ported yet
-                # (ROADMAP Queue 1 item 4): the import fails and the
+                # (ROADMAP Queue 1 item 5): the import fails and the
                 # monitor runs on its runtime half alone
                 from repro_torch.analysis import locks as _locks
                 static = _locks.static_edges(_locks.default_paths())

@@ -3,7 +3,9 @@
 The JAX package's trees arrive as numpy arrays (``np.asarray`` of each leaf),
 so this module never imports JAX. The layout is the same on both sides:
 LSTM kernel ``[Din+H, 4H]`` in Keras gate order i,f,g,o, bias ``[4H]``, head
-``w [H, V]`` and ``b [V]``; RMSprop state ``{"ms": tree, "step": int32}``;
+``w [H, V]`` and ``b [V]``; optimizer state ``{"ms": tree, "step": int32}``
+(RMSprop), ``{"m", "v", "step"}`` (AdamW), ``{"mu", "step"}`` or
+``{"step"}`` (SGD with and without momentum);
 a transformer's ``{"embed", "blocks": {"l0": ...stacked over layers},
 "final_norm", "unembed"}`` with every leaf in the JAX shape.
 
@@ -44,14 +46,25 @@ def params_from_jax(tree_of_numpy, device) -> dict:
     return tree.map(lambda a: _to_tensor(a, device), tree_of_numpy)
 
 
+_STATE_TREES = {"ms", "m", "v", "mu"}
+
+
 def opt_state_from_jax(state_of_numpy, device) -> dict:
-    """JAX RMSprop state ``{"ms": tree, "step": int32 scalar}`` as tensors."""
+    """JAX optimizer state (RMSprop ``{"ms", "step"}``, AdamW ``{"m", "v",
+    "step"}``, SGD ``{"mu", "step"}`` or ``{"step"}``; ``step`` an int32
+    scalar) as tensors."""
     step = np.asarray(state_of_numpy["step"])
     if step.dtype != np.int32 or step.shape != ():
         raise ValueError(f"opt state step must be an int32 scalar, got "
                          f"{step.dtype}{list(step.shape)}")
-    return {"ms": params_from_jax(state_of_numpy["ms"], device),
-            "step": _to_tensor(step, device)}
+    other = set(state_of_numpy) - _STATE_TREES - {"step"}
+    if other:
+        raise ValueError(f"opt state has keys {sorted(other)} that no "
+                         f"optimizer of the port keeps")
+    out = {k: params_from_jax(state_of_numpy[k], device)
+           for k in state_of_numpy if k in _STATE_TREES}
+    out["step"] = _to_tensor(step, device)
+    return out
 
 
 def to_numpy(tree_of_tensors):

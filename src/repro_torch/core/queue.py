@@ -31,7 +31,7 @@ owner. Cross-queue side-effect order (expiry requeues, consumer drops) is
 defined by (deadline, queue-name) / queue-name, NOT by shard layout, so a
 sharded run is bit-identical to a single-server run — asserted by the chaos
 metamorphic suite (the reference's ``core/chaos.py``; the port's copy is
-ROADMAP Queue 1 item 4).
+ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 

@@ -18,7 +18,11 @@
 //
 // with mask_ij = -1e30 where j > i (causal), where j <= i - window
 // (window > 0) and where j >= S. Scores, the online softmax (m, l, acc) and
-// the output sum are fp32; out is stored in q's dtype.
+// the output sum are fp32; out is stored in q's dtype. Given a non-null lse
+// (fp32 [B, H, S]), each kernel also writes every row's log-sum-exp of its
+// scaled, masked scores, lse = m + log(l) in the natural log (l = 1 where
+// it is 0), which the backward (_fa_bwd in repro/models/layers.py) reads;
+// with a null lse nothing more is written.
 //
 // Bound on an H100: the causal products take 4 * B * H * S^2 * hd / 2 flops
 // (qwen1.5-110b's prefill, B=4, S=1024, H=64, hd=128: 68.7 GFLOP, ~69 us at
@@ -144,8 +148,9 @@ struct Smem {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int seq, int H,
-                 int Kv, int causal, int window, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int seq, int H, int Kv, int causal,
+                 int window, float scale) {
   using S = Smem<HD>;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -283,6 +288,9 @@ __global__ void __launch_bounds__(kThreads)
   if (!row_ok) return;
   const float l_safe = l == 0.0f ? 1.0f : l;
   const int64_t qi = row / G, g = row % G;
+  if (lse != nullptr && lane == 0)
+    lse[(b * static_cast<int64_t>(H) + static_cast<int64_t>(kvh) * G + g) *
+            seq + qi] = m + logf(l_safe);
   T* orow = o + ((b * static_cast<int64_t>(seq) + qi) * H +
                  static_cast<int64_t>(kvh) * G + g) * HD;
 #pragma unroll
@@ -293,9 +301,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
-              int seq, int H, int Kv, int causal, int window, float scale,
-              cudaStream_t st) {
+int launch_hd(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int seq, int H, int Kv, int causal,
+              int window, float scale, cudaStream_t st) {
   constexpr size_t bytes = Smem<HD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -305,8 +313,8 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(static_cast<unsigned>((n_rows + kRows - 1) / kRows), Kv, B);
   flash_kernel<T, HD><<<grid, kThreads, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), seq, H, Kv, causal,
-      window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, seq, H, Kv,
+      causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -335,9 +343,10 @@ struct ChunkSmem {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel_chunked(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, T* __restrict__ o, int seq,
-                         int H, int Kv, long long hd, int causal, int window,
-                         float scale, int n_chunks) {
+                         const T* __restrict__ v, T* __restrict__ o,
+                         float* __restrict__ lse, int seq, int H, int Kv,
+                         long long hd, int causal, int window, float scale,
+                         int n_chunks) {
   using S = ChunkSmem;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -480,6 +489,10 @@ __global__ void __launch_bounds__(kThreads)
 
   if (!row_ok) return;
   const float l_safe = l == 0.0f ? 1.0f : l;
+  // every column chunk's block holds the same m and l: the first writes
+  if (lse != nullptr && lane == 0 && c0 == 0)
+    lse[(b * static_cast<int64_t>(H) + static_cast<int64_t>(kvh) * G +
+         row % G) * seq + qpos] = m + logf(l_safe);
   T* orow = o + row_off[tr] + c0;
 #pragma unroll
   for (int i = 0; i < kChunkCols / 16; ++i)
@@ -492,8 +505,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 int launch_chunked(const void* q, const void* k, const void* v, void* o,
-                   int B, int seq, int H, int Kv, long long hd, int causal,
-                   int window, float scale, cudaStream_t st) {
+                   float* lse, int B, int seq, int H, int Kv, long long hd,
+                   int causal, int window, float scale, cudaStream_t st) {
   constexpr size_t bytes = ChunkSmem::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel_chunked<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -507,40 +520,40 @@ int launch_chunked(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(static_cast<unsigned>(blocks), Kv, B);
   flash_kernel_chunked<T><<<grid, kThreads, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), seq, H, Kv, hd, causal,
-      window, scale, static_cast<int>(n_chunks));
+      static_cast<const T*>(v), static_cast<T*>(o), lse, seq, H, Kv, hd,
+      causal, window, scale, static_cast<int>(n_chunks));
   return static_cast<int>(cudaGetLastError());
 }
 
 // The CUDA-core kernels of type T: flash_kernel at the built widths
 // (16 .. 256), flash_kernel_chunked at any other.
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int seq, int H, int Kv, long long hd, int causal, int window,
-           float scale, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int seq, int H, int Kv, long long hd, int causal,
+           int window, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16:
-      return launch_hd<T, 16>(q, k, v, o, B, seq, H, Kv, causal, window,
-                              scale, st);
+      return launch_hd<T, 16>(q, k, v, o, lse, B, seq, H, Kv, causal,
+                              window, scale, st);
     case 32:
-      return launch_hd<T, 32>(q, k, v, o, B, seq, H, Kv, causal, window,
-                              scale, st);
+      return launch_hd<T, 32>(q, k, v, o, lse, B, seq, H, Kv, causal,
+                              window, scale, st);
     case 64:
-      return launch_hd<T, 64>(q, k, v, o, B, seq, H, Kv, causal, window,
-                              scale, st);
+      return launch_hd<T, 64>(q, k, v, o, lse, B, seq, H, Kv, causal,
+                              window, scale, st);
     case 128:
-      return launch_hd<T, 128>(q, k, v, o, B, seq, H, Kv, causal, window,
-                               scale, st);
+      return launch_hd<T, 128>(q, k, v, o, lse, B, seq, H, Kv, causal,
+                               window, scale, st);
     case 192:
-      return launch_hd<T, 192>(q, k, v, o, B, seq, H, Kv, causal, window,
-                               scale, st);
+      return launch_hd<T, 192>(q, k, v, o, lse, B, seq, H, Kv, causal,
+                               window, scale, st);
     case 256:
-      return launch_hd<T, 256>(q, k, v, o, B, seq, H, Kv, causal, window,
-                               scale, st);
+      return launch_hd<T, 256>(q, k, v, o, lse, B, seq, H, Kv, causal,
+                               window, scale, st);
     default:
-      return launch_chunked<T>(q, k, v, o, B, seq, H, Kv, hd, causal, window,
-                               scale, st);
+      return launch_chunked<T>(q, k, v, o, lse, B, seq, H, Kv, hd, causal,
+                               window, scale, st);
   }
 }
 
@@ -984,9 +997,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_kernel_wgmma(const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
                        const __nv_bfloat16* __restrict__ q,
-                       __nv_bfloat16* __restrict__ o, int seq, int H, int Kv,
-                       int causal, int window, float scale_log2,
-                       int n_qtiles) {
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       int seq, int H, int Kv, int causal, int window,
+                       float scale_log2, int n_qtiles) {
   using C = Cfg<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -1136,6 +1149,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   l_a = l_a == 0.0f ? 1.0f : l_a;
   l_b = l_b == 0.0f ? 1.0f : l_b;
   const float inv[2] = {1.0f / l_a, 1.0f / l_b};
+  if (lse != nullptr && lane % 4 == 0) {
+    // m and l are in the log2 domain of the scaled scores: the natural
+    // log-sum-exp is ln 2 * (m + log2 l); one thread of the row's 4 writes
+    constexpr float kLn2 = 0.6931471805599453f;
+    const int rows[2] = {row_a, row_b};
+    const float ms[2] = {sm.m_a, sm.m_b}, ls[2] = {l_a, l_b};
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (rows[half] >= n_rows) continue;
+      const int pos = rows[half] / G, g = rows[half] - pos * G;
+      lse[(b * static_cast<int64_t>(H) + static_cast<int64_t>(kvh) * G + g) *
+              seq + pos] = kLn2 * (ms[half] + log2f(ls[half]));
+    }
+  }
   // out goes through this warpgroup's q region (read by no wgmma any more),
   // in its swizzled layout, so the 4-byte writes of the accumulator layout
   // meet no bank conflicts; then whole rows leave in 16-byte pieces
@@ -1224,9 +1251,9 @@ int tensor_map(CUtensorMap* map, const void* ptr, int B, int seq, int Kv) {
 }
 
 template <int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
-              int seq, int H, int Kv, int causal, int window, float scale,
-              cudaStream_t st) {
+int launch_hd(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int seq, int H, int Kv, int causal,
+              int window, float scale, cudaStream_t st) {
   using C = Cfg<HD>;
   CUtensorMap kmap, vmap;
   int err = tensor_map<HD>(&kmap, k, B, seq, Kv);
@@ -1244,31 +1271,31 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
   flash_kernel_wgmma<HD><<<static_cast<unsigned>(blocks), kThreads, C::kSmem,
                            st>>>(
       kmap, vmap, static_cast<const __nv_bfloat16*>(q),
-      static_cast<__nv_bfloat16*>(o), seq, H, Kv, causal, window,
+      static_cast<__nv_bfloat16*>(o), lse, seq, H, Kv, causal, window,
       scale * kLog2e, static_cast<int>(n_qtiles));
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int seq, int H, int Kv, long long hd, int causal, int window,
-           float scale, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int seq, int H, int Kv, long long hd, int causal,
+           int window, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16:
-      return launch_hd<16>(q, k, v, o, B, seq, H, Kv, causal, window, scale,
-                           st);
+      return launch_hd<16>(q, k, v, o, lse, B, seq, H, Kv, causal, window,
+                           scale, st);
     case 32:
-      return launch_hd<32>(q, k, v, o, B, seq, H, Kv, causal, window, scale,
-                           st);
+      return launch_hd<32>(q, k, v, o, lse, B, seq, H, Kv, causal, window,
+                           scale, st);
     case 64:
-      return launch_hd<64>(q, k, v, o, B, seq, H, Kv, causal, window, scale,
-                           st);
+      return launch_hd<64>(q, k, v, o, lse, B, seq, H, Kv, causal, window,
+                           scale, st);
     case 128:
-      return launch_hd<128>(q, k, v, o, B, seq, H, Kv, causal, window, scale,
-                            st);
+      return launch_hd<128>(q, k, v, o, lse, B, seq, H, Kv, causal, window,
+                            scale, st);
     case 192:
-      return launch_hd<192>(q, k, v, o, B, seq, H, Kv, causal, window, scale,
-                            st);
+      return launch_hd<192>(q, k, v, o, lse, B, seq, H, Kv, causal, window,
+                            scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1284,7 +1311,8 @@ extern "C" {
 // the tensor-core kernel a negative code when the TMA tensor map could not
 // be built (-1: no cuTensorMapEncodeTiled in the driver; -1000 - CUresult:
 // it refused). q and o hold B * seq * H * hd contiguous elements, k and v
-// B * seq * Kv * hd; H % Kv == 0; window >= 0 (0: no window). Element
+// B * seq * Kv * hd; lse is null (not written) or holds B * H * seq fp32;
+// H % Kv == 0; window >= 0 (0: no window). Element
 // offsets are 64-bit in every kernel; rows of a (batch, kv head) are
 // 64-bit in the CUDA-core kernels and 32-bit in the tensor-core one
 // (seq * H / Kv below 2^31 - 256, the wrapper routes larger ones to the
@@ -1295,25 +1323,27 @@ extern "C" {
 // widths up to 256 to the next built one and splits a batch only where a
 // launch's grid would be too large.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                        int B, int seq, int H, int Kv, long long hd,
-                        int causal, int window, float scale, void* stream) {
-  return launch<float>(q, k, v, o, B, seq, H, Kv, hd, causal, window, scale,
-                       stream);
+                        void* lse, int B, int seq, int H, int Kv,
+                        long long hd, int causal, int window, float scale,
+                        void* stream) {
+  return launch<float>(q, k, v, o, static_cast<float*>(lse), B, seq, H, Kv,
+                       hd, causal, window, scale, stream);
 }
 
 int flash_attention_bf16_cc(const void* q, const void* k, const void* v,
-                            void* o, int B, int seq, int H, int Kv,
+                            void* o, void* lse, int B, int seq, int H, int Kv,
                             long long hd, int causal, int window, float scale,
                             void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, seq, H, Kv, hd, causal, window,
-                               scale, stream);
+  return launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), B, seq,
+                               H, Kv, hd, causal, window, scale, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                         int B, int seq, int H, int Kv, long long hd,
-                         int causal, int window, float scale, void* stream) {
-  return tc::launch(q, k, v, o, B, seq, H, Kv, hd, causal, window, scale,
-                    stream);
+                         void* lse, int B, int seq, int H, int Kv,
+                         long long hd, int causal, int window, float scale,
+                         void* stream) {
+  return tc::launch(q, k, v, o, static_cast<float*>(lse), B, seq, H, Kv, hd,
+                    causal, window, scale, stream);
 }
 
 }  // extern "C"

@@ -6,7 +6,10 @@ the source's header note gives the design and its bound. As the Pallas
 kernel, it is forward only and self-attention only (Sq == Skv, q aligned to
 kv): q ``[B, S, H, hd]``, k/v ``[B, S, Kv, hd]`` with H a multiple of Kv
 (query head h reads kv head ``h // (H // Kv)``), causal and/or a sliding
-window, output like q.
+window, output like q. With ``with_lse`` the launch also writes each row's
+log-sum-exp, fp32 ``[B, H, S]``, for the backward
+(``ops.FlashAttention``); without it the kernel gets a null pointer and
+writes nothing more.
 
 The dtype and the head width pick the kernel (``route``): bfloat16 up to
 hd 192 runs on the tensor cores (``wgmma``, k/v tiles by TMA), float32 and
@@ -17,9 +20,10 @@ between two of them is zero-padded to the next (``_padded``). Every element
 offset is 64-bit, so one batch entry may hold 2^31 elements or more; a
 batch is split into launches only past the grid's 65,535 entries
 (``_batch_chunks``). ``flash_attention.launches`` counts the launches this
-wrapper made, ``flash_attention.route_launches`` the same by route and
-``flash_attention.padded_launches`` those on padded inputs, so a run can
-show that its path went through the kernel it expects.
+wrapper made, ``flash_attention.route_launches`` the same by route,
+``flash_attention.padded_launches`` those on padded inputs and
+``flash_attention.lse_launches`` those that wrote the log-sum-exp, so a run
+can show that its path went through the kernel it expects.
 """
 from __future__ import annotations
 
@@ -64,7 +68,7 @@ def build() -> dict:
     fns = {}
     for key, name in _FNS.items():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
             [ctypes.c_longlong] + [ctypes.c_int] * 2 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -161,7 +165,8 @@ def _padded(attend, q, k, v, causal, window):
     """``attend(q, k, v, causal, window, scale)`` on q, k and v zero-padded
     along hd to ``native_head_dim(hd)``, with the true scale 1/sqrt(hd), and
     its output cut back to hd. The zero columns add exact zeros to every
-    score, and the padded columns of v only reach the columns cut off."""
+    score (so a log-sum-exp is that of the unpadded scores), and the padded
+    columns of v only reach the columns cut off."""
     hd = q.shape[-1]
     wide = native_head_dim(hd)
     scale = 1.0 / math.sqrt(hd)
@@ -171,27 +176,34 @@ def _padded(attend, q, k, v, causal, window):
     return attend(q, k, v, causal, window, scale)[..., :hd].contiguous()
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    with_lse: bool = False):
     """Launch the kernel of q's dtype and head width on CUDA tensors q
-    [B,S,H,hd], k/v [B,S,Kv,hd]. Returns the attention output like q.
-    Raises on any other input."""
+    [B,S,H,hd], k/v [B,S,Kv,hd]. Returns the attention output like q, and
+    with ``with_lse`` also each row's log-sum-exp, fp32 [B,H,S]. Raises on
+    any other input."""
     B, S, H, Kv, hd, path = _check(q, k, v, window)
     fn = build()[q.dtype, path]
     padded = native_head_dim(hd) != hd
+    lse = kbuild.empty(B, H, S, dtype=torch.float32, device=q.device) \
+        if with_lse else None
 
     def attend(q, k, v, causal, window, scale):
         width = q.shape[-1]
         out = kbuild.empty_like(q)
         elem = q.element_size()
         q_entry, kv_entry = S * H * width * elem, S * Kv * width * elem
+        lse_entry = H * S * 4
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             for b0, b1 in _batch_chunks(B):
+                lse_p = None if lse is None else \
+                    lse.data_ptr() + b0 * lse_entry
                 err = fn(q.data_ptr() + b0 * q_entry,
                          k.data_ptr() + b0 * kv_entry,
                          v.data_ptr() + b0 * kv_entry,
-                         out.data_ptr() + b0 * q_entry, b1 - b0, S, H, Kv,
-                         width, int(bool(causal)), window, scale, stream)
+                         out.data_ptr() + b0 * q_entry, lse_p, b1 - b0, S, H,
+                         Kv, width, int(bool(causal)), window, scale, stream)
                 if err != 0:
                     why = "CUDA error" if err > 0 else "TMA tensor map error"
                     raise RuntimeError(
@@ -202,11 +214,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                 flash_attention.launches += 1
                 flash_attention.route_launches[path] += 1
                 flash_attention.padded_launches += int(padded)
+                flash_attention.lse_launches += int(with_lse)
         return out
 
-    return _padded(attend, q, k, v, causal, window)
+    out = _padded(attend, q, k, v, causal, window)
+    return (out, lse) if with_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(_ROUTE_NAMES, 0)
 flash_attention.padded_launches = 0
+flash_attention.lse_launches = 0

@@ -3,8 +3,19 @@
 A CPU tensor goes to the plain version (``ref``), any other tensor to the
 hand-written kernel, whose wrapper launches it or raises. There is no
 fallback: a card without a working kernel is an error, not a slow path.
+
+``FlashAttention`` and ``RMSNorm`` put the two transformer kernels under
+autograd: each forward goes through the dispatch below (the kernel on the
+card, the plain version on the CPU), each backward is plain torch on both
+devices (the JAX package's flash backward is jnp, ``_fa_bwd``; its RMSNorm
+has no custom VJP), so the backward the card runs is the one the CPU tests
+check. Each forward calls this module's ``flash_attention`` / ``rmsnorm``
+by name, so a comparison that patches those two runs the whole model on
+the plain versions.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lstm_cell as _lstm
@@ -34,14 +45,86 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return _rms.rmsnorm(x, scale, eps)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """Self-attention, q [B,S,H,hd], k/v [B,S,Kv,hd] -> [B,S,H,hd]."""
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    with_lse: bool = False):
+    """Self-attention, q [B,S,H,hd], k/v [B,S,Kv,hd] -> [B,S,H,hd]; with
+    ``with_lse`` also each row's log-sum-exp, fp32 [B,H,S]."""
     if q.device.type == "cpu":
         if k.shape[1] != q.shape[1]:
             raise ValueError(f"flash_attention: Sq={q.shape[1]} != "
                              f"Skv={k.shape[1]} (self-attention only)")
-        return ref.flash_attention(q, k, v, causal=causal, window=window)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   with_lse=with_lse)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               with_lse=with_lse)
+
+
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+# the flash backward's kv-chunk length (the JAX package's Runtime.kv_chunk)
+KV_CHUNK = 512
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """``flash_attention`` with a gradient where one is wanted (through
+    ``FlashAttention``, its backward over kv chunks of
+    ``min(KV_CHUNK, S)``); without one (serving, ``torch.no_grad``) the
+    plain call, which writes no lse."""
+    if _wants_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window,
+                                    min(KV_CHUNK, k.shape[1]))
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    """``rmsnorm`` with a gradient where one is wanted (``RMSNorm``)."""
+    if _wants_grad(x, scale):
+        return RMSNorm.apply(x, scale, eps)
+    return rmsnorm(x, scale, eps)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` under autograd (the JAX package's
+    ``repro/models/layers.py::flash_attention`` custom VJP):
+    ``FlashAttention.apply(q, k, v, causal, window, chunk)``. The forward
+    also writes lse and saves q, k, v, out and lse; the backward is
+    ``ref.flash_attention_bwd`` over kv chunks of ``chunk``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.attrs = (causal, window, chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, chunk = ctx.attrs
+        dq, dk, dv = ref.flash_attention_bwd(
+            q, k, v, out, lse, dout.contiguous(), causal=causal,
+            window=window, chunk=chunk)
+        return dq, dk, dv, None, None, None
+
+
+class RMSNorm(torch.autograd.Function):
+    """``rmsnorm`` under autograd: ``RMSNorm.apply(x, scale, eps)``; the
+    backward is ``ref.rmsnorm_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = ref.rmsnorm_bwd(x, scale, dy, ctx.eps)
+        return dx, dscale, None
 
 
 def ternary_encode(g_flat, s):

@@ -55,14 +55,41 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
 
 
+def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6):
+    """The gradient of ``rmsnorm`` (the plain formula in fp32, as ``jax.grad``
+    of ``repro/models/layers.py::apply_norm`` differentiates it; the JAX
+    package has no custom VJP for it): (dx in x's dtype, dscale in scale's
+    dtype) for the cotangent dy of y."""
+    with torch.enable_grad():
+        xf = x.detach().float().requires_grad_()
+        sf = scale.detach().float().requires_grad_()
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * sf
+        dx, ds = torch.autograd.grad(y, (xf, sf), dy.float())
+    return dx.to(x.dtype), ds.to(scale.dtype)
+
+
+def _mask(qpos, kpos, causal: bool, window: int):
+    """[Sq, Skv] bool: where query position qpos[i] sees key kpos[j]."""
+    ok = torch.ones(qpos.shape[0], kpos.shape[0], dtype=torch.bool,
+                    device=qpos.device)
+    if causal:
+        ok &= kpos[None, :] <= qpos[:, None]
+    if window:
+        ok &= kpos[None, :] > qpos[:, None] - window
+    return ok
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale=None):
+                    scale=None, with_lse: bool = False):
     """Exact softmax attention (materialised scores), as
     ``repro/kernels/ref.py::flash_attention``. q [B,Sq,H,hd]; k/v
     [B,Skv,Kv,hd] with GQA head grouping (query head h reads kv head
     h // (H/Kv)). q positions are aligned to the end of kv
     (q_pos = Skv - Sq + i). The scores are scaled after the product, by
-    ``scale`` where given, else by 1/sqrt(hd)."""
+    ``scale`` where given, else by 1/sqrt(hd). With ``with_lse`` it also
+    returns each row's log-sum-exp of the scaled, masked scores, fp32
+    [B,H,Sq] (``lse`` of ``repro/models/layers.py::_flash_fwd``)."""
     B, Sq, H, hd = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
     G = H // Kv
@@ -71,15 +98,63 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     s = s / math.sqrt(hd) if scale is None else s * scale
     qpos = torch.arange(Sq, device=q.device) + (Skv - Sq)
     kpos = torch.arange(Skv, device=q.device)
-    ok = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= kpos[None, :] <= qpos[:, None]
-    if window:
-        ok &= kpos[None, :] > qpos[:, None] - window
+    ok = _mask(qpos, kpos, causal, window)
     s = torch.where(ok[None, None, None], s, -1e30)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    out = out.reshape(B, Sq, H, hd).to(q.dtype)
+    if not with_lse:
+        return out
+    return out, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: int = 0, chunk: int = 512):
+    """The backward of self-attention (Sq == Skv) from the forward's out and
+    lse [B,H,S]: the math of ``repro/models/layers.py::_fa_bwd``, in fp32
+    over kv chunks of ``chunk`` positions. Drow = rowsum(dout * out); per
+    chunk p = exp(s - lse), dv = p^T dout, dp = dout v^T,
+    ds = p (dp - Drow) / sqrt(hd), dq += ds k, dk = ds^T q. Returns (dq,
+    dk, dv) in q's, k's and v's dtypes.
+
+    A chunk's rows are cut to the query positions that can see it (from the
+    chunk's first position when causal, up to its last + window - 1 under
+    a window): the rows cut off have p = exp(-1e30 - lse) = 0 exactly, so
+    they add exact zeros, and the causal products cost half the square."""
+    B, S, H, hd = q.shape
+    Kv = k.shape[2]
+    G = H // Kv
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, S, Kv, G, hd).float()
+    dog = dout.reshape(B, S, Kv, G, hd).float()
+    drow = torch.einsum("bqkgd,bqkgd->bkgq", dog,
+                        out.reshape(B, S, Kv, G, hd).float())
+    dog_bk = dog.permute(0, 2, 3, 1, 4)                      # [B,Kv,G,S,hd]
+    lse = lse.reshape(B, Kv, G, S).float()
+    pos = torch.arange(S, device=q.device)
+    dq = torch.zeros(B, S, Kv, G, hd, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(B, S, Kv, hd, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for c0 in range(0, S, chunk):
+        c1 = min(c0 + chunk, S)
+        r0 = c0 if causal else 0
+        r1 = min(S, c1 - 1 + window) if window else S
+        if r0 >= r1:
+            continue
+        kch, vch = k[:, c0:c1].float(), v[:, c0:c1].float()
+        qr = qg[:, r0:r1]
+        s = torch.einsum("bqkgd,bckd->bkgqc", qr, kch) * scale
+        ok = _mask(pos[r0:r1], pos[c0:c1], causal, window)
+        s = torch.where(ok[None, None, None], s, -1e30)
+        p = torch.exp(s - lse[..., r0:r1, None])            # [B,Kv,G,r,c]
+        do_r = dog_bk[:, :, :, r0:r1]
+        dv[:, c0:c1] = torch.einsum("bkgqc,bkgqd->bckd", p, do_r)
+        dp = torch.einsum("bkgqd,bckd->bkgqc", do_r, vch)
+        ds = p * (dp - drow[..., r0:r1, None]) * scale
+        dq[:, r0:r1] += torch.einsum("bkgqc,bckd->bqkgd", ds, kch)
+        dk[:, c0:c1] = torch.einsum("bkgqc,bqkgd->bckd", ds, qr)
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def ternary_encode(g, scale):

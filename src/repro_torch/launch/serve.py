@@ -26,6 +26,7 @@ from repro_torch import device as D
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import rmsnorm as RN
 from repro_torch.models import model as M
+from repro_torch.models.runtime import DEFAULT
 
 
 def greedy(logits):
@@ -75,13 +76,14 @@ def serve(cfg, *, requests: int, batch: int, prompt: int, tokens: int,
         cache = M.init_cache(cfg, batch, max_seq, device=dev)
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = M.prefill(params, cfg, {"tokens": toks}, cache)
+        logits, cache = M.prefill(params, cfg, DEFAULT, {"tokens": toks},
+                                  cache)
         tok = greedy(logits)
         _sync(dev)
         t1 = time.perf_counter()
         outs = [tok]
         for t in range(tokens - 1):
-            logits, cache = M.decode_step(params, cfg, tok, cache,
+            logits, cache = M.decode_step(params, cfg, DEFAULT, tok, cache,
                                           prompt + t)
             tok = greedy(logits)
             outs.append(tok)

@@ -1,4 +1,5 @@
-"""Training driver of the port: the paper's experiment on the card.
+"""Training driver of the port: the paper's experiment and transformer
+training on the card.
 
 ``--paper`` runs the paper's exact experiment — queue-scheduled distributed
 training of the 2x50 LSTM on the reference package's own source text (JSDoop
@@ -10,25 +11,51 @@ launches of the hand-written ternary kernels a gradient, on the volunteer:
 the scale pass, then codes, decoded gradient and residual) and counts
 its packed size in ``bytes_sent``; ``--transport wire`` round-trips every
 protocol message through bytes and reports them as ``wire_bytes`` (the
-gradient crosses decoded, as in the JAX package). The ``--arch`` path
-(sharded transformer training) comes with the port's transformer stack.
+gradient crosses decoded, as in the JAX package).
+
+``--arch <id>`` trains a dense architecture (its smoke config, or the
+published one with ``--full``) as ``repro.launch.train --arch`` does: the
+same step (``distributed/steps.py``: microbatch gradients summed in an fp32
+accumulator, one mean and one optimizer update a step), the same
+optimizers, the same random token batches (``RandomState(seed)``, one draw
+a step), the same checkpoint files (``--ckpt``). Every attention runs the
+hand-written flash kernel under autograd (once a layer a microbatch, and
+again in the backward under remat), writing its log-sum-exp for the plain
+backward; every RMSNorm the ``rmsnorm`` kernel. The JAX package binds the
+step to a device mesh; the port runs it on one card. Other families raise,
+naming the ROADMAP item that brings them.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --paper --workers 3 --versions 3
   PYTHONPATH=src python -m repro_torch.launch.train --paper --codec ternary --transport wire
   PYTHONPATH=src python -m repro_torch.launch.train --paper --device cpu --versions 1
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b --full --batch 8 --seq 4096 --micro 8 --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-110b --device cpu --steps 2 --batch 4 --seq 16 --micro 2
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
+import repro_torch.configs as C
+from repro_torch import device as D
+from repro_torch import tree
+from repro_torch.checkpoint.store import CheckpointStore
+from repro_torch.configs.base import InputShape
 from repro_torch.core.coordinator import Coordinator
 from repro_torch.core.mapreduce import TrainingProblem
+from repro_torch.distributed import steps as ST
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import lstm_cell as K
+from repro_torch.kernels import rmsnorm as RN
 from repro_torch.kernels import ternary as T
+from repro_torch.models import blocks as B
+from repro_torch.models import model as M
+from repro_torch.models.runtime import Runtime
+from repro_torch.optim import make as make_opt
 from repro_torch.optim import make_codec
 
 
@@ -71,12 +98,123 @@ def run_paper(*, workers: int = 4, versions: int = 8, seed: int = 0,
     return prob, res
 
 
+def arch_config(arch: str, full: bool = False):
+    """The config ``--arch`` trains: the published one with ``full``, else
+    the smoke config. Raises for the LSTM and for a family the port does
+    not train yet."""
+    cfg = C.get(arch) if full else C.get_smoke(arch)
+    if cfg.family == "rnn":
+        raise SystemExit("use --paper for the LSTM workload")
+    B.check_family(cfg)
+    return cfg
+
+
+def sample_batch(rng, spec, vocab: int, device):
+    """One training batch from ``rng``, as ``repro.launch.train`` draws it:
+    ``rng.randint(0, vocab, size=shape)`` for every integer entry."""
+    out = {}
+    for k, s in spec.items():
+        if s.dtype != torch.int32:
+            raise ValueError(f"batch entry {k}: {s.dtype}; the dense family "
+                             f"trains on tokens only")
+        out[k] = torch.from_numpy(rng.randint(0, vocab, size=s.shape)
+                                  .astype(np.int32)).to(device)
+    return out
+
+
+def setup_arch(cfg, *, batch: int = 8, seq: int = 64, micro: int = 4,
+               lr: float = 1e-3, optimizer: str = "adamw", seed: int = 0,
+               remat: bool = True, device=None) -> dict:
+    """What a run of ``cfg`` starts from: dict(device, bound
+    (``steps.bind_train``), params (random, from a ``torch.Generator`` on
+    the device seeded with ``seed``), opt_state, rng (the batches'
+    ``RandomState(seed)``)). ``device=None`` is the card (raises when
+    there is none)."""
+    dev = D.resolve(device)
+    opt = make_opt(optimizer, lr)
+    bound = ST.bind_train(cfg, Runtime(remat=remat), opt,
+                          InputShape("cli", seq, batch, "train"),
+                          num_microbatches=micro)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           dev)
+    return dict(device=dev, bound=bound, params=params,
+                opt_state=opt.init(params), rng=np.random.RandomState(seed))
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_arch(cfg, *, steps: int = 20, ckpt=None, ckpt_every: int = 50,
+             label: str = "smoke", **setup) -> dict:
+    """Train ``cfg`` for ``steps`` steps (``setup`` goes to ``setup_arch``)
+    and print the reference's lines, each step's with its kernel launches.
+    Returns dict(params, opt_state, losses, step_s (each step's seconds on
+    the host clock, ending in a synchronize), launches (per step: flash,
+    flash writing lse, rmsnorm), n_params, n_micro, store)."""
+    run = setup_arch(cfg, **setup)
+    dev, bound = run["device"], run["bound"]
+    # popped: each step's inputs are freed once its outputs exist
+    params, opt_state = run.pop("params"), run.pop("opt_state")
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    print(f"[arch] {cfg.name} ({label}) params={n_params:,} "
+          f"micro={bound['n_micro']} device={dev}")
+    store = CheckpointStore(ckpt) if ckpt else None
+    losses, step_s, launches = [], [], []
+    t0 = time.time()
+    for step in range(steps):
+        batch = sample_batch(run["rng"], bound["batch_shape"], cfg.vocab, dev)
+        before = (FA.flash_attention.launches,
+                  FA.flash_attention.lse_launches, RN.rmsnorm.launches)
+        _sync(dev)
+        ts = time.perf_counter()
+        params, opt_state, mets = bound["step"](params, opt_state, batch)
+        losses.append(float(mets["loss"]))
+        _sync(dev)
+        step_s.append(time.perf_counter() - ts)
+        launches.append({"flash_attention": FA.flash_attention.launches -
+                         before[0],
+                         "flash_lse": FA.flash_attention.lse_launches -
+                         before[1],
+                         "rmsnorm": RN.rmsnorm.launches - before[2]})
+        if step % max(steps // 10, 1) == 0 or step == steps - 1:
+            print(f"  step {step:4d} loss {losses[-1]:.4f} "
+                  f"({(time.time() - t0) / (step + 1):.2f}s/step; this step "
+                  f"{step_s[-1]:.3f}s, kernel launches {launches[-1]})")
+        if store and (step + 1) % ckpt_every == 0:
+            v = (store.latest() or 0) + 1
+            store.save(v, {"params": params, "opt": opt_state},
+                       meta={"step": step + 1})
+            print(f"  checkpoint v{v}")
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"{cfg.name}: non-finite loss {losses}")
+    print(f"[arch] loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"in {time.time() - t0:.1f}s")
+    return dict(params=params, opt_state=opt_state, losses=losses,
+                step_s=step_s, launches=launches, n_params=n_params,
+                n_micro=bound["n_micro"], store=store)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--paper", action="store_true")
+    ap.add_argument("--arch", default=None, choices=C.ARCH_IDS)
+    ap.add_argument("--full", action="store_true",
+                    help="the full published config (on the card)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--micro", type=int, default=4)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=["rmsprop", "sgd", "adamw"])
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--versions", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-remat", action="store_true")
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default=None,
                     help="cuda (default; fails without a card) or cpu")
     ap.add_argument("--codec", default="none",
@@ -84,10 +222,19 @@ def main(argv=None) -> int:
     ap.add_argument("--transport", default="inproc",
                     choices=["inproc", "wire"])
     args = ap.parse_args(argv)
-    if not args.paper:
-        raise SystemExit("need --paper (the --arch path is not ported yet)")
-    run_paper(workers=args.workers, versions=args.versions, seed=args.seed,
-              device=args.device, codec=args.codec, transport=args.transport)
+    if args.paper:
+        run_paper(workers=args.workers, versions=args.versions,
+                  seed=args.seed, device=args.device, codec=args.codec,
+                  transport=args.transport)
+        return 0
+    if not args.arch:
+        raise SystemExit("need --paper or --arch <id>")
+    run_arch(arch_config(args.arch, args.full), steps=args.steps,
+             ckpt=args.ckpt, ckpt_every=args.ckpt_every,
+             label="full" if args.full else "smoke", batch=args.batch,
+             seq=args.seq, micro=args.micro, lr=args.lr,
+             optimizer=args.optimizer, seed=args.seed,
+             remat=not args.no_remat, device=args.device)
     return 0
 
 

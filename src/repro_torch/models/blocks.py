@@ -7,13 +7,20 @@ layout (every leaf ``[n_layers, ...]``), so weights cross between the
 packages unchanged. (The JAX package's hybrid family repeats a period of
 several layers, ``l0``..``l7``; it comes with that family.) A plain Python
 loop over the layers takes the place of ``lax.scan``; decode caches are
-stacked the same way and updated in place, layer by layer.
+stacked the same way and updated in place, layer by layer. Each call splits
+every stacked leaf once (``torch.unbind``), so under autograd the gradient
+of a stack is one ``stack`` of its layers' gradients, not one full-size
+zero gradient a layer. With ``rt.remat`` and a gradient wanted, each layer
+runs under ``torch.utils.checkpoint`` (the JAX package's
+``jax.checkpoint`` of the scan body): its activations are recomputed in
+the backward, kernels included.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.models import layers as L
@@ -101,12 +108,28 @@ def _apply_sublayer(p, x, cfg, *, positions, pos, cache: Optional[dict],
     return x + L.apply_mlp(p["mlp"], h2, cfg.mlp)
 
 
-def scan_units(units_p, x, cfg, *, positions, pos=None, cache=None,
+def unstack(stacked, n: int):
+    """A tree of ``[n, ...]`` leaves as n trees of its layers' views, one
+    ``unbind`` per leaf."""
+    leaves, spec = tree.flatten(stacked)
+    split = [a.unbind(0) for a in leaves]
+    if any(len(s) != n for s in split):
+        raise ValueError(f"stacked leaves do not hold {n} layers")
+    return [tree.unflatten(spec, [s[i] for s in split]) for i in range(n)]
+
+
+def scan_units(units_p, x, cfg, rt, *, positions, pos=None, cache=None,
                causal: bool = True, window: int = 0):
     """The stacked layers in order (the JAX package's ``lax.scan``).
     Returns (x, cache): the cache given, updated in place, or None."""
-    for i in range(cfg.n_layers):
-        layer = tree.map(lambda a: a[i], units_p["l0"])
+    remat = rt.remat and cache is None and torch.is_grad_enabled()
+    for i, layer in enumerate(unstack(units_p["l0"], cfg.n_layers)):
+        if remat:
+            x = checkpoint(_apply_sublayer, layer, x, cfg,
+                           positions=positions, pos=pos, cache=None,
+                           causal=causal, window=window,
+                           use_reentrant=False)
+            continue
         layer_cache = None
         if cache is not None:
             layer_cache = {"k": cache["l0"]["k"][i], "v": cache["l0"]["v"][i]}

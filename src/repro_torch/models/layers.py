@@ -5,10 +5,11 @@ Plain functions on tensors over dict params, the JAX package's tree and
 shapes (``wq [D, H, hd]``, ``wo [H, hd, D]``, ...). ``init_*`` draws from an
 explicit ``torch.Generator`` (torch's stream, not JAX's: the tests carry
 JAX's weights across with ``bridge``). RMSNorm goes through
-``kernels.ops.rmsnorm`` and prefill attention through
-``kernels.ops.flash_attention``: the hand-written kernels on the card, their
-plain versions on the CPU. LayerNorm and decode attention stay plain, as in
-the JAX package (which has no kernel for either).
+``kernels.ops.rms_norm`` and attention over fresh k/v (prefill, training)
+through ``kernels.ops.attention``: the hand-written kernels on the card,
+their plain versions on the CPU, under autograd where a gradient is wanted.
+LayerNorm and decode attention stay plain, as in the JAX package (which has
+no kernel for either).
 """
 from __future__ import annotations
 
@@ -28,7 +29,11 @@ NEG_INF = -1e30
 
 def dense_init(generator, shape, dtype, device, scale: float = 0.02):
     """``scale * truncated_normal(-2, 2)`` in fp32, then cast: drawn on the
-    generator's device, then moved to ``device``."""
+    generator's device, then moved to ``device``. Without a generator, an
+    unfilled tensor (shapes only: ``model.param_count`` builds the tree on
+    the meta device)."""
+    if generator is None:
+        return torch.empty(shape, dtype=dtype, device=device)
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (scale * t).to(device=device, dtype=dtype)
@@ -43,7 +48,7 @@ def init_norm(kind: str, d: int, dtype, device):
 
 def apply_norm(kind: str, p, x, eps: float = 1e-6):
     if kind == "rmsnorm":
-        return ops.rmsnorm(x.contiguous(), p["scale"], eps)
+        return ops.rms_norm(x.contiguous(), p["scale"], eps)
     xf = x.float()
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
@@ -168,8 +173,9 @@ def self_attention(p, x, cfg, *, positions, causal=True, window=0,
     are written into ``cache["k"]``/``cache["v"]`` in place (the JAX package
     returns updated copies). One token against a cache (decode, at position
     ``cache["pos"]``) runs plain attention over the cache; several tokens
-    against a cache (prefill, from position 0), or any tokens without a
-    cache, run the flash kernel over the fresh k/v."""
+    against a cache (prefill, from position 0) run the flash kernel over the
+    fresh k/v, as does a call without a cache (under autograd through
+    ``FlashAttention``, its backward over kv chunks of ``ops.KV_CHUNK``)."""
     q, k, v = attention_qkv(p, x)
     q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
@@ -185,8 +191,8 @@ def self_attention(p, x, cfg, *, positions, causal=True, window=0,
                                   causal=causal, window=window,
                                   kv_valid_len=pos + S)
             return attention_out(p, out)
-    out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=causal, window=window)
+    out = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                        causal=causal, window=window)
     return attention_out(p, out)
 
 

@@ -317,6 +317,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         TrainingProblem.paper_problem(corpus=synthetic_corpus(2000))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--paper", "--versions", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "stablelm-1.6b", "--steps", "1"])
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "qwen1.5-110b", "--requests", "1"])

@@ -34,6 +34,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import rmsnorm as RN
 from repro_torch.launch import serve as S
 from repro_torch.models import model as TM
+from repro_torch.models.runtime import DEFAULT
 
 LOGIT_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 PROMPT, BATCH, STEPS = 9, 2, 3
@@ -97,13 +98,14 @@ def _greedy_runs(case):
     jdec = jax.jit(JM.decode_step, static_argnums=(1, 2))
     jl, jc = jpre(jp, jcfg, jrt, {"tokens": jnp.asarray(toks)},
                   JM.init_cache(jcfg, BATCH, max_seq))
-    tl, tc = TM.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks)},
+    tl, tc = TM.prefill(tp, tcfg, DEFAULT, {"tokens": torch.from_numpy(toks)},
                         TM.init_cache(tcfg, BATCH, max_seq))
     j_out, t_out = [(jl, jnp.argmax(jl, -1))], [(tl, S.greedy(tl))]
     for s in range(STEPS):
         jl, jc = jdec(jp, jcfg, jrt, j_out[-1][1].astype(jnp.int32), jc,
                       jnp.int32(PROMPT + s))
-        tl, tc = TM.decode_step(tp, tcfg, t_out[-1][1], tc, PROMPT + s)
+        tl, tc = TM.decode_step(tp, tcfg, DEFAULT, t_out[-1][1], tc,
+                                PROMPT + s)
         j_out.append((jl, jnp.argmax(jl, -1)))
         t_out.append((tl, S.greedy(tl)))
     return dtype, j_out, t_out, (tp, tcfg, toks)
@@ -120,7 +122,8 @@ def test_prefill_and_decode_match_jax(case):
         np.testing.assert_array_equal(tt.numpy(), np.asarray(jt),
                                       err_msg=f"greedy tokens, step {step}")
     # forward's last row is prefill's logits (same kernels, no cache)
-    logits, aux = TM.forward(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+    logits, aux = TM.forward(tp, tcfg, DEFAULT,
+                             {"tokens": torch.from_numpy(toks)})
     assert logits.shape == (BATCH, PROMPT, tcfg.vocab) and float(aux) == 0
     torch.testing.assert_close(logits[:, -1], t_out[0][0], rtol=tol, atol=tol)
 
@@ -137,7 +140,7 @@ def test_forward_matches_jax_at_every_position(arch):
     jl, _ = JM.forward(jax.tree.map(jnp.asarray, np_params), jcfg,
                        JRuntime(remat=False), {"tokens": jnp.asarray(toks)})
     tl, _ = TM.forward(bridge.params_from_jax(np_params, "cpu"), tcfg,
-                       {"tokens": torch.from_numpy(toks)})
+                       DEFAULT, {"tokens": torch.from_numpy(toks)})
     assert tl.shape == jl.shape
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
                                rtol=LOGIT_TOL["float32"],
