@@ -9,10 +9,11 @@ Phases, each printing its result; any failure exits non-zero:
 
 1. the card's name and power limit, then the build of every kernel of the
    port's paths from the sources in this checkout (``lstm_cell``,
-   ``ternary``, ``rmsnorm``, ``flash_attention``), one ``nvcc`` per source,
-   all started together (timed), with each kernel's registers, shared
-   memory and spills, and the count of HGMMA (tensor-core) instructions in
-   the flash library's SASS where ``cuobjdump`` exists;
+   ``ternary``, ``rmsnorm``, ``flash_attention``, ``flash_attention_bwd``),
+   one ``nvcc`` per source, all started together (timed), with each
+   kernel's registers, shared memory and spills, and the count of HGMMA
+   (tensor-core) instructions in the two flash libraries' SASS where
+   ``cuobjdump`` exists;
 2. each kernel against its plain PyTorch version on the card, and its time
    at the main path's shapes beside the plain version, the one-call PyTorch
    equivalent (where one exists) and the card's bound: ``lstm_cell`` over
@@ -22,7 +23,13 @@ Phases, each printing its result; any failure exits non-zero:
    chained ``lstm_cell`` launches, timed at the paper's two layers beside
    its bound, the plain version, a CUDA graph replaying 40 ``lstm_cell``
    launches and cuDNN's ``torch.nn.LSTM`` on the same weights;
-   ``ternary_encode`` byte for byte and ``ternary_decode`` bit for bit (the
+   ``lstm_seq_bwd`` (backpropagation through time, one launch a layer)
+   over the same shapes against its plain version (the per-step loop),
+   fp32 within 2e-5 and bf16 within 2e-2 of max |grad|, two runs bit-equal,
+   and ``_Seq``'s gradients at the paper's layers with and without dx
+   against the plain BPTT, timed at the paper's layers beside its bound,
+   the plain loop, the layer's forward + backward and cuDNN ``nn.LSTM``'s
+   forward + backward; ``ternary_encode`` byte for byte and ``ternary_decode`` bit for bit (the
    single-leaf counterparts of the Pallas bodies) over the JAX sweep and the
    six paper leaves (padded, with values planted at ``±s/2`` and their
    neighbours), every byte value decoded at s = 0.37, inf and NaN (NaN as
@@ -72,13 +79,15 @@ Phases, each printing its result; any failure exits non-zero:
    moved, ``wire_bytes``, printed beside the dense wire run's), its
    in-process twin (bit-equal), and a short top-k run under deterministic
    mode, each run's launch counts held to its path (2 ``lstm_seq``, one a
-   layer, and no ``lstm_cell`` per map and, under TernGrad, 2 ternary
+   layer, 2 ``lstm_seq_bwd`` and no ``lstm_cell`` per map and, under
+   TernGrad, 2 ternary
    error-feedback launches per map and no ternary encode or decode launch,
    else none); then the
    four dense/ternary x inproc/wire runs once more in reverse order, for
    their seconds per version;
 5. where one map's time goes: wall time, and a ``torch.profiler`` window's
-   device busy share, kernels and ``lstm_seq``'s device time a launch; the
+   device busy share, kernels and the device time a launch of ``lstm_seq``
+   and ``lstm_seq_bwd``; the
    same for one ternary error feedback of a paper gradient (exactly 2
    kernels);
 5b. the gateway: a real-apply ``GatewayServer`` on a thread serving the
@@ -89,7 +98,8 @@ Phases, each printing its result; any failure exits non-zero:
    bit-equal to ``sequential_local``, three racing volunteers ending at the
    final version with contiguous versions; every run with the counts set
    to 0 just before and read just after, ``map_compute`` counted by a
-   wrapper: exactly 2 ``lstm_seq`` launches a map and no ``lstm_cell``;
+   wrapper: exactly 2 ``lstm_seq`` and 2 ``lstm_seq_bwd`` launches a map
+   and no ``lstm_cell``;
    the server's applier alone on 16 staged paper gradients, batched and
    single, bit-equal to each other and to chained ``apply_one``, ms per
    drain; ``python -m repro_torch.core.gateway --serve --real-apply`` as a
@@ -102,7 +112,8 @@ Phases, each printing its result; any failure exits non-zero:
    ``repro_torch.launch.serve.serve`` (8 requests in batches of 4, 1,024
    prompt tokens, 16 generated) with every count set to 0 just before and
    read just after: exactly 8 ``flash_attention`` launches, all on the
-   tensor-core route, and 288 ``rmsnorm`` launches and no other; prefill
+   tensor-core route, and 288 ``rmsnorm`` launches and no other (no
+   backward launch); prefill
    ms, decode ms per token, tokens/s and
    peak memory; then the same weights through the plain versions on the
    card, teacher-forced on the served tokens, every step's logits within
@@ -114,29 +125,41 @@ Phases, each printing its result; any failure exits non-zero:
 7. qwen1.5-110b's smoke config in fp32, the kernel path on the card
    against the plain path on the CPU: equal greedy tokens and logits within
    the stated tolerance;
-8. the transformer kernels as training runs them, at full width:
-   ``FlashAttention`` (the kernel's forward writing lse, then the plain
-   chunked backward) at stablelm-1.6b's shape (B=1, S=4,096, 32 heads, hd
-   64) and qwen1.5-110b's (S=1,024, 64 over 8 heads, hd 128), bf16, causal:
-   the lse against the plain lse, dq/dk/dv against the plain forward's
-   within 2e-2 of max |grad| beside the bf16 plain path's distance from an
-   fp32 one; ``RMSNorm`` forward + backward at ``[4096, 8192]`` bf16; the
-   forward with and without lse, the plain backward and SDPA's forward +
-   backward timed beside their bounds;
+8. the transformer kernels as training runs them, at full width: the flash
+   backward kernels against the plain backward (both from the kernel
+   forward's out and lse) over the JAX sweep x {causal, window 37, full} in
+   fp32 (within 2e-5 of max |grad|) and bf16, the sweep at hd 128 in bf16
+   (within 2e-2), and its GQA shape at hd 80, 192 and 576 in both dtypes
+   (the CUDA-core backward), each call counted on its route, and one batch
+   entry of exactly 2^31 elements (window 256, both dtypes) on slices; ``FlashAttention``
+   (the kernel's forward writing lse, then the backward kernels) at
+   stablelm-1.6b's shape (B=1, S=4,096, 32 heads, hd 64) and
+   qwen1.5-110b's (S=1,024, 64 over 8 heads, hd 128), bf16, causal: the
+   lse against the plain lse, dq/dk/dv against the plain forward and
+   backward within 2e-2 of max |grad| beside the bf16 plain path's distance
+   from an fp32 one, the backward kernels against the plain backward on
+   the same out and lse; ``RMSNorm`` forward + backward at ``[4096, 8192]``
+   bf16; the forward with and without lse, the backward kernels (with
+   ptxas's registers and spills), the plain backward, ``FlashAttention``'s
+   forward + backward and SDPA's forward + backward timed beside their
+   bounds;
 9. the training path: stablelm-1.6b at its full published size (24
    layers, d_model 2,048, 1,644,367,872 parameters, bf16, random weights
    from seed 0) through ``repro_torch.launch.train.run_arch``: AdamW,
    batch 8 x 4,096 tokens in 8 microbatches, remat on, 4 steps (the first
    a warm-up), with every count set to 0 just before and read just after:
    exactly 384 ``flash_attention`` launches a step, all on the
-   tensor-core route and all writing lse, no other kernel launch; seconds
+   tensor-core route and all writing lse, 192 flash backward calls of 2
+   launches each, all on the tensor-core route, no other kernel launch;
+   seconds
    per step, tokens/s, model FLOP/s and peak memory; one step without
-   remat (192 launches); a profiled step (busy share, top kernels); that
+   remat (192 launches, 384 backward launches); a profiled step (busy
+   share, top kernels, device ms under the flash backward); that
    step's gradients against every kernel swapped for its plain version
    (``plain_kernels``), beside an fp32 plain step; a ``--ckpt`` run
    of the smoke config loading back bit for bit; the stablelm and qwen
    smoke configs' step gradients card vs CPU (fp32) and their exact
-   launch counts.
+   launch counts, the backward's on the CUDA-core route.
 
 The line before the last is a JSON object of per-kernel numbers; the last is
 ``{"ok": true, "device": {...}}``. With no CUDA card, or outside a checkout
@@ -180,6 +203,11 @@ GRAD_TOL = 1e-5
 CPU_LOSS_TOL = 1e-3
 
 SWEEP = [(1, 7, 5), (8, 96, 50), (16, 128, 128), (5, 33, 200)]
+# lstm_seq_bwd against the plain loop, of max |grad|: the kernel sums each
+# dh_next in its own fixed order (four fmaf chains a unit, added pairwise),
+# the plain loop through cuBLAS; fp32 at tests/test_kernels.py::_tol's 2e-5,
+# bf16 (the same fp32 math from bf16 inputs) at its 2e-2
+LSTM_BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 class SmokeFailure(RuntimeError):
@@ -335,17 +363,22 @@ def cell_graph(torch, K, x, h, c, w, b):
     return graph.replay, hs, cs
 
 
-def cudnn_lstm(torch, x, h, c, w, b):
+def cudnn_module(torch, w, b, Din):
     """cuDNN's LSTM (``torch.nn.LSTM``, gate order i, f, g, o as Keras's)
-    over x [T,B,Din] with W and b carried across: the one-call yardstick,
-    for comparison only. Returns the call, which gives hs."""
-    Din, H = x.shape[-1], h.shape[1]
-    lstm = torch.nn.LSTM(Din, H).cuda()
+    with the layer's W [Din+H, 4H] and b carried across."""
+    lstm = torch.nn.LSTM(Din, w.shape[1] // 4).cuda()
     with torch.no_grad():
         lstm.weight_ih_l0.copy_(w[:Din].t())
         lstm.weight_hh_l0.copy_(w[Din:].t())
         lstm.bias_ih_l0.copy_(b)
         lstm.bias_hh_l0.zero_()
+    return lstm
+
+
+def cudnn_lstm(torch, x, h, c, w, b):
+    """cuDNN's LSTM over x [T,B,Din]: the one-call yardstick, for
+    comparison only. Returns the call, which gives hs."""
+    lstm = cudnn_module(torch, w, b, x.shape[-1])
 
     def run():
         with torch.no_grad():
@@ -420,6 +453,137 @@ def phase_lstm_seq(torch, K, ref, paper):
                          graph_ms=graph_ms, cudnn_ms=cudnn_ms,
                          cudnn_err=lib_err, bound_ms=bound, bound_by=by))
     return worst, rows
+
+
+def lstm_bwd_bound_ms(T, B, H, elem_bytes):
+    """Least time for one layer's backpropagation through time: dhs, cs, c0
+    and W_h read once (input type), the gates read once and dz, dh0, dc0
+    written once (fp32), over HBM; T steps of dz_t W_h^T and the gate
+    chain at the fp32 peak."""
+    moved = elem_bytes * (2 * T * B * H + B * H + 4 * H * H) + \
+        4 * (2 * T * B * 4 * H + 2 * B * H)
+    ops = T * B * (2 * H * 4 * H + 20 * H)
+    t_b, t_o = moved / PEAK_BYTES_S, ops / PEAK_FP32_FLOP_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def cudnn_lstm_fb(torch, x, h, c, w, b, dhs, x_grad):
+    """cuDNN's LSTM forward + backward over x [T,B,Din] with W and b carried
+    across, the gradients of (h0, c0, its weights and, with ``x_grad``, x)
+    for the cotangent dhs: the one-call yardstick of the layer under
+    autograd, for comparison only. Returns the call."""
+    lstm = cudnn_module(torch, w, b, x.shape[-1])
+    xs = x.detach().clone().requires_grad_(x_grad)
+    h0, c0 = (t[None].detach().clone().requires_grad_() for t in (h, c))
+    wrt = [h0, c0, *lstm.parameters()] + ([xs] if x_grad else [])
+
+    def run():
+        return torch.autograd.grad(lstm(xs, (h0, c0))[0], wrt, dhs)
+    return run
+
+
+def seq_layer_grads(torch, leaves, dhs, x_grad):
+    """Gradients of one ``models/lstm.py::_Seq`` layer (the sequence kernel
+    forward, then ``ops.lstm_seq_bwd`` and the products) for the cotangent
+    dhs: of (h0, c0, kernel, bias) and, with ``x_grad``, x first."""
+    from repro_torch.models.lstm import _Seq
+    xs = [t.detach().clone().requires_grad_(i > 0 or x_grad)
+          for i, t in enumerate(leaves)]
+    return torch.autograd.grad(_Seq.apply(*xs), xs if x_grad else xs[1:],
+                               dhs)
+
+
+def phase_lstm_bwd(torch, K, ref, paper):
+    """lstm_seq_bwd against its plain version (the per-step loop) over the
+    sweep and the paper's layers, fp32 and bf16, twice (bit-equal runs);
+    ``_Seq``'s gradients at the paper's layers, with and without dx,
+    through the kernel against ``plain_kernels()`` (the plain BPTT after
+    the same forward kernel); its time at the paper's layers beside its
+    bound, the plain loop, the layer's forward + backward and cuDNN
+    ``nn.LSTM``'s forward + backward. The launches here are comparisons,
+    made before any path's counts are reset. Returns (worst fp32 relative
+    and absolute errors at the paper's layers, rows)."""
+    worst, worst_abs = 0.0, 0.0
+    for B, Din, Hh in SWEEP + paper:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x, h, c, w, b = seq_inputs(torch, SEQ_T, B, Din, Hh, dtype,
+                                       seed=B * 1000 + Din)
+            _, cs, gates = K.lstm_seq(x, h, c, w, b)
+            dhs = randn(torch, (SEQ_T, B, Hh), dtype, B + Din)
+            got = K.lstm_seq_bwd(dhs, gates, cs, c, w[Din:])
+            again = K.lstm_seq_bwd(dhs, gates, cs, c, w[Din:])
+            want = ref.lstm_seq_bwd(dhs, gates, cs, c, w[Din:])
+            torch.cuda.synchronize()
+            errs = [rel_err(torch, a, p) for a, p in zip(got, want)]
+            same = all(torch.equal(a, r) for a, r in zip(got, again))
+            ok = max(errs) <= LSTM_BWD_TOL[name]
+            print(f"[kernel] lstm_seq_bwd T={SEQ_T} B={B} Din={Din} H={Hh} "
+                  f"{name}: max|kernel-plain| / max|grad| over dz, dh0, dc0 "
+                  f"{', '.join(f'{e:.3e}' for e in errs)} tol "
+                  f"{LSTM_BWD_TOL[name]} {'ok' if ok else 'FAIL'}; two runs "
+                  f"bit-equal: {same}")
+            check(ok, f"lstm_seq_bwd disagrees with its plain version at "
+                      f"B={B} Din={Din} H={Hh} {name}")
+            check(same, f"lstm_seq_bwd differs between two runs at B={B} "
+                        f"Din={Din} H={Hh} {name}")
+            if name == "float32" and (B, Din, Hh) in paper:
+                worst = max(worst, max(errs))
+                worst_abs = max(worst_abs, max(
+                    (a - p).abs().max().item() for a, p in zip(got, want)))
+
+    for B, Din, Hh in paper:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            leaves = seq_inputs(torch, SEQ_T, B, Din, Hh, dtype, seed=11)
+            dhs = randn(torch, (SEQ_T, B, Hh), dtype, 12)
+            for x_grad in (True, False):
+                gk = seq_layer_grads(torch, leaves, dhs, x_grad)
+                with plain_kernels():
+                    gp = seq_layer_grads(torch, leaves, dhs, x_grad)
+                errs = [rel_err(torch, a, p) for a, p in zip(gk, gp)]
+                ok = max(errs) <= LSTM_BWD_TOL[name]
+                print(f"[kernel] _Seq layer B={B} Din={Din} H={Hh} {name} "
+                      f"{'with' if x_grad else 'without'} dx: gradients "
+                      f"through lstm_seq_bwd vs the plain BPTT, max|diff| / "
+                      f"max|grad| {', '.join(f'{e:.3e}' for e in errs)} "
+                      f"({'dx, ' if x_grad else ''}dh0, dc0, dW, db) tol "
+                      f"{LSTM_BWD_TOL[name]} {'ok' if ok else 'FAIL'}")
+                check(ok, f"_Seq gradients through lstm_seq_bwd disagree at "
+                          f"B={B} Din={Din} H={Hh} {name} x_grad={x_grad}")
+
+    rows = []
+    for layer, (B, Din, Hh) in enumerate(paper):
+        x, h, c, w, b = seq_inputs(torch, SEQ_T, B, Din, Hh, torch.float32,
+                                   seed=7)
+        _, cs, gates = K.lstm_seq(x, h, c, w, b)
+        dhs = randn(torch, (SEQ_T, B, Hh), torch.float32, 13)
+        w_h = w[Din:]
+        ms = median_ms(lambda: K.lstm_seq_bwd(dhs, gates, cs, c, w_h), torch)
+        plain_ms = median_ms(lambda: ref.lstm_seq_bwd(dhs, gates, cs, c, w_h),
+                             torch, reps=10, inner=5)
+        # as the model trains: layer 0's one-hot input needs no gradient
+        x_grad = layer > 0
+        fb_ms = median_ms(lambda: seq_layer_grads(torch, (x, h, c, w, b), dhs,
+                                                  x_grad), torch, reps=20,
+                          inner=5)
+        torch.use_deterministic_algorithms(False)
+        try:
+            cudnn_fb_ms = median_ms(cudnn_lstm_fb(torch, x, h, c, w, b, dhs,
+                                                  x_grad), torch, reps=20,
+                                    inner=5)
+        finally:
+            torch.use_deterministic_algorithms(True)
+        bound, by = lstm_bwd_bound_ms(SEQ_T, B, Hh, 4)
+        print(f"[kernel] lstm_seq_bwd time T={SEQ_T} B={B} Din={Din} H={Hh} "
+              f"fp32: kernel {ms:.5f} ms, plain loop {plain_ms:.4f} ms, bound "
+              f"{bound:.6f} ms ({by}); the layer's forward + backward "
+              f"({'with' if x_grad else 'without'} dx) {fb_ms:.4f} ms, cuDNN "
+              f"nn.LSTM forward + backward {cudnn_fb_ms:.4f} ms")
+        rows.append(dict(shape=[SEQ_T, B, Din, Hh], ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, fwd_bwd_ms=fb_ms,
+                         cudnn_fwd_bwd_ms=cudnn_fb_ms))
+    return worst, worst_abs, rows
 
 
 # the six leaves of the paper's gradient (head b, head w, layer 0 bias and
@@ -813,11 +977,12 @@ def reset_counts(K, T):
     """Set every kernel's launch count to 0."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
-    for fn in (K.lstm_cell, K.lstm_seq, T.ternary_encode, T.ternary_decode,
-               T.ef_compress_leaves, RN.rmsnorm, FA.flash_attention):
+    for fn in (K.lstm_cell, K.lstm_seq, K.lstm_seq_bwd, T.ternary_encode,
+               T.ternary_decode, T.ef_compress_leaves, RN.rmsnorm,
+               FA.flash_attention, FA.flash_attention_bwd):
         fn.launches = 0
-    FA.flash_attention.route_launches = dict.fromkeys(
-        FA.flash_attention.route_launches, 0)
+    for fn in (FA.flash_attention, FA.flash_attention_bwd):
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
     FA.flash_attention.padded_launches = 0
     FA.flash_attention.lse_launches = 0
 
@@ -887,11 +1052,13 @@ def phase_main_path(torch, K, T):
     torch.cuda.synchronize()
     dt = time.time() - t0
     launches, cell_launches = K.lstm_seq.launches, K.lstm_cell.launches
+    bwd_launches = K.lstm_seq_bwd.launches
     maps = sum(res.tasks_by_worker.values()) - versions
     print(f"[main] Coordinator workers={workers} versions={versions}: "
           f"{dt / versions:.3f} s per version, {maps} maps, "
           f"{launches} lstm_seq launches ({prob.seq_launches_per_map} a map), "
-          f"{cell_launches} lstm_cell launches, losses {res.losses}")
+          f"{bwd_launches} lstm_seq_bwd launches, {cell_launches} lstm_cell "
+          f"launches, losses {res.losses}")
     check(res.final_version == versions,
           f"final version {res.final_version}, expected {versions}")
     check(all(math.isfinite(l) for l in res.losses), "non-finite loss")
@@ -900,6 +1067,10 @@ def phase_main_path(torch, K, T):
           f"{versions * prob.tp.mini_batches_to_accumulate}")
     check(launches == prob.seq_launches_per_map * maps,
           f"{launches} lstm_seq launches, expected "
+          f"{prob.seq_launches_per_map} x {maps}")
+    # backpropagation through time: one launch a layer a map, as forward
+    check(bwd_launches == prob.seq_launches_per_map * maps,
+          f"{bwd_launches} lstm_seq_bwd launches, expected "
           f"{prob.seq_launches_per_map} x {maps}")
     check(cell_launches == 0, f"{cell_launches} lstm_cell launches on the "
                               f"training path, expected none")
@@ -920,7 +1091,8 @@ def phase_main_path(torch, K, T):
     print(f"[main] per-version losses card {res.losses} vs cpu {l_cpu}: "
           f"max diff {diff:.3e} tol={CPU_LOSS_TOL}")
     check(diff <= CPU_LOSS_TOL, "card and CPU loss trajectories differ")
-    return prob, (launches, cell_launches), (p_seq, s_seq), dt / versions
+    return prob, (launches, cell_launches, bwd_launches), (p_seq, s_seq), \
+        dt / versions
 
 
 def phase_wire_paths(torch, K, T, prob, seq, dense_s):
@@ -942,7 +1114,7 @@ def phase_wire_paths(torch, K, T, prob, seq, dense_s):
         dt = time.time() - t0
         counts = (K.lstm_seq.launches, K.lstm_cell.launches,
                   T.ef_compress_leaves.launches, T.ternary_encode.launches,
-                  T.ternary_decode.launches)
+                  T.ternary_decode.launches, K.lstm_seq_bwd.launches)
         tag = f"{codec}/{transport}"
         check(res.final_version == v, f"{tag}: final version "
                                       f"{res.final_version}, expected {v}")
@@ -954,16 +1126,17 @@ def phase_wire_paths(torch, K, T, prob, seq, dense_s):
         # error feedback: a scale pass and one encode-decode-residual
         # launch a gradient, no encode or decode launch of their own
         ef = TERNARY_EF_LAUNCHES * n_maps if codec == "ternary" else 0
-        want = (prob.seq_launches_per_map * n_maps, 0, ef, 0, 0)
+        want = (prob.seq_launches_per_map * n_maps, 0, ef, 0, 0,
+                prob.seq_launches_per_map * n_maps)
         check(counts == want, f"{tag}: launches lstm_seq/lstm_cell/"
-                              f"ternary ef/encode/decode {counts}, expected "
-                              f"{want}")
+                              f"ternary ef/encode/decode/lstm_seq_bwd "
+                              f"{counts}, expected {want}")
         check((res.wire_bytes is not None) == (transport == "wire"),
               f"{tag}: wire_bytes {res.wire_bytes}")
         print(f"[wire] codec={codec} transport={transport}: "
               f"{dt / v:.3f} s per version (dense inproc {dense_s:.3f}), "
-              f"launches lstm_seq/lstm_cell/ternary ef/encode/decode "
-              f"{counts} (expected), "
+              f"launches lstm_seq/lstm_cell/ternary ef/encode/decode/"
+              f"lstm_seq_bwd {counts} (expected), "
               f"codec bytes_sent {res.bytes_sent}, wire_bytes "
               f"{res.wire_bytes}, losses {res.losses}")
         return res, counts, dt / v
@@ -1095,9 +1268,12 @@ def phase_profile(torch, prob):
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"[profile]   {t:.3f} ms in {n} x {name[:90]}")
     seq_ms = per_launch_ms(by_name, "lstm_seq_kernel")
-    print(f"[profile] lstm_seq kernel device time per launch: "
-          f"{fmt_ms(seq_ms)} ({launches_named(by_name, 'lstm_seq_kernel')} "
-          f"launches in the map; lstm_cell kernel launches "
+    bwd_ms = per_launch_ms(by_name, "lstm_seq_bwd_kernel")
+    print(f"[profile] device time per launch: lstm_seq kernel "
+          f"{fmt_ms(seq_ms)}, lstm_seq_bwd kernel {fmt_ms(bwd_ms)} "
+          f"({launches_named(by_name, 'lstm_seq_kernel')} / "
+          f"{launches_named(by_name, 'lstm_seq_bwd_kernel')} launches in the "
+          f"map; lstm_cell kernel launches "
           f"{launches_named(by_name, 'lstm_cell_kernel')})")
     map_prof = dict(window_ms=window_ms, busy_ms=busy_ms, kernels=n_kernels,
                     busy_share=busy_ms / window_ms)
@@ -1130,7 +1306,8 @@ def phase_profile(torch, prob):
     check(ternary_only(by_name) and 0 < n_kernels <= TERNARY_EF_LAUNCHES,
           f"one ternary ef_compress ran {n_kernels:g} kernels, expected "
           f"{TERNARY_EF_LAUNCHES}: {sorted(by_name)}")
-    return dict(map_ms=map_ms, seq_ms=seq_ms, map_profile=map_prof,
+    return dict(map_ms=map_ms, seq_ms=seq_ms, bwd_ms=bwd_ms,
+                map_profile=map_prof,
                 codec_ms=codec_ms, codec_kernels=n_kernels,
                 codec_busy_ms=busy_ms, scale_ms=scale_ms, ef_ms=ef_ms)
 
@@ -1233,13 +1410,15 @@ def phase_gateway(torch, K, T, coord_s):
         dt, blob, finals, versions, n = gateway_run(torch, G, prob, policy,
                                                     specs)
         seq, cell = K.lstm_seq.launches, K.lstm_cell.launches
+        bwd = K.lstm_seq_bwd.launches
         n_maps = maps[0]
         same = None if ref is None else G.same_bits(blob, ref)
         print(f"[gateway] {tag} ({policy}, {len(specs)} volunteer(s): "
               f"{', '.join(c.__name__ for _, c in specs)}): {n} updates in "
               f"{dt:.3f} s ({dt / n * 1e3:.2f} ms an update), finals "
               f"{finals}; {n_maps} maps, lstm_seq launches {seq} "
-              f"({prob.seq_launches_per_map} a map), lstm_cell {cell}; "
+              f"({prob.seq_launches_per_map} a map), lstm_seq_bwd {bwd}, "
+              f"lstm_cell {cell}; "
               f"wire-fetched final model == reference bit for bit: {same}")
         check(set(finals.values()) == {n}, f"{tag}: finals {finals}, "
                                            f"expected {n}")
@@ -1247,11 +1426,13 @@ def phase_gateway(torch, K, T, coord_s):
               f"{tag}: versions not contiguous: {versions}")
         check(n_maps > 0 and seq == prob.seq_launches_per_map * n_maps,
               f"{tag}: {seq} lstm_seq launches for {n_maps} maps")
+        check(bwd == prob.seq_launches_per_map * n_maps,
+              f"{tag}: {bwd} lstm_seq_bwd launches for {n_maps} maps")
         check(cell == 0, f"{tag}: {cell} lstm_cell launches")
         check(ref is None or same, f"{tag}: final model differs from the "
                                    f"reference")
         return dict(s=dt, updates=n, maps=n_maps, lstm_seq=seq,
-                    lstm_cell=cell, bit_equal=same)
+                    lstm_seq_bwd=bwd, lstm_cell=cell, bit_equal=same)
 
     n_async = GATEWAY_VERSIONS * prob.tp.mini_batches_to_accumulate
     ref_async = sequential_async(prob, n_updates=n_async)[:2]
@@ -1944,18 +2125,21 @@ def phase_flash_split(torch, FA, ref):
 
 def plain_kernels(rmsnorm=None):
     """Route the model's kernel calls to the plain versions, on any device,
-    for the ``with`` block (the comparison runs of the serve and training
-    phases: ``ops.FlashAttention`` and ``ops.RMSNorm`` call the patched
-    names too); ``rmsnorm`` replaces the plain RMSNorm (the noise-floor
-    run)."""
+    for the ``with`` block (the comparison runs of the LSTM, serve and
+    training phases: ``ops.FlashAttention``, ``ops.RMSNorm`` and
+    ``models/lstm.py::_Seq`` call the patched names too, forward and
+    backward); ``rmsnorm`` replaces the plain RMSNorm (the noise-floor
+    run). ``ops.lstm_seq`` keeps its kernel: the LSTM comparisons hold the
+    backward alone."""
     import contextlib
     from unittest import mock
     from repro_torch.kernels import ops, ref
     stack = contextlib.ExitStack()
-    stack.enter_context(mock.patch.object(ops, "rmsnorm",
-                                          rmsnorm or ref.rmsnorm))
-    stack.enter_context(mock.patch.object(ops, "flash_attention",
-                                          ref.flash_attention))
+    for name, fn in (("rmsnorm", rmsnorm or ref.rmsnorm),
+                     ("flash_attention", ref.flash_attention),
+                     ("flash_attention_bwd", ref.flash_attention_bwd),
+                     ("lstm_seq_bwd", ref.lstm_seq_bwd)):
+        stack.enter_context(mock.patch.object(ops, name, fn))
     return stack
 
 
@@ -2039,6 +2223,7 @@ def phase_serve(torch, K, T):
     counts = dict(rmsnorm=RN.rmsnorm.launches,
                   flash_attention=FA.flash_attention.launches,
                   others=K.lstm_cell.launches + K.lstm_seq.launches +
+                  K.lstm_seq_bwd.launches + FA.flash_attention_bwd.launches +
                   T.ternary_encode.launches + T.ternary_decode.launches +
                   T.ef_compress_leaves.launches)
     routes = dict(FA.flash_attention.route_launches)
@@ -2071,7 +2256,9 @@ def phase_serve(torch, K, T):
           f"serve flash_attention routes {routes}: every bf16 launch should "
           f"run the tensor-core kernel")
     print(f"[serve] flash_attention launches that wrote lse: {lse_launches} "
-          f"(serving passes the kernels a null lse)")
+          f"(serving passes the kernels a null lse); backward launches: "
+          f"flash_attention_bwd {FA.flash_attention_bwd.launches}, "
+          f"lstm_seq_bwd {K.lstm_seq_bwd.launches}")
     check(lse_launches == 0, f"{lse_launches} serve launches wrote lse")
     check(tuple(toks.shape) == (SERVE["requests"], SERVE["tokens"]) and
           bool(((toks >= 0) & (toks < cfg.vocab)).all()),
@@ -2241,6 +2428,9 @@ TRAIN_LAYERS = 24
 # flash launches a step: one a layer a microbatch, and once more under remat
 # (the layer's forward recomputed in the backward); every one writes lse
 TRAIN_FLASH = {True: TRAIN_LAYERS * 8 * 2, False: TRAIN_LAYERS * 8}
+# flash backward calls a step, remat or not: one a layer a microbatch (remat
+# recomputes the forward, never the backward), each two kernel launches
+TRAIN_FLASH_BWD_CALLS = TRAIN_LAYERS * 8
 # kernel step against the plain step on the card, bf16: the two forwards
 # round bf16 activations at other places (the flash output through the
 # tensor cores' hi + lo P V against the plain softmax), and 24 layers of
@@ -2250,6 +2440,17 @@ TRAIN_FLASH = {True: TRAIN_LAYERS * 8 * 2, False: TRAIN_LAYERS * 8}
 # an fp32 plain step printed beside
 TRAIN_GRAD_TOL = 2e-2
 TRAIN_LOSS_RTOL = 2e-2
+# the flash backward kernels against the plain backward on the card, both
+# from the kernel forward's out and lse, of max |grad|: fp32 (CUDA cores,
+# fp32 products summed in another order) at tests/test_kernels.py::_tol's
+# 2e-5; bf16 (tensor cores: P and dS rounded once to bf16 before their
+# products, which tests/test_torch_bwd_kernels.py models on the CPU against
+# JAX's _fa_bwd) at TRAIN_GRAD_TOL
+FLASH_BWD_TOL = {"float32": 2e-5, "bfloat16": TRAIN_GRAD_TOL}
+# widths the backward runs on the CUDA cores in both dtypes: hd 80 (the
+# forward pads it to 128), nemotron-4-340b's 192, and 576 (hd in 9 chunks of
+# 64, output in 9 column blocks)
+FLASH_BWD_WIDE = (80, 192, 576)
 # the smoke configs' step, card against CPU, fp32: the same math summed in
 # other orders (cuBLAS, the kernels' trees)
 TRAIN_SMOKE_TOL = 1e-4
@@ -2298,16 +2499,126 @@ def rel_err(torch, got, want) -> float:
             want.float().abs().max().clamp_min(1e-30)).item()
 
 
+def flash_bwd_sweep(torch, FA, ref):
+    """The flash backward kernels against the plain backward, both from the
+    kernel forward's out and lse: the JAX sweep x {causal, window 37, full}
+    in fp32 (CUDA cores) and bf16 (tensor cores at hd 64, CUDA cores at 16
+    and 32), again at hd 128 in bf16 (GQA and MQA included), and its GQA
+    shape at the widths no tensor-core backward is built for
+    (``FLASH_BWD_WIDE``, CUDA cores, both dtypes); each call counted on its
+    route. Returns the worst relative error by dtype."""
+    from repro_torch.kernels import ops
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    cases = [(shape, dt) for shape in FLASH_SWEEP
+             for dt in ("float32", "bfloat16")] + \
+        [((B, S, H, Kv, FLASH_HD_WIDE), "bfloat16")
+         for B, S, H, Kv, _ in FLASH_SWEEP] + \
+        [((*FLASH_SWEEP[1][:4], hd), dt) for hd in FLASH_BWD_WIDE
+         for dt in ("float32", "bfloat16")]
+    for (B, S, H, Kv, hd), dt in cases:
+        dtype = getattr(torch, dt)
+        path = FA.bwd_route(dtype, hd)
+        for causal, window in FLASH_MASKS:
+            q, k, v, do = (randn(torch, (B, S, n, hd), dtype, 300 + j)
+                           for j, n in enumerate((H, Kv, Kv, H)))
+            o, lse = FA.flash_attention(q, k, v, causal=causal,
+                                        window=window, with_lse=True)
+            before = FA.flash_attention_bwd.route_launches[path]
+            got = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                         window=window)
+            want = ref.flash_attention_bwd(q, k, v, o, lse, do,
+                                           causal=causal, window=window,
+                                           chunk=min(ops.KV_CHUNK, S))
+            torch.cuda.synchronize()
+            n = FA.flash_attention_bwd.route_launches[path] - before
+            errs = [rel_err(torch, a, b) for a, b in zip(got, want)]
+            ok = max(errs) <= FLASH_BWD_TOL[dt] and all(
+                a.dtype == dtype for a in got)
+            print(f"[train] flash_attention_bwd B={B} S={S} H={H} Kv={Kv} "
+                  f"hd={hd} {dt} causal={causal} window={window} ({path}, "
+                  f"{n} launches): max|kernel-plain| / max|grad| dq "
+                  f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} tol "
+                  f"{FLASH_BWD_TOL[dt]} {'ok' if ok else 'FAIL'}")
+            check(ok, f"flash_attention_bwd disagrees with its plain version "
+                      f"at B={B} S={S} H={H} Kv={Kv} hd={hd} {dt} "
+                      f"causal={causal} window={window}")
+            check(n == FA.BWD_LAUNCHES, f"flash_attention_bwd counted {n} "
+                                        f"launches on {path}")
+            worst[dt] = max(worst[dt], max(errs))
+    return worst
+
+
+def flash_bwd_entry(torch, FA, ref):
+    """The flash backward on one batch entry of exactly 2^31 elements
+    (FLASH_ENTRY, window 256, causal) in bf16 (tensor cores) and fp32 (CUDA
+    cores), one call each: dq of the first and last 1,024 rows and dk, dv of
+    the positions whose every pair lies in the same slices, against the
+    plain backward on slices of 1,024 + 256 positions (the kernel forward's
+    out and lse sliced). Returns the seconds of each call."""
+    from repro_torch.kernels import ops
+    B, S, H, Kv, hd = FLASH_ENTRY
+    w, rows = FLASH_ENTRY_WINDOW, 1024
+    secs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        q, k, v, do = (randn(torch, (B, S, n, hd), dtype, 400 + j, 0.5)
+                       for j, n in enumerate((H, Kv, Kv, H)))
+        o, lse = FA.flash_attention(q, k, v, window=w, with_lse=True)
+        before = FA.flash_attention_bwd.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dq, dk, dv = FA.flash_attention_bwd(q, k, v, o, lse, do, window=w)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        n = FA.flash_attention_bwd.launches - before
+        # (slice, its dq rows, its dk/dv positions that see all their pairs)
+        for lo, hi, q_rows, kv_rows in (
+                (0, rows + w, slice(0, rows), slice(0, rows)),
+                (S - rows - w, S, slice(w, rows + w), slice(0, rows + w))):
+            cut = [t[:, lo:hi].contiguous() for t in (q, k, v, o)]
+            want = ref.flash_attention_bwd(
+                *cut, lse[:, :, lo:hi].contiguous(),
+                do[:, lo:hi].contiguous(), window=w, chunk=ops.KV_CHUNK)
+            got = (dq[:, lo:hi], dk[:, lo:hi], dv[:, lo:hi])
+            errs = [rel_err(torch, g[:, r], p[:, r]) for g, p, r in zip(
+                got, want, (q_rows, kv_rows, kv_rows))]
+            ok = max(errs) <= FLASH_BWD_TOL[name]
+            print(f"[train] flash_attention_bwd on one entry of "
+                  f"{q.numel():,} elements (B={B} S={S} H={H} Kv={Kv} "
+                  f"hd={hd}, window {w}) {name}: {n} launches, "
+                  f"{secs[name]:.3f} s; positions {lo}..{hi - 1} vs the "
+                  f"plain backward on that slice: max|diff| / max|grad| dq "
+                  f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} tol "
+                  f"{FLASH_BWD_TOL[name]} {'ok' if ok else 'FAIL'}")
+            check(q.numel() == 2 ** 31 and n == FA.BWD_LAUNCHES and ok,
+                  f"flash_attention_bwd on the 2^31-element entry, {name}, "
+                  f"positions {lo}..{hi - 1}: {n} launches, errors {errs}")
+        del q, k, v, do, o, lse, dq, dk, dv, cut, want, got
+        torch.cuda.empty_cache()
+    return secs
+
+
+def bwd_registers(FA, hd):
+    """ptxas's registers and spills of the tensor-core backward kernels at
+    head width hd."""
+    from repro_torch.kernels import build as kbuild
+    report = ptxas_report(kbuild.log_path(FA.BWD_SOURCE).read_text())
+    return {name: rep for name, rep in report
+            if "wgmma" in name and f"Li{hd}>" in name}
+
+
 def phase_train_kernels(torch, FA, RN, ref):
     """The two kernels as the training path runs them, at full width:
     ``FlashAttention`` forward (the kernel, writing lse) and backward (the
-    plain chunked math) against the plain forward and backward on the
-    card; ``RMSNorm`` forward and backward likewise. Times beside the
-    bounds and SDPA's forward + backward."""
+    backward kernels) against the plain forward and backward on the card,
+    over the JAX sweep and at the training shapes; ``RMSNorm`` forward and
+    backward likewise. Times beside the bounds, the plain versions and
+    SDPA's forward + backward."""
     import contextlib
     import torch.nn.functional as F
     from repro_torch.kernels import ops
-    out = {}
+    out = {"bwd_sweep_err": flash_bwd_sweep(torch, FA, ref),
+           "bwd_entry_s": flash_bwd_entry(torch, FA, ref)}
     for arch, (B, S, H, Kv, hd) in TRAIN_FLASH_SHAPES.items():
         q, k, v, do = (randn(torch, (B, S, n, hd), torch.bfloat16, 200 + j)
                        for j, n in enumerate((H, Kv, Kv, H)))
@@ -2345,13 +2656,35 @@ def phase_train_kernels(torch, FA, RN, ref):
         for name, a, b, c in zip(("dq", "dk", "dv"), gk, gp, g32):
             errs[name] = (rel_err(torch, a, b), rel_err(torch, b, c))
         ok = all(e[0] <= TRAIN_GRAD_TOL for e in errs.values())
-        print(f"[train] {arch} flash backward, kernel forward vs plain "
-              f"forward, max|diff| / max|grad|: " + ", ".join(
+        print(f"[train] {arch} FlashAttention, kernel forward + backward vs "
+              f"plain forward + backward, max|diff| / max|grad|: " + ", ".join(
                   f"{n} {e[0]:.3e} (bf16 plain vs fp32 plain {e[1]:.3e})"
                   for n, e in errs.items()) +
               f"; tol {TRAIN_GRAD_TOL} {'ok' if ok else 'FAIL'}")
         check(ok, f"{arch}: flash gradients through the kernel disagree "
                   f"with the plain path")
+        kb = FA.flash_attention_bwd(q, k, v, o, lse, do)
+        pb = ref.flash_attention_bwd(q, k, v, o, lse, do, chunk=chunk)
+        bwd_errs = [rel_err(torch, a, b) for a, b in zip(kb, pb)]
+        bwd_abs = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(kb, pb))
+        ok = max(bwd_errs) <= TRAIN_GRAD_TOL
+        print(f"[train] {arch} flash_attention_bwd vs the plain backward, the "
+              f"same out and lse: max|diff| / max|grad| dq {bwd_errs[0]:.3e} "
+              f"dk {bwd_errs[1]:.3e} dv {bwd_errs[2]:.3e} (max|diff| "
+              f"{bwd_abs:.3e}); tol {TRAIN_GRAD_TOL} {'ok' if ok else 'FAIL'}")
+        check(ok, f"{arch}: the backward kernels disagree with the plain "
+                  f"backward")
+        del kb, pb
+        kbwd_ms = median_ms(lambda: FA.flash_attention_bwd(q, k, v, o, lse,
+                                                           do),
+                            torch, reps=10, inner=5)
+        qa, ka, va = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+        def port_fb():
+            torch.autograd.grad(attend(qa, ka, va), (qa, ka, va), do)
+
+        fb_ms = median_ms(port_fb, torch, reps=10, inner=5)
         ms_lse = median_ms(lambda: FA.flash_attention(q, k, v,
                                                       with_lse=True),
                            torch, reps=10, inner=5)
@@ -2380,20 +2713,28 @@ def phase_train_kernels(torch, FA, RN, ref):
             lib_backend = sdpa_backend(torch, sdpa(torch, q, k, v))
         finally:
             torch.use_deterministic_algorithms(True)
+        regs = bwd_registers(FA, hd)
         print(f"[train] {arch} flash times: forward with lse {ms_lse:.4f} "
               f"ms (without lse {ms:.4f} ms; bound {fwd_bound:.4f} ms, "
-              f"{fwd_by}), plain forward with lse {plain_ms:.3f} ms, plain "
-              f"backward {bwd_ms:.3f} ms (bound {bwd_bound:.4f} ms, "
-              f"{bwd_by}), SDPA forward + backward ({lib_backend}) "
-              f"{lib_ms:.4f} ms")
+              f"{fwd_by}), plain forward with lse {plain_ms:.3f} ms; backward "
+              f"kernels {kbwd_ms:.4f} ms ({FA.BWD_LAUNCHES} launches, "
+              f"{FA.bwd_route(q.dtype, hd)}; bound {bwd_bound:.4f} ms, "
+              f"{bwd_by}; {kbwd_ms / bwd_bound:.2f}x), plain backward "
+              f"{bwd_ms:.3f} ms; FlashAttention forward + backward "
+              f"{fb_ms:.4f} ms, SDPA forward + backward ({lib_backend}) "
+              f"{lib_ms:.4f} ms; ptxas: " + "; ".join(
+                  f"{n} {r}" for n, r in regs.items()))
         out[arch] = dict(shape=[B, S, H, Kv, hd], lse_err=lse_err,
                          grad_err={n: e[0] for n, e in errs.items()},
                          grad_noise={n: e[1] for n, e in errs.items()},
+                         bwd_err=bwd_errs, bwd_abs_err=bwd_abs,
                          fwd_lse_ms=ms_lse, fwd_ms=ms, fwd_bound_ms=fwd_bound,
-                         bwd_plain_ms=bwd_ms, bwd_bound_ms=bwd_bound,
-                         bwd_bound_by=bwd_by, plain_fwd_ms=plain_ms,
-                         sdpa_fwd_bwd_ms=lib_ms, sdpa_backend=lib_backend)
-        del q, k, v, do, o, lse, po, plse, gk, gp, g32, qt, kt, vt
+                         bwd_ms=kbwd_ms, bwd_plain_ms=bwd_ms,
+                         bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by,
+                         fwd_bwd_ms=fb_ms, plain_fwd_ms=plain_ms,
+                         sdpa_fwd_bwd_ms=lib_ms, sdpa_backend=lib_backend,
+                         bwd_registers=regs)
+        del q, k, v, do, o, lse, po, plse, gk, gp, g32, qt, kt, vt, qa, ka, va
         torch.cuda.empty_cache()
 
     out["lse_routes"] = {}
@@ -2471,8 +2812,8 @@ def phase_train_kernels(torch, FA, RN, ref):
 # kernels of a profiled training step by kind, first match wins
 TRAIN_KERNEL_KINDS = (
     ("flash_kernel_wgmma", r"flash_kernel"),
-    ("fp32 GEMMs (the plain flash backward, the fp32 logits)",
-     r"f32f32_f32f32|sgemm"),
+    ("flash backward (flash_bwd_dq/dkdv_wgmma)", r"flash_bwd"),
+    ("fp32 GEMMs (the fp32 logits)", r"f32f32_f32f32|sgemm"),
     ("bf16 GEMMs", r"bf16|nvjet|gemm"),
     ("NaN fills (deterministic mode)", r"[Ff]ill"),
     ("other", r""))
@@ -2482,7 +2823,8 @@ def train_profile(torch, fn):
     """One call of ``fn`` (a training step's gradients) under
     ``torch.profiler``: window and device busy ms, kernel count, device ms
     by kind (``TRAIN_KERNEL_KINDS``) and the device ms under the plain
-    flash backward's autograd node; prints the top kernels. Returns them
+    flash backward's autograd node (the backward kernels); prints the top
+    kernels. Returns them
     with fn's result under ``out``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2510,7 +2852,8 @@ def train_profile(torch, fn):
     print(f"[profile] one training step's gradients: window {window_ms:.1f} "
           f"ms, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / window_ms:.1f}%), {len(kernels)} kernels; "
-          f"under FlashAttentionBackward (the plain backward) {bwd_ms:.1f} ms "
+          f"under FlashAttentionBackward (the backward kernels) "
+          f"{bwd_ms:.1f} ms "
           f"of device time ({100 * bwd_ms / window_ms:.1f}% of the window); "
           f"by kind: " + ", ".join(f"{k} {t:.1f} ms" for k, t in
                                    kinds.items()))
@@ -2560,20 +2903,27 @@ def phase_train(torch, K, T):
     counts = dict(flash=FA.flash_attention.launches,
                   lse=FA.flash_attention.lse_launches,
                   routes=dict(FA.flash_attention.route_launches),
+                  flash_bwd=FA.flash_attention_bwd.launches,
+                  bwd_routes=dict(FA.flash_attention_bwd.route_launches),
                   rmsnorm=RN.rmsnorm.launches,
                   others=K.lstm_cell.launches + K.lstm_seq.launches +
-                  T.ternary_encode.launches + T.ternary_decode.launches +
-                  T.ef_compress_leaves.launches)
+                  K.lstm_seq_bwd.launches + T.ternary_encode.launches +
+                  T.ternary_decode.launches + T.ef_compress_leaves.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_step = TRAIN_FLASH[True]
+    bwd_step = TRAIN_FLASH_BWD_CALLS * FA.BWD_LAUNCHES
     want = dict(flash=per_step * TRAIN_STEPS, lse=per_step * TRAIN_STEPS,
                 routes={"wgmma": per_step * TRAIN_STEPS, "cuda_core": 0,
-                        "hd_chunked": 0}, rmsnorm=0, others=0)
+                        "hd_chunked": 0},
+                flash_bwd=bwd_step * TRAIN_STEPS,
+                bwd_routes={"wgmma": bwd_step * TRAIN_STEPS, "cuda_core": 0},
+                rmsnorm=0, others=0)
     print(f"[train] launches over {TRAIN_STEPS} steps {counts} (expected "
-          f"{want}); per step {res['launches']}")
+          f"{want}: {TRAIN_FLASH_BWD_CALLS} flash backward calls a step, "
+          f"{FA.BWD_LAUNCHES} launches each); per step {res['launches']}")
     check(counts == want and all(
         s == {"flash_attention": per_step, "flash_lse": per_step,
-              "rmsnorm": 0} for s in res["launches"]),
+              "flash_bwd": bwd_step, "rmsnorm": 0} for s in res["launches"]),
           f"training launches {counts}, per step {res['launches']}, "
           f"expected {want}")
     check(all(math.isfinite(x) for x in res["losses"]),
@@ -2605,16 +2955,19 @@ def phase_train(torch, K, T):
                             "cuda")
     bound = ST.bind_train(cfg, Runtime(remat=False), opt, shape,
                           num_microbatches=TRAIN["micro"])
-    before = FA.flash_attention.launches
+    before = (FA.flash_attention.launches, FA.flash_attention_bwd.launches)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     bound["grads"](params, batch)
     torch.cuda.synchronize()
     no_remat_s = time.perf_counter() - t0
-    n = FA.flash_attention.launches - before
+    n = FA.flash_attention.launches - before[0]
+    n_bwd = FA.flash_attention_bwd.launches - before[1]
     print(f"[train] without remat: {n} flash launches a step (expected "
-          f"{TRAIN_FLASH[False]}), the gradients in {no_remat_s:.3f} s")
-    check(n == TRAIN_FLASH[False], f"no-remat flash launches {n}")
+          f"{TRAIN_FLASH[False]}), {n_bwd} flash backward launches "
+          f"(expected {bwd_step}), the gradients in {no_remat_s:.3f} s")
+    check(n == TRAIN_FLASH[False] and n_bwd == bwd_step,
+          f"no-remat flash launches {n}, backward {n_bwd}")
 
     # one profiled step's gradients (remat on, the training path's)
     grads_fn = ST.bind_train(cfg, Runtime(), opt, shape,
@@ -2690,25 +3043,34 @@ def phase_train_smoke(torch, TR, FA, RN):
                 params0 = run["params"]
             batch = TR.sample_batch(run["rng"], run["bound"]["batch_shape"],
                                     cfg.vocab, dev)
-            before = (FA.flash_attention.launches, RN.rmsnorm.launches)
+            before = (FA.flash_attention.launches, RN.rmsnorm.launches,
+                      FA.flash_attention_bwd.route_launches["cuda_core"],
+                      FA.flash_attention_bwd.launches)
             g, m = run["bound"]["grads"](tree.to_device(params0, dev), batch)
             runs[dev] = (tree.to_device(g, "cpu"), float(m["loss"]),
                          (FA.flash_attention.launches - before[0],
-                          RN.rmsnorm.launches - before[1]))
+                          RN.rmsnorm.launches - before[1],
+                          FA.flash_attention_bwd.route_launches["cuda_core"] -
+                          before[2],
+                          FA.flash_attention_bwd.launches - before[3]))
         worst = max(rel_err(torch, a, b) for a, b in zip(
             tree.leaves(runs["cuda"][0]), tree.leaves(runs["cpu"][0])))
         loss_rel = abs(runs["cuda"][1] - runs["cpu"][1]) / runs["cpu"][1]
         # per microbatch: the layers' flash (x2 under remat); the norms: 2
-        # a layer (again under remat) and the final one
+        # a layer (again under remat) and the final one; the flash backward
+        # once a layer, fp32 on the CUDA-core route, all of its launches
         L, n = cfg.n_layers, TRAIN_SMOKE["micro"]
-        want = (2 * L * n, (4 * L + 1) * n if cfg.norm == "rmsnorm" else 0)
+        bwd = L * n * FA.BWD_LAUNCHES
+        want = (2 * L * n, (4 * L + 1) * n if cfg.norm == "rmsnorm" else 0,
+                bwd, bwd)
         ok = worst <= TRAIN_SMOKE_TOL and loss_rel <= TRAIN_SMOKE_TOL
         print(f"[train] {arch} smoke fp32 step, card vs CPU: loss rel "
               f"{loss_rel:.3e}, worst gradient leaf {worst:.3e} (tol "
               f"{TRAIN_SMOKE_TOL}) {'ok' if ok else 'FAIL'}; card launches "
-              f"flash/rmsnorm {runs['cuda'][2]} (expected {want})")
+              f"flash/rmsnorm/flash backward on the CUDA-core route/flash "
+              f"backward {runs['cuda'][2]} (expected {want})")
         check(ok, f"{arch}: the smoke step differs card vs CPU")
-        check(runs["cuda"][2] == want and runs["cpu"][2] == (0, 0),
+        check(runs["cuda"][2] == want and runs["cpu"][2] == (0, 0, 0, 0),
               f"{arch}: smoke launches {runs['cuda'][2]}, expected {want}")
         out[arch] = dict(grad_err=worst, loss_rel=loss_rel)
     return out
@@ -2741,31 +3103,35 @@ def main() -> int:
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.time()
-    sources = [K.SOURCE, T.SOURCE, RN.SOURCE, FA.SOURCE]
+    sources = [K.SOURCE, T.SOURCE, RN.SOURCE, FA.SOURCE, FA.BWD_SOURCE]
     kbuild.compile_sources(sources)
     for mod in (K, T, RN, FA):
         mod.build()
+    FA.build_bwd()
     print(f"[build] {', '.join(src.name for src in sources)} built (in "
           f"parallel) and loaded in {time.time() - t0:.1f} s")
     for src in sources:
         for name, report in ptxas_report(kbuild.log_path(src).read_text()):
             print(f"[build] {src.name} {name}: {report}")
-    hgmma = hgmma_count(FA.SOURCE)
-    print(f"[build] {FA.SOURCE.name}: "
-          f"{'not measured (no cuobjdump)' if hgmma is None else hgmma} "
-          f"HGMMA (wgmma) instructions in the library's SASS")
+    hgmma = {src.name: hgmma_count(src) for src in (FA.SOURCE,
+                                                     FA.BWD_SOURCE)}
+    for name, n in hgmma.items():
+        print(f"[build] {name}: "
+              f"{'not measured (no cuobjdump)' if n is None else n} "
+              f"HGMMA (wgmma) instructions in the library's SASS")
 
     paper = paper_shapes()
     worst, rows = phase_kernel(torch, K, ref, paper)
     seq_err, seq_rows = phase_lstm_seq(torch, K, ref, paper)
+    bwd_err, bwd_abs, bwd_rows = phase_lstm_bwd(torch, K, ref, paper)
     tern = phase_ternary(torch, T, ref)
     rms_err, rms = phase_rmsnorm(torch, RN, ref)
     fa_err, fa = phase_flash(torch, FA, ref)
     split_launches = phase_flash_split(torch, FA, ref)
     phase_grad(torch, ref)
     phase_codec(torch, T)
-    prob, (launches, cell_launches), seq, dense_s = phase_main_path(
-        torch, K, T)
+    prob, (launches, cell_launches, bwd_launches), seq, dense_s = \
+        phase_main_path(torch, K, T)
     tern_counts, per_version, wire_bytes = phase_wire_paths(
         torch, K, T, prob, seq, dense_s)
     prof = phase_profile(torch, prob)
@@ -2810,6 +3176,22 @@ def main() -> int:
         "device_ms": prof["seq_ms"], "map_ms": prof["map_ms"],
         "map_profile": prof["map_profile"],
         "gateway_launches": {k: gw[k]["lstm_seq"] for k in (
+            "tcp", "ws", "local", "race")},
+    }, {
+        "name": "lstm_seq_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
+        "replaces": "src/repro/models/lstm.py:68",
+        "launches": bwd_launches, "max_abs_err": bwd_abs,
+        "max_rel_err": bwd_err, "ms": bwd_rows[0]["ms"],
+        "plain_ms": bwd_rows[0]["plain_ms"],
+        "bound_ms": bwd_rows[0]["bound_ms"],
+        "bound_by": bwd_rows[0]["bound_by"],
+        # cuDNN nn.LSTM forward + backward, timed only
+        "library_ms": bwd_rows[0]["cudnn_fwd_bwd_ms"],
+        "fwd_bwd_ms": bwd_rows[0]["fwd_bwd_ms"],
+        "shape": bwd_rows[0]["shape"], "layer1": bwd_rows[1],
+        "device_ms": prof["bwd_ms"], "map_ms": prof["map_ms"],
+        "gateway_launches": {k: gw[k]["lstm_seq_bwd"] for k in (
             "tcp", "ws", "local", "race")},
     }]
     # the main path's ternary counts: (ef, encode, decode) of the TernGrad
@@ -2875,7 +3257,28 @@ def main() -> int:
                            "launches": served["routes"]["hd_chunked"],
                            "ms": fa["hd576"]["bfloat16"]["ms"],
                            "ms_hd1024": fa["hd1024"]["bfloat16"]["ms"]}},
-        "hgmma_in_sass": hgmma})
+        "hgmma_in_sass": hgmma[FA.SOURCE.name]})
+    lm = train_kern[TRAIN_ARCH]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/layers.py:201",
+        "launches": train["counts"]["flash_bwd"],
+        "max_abs_err": lm["bwd_abs_err"], "max_rel_err": max(lm["bwd_err"]),
+        "ms": lm["bwd_ms"], "plain_ms": lm["bwd_plain_ms"],
+        "bound_ms": lm["bwd_bound_ms"], "bound_by": lm["bwd_bound_by"],
+        # SDPA forward + backward, timed only
+        "library_ms": lm["sdpa_fwd_bwd_ms"], "shape": lm["shape"],
+        "fwd_bwd_ms": lm["fwd_bwd_ms"], "registers": lm["bwd_registers"],
+        "routes": train["counts"]["bwd_routes"],
+        "launches_per_step": train["counts"]["flash_bwd"] // TRAIN_STEPS,
+        "device_ms_per_step": train["profile"]["flash_bwd_ms"],
+        "sweep_err": train_kern["bwd_sweep_err"],
+        "entry_2_31_s": train_kern["bwd_entry_s"],
+        "qwen": {k: train_kern["qwen1.5-110b"][k] for k in (
+            "shape", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "bwd_err",
+            "sdpa_fwd_bwd_ms", "fwd_bwd_ms")},
+        "hgmma_in_sass": hgmma[FA.BWD_SOURCE.name]})
     serve_line = {k: served[k] for k in ("prefill_ms", "decode_ms", "tok_s",
                                          "peak_gb", "logit_err")}
     serve_line["fp32_logit_err"] = fp32_err

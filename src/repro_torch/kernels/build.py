@@ -3,8 +3,8 @@
 Each ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, bound with ``ctypes`` by its
 wrapper module. The library goes into ``build/kernels/`` at the repository
-root, named by the source's hash, so an edited source is rebuilt and an
-unchanged one is built once. The compiler's ``-Xptxas -v`` report (registers,
+root, named by the hash of the source and of the headers beside it, so an
+edited source or header is rebuilt and an unchanged one is built once. The compiler's ``-Xptxas -v`` report (registers,
 shared memory, spills) is kept beside it as ``<name>.log``.
 
 ``compile_sources`` starts one ``nvcc`` per missing library, all at once, and
@@ -44,8 +44,13 @@ def nvcc() -> str:
 
 
 def library_path(source: pathlib.Path) -> pathlib.Path:
-    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}_{tag}.so"
+    """The library of ``source``, named by the hash of the source and of
+    every header beside it (``csrc/*.cuh``), so an edit to either rebuilds
+    it."""
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
 def log_path(source: pathlib.Path) -> pathlib.Path:

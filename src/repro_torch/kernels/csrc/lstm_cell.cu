@@ -1,6 +1,7 @@
 // Fused LSTM cell for Hopper (sm_90a), bound to Python with ctypes: one
-// step (lstm_cell_kernel) and a whole sequence in one launch
-// (lstm_seq_kernel).
+// step (lstm_cell_kernel), a whole sequence in one launch
+// (lstm_seq_kernel), and its backpropagation through time in one launch
+// (lstm_seq_bwd_kernel, whose note stands above it).
 //
 // Replaces the TPU kernel repro/kernels/lstm_cell.py::_cell_kernel (Pallas).
 // A step computes, for x [B,Din], h/c [B,H], W [Din+H, 4H], b [4H] (Keras
@@ -301,6 +302,252 @@ __global__ void __launch_bounds__(kWReg > 0 ? kSeqThreadsReg : kSeqThreads)
   }
 }
 
+// lstm_seq_bwd_kernel: backpropagation through time over a whole sequence,
+// one launch per layer. Replaces the backward of the JAX package's
+// lax.scan over the cell (src/repro/models/lstm.py:68, differentiated by
+// jax.grad; the JAX package has no backward kernel) and, in the port, the
+// per-step loop of ops.lstm_seq_bwd's plain version (ref.lstm_seq_bwd).
+// From the forward's saved gates [T,B,4H] (fp32: sigmoid(i), sigmoid(f),
+// tanh(g), sigmoid(o)), cs [T,B,H] and c0, with W_h = kernel[Din:] [H,4H],
+// for the cotangent dhs [T,B,H], per step t from the last:
+//
+//     dh   = dhs[t] + dh_next
+//     dc   = dc_next + dh * o(1 - tanh(c_t)^2)
+//     dz_t = (dc g i(1-i), dc c_{t-1} f(1-f), dc i(1-g^2), dh tanh(c_t) o(1-o))
+//     dc_next = dc * f,   dh_next = dz_t W_h^T
+//
+// and writes dz [T,B,4H] fp32 and the final dh_next, dc_next (dh0, dc0,
+// fp32). The products over all T*B rows (dW = [x; h_prev]^T dZ, db = sum dZ,
+// dx = dZ W_x^T) stay plain torch products after the launch, as the JAX
+// package leaves them to XLA.
+//   Bound at the paper's layer 0 (T=40, B=8, H=50, fp32): dhs, cs (64 KB
+// each), the gates (256 KB) and W_h (40 KB) read once, dz (256 KB) written
+// once: ~0.68 MB, ~0.2 us at 3.35 TB/s; T * B * (2 * H * 4H + ~20 H) = 6.7
+// MFLOP, ~0.1 us at 67 TFLOP/s fp32, so bytes bound it. The real floor is
+// the recurrence, as in the forward: T dependent steps, each an H-deep chain
+// of dependent FMAs, the quad's two shuffles and a barrier.
+//   Design, mirroring lstm_seq_kernel: one block per batch row for all T
+// steps (rows are independent: no grid-wide sync). Thread c owns column
+// c = 4j + g (unit j, gate g), so a unit's four gates sit in neighbouring
+// lanes. Per step each lane reads its own gate's activation and the quad
+// shares them by shuffles; all four lanes of a unit run the same dh and dc
+// update (same inputs, same bits) and each writes its gate's dz to global
+// memory and to shared memory (gate-major, each gate's row padded to 4).
+// After one barrier, lane (j, g) sums dz's gate block g against W_h[j,
+// g*H ..] (an fmaf chain in column order; the weights live in its registers
+// when 4H fits one block of kSeqThreadsReg and H <= kBwdRegCols, the paper's
+// layers; else they are read from global memory / L2), and the quad adds its
+// four partial sums as (p0 + p1) + (p2 + p3) by two xor shuffles, so every
+// lane of the unit holds dh_next[j] bit for bit. dh and dc are kept in
+// shared memory, each read and written only by its unit's quad (one warp:
+// __syncwarp orders them), and dz is a double buffer, so one __syncthreads a
+// step suffices. In the register tier each lane loads the next step's
+// inputs while the current step computes. Fixed sum orders, no atomics: the
+// same bits on every run (tests/test_torch_bwd_kernels.py models the order
+// on the CPU against jax.grad).
+constexpr int kBwdRegCols = 64;    // most columns of W_h a thread holds
+
+// One step's inputs of column (j, g): its gate's activation, dhs, c_t and
+// c_{t-1} (c0 at t = 0).
+struct BwdIn {
+  float act, dhs, ct, cp;
+};
+
+template <typename T>
+__device__ __forceinline__ BwdIn bwd_load(const T* __restrict__ dhs,
+                                          const float* __restrict__ gates,
+                                          const T* __restrict__ cs,
+                                          const T* __restrict__ c0, int t,
+                                          int B, int H, int row, int j,
+                                          int g) {
+  const size_t rt = static_cast<size_t>(t) * B + row;
+  BwdIn in;
+  in.act = gates[rt * 4 * H + g * H + j];
+  in.dhs = to_f32(dhs[rt * H + j]);
+  in.ct = to_f32(cs[rt * H + j]);
+  in.cp = t > 0 ? to_f32(cs[(rt - B) * H + j])
+                : to_f32(c0[static_cast<size_t>(row) * H + j]);
+  return in;
+}
+
+// One gate block's partial of dh_next[j]: sum over u < H of z[u] * w(u),
+// an fmaf chain from 0 in column order; z is 16-byte aligned and zero from
+// H up to H rounded to 4. Registers: wr[u] (zero past H), unrolled in full
+// with no early exit (else wr would go to local memory).
+template <int kCols>
+__device__ __forceinline__ float dz_dot_reg(const float* __restrict__ z,
+                                            const float (&wr)[kCols],
+                                            int n4) {
+  const float4* z4 = reinterpret_cast<const float4*>(z);
+  float a = 0.f;
+#pragma unroll
+  for (int q = 0; q < kCols / 4; ++q) {
+    if (q < n4) {
+      const float4 v = z4[q];
+      a = fmaf(v.x, wr[4 * q], a);
+      a = fmaf(v.y, wr[4 * q + 1], a);
+      a = fmaf(v.z, wr[4 * q + 2], a);
+      a = fmaf(v.w, wr[4 * q + 3], a);
+    }
+  }
+  return a;
+}
+
+template <typename T>
+__device__ __forceinline__ float dz_dot(const float* __restrict__ z,
+                                        const T* __restrict__ w, int H) {
+  float a = 0.f;
+  for (int u = 0; u < H; ++u) a = fmaf(z[u], to_f32(__ldg(w + u)), a);
+  return a;
+}
+
+template <typename T, int kWReg>
+__global__ void __launch_bounds__(kWReg > 0 ? kSeqThreadsReg : kSeqThreads)
+    lstm_seq_bwd_kernel(const T* __restrict__ dhs,
+                        const float* __restrict__ gates,
+                        const T* __restrict__ cs, const T* __restrict__ c0,
+                        const T* __restrict__ w_h, float* __restrict__ dz,
+                        float* __restrict__ dh0, float* __restrict__ dc0,
+                        int n_t, int B, int H) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int hp = (H + 3) & ~3;
+  const int H4 = 4 * H;
+  float* sdz = smem;                                       // [2][4][hp]
+  float* sdh = sdz + 8 * hp;                               // [H]
+  float* sdc = sdh + H;                                    // [H]
+  const int row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;                               // a multiple of 32
+  const int quad = (tid & 31) & ~3;                        // lane of gate 0
+
+  // register tier: one column a thread, W_h[j, g*H + u] for u < H
+  float wr[kWReg > 0 ? kWReg : 1];
+  if (kWReg > 0) {
+    const int j = tid >> 2, g = tid & 3;
+    const T* wp = w_h + static_cast<size_t>(j) * H4 + g * H;
+#pragma unroll
+    for (int u = 0; u < (kWReg > 0 ? kWReg : 1); ++u)
+      wr[u] = tid < H4 && u < H ? to_f32(wp[u]) : 0.f;
+  }
+  for (int i = tid; i < 8 * hp; i += nt) sdz[i] = 0.f;
+  for (int j = tid; j < H; j += nt) sdh[j] = sdc[j] = 0.f;
+  BwdIn cur = {0.f, 0.f, 0.f, 0.f};
+  if (kWReg > 0 && tid < H4)
+    cur = bwd_load(dhs, gates, cs, c0, n_t - 1, B, H, row, tid >> 2,
+                   tid & 3);
+  __syncthreads();
+
+  for (int t = n_t - 1; t >= 0; --t) {
+    float* z = sdz + (t & 1) * 4 * hp;
+    const size_t rt = static_cast<size_t>(t) * B + row;
+    BwdIn nxt = {0.f, 0.f, 0.f, 0.f};
+    if (kWReg > 0 && tid < H4 && t > 0)      // next step's inputs in flight
+      nxt = bwd_load(dhs, gates, cs, c0, t - 1, B, H, row, tid >> 2,
+                     tid & 3);
+    // every lane runs every pass (the shuffles need the whole warp)
+    for (int base = 0; base < H4; base += nt) {
+      const int c = base + tid;
+      const bool live = c < H4;
+      const int j = c >> 2, g = c & 3;
+      BwdIn in = cur;
+      float dh = 0.f, dc = 0.f;
+      if (live) {
+        if (kWReg == 0) in = bwd_load(dhs, gates, cs, c0, t, B, H, row, j, g);
+        dh = __fadd_rn(in.dhs, sdh[j]);
+        dc = sdc[j];
+      }
+      const float gi = __shfl_sync(0xffffffffu, in.act, quad);
+      const float gf = __shfl_sync(0xffffffffu, in.act, quad + 1);
+      const float gg = __shfl_sync(0xffffffffu, in.act, quad + 2);
+      const float go = __shfl_sync(0xffffffffu, in.act, quad + 3);
+      __syncwarp();              // the quad has read sdh and sdc before they move
+      if (!live) continue;
+      const float tc = tanhf(in.ct);
+      dc = __fadd_rn(dc, __fmul_rn(dh, __fmul_rn(go, __fsub_rn(
+                                           1.f, __fmul_rn(tc, tc)))));
+      float d;
+      if (g == 0)
+        d = __fmul_rn(__fmul_rn(__fmul_rn(gg, gi), __fsub_rn(1.f, gi)), dc);
+      else if (g == 1)
+        d = __fmul_rn(__fmul_rn(__fmul_rn(in.cp, gf), __fsub_rn(1.f, gf)),
+                      dc);
+      else if (g == 2)
+        d = __fmul_rn(__fmul_rn(gi, __fsub_rn(1.f, __fmul_rn(gg, gg))), dc);
+      else
+        d = __fmul_rn(__fmul_rn(__fmul_rn(tc, go), __fsub_rn(1.f, go)), dh);
+      dz[rt * H4 + g * H + j] = d;
+      z[g * hp + j] = d;
+      if (g == 0) sdc[j] = __fmul_rn(dc, gf);
+    }
+    cur = nxt;
+    __syncthreads();
+    // dh_next[j] = sum over the 4H columns of dz_t W_h[j, :]: lane (j, g)
+    // sums gate block g, the quad adds the four in a fixed order
+    for (int base = 0; base < H4; base += nt) {
+      const int c = base + tid;
+      const bool live = c < H4;
+      const int j = c >> 2, g = c & 3;
+      float a = 0.f;
+      if (live)
+        a = kWReg > 0 ? dz_dot_reg(z + g * hp, wr, hp >> 2)
+                      : dz_dot(z + g * hp,
+                               w_h + static_cast<size_t>(j) * H4 + g * H, H);
+      a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, 1));
+      a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, 2));
+      if (live && g == 0) sdh[j] = a;
+    }
+    __syncwarp();                // the quad's next step reads what lane 0 wrote
+  }
+  __syncthreads();
+  for (int j = tid; j < H; j += nt) {
+    dh0[static_cast<size_t>(row) * H + j] = sdh[j];
+    dc0[static_cast<size_t>(row) * H + j] = sdc[j];
+  }
+}
+
+template <typename T, int kWReg>
+int launch_seq_bwd_as(const void* dhs, const void* gates, const void* cs,
+                      const void* c0, const void* w_h, void* dz, void* dh0,
+                      void* dc0, int n_t, int B, int H, size_t smem,
+                      int threads, cudaStream_t stream) {
+  lstm_seq_bwd_kernel<T, kWReg><<<B, threads, smem, stream>>>(
+      static_cast<const T*>(dhs), static_cast<const float*>(gates),
+      static_cast<const T*>(cs), static_cast<const T*>(c0),
+      static_cast<const T*>(w_h), static_cast<float*>(dz),
+      static_cast<float*>(dh0), static_cast<float*>(dc0), n_t, B, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// W_h in registers, one column a thread, when the 4H columns fit one block
+// of kSeqThreadsReg and H <= kBwdRegCols (the paper's layers); else read from
+// global memory, the block's threads looping over the columns.
+template <typename T>
+int launch_seq_bwd(const void* dhs, const void* gates, const void* cs,
+                   const void* c0, const void* w_h, void* dz, void* dh0,
+                   void* dc0, int n_t, int B, int H, void* stream) {
+  const size_t hp = (static_cast<size_t>(H) + 3) & ~size_t{3};
+  const size_t smem = (8 * hp + 2 * static_cast<size_t>(H)) * sizeof(float);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int cols = (4 * H + 31) / 32 * 32;
+  if (cols <= kSeqThreadsReg && H <= kBwdRegCols) {
+    const int threads = cols < kSeqThreadsMin ? kSeqThreadsMin : cols;
+    return launch_seq_bwd_as<T, kBwdRegCols>(dhs, gates, cs, c0, w_h, dz,
+                                             dh0, dc0, n_t, B, H, smem,
+                                             threads, st);
+  }
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        lstm_seq_bwd_kernel<T, 0>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int threads = cols > kSeqThreads ? kSeqThreads : cols;
+  return launch_seq_bwd_as<T, 0>(dhs, gates, cs, c0, w_h, dz, dh0, dc0, n_t,
+                                 B, H, smem, threads, st);
+}
+
 template <typename T>
 int launch(const void* x, const void* h, const void* c, const void* w,
            const void* b, void* h_out, void* c_out, int B, int Din, int H,
@@ -412,6 +659,22 @@ int lstm_seq_bf16(const void* x, const void* h0, const void* c0,
                   void* gates, int n_t, int B, int Din, int H, void* stream) {
   return launch_seq<__nv_bfloat16>(x, h0, c0, w, b, hs, cs, gates, n_t, B,
                                    Din, H, stream);
+}
+
+// dhs/cs [n_t,B,H], c0 [B,H], w_h [H,4H] in one type; gates [n_t,B,4H]
+// fp32; dz [n_t,B,4H], dh0/dc0 [B,H] fp32.
+int lstm_seq_bwd_f32(const void* dhs, const void* gates, const void* cs,
+                     const void* c0, const void* w_h, void* dz, void* dh0,
+                     void* dc0, int n_t, int B, int H, void* stream) {
+  return launch_seq_bwd<float>(dhs, gates, cs, c0, w_h, dz, dh0, dc0, n_t, B,
+                               H, stream);
+}
+
+int lstm_seq_bwd_bf16(const void* dhs, const void* gates, const void* cs,
+                      const void* c0, const void* w_h, void* dz, void* dh0,
+                      void* dc0, int n_t, int B, int H, void* stream) {
+  return launch_seq_bwd<__nv_bfloat16>(dhs, gates, cs, c0, w_h, dz, dh0, dc0,
+                                       n_t, B, H, stream);
 }
 
 }  // extern "C"

@@ -1,16 +1,19 @@
 """The fused LSTM cell on Hopper: build, bind and launch ``csrc/lstm_cell.cu``.
 
 Replaces the Pallas kernel ``repro/kernels/lstm_cell.py::_cell_kernel``; the
-source's header note gives the design and its bound. Two entry points:
-``lstm_cell`` runs one step (the Pallas kernel's own contract), and
+source's header note gives the design and its bound. Three entry points:
+``lstm_cell`` runs one step (the Pallas kernel's own contract),
 ``lstm_seq`` runs a whole sequence of steps in one launch, bit-equal to
-chained ``lstm_cell`` launches; the model runs ``lstm_seq``. The shared
-library is compiled with ``nvcc`` for ``sm_90a`` at first use
-(``kernels/build.py``) and bound with ``ctypes`` through a plain C
-interface.
+chained ``lstm_cell`` launches, and ``lstm_seq_bwd`` runs the sequence's
+backpropagation through time in one launch (the backward of the JAX
+package's ``lax.scan``, ``repro/models/lstm.py:68``); the model runs
+``lstm_seq`` forward and ``lstm_seq_bwd`` backward. The shared library is
+compiled with ``nvcc`` for ``sm_90a`` at first use (``kernels/build.py``)
+and bound with ``ctypes`` through a plain C interface.
 
-``lstm_cell.launches`` and ``lstm_seq.launches`` count the launches each
-wrapper made, so a run can show that its path went through the kernel.
+``lstm_cell.launches``, ``lstm_seq.launches`` and ``lstm_seq_bwd.launches``
+count the launches each wrapper made, so a run can show that its path went
+through the kernel.
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "lstm_cell.cu"
 
 _FNS = {torch.float32: "lstm_cell_f32", torch.bfloat16: "lstm_cell_bf16"}
 _SEQ_FNS = {torch.float32: "lstm_seq_f32", torch.bfloat16: "lstm_seq_bf16"}
+_BWD_FNS = {torch.float32: "lstm_seq_bwd_f32",
+            torch.bfloat16: "lstm_seq_bwd_bf16"}
 
 
 @functools.cache
@@ -40,6 +45,11 @@ def build() -> ctypes.CDLL:
     for name in _SEQ_FNS.values():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for name in _BWD_FNS.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -134,3 +144,71 @@ def lstm_seq(x_seq, h0, c0, kernel, bias):
 
 
 lstm_seq.launches = 0
+
+
+def _check_bwd(dhs, gates, cs, c0, w_h):
+    """Refuse what the backward kernel does not take: dhs and cs [T,B,H],
+    c0 [B,H] and w_h [H,4H] in one dtype (float32 or bfloat16), gates
+    [T,B,4H] float32, contiguous, on one CUDA device (checked last).
+    Returns (T, B, H)."""
+    ts = {"dhs": dhs, "gates": gates, "cs": cs, "c0": c0, "w_h": w_h}
+    if dhs.dim() != 3:
+        raise ValueError("lstm_seq_bwd kernel: dhs must be 3-D [T,B,H]")
+    n_t, B, H = dhs.shape
+    if min(n_t, B, H) < 1:
+        raise ValueError(f"lstm_seq_bwd kernel: empty shape dhs "
+                         f"{tuple(dhs.shape)}")
+    want = {"gates": (n_t, B, 4 * H), "cs": (n_t, B, H), "c0": (B, H),
+            "w_h": (H, 4 * H)}
+    for name, shape in want.items():
+        if tuple(ts[name].shape) != shape:
+            raise ValueError(f"lstm_seq_bwd kernel: {name} has shape "
+                             f"{tuple(ts[name].shape)}, want {shape}")
+    if dhs.dtype not in _BWD_FNS:
+        raise ValueError(f"lstm_seq_bwd kernel: dtype {dhs.dtype} not "
+                         f"supported (float32, bfloat16)")
+    for name, t in ts.items():
+        want_dtype = torch.float32 if name == "gates" else dhs.dtype
+        if t.dtype != want_dtype:
+            raise ValueError(f"lstm_seq_bwd kernel: {name} is {t.dtype}, "
+                             f"want {want_dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"lstm_seq_bwd kernel: {name} is not "
+                             f"contiguous")
+    for name, t in ts.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"lstm_seq_bwd kernel: {name} is on "
+                             f"{t.device}, not a CUDA device")
+        if t.device != dhs.device:
+            raise ValueError(f"lstm_seq_bwd kernel: {name} on {t.device}, "
+                             f"dhs on {dhs.device}")
+    return n_t, B, H
+
+
+def lstm_seq_bwd(dhs, gates, cs, c0, w_h):
+    """Launch the backpropagation-through-time kernel on CUDA tensors: the
+    cotangent dhs [T,B,H] of the forward's hs, its saved gates [T,B,4H]
+    (float32) and cs [T,B,H], c0 [B,H] and w_h = kernel[Din:] [H,4H].
+    Returns (dz [T,B,4H], dh0 [B,H], dc0 [B,H]), all float32: the gate
+    pre-activations' gradients of every step and the gradients of the
+    initial state. Raises on any other input."""
+    n_t, B, H = _check_bwd(dhs, gates, cs, c0, w_h)
+    lib = build()
+    dev = dhs.device
+    dz = kbuild.empty(n_t, B, 4 * H, dtype=torch.float32, device=dev)
+    dh0 = kbuild.empty(B, H, dtype=torch.float32, device=dev)
+    dc0 = kbuild.empty(B, H, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, _BWD_FNS[dhs.dtype])(
+            dhs.data_ptr(), gates.data_ptr(), cs.data_ptr(), c0.data_ptr(),
+            w_h.data_ptr(), dz.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+            n_t, B, H, stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_seq_bwd kernel launch failed: CUDA error "
+                           f"{err} (T={n_t} B={B} H={H} {dhs.dtype})")
+    lstm_seq_bwd.launches += 1
+    return dz, dh0, dc0
+
+
+lstm_seq_bwd.launches = 0

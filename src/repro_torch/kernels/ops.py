@@ -6,12 +6,15 @@ fallback: a card without a working kernel is an error, not a slow path.
 
 ``FlashAttention`` and ``RMSNorm`` put the two transformer kernels under
 autograd: each forward goes through the dispatch below (the kernel on the
-card, the plain version on the CPU), each backward is plain torch on both
-devices (the JAX package's flash backward is jnp, ``_fa_bwd``; its RMSNorm
-has no custom VJP), so the backward the card runs is the one the CPU tests
-check. Each forward calls this module's ``flash_attention`` / ``rmsnorm``
-by name, so a comparison that patches those two runs the whole model on
-the plain versions.
+card, the plain version on the CPU). ``FlashAttention``'s backward goes
+through ``flash_attention_bwd`` likewise: on the card the hand-written
+backward kernels (the JAX package's backward is jnp, ``_fa_bwd``), on the
+CPU its plain version over kv chunks. ``RMSNorm``'s backward is plain torch
+on both devices (the JAX package's RMSNorm has no custom VJP). Each
+``Function`` calls this module's ``flash_attention`` /
+``flash_attention_bwd`` / ``rmsnorm`` by name, and ``models/lstm.py::_Seq``
+calls ``lstm_seq`` / ``lstm_seq_bwd`` by name, so a comparison that patches
+those names runs the whole model on the plain versions.
 """
 from __future__ import annotations
 
@@ -38,6 +41,15 @@ def lstm_seq(x_seq, h0, c0, kernel, bias):
     return _lstm.lstm_seq(x_seq, h0, c0, kernel, bias)
 
 
+def lstm_seq_bwd(dhs, gates, cs, c0, w_h):
+    """Backpropagation through time of ``lstm_seq`` for the cotangent dhs
+    [T,B,H], from its gates and cs, c0 and w_h = kernel[Din:] -> (dz
+    [T,B,4H], dh0, dc0 [B,H]) fp32, in one launch on the card."""
+    if dhs.device.type == "cpu":
+        return ref.lstm_seq_bwd(dhs, gates, cs, c0, w_h)
+    return _lstm.lstm_seq_bwd(dhs, gates, cs, c0, w_h)
+
+
 def rmsnorm(x, scale, eps: float = 1e-6):
     """x [..., D], scale [D] -> ``x * rsqrt(mean(x^2) + eps) * scale``."""
     if x.device.type == "cpu":
@@ -59,18 +71,33 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                with_lse=with_lse)
 
 
+# the plain flash backward's kv-chunk length (the JAX package's
+# Runtime.kv_chunk)
+KV_CHUNK = 512
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: int = 0, chunk: int = KV_CHUNK):
+    """The backward of ``flash_attention`` from its out and lse [B,H,S] for
+    the cotangent dout -> (dq, dk, dv) in q's, k's and v's dtypes. On the
+    CPU the plain version over kv chunks of ``chunk``; on the card the
+    kernels, two launches, with their own tiles."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd(q, k, v, out, lse, dout,
+                                       causal=causal, window=window,
+                                       chunk=chunk)
+    return _fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                   window=window)
+
+
 def _wants_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-# the flash backward's kv-chunk length (the JAX package's Runtime.kv_chunk)
-KV_CHUNK = 512
-
-
 def attention(q, k, v, *, causal: bool = True, window: int = 0):
     """``flash_attention`` with a gradient where one is wanted (through
-    ``FlashAttention``, its backward over kv chunks of
-    ``min(KV_CHUNK, S)``); without one (serving, ``torch.no_grad``) the
+    ``FlashAttention``, whose plain backward on the CPU runs over kv chunks
+    of ``min(KV_CHUNK, S)``); without one (serving, ``torch.no_grad``) the
     plain call, which writes no lse."""
     if _wants_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window,
@@ -90,7 +117,8 @@ class FlashAttention(torch.autograd.Function):
     ``repro/models/layers.py::flash_attention`` custom VJP):
     ``FlashAttention.apply(q, k, v, causal, window, chunk)``. The forward
     also writes lse and saves q, k, v, out and lse; the backward is
-    ``ref.flash_attention_bwd`` over kv chunks of ``chunk``."""
+    ``flash_attention_bwd`` (the kernels on the card; on the CPU the plain
+    version over kv chunks of ``chunk``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, chunk):
@@ -104,7 +132,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         causal, window, chunk = ctx.attrs
-        dq, dk, dv = ref.flash_attention_bwd(
+        dq, dk, dv = flash_attention_bwd(
             q, k, v, out, lse, dout.contiguous(), causal=causal,
             window=window, chunk=chunk)
         return dq, dk, dv, None, None, None

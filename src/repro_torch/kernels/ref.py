@@ -47,6 +47,42 @@ def lstm_seq(x_seq, h0, c0, kernel, bias):
     return torch.stack(hs), torch.stack(cs), torch.stack(gates)
 
 
+def lstm_seq_bwd(dhs, gates, cs, c0, w_h):
+    """Backpropagation through time of ``lstm_seq`` from its saved gates
+    [T,B,4H] (fp32), cs [T,B,H] and c0 [B,H], with w_h = kernel[Din:]
+    [H,4H], for the cotangent dhs [T,B,H] of hs (the backward of the JAX
+    package's ``lax.scan``, ``repro/models/lstm.py:68``). Per step t, from
+    the last: dh = dhs[t] + dh_next, dc = dc_next + dh * o * (1 -
+    tanh(c_t)^2), dz_t = (dc * g * i(1-i), dc * c_{t-1} * f(1-f), dc * i *
+    (1-g^2), dh * tanh(c_t) * o(1-o)), then dh_next = dz_t @ w_h^T and
+    dc_next = dc * f. Returns (dz [T,B,4H], dh0, dc0 [B,H]), all fp32: the
+    final dh_next and dc_next are the gradients of h0 and c0."""
+    T, B, H = dhs.shape
+    f32 = torch.float32
+    c = cs.to(f32)
+    c_prev = torch.cat([c0.to(f32)[None], c[:-1]])
+    i, f, g, o = gates.split(H, dim=-1)
+    tanh_c = torch.tanh(c)
+    # the factors of the chain that do not depend on it, for all t
+    dz_dc = torch.stack([g * i * (1 - i), c_prev * f * (1 - f),
+                         i * (1 - g * g)], -2)               # [T, B, 3, H]
+    dz_dh = tanh_c * o * (1 - o)
+    dc_dh = o * (1 - tanh_c * tanh_c)
+    w_h_t = w_h.to(f32).t()
+    dz = torch.empty(T, B, 4 * H, dtype=f32, device=dhs.device)
+    dh = torch.zeros(B, H, dtype=f32, device=dhs.device)
+    dc = torch.zeros(B, H, dtype=f32, device=dhs.device)
+    dhs = dhs.to(f32)
+    for t in range(T - 1, -1, -1):
+        dh = dhs[t] + dh
+        dc = torch.addcmul(dc, dh, dc_dh[t])
+        torch.mul(dz_dc[t], dc[:, None], out=dz[t, :, :3 * H].view(B, 3, H))
+        torch.mul(dz_dh[t], dh, out=dz[t, :, 3 * H:])
+        dc = dc * f[t]
+        dh = dz[t] @ w_h_t
+    return dz, dh, dc
+
+
 def rmsnorm(x, scale, eps: float = 1e-6):
     """``x * rsqrt(mean(x^2) + eps) * scale`` over the last dim, in fp32,
     stored in x's dtype (``repro/kernels/ref.py::rmsnorm``)."""

@@ -5,7 +5,8 @@ training on the card.
 training of the 2x50 LSTM on the reference package's own source text (JSDoop
 §V), through the Coordinator with K simulated volunteers, each LSTM layer's
 forward over the whole sample one launch of the hand-written CUDA sequence
-kernel (``lstm_seq``). ``--codec ternary`` puts
+kernel (``lstm_seq``) and its backpropagation through time one launch of the
+backward kernel (``lstm_seq_bwd``). ``--codec ternary`` puts
 each volunteer's gradient through TernGrad with error feedback (two
 launches of the hand-written ternary kernels a gradient, on the volunteer:
 the scale pass, then codes, decoded gradient and residual) and counts
@@ -71,6 +72,7 @@ def run_paper(*, workers: int = 4, versions: int = 8, seed: int = 0,
           f"versions={n_versions} workers={workers} device={prob.device} "
           f"codec={codec} transport={transport}")
     seq0, cell0 = K.lstm_seq.launches, K.lstm_cell.launches
+    bwd0 = K.lstm_seq_bwd.launches
     tern0 = (T.ef_compress_leaves.launches, T.ternary_encode.launches,
              T.ternary_decode.launches)
     t0 = time.time()
@@ -87,8 +89,9 @@ def run_paper(*, workers: int = 4, versions: int = 8, seed: int = 0,
     maps = sum(res.tasks_by_worker.values()) - n_versions
     print(f"[paper] lstm_seq kernel launches="
           f"{K.lstm_seq.launches - seq0} over {maps} maps "
-          f"({prob.seq_launches_per_map} per map, one a layer), lstm_cell "
-          f"launches={K.lstm_cell.launches - cell0}; "
+          f"({prob.seq_launches_per_map} per map, one a layer), "
+          f"lstm_seq_bwd launches={K.lstm_seq_bwd.launches - bwd0}, "
+          f"lstm_cell launches={K.lstm_cell.launches - cell0}; "
           f"ternary ef/encode/decode launches="
           f"{T.ef_compress_leaves.launches - tern0[0]}/"
           f"{T.ternary_encode.launches - tern0[1]}/"
@@ -152,7 +155,8 @@ def run_arch(cfg, *, steps: int = 20, ckpt=None, ckpt_every: int = 50,
     and print the reference's lines, each step's with its kernel launches.
     Returns dict(params, opt_state, losses, step_s (each step's seconds on
     the host clock, ending in a synchronize), launches (per step: flash,
-    flash writing lse, rmsnorm), n_params, n_micro, store)."""
+    flash writing lse, flash backward, rmsnorm), n_params, n_micro,
+    store)."""
     run = setup_arch(cfg, **setup)
     dev, bound = run["device"], run["bound"]
     # popped: each step's inputs are freed once its outputs exist
@@ -166,7 +170,8 @@ def run_arch(cfg, *, steps: int = 20, ckpt=None, ckpt_every: int = 50,
     for step in range(steps):
         batch = sample_batch(run["rng"], bound["batch_shape"], cfg.vocab, dev)
         before = (FA.flash_attention.launches,
-                  FA.flash_attention.lse_launches, RN.rmsnorm.launches)
+                  FA.flash_attention.lse_launches, RN.rmsnorm.launches,
+                  FA.flash_attention_bwd.launches)
         _sync(dev)
         ts = time.perf_counter()
         params, opt_state, mets = bound["step"](params, opt_state, batch)
@@ -177,6 +182,8 @@ def run_arch(cfg, *, steps: int = 20, ckpt=None, ckpt_every: int = 50,
                          before[0],
                          "flash_lse": FA.flash_attention.lse_launches -
                          before[1],
+                         "flash_bwd": FA.flash_attention_bwd.launches -
+                         before[3],
                          "rmsnorm": RN.rmsnorm.launches - before[2]})
         if step % max(steps // 10, 1) == 0 or step == steps - 1:
             print(f"  step {step:4d} loss {losses[-1]:.4f} "

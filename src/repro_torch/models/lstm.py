@@ -10,8 +10,9 @@ Params are plain dicts of tensors, the JAX package's pytree layout, so the
 control plane passes them around unchanged. Each layer's forward over the
 whole sequence is one ``kernels.ops.lstm_seq`` call (one launch of the CUDA
 sequence kernel on the card); its gradient is backpropagation through time
-in plain PyTorch from the gates the forward saved (the JAX package has no
-backward kernel either).
+from the gates the forward saved, one ``kernels.ops.lstm_seq_bwd`` call (one
+launch of the CUDA backward kernel on the card), then three plain products
+over all steps.
 """
 from __future__ import annotations
 
@@ -50,14 +51,13 @@ def init_lstm_model(generator: torch.Generator, cfg, vocab: int, device):
 
 class _Seq(torch.autograd.Function):
     """One layer over the whole sequence: the kernel's forward, and
-    backpropagation through time in plain PyTorch from the saved gates.
+    backpropagation through time from the saved gates.
 
-    Per step t, from the last: dh = dhs[t] + dh_next, dc = dc_next + dh *
-    o * (1 - tanh(c_t)^2), dz_t = (dc * g * i(1-i), dc * c_{t-1} * f(1-f),
-    dc * i * (1-g^2), dh * tanh(c_t) * o(1-o)), then dh_next = dz_t @
-    W_h^T and dc_next = dc * f. After the loop one product each gives dW =
-    [x; h_prev]^T dZ over all T*B rows and dx = dZ W_x^T (skipped where
-    x needs no gradient, as layer 0's one-hot input), and db = dZ.sum(0)."""
+    ``ops.lstm_seq_bwd`` (one launch on the card) runs the recurrence from
+    the last step and gives every step's gate gradients dZ [T,B,4H] and
+    those of (h0, c0); then one product each gives dW = [x; h_prev]^T dZ
+    over all T*B rows and dx = dZ W_x^T (skipped where x needs no
+    gradient, as layer 0's one-hot input), and db = dZ.sum(0)."""
 
     @staticmethod
     def forward(ctx, x_seq, h0, c0, kernel, bias):
@@ -71,28 +71,8 @@ class _Seq(torch.autograd.Function):
         T, B, Din = x_seq.shape
         H = h0.shape[1]
         f32 = torch.float32
-        w = kernel.to(f32)
-        c = cs.to(f32)
-        c_prev = torch.cat([c0.to(f32)[None], c[:-1]])
-        i, f, g, o = gates.split(H, dim=-1)
-        tanh_c = torch.tanh(c)
-        # the factors of the chain that do not depend on it, for all t
-        dz_dc = torch.stack([g * i * (1 - i), c_prev * f * (1 - f),
-                             i * (1 - g * g)], -2)           # [T, B, 3, H]
-        dz_dh = tanh_c * o * (1 - o)
-        dc_dh = o * (1 - tanh_c * tanh_c)
-        w_h_t = w[Din:].t()
-        dz = torch.empty(T, B, 4 * H, dtype=f32, device=dhs.device)
-        dh = torch.zeros(B, H, dtype=f32, device=dhs.device)
-        dc = torch.zeros(B, H, dtype=f32, device=dhs.device)
-        dhs = dhs.to(f32)
-        for t in range(T - 1, -1, -1):
-            dh = dhs[t] + dh
-            dc = torch.addcmul(dc, dh, dc_dh[t])
-            torch.mul(dz_dc[t], dc[:, None], out=dz[t, :, :3 * H].view(B, 3, H))
-            torch.mul(dz_dh[t], dh, out=dz[t, :, 3 * H:])
-            dc = dc * f[t]
-            dh = dz[t] @ w_h_t
+        dz, dh, dc = ops.lstm_seq_bwd(dhs.contiguous(), gates, cs, c0,
+                                      kernel[Din:])
         dz2 = dz.view(T * B, 4 * H)
         h_prev = torch.cat([h0.to(f32)[None], hs.to(f32)[:-1]])
         xh = torch.cat([x_seq.to(f32), h_prev], -1).view(T * B, Din + H)
@@ -100,7 +80,8 @@ class _Seq(torch.autograd.Function):
         d_bias = dz2.sum(0).to(kernel.dtype)
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = (dz2 @ w[:Din].t()).view(T, B, Din).to(x_seq.dtype)
+            dx = (dz2 @ kernel[:Din].to(f32).t()).view(T, B, Din) \
+                .to(x_seq.dtype)
         return dx, dh.to(h0.dtype), dc.to(c0.dtype), d_kernel, d_bias
 
 

@@ -416,7 +416,7 @@ def test_run_arch_returns_the_checkpointed_state(tmp_path):
     assert len(res["step_s"]) == len(res["launches"]) == 2
     # the CPU runs the plain versions: no kernel launch
     assert res["launches"][0] == {"flash_attention": 0, "flash_lse": 0,
-                                  "rmsnorm": 0}
+                                  "flash_bwd": 0, "rmsnorm": 0}
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "falcon-mamba-7b",
