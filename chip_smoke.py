@@ -29,7 +29,11 @@ Phases, each printing its result; any failure exits non-zero:
    and ``_Seq``'s gradients at the paper's layers with and without dx
    against the plain BPTT, timed at the paper's layers beside its bound,
    the plain loop, the layer's forward + backward and cuDNN ``nn.LSTM``'s
-   forward + backward; ``ternary_encode`` byte for byte and ``ternary_decode`` bit for bit (the
+   forward + backward; each LSTM kernel at the widest input its wrapper
+   takes (just inside its launcher's shared memory: ``lstm_cell`` at Din +
+   H = 7,264, ``lstm_seq`` at Din = 19,254, ``lstm_seq_bwd`` at H = 5,808)
+   against its plain version in both dtypes, one wider refused before any
+   launch; ``ternary_encode`` byte for byte and ``ternary_decode`` bit for bit (the
    single-leaf counterparts of the Pallas bodies) over the JAX sweep and the
    six paper leaves (padded, with values planted at ``±s/2`` and their
    neighbours), every byte value decoded at s = 0.37, inf and NaN (NaN as
@@ -48,7 +52,8 @@ Phases, each printing its result; any failure exits non-zero:
    {fp32, bf16}, the sweep again at hd = 128 in bf16, at hd = 192 (built
    natively, nemotron-4-340b's width) and at hd = 80 (zero-padded to 128)
    in both dtypes, at hd = 200 (padded to 256), 256, 576 and 1,024 in both
-   dtypes on the CUDA cores (causal, with and without a window), one call
+   dtypes (bf16 on the tensor-core routes, fp32 on the CUDA cores; causal,
+   with and without a window; every route taken), one call
    of more than 2^31 elements (q ``[257,1024,64,128]`` bf16, one launch;
    entries held bit for bit against the kernel on that entry alone and
    against the plain version), one batch entry of exactly 2^31 elements (q
@@ -59,9 +64,12 @@ Phases, each printing its result; any failure exits non-zero:
    ``[4,1024,8,128]``, causal, in bf16 and fp32 with a near-uniform and a
    peaked softmax (the peaked fp32 case against an fp64 attention), timed
    in bf16 (the tensor-core kernel) against SDPA and in fp32 (the CUDA-core
-   kernel) against SDPA in fp32, and at hd 256 (the CUDA-core kernel), 576
-   and 1,024 (the kernel that sums over hd in chunks) in both dtypes
-   against the plain version and SDPA (naming the backend SDPA picked);
+   kernel) against SDPA in fp32, and at hd 256, 576 and 1,024 in both
+   dtypes against the plain version and SDPA (naming the backend SDPA
+   picked) and the bound, bf16 also beside the CUDA-core kernel the tensor
+   cores replaced there (its C function called in the same run; the new
+   route must be faster, and above 256 faster than SDPA too) and held at
+   the qwen gate with peaked (x2) inputs at 256 and 576;
 3. the gradient of ``lstm_loss`` at the paper width through the sequence
    kernel and its backpropagation through time against autograd through the
    per-step plain path on the card, and the ternary codec's
@@ -131,7 +139,11 @@ Phases, each printing its result; any failure exits non-zero:
    fp32 (within 2e-5 of max |grad|) and bf16, the sweep at hd 128 in bf16
    (within 2e-2), and its GQA shape at hd 80, 192 and 576 in both dtypes
    (the CUDA-core backward), each call counted on its route, and one batch
-   entry of exactly 2^31 elements (window 256, both dtypes) on slices; ``FlashAttention``
+   entry of exactly 2^31 elements (window 256, both dtypes) on slices; the
+   CUDA-core backward timed at qwen's prefill shape at hd 192, 256 and 576
+   in both dtypes beside SDPA's forward + backward and its five-product
+   bound; the lse of every other forward route (hd 256 bf16 and fp32, 576
+   bf16 and fp32, 1,024 bf16) against the plain lse; ``FlashAttention``
    (the kernel's forward writing lse, then the backward kernels) at
    stablelm-1.6b's shape (B=1, S=4,096, 32 heads, hd 64) and
    qwen1.5-110b's (S=1,024, 64 over 8 heads, hd 128), bf16, causal: the
@@ -219,10 +231,11 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def median_ms(fn, torch, reps: int = 50, inner: int = 20) -> float:
+def median_ms(fn, torch, reps: int = 50, inner: int = 20,
+              warm: int = 20) -> float:
     """Median over ``reps`` CUDA-event windows of ``inner`` calls each, in ms
-    per call, after a warm-up."""
-    for _ in range(20):
+    per call, after ``warm`` calls."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -584,6 +597,111 @@ def phase_lstm_bwd(torch, K, ref, paper):
                          bound_ms=bound, bound_by=by, fwd_bwd_ms=fb_ms,
                          cudnn_fwd_bwd_ms=cudnn_fb_ms))
     return worst, worst_abs, rows
+
+
+# the LSTM launchers' shared-memory ceilings (kernels/lstm_cell.py
+# smem_bytes): each kernel's widest input its wrapper takes, launched at a
+# small T and B against its plain version; one wider is refused
+CEILING_T, CEILING_B, CEILING_H = 3, 2, 50
+
+
+def fan_in_scaled(inputs):
+    """``cell_inputs`` / ``seq_inputs`` with the kernel W [n, 4H] drawn at
+    1/sqrt(n) (the scale of a Glorot-style initialisation) instead of 0.1:
+    a pre-activation then stays O(1) at any width, as in a trained layer.
+    At 0.1 a sum of 19,304 terms reaches |z| ~ 14, and its fp32 rounding in
+    two summation orders alone differs by more than the fp32 gate."""
+    x, h, c, w, b = inputs
+    scale = 10.0 / math.sqrt(w.shape[0])
+    return [x, h, c, (w.float() * scale).to(w.dtype).contiguous(), b]
+
+
+def lstm_ceiling(K, what, H=None):
+    """The widest input of ``what`` the wrapper takes: Din at the given H
+    (``lstm_cell``, ``lstm_seq``), or H (``lstm_seq_bwd``)."""
+    n = 1
+    while True:
+        din, h = (n + 1, H) if H is not None else (0, n + 1)
+        if K.smem_bytes(what, din, h)[0] > K.MAX_SMEM:
+            return n
+        n += 1
+
+
+def phase_lstm_ceilings(torch, K, ref):
+    """Each LSTM kernel at the widest input its wrapper takes (just inside
+    its launcher's shared memory) against its plain version, both dtypes:
+    ``lstm_cell`` at Din + H = 7,264, ``lstm_seq`` at Din = 19,254 (H =
+    50), ``lstm_seq_bwd`` at H = 5,808; one step wider, the wrapper refuses
+    on the card too, before any launch."""
+    T, B, Hh = CEILING_T, CEILING_B, CEILING_H
+    din_cell = lstm_ceiling(K, "lstm_cell", Hh)
+    din_seq = lstm_ceiling(K, "lstm_seq", Hh)
+    h_bwd = lstm_ceiling(K, "lstm_seq_bwd")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        tol = TOL[name]
+        args = fan_in_scaled(cell_inputs(torch, B, din_cell, Hh, dtype,
+                                         seed=31))
+        got, want = K.lstm_cell(*args), ref.lstm_cell(*args)
+        err = max((a.float() - p.float()).abs().max().item()
+                  for a, p in zip(got, want))
+        ok = all(torch.allclose(a.float(), p.float(), rtol=tol, atol=tol)
+                 for a, p in zip(got, want))
+        print(f"[kernel] lstm_cell at its ceiling B={B} Din={din_cell} "
+              f"H={Hh} {name} ({K.smem_bytes('lstm_cell', din_cell, Hh)[0]:,} "
+              f"of {K.MAX_SMEM:,} bytes): max|kernel-plain|={err:.3e} "
+              f"tol={tol} {'ok' if ok else 'FAIL'}")
+        check(ok, f"lstm_cell disagrees at its ceiling ({name})")
+        x, h, c, w, b = fan_in_scaled(seq_inputs(torch, T, B, din_seq, Hh,
+                                                 dtype, seed=32))
+        got, want = K.lstm_seq(x, h, c, w, b), ref.lstm_seq(x, h, c, w, b)
+        err = max((a.float() - p.float()).abs().max().item()
+                  for a, p in zip(got, want))
+        ok = all(torch.allclose(a.float(), p.float(), rtol=tol, atol=tol)
+                 for a, p in zip(got, want))
+        print(f"[kernel] lstm_seq at its ceiling T={T} B={B} Din={din_seq} "
+              f"H={Hh} {name}: max|kernel-plain| over hs, cs, gates "
+              f"{err:.3e} tol={tol} {'ok' if ok else 'FAIL'}")
+        check(ok, f"lstm_seq disagrees at its ceiling ({name})")
+        x, h, c, w, b = fan_in_scaled(seq_inputs(torch, T, B, 8, h_bwd,
+                                                 dtype, seed=33))
+        _, cs, gates = K.lstm_seq(x, h, c, w, b)
+        dhs = randn(torch, (T, B, h_bwd), dtype, 34)
+        got = K.lstm_seq_bwd(dhs, gates, cs, c, w[8:])
+        want = ref.lstm_seq_bwd(dhs, gates, cs, c, w[8:])
+        torch.cuda.synchronize()
+        errs = [rel_err(torch, a, p) for a, p in zip(got, want)]
+        ok = max(errs) <= LSTM_BWD_TOL[name]
+        print(f"[kernel] lstm_seq_bwd at its ceiling T={T} B={B} H={h_bwd} "
+              f"{name}: max|kernel-plain| / max|grad| over dz, dh0, dc0 "
+              f"{', '.join(f'{e:.3e}' for e in errs)} tol "
+              f"{LSTM_BWD_TOL[name]} {'ok' if ok else 'FAIL'}")
+        check(ok, f"lstm_seq_bwd disagrees at its ceiling ({name})")
+        del x, h, c, w, b, cs, gates, dhs, got, want
+    before = (K.lstm_cell.launches, K.lstm_seq.launches,
+              K.lstm_seq_bwd.launches)
+    for what, fn, args in (
+            ("lstm_cell", K.lstm_cell,
+             cell_inputs(torch, B, din_cell + 1, Hh, torch.float32, 35)),
+            ("lstm_seq", K.lstm_seq,
+             seq_inputs(torch, T, B, din_seq + 1, Hh, torch.float32, 36))):
+        try:
+            fn(*args)
+            check(False, f"{what} took an input past its ceiling")
+        except ValueError as e:
+            print(f"[kernel] {what} one past its ceiling refused: {e}")
+    g = torch.zeros(T, B, 4 * (h_bwd + 1), device="cuda")
+    hb = torch.zeros(T, B, h_bwd + 1, device="cuda")
+    try:
+        K.lstm_seq_bwd(hb, g, hb, hb[0], torch.zeros(
+            h_bwd + 1, 4 * (h_bwd + 1), device="cuda"))
+        check(False, "lstm_seq_bwd took an input past its ceiling")
+    except ValueError as e:
+        print(f"[kernel] lstm_seq_bwd one past its ceiling refused: {e}")
+    check((K.lstm_cell.launches, K.lstm_seq.launches,
+           K.lstm_seq_bwd.launches) == before,
+          "an input past an LSTM ceiling was launched")
+    return dict(lstm_cell=din_cell + Hh, lstm_seq=din_seq, lstm_seq_bwd=h_bwd)
 
 
 # the six leaves of the paper's gradient (head b, head w, layer 0 bias and
@@ -1589,13 +1707,16 @@ FLASH_HD_WIDE = 128        # the sweep's cases again at qwen's head dim
 # ... at nemotron-4-340b's 192 (built natively) and at 80 (zero-padded to
 # 128 by the wrapper), both dtypes
 FLASH_HD_MORE = (192, 80)
-# ... above the tensor-core kernel's 192, both dtypes on the CUDA cores: 200
-# (zero-padded to the 256 tier), 256, and 576 and 1,024 (the kernel that
-# sums over hd in chunks)
+# ... above 192 in both dtypes: 200 (zero-padded to 256) and 256 (bf16 on
+# flash_kernel_wgmma<256>, fp32 on the CUDA-core flash_kernel<256>), 576
+# and 1,024 (bf16 on the tensor-core column blocks, flash_kernel_wgmma_cols;
+# fp32 on the CUDA-core kernel that sums over hd in chunks)
 FLASH_HD_WIDE_MORE = (200, 256, 576, 1024)
-# ... and timed at qwen's prefill shape: 256 on the CUDA-core kernel, 576
-# and 1,024 on the kernel that sums over hd in chunks
+# ... and timed at qwen's prefill shape, bf16 beside the CUDA-core kernel
+# it replaced (its C function called in the same run), and held there at
+# the qwen gate with peaked (x2) inputs at 256 and 576 too
 FLASH_HD_TIMED = (256, 576, 1024)
+FLASH_HD_PEAKED = (256, 576)
 # one call of more than 2^31 elements (2^31 + 2^23 in q), one launch
 FLASH_SPLIT = (257, 1024, 64, 8, 128)
 # one batch entry of exactly 2^31 elements of q, sliding window 256: the
@@ -1987,46 +2108,91 @@ def phase_flash(torch, FA, ref):
                        **wide)
 
 
+def cuda_core_bf16(torch, FA, q, k, v):
+    """The bf16 CUDA-core kernel (``flash_attention_bf16_cc``: flash_kernel
+    at hd 256, flash_kernel_chunked above), called through its C function
+    at q's width, causal, for comparison and timing beside the route that
+    replaced it at these widths."""
+    B, S, H, hd = q.shape
+    out = torch.empty_like(q)
+    err = FA.build()[torch.bfloat16, "cuda_core"](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, B, S,
+        H, k.shape[2], hd, 1, 0, 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"flash_attention_bf16_cc launch failed: {err}")
+    return out
+
+
 def flash_wide_times(torch, FA, ref, B, S, H, Kv, hd):
-    """Per-call times at a head width above the tensor-core kernel's, both
-    dtypes (the CUDA-core kernels), beside the plain version, SDPA in the
-    same dtype (and the backend SDPA picked) and the bound; each held to
-    its plain version first at the qwen gate (bf16) or the sweep's
-    tolerance (fp32)."""
+    """Per-call times at a head width above 192, both dtypes, beside the
+    plain version, SDPA in the same dtype (and the backend SDPA picked) and
+    the bound; in bf16 (the tensor-core routes) also beside the CUDA-core
+    kernel those replaced, its C function called here. Each held to its
+    plain version first, at the qwen gate (bf16; at FLASH_HD_PEAKED also
+    with x2 inputs) or the sweep's tolerance (fp32)."""
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
+        path = FA.route(dtype, hd, S, H // Kv)
         q, k, v = (randn(torch, (B, S, n, hd), dtype, 80 + j, 0.5)
                    for j, n in enumerate((H, Kv, Kv)))
         rtol, atol = (FLASH_RTOL, FLASH_ATOL) if name == "float32" \
             else (TOL[name], QWEN_FLASH_BF16_ATOL)
+        plain = ref.flash_attention(q, k, v)
         err = held(torch, f"flash_attention B={B} S={S} H={H} Kv={Kv} "
-                   f"hd={hd} causal {name} ({FA.route(dtype, hd, S, H // Kv)})",
-                   FA.flash_attention(q, k, v), ref.flash_attention(q, k, v),
-                   rtol, atol)
+                   f"hd={hd} causal {name} ({path})",
+                   FA.flash_attention(q, k, v), plain, rtol, atol)
         reps, inner = (5, 2) if hd <= 256 else (3, 1)
         ms = median_ms(lambda: FA.flash_attention(q, k, v), torch, reps=reps,
-                       inner=inner)
+                       inner=inner, warm=3)
         plain_ms = median_ms(lambda: ref.flash_attention(q, k, v), torch,
-                             reps=3, inner=1)
+                             reps=3, inner=1, warm=2)
         torch.use_deterministic_algorithms(False)
         try:
             lib = sdpa(torch, q, k, v)
             backend = sdpa_backend(torch, lib)
-            lib_ms = median_ms(lib, torch, reps=reps, inner=inner)
+            lib_ms = median_ms(lib, torch, reps=reps, inner=inner, warm=3)
         finally:
             torch.use_deterministic_algorithms(True)
         bound, by = flash_bound_ms(B, S, H, Kv, hd, q.element_size())
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   library_backend=backend, bound_ms=bound, bound_by=by,
+                   max_abs_err=err, route=path)
+        before = ""
+        if name == "bfloat16":
+            err_cc = held(torch, f"flash_attention_bf16_cc B={B} S={S} "
+                          f"H={H} Kv={Kv} hd={hd} causal bfloat16 (the "
+                          f"CUDA-core kernel replaced)",
+                          cuda_core_bf16(torch, FA, q, k, v), plain, rtol,
+                          atol)
+            cc_ms = median_ms(lambda: cuda_core_bf16(torch, FA, q, k, v),
+                              torch, reps=3, inner=1, warm=1)
+            check(ms < cc_ms, f"hd {hd} bf16: {path} ({ms:.4f} ms) is not "
+                              f"faster than the CUDA-core kernel it "
+                              f"replaced ({cc_ms:.4f} ms)")
+            if hd > 256:
+                check(ms < lib_ms, f"hd {hd} bf16: {path} ({ms:.4f} ms) is "
+                                   f"not faster than SDPA ({backend}, "
+                                   f"{lib_ms:.4f} ms)")
+            row.update(cuda_core_ms=cc_ms, cuda_core_err=err_cc)
+            before = f", the CUDA-core kernel it replaced {cc_ms:.4f} ms"
+            if hd in FLASH_HD_PEAKED:
+                del plain
+                q, k, v = (randn(torch, (B, S, n, hd), dtype, 90 + j, 2.0)
+                           for j, n in enumerate((H, Kv, Kv)))
+                row["max_abs_err_x2"] = held(
+                    torch, f"flash_attention B={B} S={S} H={H} Kv={Kv} "
+                    f"hd={hd} causal inputs x2 {name} ({path})",
+                    FA.flash_attention(q, k, v), ref.flash_attention(q, k, v),
+                    rtol, atol)
         print(f"[kernel] flash_attention time B={B} S={S} H={H} Kv={Kv} "
-              f"hd={hd} causal {name} ({FA.route(dtype, hd, S, H // Kv)}): "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-              f"{lib_ms:.4f} ms ({backend} backend), bound {bound:.5f} ms "
-              f"({by})")
-        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         library_backend=backend,
-                         bound_ms=bound, bound_by=by, max_abs_err=err,
-                         route=FA.route(dtype, hd, S, H // Kv))
+              f"hd={hd} causal {name} ({path}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms ({backend} backend)"
+              f"{before}, bound {bound:.5f} ms ({by}); kernel / bound "
+              f"{ms / bound:.2f}, kernel / SDPA {ms / lib_ms:.2f}")
+        out[name] = row
         del q, k, v
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2251,8 +2417,8 @@ def phase_serve(torch, K, T):
     check(counts == want and res["launches"] == {
         k: v for k, v in want.items() if k != "others"},
         f"serve launches {counts} / {res['launches']}, expected {want}")
-    check(routes == {"wgmma": want["flash_attention"], "cuda_core": 0,
-                     "hd_chunked": 0},
+    check(routes == {"wgmma": want["flash_attention"], "wgmma_chunked": 0,
+                     "cuda_core": 0, "hd_chunked": 0},
           f"serve flash_attention routes {routes}: every bf16 launch should "
           f"run the tensor-core kernel")
     print(f"[serve] flash_attention launches that wrote lse: {lse_launches} "
@@ -2465,24 +2631,28 @@ TRAIN_RMS_SHAPE = (4096, 8192)
 # in another order; the tensor-core kernel's ex2.approx and log2 in the log2
 # domain): |lse - plain| <= rtol * |plain| + atol
 TRAIN_LSE_TOL = (1e-5, 1e-5)
-# the other two routes' lse (B, S, H, Kv, hd, dtype, route), GQA G = 2,
-# causal: flash_kernel at hd 256 (fp32, and bf16 at that width) and
-# flash_kernel_chunked at hd 576 (bf16, fp32)
+# the other routes' lse (B, S, H, Kv, hd, dtype, route), GQA G = 2,
+# causal: flash_kernel at hd 256 (fp32), flash_kernel_wgmma<256> (bf16),
+# flash_kernel_wgmma_cols at hd 576 and 1,024 (bf16; column block 0 writes
+# it) and flash_kernel_chunked at hd 576 (fp32)
 TRAIN_LSE_ROUTES = ((1, 256, 4, 2, 256, "float32", "cuda_core"),
-                    (1, 256, 4, 2, 256, "bfloat16", "cuda_core"),
-                    (1, 256, 4, 2, 576, "bfloat16", "hd_chunked"),
+                    (1, 256, 4, 2, 256, "bfloat16", "wgmma"),
+                    (1, 256, 4, 2, 576, "bfloat16", "wgmma_chunked"),
+                    (1, 256, 4, 2, 1024, "bfloat16", "wgmma_chunked"),
                     (1, 256, 4, 2, 576, "float32", "hd_chunked"))
 
 
-def flash_bwd_bound_ms(B, S, H, Kv, hd):
+def flash_bwd_bound_ms(B, S, H, Kv, hd, elem_bytes=2):
     """The causal backward's work: five products over the S(S+1)/2 visible
     pairs of each head (s = q k^T recomputed, dv, dp, dq, dk; 2 flops a
-    multiply-add) at the bf16 tensor-core rate of its inputs; q, k, v, out
-    and dout read once (bf16), lse once (fp32), dq, dk and dv written once
-    (bf16)."""
+    multiply-add) at the peak rate of its inputs' type (bf16: the tensor
+    cores; fp32: the CUDA cores); q, k, v, out and dout read once, lse once
+    (fp32), dq, dk and dv written once, in the inputs' type."""
     flops = 5 * 2 * B * H * hd * S * (S + 1) // 2
-    moved = 2 * (3 * B * S * H * hd + 4 * B * S * Kv * hd) + 4 * B * H * S
-    t_b, t_o = moved / PEAK_BYTES_S, flops / PEAK_BF16_FLOP_S
+    moved = elem_bytes * (3 * B * S * H * hd + 4 * B * S * Kv * hd) + \
+        4 * B * H * S
+    peak = PEAK_BF16_FLOP_S if elem_bytes == 2 else PEAK_FP32_FLOP_S
+    t_b, t_o = moved / PEAK_BYTES_S, flops / peak
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
@@ -2607,6 +2777,64 @@ def bwd_registers(FA, hd):
             if "wgmma" in name and f"Li{hd}>" in name}
 
 
+# widths the flash backward runs on its CUDA-core pair, timed at qwen's
+# prefill shape in both dtypes: nemotron-4-340b's 192, 256 and 576
+FLASH_BWD_TIMED = (192, 256, 576)
+
+
+def flash_bwd_wide_times(torch, FA):
+    """The flash backward's CUDA-core pair at qwen's prefill shape (B=4,
+    S=1,024, 64 over 8 heads, causal) at FLASH_BWD_TIMED, both dtypes,
+    from the kernel forward's out and lse: its time beside SDPA's forward +
+    backward (timed only; the backend it picked named) and the five-product
+    bound. Its agreement with the plain backward at these widths is gated
+    in ``flash_bwd_sweep`` (FLASH_BWD_WIDE)."""
+    import torch.nn.functional as F
+    B, S, H, Kv = SERVE["batch"], SERVE["prompt"], 64, 8
+    out = {}
+    for hd in FLASH_BWD_TIMED:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            path = FA.bwd_route(dtype, hd)
+            q, k, v, do = (randn(torch, (B, S, n, hd), dtype, 400 + j, 0.5)
+                           for j, n in enumerate((H, Kv, Kv, H)))
+            o, lse = FA.flash_attention(q, k, v, with_lse=True)
+            before = FA.flash_attention_bwd.route_launches[path]
+            ms = median_ms(lambda: FA.flash_attention_bwd(q, k, v, o, lse,
+                                                          do),
+                           torch, reps=2, inner=1, warm=1)
+            check(FA.flash_attention_bwd.route_launches[path] - before ==
+                  3 * FA.BWD_LAUNCHES, f"the hd {hd} {name} backward did "
+                                       f"not run on {path}")
+            qt, kt, vt = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+
+            def sdpa_fb():
+                y = F.scaled_dot_product_attention(
+                    qt.transpose(1, 2), kt.transpose(1, 2),
+                    vt.transpose(1, 2), is_causal=True, enable_gqa=True)
+                torch.autograd.grad(y, (qt, kt, vt), do.transpose(1, 2))
+
+            torch.use_deterministic_algorithms(False)
+            try:
+                lib_ms = median_ms(sdpa_fb, torch, reps=2, inner=1, warm=1)
+                backend = sdpa_backend(torch, sdpa(torch, q, k, v))
+            finally:
+                torch.use_deterministic_algorithms(True)
+            bound, by = flash_bwd_bound_ms(B, S, H, Kv, hd, q.element_size())
+            print(f"[train] flash_attention_bwd time B={B} S={S} H={H} "
+                  f"Kv={Kv} hd={hd} {name} causal ({path}, "
+                  f"{FA.BWD_LAUNCHES} launches): {ms:.3f} ms, bound "
+                  f"{bound:.4f} ms ({by}, {ms / bound:.1f}x); SDPA forward "
+                  f"+ backward ({backend}) {lib_ms:.3f} ms")
+            out[f"hd{hd}/{name}"] = dict(ms=ms, bound_ms=bound, bound_by=by,
+                                         sdpa_fwd_bwd_ms=lib_ms,
+                                         sdpa_backend=backend, route=path)
+            del q, k, v, do, o, lse, qt, kt, vt
+            torch.cuda.empty_cache()
+    return out
+
+
 def phase_train_kernels(torch, FA, RN, ref):
     """The two kernels as the training path runs them, at full width:
     ``FlashAttention`` forward (the kernel, writing lse) and backward (the
@@ -2618,7 +2846,8 @@ def phase_train_kernels(torch, FA, RN, ref):
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     out = {"bwd_sweep_err": flash_bwd_sweep(torch, FA, ref),
-           "bwd_entry_s": flash_bwd_entry(torch, FA, ref)}
+           "bwd_entry_s": flash_bwd_entry(torch, FA, ref),
+           "bwd_wide": flash_bwd_wide_times(torch, FA)}
     for arch, (B, S, H, Kv, hd) in TRAIN_FLASH_SHAPES.items():
         q, k, v, do = (randn(torch, (B, S, n, hd), torch.bfloat16, 200 + j)
                        for j, n in enumerate((H, Kv, Kv, H)))
@@ -2913,8 +3142,8 @@ def phase_train(torch, K, T):
     per_step = TRAIN_FLASH[True]
     bwd_step = TRAIN_FLASH_BWD_CALLS * FA.BWD_LAUNCHES
     want = dict(flash=per_step * TRAIN_STEPS, lse=per_step * TRAIN_STEPS,
-                routes={"wgmma": per_step * TRAIN_STEPS, "cuda_core": 0,
-                        "hd_chunked": 0},
+                routes={"wgmma": per_step * TRAIN_STEPS, "wgmma_chunked": 0,
+                        "cuda_core": 0, "hd_chunked": 0},
                 flash_bwd=bwd_step * TRAIN_STEPS,
                 bwd_routes={"wgmma": bwd_step * TRAIN_STEPS, "cuda_core": 0},
                 rmsnorm=0, others=0)
@@ -3111,8 +3340,13 @@ def main() -> int:
     print(f"[build] {', '.join(src.name for src in sources)} built (in "
           f"parallel) and loaded in {time.time() - t0:.1f} s")
     for src in sources:
-        for name, report in ptxas_report(kbuild.log_path(src).read_text()):
+        log = kbuild.log_path(src).read_text()
+        for name, report in ptxas_report(log):
             print(f"[build] {src.name} {name}: {report}")
+        # ptxas's notes where it serialized wgmma (C75xx)
+        for line in log.splitlines():
+            if re.search(r"\(C75\d\d\)", line):
+                print(f"[build] {src.name} {line.strip()}")
     hgmma = {src.name: hgmma_count(src) for src in (FA.SOURCE,
                                                      FA.BWD_SOURCE)}
     for name, n in hgmma.items():
@@ -3124,6 +3358,7 @@ def main() -> int:
     worst, rows = phase_kernel(torch, K, ref, paper)
     seq_err, seq_rows = phase_lstm_seq(torch, K, ref, paper)
     bwd_err, bwd_abs, bwd_rows = phase_lstm_bwd(torch, K, ref, paper)
+    ceilings = phase_lstm_ceilings(torch, K, ref)
     tern = phase_ternary(torch, T, ref)
     rms_err, rms = phase_rmsnorm(torch, RN, ref)
     fa_err, fa = phase_flash(torch, FA, ref)
@@ -3178,7 +3413,7 @@ def main() -> int:
         "gateway_launches": {k: gw[k]["lstm_seq"] for k in (
             "tcp", "ws", "local", "race")},
     }, {
-        "name": "lstm_seq_bwd", "route": "cuda",
+        "name": "lstm_seq_bwd", "route": "cuda", "ceilings": ceilings,
         "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
         "replaces": "src/repro/models/lstm.py:68",
         "launches": bwd_launches, "max_abs_err": bwd_abs,
@@ -3246,17 +3481,24 @@ def main() -> int:
                       lse_launches=train["counts"]["lse"],
                       no_remat_launches_per_step=train["no_remat_flash"]),
         "routes": {
-            "wgmma": {"kernel": "flash_kernel_wgmma", "dtype": "bfloat16",
-                      "launches": served["routes"]["wgmma"], "ms": fa["ms"]},
-            "cuda_core": {"kernel": "flash_kernel", "dtype": "float32 "
-                          "(bfloat16 at hd 256)",
+            "wgmma": {"kernel": "flash_kernel_wgmma",
+                      "dtype": "bfloat16 up to hd 256",
+                      "launches": served["routes"]["wgmma"], "ms": fa["ms"],
+                      "hd256": fa["hd256"]["bfloat16"]},
+            "wgmma_chunked": {"kernel": "flash_kernel_wgmma_cols",
+                              "dtype": "bfloat16 above hd 256",
+                              "launches": served["routes"]["wgmma_chunked"],
+                              "hd576": fa["hd576"]["bfloat16"],
+                              "hd1024": fa["hd1024"]["bfloat16"]},
+            "cuda_core": {"kernel": "flash_kernel", "dtype": "float32",
                           "launches": served["routes"]["cuda_core"],
-                          "ms": fa["fp32_ms"]},
+                          "ms": fa["fp32_ms"],
+                          "hd256": fa["hd256"]["float32"]},
             "hd_chunked": {"kernel": "flash_kernel_chunked",
-                           "dtype": "float32, bfloat16 (hd above 256)",
+                           "dtype": "float32 above hd 256",
                            "launches": served["routes"]["hd_chunked"],
-                           "ms": fa["hd576"]["bfloat16"]["ms"],
-                           "ms_hd1024": fa["hd1024"]["bfloat16"]["ms"]}},
+                           "hd576": fa["hd576"]["float32"],
+                           "hd1024": fa["hd1024"]["float32"]}},
         "hgmma_in_sass": hgmma[FA.SOURCE.name]})
     lm = train_kern[TRAIN_ARCH]
     kernels.append({
@@ -3274,6 +3516,7 @@ def main() -> int:
         "launches_per_step": train["counts"]["flash_bwd"] // TRAIN_STEPS,
         "device_ms_per_step": train["profile"]["flash_bwd_ms"],
         "sweep_err": train_kern["bwd_sweep_err"],
+        "wide": train_kern["bwd_wide"],
         "entry_2_31_s": train_kern["bwd_entry_s"],
         "qwen": {k: train_kern["qwen1.5-110b"][k] for k in (
             "shape", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "bwd_err",

@@ -1,13 +1,14 @@
 // Flash attention (GQA, causal and/or sliding window, forward) for Hopper
-// (sm_90a), bound to Python with ctypes. Three kernels: bfloat16 at head
-// widths up to 192 runs on the tensor cores (flash_kernel_wgmma), float32
-// on the CUDA cores (flash_kernel, whose fp32 products the fp32 tolerances
-// need: TF32 would break them), and so does bfloat16 at 256 (wgmma's
-// accumulators at hd 256 exceed two consumer warpgroups' registers) and
-// where a (batch, kv head) holds 2^31 - 256 folded rows or more; any width
-// above 256 runs flash_kernel_chunked in either type, which sums over hd
-// in chunks. The kernels are built for hd 16, 32, 64, 128, 192 and 256; the
-// wrapper zero-pads a width between them to the next.
+// (sm_90a), bound to Python with ctypes. Four kernels: bfloat16 runs on
+// the tensor cores, flash_kernel_wgmma up to hd 256 and
+// flash_kernel_wgmma_cols above (the scores summed over hd in 64-column
+// chunks, the output in column blocks); float32 on the CUDA cores
+// (flash_kernel up to 256, flash_kernel_chunked above, which sums over hd
+// in chunks: the fp32 tolerances need fp32 products, TF32 would break
+// them), and so does bfloat16 where a (batch, kv head) holds 2^31 - 256
+// folded rows or more. flash_kernel and flash_kernel_wgmma are built for
+// hd 16, 32, 64, 128, 192 and 256; the wrapper zero-pads a width between
+// them to the next, and a bfloat16 width above 256 to a multiple of 64.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_fa_kernel
 // (Pallas). For q [B, S, H, hd] and k, v [B, S, Kv, hd] (self-attention,
@@ -29,7 +30,7 @@
 // the 989 TFLOP/s bf16 tensor-core rate) against ~151 MB of q, k, v and out
 // (~45 us at 3.35 TB/s), so operations bound it.
 //
-// Both kernels fold the G query heads of a kv head into a tile's rows, as
+// Every kernel folds the G query heads of a kv head into a tile's rows, as
 // _fa_kernel does: folded row r is query position r / G, head
 // kv_head * G + r % G, so one kv tile in shared memory serves all G heads.
 // Masked scores are -1e30, not -inf: a row that sees only masked positions
@@ -48,7 +49,7 @@
 // [B][S][Kv * hd] view, one box per 64 columns of a head: the 128-byte
 // swizzle holds 64 bf16, so hd 128 and 192 take two and three boxes; hd 16
 // and 32 use the 32- and 64-byte swizzles; rows past S arrive as zeros)
-// into a ring of kStages stages, each with a
+// into a ring of two stages, each with a
 // "full" mbarrier (expect_tx) and an "empty" one that all 8 consumer warps
 // arrive on once their products have read it, so tile i + 1 loads while
 // tile i computes. Per tile each consumer warpgroup runs
@@ -59,7 +60,7 @@
 //               differs from Pallas's "scale q first" in the last fp32 bits
 //               only), masked only where the tile crosses the diagonal, the
 //               window's lower edge or S;
-//   O += P V    wgmma m64n{hd}k16 (N = 192 at hd 192: 96 fp32
+//   O += P V    wgmma m64n{hd}k16 (N = 256 at hd 256: 128 fp32
 //               accumulators a thread) with A = P from registers (the score
 //               accumulator's layout is wgmma's A-register layout, so P never
 //               touches shared memory) and B = v, MN-major (transpose bit).
@@ -79,7 +80,40 @@
 // their products. Several schemes that overlap more (a software pipeline
 // inside the warpgroup, turns between the warpgroups, 128-position kv
 // tiles, deeper rings, a persistent grid that prefetches q) did not beat
-// this loop on the H100 (PERF.md).
+// this loop on the H100 (PERF.md). Registers bind at hd 256: ptxas
+// budgets the 288-thread block as three warpgroups, 168 registers a
+// thread, of which the 128 accumulators leave 40. So hd 256 takes kv tiles
+// of 32 (16 score and 16 P registers, m64n32k16 for S) through a ring of
+// four stages (the same 128 positions in flight), q 64 KB of shared memory
+// and the ring 128 KB. It still spills (PERF.md gives ptxas's bytes) and
+// ptxas serializes its wgmma; tiles of 64 spilled more and ran slower, and
+// a producer warpgroup handing its registers to the consumers (setmaxnreg)
+// left ptxas's allocation at 168.
+//
+// flash_kernel_wgmma_cols (bf16, hd above 256, a multiple of 64): q and k
+// no longer fit shared memory beside each other (a 128-row q tile is 256
+// KB at hd 1,024), so both stream in 64-column chunks. A block of 128
+// folded rows owns NB = 128 output columns: 64 accumulators a consumer
+// thread, the hd-128 kernel's budget, which fits 168 registers without a
+// spill (blocks of 192 or 256 columns, fewer blocks, spilled, serialized
+// the wgmma and ran slower). Per kv tile of 64 positions each consumer warpgroup
+// sums S = sum_c Q_c K_c^T in its wgmma registers over the chunks
+// (m64n64k16, A and B in shared memory), runs the online softmax once,
+// then adds P_hi V + P_lo V over its NB columns (m64n128k16, A = P from
+// registers). The producer warpgroup copies each q chunk with
+// cp.async (a folded row's q lies on no stride TMA could walk: the G heads
+// of a position, then the next position H heads on), 16 bytes a thread,
+// into the 128-byte swizzle, and lane 0 of it loads each k chunk and the
+// tile's v columns by TMA; q/k chunks go through a ring of as many stages
+// as shared memory leaves beside two v stages, each full barrier counting
+// the producer's 128 cp.async arrivals and one expect_tx. The consumers
+// fence the generic proxy's copies before wgmma reads them. Every column
+// block recomputes S, so with n_cb = ceil(hd / 128) blocks the products
+// cost (n_cb + 2) / 2 times the bound's: 3.5x at hd 576 (5 blocks, the
+// last half used) and 5x at 1,024 (S once per block, P.V twice for hi +
+// lo); q crosses L2 once per kv tile and column block. Column block 0
+// writes lse; the output leaves straight from the accumulators in 4-byte
+// stores.
 //
 // flash_kernel (fp32): one block of 256 threads per (q tile, kv head,
 // batch). A tile holds 64 folded rows (8 positions at G = 8); each row
@@ -570,16 +604,30 @@ using namespace hopper;
 
 constexpr int kConsumers = 2;                      // warpgroups of 64 rows
 constexpr int kRows = 64 * kConsumers;             // folded q rows a block
-constexpr int kThreads = (4 * kConsumers + 1) * 32;
-constexpr int kKv = 64;                            // kv positions a tile
-constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Threads a block: the consumer warpgroups and a producer warp
+// (flash_kernel_wgmma) or warpgroup (flash_kernel_wgmma_cols, whose
+// producer copies q). ptxas budgets either as three warpgroups: 168
+// registers a thread (65,536 / 384).
+constexpr int threads(bool wg_producer) {
+  return (4 * kConsumers + (wg_producer ? 4 : 1)) * 32;
+}
+
+// kv positions a tile of flash_kernel_wgmma: 64, and 32 at hd 256, whose
+// 128 accumulators leave 40 of the 168 registers: a tile of 32 takes 16
+// for its scores and 16 for P hi + lo (tiles of 64 spilled more and ran
+// slower on the H100).
+constexpr int kv_tile(int hd) { return hd == 256 ? 32 : 64; }
+
 // Shared memory, from a 1024-byte aligned base: q [kChunks][kRows][kCW],
-// k and v [kStages][kChunks][kKv][kCW], then the barriers. A row of kCW
-// bf16 is the swizzle's span (32, 64 or 128 bytes).
-template <int HD>
+// k and v [kStages][kChunks][KV][kCW], then the barriers. A row of kCW
+// bf16 is the swizzle's span (32, 64 or 128 bytes); the ring holds 128 kv
+// positions (2 stages of 64 or 4 of 32).
+template <int HD, int KV>
 struct Cfg {
+  static constexpr int kHd = HD;
+  static constexpr int kKv = KV;
   static constexpr int kCW = HD < 64 ? HD : 64;
   static constexpr int kRowBytes = 2 * kCW;
   static constexpr int kChunks = HD / kCW;
@@ -589,9 +637,10 @@ struct Cfg {
   static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64
                                                                  ? 2
                                                                  : 3;
+  static constexpr int kStages = 128 / KV;
   static constexpr int kQChunk = kRows * kRowBytes;
   static constexpr int kQBytes = kChunks * kQChunk;
-  static constexpr int kKvChunk = kKv * kRowBytes;
+  static constexpr int kKvChunk = KV * kRowBytes;
   static constexpr int kTile = kChunks * kKvChunk;     // one k or v tile
   static constexpr int kBar = kQBytes + 2 * kStages * kTile;
   static constexpr int kSmem = kBar + 2 * kStages * 8 + 1024;
@@ -603,14 +652,12 @@ struct Cfg {
 // Descriptors of a q or k region (K-major: hd contiguous) and of a v tile
 // (MN-major for P V: hd contiguous, 64-column chunks kKvChunk apart); 8-row
 // groups are 8 swizzled rows apart in both.
-template <int HD>
+template <class C>
 __device__ __forceinline__ uint64_t k_major(uint32_t addr) {
-  using C = Cfg<HD>;
   return desc(addr, 16, 8 * C::kRowBytes, C::kLayout);
 }
-template <int HD>
+template <class C>
 __device__ __forceinline__ uint64_t mn_major(uint32_t addr) {
-  using C = Cfg<HD>;
   return desc(addr, C::kKvChunk, 8 * C::kRowBytes, C::kLayout);
 }
 
@@ -623,42 +670,40 @@ __device__ __forceinline__ uint32_t hi_pair(float lo, float hi) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
-// S = Q K^T for one warpgroup: 64 q rows x 64 kv positions, over hd in
+// S = Q K^T for one warpgroup: 64 q rows x KV kv positions, over hd in
 // steps of 16; q and k K-major in shared memory, given by the descriptors
 // of their first byte (a step adds its byte offset / 16 to the address
 // field).
-template <int HD>
-__device__ __forceinline__ void issue_qk(float (&sc)[kKv / 2], uint64_t dq,
-                                         uint64_t dk) {
-  using C = Cfg<HD>;
+template <class C>
+__device__ __forceinline__ void issue_qk(float (&sc)[C::kKv / 2],
+                                         uint64_t dq, uint64_t dk) {
   constexpr int kStepsPerChunk = C::kCW / 16;
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < C::kHd / 16; ++kk) {
     const int c = kk / kStepsPerChunk, w = kk % kStepsPerChunk;
     wgmma_ss(sc, dq + ((c * C::kQChunk + 32 * w) >> 4),
              dk + ((c * C::kKvChunk + 32 * w) >> 4), kk > 0);
   }
 }
 
-// O += P_hi V + P_lo V over a tile's 64 positions in steps of 16; dv is
-// the v tile's descriptor (MN-major).
-template <int HD>
-__device__ __forceinline__ void issue_pv(float (&acc)[HD / 2],
-                                         const uint32_t (&p_hi)[kKv / 4],
-                                         const uint32_t (&p_lo)[kKv / 4],
+// O += P_hi V + P_lo V over a tile's KV positions in steps of 16; dv is
+// the v tile's descriptor (MN-major, N = the accumulator's columns).
+template <int N, int KV, int kRowBytes>
+__device__ __forceinline__ void issue_pv(float (&acc)[N / 2],
+                                         const uint32_t (&p_hi)[KV / 4],
+                                         const uint32_t (&p_lo)[KV / 4],
                                          uint64_t dv) {
-  using C = Cfg<HD>;
 #pragma unroll
-  for (int t = 0; t < kKv / 16; ++t) {
+  for (int t = 0; t < KV / 16; ++t) {
     const uint32_t a[4] = {p_hi[4 * t], p_hi[4 * t + 1], p_hi[4 * t + 2],
                            p_hi[4 * t + 3]};
-    wgmma_rs(acc, a, dv + ((t * 16 * C::kRowBytes) >> 4));
+    wgmma_rs(acc, a, dv + ((t * 16 * kRowBytes) >> 4));
   }
 #pragma unroll
-  for (int t = 0; t < kKv / 16; ++t) {
+  for (int t = 0; t < KV / 16; ++t) {
     const uint32_t a[4] = {p_lo[4 * t], p_lo[4 * t + 1], p_lo[4 * t + 2],
                            p_lo[4 * t + 3]};
-    wgmma_rs(acc, a, dv + ((t * 16 * C::kRowBytes) >> 4));
+    wgmma_rs(acc, a, dv + ((t * 16 * kRowBytes) >> 4));
   }
 }
 
@@ -672,6 +717,21 @@ struct Softmax {
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.0f, l_b = 0.0f;
   float alpha_a = 1.0f, alpha_b = 1.0f;
 
+  // The rows of a warpgroup whose first folded row is w0, for the thread
+  // at (warp, lane) of it: a = lane / 4 of the warp's 16, b = a + 8.
+  __device__ __forceinline__ Softmax(int w0, int warp, int lane, int n_rows,
+                                     int G, int seq_, int causal_,
+                                     int window_, float scale_log2_)
+      : qpos_a((w0 + 16 * (warp % 4) + lane / 4) / G),
+        qpos_b((w0 + 16 * (warp % 4) + lane / 4 + 8) / G),
+        wq_lo(min(w0, n_rows - 1) / G),
+        wq_hi(min(w0 + 63, n_rows - 1) / G),
+        cq(2 * (lane % 4)),
+        seq(seq_),
+        causal(causal_),
+        window(window_),
+        scale_log2(scale_log2_) {}
+
   // The scores of the tile at k0 into P = 2^(s * scale_log2 - m), as bf16
   // hi + lo in wgmma's A-register layout: the j-th n8 block of S gives
   // registers 2j (row a) and 2j + 1 (row b). A tile with every position
@@ -680,16 +740,17 @@ struct Softmax {
   // that crosses the diagonal, the window's lower edge or S is scaled
   // first and masked with -1e30 in the scaled domain, as _fa_kernel does
   // (an FFMA on a raw -1e30 would leave a rounding residue of ~1e21).
-  __device__ __forceinline__ void tile(float (&sc)[kKv / 2],
-                                       uint32_t (&p_hi)[kKv / 4],
-                                       uint32_t (&p_lo)[kKv / 4], int k0) {
-    const bool whole = k0 + kKv <= seq &&
-                       (!causal || k0 + kKv - 1 <= wq_lo) &&
+  template <int KV>
+  __device__ __forceinline__ void tile(float (&sc)[KV / 2],
+                                       uint32_t (&p_hi)[KV / 4],
+                                       uint32_t (&p_lo)[KV / 4], int k0) {
+    const bool whole = k0 + KV <= seq &&
+                       (!causal || k0 + KV - 1 <= wq_lo) &&
                        (window <= 0 || k0 > wq_hi - window);
     float c = scale_log2;
     if (!whole) {
 #pragma unroll
-      for (int j = 0; j < kKv / 8; ++j) {
+      for (int j = 0; j < KV / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kp = k0 + 8 * j + cq + e;
@@ -710,7 +771,7 @@ struct Softmax {
     }
     float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-    for (int j = 0; j < kKv / 8; ++j) {
+    for (int j = 0; j < KV / 8; ++j) {
       mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
       mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
@@ -726,7 +787,7 @@ struct Softmax {
     m_b = mn_b;
     float sum_a = 0.0f, sum_b = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kKv / 8; ++j) {
+    for (int j = 0; j < KV / 8; ++j) {
       const float pa0 = ex2(fmaf(sc[4 * j], c, -mn_a));
       const float pa1 = ex2(fmaf(sc[4 * j + 1], c, -mn_a));
       const float pb0 = ex2(fmaf(sc[4 * j + 2], c, -mn_b));
@@ -753,17 +814,65 @@ struct Softmax {
       acc[4 * j + 3] *= alpha_b;
     }
   }
+
+  // After the last tile: 1 / l of rows a and b (l summed across each row's
+  // 4 threads; l = 1 where it is 0), and, given a non-null lse, each row's
+  // log-sum-exp, written by one thread of its 4. m and l are in the log2
+  // domain of the scaled scores: the natural log-sum-exp is ln 2 * (m +
+  // log2 l).
+  __device__ __forceinline__ void finish(float (&inv)[2], float* lse,
+                                         int row_a, int n_rows, int G,
+                                         int H, int kvh, int b, int lane) {
+    float la = l_a, lb = l_b;
+    la += __shfl_xor_sync(0xffffffffu, la, 1);
+    la += __shfl_xor_sync(0xffffffffu, la, 2);
+    lb += __shfl_xor_sync(0xffffffffu, lb, 1);
+    lb += __shfl_xor_sync(0xffffffffu, lb, 2);
+    la = la == 0.0f ? 1.0f : la;
+    lb = lb == 0.0f ? 1.0f : lb;
+    inv[0] = 1.0f / la;
+    inv[1] = 1.0f / lb;
+    if (lse == nullptr || lane % 4 != 0) return;
+    constexpr float kLn2 = 0.6931471805599453f;
+    const float ms[2] = {m_a, m_b}, ls[2] = {la, lb};
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row_a + 8 * half;
+      if (row >= n_rows) continue;
+      const int pos = row / G, g = row - pos * G;
+      lse[(b * static_cast<int64_t>(H) + static_cast<int64_t>(kvh) * G + g) *
+              seq + pos] = kLn2 * (ms[half] + log2f(ls[half]));
+    }
+  }
 };
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
+// The block's (q tile, column block, kv head, batch entry): q tiles from
+// the last when causal (the heaviest first, so the last wave holds the
+// short ones), each over every column block, kv head and batch entry.
+struct BlockPos {
+  int qt, cb, kvh, b;
+  __device__ __forceinline__ BlockPos(int n_qtiles, int n_cb, int Kv,
+                                      int causal) {
+    const int per_tile = gridDim.x / n_qtiles;
+    const int qt_lin = blockIdx.x / per_tile;
+    const int rest = blockIdx.x % per_tile;
+    qt = causal ? n_qtiles - 1 - qt_lin : qt_lin;
+    cb = rest % n_cb;
+    kvh = rest / n_cb % Kv;
+    b = rest / n_cb / Kv;
+  }
+};
+
+template <int HD, int KV>
+__global__ void __launch_bounds__(threads(false), 1)
     flash_kernel_wgmma(const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
                        const __nv_bfloat16* __restrict__ q,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                        int seq, int H, int Kv, int causal, int window,
                        float scale_log2, int n_qtiles) {
-  using C = Cfg<HD>;
+  using C = Cfg<HD, KV>;
+  constexpr int kStages = C::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -774,24 +883,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t full = base + C::kBar;         // kStages barriers of 8 bytes
   const uint32_t empty = full + 8 * kStages;
 
-  // heaviest q tiles first when causal: block order walks q tiles from the
-  // last, each over every (kv head, batch)
-  const int per_tile = gridDim.x / n_qtiles;
-  const int qt_lin = blockIdx.x / per_tile;
-  const int qt = causal ? n_qtiles - 1 - qt_lin : qt_lin;
-  const int kvh = (blockIdx.x % per_tile) % Kv;
-  const int b = (blockIdx.x % per_tile) / Kv;
+  const BlockPos at(n_qtiles, 1, Kv, causal);
+  const int kvh = at.kvh, b = at.b;
 
   const int G = H / Kv;
   // row indices fit in 32 bits (S * H < 2^31, the wrapper checks), and
   // 32-bit division is several times cheaper than 64-bit
   const int n_rows = seq * G;
-  const int r0 = qt * kRows;
+  const int r0 = at.qt * kRows;
   const int last_row = min(r0 + kRows, n_rows) - 1;
   const int kv_end = causal ? min(seq, last_row / G + 1) : seq;
   const int kv_begin = window > 0 ? max(0, r0 / G - window + 1) : 0;
-  const int t_begin = kv_begin / kKv;
-  const int n_t = (kv_end + kKv - 1) / kKv - t_begin;
+  const int t_begin = kv_begin / KV;
+  const int n_t = (kv_end + KV - 1) / KV - t_begin;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -833,7 +937,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int s = i % kStages;
         mbar_wait(empty + 8 * s, ((i / kStages) & 1) ^ 1);
         mbar_expect_tx(full + 8 * s, 2 * C::kTile);
-        const int k0 = (t_begin + i) * kKv;
+        const int k0 = (t_begin + i) * KV;
 #pragma unroll
         for (int c = 0; c < C::kChunks; ++c) {
           const int col = kvh * HD + c * C::kCW;
@@ -858,43 +962,33 @@ __global__ void __launch_bounds__(kThreads, 1)
     *reinterpret_cast<uint4*>(smem + off) = qv[u];
   }
   // the generic-proxy stores, before the async proxy (wgmma) reads them
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_proxy_async();
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 
-  // this thread's two rows in the accumulators: a = lane / 4, b = a + 8
-  const int row_a = w0 + 16 * (warp % 4) + lane / 4;
-  const int row_b = row_a + 8;
-  Softmax sm;
-  sm.qpos_a = row_a / G;
-  sm.qpos_b = row_b / G;
-  sm.wq_lo = min(w0, n_rows - 1) / G;
-  sm.wq_hi = min(w0 + 63, n_rows - 1) / G;
-  sm.cq = 2 * (lane % 4);
-  sm.seq = seq;
-  sm.causal = causal;
-  sm.window = window;
-  sm.scale_log2 = scale_log2;
+  const int row_a = w0 + 16 * (warp % 4) + lane / 4;   // and row_a + 8
+  Softmax sm(w0, warp, lane, n_rows, G, seq, causal, window, scale_log2);
   const int cq = sm.cq;
 
   float acc[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
-  const uint64_t dq = k_major<HD>(sQ + 64 * wg * C::kRowBytes);
-  float sc[kKv / 2];
-  uint32_t p_hi[kKv / 4], p_lo[kKv / 4];
+  const uint64_t dq = k_major<C>(sQ + 64 * wg * C::kRowBytes);
+  float sc[KV / 2];
+  uint32_t p_hi[KV / 4], p_lo[KV / 4];
 
   for (int i = 0; i < n_t; ++i) {
     const int s = i % kStages;
     mbar_wait(full + 8 * s, (i / kStages) & 1);
     wgmma_fence();
-    issue_qk<HD>(sc, dq, k_major<HD>(sK + s * C::kTile));
+    issue_qk<C>(sc, dq, k_major<C>(sK + s * C::kTile));
     wgmma_commit();
     wgmma_wait<0>();
     pin(sc);
-    sm.tile(sc, p_hi, p_lo, (t_begin + i) * kKv);
+    sm.tile<KV>(sc, p_hi, p_lo, (t_begin + i) * KV);
     sm.rescale(acc);
     wgmma_fence();
-    issue_pv<HD>(acc, p_hi, p_lo, mn_major<HD>(sV + s * C::kTile));
+    issue_pv<HD, KV, C::kRowBytes>(acc, p_hi, p_lo,
+                                   mn_major<C>(sV + s * C::kTile));
     wgmma_commit();
     wgmma_wait<0>();
     pin(acc);
@@ -903,29 +997,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) mbar_arrive(empty + 8 * s);
   }
 
-
-  float l_a = sm.l_a, l_b = sm.l_b;
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-  l_a = l_a == 0.0f ? 1.0f : l_a;
-  l_b = l_b == 0.0f ? 1.0f : l_b;
-  const float inv[2] = {1.0f / l_a, 1.0f / l_b};
-  if (lse != nullptr && lane % 4 == 0) {
-    // m and l are in the log2 domain of the scaled scores: the natural
-    // log-sum-exp is ln 2 * (m + log2 l); one thread of the row's 4 writes
-    constexpr float kLn2 = 0.6931471805599453f;
-    const int rows[2] = {row_a, row_b};
-    const float ms[2] = {sm.m_a, sm.m_b}, ls[2] = {l_a, l_b};
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      if (rows[half] >= n_rows) continue;
-      const int pos = rows[half] / G, g = rows[half] - pos * G;
-      lse[(b * static_cast<int64_t>(H) + static_cast<int64_t>(kvh) * G + g) *
-              seq + pos] = kLn2 * (ms[half] + log2f(ls[half]));
-    }
-  }
+  float inv[2];
+  sm.finish(inv, lse, row_a, n_rows, G, H, kvh, b, lane);
   // out goes through this warpgroup's q region (read by no wgmma any more),
   // in its swizzled layout, so the 4-byte writes of the accumulator layout
   // meet no bank conflicts; then whole rows leave in 16-byte pieces
@@ -961,23 +1034,236 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// A [B][S][Kv * hd] view of k or v, boxes of kKv positions x kCW columns.
-template <int HD>
-int tensor_map(CUtensorMap* map, const void* ptr, int B, int seq, int Kv) {
-  using C = Cfg<HD>;
+// ---------------------------------------------------------------------------
+// bf16 above hd 256: tensor cores in column blocks
+// ---------------------------------------------------------------------------
+
+// flash_kernel_wgmma_cols: the output columns a block owns and the kv
+// positions a tile (64 accumulators, 32 scores and 32 P registers a
+// consumer thread, as at hd 128; wider blocks spilled and serialized the
+// wgmma at the 168-register budget). Shared memory, from a 1024-byte
+// aligned base: a ring of kQkStages stages, each a q chunk [kRows][64] and
+// a k chunk [KV][64]; a ring of kVStages v tiles [NB / 64][KV][64]; then
+// the barriers. Every row is 64 bf16, 128-byte swizzled; the q ring takes
+// what the v ring leaves.
+struct ColCfg {
+  static constexpr int NB = 128;
+  static constexpr int KV = 64;
+  static constexpr int kRowBytes = 128;
+  static constexpr int kQChunk = kRows * kRowBytes;
+  static constexpr int kKChunk = KV * kRowBytes;
+  static constexpr int kQkStage = kQChunk + kKChunk;
+  static constexpr int kVChunk = KV * kRowBytes;
+  static constexpr int kVTile = NB / 64 * kVChunk;
+  static constexpr int kVStages = 2;
+  static constexpr int kQkStages =
+      (kMaxSmem - 2048 - kVStages * kVTile) / kQkStage;
+  static constexpr int kV = kQkStages * kQkStage;
+  static constexpr int kBar = kV + kVStages * kVTile;
+  static constexpr int kSmem = kBar + 16 * (kQkStages + kVStages) + 1024;
+  static_assert(kSmem <= kMaxSmem, "over the 227 KB a block may opt in to");
+  static_assert(kQkStages >= 2, "the q ring needs two stages");
+  static_assert(kQChunk % 1024 == 0 && kKChunk % 1024 == 0,
+                "swizzled regions must stay 1024-byte aligned");
+};
+
+__global__ void __launch_bounds__(threads(true), 1)
+    flash_kernel_wgmma_cols(const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const __nv_bfloat16* __restrict__ q,
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int seq, int H, int Kv,
+                            int hd, int causal, int window, float scale_log2,
+                            int n_qtiles, int n_cb) {
+  using C = ColCfg;
+  constexpr int NB = C::NB, KV = C::KV;
+  using QK = Cfg<64, KV>;               // the q/k chunk layout: 128-byte rows
+  constexpr int kQS = C::kQkStages, kVS = C::kVStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sV = base + C::kV;
+  const uint32_t qk_full = base + C::kBar;
+  const uint32_t qk_empty = qk_full + 8 * kQS;
+  const uint32_t v_full = qk_empty + 8 * kQS;
+  const uint32_t v_empty = v_full + 8 * kVS;
+
+  const BlockPos at(n_qtiles, n_cb, Kv, causal);
+  const int kvh = at.kvh, b = at.b;
+  const int c0 = at.cb * NB;                   // the block's first column
+
+  const int G = H / Kv;
+  const int n_rows = seq * G;
+  const int r0 = at.qt * kRows;
+  const int last_row = min(r0 + kRows, n_rows) - 1;
+  const int kv_end = causal ? min(seq, last_row / G + 1) : seq;
+  const int kv_begin = window > 0 ? max(0, r0 / G - window + 1) : 0;
+  const int t_begin = kv_begin / KV;
+  const int n_t = (kv_end + KV - 1) / KV - t_begin;
+  const int n_c = hd / 64;                     // q and k chunks a tile
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kQS; ++s) {
+      // the producer's 128 threads' cp.async arrivals, one expect_tx
+      mbar_init(qk_full + 8 * s, 129);
+      mbar_init(qk_empty + 8 * s, 4 * kConsumers);
+    }
+    for (int s = 0; s < kVS; ++s) {
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(v_empty + 8 * s, 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kConsumers) {
+    // producer warpgroup: every q chunk by cp.async (thread p copies
+    // 16-byte piece p % 8 of rows p / 8 + 16 j, so a warp's copy covers 4
+    // whole rows; a folded row's q is not on a stride TMA could walk), k
+    // chunks and v tiles by TMA from its first thread
+    const int p = threadIdx.x - 128 * kConsumers;
+    constexpr int kMine = kRows / 16;
+    const __nv_bfloat16* qrow[kMine];
+    uint32_t valid = 0;
+#pragma unroll
+    for (int j = 0; j < kMine; ++j) {
+      const int row = r0 + p / 8 + 16 * j;
+      qrow[j] = q;
+      if (row < n_rows) {
+        const int pos = row / G, g = row - pos * G;
+        qrow[j] = q + ((b * static_cast<int64_t>(seq) + pos) * H +
+                       static_cast<int64_t>(kvh) * G + g) * hd + 8 * (p % 8);
+        valid |= 1u << j;
+      }
+    }
+    int n = 0;
+    for (int i = 0; i < n_t; ++i) {
+      const int k0 = (t_begin + i) * KV;
+      for (int c = 0; c < n_c; ++c, ++n) {
+        const int s = n % kQS;
+        mbar_wait(qk_empty + 8 * s, ((n / kQS) & 1) ^ 1);
+        const uint32_t st = base + s * C::kQkStage;
+        if (p == 0) {
+          mbar_expect_tx(qk_full + 8 * s, C::kKChunk);
+          tma_load(st + C::kQChunk, &kmap, qk_full + 8 * s, kvh * hd + 64 * c,
+                   k0, b);
+        }
+#pragma unroll
+        for (int j = 0; j < kMine; ++j) {
+          const int r = p / 8 + 16 * j;
+          const uint32_t off = r * 128 + (((p % 8) ^ (r % 8)) << 4);
+          cp_async_16(st + off, qrow[j] + 64 * c, (valid >> j & 1u) * 16);
+        }
+        cp_async_arrive(qk_full + 8 * s);
+      }
+      const int sv = i % kVS;
+      if (p != 0) continue;
+      mbar_wait(v_empty + 8 * sv, ((i / kVS) & 1) ^ 1);
+      {
+        mbar_expect_tx(v_full + 8 * sv, C::kVTile);
+#pragma unroll
+        for (int cc = 0; cc < NB / 64; ++cc)
+          tma_load(sV + sv * C::kVTile + cc * C::kVChunk, &vmap,
+                   v_full + 8 * sv, kvh * hd + c0 + 64 * cc, k0, b);
+      }
+    }
+    cp_async_wait_all();
+    return;
+  }
+
+  const int wg = warp / 4;
+  const int w0 = r0 + 64 * wg;
+  const int row_a = w0 + 16 * (warp % 4) + lane / 4;   // and row_a + 8
+  Softmax sm(w0, warp, lane, n_rows, G, seq, causal, window, scale_log2);
+  const int cq = sm.cq;
+
+  float acc[NB / 2];
+#pragma unroll
+  for (int i = 0; i < NB / 2; ++i) acc[i] = 0.0f;
+  float sc[KV / 2];
+  uint32_t p_hi[KV / 4], p_lo[KV / 4];
+
+  int n = 0;
+  for (int i = 0; i < n_t; ++i) {
+    // S = sum over the chunks c of Q_c K_c^T, accumulated in registers;
+    // each stage goes back to the producer once the next chunk's products
+    // are issued and its own have completed
+    for (int c = 0; c < n_c; ++c, ++n) {
+      const int s = n % kQS;
+      mbar_wait(qk_full + 8 * s, (n / kQS) & 1);
+      fence_proxy_async();                 // q arrived by cp.async
+      const uint32_t st = base + s * C::kQkStage;
+      const uint64_t dq = k_major<QK>(st + 64 * wg * 128);
+      const uint64_t dk = k_major<QK>(st + C::kQChunk);
+      wgmma_fence();
+#pragma unroll
+      for (int w = 0; w < 4; ++w)
+        wgmma_ss(sc, dq + 2 * w, dk + 2 * w, c > 0 || w > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (c > 0 && lane == 0) mbar_arrive(qk_empty + 8 * ((n - 1) % kQS));
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(qk_empty + 8 * ((n - 1) % kQS));
+    pin(sc);
+    sm.tile<KV>(sc, p_hi, p_lo, (t_begin + i) * KV);
+    sm.rescale(acc);
+    const int sv = i % kVS;
+    mbar_wait(v_full + 8 * sv, (i / kVS) & 1);
+    wgmma_fence();
+    issue_pv<NB, KV, 128>(acc, p_hi, p_lo,
+                          desc(sV + sv * C::kVTile, C::kVChunk, 1024, 1));
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    pin(p_hi);
+    pin(p_lo);
+    if (lane == 0) mbar_arrive(v_empty + 8 * sv);
+  }
+
+  // every column block holds the same m and l: the first writes lse
+  float inv[2];
+  sm.finish(inv, at.cb == 0 ? lse : nullptr, row_a, n_rows, G, H, kvh, b,
+            lane);
+  // straight from the accumulators: 4-byte stores, 16 contiguous bytes a
+  // row's 4 threads (the output is a small share of what a block moves)
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_a + 8 * half;
+    if (row >= n_rows) continue;
+    const int pos = row / G, g = row - pos * G;
+    __nv_bfloat16* orow = o + ((b * static_cast<int64_t>(seq) + pos) * H +
+                               static_cast<int64_t>(kvh) * G + g) * hd + c0;
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j) {
+      if (c0 + 8 * j >= hd) break;
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + cq) =
+          bf16x2(acc[4 * j + 2 * half] * inv[half],
+                 acc[4 * j + 2 * half + 1] * inv[half]);
+    }
+  }
+}
+
+// A [B][S][width] view of k or v (width = Kv * hd), boxes of `rows`
+// positions x `cw` columns, swizzled over rows of 2 * cw bytes (32, 64 or
+// 128).
+int tensor_map(CUtensorMap* map, const void* ptr, int B, int seq,
+               long long width, int cw, int rows) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return -1;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Kv) * HD,
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width),
                               static_cast<cuuint64_t>(seq),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(Kv) * HD * 2,
-                                 static_cast<cuuint64_t>(seq) * Kv * HD * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(C::kCW), kKv, 1};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width) * 2,
+                                 static_cast<cuuint64_t>(seq) * width * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cw),
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t one[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swz =
-      C::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : C::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle swz = cw == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : cw == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                          const_cast<void*>(ptr), dims, strides, box, one,
                          CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
@@ -990,13 +1276,17 @@ template <int HD>
 int launch_hd(const void* q, const void* k, const void* v, void* o,
               float* lse, int B, int seq, int H, int Kv, int causal,
               int window, float scale, cudaStream_t st) {
-  using C = Cfg<HD>;
+  constexpr int KV = kv_tile(HD);
+  using C = Cfg<HD, KV>;
   CUtensorMap kmap, vmap;
-  int err = tensor_map<HD>(&kmap, k, B, seq, Kv);
-  if (err == 0) err = tensor_map<HD>(&vmap, v, B, seq, Kv);
+  int err = tensor_map(&kmap, k, B, seq, static_cast<long long>(Kv) * HD,
+                       C::kCW, KV);
+  if (err == 0)
+    err = tensor_map(&vmap, v, B, seq, static_cast<long long>(Kv) * HD,
+                     C::kCW, KV);
   if (err != 0) return err;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel_wgmma<HD, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int64_t n_rows = static_cast<int64_t>(seq) * (H / Kv);
@@ -1004,11 +1294,39 @@ int launch_hd(const void* q, const void* k, const void* v, void* o,
   const int64_t blocks = n_qtiles * Kv * B;
   if (blocks >= (int64_t{1} << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  flash_kernel_wgmma<HD><<<static_cast<unsigned>(blocks), kThreads, C::kSmem,
-                           st>>>(
+  flash_kernel_wgmma<HD, KV><<<static_cast<unsigned>(blocks),
+                               threads(false), C::kSmem, st>>>(
       kmap, vmap, static_cast<const __nv_bfloat16*>(q),
       static_cast<__nv_bfloat16*>(o), lse, seq, H, Kv, causal, window,
       scale * kLog2e, static_cast<int>(n_qtiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_cols(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int seq, int H, int Kv, int hd,
+                int causal, int window, float scale, cudaStream_t st) {
+  using C = ColCfg;
+  constexpr int NB = C::NB, KV = C::KV;
+  CUtensorMap kmap, vmap;
+  const long long width = static_cast<long long>(Kv) * hd;
+  int err = tensor_map(&kmap, k, B, seq, width, 64, KV);
+  if (err == 0) err = tensor_map(&vmap, v, B, seq, width, 64, KV);
+  if (err != 0) return err;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_kernel_wgmma_cols, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t n_rows = static_cast<int64_t>(seq) * (H / Kv);
+  const int64_t n_qtiles = (n_rows + kRows - 1) / kRows;
+  const int n_cb = (hd + NB - 1) / NB;
+  const int64_t blocks = n_qtiles * n_cb * Kv * B;
+  if (blocks >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_kernel_wgmma_cols<<<static_cast<unsigned>(blocks), threads(true),
+                            C::kSmem, st>>>(
+      kmap, vmap, static_cast<const __nv_bfloat16*>(q),
+      static_cast<__nv_bfloat16*>(o), lse, seq, H, Kv, hd, causal, window,
+      scale * kLog2e, static_cast<int>(n_qtiles), n_cb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1032,9 +1350,18 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
     case 192:
       return launch_hd<192>(q, k, v, o, lse, B, seq, H, Kv, causal, window,
                             scale, st);
+    case 256:
+      return launch_hd<256>(q, k, v, o, lse, B, seq, H, Kv, causal, window,
+                            scale, st);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      break;
   }
+  // above 256, a multiple of 64: column blocks; TMA's column coordinate is
+  // 32-bit
+  if (hd <= 256 || hd % 64 || Kv * hd >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_cols(q, k, v, o, lse, B, seq, H, Kv, static_cast<int>(hd),
+                     causal, window, scale, st);
 }
 
 }  // namespace tc
@@ -1044,20 +1371,21 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 extern "C" {
 
 // Each returns 0 when the kernel was launched, else a cudaError_t, or for
-// the tensor-core kernel a negative code when the TMA tensor map could not
+// the tensor-core kernels a negative code when the TMA tensor map could not
 // be built (-1: no cuTensorMapEncodeTiled in the driver; -1000 - CUresult:
 // it refused). q and o hold B * seq * H * hd contiguous elements, k and v
 // B * seq * Kv * hd; lse is null (not written) or holds B * H * seq fp32;
 // H % Kv == 0; window >= 0 (0: no window). Element
 // offsets are 64-bit in every kernel; rows of a (batch, kv head) are
-// 64-bit in the CUDA-core kernels and 32-bit in the tensor-core one
+// 64-bit in the CUDA-core kernels and 32-bit in the tensor-core ones
 // (seq * H / Kv below 2^31 - 256, the wrapper routes larger ones to the
 // CUDA cores). The CUDA-core functions (_f32, _bf16_cc) take any hd:
 // {16, 32, 64, 128, 192, 256} run flash_kernel, any other
 // flash_kernel_chunked. The tensor-core one (_bf16) takes hd in {16, 32,
-// 64, 128, 192} and 16-byte aligned pointers. The wrapper zero-pads other
-// widths up to 256 to the next built one and splits a batch only where a
-// launch's grid would be too large.
+// 64, 128, 192, 256} (flash_kernel_wgmma) or a multiple of 64 above 256
+// (flash_kernel_wgmma_cols; Kv * hd below 2^31), and 16-byte aligned
+// pointers. The wrapper zero-pads other widths to the next the route takes
+// and splits a batch only where a launch's grid would be too large.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         void* lse, int B, int seq, int H, int Kv,
                         long long hd, int causal, int window, float scale,

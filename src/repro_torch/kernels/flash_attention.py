@@ -13,12 +13,17 @@ log-sum-exp, fp32 ``[B, H, S]``, for the backward
 writes nothing more.
 
 The dtype and the head width pick the kernel (``route``): bfloat16 up to
-hd 192 runs on the tensor cores (``wgmma``, k/v tiles by TMA), float32 and
-bfloat16 at 256 on the CUDA cores, whose fp32 products the fp32 tolerances
-need, and any width above 256 on the CUDA-core kernel that sums over hd in
-chunks. The kernels are built for the head widths ``HEAD_DIMS``; a width
-between two of them is zero-padded to the next (``_padded``). Every element
-offset is 64-bit, so one batch entry may hold 2^31 elements or more; a
+hd 256 runs on the tensor cores (``wgmma``, k/v tiles by TMA), and above
+256 on the tensor-core kernel that sums the scores over hd in 64-column
+chunks and owns a block of 128 output columns (``wgmma_chunked``);
+float32 runs on the CUDA cores, whose fp32 products the fp32 tolerances
+need, up to 256 on ``cuda_core`` and above on the kernel that sums over hd
+in chunks (``hd_chunked``). bfloat16 whose kv head holds 2^31 - 256 folded
+rows or more takes the CUDA-core kernels too (the tensor-core kernels keep
+rows in 32 bits). The kernels are built for the head widths ``HEAD_DIMS``
+up to 256; a width between two of them is zero-padded to the next, and a
+bfloat16 width above 256 to the next multiple of 64 (``_padded``). Every
+element offset is 64-bit, so one batch entry may hold 2^31 elements or more; a
 batch is split into launches only past the grid's 65,535 entries
 (``_batch_chunks``). ``flash_attention.launches`` counts the launches this
 wrapper made, ``flash_attention.route_launches`` the same by route,
@@ -56,13 +61,17 @@ BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 _FNS = {(torch.float32, "cuda_core"): "flash_attention_f32",
         (torch.float32, "hd_chunked"): "flash_attention_f32",
         (torch.bfloat16, "wgmma"): "flash_attention_bf16",
+        (torch.bfloat16, "wgmma_chunked"): "flash_attention_bf16",
         (torch.bfloat16, "cuda_core"): "flash_attention_bf16_cc",
         (torch.bfloat16, "hd_chunked"): "flash_attention_bf16_cc"}
-ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda_core"}  # hd <= 192
-_ROUTE_NAMES = {"wgmma": "tensor-core kernel", "cuda_core": "CUDA-core kernel",
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda_core"}  # hd <= 256
+_ROUTE_NAMES = {"wgmma": "tensor-core kernel",
+                "wgmma_chunked": "tensor-core kernel, hd in column blocks",
+                "cuda_core": "CUDA-core kernel",
                 "hd_chunked": "CUDA-core kernel, hd in chunks"}
+_TC_ROUTES = ("wgmma", "wgmma_chunked")
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)  # the widths the kernels are built for
-_WGMMA_DIMS = 192                  # the tensor-core kernel's widest
+_WIDE_STEP = 64    # bf16 above 256: hd padded to a multiple of one q/k chunk
 _GRID_YZ = 65535                   # CUDA's limit on gridDim.y and .z
 # the tensor-core kernel keeps a (batch, kv head)'s folded rows in 32 bits,
 # with room for a block's rounding past the last
@@ -99,13 +108,14 @@ def build() -> dict:
 
 def route(dtype, hd: int, S: int, G: int) -> str:
     """The kernel a call of this dtype, head width, length and group size
-    runs on: ``wgmma`` (bf16 up to hd 192 where its 32-bit rows hold the
-    S * G folded rows of a kv head), ``cuda_core`` (any other width up to
-    256) or ``hd_chunked`` (wider)."""
-    if dtype == torch.bfloat16 and hd <= _WGMMA_DIMS and \
-            S * G < _WGMMA_MAX_ROWS:
-        return "wgmma"
-    return "cuda_core" if hd <= HEAD_DIMS[-1] else "hd_chunked"
+    runs on: bf16 where its 32-bit rows hold the S * G folded rows of a kv
+    head on the tensor cores, ``wgmma`` up to hd 256 and ``wgmma_chunked``
+    above; otherwise the CUDA cores, ``cuda_core`` up to 256 and
+    ``hd_chunked`` above."""
+    narrow = hd <= HEAD_DIMS[-1]
+    if dtype == torch.bfloat16 and S * G < _WGMMA_MAX_ROWS:
+        return "wgmma" if narrow else "wgmma_chunked"
+    return "cuda_core" if narrow else "hd_chunked"
 
 
 def _check(q, k, v, window):
@@ -145,7 +155,7 @@ def _check(q, k, v, window):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention kernel: {name} is not "
                              f"contiguous")
-    if path == "wgmma":
+    if path in _TC_ROUTES:
         # TMA reads k and v, 16-byte loads q; the output is allocated aligned
         for name, t in ts.items():
             if t.data_ptr() % 16:
@@ -163,10 +173,15 @@ def _check(q, k, v, window):
     return B, S, H, Kv, hd, path
 
 
-def native_head_dim(hd: int) -> int:
+def native_head_dim(hd: int, dtype=torch.float32) -> int:
     """The narrowest width in ``HEAD_DIMS`` that holds hd; above the widest,
-    hd itself (the chunked kernel takes any width)."""
-    return next((w for w in HEAD_DIMS if w >= hd), hd)
+    for bfloat16 the next multiple of 64 (the column-block kernel streams
+    q and k in 64-column chunks), for float32 hd itself (the chunked
+    kernel takes any width)."""
+    if hd > HEAD_DIMS[-1]:
+        return -(-hd // _WIDE_STEP) * _WIDE_STEP \
+            if dtype == torch.bfloat16 else hd
+    return next(w for w in HEAD_DIMS if w >= hd)
 
 
 def _batch_chunks(B):
@@ -184,12 +199,12 @@ def _batch_chunks(B):
 
 def _padded(attend, q, k, v, causal, window):
     """``attend(q, k, v, causal, window, scale)`` on q, k and v zero-padded
-    along hd to ``native_head_dim(hd)``, with the true scale 1/sqrt(hd), and
-    its output cut back to hd. The zero columns add exact zeros to every
-    score (so a log-sum-exp is that of the unpadded scores), and the padded
-    columns of v only reach the columns cut off."""
+    along hd to ``native_head_dim(hd, q.dtype)``, with the true scale
+    1/sqrt(hd), and its output cut back to hd. The zero columns add exact
+    zeros to every score (so a log-sum-exp is that of the unpadded scores),
+    and the padded columns of v only reach the columns cut off."""
     hd = q.shape[-1]
-    wide = native_head_dim(hd)
+    wide = native_head_dim(hd, q.dtype)
     scale = 1.0 / math.sqrt(hd)
     if wide == hd:
         return attend(q, k, v, causal, window, scale)
@@ -205,7 +220,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     any other input."""
     B, S, H, Kv, hd, path = _check(q, k, v, window)
     fn = build()[q.dtype, path]
-    padded = native_head_dim(hd) != hd
+    padded = native_head_dim(hd, q.dtype) != hd
     lse = kbuild.empty(B, H, S, dtype=torch.float32, device=q.device) \
         if with_lse else None
 

@@ -31,6 +31,35 @@ _FNS = {torch.float32: "lstm_cell_f32", torch.bfloat16: "lstm_cell_bf16"}
 _SEQ_FNS = {torch.float32: "lstm_seq_f32", torch.bfloat16: "lstm_seq_bf16"}
 _BWD_FNS = {torch.float32: "lstm_seq_bwd_f32",
             torch.bfloat16: "lstm_seq_bwd_bf16"}
+# the shared memory a block may opt in to (csrc/lstm_cell.cu kMaxSmem); each
+# launcher refuses a launch past it with CUDA error 1, so the wrappers
+# refuse such inputs first, with the launcher's formula
+MAX_SMEM = 232_448
+
+
+def smem_bytes(what: str, Din: int, H: int) -> tuple[int, str]:
+    """The bytes of shared memory a launch of ``what`` needs at least, and
+    the launcher's formula for them: ``lstm_cell`` stages 8 batch rows of
+    [x, h] in fp32; ``lstm_seq`` holds the state, the bias and its staging
+    of [x, h] (rows rounded up to 4 floats) and at least one step of x;
+    ``lstm_seq_bwd`` (Din unused) holds 8 rows of H rounded up to 4 floats
+    and the carried dh and dc."""
+    r4 = lambda n: (n + 3) // 4 * 4      # noqa: E731
+    if what == "lstm_cell":
+        return 4 * 8 * (Din + H), "4 * 8 * (Din + H)"
+    if what == "lstm_seq":
+        return 4 * (2 * r4(Din + H) + 5 * H + Din), \
+            "4 * (2 * ceil4(Din + H) + 5 * H + Din)"
+    return 4 * (8 * r4(H) + 2 * H), "4 * (8 * ceil4(H) + 2 * H)"
+
+
+def _check_smem(what, Din, H):
+    need, formula = smem_bytes(what, Din, H)
+    if need > MAX_SMEM:
+        shape = f"H={H}" if what == "lstm_seq_bwd" else f"Din={Din} H={H}"
+        raise ValueError(f"{what} kernel: {shape} needs {need:,} bytes of "
+                         f"shared memory ({formula}), over the {MAX_SMEM:,} "
+                         f"a block may opt in to")
 
 
 @functools.cache
@@ -58,7 +87,8 @@ def build() -> ctypes.CDLL:
 def _check(x, h, c, kernel, bias, what="lstm_cell"):
     """Refuse what the kernel does not take: x [B,Din] (``lstm_seq``:
     [T,B,Din]), h/c [B,H], kernel [Din+H,4H], bias [4H], one dtype,
-    contiguous, on one CUDA device (checked last). Returns (B, Din, H)."""
+    contiguous, within the launcher's shared memory (``smem_bytes``), on
+    one CUDA device (checked last). Returns (B, Din, H)."""
     ts = {"x": x, "h": h, "c": c, "kernel": kernel, "bias": bias}
     x_dims = 3 if what == "lstm_seq" else 2
     if x.dim() != x_dims or h.dim() != 2:
@@ -83,6 +113,7 @@ def _check(x, h, c, kernel, bias, what="lstm_cell"):
                              f"x is {x.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what} kernel: {name} is not contiguous")
+    _check_smem(what, Din, H)
     for name, t in ts.items():
         if t.device.type != "cuda":
             raise ValueError(f"{what} kernel: {name} is on {t.device}, "
@@ -149,8 +180,9 @@ lstm_seq.launches = 0
 def _check_bwd(dhs, gates, cs, c0, w_h):
     """Refuse what the backward kernel does not take: dhs and cs [T,B,H],
     c0 [B,H] and w_h [H,4H] in one dtype (float32 or bfloat16), gates
-    [T,B,4H] float32, contiguous, on one CUDA device (checked last).
-    Returns (T, B, H)."""
+    [T,B,4H] float32, contiguous, within the launcher's shared memory
+    (``smem_bytes``), on one CUDA device (checked last). Returns (T, B,
+    H)."""
     ts = {"dhs": dhs, "gates": gates, "cs": cs, "c0": c0, "w_h": w_h}
     if dhs.dim() != 3:
         raise ValueError("lstm_seq_bwd kernel: dhs must be 3-D [T,B,H]")
@@ -175,6 +207,7 @@ def _check_bwd(dhs, gates, cs, c0, w_h):
         if not t.is_contiguous():
             raise ValueError(f"lstm_seq_bwd kernel: {name} is not "
                              f"contiguous")
+    _check_smem("lstm_seq_bwd", 0, H)
     for name, t in ts.items():
         if t.device.type != "cuda":
             raise ValueError(f"lstm_seq_bwd kernel: {name} is on "

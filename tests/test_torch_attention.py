@@ -13,6 +13,7 @@ tolerances ``chip_smoke.py`` holds the kernel to on the card.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import jax.numpy as jnp
@@ -161,33 +162,58 @@ def test_flash_gqa_head_order():
 # chip_smoke.py's gates at qwen's prefill shape in bf16: rtol of _tol, atol
 # QWEN_FLASH_BF16_ATOL
 QWEN_RTOL, QWEN_ATOL = 2e-2, 5e-4
-TC_KV_TILE = 64        # kv positions a tile of flash_kernel_wgmma
+TC_KV_TILE = 64        # kv positions a tile of flash_kernel_wgmma (hd < 256)
 
 
-def _tc_model(q, k, v, *, causal=True, window=0, split_p=True):
-    """What the tensor-core kernel computes, in its rounding: q and k raw
-    bf16, fp32 dot products scaled after the product into the log2 domain
-    (p = 2^(s * c - m), masked scores -1e30), the online softmax tile by
-    tile over kv tiles of TC_KV_TILE positions, P in bf16 before P.V (when
-    ``split_p``, as the kernel does, hi = p truncated to bf16 and lo = p -
-    hi rounded to bf16, both through P.V; otherwise p rounded once to
-    bf16), fp32 accumulation, one rounding of the output to q's dtype. Tiles the kernel skips are fully masked for all of
-    a block's rows and change nothing here."""
+def _tc_plan(hd):
+    """The tensor-core kernels' choices at a (padded) bf16 width, as
+    csrc/flash_attention.cu makes them: (kv tile, hd chunk the scores are
+    summed over, output columns a block owns). Up to 256 flash_kernel_wgmma
+    takes hd whole (kv tiles of 32 at 256, else 64); above, the
+    column-block kernel sums S over 64-column chunks, in kv tiles of 64,
+    and owns 128 output columns a block."""
+    if hd <= 256:
+        return (32 if hd == 256 else TC_KV_TILE), None, hd
+    return TC_KV_TILE, 64, 128
+
+
+def _tc_model(q, k, v, *, causal=True, window=0, split_p=True, scale=None,
+              kv_tile=TC_KV_TILE, s_chunk=None, col_block=None):
+    """What the tensor-core kernels compute, in their rounding: q and k raw
+    bf16, fp32 dot products (summed over hd in chunks of ``s_chunk``
+    columns where given, as the column-block kernel accumulates them)
+    scaled after the product into the log2 domain (p = 2^(s * c - m),
+    masked scores -1e30), the online softmax tile by tile over kv tiles of
+    ``kv_tile`` positions, P in bf16 before P.V (when ``split_p``, as the
+    kernels do, hi = p truncated to bf16 and lo = p - hi rounded to bf16,
+    both through P.V; otherwise p rounded once to bf16), fp32 accumulation
+    (P.V by blocks of ``col_block`` output columns, each block's S the
+    same), one rounding of the output to q's dtype. ``scale`` is the
+    wrapper's 1/sqrt(hd) of the unpadded width (default: q's width). Tiles
+    the kernels skip are fully masked for all of a block's rows and change
+    nothing here."""
     B, S, H, hd = q.shape
     Kv = k.shape[2]
     G = H // Kv
+    col_block = col_block or hd
     qf = q.float().reshape(B, S, Kv, G, hd).permute(0, 2, 1, 3, 4) \
         .reshape(B, Kv, S * G, hd)                       # folded rows
     kf, vf = (t.float().permute(0, 2, 1, 3) for t in (k, v))
-    c = torch.tensor((1.0 / math.sqrt(hd)) * 1.4426950408889634,
-                     dtype=torch.float32)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    c = torch.tensor(scale * 1.4426950408889634, dtype=torch.float32)
     qpos = (torch.arange(S * G) // G)[:, None]
     m = torch.full((B, Kv, S * G, 1), -1e30)
     l = torch.zeros_like(m)
     acc = torch.zeros(B, Kv, S * G, hd)
-    for k0 in range(0, S, TC_KV_TILE):
-        kt, vt = kf[:, :, k0:k0 + TC_KV_TILE], vf[:, :, k0:k0 + TC_KV_TILE]
-        s = (qf @ kt.transpose(-1, -2)) * c
+    for k0 in range(0, S, kv_tile):
+        kt, vt = kf[:, :, k0:k0 + kv_tile], vf[:, :, k0:k0 + kv_tile]
+        if s_chunk is None:
+            s = qf @ kt.transpose(-1, -2)
+        else:
+            s = sum(qf[..., d:d + s_chunk] @
+                    kt[..., d:d + s_chunk].transpose(-1, -2)
+                    for d in range(0, hd, s_chunk))
+        s = s * c
         kp = torch.arange(k0, k0 + kt.shape[2])[None, :]
         ok = torch.ones(S * G, kt.shape[2], dtype=torch.bool)
         if causal:
@@ -201,14 +227,28 @@ def _tc_model(q, k, v, *, causal=True, window=0, split_p=True):
         l = l * alpha + p.sum(-1, keepdim=True)
         if split_p:
             hi = (p.view(torch.int32) & -65536).view(torch.float32)
-            pv = hi @ vt + (p - hi).bfloat16().float() @ vt
+            parts = (hi, (p - hi).bfloat16().float())
         else:
-            pv = p.bfloat16().float() @ vt
+            parts = (p.bfloat16().float(),)
+        pv = torch.cat([sum(a @ vt[..., c0:c0 + col_block] for a in parts)
+                        for c0 in range(0, hd, col_block)], dim=-1)
         acc = acc * alpha + pv
         m = m_new
     out = acc / torch.where(l == 0, torch.ones_like(l), l)
     return out.reshape(B, Kv, S, G, hd).permute(0, 2, 1, 3, 4) \
         .reshape(B, S, H, hd).to(q.dtype)
+
+
+def _tc_wrapped(q, k, v, *, causal=True, window=0, split_p=True):
+    """``_tc_model`` on the wrapper's path (``FA._padded``: bf16 zero-padded
+    to the kernel's width, the true scale passed, the output cut back),
+    with the kernel's choices at that width (``_tc_plan``)."""
+    def attend(q, k, v, causal, window, scale):
+        kv_tile, s_chunk, col_block = _tc_plan(q.shape[-1])
+        return _tc_model(q, k, v, causal=causal, window=window,
+                         split_p=split_p, scale=scale, kv_tile=kv_tile,
+                         s_chunk=s_chunk, col_block=col_block)
+    return FA._padded(attend, q, k, v, causal, window)
 
 
 def _gate_excess(got, want, rtol):
@@ -260,6 +300,71 @@ def test_flash_tc_model_single_bf16_p_misses_qwen_gate():
     (jq, tq), (jk, tk), (jv, tv) = _qwen_cut(1, 2.0, seed=1)
     want = jref.flash_attention(jq, jk, jv)
     assert _gate_excess(_tc_model(tq, tk, tv, split_p=False), want,
+                        QWEN_RTOL) > QWEN_ATOL
+
+
+def test_tc_plan_is_the_kernels():
+    """The widths the kernels' choices are modelled at: hd 256 whole in kv
+    tiles of 32; above 256 (padded to a multiple of 64) S summed over
+    64-column chunks and 128 output columns a block, so 576 takes 5 blocks
+    (the last one cut at 576) and 1,024 takes 8."""
+    assert _tc_plan(128) == (64, None, 128)
+    assert _tc_plan(256) == (32, None, 256)
+    assert _tc_plan(576) == _tc_plan(1024) == (64, 64, 128)
+    for hd in range(257, 2049, 7):
+        wide = FA.native_head_dim(hd, torch.bfloat16)
+        assert wide % 64 == 0 and wide - 64 < hd <= wide
+        assert _tc_plan(wide)[1:] == (64, 128)
+
+
+@pytest.mark.parametrize("hd", [200, 256, 576, 1024])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_tc_wide_model_matches_jax_oracle_bf16(hd, causal, window):
+    """The wide tensor-core routes' arithmetic on the wrapper's path (200
+    padded to 256, kv tiles of 32; 576 and 1,024 in column blocks of 128,
+    S summed over 64-column chunks) against the JAX oracle in bf16 within
+    _tol's 2e-2."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 72, 4, 2, hd, "bfloat16", hd)
+    got = _tc_wrapped(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    _close(got, jref.flash_attention(jq, jk, jv, causal=causal,
+                                     window=window), TOL["bfloat16"],
+           TOL["bfloat16"])
+
+
+@functools.lru_cache(maxsize=None)
+def _qwen_cut_hd(hd, scale):
+    """qwen1.5-110b's prefill attention cut in width, at head width hd:
+    S = 1,024, G = 8, one kv head, inputs N(0, 1) x scale, bf16 (seed hd);
+    the torch q, k, v and the JAX oracle's output, made once for the tests
+    that share them."""
+    rng = np.random.RandomState(hd)
+    (jq, tq), (jk, tk), (jv, tv) = [
+        _both((rng.randn(1, 1024, n, hd) * scale).astype(np.float32),
+              "bfloat16") for n in (8, 1, 1)]
+    return tq, tk, tv, np.asarray(jref.flash_attention(jq, jk, jv),
+                                  np.float32)
+
+
+@pytest.mark.parametrize("hd", [256, 576])
+@pytest.mark.parametrize("scale", [0.5, 2.0])
+def test_flash_tc_wide_model_meets_qwen_gate(hd, scale):
+    """At the width-cut qwen shape, x0.5 and x2, the wide routes' modelled
+    arithmetic meets chip_smoke.py's bf16 gate against the JAX oracle:
+    rtol 2e-2, atol 5e-4."""
+    tq, tk, tv, want = _qwen_cut_hd(hd, scale)
+    assert _gate_excess(_tc_wrapped(tq, tk, tv), want, QWEN_RTOL) <= \
+        QWEN_ATOL
+
+
+@pytest.mark.parametrize("hd", [256, 576])
+@pytest.mark.parametrize("scale", [0.5, 2.0])
+def test_flash_tc_wide_single_bf16_p_misses_qwen_gate(hd, scale):
+    """Why the wide routes keep P as bf16 hi + lo: P rounded once to bf16
+    misses the same gate at the same inputs at both widths and both
+    scales (by 1.8-11x its atol)."""
+    tq, tk, tv, want = _qwen_cut_hd(hd, scale)
+    assert _gate_excess(_tc_wrapped(tq, tk, tv, split_p=False), want,
                         QWEN_RTOL) > QWEN_ATOL
 
 
@@ -328,11 +433,17 @@ def test_flash_wrapper_routes_by_dtype(dtype, route, kernel):
                                      ("seq", "Sq == Skv"),
                                      ("groups", "not a positive multiple"),
                                      # hd 200 passes every check up to the
-                                     # device's (padded to 256, CUDA cores)
+                                     # device's (padded to 256: fp32 on the
+                                     # CUDA cores, bf16 on the tensor cores)
                                      pytest.param(
                                          "head_dim", r"CUDA-core kernel\): q "
                                          r"is on cpu, not a CUDA device",
                                          id="head_dim-head dim 200"),
+                                     pytest.param(
+                                         "head_dim_bf16", r"bfloat16: "
+                                         r"tensor-core kernel\): q is on "
+                                         r"cpu, not a CUDA device",
+                                         id="head_dim_bf16-head dim 200"),
                                      ("dtype", "v is torch.bfloat16"),
                                      ("strided", "k is not contiguous"),
                                      ("window", "window -1"),
@@ -346,8 +457,11 @@ def test_flash_wrapper_raises(bad, why):
         q = torch.ones(1, 6, 4, 16)
     elif bad == "groups":
         k = v = torch.ones(1, 8, 3, 16)
-    elif bad == "head_dim":         # above the tensor-core kernel's 192
+    elif bad == "head_dim":         # fp32 above the 192 tier
         q, k, v = (torch.ones(1, 8, n, 200) for n in (4, 2, 2))
+    elif bad == "head_dim_bf16":
+        q, k, v = (torch.ones(1, 8, n, 200, dtype=torch.bfloat16)
+                   for n in (4, 2, 2))
     elif bad == "dtype":
         v = v.bfloat16()
     elif bad == "strided":
@@ -533,11 +647,15 @@ def test_flash_wide_path_plain_matches_pallas(hd):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_check_takes_wide_head_dims(hd, dtype):
     """Every width above 192 passes the checks up to the device refusal
-    (meta tensors), on the CUDA cores: the tier kernel up to 256, the
-    chunked one above."""
+    (meta tensors): fp32 on the CUDA cores (the tier kernel up to 256, the
+    chunked one above), bf16 on the tensor cores (hd whole up to 256, in
+    column blocks above)."""
     q, k, v = (torch.empty(2, 64, n, hd, dtype=dtype, device="meta")
                for n in (8, 2, 2))
-    path = "cuda_core" if hd <= 256 else "hd_chunked"
+    if dtype == torch.bfloat16:
+        path = "wgmma" if hd <= 256 else "wgmma_chunked"
+    else:
+        path = "cuda_core" if hd <= 256 else "hd_chunked"
     assert FA.route(dtype, hd, 64, 4) == path
     with pytest.raises(ValueError, match=f"{FA._ROUTE_NAMES[path]}\\): q is "
                                          f"on meta, not a CUDA device"):
@@ -545,22 +663,84 @@ def test_flash_check_takes_wide_head_dims(hd, dtype):
 
 
 def test_flash_route_by_dtype_width_and_rows():
-    """bf16 takes the tensor cores up to hd 192 while a kv head's folded
-    rows fit 32 bits; fp32 always the CUDA cores; above 256 the chunked
-    kernel; every route has a C function."""
+    """bf16 takes the tensor cores at every width while a kv head's folded
+    rows fit 32 bits (hd whole up to 256, column blocks above), else the
+    CUDA cores; fp32 always the CUDA cores, the chunked kernel above 256;
+    every route has a C function."""
     assert FA.route(torch.bfloat16, 192, 1024, 8) == "wgmma"
     assert FA.route(torch.bfloat16, 16, 1024, 8) == "wgmma"
-    assert FA.route(torch.bfloat16, 200, 1024, 8) == "cuda_core"
-    assert FA.route(torch.bfloat16, 128, 2 ** 28, 8) == "cuda_core"
-    assert FA.route(torch.float32, 128, 1024, 8) == "cuda_core"
-    assert FA.route(torch.float32, 257, 1024, 8) == "hd_chunked"
-    assert FA.route(torch.bfloat16, 1024, 1024, 8) == "hd_chunked"
+    assert FA.route(torch.bfloat16, 200, 1024, 8) == "wgmma"
+    assert FA.route(torch.bfloat16, 256, 1024, 8) == "wgmma"
+    assert FA.route(torch.bfloat16, 257, 1024, 8) == "wgmma_chunked"
+    assert FA.route(torch.bfloat16, 1024, 1024, 8) == "wgmma_chunked"
+    assert all(FA.route(torch.bfloat16, hd, 2 ** 28 - 33, 8) in FA._TC_ROUTES
+               for hd in range(193, 1025))
+    # a kv head of 2^31 - 256 folded rows or more: the CUDA cores
+    for hd, path in ((128, "cuda_core"), (256, "cuda_core"),
+                     (1024, "hd_chunked")):
+        assert FA.route(torch.bfloat16, hd, 2 ** 28, 8) == path
+        assert FA.route(torch.bfloat16, hd, 2 ** 28 - 33, 8) in FA._TC_ROUTES
+    for hd, path in ((128, "cuda_core"), (256, "cuda_core"),
+                     (257, "hd_chunked"), (1024, "hd_chunked")):
+        assert FA.route(torch.float32, hd, 1024, 8) == path
+        assert FA.route(torch.float32, hd, 2 ** 28, 8) == path
     assert set(FA.flash_attention.route_launches) == set(FA._ROUTE_NAMES)
     for dtype in (torch.float32, torch.bfloat16):
         for path in ("cuda_core", "hd_chunked"):
             assert (dtype, path) in FA._FNS
+    for path in FA._TC_ROUTES:
+        assert FA._FNS[torch.bfloat16, path] == "flash_attention_bf16"
     assert FA.native_head_dim(1) == 16 and FA.native_head_dim(193) == 256
     assert FA.native_head_dim(257) == 257
+    bf = torch.bfloat16
+    assert FA.native_head_dim(193, bf) == 256
+    assert FA.native_head_dim(256, bf) == 256
+    assert FA.native_head_dim(257, bf) == 320
+    assert FA.native_head_dim(576, bf) == 576
+    assert FA.native_head_dim(1000, bf) == 1024
+
+
+@pytest.mark.parametrize("hd,path", [(256, "wgmma"), (576, "wgmma_chunked")])
+@pytest.mark.parametrize("name", ["q", "k", "v"])
+def test_flash_tensor_core_routes_refuse_misaligned(hd, path, name):
+    """Both tensor-core routes read k and v by TMA and q in 16-byte pieces:
+    a tensor off 16-byte alignment is refused, naming its route, before
+    any launch."""
+    shapes = {"q": (1, 8, 4, hd), "k": (1, 8, 2, hd), "v": (1, 8, 2, hd)}
+    ts = {n: torch.ones(*sh, dtype=torch.bfloat16) for n, sh in shapes.items()}
+    n = math.prod(shapes[name])
+    ts[name] = torch.ones(n + 1, dtype=torch.bfloat16)[1:] \
+        .view(*shapes[name])
+    assert FA.route(torch.bfloat16, hd, 8, 2) == path
+    before = FA.flash_attention.launches
+    with pytest.raises(ValueError, match=f"{name} is not 16-byte aligned "
+                                         f"\\(torch.bfloat16 runs the "
+                                         f"{FA._ROUTE_NAMES[path]}\\)"):
+        FA.flash_attention(ts["q"], ts["k"], ts["v"])
+    assert FA.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("hd", [300, 600])
+def test_flash_bf16_wide_pads_to_a_multiple_of_64(hd):
+    """bf16 above 256 is zero-padded to the next multiple of 64 (the
+    column-block kernel's chunk), with the true scale, and the output cut
+    back: run with the plain version, equal to the unpadded plain version
+    within _tol's 2e-2 (fp32 alike at the sweep's tolerance)."""
+    for dtype in ("bfloat16", "float32"):
+        (_, tq), (_, tk), (_, tv) = _qkv(1, 40, 4, 2, hd, dtype, hd)
+        widths = []
+
+        def attend(q, k, v, causal, window, scale):
+            widths.append(q.shape[-1])
+            return _plain_attend(q, k, v, causal, window, scale)
+
+        got = FA._padded(attend, tq, tk, tv, True, 7)
+        want = ref.flash_attention(tq, tk, tv, causal=True, window=7)
+        wide = -(-hd // 64) * 64 if dtype == "bfloat16" else hd
+        assert widths == [wide] and got.shape == tq.shape
+        tol = (TOL["bfloat16"],) * 2 if dtype == "bfloat16" else \
+            (FLASH_RTOL, FLASH_ATOL)
+        _close(got, want.float().numpy(), *tol)
 
 
 def test_flash_check_refuses_positions_past_32_bits():

@@ -168,6 +168,76 @@ def test_lstm_seq_wrapper_raises(bad, why):
     assert K.lstm_seq.launches == before
 
 
+def _largest_inside(what, H=None, Din=None):
+    """The widest input the launcher of ``what`` takes: Din at the given H
+    (``lstm_cell``, ``lstm_seq``) or H (``lstm_seq_bwd``)."""
+    n = 1
+    while True:
+        din, h = (Din, n + 1) if H is None else (n + 1, H)
+        if K.smem_bytes(what, din, h)[0] > K.MAX_SMEM:
+            return n
+        n += 1
+
+
+# the launchers' shared-memory ceilings (csrc/lstm_cell.cu): lstm_cell at
+# Din + H <= 7,264, lstm_seq at Din <= 19,254 for the paper's H = 50,
+# lstm_seq_bwd at H <= 5,808
+CEILINGS = {"lstm_cell": (_largest_inside("lstm_cell", H=50), 50),
+            "lstm_seq": (_largest_inside("lstm_seq", H=50), 50),
+            "lstm_seq_bwd": (0, _largest_inside("lstm_seq_bwd", Din=0))}
+
+
+def _meta_args(what, Din, H, dtype=torch.float32):
+    """Inputs of ``what`` on the meta device (shapes only, no memory)."""
+    T, B = 2, 3
+
+    def e(*shape, dt=dtype):
+        return torch.empty(*shape, dtype=dt, device="meta")
+    if what == "lstm_seq_bwd":
+        return (e(T, B, H), e(T, B, 4 * H, dt=torch.float32), e(T, B, H),
+                e(B, H), e(H, 4 * H))
+    x = e(T, B, Din) if what == "lstm_seq" else e(B, Din)
+    return x, e(B, H), e(B, H), e(Din + H, 4 * H), e(4 * H)
+
+
+def test_lstm_ceilings_are_the_launchers():
+    """The ceilings the wrappers compute are the launchers' own numbers."""
+    assert CEILINGS["lstm_cell"][0] + 50 == K.MAX_SMEM // 32 == 7264
+    assert CEILINGS["lstm_seq"][0] == 19254
+    assert CEILINGS["lstm_seq_bwd"][1] == 5808
+
+
+@pytest.mark.parametrize("what", list(CEILINGS))
+@pytest.mark.parametrize("past", [False, True], ids=["inside", "past"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_wrappers_refuse_past_the_shared_memory_ceiling(what, past,
+                                                            dtype):
+    """Just inside a launcher's ceiling every check passes up to the device
+    refusal; one past it, the wrapper refuses first, naming the bytes, the
+    formula and the limit (the card would answer CUDA error 1). Meta
+    tensors: no memory."""
+    Din, H = CEILINGS[what]
+    if past:
+        Din, H = (Din, H + 1) if what == "lstm_seq_bwd" else (Din + 1, H)
+    args = _meta_args(what, Din, H, dtype)
+    fn = {"lstm_cell": K._check, "lstm_seq": K._check,
+          "lstm_seq_bwd": K._check_bwd}[what]
+    kw = {"what": what} if what != "lstm_seq_bwd" else {}
+    need, formula = K.smem_bytes(what, Din, H)
+    if past:
+        assert need > K.MAX_SMEM
+        with pytest.raises(ValueError,
+                           match=f"{what} kernel: .*{need:,} bytes of shared "
+                                 f"memory .*over the {K.MAX_SMEM:,}"):
+            fn(*args, **kw)
+    else:
+        assert need <= K.MAX_SMEM
+        first = "dhs" if what == "lstm_seq_bwd" else "x"
+        with pytest.raises(ValueError, match=f"{first} is on meta, not a "
+                                             f"CUDA device"):
+            fn(*args, **kw)
+
+
 # ---------------------------------------------------------------------------
 # (b) _Seq's backpropagation through time
 # ---------------------------------------------------------------------------
