@@ -64,7 +64,7 @@ Phases, each printing its result; any failure exits non-zero:
    ``[4,1024,8,128]``, causal, in bf16 and fp32 with a near-uniform and a
    peaked softmax (the peaked fp32 case against an fp64 attention), timed
    in bf16 (the tensor-core kernel) against SDPA and in fp32 (the CUDA-core
-   kernel) against SDPA in fp32, and at hd 256, 576 and 1,024 in both
+   kernel) against SDPA in fp32, and at hd 192, 256, 576 and 1,024 in both
    dtypes against the plain version and SDPA (naming the backend SDPA
    picked) and the bound, bf16 also beside the CUDA-core kernel the tensor
    cores replaced there (its C function called in the same run; the new
@@ -137,16 +137,23 @@ Phases, each printing its result; any failure exits non-zero:
    backward kernels against the plain backward (both from the kernel
    forward's out and lse) over the JAX sweep x {causal, window 37, full} in
    fp32 (within 2e-5 of max |grad|) and bf16, the sweep at hd 128 in bf16
-   (within 2e-2), and its GQA shape at hd 80, 192 and 576 in both dtypes
-   (the CUDA-core backward), each call counted on its route, and one batch
-   entry of exactly 2^31 elements (window 256, both dtypes) on slices; the
-   CUDA-core backward timed at qwen's prefill shape at hd 192, 256 and 576
-   in both dtypes beside SDPA's forward + backward and its five-product
-   bound; the lse of every other forward route (hd 256 bf16 and fp32, 576
+   (within 2e-2), and its GQA shape at hd 80, 192, 256 and 576 in both
+   dtypes (bf16 on the tensor cores up to 256, hd 16, 32 and 80
+   zero-padded; the CUDA-core backward for fp32 and bf16 at 576), each call
+   counted on its route and as padded or not; the bf16 CUDA-core pair
+   through its C functions at hd 192 and 576; one batch entry of exactly
+   2^31 elements (window 256) on slices at hd 128 in both dtypes and at hd
+   256 in bf16; the backward timed at qwen's prefill shape at hd 192, 256
+   and 576 in both dtypes beside SDPA's forward + backward and its
+   five-product bound, the bf16 tensor-core route at 192 and 256 also
+   beside the plain backward and the CUDA-core pair it replaced (which
+   must be slower), two runs bit-equal, with ptxas's registers and
+   spills; the lse of every other forward route (hd 256 bf16 and fp32, 576
    bf16 and fp32, 1,024 bf16) against the plain lse; ``FlashAttention``
    (the kernel's forward writing lse, then the backward kernels) at
-   stablelm-1.6b's shape (B=1, S=4,096, 32 heads, hd 64) and
-   qwen1.5-110b's (S=1,024, 64 over 8 heads, hd 128), bf16, causal: the
+   stablelm-1.6b's shape (B=1, S=4,096, 32 heads, hd 64),
+   qwen1.5-110b's (S=1,024, 64 over 8 heads, hd 128) and
+   nemotron-4-340b's (S=4,096, 96 over 8 heads, hd 192), bf16, causal: the
    lse against the plain lse, dq/dk/dv against the plain forward and
    backward within 2e-2 of max |grad| beside the bf16 plain path's distance
    from an fp32 one, the backward kernels against the plain backward on
@@ -171,7 +178,18 @@ Phases, each printing its result; any failure exits non-zero:
    (``plain_kernels``), beside an fp32 plain step; a ``--ckpt`` run
    of the smoke config loading back bit for bit; the stablelm and qwen
    smoke configs' step gradients card vs CPU (fp32) and their exact
-   launch counts, the backward's on the CUDA-core route.
+   launch counts, the backward's on the CUDA-core route;
+10. one layer of nemotron-4-340b at its full width (d_model 18,432, 96 over
+   8 heads, hd 192, squared-ReLU d_ff 73,728; vocab cut to 4,096:
+   3,605,114,880 parameters, bf16, random from seed 0) through
+   ``run_arch``: SGD, 2 microbatches of 1 x 4,096 tokens, remat on, 2 steps
+   (the first a warm-up), every count set to 0 just before and read just
+   after: 4 flash and 4 flash backward launches a step, every backward
+   launch on the tensor-core route, none padded, no rmsnorm; seconds per
+   step, tokens/s and peak memory; a profiled step (the device time under
+   the flash backward's node, printed beside the card's name and power
+   limit); that step's loss and gradients against the same step with
+   ``ops.flash_attention_bwd`` patched to the plain backward.
 
 The line before the last is a JSON object of per-kernel numbers; the last is
 ``{"ok": true, "device": {...}}``. With no CUDA card, or outside a checkout
@@ -1101,7 +1119,7 @@ def reset_counts(K, T):
         fn.launches = 0
     for fn in (FA.flash_attention, FA.flash_attention_bwd):
         fn.route_launches = dict.fromkeys(fn.route_launches, 0)
-    FA.flash_attention.padded_launches = 0
+        fn.padded_launches = 0
     FA.flash_attention.lse_launches = 0
 
 
@@ -1714,8 +1732,9 @@ FLASH_HD_MORE = (192, 80)
 FLASH_HD_WIDE_MORE = (200, 256, 576, 1024)
 # ... and timed at qwen's prefill shape, bf16 beside the CUDA-core kernel
 # it replaced (its C function called in the same run), and held there at
-# the qwen gate with peaked (x2) inputs at 256 and 576 too
-FLASH_HD_TIMED = (256, 576, 1024)
+# the qwen gate with peaked (x2) inputs at 256 and 576 too; 192 is
+# nemotron-4-340b's width (flash_kernel_wgmma<192>)
+FLASH_HD_TIMED = (192, 256, 576, 1024)
 FLASH_HD_PEAKED = (256, 576)
 # one call of more than 2^31 elements (2^31 + 2^23 in q), one launch
 FLASH_SPLIT = (257, 1024, 64, 8, 128)
@@ -2124,7 +2143,7 @@ def cuda_core_bf16(torch, FA, q, k, v):
 
 
 def flash_wide_times(torch, FA, ref, B, S, H, Kv, hd):
-    """Per-call times at a head width above 192, both dtypes, beside the
+    """Per-call times at a head width of 192 or more, both dtypes, beside the
     plain version, SDPA in the same dtype (and the backend SDPA picked) and
     the bound; in bf16 (the tensor-core routes) also beside the CUDA-core
     kernel those replaced, its C function called here. Each held to its
@@ -2613,19 +2632,29 @@ TRAIN_LOSS_RTOL = 2e-2
 # products, which tests/test_torch_bwd_kernels.py models on the CPU against
 # JAX's _fa_bwd) at TRAIN_GRAD_TOL
 FLASH_BWD_TOL = {"float32": 2e-5, "bfloat16": TRAIN_GRAD_TOL}
-# widths the backward runs on the CUDA cores in both dtypes: hd 80 (the
-# forward pads it to 128), nemotron-4-340b's 192, and 576 (hd in 9 chunks of
-# 64, output in 9 column blocks)
-FLASH_BWD_WIDE = (80, 192, 576)
+# widths beside 64 and 128 the backward is held at, in both dtypes: hd 80
+# (bf16 zero-padded to 128 on the tensor cores), nemotron-4-340b's 192 and
+# 256 (bf16 on the tensor cores, dk/dv split over two warpgroups), 576 (bf16
+# above 256: the CUDA cores, hd in 9 chunks of 64, output in 9 column
+# blocks); fp32 on the CUDA cores at every width
+FLASH_BWD_WIDE = (80, 192, 256, 576)
+# widths the bf16 CUDA-core pair is still held at, its C functions called
+# directly: 192 (the tensor cores' now) and 576 (its own)
+FLASH_BWD_CC = (192, 576)
+# one batch entry of exactly 2^31 elements of q at hd 256 (the split dk/dv
+# kernel), window FLASH_ENTRY_WINDOW, bf16
+FLASH_BWD_ENTRY_WIDE = (1, 65536, 128, 16, 256)
 # the smoke configs' step, card against CPU, fp32: the same math summed in
 # other orders (cuBLAS, the kernels' trees)
 TRAIN_SMOKE_TOL = 1e-4
 TRAIN_SMOKE = dict(batch=4, seq=16, micro=2)
 # kernel-level shapes of the training path: stablelm-1.6b's attention (B=1
-# microbatch, S=4,096, MHA, hd 64) and qwen1.5-110b's (GQA 64/8, hd 128),
-# bf16, causal; RMSNorm at qwen's [4096, 8192]
+# microbatch, S=4,096, MHA, hd 64), qwen1.5-110b's (GQA 64/8, hd 128) and
+# nemotron-4-340b's (B=1, S=4,096, GQA 96/8, hd 192), bf16, causal; RMSNorm
+# at qwen's [4096, 8192]
 TRAIN_FLASH_SHAPES = {"stablelm-1.6b": (1, 4096, 32, 32, 64),
-                      "qwen1.5-110b": (1, 1024, 64, 8, 128)}
+                      "qwen1.5-110b": (1, 1024, 64, 8, 128),
+                      "nemotron-4-340b": (1, 4096, 96, 8, 192)}
 TRAIN_RMS_SHAPE = (4096, 8192)
 # the kernel's lse against the plain lse (fp32 scores of bf16 inputs, summed
 # in another order; the tensor-core kernel's ex2.approx and log2 in the log2
@@ -2672,11 +2701,12 @@ def rel_err(torch, got, want) -> float:
 def flash_bwd_sweep(torch, FA, ref):
     """The flash backward kernels against the plain backward, both from the
     kernel forward's out and lse: the JAX sweep x {causal, window 37, full}
-    in fp32 (CUDA cores) and bf16 (tensor cores at hd 64, CUDA cores at 16
-    and 32), again at hd 128 in bf16 (GQA and MQA included), and its GQA
-    shape at the widths no tensor-core backward is built for
-    (``FLASH_BWD_WIDE``, CUDA cores, both dtypes); each call counted on its
-    route. Returns the worst relative error by dtype."""
+    in fp32 (CUDA cores) and bf16 (tensor cores; hd 16 and 32 zero-padded to
+    64), again at hd 128 in bf16 (GQA and MQA included), and its GQA shape
+    at ``FLASH_BWD_WIDE`` in both dtypes (bf16 on the tensor cores up to
+    256, 80 padded to 128; the CUDA cores above, and fp32 everywhere); each
+    call counted on its route, and as padded where it ran at a wider
+    width. Returns the worst relative error by dtype."""
     from repro_torch.kernels import ops
     worst = {"float32": 0.0, "bfloat16": 0.0}
     cases = [(shape, dt) for shape in FLASH_SWEEP
@@ -2688,49 +2718,113 @@ def flash_bwd_sweep(torch, FA, ref):
     for (B, S, H, Kv, hd), dt in cases:
         dtype = getattr(torch, dt)
         path = FA.bwd_route(dtype, hd)
+        width = FA.bwd_head_dim(hd, dtype)
         for causal, window in FLASH_MASKS:
             q, k, v, do = (randn(torch, (B, S, n, hd), dtype, 300 + j)
                            for j, n in enumerate((H, Kv, Kv, H)))
             o, lse = FA.flash_attention(q, k, v, causal=causal,
                                         window=window, with_lse=True)
-            before = FA.flash_attention_bwd.route_launches[path]
+            before = (FA.flash_attention_bwd.route_launches[path],
+                      FA.flash_attention_bwd.padded_launches)
             got = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                          window=window)
             want = ref.flash_attention_bwd(q, k, v, o, lse, do,
                                            causal=causal, window=window,
                                            chunk=min(ops.KV_CHUNK, S))
             torch.cuda.synchronize()
-            n = FA.flash_attention_bwd.route_launches[path] - before
+            n = FA.flash_attention_bwd.route_launches[path] - before[0]
+            n_pad = FA.flash_attention_bwd.padded_launches - before[1]
             errs = [rel_err(torch, a, b) for a, b in zip(got, want)]
             ok = max(errs) <= FLASH_BWD_TOL[dt] and all(
-                a.dtype == dtype for a in got)
+                a.dtype == dtype and a.shape == t.shape
+                for a, t in zip(got, (q, k, v)))
             print(f"[train] flash_attention_bwd B={B} S={S} H={H} Kv={Kv} "
-                  f"hd={hd} {dt} causal={causal} window={window} ({path}, "
-                  f"{n} launches): max|kernel-plain| / max|grad| dq "
-                  f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} tol "
+                  f"hd={hd} {dt} causal={causal} window={window} ({path} at "
+                  f"hd {width}, {n} launches): max|kernel-plain| / max|grad| "
+                  f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} tol "
                   f"{FLASH_BWD_TOL[dt]} {'ok' if ok else 'FAIL'}")
             check(ok, f"flash_attention_bwd disagrees with its plain version "
                       f"at B={B} S={S} H={H} Kv={Kv} hd={hd} {dt} "
                       f"causal={causal} window={window}")
-            check(n == FA.BWD_LAUNCHES, f"flash_attention_bwd counted {n} "
-                                        f"launches on {path}")
+            check(n == FA.BWD_LAUNCHES and
+                  n_pad == (n if width != hd else 0),
+                  f"flash_attention_bwd counted {n} launches on {path}, "
+                  f"{n_pad} padded (hd {hd} runs at {width})")
             worst[dt] = max(worst[dt], max(errs))
     return worst
 
 
-def flash_bwd_entry(torch, FA, ref):
-    """The flash backward on one batch entry of exactly 2^31 elements
-    (FLASH_ENTRY, window 256, causal) in bf16 (tensor cores) and fp32 (CUDA
-    cores), one call each: dq of the first and last 1,024 rows and dk, dv of
-    the positions whose every pair lies in the same slices, against the
-    plain backward on slices of 1,024 + 256 positions (the kernel forward's
-    out and lse sliced). Returns the seconds of each call."""
+def cuda_core_bwd_bf16(torch, FA, q, k, v, o, lse, do, causal=True,
+                       window=0):
+    """The bf16 CUDA-core backward pair (``flash_bwd_dq_bf16_cc``, then
+    ``flash_bwd_dkdv_bf16_cc``), called through its C functions at q's
+    width, for comparison and timing beside the route that replaced it up
+    to hd 256. Returns (dq, dk, dv)."""
+    B, S, H, hd = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dsum = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    for fn, ptrs in zip(FA.build_bwd()[torch.bfloat16, "cuda_core"],
+                        ((q, k, v, o, do, lse, dsum, dq),
+                         (q, k, v, do, lse, dsum, dk, dv))):
+        err = fn(*(t.data_ptr() for t in ptrs), B, S, H, k.shape[2], hd,
+                 int(causal), window, 1.0 / math.sqrt(hd), stream)
+        check(err == 0, f"the bf16 CUDA-core backward pair failed to "
+                        f"launch: {err}")
+    return dq, dk, dv
+
+
+def flash_bwd_cc_gate(torch, FA, ref):
+    """The bf16 CUDA-core pair through its C functions at ``FLASH_BWD_CC``,
+    the sweep's GQA shape x the masks, against the plain backward from the
+    kernel forward's out and lse. Returns the worst relative error."""
     from repro_torch.kernels import ops
-    B, S, H, Kv, hd = FLASH_ENTRY
+    B, S, H, Kv = FLASH_SWEEP[1][:4]
+    worst = 0.0
+    for hd in FLASH_BWD_CC:
+        for causal, window in FLASH_MASKS:
+            q, k, v, do = (randn(torch, (B, S, n, hd), torch.bfloat16,
+                                 320 + j) for j, n in enumerate((H, Kv, Kv,
+                                                                 H)))
+            o, lse = FA.flash_attention(q, k, v, causal=causal,
+                                        window=window, with_lse=True)
+            got = cuda_core_bwd_bf16(torch, FA, q, k, v, o, lse, do, causal,
+                                     window)
+            want = ref.flash_attention_bwd(q, k, v, o, lse, do,
+                                           causal=causal, window=window,
+                                           chunk=min(ops.KV_CHUNK, S))
+            errs = [rel_err(torch, a, b) for a, b in zip(got, want)]
+            ok = max(errs) <= FLASH_BWD_TOL["bfloat16"]
+            print(f"[train] the bf16 CUDA-core backward pair (C functions) "
+                  f"B={B} S={S} H={H} Kv={Kv} hd={hd} causal={causal} "
+                  f"window={window}: max|pair-plain| / max|grad| dq "
+                  f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} tol "
+                  f"{FLASH_BWD_TOL['bfloat16']} {'ok' if ok else 'FAIL'}")
+            check(ok, f"the bf16 CUDA-core backward pair disagrees with the "
+                      f"plain backward at hd {hd} causal={causal} "
+                      f"window={window}")
+            worst = max(worst, max(errs))
+    return worst
+
+
+def flash_bwd_entry(torch, FA, ref):
+    """The flash backward on one batch entry of exactly 2^31 elements of q,
+    window 256, causal: at hd 128 (FLASH_ENTRY) in bf16 (tensor cores) and
+    fp32 (CUDA cores), and at hd 256 (FLASH_BWD_ENTRY_WIDE) in bf16 (the
+    split dk/dv kernel), one call each: dq of the first and last 1,024 rows
+    and dk, dv of the positions whose every pair lies in the same slices,
+    against the plain backward on slices of 1,024 + 256 positions (the
+    kernel forward's out and lse sliced). Returns the seconds of each
+    call."""
+    from repro_torch.kernels import ops
     w, rows = FLASH_ENTRY_WINDOW, 1024
     secs = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[-1]
+    for shape, dtype in ((FLASH_ENTRY, torch.bfloat16),
+                         (FLASH_ENTRY, torch.float32),
+                         (FLASH_BWD_ENTRY_WIDE, torch.bfloat16)):
+        B, S, H, Kv, hd = shape
+        dt = str(dtype).split(".")[-1]
+        name = f"hd{hd}/{dt}"
         q, k, v, do = (randn(torch, (B, S, n, hd), dtype, 400 + j, 0.5)
                        for j, n in enumerate((H, Kv, Kv, H)))
         o, lse = FA.flash_attention(q, k, v, window=w, with_lse=True)
@@ -2752,14 +2846,15 @@ def flash_bwd_entry(torch, FA, ref):
             got = (dq[:, lo:hi], dk[:, lo:hi], dv[:, lo:hi])
             errs = [rel_err(torch, g[:, r], p[:, r]) for g, p, r in zip(
                 got, want, (q_rows, kv_rows, kv_rows))]
-            ok = max(errs) <= FLASH_BWD_TOL[name]
+            ok = max(errs) <= FLASH_BWD_TOL[dt]
             print(f"[train] flash_attention_bwd on one entry of "
                   f"{q.numel():,} elements (B={B} S={S} H={H} Kv={Kv} "
-                  f"hd={hd}, window {w}) {name}: {n} launches, "
+                  f"hd={hd}, window {w}) {dt} "
+                  f"({FA.bwd_route(dtype, hd)}): {n} launches, "
                   f"{secs[name]:.3f} s; positions {lo}..{hi - 1} vs the "
                   f"plain backward on that slice: max|diff| / max|grad| dq "
                   f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} tol "
-                  f"{FLASH_BWD_TOL[name]} {'ok' if ok else 'FAIL'}")
+                  f"{FLASH_BWD_TOL[dt]} {'ok' if ok else 'FAIL'}")
             check(q.numel() == 2 ** 31 and n == FA.BWD_LAUNCHES and ok,
                   f"flash_attention_bwd on the 2^31-element entry, {name}, "
                   f"positions {lo}..{hi - 1}: {n} launches, errors {errs}")
@@ -2777,19 +2872,25 @@ def bwd_registers(FA, hd):
             if "wgmma" in name and f"Li{hd}>" in name}
 
 
-# widths the flash backward runs on its CUDA-core pair, timed at qwen's
-# prefill shape in both dtypes: nemotron-4-340b's 192, 256 and 576
+# widths the flash backward is timed at, qwen's prefill shape, both dtypes:
+# bf16 192 (nemotron-4-340b's) and 256 on the tensor cores beside the
+# CUDA-core pair they replaced; 576 (bf16) and every fp32 width on the pair
 FLASH_BWD_TIMED = (192, 256, 576)
 
 
-def flash_bwd_wide_times(torch, FA):
-    """The flash backward's CUDA-core pair at qwen's prefill shape (B=4,
-    S=1,024, 64 over 8 heads, causal) at FLASH_BWD_TIMED, both dtypes,
-    from the kernel forward's out and lse: its time beside SDPA's forward +
-    backward (timed only; the backend it picked named) and the five-product
-    bound. Its agreement with the plain backward at these widths is gated
-    in ``flash_bwd_sweep`` (FLASH_BWD_WIDE)."""
+def flash_bwd_wide_times(torch, FA, ref):
+    """The flash backward at qwen's prefill shape (B=4, S=1,024, 64 over 8
+    heads, causal) at FLASH_BWD_TIMED, both dtypes, from the kernel
+    forward's out and lse: its time beside SDPA's forward + backward (timed
+    only; the backend it picked named) and the five-product bound; on the
+    bf16 tensor-core route also beside the plain backward and the CUDA-core
+    pair it replaced (its C functions, in the same call), gated faster than
+    the pair, two runs gated bit for bit equal, with ptxas's registers and
+    spills of its kernels. Its agreement with the plain backward at these
+    widths is gated in ``flash_bwd_sweep`` (FLASH_BWD_WIDE) and at the
+    training shapes."""
     import torch.nn.functional as F
+    from repro_torch.kernels import ops
     B, S, H, Kv = SERVE["batch"], SERVE["prompt"], 64, 8
     out = {}
     for hd in FLASH_BWD_TIMED:
@@ -2799,13 +2900,15 @@ def flash_bwd_wide_times(torch, FA):
             q, k, v, do = (randn(torch, (B, S, n, hd), dtype, 400 + j, 0.5)
                            for j, n in enumerate((H, Kv, Kv, H)))
             o, lse = FA.flash_attention(q, k, v, with_lse=True)
+            tc = path == "wgmma"
+            reps, inner = (5, 3) if tc else (2, 1)
             before = FA.flash_attention_bwd.route_launches[path]
             ms = median_ms(lambda: FA.flash_attention_bwd(q, k, v, o, lse,
                                                           do),
-                           torch, reps=2, inner=1, warm=1)
+                           torch, reps=reps, inner=inner, warm=1)
             check(FA.flash_attention_bwd.route_launches[path] - before ==
-                  3 * FA.BWD_LAUNCHES, f"the hd {hd} {name} backward did "
-                                       f"not run on {path}")
+                  (reps * inner + 1) * FA.BWD_LAUNCHES,
+                  f"the hd {hd} {name} backward did not run on {path}")
             qt, kt, vt = (t.detach().clone().requires_grad_()
                           for t in (q, k, v))
 
@@ -2817,19 +2920,46 @@ def flash_bwd_wide_times(torch, FA):
 
             torch.use_deterministic_algorithms(False)
             try:
-                lib_ms = median_ms(sdpa_fb, torch, reps=2, inner=1, warm=1)
+                lib_ms = median_ms(sdpa_fb, torch, reps=reps, inner=inner,
+                                   warm=1)
                 backend = sdpa_backend(torch, sdpa(torch, q, k, v))
             finally:
                 torch.use_deterministic_algorithms(True)
             bound, by = flash_bwd_bound_ms(B, S, H, Kv, hd, q.element_size())
+            row = dict(ms=ms, bound_ms=bound, bound_by=by,
+                       sdpa_fwd_bwd_ms=lib_ms, sdpa_backend=backend,
+                       route=path)
+            more = ""
+            if tc:
+                first = FA.flash_attention_bwd(q, k, v, o, lse, do)
+                same = all(torch.equal(a, b) for a, b in zip(
+                    first, FA.flash_attention_bwd(q, k, v, o, lse, do)))
+                check(same, f"hd {hd}: two runs of the tensor-core backward "
+                            f"differ")
+                del first
+                cc_ms = median_ms(lambda: cuda_core_bwd_bf16(
+                    torch, FA, q, k, v, o, lse, do), torch, reps=2, inner=1,
+                    warm=1)
+                check(ms < cc_ms, f"hd {hd} bf16: the tensor-core backward "
+                                  f"({ms:.4f} ms) is not faster than the "
+                                  f"CUDA-core pair it replaced "
+                                  f"({cc_ms:.4f} ms)")
+                plain_ms = median_ms(lambda: ref.flash_attention_bwd(
+                    q, k, v, o, lse, do, chunk=ops.KV_CHUNK), torch, reps=2,
+                    inner=1, warm=1)
+                regs = bwd_registers(FA, hd)
+                row.update(cuda_core_ms=cc_ms, plain_ms=plain_ms,
+                           bit_equal=same, registers=regs)
+                more = (f"; plain backward {plain_ms:.3f} ms; the CUDA-core "
+                        f"pair it replaced {cc_ms:.3f} ms; "
+                        f"two runs bit-equal {same}; ptxas: " + "; ".join(
+                            f"{n} {r}" for n, r in regs.items()))
             print(f"[train] flash_attention_bwd time B={B} S={S} H={H} "
                   f"Kv={Kv} hd={hd} {name} causal ({path}, "
-                  f"{FA.BWD_LAUNCHES} launches): {ms:.3f} ms, bound "
+                  f"{FA.BWD_LAUNCHES} launches): {ms:.4f} ms, bound "
                   f"{bound:.4f} ms ({by}, {ms / bound:.1f}x); SDPA forward "
-                  f"+ backward ({backend}) {lib_ms:.3f} ms")
-            out[f"hd{hd}/{name}"] = dict(ms=ms, bound_ms=bound, bound_by=by,
-                                         sdpa_fwd_bwd_ms=lib_ms,
-                                         sdpa_backend=backend, route=path)
+                  f"+ backward ({backend}) {lib_ms:.3f} ms{more}")
+            out[f"hd{hd}/{name}"] = row
             del q, k, v, do, o, lse, qt, kt, vt
             torch.cuda.empty_cache()
     return out
@@ -2846,8 +2976,9 @@ def phase_train_kernels(torch, FA, RN, ref):
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     out = {"bwd_sweep_err": flash_bwd_sweep(torch, FA, ref),
+           "bwd_cc_err": flash_bwd_cc_gate(torch, FA, ref),
            "bwd_entry_s": flash_bwd_entry(torch, FA, ref),
-           "bwd_wide": flash_bwd_wide_times(torch, FA)}
+           "bwd_wide": flash_bwd_wide_times(torch, FA, ref)}
     for arch, (B, S, H, Kv, hd) in TRAIN_FLASH_SHAPES.items():
         q, k, v, do = (randn(torch, (B, S, n, hd), torch.bfloat16, 200 + j)
                        for j, n in enumerate((H, Kv, Kv, H)))
@@ -3244,6 +3375,144 @@ def phase_train(torch, K, T):
                 smoke=smoke)
 
 
+NEMOTRON_ARCH = "nemotron-4-340b"
+# the published width (d_model 18,432, 96 query heads over 8 kv heads, hd
+# 192, squared-ReLU d_ff 73,728, LayerNorm, partial RoPE, window 8,192)
+# cut in depth, 96 -> 1 layer (96 layers hold ~680 GB of bf16 weights), and
+# vocabulary, 256,000 -> 4,096 (the fp32 logits and unembedding of 256,000
+# would take most of the card beside one layer's 7.2 GB of weights, its
+# fp32 gradient accumulator and the update)
+NEMOTRON_CUTS = dict(n_layers=1, vocab=4096)
+NEMOTRON_PARAMS = 3_605_114_880
+# 2 microbatches of 1 x 4,096 tokens a step, remat on, SGD (no optimizer
+# state beside the weights); the first of NEMOTRON_STEPS is the warm-up
+NEMOTRON_TRAIN = dict(batch=2, seq=4096, micro=2, lr=1e-3, optimizer="sgd",
+                      seed=0)
+NEMOTRON_STEPS = 2
+
+
+def phase_train_nemotron(torch, K, T, smi):
+    """One layer of nemotron-4-340b at its full width through
+    ``launch/train.py::run_arch`` (``NEMOTRON_TRAIN``, every count set to 0
+    just before and read just after): every flash backward launch on
+    ``wgmma`` at hd 192, none on ``cuda_core``; then one profiled step's
+    gradients (the device time under the flash backward's node), gated
+    against the same step with ``ops.flash_attention_bwd`` patched to the
+    plain backward: every gradient leaf within TRAIN_GRAD_TOL of its max
+    |g|. Only that comparison tests the backward kernels; the loss (within
+    TRAIN_LOSS_RTOL) comes from the same forward kernels on the same params
+    and batch in both steps, so it agrees by construction and is a sanity
+    check of the patch alone."""
+    import dataclasses
+    from unittest import mock
+    import numpy as np
+    from repro_torch import tree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import steps as ST
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.launch import train as TR
+    from repro_torch.models import model as M
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.optim import make as make_opt
+
+    full = TR.arch_config(NEMOTRON_ARCH, full=True)
+    cfg = dataclasses.replace(full, **NEMOTRON_CUTS)
+    n_params = M.param_count(cfg)
+    check(n_params == NEMOTRON_PARAMS and cfg.hd == 192,
+          f"{n_params} parameters at hd {cfg.hd}, expected "
+          f"{NEMOTRON_PARAMS} at hd 192")
+    print(f"[nemotron] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads over {cfg.n_kv_heads} (hd {cfg.hd}), {cfg.mlp} d_ff "
+          f"{cfg.d_ff}, {cfg.norm}, window {cfg.sliding_window}; cut: "
+          f"n_layers {full.n_layers} -> {cfg.n_layers}, vocab {full.vocab} "
+          f"-> {cfg.vocab}; {n_params:,} parameters")
+    tr = NEMOTRON_TRAIN
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(K, T)
+    res = TR.run_arch(cfg, steps=NEMOTRON_STEPS, label="1 layer, full width",
+                      remat=True, device="cuda", **tr)
+    counts = dict(flash=FA.flash_attention.launches,
+                  flash_bwd=FA.flash_attention_bwd.launches,
+                  bwd_routes=dict(FA.flash_attention_bwd.route_launches),
+                  bwd_padded=FA.flash_attention_bwd.padded_launches,
+                  rmsnorm=RN.rmsnorm.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    layers, micro = cfg.n_layers, tr["micro"]
+    bwd_step = layers * micro * FA.BWD_LAUNCHES
+    fwd_step = 2 * layers * micro
+    want = dict(flash=fwd_step * NEMOTRON_STEPS,
+                flash_bwd=bwd_step * NEMOTRON_STEPS,
+                bwd_routes={"wgmma": bwd_step * NEMOTRON_STEPS,
+                            "cuda_core": 0},
+                bwd_padded=0, rmsnorm=0)
+    print(f"[nemotron] launches over {NEMOTRON_STEPS} steps {counts} "
+          f"(expected {want}); per step {res['launches']}")
+    check(counts == want, f"nemotron launches {counts}, expected {want}")
+    check(all(math.isfinite(x) for x in res["losses"]),
+          f"non-finite losses {res['losses']}")
+    tokens = tr["batch"] * tr["seq"]
+    steps_s, losses = res["step_s"], res["losses"]
+    step_s = steps_s[-1]
+    mflops = model_flops(n_params, tokens, layers, cfg.n_heads, cfg.hd,
+                         tr["seq"])
+    params = res["params"]
+    del res
+    torch.cuda.empty_cache()
+
+    shape = InputShape("train", tr["seq"], tr["batch"], "train")
+    batch = TR.sample_batch(np.random.RandomState(tr["seed"]),
+                            M.train_batch_spec(cfg, shape), cfg.vocab,
+                            "cuda")
+    grads_fn = ST.bind_train(cfg, Runtime(), make_opt(tr["optimizer"],
+                                                      tr["lr"]),
+                             shape, num_microbatches=micro)["grads"]
+    before = dict(FA.flash_attention_bwd.route_launches)
+    prof = train_profile(torch, lambda: grads_fn(params, batch))
+    prof_bwd = {r: FA.flash_attention_bwd.route_launches[r] - before[r]
+                for r in before}
+    check(prof_bwd == {"wgmma": bwd_step, "cuda_core": 0},
+          f"the profiled step's flash backward launches {prof_bwd}")
+    grads_k, mets_k = prof.pop("out")
+    bwd_launch_ms = prof["flash_bwd_ms"] / sum(prof_bwd.values())
+    with mock.patch.object(ops, "flash_attention_bwd",
+                           ref.flash_attention_bwd):
+        grads_p, mets_p = grads_fn(params, batch)
+    loss_k, loss_p = float(mets_k["loss"]), float(mets_p["loss"])
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    errs = [rel_err(torch, a, b) for a, b in zip(tree.leaves(grads_k),
+                                                 tree.leaves(grads_p))]
+    ok = max(errs) <= TRAIN_GRAD_TOL and loss_rel <= TRAIN_LOSS_RTOL
+    print(f"[nemotron] kernel backward vs the plain backward, the same step: "
+          f"loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3e}, tol "
+          f"{TRAIN_LOSS_RTOL}); worst of {len(errs)} gradient leaves "
+          f"max|diff| / max|g| {max(errs):.3e} (tol {TRAIN_GRAD_TOL}) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "the nemotron step through the backward kernels disagrees "
+              "with the plain backward's")
+    del grads_k, grads_p, params, batch
+    torch.cuda.empty_cache()
+    print(f"[nemotron] {smi}: {cfg.name} 1 layer full width, {tokens} "
+          f"tokens a step in {micro} microbatches, SGD, remat: s per step "
+          f"{', '.join(f'{t:.3f}' for t in steps_s)} (first: warm-up; "
+          f"losses {[round(x, 4) for x in losses]}); {tokens / step_s:.0f} "
+          f"tokens/s, "
+          f"{mflops / step_s / 1e12:.1f} TFLOP/s of model FLOPs; peak memory "
+          f"{peak_gb:.2f} GB; the flash backward's node "
+          f"{prof['flash_bwd_ms']:.3f} ms of device time over "
+          f"{sum(prof_bwd.values())} launches, {bwd_launch_ms:.4f} ms a "
+          f"launch")
+    return dict(step_s=step_s, steps_s=steps_s, tokens_s=tokens / step_s,
+                model_tflop_s=mflops / step_s / 1e12, peak_gb=peak_gb,
+                counts=counts,
+                launches_per_step=counts["flash_bwd"] // NEMOTRON_STEPS,
+                profile=prof, bwd_device_ms_per_launch=bwd_launch_ms,
+                grad_err=max(errs), loss_rel=loss_rel, n_params=n_params,
+                cuts=NEMOTRON_CUTS)
+
+
 def phase_train_smoke(torch, TR, FA, RN):
     """The smoke configs (fp32) on the card: a ``--ckpt`` run through
     ``run_arch`` whose saved state loads back bit for bit; each config's
@@ -3381,6 +3650,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_kern = phase_train_kernels(torch, FA, RN, ref)
     train = phase_train(torch, K, T)
+    nemotron = phase_train_nemotron(torch, K, T, smi)
 
     layer0, seq0 = rows[0], seq_rows[0]
     # a map's forward: one sequence launch per layer
@@ -3516,11 +3786,17 @@ def main() -> int:
         "launches_per_step": train["counts"]["flash_bwd"] // TRAIN_STEPS,
         "device_ms_per_step": train["profile"]["flash_bwd_ms"],
         "sweep_err": train_kern["bwd_sweep_err"],
+        "cuda_core_pair_err": train_kern["bwd_cc_err"],
         "wide": train_kern["bwd_wide"],
         "entry_2_31_s": train_kern["bwd_entry_s"],
-        "qwen": {k: train_kern["qwen1.5-110b"][k] for k in (
+        **{key: {k: train_kern[arch][k] for k in (
             "shape", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "bwd_err",
-            "sdpa_fwd_bwd_ms", "fwd_bwd_ms")},
+            "sdpa_fwd_bwd_ms", "fwd_bwd_ms", "bwd_registers")}
+           for key, arch in (("qwen", "qwen1.5-110b"),
+                             ("nemotron", NEMOTRON_ARCH))},
+        "nemotron_step": {k: nemotron[k] for k in (
+            "launches_per_step", "counts", "bwd_device_ms_per_launch",
+            "step_s", "grad_err", "loss_rel", "peak_gb")},
         "hgmma_in_sass": hgmma[FA.BWD_SOURCE.name]})
     serve_line = {k: served[k] for k in ("prefill_ms", "decode_ms", "tok_s",
                                          "peak_gb", "logit_err")}
@@ -3529,7 +3805,8 @@ def main() -> int:
     train_line = {k: v for k, v in train.items() if k != "counts"}
     print(json.dumps({"s_per_version": per_version,
                       "wire_bytes": wire_bytes, "serve": serve_line,
-                      "gateway": gw, "train": train_line}))
+                      "gateway": gw, "train": train_line,
+                      "train_nemotron": nemotron}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

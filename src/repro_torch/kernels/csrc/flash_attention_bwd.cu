@@ -1,10 +1,12 @@
 // Flash attention backward (GQA, causal and/or sliding window) for Hopper
 // (sm_90a), bound to Python with ctypes. Two routes, each two launches:
-// bfloat16 at head widths 64 and 128 (the dense training configs' widths)
-// runs on the tensor cores (flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma);
-// float32 at every width, and bfloat16 at any other width, runs on the CUDA
-// cores with fp32 products (flash_bwd_dq_cc, flash_bwd_dkdv_cc; TF32 would
-// break the fp32 tolerances), which take any hd at run time.
+// bfloat16 at head widths 64, 128, 192 and 256 runs on the tensor cores
+// (flash_bwd_dq_wgmma, then flash_bwd_dkdv_wgmma at 64 and 128 or
+// flash_bwd_dkdv_wgmma_split at 192 and 256; the wrapper zero-pads any
+// width up to 256 to the next of these); float32 at every width, and
+// bfloat16 above 256, runs on the CUDA cores with fp32 products
+// (flash_bwd_dq_cc, flash_bwd_dkdv_cc; TF32 would break the fp32
+// tolerances), which take any hd at run time.
 //
 // Replaces the backward of the JAX package's flash attention custom VJP,
 // src/repro/models/layers.py:201 _fa_bwd (jnp; the JAX package has no
@@ -61,6 +63,21 @@
 // memory, MN-major. Blocks start with the heaviest causal tiles. P and dS
 // in bf16 (2^-9 relative each) keep dq/dk/dv within 2e-2 of max |grad|
 // (tests/test_torch_bwd_kernels.py models this rounding on the CPU).
+//
+// At hd 192 and 256 the dq kernel is the same template (96 / 128
+// accumulators beside S and dP: 160 / 192 registers of the 255 a thread
+// of a 128-thread block may hold). One warpgroup cannot hold dk and dv
+// there (96 + 96 or 128 + 128 accumulators beside S^T and dP^T), so
+// flash_bwd_dkdv_wgmma_split runs two warpgroups a block (256 threads:
+// ptxas still budgets 255 registers a thread; no producer warpgroup, whose
+// third warpgroup would cut that to 168) over the same k and v tiles and
+// one ring of q and dout tiles: warpgroup 0 computes S^T, P^T and dv +=
+// P^T dout; warpgroup 1 computes S^T again, dP^T, dS^T and dk += dS^T q.
+// A stage is freed by a barrier of both warpgroups. That is eight
+// products a call (S^T recomputed once more) against seven at 64 and 128,
+// the same bits of P^T and dS^T as the one-warpgroup kernel (the same
+// wgmma on the same tiles), and each output element still summed by one
+// thread in a fixed order.
 //
 // The CUDA-core kernels: 256 threads a block, 64 rows a block, 4 threads a
 // row, the other side in tiles of 32 positions (8 columns a thread); scores
@@ -478,7 +495,7 @@ int launch_dkdv(const void* q, const void* k, const void* v,
 }  // namespace cc
 
 // ---------------------------------------------------------------------------
-// bf16 at hd 64 and 128: tensor cores (wgmma), TMA
+// bf16 at hd 64, 128, 192 and 256: tensor cores (wgmma), TMA
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -552,12 +569,12 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
     tma_load(dst + c * kChunkBytes, map, bar, col + 64 * c, pos, b);
 }
 
-// Rows of this thread in a 64-row accumulator (a, and b = a + 8), and the
-// first of its columns in each n8 block (8 j + cq, 8 j + cq + 1).
+// Rows of this thread in its warpgroup's 64-row accumulator (a, and b = a
+// + 8), and the first of its columns in each n8 block (8 j + cq, + 1).
 struct Frag {
   int row_a, cq;
   __device__ __forceinline__ Frag() {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     row_a = 16 * warp + lane / 4;
     cq = 2 * (lane % 4);
   }
@@ -732,9 +749,85 @@ __global__ void __launch_bounds__(kThreads, 1)
                  static_cast<int64_t>(H) * HD, q0, seq, fr);
 }
 
-// Launch 2: dk and dv. Block: (kv tile, batch, kv head), kv tile 0 (seen by
-// every q row when causal) first; own tiles k and v, the ring q and dout of
-// each (query head of the group, q tile) in turn.
+// The kv side of a dk/dv block: its kv tile, (batch, kv head), and the
+// iterations over (query head of the group, q tile) that its rows see.
+// Blocks run kv tile 0 (seen by every q row when causal) first; iteration i
+// reads query head kvh * G + i / n_q at q tile qt_begin + i % n_q.
+struct KvBlock {
+  int b, kvh, G, H, seq, k0, qt_begin, n_q, causal, window;
+
+  __device__ __forceinline__ KvBlock(int seq_, int H_, int Kv, int B,
+                                     int causal_, int window_)
+      : H(H_), seq(seq_), causal(causal_), window(window_) {
+    const int kt = blockIdx.x / (B * Kv);
+    b = (blockIdx.x % (B * Kv)) / Kv;
+    kvh = blockIdx.x % Kv;
+    G = H / Kv;
+    k0 = kt * kTile;
+    const int2 span = q_span(k0, min(k0 + kTile, seq) - 1, seq, causal,
+                             window);
+    qt_begin = span.x / kTile;
+    n_q = (span.y + kTile - 1) / kTile - qt_begin;
+  }
+  __device__ __forceinline__ int iterations() const { return G * n_q; }
+  __device__ __forceinline__ int q0(int i) const {
+    return (qt_begin + i % n_q) * kTile;
+  }
+  // the q-side vector entry t (0..127) of iteration i: lse * log2(e) of
+  // position q0(i) + t for t < 64, D of position q0(i) + t - 64 above
+  __device__ __forceinline__ float vec(const float* __restrict__ lse,
+                                       const float* __restrict__ dsum,
+                                       int i, int t) const {
+    const int pos = q0(i) + t % kTile;
+    if (pos >= seq) return 0.0f;
+    const int64_t at =
+        (static_cast<int64_t>(b) * H + kvh * G + i / n_q) * seq + pos;
+    return t < kTile ? lse[at] * kLog2e : dsum[at];
+  }
+  // whether no pair of q tile q0_ and this kv tile is masked
+  __device__ __forceinline__ bool whole(int q0_) const {
+    return q0_ + kTile <= seq && k0 + kTile <= seq &&
+           (!causal || k0 + kTile - 1 <= q0_) &&
+           (window <= 0 || k0 > q0_ + kTile - 1 - window);
+  }
+  // iteration i's q and dout tiles into the ring stage at dst, on bar
+  template <int HD>
+  __device__ __forceinline__ void load_stage(int i, uint32_t dst,
+                                             const CUtensorMap* qmap,
+                                             const CUtensorMap* dmap,
+                                             uint32_t bar) const {
+    constexpr int kTileBytes = Cfg<HD>::kTileBytes;
+    const int col = (kvh * G + i / n_q) * HD;
+    mbar_expect_tx(bar, 2 * kTileBytes);
+    load_tile<HD>(dst, qmap, bar, col, q0(i), b);
+    load_tile<HD>(dst + kTileBytes, dmap, bar, col, q0(i), b);
+  }
+};
+
+// The start of a dk/dv block: its barriers, then thread 0's TMA of its own
+// k and v tiles and of ring stage 0, and threads 0..127's stage 0 lse and D.
+template <int HD>
+__device__ __forceinline__ void dkdv_start(
+    const KvBlock& kb, uint32_t base, float* vec, const CUtensorMap* qmap,
+    const CUtensorMap* dmap, const CUtensorMap* kmap, const CUtensorMap* vmap,
+    const float* __restrict__ lse, const float* __restrict__ dsum) {
+  using C = Cfg<HD>;
+  const uint32_t full = base + C::kBar, own = full + 16;
+  bar_init(full);
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(own, 2 * C::kTileBytes);
+    load_tile<HD>(base, kmap, own, kb.kvh * HD, kb.k0, kb.b);
+    load_tile<HD>(base + C::kTileBytes, vmap, own, kb.kvh * HD, kb.k0, kb.b);
+    kb.load_stage<HD>(0, base + C::kStage0, qmap, dmap, full);
+  }
+  if (threadIdx.x < kThreads) vec[threadIdx.x] = kb.vec(lse, dsum, 0,
+                                                        threadIdx.x);
+  __syncthreads();
+  mbar_wait(own, 0);
+}
+
+// Launch 2 at hd 64 and 128: dk and dv. Block: (kv tile, batch, kv head)
+// (KvBlock); own tiles k and v, the ring q and dout of each iteration.
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
@@ -752,64 +845,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t base = (raw + 1023u) & ~1023u;
   float* vec = reinterpret_cast<float*>(smem_raw + (base - raw) + C::kVec);
   const uint32_t sK = base, sV = base + C::kTileBytes;
-  const uint32_t full = base + C::kBar, own = full + 16;
-
-  const int kt = blockIdx.x / (B * Kv);
-  const int b = (blockIdx.x % (B * Kv)) / Kv, kvh = blockIdx.x % Kv;
-  const int G = H / Kv;
-  const int k0 = kt * kTile;
-  const int2 span = q_span(k0, min(k0 + kTile, seq) - 1, seq, causal,
-                           window);
-  const int qt_begin = span.x / kTile;
-  const int n_q = (span.y + kTile - 1) / kTile - qt_begin;
-  const int n_it = G * n_q;
-
-  // iteration i: query head kvh * G + i / n_q, q tile qt_begin + i % n_q;
-  // this thread's q-side vector entry of it (lse * log2(e) for threads
-  // 0..63, D for 64..127)
-  auto vec_of = [&](int i) {
-    const int h = kvh * G + i / n_q;
-    const int pos = (qt_begin + i % n_q) * kTile + threadIdx.x % kTile;
-    const int64_t at = (static_cast<int64_t>(b) * H + h) * seq + pos;
-    if (pos >= seq) return 0.0f;
-    return threadIdx.x < kTile ? lse[at] * kLog2e : dsum[at];
-  };
-  bar_init(full);
-  if (threadIdx.x == 0) {
-    mbar_expect_tx(own, 2 * C::kTileBytes);
-    load_tile<HD>(sK, &kmap, own, kvh * HD, k0, b);
-    load_tile<HD>(sV, &vmap, own, kvh * HD, k0, b);
-    mbar_expect_tx(full, 2 * C::kTileBytes);
-    load_tile<HD>(base + C::kStage0, &qmap, full, kvh * G * HD,
-                  qt_begin * kTile, b);
-    load_tile<HD>(base + C::kStage0 + C::kTileBytes, &dmap, full,
-                  kvh * G * HD, qt_begin * kTile, b);
-  }
-  vec[threadIdx.x] = vec_of(0);
-  __syncthreads();
+  const uint32_t full = base + C::kBar;
+  const KvBlock kb(seq, H, Kv, B, causal, window);
+  const int n_it = kb.iterations();
   const Frag fr;
   const float c2 = scale * kLog2e;
 
   float ak[HD / 2], av[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) ak[i] = av[i] = 0.0f;
-  mbar_wait(own, 0);
+  dkdv_start<HD>(kb, base, vec, &qmap, &dmap, &kmap, &vmap, lse, dsum);
   for (int i = 0; i < n_it; ++i) {
     const int s = i & 1;
     const uint32_t sQ = base + C::kStage0 + s * 2 * C::kTileBytes;
     const uint32_t sDo = sQ + C::kTileBytes;
     float next = 0.0f;
     if (i + 1 < n_it) {
-      if (threadIdx.x == 0) {
-        const uint32_t nQ = base + C::kStage0 + (s ^ 1) * 2 * C::kTileBytes;
-        const int col = (kvh * G + (i + 1) / n_q) * HD;
-        const int pos = (qt_begin + (i + 1) % n_q) * kTile;
-        mbar_expect_tx(full + 8 * (s ^ 1), 2 * C::kTileBytes);
-        load_tile<HD>(nQ, &qmap, full + 8 * (s ^ 1), col, pos, b);
-        load_tile<HD>(nQ + C::kTileBytes, &dmap, full + 8 * (s ^ 1), col, pos,
-                      b);
-      }
-      next = vec_of(i + 1);
+      if (threadIdx.x == 0)
+        kb.load_stage<HD>(i + 1, base + C::kStage0 + (s ^ 1) * 2 *
+                                     C::kTileBytes,
+                          &qmap, &dmap, full + 8 * (s ^ 1));
+      next = kb.vec(lse, dsum, i + 1, threadIdx.x);
     }
     mbar_wait(full + 8 * s, (i >> 1) & 1);
     float st[32], dpt[32];
@@ -822,10 +878,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     pin(dpt);
     const float* sl = vec + s * 2 * kTile;     // this stage's lse * log2(e)
     const float* sd = sl + kTile;              // and D
-    const int q0 = (qt_begin + i % n_q) * kTile;
-    const bool whole = q0 + kTile <= seq && k0 + kTile <= seq &&
-                       (!causal || k0 + kTile - 1 <= q0) &&
-                       (window <= 0 || k0 > q0 + kTile - 1 - window);
+    const int q0 = kb.q0(i);
+    const bool whole = kb.whole(q0);
     // P^T and dS^T in bf16, in the A-register layout (as in launch 1),
     // packed as they are made so the fp32 tiles die early
     uint32_t pf[kTile / 4], dsf[kTile / 4];
@@ -835,8 +889,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int idx = 4 * j + u, col = 8 * j + fr.cq + u % 2;
-        const bool ok = whole || sees(q0 + col, k0 + fr.row_a + 8 * (u / 2),
-                                      seq, causal, window);
+        const bool ok = whole || sees(q0 + col, kb.k0 + fr.row_a +
+                                      8 * (u / 2), seq, causal, window);
         p[u] = ok ? ex2(fmaf(st[idx], c2, -sl[col])) : 0.0f;
         d[u] = p[u] * (dpt[idx] - sd[col]) * scale;
       }
@@ -857,10 +911,156 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (i + 1 < n_it) vec[(s ^ 1) * 2 * kTile + threadIdx.x] = next;
     __syncthreads();                 // stage s is free for iteration i + 2
   }
-  const int64_t kv_base = static_cast<int64_t>(b) * seq * Kv * HD +
-                          static_cast<int64_t>(kvh) * HD;
-  store_rows<HD>(ak, dk, kv_base, static_cast<int64_t>(Kv) * HD, k0, seq, fr);
-  store_rows<HD>(av, dv, kv_base, static_cast<int64_t>(Kv) * HD, k0, seq, fr);
+  const int64_t kv_base = static_cast<int64_t>(kb.b) * seq * Kv * HD +
+                          static_cast<int64_t>(kb.kvh) * HD;
+  store_rows<HD>(ak, dk, kv_base, static_cast<int64_t>(Kv) * HD, kb.k0, seq,
+                 fr);
+  store_rows<HD>(av, dv, kv_base, static_cast<int64_t>(Kv) * HD, kb.k0, seq,
+                 fr);
+}
+
+// Barrier 1 over both warpgroups of a flash_bwd_dkdv_wgmma_split block
+// (each warpgroup reaches it from its own loop).
+__device__ __forceinline__ void both_warpgroups() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// One warpgroup's loop of flash_bwd_dkdv_wgmma_split over the block's
+// iterations, summing into acc: ROLE 0 S^T = k q^T, P^T and dv += P^T
+// dout; ROLE 1 S^T, dP^T = v dout^T, dS^T and dk += dS^T q. Warpgroup 0
+// also keeps the ring: its thread 0 loads stage i + 1 by TMA, and its
+// threads the next stage's lse and D into vec.
+template <int HD, int ROLE>
+__device__ __forceinline__ void dkdv_split_loop(
+    float (&acc)[HD / 2], const KvBlock& kb, uint32_t base, float* vec,
+    const CUtensorMap* qmap, const CUtensorMap* dmap,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    float scale) {
+  using C = Cfg<HD>;
+  const uint32_t sK = base, sV = base + C::kTileBytes;
+  const uint32_t full = base + C::kBar;
+  const int tid = threadIdx.x % kThreads;
+  const Frag fr;
+  const float c2 = scale * kLog2e;
+  const int n_it = kb.iterations();
+  for (int i = 0; i < n_it; ++i) {
+    const int s = i & 1;
+    const uint32_t sQ = base + C::kStage0 + s * 2 * C::kTileBytes;
+    const uint32_t sDo = sQ + C::kTileBytes;
+    float next = 0.0f;
+    if (ROLE == 0 && i + 1 < n_it) {
+      if (tid == 0)
+        kb.load_stage<HD>(i + 1, base + C::kStage0 + (s ^ 1) * 2 *
+                                     C::kTileBytes,
+                          qmap, dmap, full + 8 * (s ^ 1));
+      next = kb.vec(lse, dsum, i + 1, tid);
+    }
+    mbar_wait(full + 8 * s, (i >> 1) & 1);
+    const float* sl = vec + s * 2 * kTile;     // this stage's lse * log2(e)
+    const float* sd = sl + kTile;              // and D
+    const int q0 = kb.q0(i);
+    const bool whole = kb.whole(q0);
+    float st[32];
+    // P^T (ROLE 0) or dS^T (ROLE 1) in bf16, in the A-register layout
+    uint32_t a[kTile / 4];
+    if constexpr (ROLE == 0) {
+      wgmma_fence();
+      issue_ss<HD>(st, sK, sQ);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(st);
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+        float p[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int col = 8 * j + fr.cq + u % 2;
+          const bool ok = whole || sees(q0 + col, kb.k0 + fr.row_a +
+                                        8 * (u / 2), kb.seq, kb.causal,
+                                        kb.window);
+          p[u] = ok ? ex2(fmaf(st[4 * j + u], c2, -sl[col])) : 0.0f;
+        }
+        a[2 * j] = bf16x2(p[0], p[1]);
+        a[2 * j + 1] = bf16x2(p[2], p[3]);
+      }
+      wgmma_fence();
+      issue_rs<HD>(acc, a, sDo);
+    } else {
+      float dpt[32];
+      wgmma_fence();
+      issue_ss<HD>(st, sK, sQ);
+      issue_ss<HD>(dpt, sV, sDo);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(st);
+      pin(dpt);
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+        float d[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int idx = 4 * j + u, col = 8 * j + fr.cq + u % 2;
+          const bool ok = whole || sees(q0 + col, kb.k0 + fr.row_a +
+                                        8 * (u / 2), kb.seq, kb.causal,
+                                        kb.window);
+          const float p = ok ? ex2(fmaf(st[idx], c2, -sl[col])) : 0.0f;
+          d[u] = p * (dpt[idx] - sd[col]) * scale;
+        }
+        a[2 * j] = bf16x2(d[0], d[1]);
+        a[2 * j + 1] = bf16x2(d[2], d[3]);
+      }
+      wgmma_fence();
+      issue_rs<HD>(acc, a, sQ);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    pin(a);
+    if (ROLE == 0 && i + 1 < n_it) vec[(s ^ 1) * 2 * kTile + tid] = next;
+    both_warpgroups();               // stage s is free for iteration i + 2
+  }
+}
+
+// Launch 2 at hd 192 and 256: dk and dv, split between two warpgroups
+// (dkdv_split_loop). Block: (kv tile, batch, kv head) as in
+// flash_bwd_dkdv_wgmma, with its shared memory layout.
+template <int HD>
+__global__ void __launch_bounds__(2 * kThreads, 1)
+    flash_bwd_dkdv_wgmma_split(const __grid_constant__ CUtensorMap qmap,
+                               const __grid_constant__ CUtensorMap dmap,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap vmap,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ dsum,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, int seq,
+                               int H, int Kv, int B, int causal, int window,
+                               float scale) {
+  using C = Cfg<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* vec = reinterpret_cast<float*>(smem_raw + (base - raw) + C::kVec);
+  const KvBlock kb(seq, H, Kv, B, causal, window);
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  dkdv_start<HD>(kb, base, vec, &qmap, &dmap, &kmap, &vmap, lse, dsum);
+  const int64_t kv_base = static_cast<int64_t>(kb.b) * seq * Kv * HD +
+                          static_cast<int64_t>(kb.kvh) * HD;
+  const Frag fr;
+  if (threadIdx.x < kThreads) {
+    dkdv_split_loop<HD, 0>(acc, kb, base, vec, &qmap, &dmap, lse, dsum,
+                           scale);
+    store_rows<HD>(acc, dv, kv_base, static_cast<int64_t>(Kv) * HD, kb.k0,
+                   seq, fr);
+  } else {
+    dkdv_split_loop<HD, 1>(acc, kb, base, vec, &qmap, &dmap, lse, dsum,
+                           scale);
+    store_rows<HD>(acc, dk, kv_base, static_cast<int64_t>(Kv) * HD, kb.k0,
+                   seq, fr);
+  }
 }
 
 // A [B][S][heads * HD] bf16 view, boxes of 64 positions x 64 columns,
@@ -922,21 +1122,28 @@ int launch_dq_hd(const Maps& m, const void* o, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// hd 64 and 128 on flash_bwd_dkdv_wgmma, 192 and 256 on its two-warpgroup
+// split
 template <int HD>
 int launch_dkdv_hd(const Maps& m, const float* lse, const float* dsum,
                    void* dk, void* dv, int B, int seq, int H, int Kv,
                    int causal, int window, float scale, cudaStream_t st) {
   using C = Cfg<HD>;
+  constexpr bool kSplit = HD > 128;
   const int64_t n_tiles = (static_cast<int64_t>(seq) + kTile - 1) / kTile;
   const int64_t blocks = n_tiles * Kv * B;
   if (blocks >= (int64_t{1} << 31))
     return static_cast<int>(cudaErrorInvalidValue);
+  decltype(&flash_bwd_dkdv_wgmma<64>) kernel;
+  if constexpr (kSplit)
+    kernel = flash_bwd_dkdv_wgmma_split<HD>;
+  else
+    kernel = flash_bwd_dkdv_wgmma<HD>;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkdv_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dkdv_wgmma<HD><<<static_cast<unsigned>(blocks), kThreads,
-                             C::kSmem, st>>>(
+  kernel<<<static_cast<unsigned>(blocks), kSplit ? 2 * kThreads : kThreads,
+           C::kSmem, st>>>(
       m.q, m.d, m.k, m.v, lse, dsum, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), seq, H, Kv, B, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
@@ -956,8 +1163,8 @@ extern "C" {
 // == 0; window >= 0 (0: no window); scale = 1 / sqrt(hd). The _dq launch
 // writes dq and dsum (D); the _dkdv launch, on the same stream after it,
 // reads dsum and writes dk and dv. The CUDA-core functions (_f32,
-// _bf16_cc) take any hd; the tensor-core ones (_bf16) hd 64 or 128 and
-// 16-byte aligned q, k, v, out and dout.
+// _bf16_cc) take any hd; the tensor-core ones (_bf16) hd 64, 128, 192 or
+// 256 and 16-byte aligned q, k, v, out and dout.
 int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const void* lse,
                      void* dsum, void* dq, int B, int seq, int H, int Kv,
@@ -1022,6 +1229,12 @@ int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
     case 128:
       return tc::launch_dq_hd<128>(m, o, dout, l, ds, dq, B, seq, H, Kv,
                                    causal, window, scale, st);
+    case 192:
+      return tc::launch_dq_hd<192>(m, o, dout, l, ds, dq, B, seq, H, Kv,
+                                   causal, window, scale, st);
+    case 256:
+      return tc::launch_dq_hd<256>(m, o, dout, l, ds, dq, B, seq, H, Kv,
+                                   causal, window, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1045,6 +1258,12 @@ int flash_bwd_dkdv_bf16(const void* q, const void* k, const void* v,
                                     window, scale, st);
     case 128:
       return tc::launch_dkdv_hd<128>(m, l, ds, dk, dv, B, seq, H, Kv, causal,
+                                     window, scale, st);
+    case 192:
+      return tc::launch_dkdv_hd<192>(m, l, ds, dk, dv, B, seq, H, Kv, causal,
+                                     window, scale, st);
+    case 256:
+      return tc::launch_dkdv_hd<256>(m, l, ds, dk, dv, B, seq, H, Kv, causal,
                                      window, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

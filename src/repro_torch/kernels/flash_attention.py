@@ -22,7 +22,7 @@ in chunks (``hd_chunked``). bfloat16 whose kv head holds 2^31 - 256 folded
 rows or more takes the CUDA-core kernels too (the tensor-core kernels keep
 rows in 32 bits). The kernels are built for the head widths ``HEAD_DIMS``
 up to 256; a width between two of them is zero-padded to the next, and a
-bfloat16 width above 256 to the next multiple of 64 (``_padded``). Every
+bfloat16 width above 256 to the next multiple of 64 (``_pad_call``). Every
 element offset is 64-bit, so one batch entry may hold 2^31 elements or more; a
 batch is split into launches only past the grid's 65,535 entries
 (``_batch_chunks``). ``flash_attention.launches`` counts the launches this
@@ -36,10 +36,13 @@ can show that its path went through the kernel it expects.
 from q, k, v, the forward's out and lse and the cotangent dout it gives dq,
 dk and dv in two launches, dq (which also writes D = rowsum(dout * out))
 then dk and dv, with no atomics. ``bwd_route`` picks the kernels by dtype
-and head width: bfloat16 at hd 64 and 128 on the tensor cores (``wgmma``),
-anything else on the CUDA cores, which take any width.
-``flash_attention_bwd.launches`` counts its kernel launches (two a call) and
-``flash_attention_bwd.route_launches`` the same by route.
+and head width: bfloat16 up to hd 256 on the tensor cores (``wgmma``,
+built for the widths ``BWD_WGMMA_DIMS``; a width between two of them is
+zero-padded to the next, ``_pad_call``), float32 at every width and
+bfloat16 above 256 on the CUDA cores, which take any width.
+``flash_attention_bwd.launches`` counts its kernel launches (two a call),
+``flash_attention_bwd.route_launches`` the same by route and
+``flash_attention_bwd.padded_launches`` those on zero-padded inputs.
 """
 from __future__ import annotations
 
@@ -86,7 +89,7 @@ _BWD_FNS = {(torch.float32, "cuda_core"): ("flash_bwd_dq_f32",
                                             "flash_bwd_dkdv_bf16_cc"),
             (torch.bfloat16, "wgmma"): ("flash_bwd_dq_bf16",
                                         "flash_bwd_dkdv_bf16")}
-BWD_WGMMA_DIMS = (64, 128)         # the tensor-core backward's widths
+BWD_WGMMA_DIMS = (64, 128, 192, 256)   # the tensor-core backward's widths
 BWD_LAUNCHES = 2                   # kernel launches a backward call
 
 
@@ -197,19 +200,23 @@ def _batch_chunks(B):
     return list(zip(bounds[:-1], bounds[1:]))
 
 
-def _padded(attend, q, k, v, causal, window):
-    """``attend(q, k, v, causal, window, scale)`` on q, k and v zero-padded
-    along hd to ``native_head_dim(hd, q.dtype)``, with the true scale
-    1/sqrt(hd), and its output cut back to hd. The zero columns add exact
-    zeros to every score (so a log-sum-exp is that of the unpadded scores),
-    and the padded columns of v only reach the columns cut off."""
-    hd = q.shape[-1]
-    wide = native_head_dim(hd, q.dtype)
+def _pad_call(fn, ins, wide, *rest):
+    """``fn(*ins, *rest, scale)`` on the tensors ``ins`` zero-padded along
+    their last dimension, hd, to ``wide``, with the true scale 1/sqrt(hd),
+    and every tensor it returns cut back to hd. The zero columns add exact
+    zeros to every score, to dP and to D = rowsum(dout * out), so a
+    log-sum-exp and every P and dS are the unpadded ones; the padded
+    columns of v, dout and q or k only reach the output columns cut off.
+    The forward pads to ``native_head_dim``, the backward to
+    ``bwd_head_dim``."""
+    hd = ins[0].shape[-1]
     scale = 1.0 / math.sqrt(hd)
     if wide == hd:
-        return attend(q, k, v, causal, window, scale)
-    q, k, v = (F.pad(t, (0, wide - hd)) for t in (q, k, v))
-    return attend(q, k, v, causal, window, scale)[..., :hd].contiguous()
+        return fn(*ins, *rest, scale)
+    res = fn(*(F.pad(t, (0, wide - hd)) for t in ins), *rest, scale)
+    if isinstance(res, torch.Tensor):
+        return res[..., :hd].contiguous()
+    return tuple(t[..., :hd].contiguous() for t in res)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -253,7 +260,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                 flash_attention.lse_launches += int(with_lse)
         return out
 
-    out = _padded(attend, q, k, v, causal, window)
+    out = _pad_call(attend, (q, k, v), native_head_dim(hd, q.dtype), causal,
+                    window)
     return (out, lse) if with_lse else out
 
 
@@ -284,10 +292,20 @@ def build_bwd() -> dict:
 
 def bwd_route(dtype, hd: int) -> str:
     """The backward kernels a call of this dtype and head width runs on:
-    ``wgmma`` (bfloat16 at hd 64 or 128) or ``cuda_core`` (any other)."""
-    if dtype == torch.bfloat16 and hd in BWD_WGMMA_DIMS:
+    ``wgmma`` (bfloat16 up to hd 256) or ``cuda_core`` (float32, and
+    bfloat16 above 256)."""
+    if dtype == torch.bfloat16 and hd <= BWD_WGMMA_DIMS[-1]:
         return "wgmma"
     return "cuda_core"
+
+
+def bwd_head_dim(hd: int, dtype) -> int:
+    """The width the backward's kernels run hd at: on ``wgmma`` the
+    narrowest of ``BWD_WGMMA_DIMS`` that holds it, on ``cuda_core`` hd
+    itself (those kernels take any width)."""
+    if bwd_route(dtype, hd) != "wgmma":
+        return hd
+    return next(w for w in BWD_WGMMA_DIMS if w >= hd)
 
 
 def _check_bwd(q, k, v, out, lse, dout, window):
@@ -335,8 +353,9 @@ def _check_bwd(q, k, v, out, lse, dout, window):
             raise ValueError(f"flash_attention_bwd kernel: {name} is not "
                              f"contiguous")
     path = bwd_route(q.dtype, hd)
-    if path == "wgmma":
-        # TMA reads q, k, v and dout, 16-byte loads out
+    if path == "wgmma" and bwd_head_dim(hd, q.dtype) == hd:
+        # TMA reads q, k, v and dout, 16-byte loads out (a padded width
+        # reads the padded copies, which are allocated aligned)
         for name, t in ts.items():
             if t.data_ptr() % 16:
                 raise ValueError(f"flash_attention_bwd kernel: {name} is not "
@@ -361,26 +380,34 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     dv) in q's, k's and v's dtype. Raises on any other input."""
     B, S, H, Kv, hd, path = _check_bwd(q, k, v, out, lse, dout, window)
     fn_dq, fn_dkdv = build_bwd()[q.dtype, path]
-    dq, dk, dv = (kbuild.empty_like(t) for t in (q, k, v))
+    padded = bwd_head_dim(hd, q.dtype) != hd
     dsum = kbuild.empty(B, H, S, dtype=torch.float32, device=q.device)
-    scale = 1.0 / math.sqrt(hd)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        for what, fn, ptrs in (
-                ("dq", fn_dq, (q, k, v, out, dout, lse, dsum, dq)),
-                ("dk/dv", fn_dkdv, (q, k, v, dout, lse, dsum, dk, dv))):
-            err = fn(*(t.data_ptr() for t in ptrs), B, S, H, Kv, hd,
-                     int(bool(causal)), window, scale, stream)
-            if err != 0:
-                why = "CUDA error" if err > 0 else "TMA tensor map error"
-                raise RuntimeError(
-                    f"flash_attention_bwd {what} kernel launch failed: {why} "
-                    f"{err} (B={B} S={S} H={H} Kv={Kv} hd={hd}, {q.dtype}, "
-                    f"{_ROUTE_NAMES[path]})")
-            flash_attention_bwd.launches += 1
-            flash_attention_bwd.route_launches[path] += 1
-    return dq, dk, dv
+
+    def backward(q, k, v, out, dout, lse, causal, window, scale):
+        width = q.shape[-1]
+        dq, dk, dv = (kbuild.empty_like(t) for t in (q, k, v))
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            for what, fn, ptrs in (
+                    ("dq", fn_dq, (q, k, v, out, dout, lse, dsum, dq)),
+                    ("dk/dv", fn_dkdv, (q, k, v, dout, lse, dsum, dk, dv))):
+                err = fn(*(t.data_ptr() for t in ptrs), B, S, H, Kv, width,
+                         int(bool(causal)), window, scale, stream)
+                if err != 0:
+                    why = "CUDA error" if err > 0 else "TMA tensor map error"
+                    raise RuntimeError(
+                        f"flash_attention_bwd {what} kernel launch failed: "
+                        f"{why} {err} (B={B} S={S} H={H} Kv={Kv} hd={hd} run "
+                        f"at {width}, {q.dtype}, {_ROUTE_NAMES[path]})")
+                flash_attention_bwd.launches += 1
+                flash_attention_bwd.route_launches[path] += 1
+                flash_attention_bwd.padded_launches += int(padded)
+        return dq, dk, dv
+
+    return _pad_call(backward, (q, k, v, out, dout),
+                     bwd_head_dim(hd, q.dtype), lse, causal, window)
 
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.route_launches = {"wgmma": 0, "cuda_core": 0}
+flash_attention_bwd.padded_launches = 0

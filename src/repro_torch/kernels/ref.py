@@ -145,13 +145,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
-                        window: int = 0, chunk: int = 512):
+                        window: int = 0, chunk: int = 512, scale=None):
     """The backward of self-attention (Sq == Skv) from the forward's out and
     lse [B,H,S]: the math of ``repro/models/layers.py::_fa_bwd``, in fp32
     over kv chunks of ``chunk`` positions. Drow = rowsum(dout * out); per
-    chunk p = exp(s - lse), dv = p^T dout, dp = dout v^T,
-    ds = p (dp - Drow) / sqrt(hd), dq += ds k, dk = ds^T q. Returns (dq,
-    dk, dv) in q's, k's and v's dtypes.
+    chunk s = q k^T * scale, p = exp(s - lse), dv = p^T dout, dp = dout v^T,
+    ds = p (dp - Drow) * scale, dq += ds k, dk = ds^T q, with ``scale``
+    where given (the forward's), else 1/sqrt(hd). Returns (dq, dk, dv) in
+    q's, k's and v's dtypes.
 
     A chunk's rows are cut to the query positions that can see it (from the
     chunk's first position when causal, up to its last + window - 1 under
@@ -160,7 +161,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     B, S, H, hd = q.shape
     Kv = k.shape[2]
     G = H // Kv
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     qg = q.reshape(B, S, Kv, G, hd).float()
     dog = dout.reshape(B, S, Kv, G, hd).float()
     drow = torch.einsum("bqkgd,bqkgd->bkgq", dog,

@@ -239,8 +239,16 @@ def _tc_model(q, k, v, *, causal=True, window=0, split_p=True, scale=None,
         .reshape(B, S, H, hd).to(q.dtype)
 
 
+def _fwd_padded(attend, q, k, v, causal, window):
+    """The forward wrapper's padding, ``FA._pad_call`` to
+    ``native_head_dim``, around ``attend(q, k, v, causal, window, scale)``."""
+    return FA._pad_call(attend, (q, k, v),
+                        FA.native_head_dim(q.shape[-1], q.dtype), causal,
+                        window)
+
+
 def _tc_wrapped(q, k, v, *, causal=True, window=0, split_p=True):
-    """``_tc_model`` on the wrapper's path (``FA._padded``: bf16 zero-padded
+    """``_tc_model`` on the wrapper's path (``FA._pad_call``: bf16 zero-padded
     to the kernel's width, the true scale passed, the output cut back),
     with the kernel's choices at that width (``_tc_plan``)."""
     def attend(q, k, v, causal, window, scale):
@@ -248,7 +256,7 @@ def _tc_wrapped(q, k, v, *, causal=True, window=0, split_p=True):
         return _tc_model(q, k, v, causal=causal, window=window,
                          split_p=split_p, scale=scale, kv_tile=kv_tile,
                          s_chunk=s_chunk, col_block=col_block)
-    return FA._padded(attend, q, k, v, causal, window)
+    return _fwd_padded(attend, q, k, v, causal, window)
 
 
 def _gate_excess(got, want, rtol):
@@ -514,7 +522,7 @@ def test_flash_padded_path_equals_unpadded_plain(hd, causal, window):
         seen.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
         return _plain_attend(q, k, v, causal, window, scale)
 
-    got = FA._padded(attend, tq, tk, tv, causal, window)
+    got = _fwd_padded(attend, tq, tk, tv, causal, window)
     wide = FA.native_head_dim(hd)
     assert wide > hd and seen == [(wide, wide, wide, 1.0 / math.sqrt(hd))]
     assert got.shape == tq.shape and got.is_contiguous()
@@ -535,7 +543,7 @@ def test_flash_hd192_plain_matches_jax(dtype):
         calls.append(q.shape[-1])
         return _plain_attend(q, k, v, causal, window, scale)
 
-    got = FA._padded(attend, tq, tk, tv, True, 0)
+    got = _fwd_padded(attend, tq, tk, tv, True, 0)
     assert calls == [192] and got.dtype == tq.dtype
     rtol, atol = (FLASH_RTOL, FLASH_ATOL) if dtype == "float32" else \
         (TOL[dtype], TOL[dtype])
@@ -625,7 +633,7 @@ def test_flash_wide_path_plain_matches_jax(hd, causal, window):
         widths.append(q.shape[-1])
         return _plain_attend(q, k, v, causal, window, scale)
 
-    got = FA._padded(attend, tq, tk, tv, causal, window)
+    got = _fwd_padded(attend, tq, tk, tv, causal, window)
     assert widths == [FA.native_head_dim(hd)] == [256 if hd <= 256 else hd]
     assert got.shape == tq.shape and got.is_contiguous()
     _close(got, jref.flash_attention(jq, jk, jv, causal=causal,
@@ -637,7 +645,7 @@ def test_flash_wide_path_plain_matches_pallas(hd):
     """The same path against the Pallas kernel in interpret mode at one
     small shape (causal, window 5)."""
     (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 24, 2, 1, hd, "float32", 3 * hd)
-    got = FA._padded(_plain_attend, tq, tk, tv, True, 5)
+    got = _fwd_padded(_plain_attend, tq, tk, tv, True, 5)
     _close(got, jops.flash_attention(jq, jk, jv, window=5, blk_q=8,
                                      blk_k=8, interpret=True),
            FLASH_RTOL, FLASH_ATOL)
@@ -734,7 +742,7 @@ def test_flash_bf16_wide_pads_to_a_multiple_of_64(hd):
             widths.append(q.shape[-1])
             return _plain_attend(q, k, v, causal, window, scale)
 
-        got = FA._padded(attend, tq, tk, tv, True, 7)
+        got = _fwd_padded(attend, tq, tk, tv, True, 7)
         want = ref.flash_attention(tq, tk, tv, causal=True, window=7)
         wide = -(-hd // 64) * 64 if dtype == "bfloat16" else hd
         assert widths == [wide] and got.shape == tq.shape

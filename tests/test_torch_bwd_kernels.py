@@ -9,9 +9,11 @@ against the JAX package.
   out in bf16; P and dS rounded once to bf16 before their products; fp32
   accumulation in the kernels' tile order; dq, dk, dv stored in bf16)
   against JAX's ``_fa_bwd`` in fp32 on the same numpy inputs, over the flash
-  sweep at the tensor-core widths (64, 128) and a width-cut qwen1.5-110b
-  shape, at the card's gate: 2e-2 of max |grad| (chip_smoke.py's
-  TRAIN_GRAD_TOL).
+  sweep at the tensor-core widths (64, 128, 192, 256), width-cut
+  qwen1.5-110b and nemotron-4-340b shapes and the wrapper's zero-padding
+  (hd 80, 150, 200), at the card's gate: 2e-2 of max |grad| (chip_smoke.py's
+  TRAIN_GRAD_TOL); the padding path with the plain backward against the
+  unpadded plain backward and against JAX, one bf16 step apart.
 - ``ref.lstm_seq_bwd`` and a CPU model of ``lstm_seq_bwd_kernel``'s fixed
   summation order (each dh_next[j] as four fmaf chains over a gate block,
   added as (p0 + p1) + (p2 + p3)) against ``jax.grad`` of the reference's
@@ -129,7 +131,12 @@ def test_kernel_modules_import_without_building():
     ("cpu", r"bfloat16 hd 64: tensor-core kernel\): q is on cpu, not a CUDA "
             r"device"),
     ("cpu_f32", r"float32 hd 64: CUDA-core kernel\): q is on cpu"),
-    ("cpu_bf16_hd32", r"bfloat16 hd 32: CUDA-core kernel\): q is on cpu"),
+    ("cpu_bf16_hd32", r"bfloat16 hd 32: tensor-core kernel\): q is on "
+                      r"cpu"),
+    ("cpu_bf16_hd192", r"bfloat16 hd 192: tensor-core kernel\): q is on "
+                       r"cpu"),
+    ("cpu_bf16_hd320", r"bfloat16 hd 320: CUDA-core kernel\): q is on "
+                       r"cpu"),
     ("float64", "dtype torch.float64 not supported"),
     ("dtype", "dout is torch.float32, q is torch.bfloat16"),
     ("lse_dtype", "lse is torch.bfloat16, want torch.float32"),
@@ -138,9 +145,13 @@ def test_kernel_modules_import_without_building():
     ("groups", "not a positive multiple"),
     ("strided", "dout is not contiguous"),
     ("window", "window -1"),
-    ("misaligned", "v is not 16-byte aligned")])
+    ("misaligned", "v is not 16-byte aligned"),
+    ("misaligned_hd192", "v is not 16-byte aligned"),
+    # a padded width reads the wrapper's aligned copies, not v
+    ("misaligned_hd80", r"bfloat16 hd 80: tensor-core kernel\): q is on "
+                        r"cpu")])
 def test_flash_bwd_wrapper_raises(bad, why):
-    hd = 32 if bad == "cpu_bf16_hd32" else 64
+    hd = int(bad.rsplit("_hd", 1)[1]) if "_hd" in bad else 64
     dt = torch.float32 if bad == "cpu_f32" else torch.bfloat16
     q, k, v, out, do = (torch.zeros(1, 64, n, hd, dtype=dt)
                         for n in (2, 1, 1, 2, 2))
@@ -162,7 +173,7 @@ def test_flash_bwd_wrapper_raises(bad, why):
         do = do.transpose(1, 2).contiguous().transpose(1, 2)
     elif bad == "window":
         window = -1
-    elif bad == "misaligned":
+    elif bad.startswith("misaligned"):
         v = torch.zeros(64 * hd + 1, dtype=dt)[1:].view(1, 64, 1, hd)
     before = (FA.flash_attention_bwd.launches,
               dict(FA.flash_attention_bwd.route_launches))
@@ -214,10 +225,14 @@ def test_lstm_seq_bwd_wrapper_raises(bad, why):
 
 @pytest.mark.parametrize("dtype,hd,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 16, "cuda_core"), (torch.bfloat16, 32, "cuda_core"),
-    (torch.bfloat16, 80, "cuda_core"), (torch.bfloat16, 192, "cuda_core"),
+    (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 32, "wgmma"),
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 192, "wgmma"),
     (torch.bfloat16, 576, "cuda_core"), (torch.float32, 64, "cuda_core"),
-    (torch.float32, 128, "cuda_core"), (torch.float32, 1024, "cuda_core")])
+    (torch.float32, 128, "cuda_core"), (torch.float32, 1024, "cuda_core"),
+    (torch.bfloat16, 1, "wgmma"), (torch.bfloat16, 150, "wgmma"),
+    (torch.bfloat16, 255, "wgmma"), (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 257, "cuda_core"), (torch.float32, 192, "cuda_core"),
+    (torch.float32, 256, "cuda_core")])
 def test_flash_bwd_route_by_dtype_and_width(dtype, hd, route):
     assert FA.bwd_route(dtype, hd) == route
     assert set(FA.flash_attention_bwd.route_launches) == {"wgmma",
@@ -241,19 +256,23 @@ def _bf(t):
     return t.bfloat16().float()
 
 
-def _tc_bwd_model(q, k, v, out, lse, dout, causal, window):
-    """What flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma compute, in their
-    rounding: q, k, v, out, dout bf16 (exact in fp32); D = rowsum(dout *
-    out) in fp32; per 64 x 64 tile s = q k^T and dP = dout v^T in fp32, P =
-    2^(s * scale * log2(e) - lse * log2(e)) (0 where masked), dS = P (dP -
-    D) scale; P and dS rounded once to bf16 before their products; dq summed
-    over kv tiles in order, dk and dv over (query head of the group, q tile)
-    in order, in fp32; each stored once in bf16. Tiles the kernels skip are
-    fully masked and add exact zeros here."""
+def _tc_bwd_model(q, k, v, out, lse, dout, causal, window, scale=None):
+    """What flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma (at hd 192 and 256
+    flash_bwd_dkdv_wgmma_split, whose two warpgroups form the same P^T and
+    dS^T from the same S^T) compute, in their rounding: q, k, v, out, dout
+    bf16 (exact in fp32); D = rowsum(dout * out) in fp32; per 64 x 64 tile
+    s = q k^T and dP = dout v^T in fp32, P = 2^(s * scale * log2(e) - lse *
+    log2(e)) (0 where masked), dS = P (dP - D) scale; P and dS rounded once
+    to bf16 before their products; dq summed over kv tiles in order, dk and
+    dv over (query head of the group, q tile) in order, in fp32; each stored
+    once in bf16. Tiles the kernels skip are fully masked and add exact
+    zeros here. ``scale`` is the one the wrapper passes (1/sqrt(hd) of the
+    unpadded width), by default 1/sqrt(hd)."""
     B, S, H, hd = q.shape
     Kv = k.shape[2]
     G = H // Kv
-    scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+    scale = torch.tensor(1.0 / math.sqrt(hd) if scale is None else scale,
+                         dtype=torch.float32)
     c2 = scale * torch.tensor(LOG2E, dtype=torch.float32)
     qf, kf, vf, of, dof = (t.float().transpose(1, 2)
                            for t in (q, k, v, out, dout))   # [B, heads, S, hd]
@@ -319,7 +338,7 @@ def _model_vs_jax(arrs, causal, window):
     return errs
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 192, 256])
 @pytest.mark.parametrize("causal,window", MASKS)
 @pytest.mark.parametrize("B,S,H,Kv", SWEEP, ids=lambda s: str(s))
 def test_flash_bwd_tc_model_meets_the_gate_against_jax(B, S, H, Kv, causal,
@@ -342,6 +361,133 @@ def test_flash_bwd_tc_model_meets_the_gate_at_a_qwen_cut(Kv, scale):
             for n in (8 * Kv, Kv, Kv, 8 * Kv)]
     errs = _model_vs_jax(arrs, True, 0)
     assert max(errs) <= GRAD_GATE, errs
+
+
+@pytest.mark.parametrize("scale", [0.5, 2.0])
+def test_flash_bwd_tc_model_meets_the_gate_at_a_nemotron_cut(scale):
+    """nemotron-4-340b's training attention cut in width: S = 1,024, G = 12
+    (96 query heads over 8 kv heads), one kv head, hd 192 (the split dk/dv
+    kernel's width, built natively), inputs N(0, 1) x scale, causal."""
+    rng = np.random.RandomState(192)
+    arrs = [(rng.randn(1, 1024, n, 192) * scale).astype(np.float32)
+            for n in (12, 1, 1, 12)]
+    errs = _model_vs_jax(arrs, True, 0)
+    assert max(errs) <= GRAD_GATE, errs
+
+
+# ---------------------------------------------------------------------------
+# (d') the wrapper's zero-padding to the tensor-core backward's widths
+# ---------------------------------------------------------------------------
+
+BF16_STEP = 2.0 ** -8       # one bf16 rounding of the largest |grad|, at most
+PADDED = {80: 128, 150: 192, 200: 256}
+
+
+@pytest.mark.parametrize("dtype,hd,wide", [
+    (torch.bfloat16, 1, 64), (torch.bfloat16, 16, 64), (torch.bfloat16, 64, 64),
+    (torch.bfloat16, 65, 128), (torch.bfloat16, 80, 128),
+    (torch.bfloat16, 129, 192), (torch.bfloat16, 150, 192),
+    (torch.bfloat16, 192, 192), (torch.bfloat16, 193, 256),
+    (torch.bfloat16, 256, 256), (torch.bfloat16, 257, 257),
+    (torch.bfloat16, 576, 576), (torch.float32, 80, 80),
+    (torch.float32, 192, 192)])
+def test_flash_bwd_head_dim_by_route(dtype, hd, wide):
+    """bf16 up to 256 runs at the next tensor-core width; the CUDA-core
+    kernels (fp32, bf16 above 256) at hd itself."""
+    assert FA.bwd_head_dim(hd, dtype) == wide
+
+
+def _plain_bwd(q, k, v, out, lse, dout, causal, window, scale):
+    return ref.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                   window=window, scale=scale,
+                                   chunk=q.shape[1])
+
+
+def _padded_bwd(backward, q, k, v, out, lse, dout, causal, window):
+    """The backward wrapper's padding, ``FA._pad_call`` to ``bwd_head_dim``,
+    around ``backward`` in the plain backward's argument order."""
+    def run(q, k, v, out, dout, lse, causal, window, scale):
+        return backward(q, k, v, out, lse, dout, causal, window, scale)
+
+    return FA._pad_call(run, (q, k, v, out, dout),
+                        FA.bwd_head_dim(q.shape[-1], q.dtype), lse, causal,
+                        window)
+
+
+def _wide_inputs(B, S, H, Kv, hd, seed, causal, window):
+    """bf16 q, k, v, dout from numpy, and the plain forward's out and lse."""
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(B, S, n, hd).astype(np.float32))
+                   .bfloat16() for n in (H, Kv, Kv, H))
+    out, lse = ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   with_lse=True)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.parametrize("hd", sorted(PADDED))
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_bwd_padded_path_equals_unpadded_plain(hd, causal, window):
+    """``_padded_bwd`` with the plain backward: it runs at the padded width
+    with the true scale, and its dq, dk and dv are the unpadded plain
+    backward's (the zero columns add exact zeros; fp32 sums over more
+    columns may round one bf16 output step apart)."""
+    args = _wide_inputs(2, 129, 8, 4, hd, hd, causal, window)
+    seen = []
+
+    def plain(*a):
+        seen.append((a[0].shape[-1], a[-1]))
+        return _plain_bwd(*a)
+
+    got = _padded_bwd(plain, *args, causal, window)
+    want = _plain_bwd(*args, causal, window, None)
+    assert seen == [(PADDED[hd], 1.0 / math.sqrt(hd))]
+    for g, w, t in zip(got, want, args):
+        assert g.shape == w.shape == t.shape and g.dtype == torch.bfloat16
+        assert g.is_contiguous()
+        err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert err <= BF16_STEP, err
+
+
+def _padded_vs_jax(backward, hd, causal, window, seed):
+    """``_padded_bwd(backward, ...)`` at the sweep's GQA shape, bf16 inputs
+    from numpy, against JAX's ``_fa_bwd`` in fp32 on the same values: JAX's
+    forward's lse and its out rounded to bf16 (as the port's forward stores
+    it) go to both. The worst max|diff| / max|JAX| over dq, dk, dv."""
+    rng = np.random.RandomState(seed)
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (
+        _bf16(rng.randn(2, 129, n, hd).astype(np.float32))
+        for n in (8, 4, 4, 8))
+    jout, jlse, _ = _jax_fa_bwd(jq, jk, jv, jdo, causal, window)
+    jout, tout = _bf16(np.asarray(jout))
+    pos = jnp.broadcast_to(jnp.arange(129, dtype=jnp.int32)[None], (2, 129))
+    res = (jq, jk, jv, pos, pos[0], jout, jlse)
+    want = JL._fa_bwd(causal, window, 129, res, jdo)[:3]
+    tlse = torch.from_numpy(np.array(jlse)).reshape(2, 8, 129)
+    got = _padded_bwd(backward, tq, tk, tv, tout, tlse, tdo, causal,
+                         window)
+    return max(float(np.max(np.abs(g.float().numpy() - np.asarray(w))) /
+                     np.max(np.abs(np.asarray(w)))) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_bwd_padded_plain_matches_jax_at_200(causal, window):
+    """The wrapper's path at hd 200 (run at 256) with the plain backward,
+    against JAX: one bf16 rounding of the outputs apart."""
+    err = _padded_vs_jax(_plain_bwd, 200, causal, window, seed=200)
+    assert err <= BF16_STEP, err
+
+
+@pytest.mark.parametrize("hd", sorted(PADDED))
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_bwd_padded_tc_model_meets_the_gate(hd, causal, window):
+    """The wrapper's path with the model of the tensor-core kernels' rounding
+    at the padded width and the true scale, against JAX at the card's
+    gate."""
+    def model(q, k, v, out, lse, dout, causal, window, scale):
+        return _tc_bwd_model(q, k, v, out, lse, dout, causal, window, scale)
+
+    err = _padded_vs_jax(model, hd, causal, window, seed=hd + 1)
+    assert err <= GRAD_GATE, err
 
 
 # ---------------------------------------------------------------------------

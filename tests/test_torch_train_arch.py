@@ -8,7 +8,9 @@ they count), and the same token batches (``RandomState``) go through
 port's ``bind_train``: two microbatches, remat on. stablelm-1.6b's smoke
 config covers LayerNorm, partial RoPE and MHA; qwen1.5-110b's covers
 ``RMSNorm`` (the ``rmsnorm`` kernel's plain version under autograd), GQA
-and the QKV bias. JAX runs at ``highest`` matmul precision
+and the QKV bias; nemotron-4-340b's at its published head width, 192,
+covers squared ReLU and the width the wide tensor-core backward serves on
+the card. JAX runs at ``highest`` matmul precision
 (``tests/conftest.py``). The two compute the same fp32 math in other
 orders, so the numbers agree within tolerances, not bit for bit:
 
@@ -430,3 +432,38 @@ def test_arch_refuses_families_not_ported(arch):
 def test_train_main_needs_a_mode():
     with pytest.raises(SystemExit, match="--paper or --arch"):
         TRAIN.main([])
+
+
+@pytest.fixture(scope="module")
+def nemotron_hd192():
+    """nemotron-4-340b's smoke config at the published head width, 192
+    (d_model 128 over 4 heads: the projections widen to 4 x 192), in both
+    packages, with JAX's params and one batch."""
+    jcfg = JC.get_smoke("nemotron-4-340b").replace(head_dim=192)
+    tcfg = TC.get_smoke("nemotron-4-340b").replace(head_dim=192)
+    assert jcfg.hd == tcfg.hd == 192
+    assert (tcfg.mlp, tcfg.norm, tcfg.rope_fraction) == (
+        "squared_relu", "layernorm", 0.5)
+    np_params = _jax_params(jcfg)
+    batch = _batches(jcfg.vocab, 1)[0]
+    jgrads, jm = _grads_jax(jcfg, MICRO)(
+        jax.tree.map(jnp.asarray, np_params), {"tokens": jnp.asarray(batch)})
+    tgrads, tm = _bind_port(tcfg, TO.sgd(SGD_LR))["grads"](
+        bridge.params_from_jax(np_params, "cpu"),
+        {"tokens": torch.from_numpy(batch)})
+    return jgrads, jm, tgrads, tm
+
+
+def test_nemotron_hd192_step_loss_matches_jax(nemotron_hd192):
+    """One step of the config whose attention the tensor-core backward at hd
+    192 serves on the card (here the plain backward, on the CPU)."""
+    _, jm, _, tm = nemotron_hd192
+    for k in ("loss", "ce"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]),
+                                   rtol=LOSS_RTOL)
+
+
+def test_nemotron_hd192_step_grads_match_jax(nemotron_hd192):
+    jgrads, _, tgrads, _ = nemotron_hd192
+    _close_tree(tgrads, jgrads, GRAD_TOL, "nemotron hd 192 grads")
+    assert all(float(g.abs().max()) > 0 for g in tree.leaves(tgrads))
