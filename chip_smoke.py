@@ -2634,16 +2634,20 @@ TRAIN_LOSS_RTOL = 2e-2
 FLASH_BWD_TOL = {"float32": 2e-5, "bfloat16": TRAIN_GRAD_TOL}
 # widths beside 64 and 128 the backward is held at, in both dtypes: hd 80
 # (bf16 zero-padded to 128 on the tensor cores), nemotron-4-340b's 192 and
-# 256 (bf16 on the tensor cores, dk/dv split over two warpgroups), 576 (bf16
-# above 256: the CUDA cores, hd in 9 chunks of 64, output in 9 column
-# blocks); fp32 on the CUDA cores at every width
-FLASH_BWD_WIDE = (80, 192, 256, 576)
+# 256 (bf16 on the tensor cores, dk/dv split over two warpgroups), 300
+# (bf16 zero-padded to 320), 576 and 1,024 (bf16 above 256: the tensor
+# cores in column blocks, hd in 64-column chunks, 2 / 3 / 4 column blocks
+# of 192 / 192 / 256); fp32 on the CUDA cores at every width
+FLASH_BWD_WIDE = (80, 192, 256, 300, 576, 1024)
 # widths the bf16 CUDA-core pair is still held at, its C functions called
-# directly: 192 (the tensor cores' now) and 576 (its own)
+# directly, as the yardstick of the tensor-core routes that replaced it:
+# 192 and 576
 FLASH_BWD_CC = (192, 576)
 # one batch entry of exactly 2^31 elements of q at hd 256 (the split dk/dv
-# kernel), window FLASH_ENTRY_WINDOW, bf16
+# kernel) and at hd 1,024 (the column kernels), window FLASH_ENTRY_WINDOW,
+# bf16
 FLASH_BWD_ENTRY_WIDE = (1, 65536, 128, 16, 256)
+FLASH_BWD_ENTRY_COLS = (1, 32768, 64, 8, 1024)
 # the smoke configs' step, card against CPU, fp32: the same math summed in
 # other orders (cuBLAS, the kernels' trees)
 TRAIN_SMOKE_TOL = 1e-4
@@ -2810,8 +2814,9 @@ def flash_bwd_cc_gate(torch, FA, ref):
 def flash_bwd_entry(torch, FA, ref):
     """The flash backward on one batch entry of exactly 2^31 elements of q,
     window 256, causal: at hd 128 (FLASH_ENTRY) in bf16 (tensor cores) and
-    fp32 (CUDA cores), and at hd 256 (FLASH_BWD_ENTRY_WIDE) in bf16 (the
-    split dk/dv kernel), one call each: dq of the first and last 1,024 rows
+    fp32 (CUDA cores), at hd 256 (FLASH_BWD_ENTRY_WIDE) in bf16 (the split
+    dk/dv kernel) and at hd 1,024 (FLASH_BWD_ENTRY_COLS) in bf16 (the column
+    kernels), one call each: dq of the first and last 1,024 rows
     and dk, dv of the positions whose every pair lies in the same slices,
     against the plain backward on slices of 1,024 + 256 positions (the
     kernel forward's out and lse sliced). Returns the seconds of each
@@ -2821,7 +2826,8 @@ def flash_bwd_entry(torch, FA, ref):
     secs = {}
     for shape, dtype in ((FLASH_ENTRY, torch.bfloat16),
                          (FLASH_ENTRY, torch.float32),
-                         (FLASH_BWD_ENTRY_WIDE, torch.bfloat16)):
+                         (FLASH_BWD_ENTRY_WIDE, torch.bfloat16),
+                         (FLASH_BWD_ENTRY_COLS, torch.bfloat16)):
         B, S, H, Kv, hd = shape
         dt = str(dtype).split(".")[-1]
         name = f"hd{hd}/{dt}"
@@ -2865,49 +2871,59 @@ def flash_bwd_entry(torch, FA, ref):
 
 def bwd_registers(FA, hd):
     """ptxas's registers and spills of the tensor-core backward kernels at
-    head width hd."""
+    head width hd: up to 256 those instantiated at hd, above it the column
+    kernels (both of their column blocks)."""
     from repro_torch.kernels import build as kbuild
     report = ptxas_report(kbuild.log_path(FA.BWD_SOURCE).read_text())
+    cols = hd > 256
     return {name: rep for name, rep in report
-            if "wgmma" in name and f"Li{hd}>" in name}
+            if "wgmma" in name and ("_cols" in name) == cols and
+            (cols or f"Li{hd}>" in name)}
 
 
-# widths the flash backward is timed at, qwen's prefill shape, both dtypes:
-# bf16 192 (nemotron-4-340b's) and 256 on the tensor cores beside the
-# CUDA-core pair they replaced; 576 (bf16) and every fp32 width on the pair
-FLASH_BWD_TIMED = (192, 256, 576)
+# widths the flash backward is timed at, qwen's prefill shape: bf16 192
+# (nemotron-4-340b's) and 256 on the tensor cores (wgmma), 576 and 1,024 on
+# the column kernels (wgmma_chunked), each beside the CUDA-core pair they
+# replaced; fp32 on the pair at the configs' widths (64, 128, 192) and
+# above
+FLASH_BWD_TIMED = {"bfloat16": (192, 256, 576, 1024),
+                   "float32": (64, 128, 192, 256, 576, 1024)}
+# the pair at this width or above takes seconds a call: one timed call
+FLASH_BWD_ONE_CALL = 1024
 
 
 def flash_bwd_wide_times(torch, FA, ref):
     """The flash backward at qwen's prefill shape (B=4, S=1,024, 64 over 8
-    heads, causal) at FLASH_BWD_TIMED, both dtypes, from the kernel
-    forward's out and lse: its time beside SDPA's forward + backward (timed
-    only; the backend it picked named) and the five-product bound; on the
-    bf16 tensor-core route also beside the plain backward and the CUDA-core
-    pair it replaced (its C functions, in the same call), gated faster than
-    the pair, two runs gated bit for bit equal, with ptxas's registers and
-    spills of its kernels. Its agreement with the plain backward at these
-    widths is gated in ``flash_bwd_sweep`` (FLASH_BWD_WIDE) and at the
-    training shapes."""
+    heads, causal) at FLASH_BWD_TIMED, from the kernel forward's out and
+    lse: its time beside SDPA's forward + backward (timed only; the backend
+    it picked named) and the five-product bound; on the bf16 tensor-core
+    routes also beside the plain backward and the CUDA-core pair they
+    replaced (its C functions, in the same call), gated faster than the
+    pair (and, above hd 256, than SDPA's forward + backward), two runs
+    gated bit for bit equal, with each launch's device time (three profiled
+    calls) and ptxas's registers and spills of their kernels. Their agreement with the plain backward at these widths is
+    gated in ``flash_bwd_sweep`` (FLASH_BWD_WIDE), at the training shapes
+    and under autograd (``flash_bwd_autograd_cols``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     B, S, H, Kv = SERVE["batch"], SERVE["prompt"], 64, 8
     out = {}
-    for hd in FLASH_BWD_TIMED:
-        for dtype in (torch.bfloat16, torch.float32):
-            name = str(dtype).split(".")[-1]
+    for name, widths in FLASH_BWD_TIMED.items():
+        dtype = getattr(torch, name)
+        for hd in widths:
             path = FA.bwd_route(dtype, hd)
             q, k, v, do = (randn(torch, (B, S, n, hd), dtype, 400 + j, 0.5)
                            for j, n in enumerate((H, Kv, Kv, H)))
             o, lse = FA.flash_attention(q, k, v, with_lse=True)
-            tc = path == "wgmma"
-            reps, inner = (5, 3) if tc else (2, 1)
+            tc = path in ("wgmma", "wgmma_chunked")
+            one = (1, 1, 0) if hd >= FLASH_BWD_ONE_CALL else (2, 1, 1)
+            reps, inner, warm = (5, 3, 1) if tc else one
             before = FA.flash_attention_bwd.route_launches[path]
             ms = median_ms(lambda: FA.flash_attention_bwd(q, k, v, o, lse,
                                                           do),
-                           torch, reps=reps, inner=inner, warm=1)
+                           torch, reps=reps, inner=inner, warm=warm)
             check(FA.flash_attention_bwd.route_launches[path] - before ==
-                  (reps * inner + 1) * FA.BWD_LAUNCHES,
+                  (reps * inner + warm) * FA.BWD_LAUNCHES,
                   f"the hd {hd} {name} backward did not run on {path}")
             qt, kt, vt = (t.detach().clone().requires_grad_()
                           for t in (q, k, v))
@@ -2938,21 +2954,35 @@ def flash_bwd_wide_times(torch, FA, ref):
                             f"differ")
                 del first
                 cc_ms = median_ms(lambda: cuda_core_bwd_bf16(
-                    torch, FA, q, k, v, o, lse, do), torch, reps=2, inner=1,
-                    warm=1)
+                    torch, FA, q, k, v, o, lse, do), torch, *one)
                 check(ms < cc_ms, f"hd {hd} bf16: the tensor-core backward "
                                   f"({ms:.4f} ms) is not faster than the "
                                   f"CUDA-core pair it replaced "
                                   f"({cc_ms:.4f} ms)")
+                if path == "wgmma_chunked":
+                    check(ms < lib_ms, f"hd {hd} bf16: the column kernels "
+                                       f"({ms:.4f} ms) are not faster than "
+                                       f"SDPA's forward + backward "
+                                       f"({backend}, {lib_ms:.4f} ms)")
                 plain_ms = median_ms(lambda: ref.flash_attention_bwd(
                     q, k, v, o, lse, do, chunk=ops.KV_CHUNK), torch, reps=2,
                     inner=1, warm=1)
                 regs = bwd_registers(FA, hd)
+                by_name = profiled(torch, lambda: FA.flash_attention_bwd(
+                    q, k, v, o, lse, do), reps=3)[3]
+                launch_ms = {}
+                for kname, (n, t) in by_name.items():
+                    m = re.search(r"flash_bwd_\w+<\d+>", kname)
+                    launch_ms[m.group(0) if m else kname[:60]] = t / n
                 row.update(cuda_core_ms=cc_ms, plain_ms=plain_ms,
-                           bit_equal=same, registers=regs)
+                           bit_equal=same, registers=regs,
+                           device_ms=launch_ms)
                 more = (f"; plain backward {plain_ms:.3f} ms; the CUDA-core "
                         f"pair it replaced {cc_ms:.3f} ms; "
-                        f"two runs bit-equal {same}; ptxas: " + "; ".join(
+                        f"two runs bit-equal {same}; device ms a launch "
+                        f"(profiler): " + ", ".join(
+                            f"{n} {t:.4f}" for n, t in launch_ms.items()) +
+                        "; ptxas: " + "; ".join(
                             f"{n} {r}" for n, r in regs.items()))
             print(f"[train] flash_attention_bwd time B={B} S={S} H={H} "
                   f"Kv={Kv} hd={hd} {name} causal ({path}, "
@@ -2962,6 +2992,56 @@ def flash_bwd_wide_times(torch, FA, ref):
             out[f"hd{hd}/{name}"] = row
             del q, k, v, do, o, lse, qt, kt, vt
             torch.cuda.empty_cache()
+    return out
+
+
+# the column kernels under autograd: one ops.attention step at qwen's
+# training attention (B=1, S=1,024, 64 over 8 heads) widened, bf16, causal
+FLASH_BWD_AUTOGRAD = ((1, 1024, 64, 8, 576), (1, 1024, 64, 8, 1024))
+
+
+def flash_bwd_autograd_cols(torch, FA):
+    """One ``ops.attention`` (``FlashAttention``) step at each of
+    FLASH_BWD_AUTOGRAD: the kernel forward's launch and the backward's two
+    launches counted on ``wgmma_chunked`` (none elsewhere), the gradients
+    within TRAIN_GRAD_TOL of max |grad| of the same step through the plain
+    versions (``plain_kernels``). Returns the worst error by width."""
+    from repro_torch.kernels import ops
+    out = {}
+    for B, S, H, Kv, hd in FLASH_BWD_AUTOGRAD:
+        q, k, v, do = (randn(torch, (B, S, n, hd), torch.bfloat16, 230 + j)
+                       for j, n in enumerate((H, Kv, Kv, H)))
+
+        def attend(*xs):
+            return ops.attention(*xs, causal=True)
+
+        before = (dict(FA.flash_attention.route_launches),
+                  dict(FA.flash_attention_bwd.route_launches))
+        gk = grads_of(torch, attend, (q, k, v), do)
+        torch.cuda.synchronize()
+        fwd = {r: n - before[0][r]
+               for r, n in FA.flash_attention.route_launches.items()}
+        bwd = {r: n - before[1][r]
+               for r, n in FA.flash_attention_bwd.route_launches.items()}
+        with plain_kernels():
+            gp = grads_of(torch, attend, (q, k, v), do)
+        errs = [rel_err(torch, a, b) for a, b in zip(gk, gp)]
+        want_fwd = dict.fromkeys(fwd, 0) | {"wgmma_chunked": 1}
+        want_bwd = dict.fromkeys(bwd, 0) | {"wgmma_chunked": FA.BWD_LAUNCHES}
+        ok = max(errs) <= TRAIN_GRAD_TOL
+        print(f"[train] FlashAttention B={B} S={S} H={H} Kv={Kv} hd={hd} "
+              f"bf16 causal, one step: launches forward {fwd}, backward "
+              f"{bwd}; kernel vs plain forward + backward, max|diff| / "
+              f"max|grad| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
+              f"tol {TRAIN_GRAD_TOL} {'ok' if ok else 'FAIL'}")
+        check(fwd == want_fwd and bwd == want_bwd,
+              f"hd {hd}: the autograd step launched forward {fwd}, backward "
+              f"{bwd}; expected {want_fwd}, {want_bwd}")
+        check(ok, f"hd {hd}: FlashAttention's gradients through the column "
+                  f"kernels disagree with the plain path")
+        out[f"hd{hd}"] = max(errs)
+        del q, k, v, do, gk, gp
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2978,7 +3058,8 @@ def phase_train_kernels(torch, FA, RN, ref):
     out = {"bwd_sweep_err": flash_bwd_sweep(torch, FA, ref),
            "bwd_cc_err": flash_bwd_cc_gate(torch, FA, ref),
            "bwd_entry_s": flash_bwd_entry(torch, FA, ref),
-           "bwd_wide": flash_bwd_wide_times(torch, FA, ref)}
+           "bwd_wide": flash_bwd_wide_times(torch, FA, ref),
+           "bwd_autograd_cols": flash_bwd_autograd_cols(torch, FA)}
     for arch, (B, S, H, Kv, hd) in TRAIN_FLASH_SHAPES.items():
         q, k, v, do = (randn(torch, (B, S, n, hd), torch.bfloat16, 200 + j)
                        for j, n in enumerate((H, Kv, Kv, H)))
@@ -3276,7 +3357,8 @@ def phase_train(torch, K, T):
                 routes={"wgmma": per_step * TRAIN_STEPS, "wgmma_chunked": 0,
                         "cuda_core": 0, "hd_chunked": 0},
                 flash_bwd=bwd_step * TRAIN_STEPS,
-                bwd_routes={"wgmma": bwd_step * TRAIN_STEPS, "cuda_core": 0},
+                bwd_routes={"wgmma": bwd_step * TRAIN_STEPS,
+                            "wgmma_chunked": 0, "cuda_core": 0},
                 rmsnorm=0, others=0)
     print(f"[train] launches over {TRAIN_STEPS} steps {counts} (expected "
           f"{want}: {TRAIN_FLASH_BWD_CALLS} flash backward calls a step, "
@@ -3446,7 +3528,7 @@ def phase_train_nemotron(torch, K, T, smi):
     want = dict(flash=fwd_step * NEMOTRON_STEPS,
                 flash_bwd=bwd_step * NEMOTRON_STEPS,
                 bwd_routes={"wgmma": bwd_step * NEMOTRON_STEPS,
-                            "cuda_core": 0},
+                            "wgmma_chunked": 0, "cuda_core": 0},
                 bwd_padded=0, rmsnorm=0)
     print(f"[nemotron] launches over {NEMOTRON_STEPS} steps {counts} "
           f"(expected {want}); per step {res['launches']}")
@@ -3473,7 +3555,8 @@ def phase_train_nemotron(torch, K, T, smi):
     prof = train_profile(torch, lambda: grads_fn(params, batch))
     prof_bwd = {r: FA.flash_attention_bwd.route_launches[r] - before[r]
                 for r in before}
-    check(prof_bwd == {"wgmma": bwd_step, "cuda_core": 0},
+    check(prof_bwd == {"wgmma": bwd_step, "wgmma_chunked": 0,
+                       "cuda_core": 0},
           f"the profiled step's flash backward launches {prof_bwd}")
     grads_k, mets_k = prof.pop("out")
     bwd_launch_ms = prof["flash_bwd_ms"] / sum(prof_bwd.values())
@@ -3788,6 +3871,14 @@ def main() -> int:
         "sweep_err": train_kern["bwd_sweep_err"],
         "cuda_core_pair_err": train_kern["bwd_cc_err"],
         "wide": train_kern["bwd_wide"],
+        "route_kernels": {
+            "wgmma": "flash_bwd_dq_wgmma + flash_bwd_dkdv_wgmma(_split), "
+                     "bfloat16 up to hd 256",
+            "wgmma_chunked": "flash_bwd_dq_wgmma_cols + "
+                             "flash_bwd_dkdv_wgmma_cols, bfloat16 above hd "
+                             "256",
+            "cuda_core": "flash_bwd_dq_cc + flash_bwd_dkdv_cc, float32"},
+        "autograd_cols_err": train_kern["bwd_autograd_cols"],
         "entry_2_31_s": train_kern["bwd_entry_s"],
         **{key: {k: train_kern[arch][k] for k in (
             "shape", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "bwd_err",

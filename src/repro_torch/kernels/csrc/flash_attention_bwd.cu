@@ -1,12 +1,15 @@
 // Flash attention backward (GQA, causal and/or sliding window) for Hopper
-// (sm_90a), bound to Python with ctypes. Two routes, each two launches:
+// (sm_90a), bound to Python with ctypes. Three routes, each two launches:
 // bfloat16 at head widths 64, 128, 192 and 256 runs on the tensor cores
 // (flash_bwd_dq_wgmma, then flash_bwd_dkdv_wgmma at 64 and 128 or
 // flash_bwd_dkdv_wgmma_split at 192 and 256; the wrapper zero-pads any
-// width up to 256 to the next of these); float32 at every width, and
-// bfloat16 above 256, runs on the CUDA cores with fp32 products
+// width up to 256 to the next of these); bfloat16 at a multiple of 64
+// above 256 on the tensor cores in column blocks (flash_bwd_dq_wgmma_cols,
+// flash_bwd_dkdv_wgmma_cols; the wrapper pads the width to a multiple of
+// 64); float32 at every width runs on the CUDA cores with fp32 products
 // (flash_bwd_dq_cc, flash_bwd_dkdv_cc; TF32 would break the fp32
-// tolerances), which take any hd at run time.
+// tolerances), which take any hd at run time (and bfloat16 too, kept as
+// the yardstick of the tensor-core routes).
 //
 // Replaces the backward of the JAX package's flash attention custom VJP,
 // src/repro/models/layers.py:201 _fa_bwd (jnp; the JAX package has no
@@ -78,6 +81,34 @@
 // the same bits of P^T and dS^T as the one-warpgroup kernel (the same
 // wgmma on the same tiles), and each output element still summed by one
 // thread in a fixed order.
+//
+// Above hd 256 (flash_bwd_dq_wgmma_cols, flash_bwd_dkdv_wgmma_cols; hd a
+// multiple of 64 at run time) no tile of q, k, v or dout fits shared
+// memory whole beside the others (64 rows are 128 KB at hd 1,024), so
+// everything streams in 64-column chunks, the forward's column-block idea:
+// S = sum_c q_c k_c^T and dP = sum_c dout_c v_c^T accumulate in the wgmma
+// registers over the hd / 64 chunks (m64n64k16, both operands in shared
+// memory), each ring stage one TMA box of q, dout, k and v (64 positions x
+// 64 columns; the maps index positions, so no producer warpgroup is needed
+// as in the forward), refilled by thread 0 once the barrier after a
+// stage's products has passed. A block owns NB = 192 or 256 output
+// columns (col_block: the fewest blocks n_cb, then the fewest wasted
+// columns): the dq launch is one warpgroup per (q tile, head, batch,
+// column block) with NB / 2 accumulators beside S and dP, as dq<256>; the
+// dk/dv launch keeps the split per (kv tile, kv head, batch, column
+// block), warpgroup 0 S^T -> P^T -> dv and warpgroup 1 S^T -> dP^T -> dS^T
+// -> dk, NB / 2 accumulators each. The NB columns of the other operand of
+// the output product (k for dq; q and dout for dk and dv) come as their
+// own TMA boxes once an iteration. P and dS stay in registers in the
+// A-register layout, rounded once to bf16 as at hd <= 256 (the CPU model
+// in tests/test_torch_bwd_kernels.py holds the 2e-2 gate at hd 576 and
+// 1,024). Every column block recomputes S and dP in full, so a call runs
+// 5 n_cb + 3 full-width products against the bound's five (dq: 2 n_cb +
+// 1; dk/dv: 3 n_cb + 2): 3.6x at hd 576 (n_cb 3), 4.6x at 1,024 (n_cb 4);
+// and every column block streams the full-width q, k, v and dout once per
+// tile pair through L2. D is over the full width: every dq block computes
+// it for its rows (64 rows x hd, a small share of its reads) and column
+// block 0 writes it for the dk/dv launch.
 //
 // The CUDA-core kernels: 256 threads a block, 64 rows a block, 4 threads a
 // row, the other side in tiles of 32 positions (8 columns a thread); scores
@@ -495,7 +526,8 @@ int launch_dkdv(const void* q, const void* k, const void* v,
 }  // namespace cc
 
 // ---------------------------------------------------------------------------
-// bf16 at hd 64, 128, 192 and 256: tensor cores (wgmma), TMA
+// bf16: tensor cores (wgmma), TMA; hd 64, 128, 192 and 256, then above 256
+// in column blocks
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -580,13 +612,15 @@ struct Frag {
   }
 };
 
-// acc [64 x HD] of rows r (position row0 + r < seq) into a bf16 [B][S][heads
-// * HD] output at element offset base + position * stride.
+// acc [64 x HD] of rows r (position row0 + r < seq), its first n_cols
+// columns, into a bf16 [B][S][heads * hd] output at element offset base +
+// position * stride.
 template <int HD>
 __device__ __forceinline__ void store_rows(const float (&acc)[HD / 2],
                                            __nv_bfloat16* __restrict__ out,
                                            int64_t base, int64_t stride,
-                                           int row0, int seq, const Frag& fr) {
+                                           int row0, int seq, const Frag& fr,
+                                           int n_cols = HD) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int pos = row0 + fr.row_a + 8 * half;
@@ -594,17 +628,85 @@ __device__ __forceinline__ void store_rows(const float (&acc)[HD / 2],
     __nv_bfloat16* o = out + base + pos * stride;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<uint32_t*>(o + 8 * j + fr.cq) =
-          bf16x2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      if (8 * j < n_cols)
+        *reinterpret_cast<uint32_t*>(o + 8 * j + fr.cq) =
+            bf16x2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
   }
 }
 
-__device__ __forceinline__ void bar_init(uint32_t bars) {
+// n mbarriers of one arrival each at bars, bars + 8, ...
+__device__ __forceinline__ void bar_init(uint32_t bars, int n = 3) {
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i, 1);
+    for (int i = 0; i < n; ++i) mbar_init(bars + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+}
+
+// Whether no pair of q tile q0 and kv tile k0 is masked.
+__device__ __forceinline__ bool tile_whole(int q0, int k0, int seq,
+                                           int causal, int window) {
+  return q0 + kTile <= seq && k0 + kTile <= seq &&
+         (!causal || k0 + kTile - 1 <= q0) &&
+         (window <= 0 || k0 > q0 + kTile - 1 - window);
+}
+
+// dS of a q-outer tile (launch 1) in bf16, in the A-register layout:
+// register 2 j holds row a's pair of columns (8 j + cq, + 1), register
+// 2 j + 1 row b's. sc and dp are the tile's S and dP accumulators, lse2
+// and drow the thread's two rows' lse * log2(e) and D.
+__device__ __forceinline__ void q_tile_ds(
+    uint32_t (&ds)[kTile / 4], const float (&sc)[32], const float (&dp)[32],
+    const float (&lse2)[2], const float (&drow)[2], int q0, int k0,
+    bool whole, const Frag& fr, int seq, int causal, int window, float c2,
+    float scale) {
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+    float d[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int half = u / 2, idx = 4 * j + u;
+      const bool ok = whole || sees(q0 + fr.row_a + 8 * half,
+                                    k0 + 8 * j + fr.cq + u % 2, seq,
+                                    causal, window);
+      const float p = ok ? ex2(fmaf(sc[idx], c2, -lse2[half])) : 0.0f;
+      d[u] = p * (dp[idx] - drow[half]) * scale;
+    }
+    ds[2 * j] = bf16x2(d[0], d[1]);
+    ds[2 * j + 1] = bf16x2(d[2], d[3]);
+  }
+}
+
+// D = rowsum(dout * out) of the q tile's rows at position q0 (two threads
+// a row over hd / 2 columns each, 16-byte loads from global memory) into
+// vec[0 .. 63]; when `write`, also into dsum for launch 2.
+__device__ __forceinline__ void tile_dsum(
+    float* vec, const __nv_bfloat16* __restrict__ o,
+    const __nv_bfloat16* __restrict__ dout, float* __restrict__ dsum,
+    int q0, int b, int h, int seq, int H, int hd, bool write) {
+  const int r = threadIdx.x / 2, part = threadIdx.x % 2;
+  const int pos = q0 + r;
+  float d = 0.0f;
+  if (pos < seq) {
+    const int64_t off = ((static_cast<int64_t>(b) * seq + pos) * H + h) *
+                            hd + part * (hd / 2);
+#pragma unroll 4
+    for (int c = 0; c < hd / 2; c += 8) {
+      const uint4 x = *reinterpret_cast<const uint4*>(dout + off + c);
+      const uint4 y = *reinterpret_cast<const uint4*>(o + off + c);
+      const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(&x);
+      const __nv_bfloat16* ys = reinterpret_cast<const __nv_bfloat16*>(&y);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        d = fmaf(__bfloat162float(xs[e]), __bfloat162float(ys[e]), d);
+    }
+  }
+  d += __shfl_xor_sync(0xffffffffu, d, 1);
+  if (part == 0) {
+    vec[r] = d;
+    if (write && pos < seq)
+      dsum[(static_cast<int64_t>(b) * H + h) * seq + pos] = d;
+  }
 }
 
 // Launch 1: dq and D. Block: (q tile, batch, head) with the q tiles
@@ -651,32 +753,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     load_tile<HD>(base + C::kStage0 + C::kTileBytes, &vmap, full, kvh * HD,
                   t_begin * kTile, b);
   }
-  // D of the tile's rows, two threads a row over HD / 2 columns each, from
-  // global memory (16-byte loads) while the tiles arrive
-  {
-    const int r = threadIdx.x / 2, part = threadIdx.x % 2;
-    const int pos = q0 + r;
-    float d = 0.0f;
-    if (pos < seq) {
-      const int64_t off = ((static_cast<int64_t>(b) * seq + pos) * H + h) *
-                              HD + part * (HD / 2);
-#pragma unroll
-      for (int c = 0; c < HD / 2; c += 8) {
-        const uint4 x = *reinterpret_cast<const uint4*>(dout + off + c);
-        const uint4 y = *reinterpret_cast<const uint4*>(o + off + c);
-        const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(&x);
-        const __nv_bfloat16* ys = reinterpret_cast<const __nv_bfloat16*>(&y);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          d = fmaf(__bfloat162float(xs[e]), __bfloat162float(ys[e]), d);
-      }
-    }
-    d += __shfl_xor_sync(0xffffffffu, d, 1);
-    if (part == 0) {
-      vec[r] = d;
-      if (pos < seq) dsum[(static_cast<int64_t>(b) * H + h) * seq + pos] = d;
-    }
-  }
+  // D of the tile's rows while the tiles arrive
+  tile_dsum(vec, o, dout, dsum, q0, b, h, seq, H, HD, true);
   __syncthreads();
   const Frag fr;
   const int64_t lrow = (static_cast<int64_t>(b) * H + h) * seq;
@@ -715,27 +793,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     pin(sc);
     pin(dp);
     const int k0 = (t_begin + i) * kTile;
-    const bool whole = q0 + kTile <= seq && k0 + kTile <= seq &&
-                       (!causal || k0 + kTile - 1 <= q0) &&
-                       (window <= 0 || k0 > q0 + kTile - 1 - window);
-    // dS in bf16, in the A-register layout: register 2 j holds row a's
-    // pair of columns (8 j + cq, + 1), register 2 j + 1 row b's
     uint32_t ds[kTile / 4];
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-      float d[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int half = u / 2, idx = 4 * j + u;
-        const bool ok = whole || sees(q0 + fr.row_a + 8 * half,
-                                      k0 + 8 * j + fr.cq + u % 2, seq,
-                                      causal, window);
-        const float p = ok ? ex2(fmaf(sc[idx], c2, -lse2[half])) : 0.0f;
-        d[u] = p * (dp[idx] - drow[half]) * scale;
-      }
-      ds[2 * j] = bf16x2(d[0], d[1]);
-      ds[2 * j + 1] = bf16x2(d[2], d[3]);
-    }
+    q_tile_ds(ds, sc, dp, lse2, drow, q0, k0,
+              tile_whole(q0, k0, seq, causal, window), fr, seq, causal,
+              window, c2, scale);
     wgmma_fence();
     issue_rs<HD>(acc, ds, sK);
     wgmma_commit();
@@ -751,17 +812,19 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // The kv side of a dk/dv block: its kv tile, (batch, kv head), and the
 // iterations over (query head of the group, q tile) that its rows see.
-// Blocks run kv tile 0 (seen by every q row when causal) first; iteration i
-// reads query head kvh * G + i / n_q at q tile qt_begin + i % n_q.
+// Block blk (blockIdx.x, or its quotient by the column blocks) runs kv tile
+// blk / (B * Kv); kv tile 0 (seen by every q row when causal) comes first.
+// Iteration i reads query head kvh * G + i / n_q at q tile qt_begin + i %
+// n_q.
 struct KvBlock {
   int b, kvh, G, H, seq, k0, qt_begin, n_q, causal, window;
 
-  __device__ __forceinline__ KvBlock(int seq_, int H_, int Kv, int B,
-                                     int causal_, int window_)
+  __device__ __forceinline__ KvBlock(int blk, int seq_, int H_, int Kv,
+                                     int B, int causal_, int window_)
       : H(H_), seq(seq_), causal(causal_), window(window_) {
-    const int kt = blockIdx.x / (B * Kv);
-    b = (blockIdx.x % (B * Kv)) / Kv;
-    kvh = blockIdx.x % Kv;
+    const int kt = blk / (B * Kv);
+    b = (blk % (B * Kv)) / Kv;
+    kvh = blk % Kv;
     G = H / Kv;
     k0 = kt * kTile;
     const int2 span = q_span(k0, min(k0 + kTile, seq) - 1, seq, causal,
@@ -786,9 +849,7 @@ struct KvBlock {
   }
   // whether no pair of q tile q0_ and this kv tile is masked
   __device__ __forceinline__ bool whole(int q0_) const {
-    return q0_ + kTile <= seq && k0 + kTile <= seq &&
-           (!causal || k0 + kTile - 1 <= q0_) &&
-           (window <= 0 || k0 > q0_ + kTile - 1 - window);
+    return tile_whole(q0_, k0, seq, causal, window);
   }
   // iteration i's q and dout tiles into the ring stage at dst, on bar
   template <int HD>
@@ -802,7 +863,67 @@ struct KvBlock {
     load_tile<HD>(dst, qmap, bar, col, q0(i), b);
     load_tile<HD>(dst + kTileBytes, dmap, bar, col, q0(i), b);
   }
+  // Column kernels (hd at run time): chunk m of the block's stream, its
+  // iteration m / n_c's k, q, v and dout chunks at hd columns 64 (m % n_c),
+  // into the ring stage at dst, on bar
+  __device__ __forceinline__ void load_chunk(int m, int n_c, int hd,
+                                             uint32_t dst,
+                                             const CUtensorMap* qmap,
+                                             const CUtensorMap* dmap,
+                                             const CUtensorMap* kmap,
+                                             const CUtensorMap* vmap,
+                                             uint32_t bar) const {
+    const int i = m / n_c, c = m % n_c;
+    const int kcol = kvh * hd + 64 * c;
+    const int qcol = (kvh * G + i / n_q) * hd + 64 * c;
+    mbar_expect_tx(bar, 4 * kChunkBytes);
+    tma_load(dst, kmap, bar, kcol, k0, b);
+    tma_load(dst + kChunkBytes, qmap, bar, qcol, q0(i), b);
+    tma_load(dst + 2 * kChunkBytes, vmap, bar, kcol, k0, b);
+    tma_load(dst + 3 * kChunkBytes, dmap, bar, qcol, q0(i), b);
+  }
+  // and iteration i's q and dout columns [c0, c0 + NB) below hd into the
+  // column tiles at q_dst and d_dst, on bar
+  template <int NB>
+  __device__ __forceinline__ void load_cols(int i, int hd, int c0,
+                                            uint32_t q_dst, uint32_t d_dst,
+                                            const CUtensorMap* qmap,
+                                            const CUtensorMap* dmap,
+                                            uint32_t bar) const {
+    const int col = (kvh * G + i / n_q) * hd + c0;
+    const int n = min(NB, hd - c0) / 64;
+    mbar_expect_tx(bar, 2 * n * kChunkBytes);
+    for (int j = 0; j < n; ++j) {
+      tma_load(q_dst + j * kChunkBytes, qmap, bar, col + 64 * j, q0(i), b);
+      tma_load(d_dst + j * kChunkBytes, dmap, bar, col + 64 * j, q0(i), b);
+    }
+  }
 };
+
+// P^T (ROLE 0) or dS^T (ROLE 1) of a kv-outer tile (launch 2) in bf16, in
+// the A-register layout (as q_tile_ds); st and dpt are the tile's S^T and
+// dP^T accumulators (ROLE 0 reads no dpt), sl and sd the q tile's lse *
+// log2(e) and D in shared memory.
+template <int ROLE>
+__device__ __forceinline__ void kv_tile_a(
+    uint32_t (&a)[kTile / 4], const float (&st)[32], const float (&dpt)[32],
+    const float* sl, const float* sd, const KvBlock& kb, int q0, bool whole,
+    const Frag& fr, float c2, float scale) {
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+    float x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = 4 * j + u, col = 8 * j + fr.cq + u % 2;
+      const bool ok = whole || sees(q0 + col, kb.k0 + fr.row_a + 8 * (u / 2),
+                                    kb.seq, kb.causal, kb.window);
+      const float p = ok ? ex2(fmaf(st[idx], c2, -sl[col])) : 0.0f;
+      x[u] = ROLE == 0 ? p : p * (dpt[idx] - sd[col]) * scale;
+    }
+    a[2 * j] = bf16x2(x[0], x[1]);
+    a[2 * j + 1] = bf16x2(x[2], x[3]);
+  }
+}
 
 // The start of a dk/dv block: its barriers, then thread 0's TMA of its own
 // k and v tiles and of ring stage 0, and threads 0..127's stage 0 lse and D.
@@ -846,7 +967,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* vec = reinterpret_cast<float*>(smem_raw + (base - raw) + C::kVec);
   const uint32_t sK = base, sV = base + C::kTileBytes;
   const uint32_t full = base + C::kBar;
-  const KvBlock kb(seq, H, Kv, B, causal, window);
+  const KvBlock kb(blockIdx.x, seq, H, Kv, B, causal, window);
   const int n_it = kb.iterations();
   const Frag fr;
   const float c2 = scale * kLog2e;
@@ -969,20 +1090,7 @@ __device__ __forceinline__ void dkdv_split_loop(
       wgmma_commit();
       wgmma_wait<0>();
       pin(st);
-#pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {
-        float p[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int col = 8 * j + fr.cq + u % 2;
-          const bool ok = whole || sees(q0 + col, kb.k0 + fr.row_a +
-                                        8 * (u / 2), kb.seq, kb.causal,
-                                        kb.window);
-          p[u] = ok ? ex2(fmaf(st[4 * j + u], c2, -sl[col])) : 0.0f;
-        }
-        a[2 * j] = bf16x2(p[0], p[1]);
-        a[2 * j + 1] = bf16x2(p[2], p[3]);
-      }
+      kv_tile_a<0>(a, st, st, sl, sd, kb, q0, whole, fr, c2, scale);
       wgmma_fence();
       issue_rs<HD>(acc, a, sDo);
     } else {
@@ -994,21 +1102,7 @@ __device__ __forceinline__ void dkdv_split_loop(
       wgmma_wait<0>();
       pin(st);
       pin(dpt);
-#pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {
-        float d[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int idx = 4 * j + u, col = 8 * j + fr.cq + u % 2;
-          const bool ok = whole || sees(q0 + col, kb.k0 + fr.row_a +
-                                        8 * (u / 2), kb.seq, kb.causal,
-                                        kb.window);
-          const float p = ok ? ex2(fmaf(st[idx], c2, -sl[col])) : 0.0f;
-          d[u] = p * (dpt[idx] - sd[col]) * scale;
-        }
-        a[2 * j] = bf16x2(d[0], d[1]);
-        a[2 * j + 1] = bf16x2(d[2], d[3]);
-      }
+      kv_tile_a<1>(a, st, dpt, sl, sd, kb, q0, whole, fr, c2, scale);
       wgmma_fence();
       issue_rs<HD>(acc, a, sQ);
     }
@@ -1041,7 +1135,7 @@ __global__ void __launch_bounds__(2 * kThreads, 1)
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   float* vec = reinterpret_cast<float*>(smem_raw + (base - raw) + C::kVec);
-  const KvBlock kb(seq, H, Kv, B, causal, window);
+  const KvBlock kb(blockIdx.x, seq, H, Kv, B, causal, window);
 
   float acc[HD / 2];
 #pragma unroll
@@ -1060,6 +1154,307 @@ __global__ void __launch_bounds__(2 * kThreads, 1)
                            scale);
     store_rows<HD>(acc, dk, kv_base, static_cast<int64_t>(Kv) * HD, kb.k0,
                    seq, fr);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 above hd 256: tensor cores in column blocks
+// ---------------------------------------------------------------------------
+
+// The column kernels' shared memory, from a 1024-byte aligned base: a ring
+// of kStages stages of four 64-column chunks [64 rows][128 bytes] each
+// (dq: q, dout, k, v; dk/dv: k, q, v, dout), kColTiles column tiles
+// [NB / 64][64][128 bytes] (dq: k's NB columns of the kv tile; dk/dv: q's
+// and dout's of the q tile), the q-side vectors [2][2][kTile] fp32, then
+// kStages + 1 mbarriers (full[kStages], cols).
+template <int NB, int kColTiles, int kStages>
+struct ColsCfg {
+  static constexpr int kStage = 4 * kChunkBytes;
+  static constexpr int kColTile = NB / 64 * kChunkBytes;
+  static constexpr int kColBase = kStages * kStage;
+  static constexpr int kVec = kColBase + kColTiles * kColTile;
+  static constexpr int kBar = kVec + 2 * 2 * kTile * 4;
+  static constexpr int kSmem = kBar + 8 * (kStages + 1) + 1024;
+  static_assert(kStages >= 2, "the ring needs two stages");
+  static_assert(kSmem <= kMaxSmem, "over the 227 KB a block may opt in to");
+};
+// dq: two stages, so two blocks (97 KB each at NB 256) share an SM and
+// one's softmax overlaps the other's products (four stages, one block an
+// SM, ran no faster on the H100); dk/dv (256 threads of up to 234
+// registers, one block an SM): as many stages as shared memory holds
+constexpr int kDqColStages = 2;
+template <int NB>
+constexpr int kDkdvColStages =
+    (kMaxSmem - 2048 - 2 * (NB / 64) * kChunkBytes) / (4 * kChunkBytes);
+template <int NB>
+using DqCols = ColsCfg<NB, 1, kDqColStages>;
+template <int NB>
+using DkdvCols = ColsCfg<NB, 2, kDkdvColStages<NB>>;
+
+// d[64 x 64] (+)= A B^T over one 64-column chunk, A and B in shared memory
+// (K-major); `first` starts the sum.
+__device__ __forceinline__ void issue_chunk(float (&d)[32], uint32_t a,
+                                            uint32_t b, bool first) {
+  const uint64_t da = k_major(a), db = k_major(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss(d, da + 2 * kk, db + 2 * kk, !first || kk > 0);
+}
+
+// Launch 1 above hd 256: dq and D. Block: (column block, head, batch, q
+// tile), q tiles heaviest first when causal; it owns dq's columns [c0, c0
+// + NB). Per kv tile it sums S = sum_c q_c k_c^T and dP = sum_c dout_c
+// v_c^T over the hd / 64 chunks c, each stage of the ring holding one
+// chunk of q, dout, k and v (thread 0 refills a stage once every warp has
+// passed the barrier after its products), then adds dS k[:, c0 : c0 + NB]
+// from the column tile. Every block computes D over the full width for its
+// rows; column block 0 writes it for launch 2.
+template <int NB>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wgmma_cols(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap dmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const __nv_bfloat16* __restrict__ o,
+                            const __nv_bfloat16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            float* __restrict__ dsum,
+                            __nv_bfloat16* __restrict__ dq, int seq, int H,
+                            int Kv, int B, int hd, int causal, int window,
+                            float scale, int n_tiles, int n_cb) {
+  using C = DqCols<NB>;
+  constexpr int K = kDqColStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* vec = reinterpret_cast<float*>(smem_raw + (base - raw) + C::kVec);
+  const uint32_t sK = base + C::kColBase;
+  const uint32_t full = base + C::kBar, cols = full + 8 * K;
+
+  const int cb = blockIdx.x % n_cb;
+  const int h = blockIdx.x / n_cb % H;
+  const int b = blockIdx.x / n_cb / H % B;
+  const int t_lin = blockIdx.x / n_cb / H / B;
+  const int qt = causal ? n_tiles - 1 - t_lin : t_lin;
+  const int kvh = h / (H / Kv);
+  const int q0 = qt * kTile, c0 = cb * NB;
+  const int2 span = kv_span(q0, min(q0 + kTile, seq) - 1, seq, causal,
+                            window);
+  const int t_begin = span.x / kTile;
+  const int n_t = (span.y + kTile - 1) / kTile - t_begin;
+  const int n_c = hd / 64, n_chunks = n_t * n_c;
+
+  // chunk m of the stream (kv tile t_begin + m / n_c, columns 64 (m % n_c))
+  auto load_chunk = [&](int m) {
+    const int c = m % n_c, k0 = (t_begin + m / n_c) * kTile;
+    const uint32_t st = base + (m % K) * C::kStage, bar = full + 8 * (m % K);
+    mbar_expect_tx(bar, C::kStage);
+    tma_load(st, &qmap, bar, h * hd + 64 * c, q0, b);
+    tma_load(st + kChunkBytes, &dmap, bar, h * hd + 64 * c, q0, b);
+    tma_load(st + 2 * kChunkBytes, &kmap, bar, kvh * hd + 64 * c, k0, b);
+    tma_load(st + 3 * kChunkBytes, &vmap, bar, kvh * hd + 64 * c, k0, b);
+  };
+  // kv tile i's k columns [c0, c0 + NB) below hd
+  auto load_cols = [&](int i) {
+    const int k0 = (t_begin + i) * kTile, n = min(NB, hd - c0) / 64;
+    mbar_expect_tx(cols, n * kChunkBytes);
+    for (int j = 0; j < n; ++j)
+      tma_load(sK + j * kChunkBytes, &kmap, cols, kvh * hd + c0 + 64 * j, k0,
+               b);
+  };
+
+  bar_init(full, K + 1);
+  if (threadIdx.x == 0) {
+    for (int m = 0; m < min(K, n_chunks); ++m) load_chunk(m);
+    load_cols(0);
+  }
+  tile_dsum(vec, o, dout, dsum, q0, b, h, seq, H, hd, cb == 0);
+  __syncthreads();
+  const Frag fr;
+  const int64_t lrow = (static_cast<int64_t>(b) * H + h) * seq;
+  float lse2[2], drow[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = fr.row_a + 8 * half, pos = q0 + r;
+    lse2[half] = pos < seq ? lse[lrow + pos] * kLog2e : 0.0f;
+    drow[half] = vec[r];
+  }
+  const float c2 = scale * kLog2e;
+
+  float acc[NB / 2];
+#pragma unroll
+  for (int i = 0; i < NB / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < n_t; ++i) {
+    float sc[32], dp[32];
+    for (int c = 0; c < n_c; ++c) {
+      const int n = i * n_c + c;
+      const uint32_t st = base + (n % K) * C::kStage;
+      mbar_wait(full + 8 * (n % K), (n / K) & 1);
+      wgmma_fence();
+      issue_chunk(sc, st, st + 2 * kChunkBytes, c == 0);
+      issue_chunk(dp, st + kChunkBytes, st + 3 * kChunkBytes, c == 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (c > 0) {
+        __syncthreads();               // chunk n - 1's stage is read
+        if (threadIdx.x == 0 && n - 1 + K < n_chunks) load_chunk(n - 1 + K);
+      }
+    }
+    wgmma_wait<0>();
+    pin(sc);
+    pin(dp);
+    __syncthreads();                   // the tile's last stage is read
+    const int last = (i + 1) * n_c - 1;
+    if (threadIdx.x == 0 && last + K < n_chunks) load_chunk(last + K);
+    const int k0 = (t_begin + i) * kTile;
+    uint32_t ds[kTile / 4];
+    q_tile_ds(ds, sc, dp, lse2, drow, q0, k0,
+              tile_whole(q0, k0, seq, causal, window), fr, seq, causal,
+              window, c2, scale);
+    mbar_wait(cols, i & 1);
+    wgmma_fence();
+    issue_rs<NB>(acc, ds, sK);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    pin(ds);
+    __syncthreads();                   // the k columns are read
+    if (threadIdx.x == 0 && i + 1 < n_t) load_cols(i + 1);
+  }
+  store_rows<NB>(acc, dq, static_cast<int64_t>(b) * seq * H * hd +
+                              static_cast<int64_t>(h) * hd + c0,
+                 static_cast<int64_t>(H) * hd, q0, seq, fr, hd - c0);
+}
+
+// One warpgroup's loop of flash_bwd_dkdv_wgmma_cols, summing its NB
+// columns into acc: ROLE 0 S^T = sum_c k_c q_c^T, P^T and dv += P^T
+// dout[:, c0 : c0 + NB]; ROLE 1 S^T, dP^T = sum_c v_c dout_c^T, dS^T and
+// dk += dS^T q[:, c0 : c0 + NB]. Warpgroup 0 also keeps the ring: its
+// thread 0 refills a stage once both warpgroups have passed the barrier
+// after its products, and loads the next iteration's column tiles; its
+// threads the next iteration's lse and D into vec.
+template <int NB, int ROLE>
+__device__ __forceinline__ void dkdv_cols_loop(
+    float (&acc)[NB / 2], const KvBlock& kb, int hd, int c0, uint32_t base,
+    float* vec, const CUtensorMap* qmap, const CUtensorMap* dmap,
+    const CUtensorMap* kmap, const CUtensorMap* vmap,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    float scale) {
+  using C = DkdvCols<NB>;
+  constexpr int K = kDkdvColStages<NB>;
+  const uint32_t sQ = base + C::kColBase, sDo = sQ + C::kColTile;
+  const uint32_t full = base + C::kBar, cols = full + 8 * K;
+  const int tid = threadIdx.x % kThreads;
+  const Frag fr;
+  const float c2 = scale * kLog2e;
+  const int n_c = hd / 64, n_it = kb.iterations(), n_chunks = n_it * n_c;
+  for (int i = 0; i < n_it; ++i) {
+    const float next = ROLE == 0 && i + 1 < n_it
+                           ? kb.vec(lse, dsum, i + 1, tid) : 0.0f;
+    float st[32], dpt[32];
+    for (int c = 0; c < n_c; ++c) {
+      const int n = i * n_c + c;
+      const uint32_t stg = base + (n % K) * C::kStage;
+      mbar_wait(full + 8 * (n % K), (n / K) & 1);
+      wgmma_fence();
+      issue_chunk(st, stg, stg + kChunkBytes, c == 0);
+      if constexpr (ROLE == 1)
+        issue_chunk(dpt, stg + 2 * kChunkBytes, stg + 3 * kChunkBytes,
+                    c == 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (c > 0) {
+        both_warpgroups();             // chunk n - 1's stage is read
+        if (ROLE == 0 && tid == 0 && n - 1 + K < n_chunks)
+          kb.load_chunk(n - 1 + K, n_c, hd, base + ((n - 1) % K) * C::kStage,
+                        qmap, dmap, kmap, vmap, full + 8 * ((n - 1) % K));
+      }
+    }
+    wgmma_wait<0>();
+    pin(st);
+    if constexpr (ROLE == 1) pin(dpt);
+    both_warpgroups();                 // the iteration's last stage is read
+    const int last = (i + 1) * n_c - 1;
+    if (ROLE == 0 && tid == 0 && last + K < n_chunks)
+      kb.load_chunk(last + K, n_c, hd, base + (last % K) * C::kStage, qmap,
+                    dmap, kmap, vmap, full + 8 * (last % K));
+    const float* sl = vec + (i & 1) * 2 * kTile;   // lse * log2(e)
+    const float* sd = sl + kTile;                  // and D
+    const int q0 = kb.q0(i);
+    uint32_t a[kTile / 4];
+    kv_tile_a<ROLE>(a, st, ROLE == 0 ? st : dpt, sl, sd, kb, q0,
+                    kb.whole(q0), fr, c2, scale);
+    mbar_wait(cols, i & 1);
+    wgmma_fence();
+    issue_rs<NB>(acc, a, ROLE == 0 ? sDo : sQ);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    pin(a);
+    if (ROLE == 0 && i + 1 < n_it) vec[((i + 1) & 1) * 2 * kTile + tid] = next;
+    both_warpgroups();                 // the column tiles are read
+    if (ROLE == 0 && tid == 0 && i + 1 < n_it)
+      kb.load_cols<NB>(i + 1, hd, c0, sQ, sDo, qmap, dmap, cols);
+  }
+}
+
+// Launch 2 above hd 256: dk and dv. Block: (column block, kv head, batch,
+// kv tile) as KvBlock, two warpgroups (dkdv_cols_loop) over one ring of k,
+// q, v and dout chunks; it owns dk's and dv's columns [c0, c0 + NB).
+template <int NB>
+__global__ void __launch_bounds__(2 * kThreads, 1)
+    flash_bwd_dkdv_wgmma_cols(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap dmap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ dsum,
+                              __nv_bfloat16* __restrict__ dk,
+                              __nv_bfloat16* __restrict__ dv, int seq, int H,
+                              int Kv, int B, int hd, int causal, int window,
+                              float scale, int n_cb) {
+  using C = DkdvCols<NB>;
+  constexpr int K = kDkdvColStages<NB>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* vec = reinterpret_cast<float*>(smem_raw + (base - raw) + C::kVec);
+  const uint32_t full = base + C::kBar;
+  const int c0 = blockIdx.x % n_cb * NB;
+  const KvBlock kb(blockIdx.x / n_cb, seq, H, Kv, B, causal, window);
+  const int n_c = hd / 64, n_chunks = kb.iterations() * n_c;
+
+  bar_init(full, K + 1);
+  if (threadIdx.x == 0) {
+    for (int m = 0; m < min(K, n_chunks); ++m)
+      kb.load_chunk(m, n_c, hd, base + m * C::kStage, &qmap, &dmap, &kmap,
+                    &vmap, full + 8 * m);
+    kb.load_cols<NB>(0, hd, c0, base + C::kColBase,
+                     base + C::kColBase + C::kColTile, &qmap, &dmap,
+                     full + 8 * K);
+  }
+  if (threadIdx.x < kThreads)
+    vec[threadIdx.x] = kb.vec(lse, dsum, 0, threadIdx.x);
+  __syncthreads();
+
+  float acc[NB / 2];
+#pragma unroll
+  for (int i = 0; i < NB / 2; ++i) acc[i] = 0.0f;
+  const int64_t kv_base = static_cast<int64_t>(kb.b) * seq * Kv * hd +
+                          static_cast<int64_t>(kb.kvh) * hd + c0;
+  const int64_t stride = static_cast<int64_t>(Kv) * hd;
+  const Frag fr;
+  // the warpgroup, broadcast from lane 0 so that ptxas sees the role branch
+  // as uniform (on a branch it takes for divergent, it serializes the
+  // loops' wgmma, which stay in flight across the ring's barriers)
+  if (__shfl_sync(0xffffffffu, threadIdx.x / kThreads, 0) == 0) {
+    dkdv_cols_loop<NB, 0>(acc, kb, hd, c0, base, vec, &qmap, &dmap, &kmap,
+                          &vmap, lse, dsum, scale);
+    store_rows<NB>(acc, dv, kv_base, stride, kb.k0, seq, fr, hd - c0);
+  } else {
+    dkdv_cols_loop<NB, 1>(acc, kb, hd, c0, base, vec, &qmap, &dmap, &kmap,
+                          &vmap, lse, dsum, scale);
+    store_rows<NB>(acc, dk, kv_base, stride, kb.k0, seq, fr, hd - c0);
   }
 }
 
@@ -1149,6 +1544,62 @@ int launch_dkdv_hd(const Maps& m, const float* lse, const float* dsum,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The column block of a width above 256 (a multiple of 64): the fewest
+// blocks, ceil(hd / 256), then the narrowest of 192 and 256 that covers hd
+// in that many (hd / n_cb is above 128 there, so 128 is never the pick):
+// 192 at hd 320, 384 and 576, 256 at 448, 512, 640 and 1,024.
+int col_block(int hd) {
+  const int n_cb = (hd + 255) / 256;
+  return (hd + n_cb - 1) / n_cb <= 192 ? 192 : 256;
+}
+
+template <int NB>
+int launch_dq_cols(const Maps& m, const void* o, const void* dout,
+                   const float* lse, float* dsum, void* dq, int B, int seq,
+                   int H, int Kv, int hd, int causal, int window, float scale,
+                   cudaStream_t st) {
+  using C = DqCols<NB>;
+  const int64_t n_tiles = (static_cast<int64_t>(seq) + kTile - 1) / kTile;
+  const int n_cb = (hd + NB - 1) / NB;
+  const int64_t blocks = n_tiles * H * B * n_cb;
+  if (blocks >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_cols<NB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dq_wgmma_cols<NB><<<static_cast<unsigned>(blocks), kThreads,
+                                C::kSmem, st>>>(
+      m.q, m.d, m.k, m.v, static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, dsum,
+      static_cast<__nv_bfloat16*>(dq), seq, H, Kv, B, hd, causal, window,
+      scale, static_cast<int>(n_tiles), n_cb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NB>
+int launch_dkdv_cols(const Maps& m, const float* lse, const float* dsum,
+                     void* dk, void* dv, int B, int seq, int H, int Kv,
+                     int hd, int causal, int window, float scale,
+                     cudaStream_t st) {
+  using C = DkdvCols<NB>;
+  const int64_t n_tiles = (static_cast<int64_t>(seq) + kTile - 1) / kTile;
+  const int n_cb = (hd + NB - 1) / NB;
+  const int64_t blocks = n_tiles * Kv * B * n_cb;
+  if (blocks >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkdv_wgmma_cols<NB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dkdv_wgmma_cols<NB><<<static_cast<unsigned>(blocks),
+                                  2 * kThreads, C::kSmem, st>>>(
+      m.q, m.d, m.k, m.v, lse, dsum, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), seq, H, Kv, B, hd, causal, window,
+      scale, n_cb);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace tc
 
 }  // namespace
@@ -1163,8 +1614,9 @@ extern "C" {
 // == 0; window >= 0 (0: no window); scale = 1 / sqrt(hd). The _dq launch
 // writes dq and dsum (D); the _dkdv launch, on the same stream after it,
 // reads dsum and writes dk and dv. The CUDA-core functions (_f32,
-// _bf16_cc) take any hd; the tensor-core ones (_bf16) hd 64, 128, 192 or
-// 256 and 16-byte aligned q, k, v, out and dout.
+// _bf16_cc) take any hd; the tensor-core ones (_bf16) hd 64, 128, 192, 256
+// or a multiple of 64 above 256, and 16-byte aligned q, k, v, out and
+// dout.
 int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const void* lse,
                      void* dsum, void* dq, int B, int seq, int H, int Kv,
@@ -1235,9 +1687,15 @@ int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
     case 256:
       return tc::launch_dq_hd<256>(m, o, dout, l, ds, dq, B, seq, H, Kv,
                                    causal, window, scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (hd <= 256 || hd % 64 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int w = static_cast<int>(hd);
+  return tc::col_block(w) == 192
+             ? tc::launch_dq_cols<192>(m, o, dout, l, ds, dq, B, seq, H, Kv,
+                                       w, causal, window, scale, st)
+             : tc::launch_dq_cols<256>(m, o, dout, l, ds, dq, B, seq, H, Kv,
+                                       w, causal, window, scale, st);
 }
 
 int flash_bwd_dkdv_bf16(const void* q, const void* k, const void* v,
@@ -1265,9 +1723,15 @@ int flash_bwd_dkdv_bf16(const void* q, const void* k, const void* v,
     case 256:
       return tc::launch_dkdv_hd<256>(m, l, ds, dk, dv, B, seq, H, Kv, causal,
                                      window, scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (hd <= 256 || hd % 64 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int w = static_cast<int>(hd);
+  return tc::col_block(w) == 192
+             ? tc::launch_dkdv_cols<192>(m, l, ds, dk, dv, B, seq, H, Kv, w,
+                                         causal, window, scale, st)
+             : tc::launch_dkdv_cols<256>(m, l, ds, dk, dv, B, seq, H, Kv, w,
+                                         causal, window, scale, st);
 }
 
 }  // extern "C"

@@ -38,8 +38,10 @@ dk and dv in two launches, dq (which also writes D = rowsum(dout * out))
 then dk and dv, with no atomics. ``bwd_route`` picks the kernels by dtype
 and head width: bfloat16 up to hd 256 on the tensor cores (``wgmma``,
 built for the widths ``BWD_WGMMA_DIMS``; a width between two of them is
-zero-padded to the next, ``_pad_call``), float32 at every width and
-bfloat16 above 256 on the CUDA cores, which take any width.
+zero-padded to the next, ``_pad_call``), bfloat16 above 256 on the
+tensor-core kernels that sum over hd in 64-column chunks and own a block
+of output columns (``wgmma_chunked``; the width zero-padded to a multiple
+of 64), float32 at every width on the CUDA cores, which take any width.
 ``flash_attention_bwd.launches`` counts its kernel launches (two a call),
 ``flash_attention_bwd.route_launches`` the same by route and
 ``flash_attention_bwd.padded_launches`` those on zero-padded inputs.
@@ -88,7 +90,9 @@ _BWD_FNS = {(torch.float32, "cuda_core"): ("flash_bwd_dq_f32",
             (torch.bfloat16, "cuda_core"): ("flash_bwd_dq_bf16_cc",
                                             "flash_bwd_dkdv_bf16_cc"),
             (torch.bfloat16, "wgmma"): ("flash_bwd_dq_bf16",
-                                        "flash_bwd_dkdv_bf16")}
+                                        "flash_bwd_dkdv_bf16"),
+            (torch.bfloat16, "wgmma_chunked"): ("flash_bwd_dq_bf16",
+                                                "flash_bwd_dkdv_bf16")}
 BWD_WGMMA_DIMS = (64, 128, 192, 256)   # the tensor-core backward's widths
 BWD_LAUNCHES = 2                   # kernel launches a backward call
 
@@ -292,20 +296,24 @@ def build_bwd() -> dict:
 
 def bwd_route(dtype, hd: int) -> str:
     """The backward kernels a call of this dtype and head width runs on:
-    ``wgmma`` (bfloat16 up to hd 256) or ``cuda_core`` (float32, and
-    bfloat16 above 256)."""
-    if dtype == torch.bfloat16 and hd <= BWD_WGMMA_DIMS[-1]:
-        return "wgmma"
-    return "cuda_core"
+    ``wgmma`` (bfloat16 up to hd 256), ``wgmma_chunked`` (bfloat16 above
+    256) or ``cuda_core`` (float32)."""
+    if dtype != torch.bfloat16:
+        return "cuda_core"
+    return "wgmma" if hd <= BWD_WGMMA_DIMS[-1] else "wgmma_chunked"
 
 
 def bwd_head_dim(hd: int, dtype) -> int:
     """The width the backward's kernels run hd at: on ``wgmma`` the
-    narrowest of ``BWD_WGMMA_DIMS`` that holds it, on ``cuda_core`` hd
-    itself (those kernels take any width)."""
-    if bwd_route(dtype, hd) != "wgmma":
-        return hd
-    return next(w for w in BWD_WGMMA_DIMS if w >= hd)
+    narrowest of ``BWD_WGMMA_DIMS`` that holds it, on ``wgmma_chunked`` the
+    next multiple of 64 (the kernels stream hd in 64-column chunks), on
+    ``cuda_core`` hd itself (those kernels take any width)."""
+    path = bwd_route(dtype, hd)
+    if path == "wgmma_chunked":
+        return -(-hd // _WIDE_STEP) * _WIDE_STEP
+    if path == "wgmma":
+        return next(w for w in BWD_WGMMA_DIMS if w >= hd)
+    return hd
 
 
 def _check_bwd(q, k, v, out, lse, dout, window):
@@ -353,7 +361,7 @@ def _check_bwd(q, k, v, out, lse, dout, window):
             raise ValueError(f"flash_attention_bwd kernel: {name} is not "
                              f"contiguous")
     path = bwd_route(q.dtype, hd)
-    if path == "wgmma" and bwd_head_dim(hd, q.dtype) == hd:
+    if path in _TC_ROUTES and bwd_head_dim(hd, q.dtype) == hd:
         # TMA reads q, k, v and dout, 16-byte loads out (a padded width
         # reads the padded copies, which are allocated aligned)
         for name, t in ts.items():
@@ -409,5 +417,6 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.route_launches = {"wgmma": 0, "cuda_core": 0}
+flash_attention_bwd.route_launches = {"wgmma": 0, "wgmma_chunked": 0,
+                                      "cuda_core": 0}
 flash_attention_bwd.padded_launches = 0

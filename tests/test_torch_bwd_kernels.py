@@ -4,16 +4,20 @@ against the JAX package.
 - ``ops.flash_attention_bwd`` / ``ops.lstm_seq_bwd`` send CPU tensors to the
   plain versions and launch nothing; the CUDA wrappers refuse CPU tensors
   and the dtypes and shapes the kernels do not take, and their modules
-  build nothing when imported; ``bwd_route`` by (dtype, hd).
+  build nothing when imported; ``bwd_route`` and ``bwd_head_dim`` by
+  (dtype, hd).
 - A CPU model of the bf16 tensor-core backward's rounding (q, k, v, dout,
   out in bf16; P and dS rounded once to bf16 before their products; fp32
-  accumulation in the kernels' tile order; dq, dk, dv stored in bf16)
-  against JAX's ``_fa_bwd`` in fp32 on the same numpy inputs, over the flash
-  sweep at the tensor-core widths (64, 128, 192, 256), width-cut
-  qwen1.5-110b and nemotron-4-340b shapes and the wrapper's zero-padding
-  (hd 80, 150, 200), at the card's gate: 2e-2 of max |grad| (chip_smoke.py's
-  TRAIN_GRAD_TOL); the padding path with the plain backward against the
-  unpadded plain backward and against JAX, one bf16 step apart.
+  accumulation in the kernels' tile order, above hd 256 S and dP summed
+  over 64-column chunks as the column kernels do; dq, dk, dv stored in
+  bf16) against JAX's ``_fa_bwd`` in fp32 on the same numpy inputs, over
+  the flash sweep at the tensor-core widths (64, 128, 192, 256), at the
+  column kernels' 576 and 1,024 at the sweep's GQA shape, width-cut
+  qwen1.5-110b, nemotron-4-340b and hd 576 shapes and the wrapper's
+  zero-padding (hd 80, 150, 200, 300, 600), at the card's gate: 2e-2 of max
+  |grad| (chip_smoke.py's TRAIN_GRAD_TOL); the padding path with the plain
+  backward against the unpadded plain backward and against JAX, one bf16
+  step apart.
 - ``ref.lstm_seq_bwd`` and a CPU model of ``lstm_seq_bwd_kernel``'s fixed
   summation order (each dh_next[j] as four fmaf chains over a gate block,
   added as (p0 + p1) + (p2 + p3)) against ``jax.grad`` of the reference's
@@ -135,8 +139,8 @@ def test_kernel_modules_import_without_building():
                       r"cpu"),
     ("cpu_bf16_hd192", r"bfloat16 hd 192: tensor-core kernel\): q is on "
                        r"cpu"),
-    ("cpu_bf16_hd320", r"bfloat16 hd 320: CUDA-core kernel\): q is on "
-                       r"cpu"),
+    ("cpu_bf16_hd320", r"bfloat16 hd 320: tensor-core kernel, hd in column "
+                       r"blocks\): q is on cpu"),
     ("float64", "dtype torch.float64 not supported"),
     ("dtype", "dout is torch.float32, q is torch.bfloat16"),
     ("lse_dtype", "lse is torch.bfloat16, want torch.float32"),
@@ -147,9 +151,12 @@ def test_kernel_modules_import_without_building():
     ("window", "window -1"),
     ("misaligned", "v is not 16-byte aligned"),
     ("misaligned_hd192", "v is not 16-byte aligned"),
+    ("misaligned_hd320", "v is not 16-byte aligned"),
     # a padded width reads the wrapper's aligned copies, not v
     ("misaligned_hd80", r"bfloat16 hd 80: tensor-core kernel\): q is on "
-                        r"cpu")])
+                        r"cpu"),
+    ("misaligned_hd300", r"bfloat16 hd 300: tensor-core kernel, hd in "
+                         r"column blocks\): q is on cpu")])
 def test_flash_bwd_wrapper_raises(bad, why):
     hd = int(bad.rsplit("_hd", 1)[1]) if "_hd" in bad else 64
     dt = torch.float32 if bad == "cpu_f32" else torch.bfloat16
@@ -227,16 +234,16 @@ def test_lstm_seq_bwd_wrapper_raises(bad, why):
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 32, "wgmma"),
     (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 192, "wgmma"),
-    (torch.bfloat16, 576, "cuda_core"), (torch.float32, 64, "cuda_core"),
+    (torch.bfloat16, 576, "wgmma_chunked"), (torch.float32, 64, "cuda_core"),
     (torch.float32, 128, "cuda_core"), (torch.float32, 1024, "cuda_core"),
     (torch.bfloat16, 1, "wgmma"), (torch.bfloat16, 150, "wgmma"),
     (torch.bfloat16, 255, "wgmma"), (torch.bfloat16, 256, "wgmma"),
-    (torch.bfloat16, 257, "cuda_core"), (torch.float32, 192, "cuda_core"),
-    (torch.float32, 256, "cuda_core")])
+    (torch.bfloat16, 257, "wgmma_chunked"), (torch.float32, 192, "cuda_core"),
+    (torch.float32, 256, "cuda_core"), (torch.bfloat16, 1024, "wgmma_chunked")])
 def test_flash_bwd_route_by_dtype_and_width(dtype, hd, route):
     assert FA.bwd_route(dtype, hd) == route
-    assert set(FA.flash_attention_bwd.route_launches) == {"wgmma",
-                                                          "cuda_core"}
+    assert set(FA.flash_attention_bwd.route_launches) == {
+        "wgmma", "wgmma_chunked", "cuda_core"}
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +266,10 @@ def _bf(t):
 def _tc_bwd_model(q, k, v, out, lse, dout, causal, window, scale=None):
     """What flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma (at hd 192 and 256
     flash_bwd_dkdv_wgmma_split, whose two warpgroups form the same P^T and
-    dS^T from the same S^T) compute, in their rounding: q, k, v, out, dout
+    dS^T from the same S^T; above 256 flash_bwd_dq_wgmma_cols and
+    flash_bwd_dkdv_wgmma_cols, which sum s and dP over 64-column chunks of
+    hd and split the outputs' columns into blocks, each column's sum the
+    same) compute, in their rounding: q, k, v, out, dout
     bf16 (exact in fp32); D = rowsum(dout * out) in fp32; per 64 x 64 tile
     s = q k^T and dP = dout v^T in fp32, P = 2^(s * scale * log2(e) - lse *
     log2(e)) (0 where masked), dS = P (dP - D) scale; P and dS rounded once
@@ -282,9 +292,15 @@ def _tc_bwd_model(q, k, v, out, lse, dout, causal, window, scale=None):
     pos = torch.arange(S)
     n_t = -(-S // TILE)
 
+    def dot(a, b):          # a b^T over hd, by 64-column chunks above 256
+        if hd <= 256:
+            return a @ b.transpose(-1, -2)
+        return sum(a[..., d:d + 64] @ b[..., d:d + 64].transpose(-1, -2)
+                   for d in range(0, hd, 64))
+
     def tile_terms(qr, dor, kc, vc, lse_r, d_r, qpos, kpos):
-        s = qr @ kc.transpose(-1, -2)
-        dp = dor @ vc.transpose(-1, -2)
+        s = dot(qr, kc)
+        dp = dot(dor, vc)
         ok = _visible(qpos, kpos, S, causal, window)
         p = torch.where(ok, torch.exp2(s * c2 - lse_r[..., None]),
                         torch.zeros(()))
@@ -350,6 +366,22 @@ def test_flash_bwd_tc_model_meets_the_gate_against_jax(B, S, H, Kv, causal,
     assert max(errs) <= GRAD_GATE, errs
 
 
+@pytest.mark.parametrize("hd", [576, 1024])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_bwd_chunked_model_meets_the_gate_against_jax(causal, window,
+                                                            hd):
+    """The column kernels' widths (hd 576: 3 blocks of 192 columns; 1,024:
+    4 of 256) at the sweep's GQA shape, S and dP summed over 64-column
+    chunks, P and dS rounded once to bf16: within 2e-2 of max |grad| of
+    JAX's fp32 ``_fa_bwd``."""
+    B, S, H, Kv = SWEEP[1]
+    rng = np.random.RandomState(S + H + hd)
+    arrs = [rng.randn(B, S, n, hd).astype(np.float32)
+            for n in (H, Kv, Kv, H)]
+    errs = _model_vs_jax(arrs, causal, window)
+    assert max(errs) <= GRAD_GATE, errs
+
+
 @pytest.mark.parametrize("Kv", [1, 2])
 @pytest.mark.parametrize("scale", [0.5, 2.0])
 def test_flash_bwd_tc_model_meets_the_gate_at_a_qwen_cut(Kv, scale):
@@ -375,12 +407,24 @@ def test_flash_bwd_tc_model_meets_the_gate_at_a_nemotron_cut(scale):
     assert max(errs) <= GRAD_GATE, errs
 
 
+@pytest.mark.parametrize("scale", [0.5, 2.0])
+def test_flash_bwd_tc_model_meets_the_gate_at_a_wide_cut(scale):
+    """hd 576 (the column kernels, 9 chunks of 64) at S = 512, G = 8, one
+    kv head, inputs N(0, 1) x scale, causal: the model within 2e-2 of max
+    |grad| of JAX's fp32 ``_fa_bwd``."""
+    rng = np.random.RandomState(576)
+    arrs = [(rng.randn(1, 512, n, 576) * scale).astype(np.float32)
+            for n in (8, 1, 1, 8)]
+    errs = _model_vs_jax(arrs, True, 0)
+    assert max(errs) <= GRAD_GATE, errs
+
+
 # ---------------------------------------------------------------------------
 # (d') the wrapper's zero-padding to the tensor-core backward's widths
 # ---------------------------------------------------------------------------
 
 BF16_STEP = 2.0 ** -8       # one bf16 rounding of the largest |grad|, at most
-PADDED = {80: 128, 150: 192, 200: 256}
+PADDED = {80: 128, 150: 192, 200: 256, 300: 320, 600: 640}
 
 
 @pytest.mark.parametrize("dtype,hd,wide", [
@@ -388,12 +432,14 @@ PADDED = {80: 128, 150: 192, 200: 256}
     (torch.bfloat16, 65, 128), (torch.bfloat16, 80, 128),
     (torch.bfloat16, 129, 192), (torch.bfloat16, 150, 192),
     (torch.bfloat16, 192, 192), (torch.bfloat16, 193, 256),
-    (torch.bfloat16, 256, 256), (torch.bfloat16, 257, 257),
+    (torch.bfloat16, 256, 256), (torch.bfloat16, 257, 320),
     (torch.bfloat16, 576, 576), (torch.float32, 80, 80),
-    (torch.float32, 192, 192)])
+    (torch.float32, 192, 192), (torch.bfloat16, 600, 640),
+    (torch.bfloat16, 1024, 1024), (torch.float32, 576, 576)])
 def test_flash_bwd_head_dim_by_route(dtype, hd, wide):
-    """bf16 up to 256 runs at the next tensor-core width; the CUDA-core
-    kernels (fp32, bf16 above 256) at hd itself."""
+    """bf16 up to 256 runs at the next tensor-core width, above 256 at the
+    next multiple of 64 (the column kernels' chunk); the CUDA-core kernels
+    (fp32) at hd itself."""
     assert FA.bwd_head_dim(hd, dtype) == wide
 
 
