@@ -139,17 +139,20 @@ Phases, each printing its result; any failure exits non-zero:
    fp32 (within 2e-5 of max |grad|) and bf16, the sweep at hd 128 in bf16
    (within 2e-2), and its GQA shape at hd 80, 192, 256 and 576 in both
    dtypes (bf16 on the tensor cores up to 256, hd 16, 32 and 80
-   zero-padded; the CUDA-core backward for fp32 and bf16 at 576), each call
+   zero-padded; fp32 on the tensor cores as three TF32 products, route
+   ``tf32x3``, at every width), each call
    counted on its route and as padded or not; the bf16 CUDA-core pair
    through its C functions at hd 192 and 576; one batch entry of exactly
    2^31 elements (window 256) on slices at hd 128 in both dtypes and at hd
-   256 in bf16; the backward timed at qwen's prefill shape at hd 192, 256
-   and 576 in both dtypes beside SDPA's forward + backward and its
-   five-product bound, the bf16 tensor-core route at 192 and 256 also
-   beside the plain backward and the CUDA-core pair it replaced (which
-   must be slower), two runs bit-equal, with ptxas's registers and
-   spills; the lse of every other forward route (hd 256 bf16 and fp32, 576
-   bf16 and fp32, 1,024 bf16) against the plain lse; ``FlashAttention``
+   256 in bf16; the backward timed at qwen's prefill shape (bf16 at hd
+   192, 256, 576 and 1,024; fp32 at 64, 128, 192, 256, 576 and 1,024)
+   beside SDPA's forward + backward, its five-product bound (fp32 at the
+   three-product TF32 rate and at the CUDA cores'), the plain backward and
+   the CUDA-core pair it replaced (which must be slower; SDPA too, for
+   bf16 above 256 and fp32 up to 256), two runs bit-equal, each launch's
+   device time, with ptxas's registers and spills; the lse of every other
+   forward route (hd 256 bf16 and fp32, 576 bf16 and fp32, 1,024 bf16)
+   against the plain lse; ``FlashAttention``
    (the kernel's forward writing lse, then the backward kernels) at
    stablelm-1.6b's shape (B=1, S=4,096, 32 heads, hd 64),
    qwen1.5-110b's (S=1,024, 64 over 8 heads, hd 128) and
@@ -178,7 +181,7 @@ Phases, each printing its result; any failure exits non-zero:
    (``plain_kernels``), beside an fp32 plain step; a ``--ckpt`` run
    of the smoke config loading back bit for bit; the stablelm and qwen
    smoke configs' step gradients card vs CPU (fp32) and their exact
-   launch counts, the backward's on the CUDA-core route;
+   launch counts, the backward's on the ``tf32x3`` route;
 10. one layer of nemotron-4-340b at its full width (d_model 18,432, 96 over
    8 heads, hd 192, squared-ReLU d_ff 73,728; vocab cut to 4,096:
    3,605,114,880 parameters, bf16, random from seed 0) through
@@ -197,6 +200,7 @@ of the repository, it fails before printing either.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -1714,6 +1718,9 @@ def phase_gateway(torch, K, T, coord_s):
 # ---------------------------------------------------------------------------
 
 PEAK_BF16_FLOP_S = 989e12          # H100 SXM tensor cores, dense bf16
+# ... and dense TF32 (495e12) over the three TF32 products an fp32-accurate
+# product takes (the tf32x3 route's split)
+PEAK_TF32X3_FLOP_S = 495e12 / 3
 HOST_STEP_REPS = 20_000
 
 # tests/test_kernels.py's sweeps; rmsnorm's last two have rows that are not
@@ -2626,22 +2633,24 @@ TRAIN_FLASH_BWD_CALLS = TRAIN_LAYERS * 8
 TRAIN_GRAD_TOL = 2e-2
 TRAIN_LOSS_RTOL = 2e-2
 # the flash backward kernels against the plain backward on the card, both
-# from the kernel forward's out and lse, of max |grad|: fp32 (CUDA cores,
-# fp32 products summed in another order) at tests/test_kernels.py::_tol's
-# 2e-5; bf16 (tensor cores: P and dS rounded once to bf16 before their
-# products, which tests/test_torch_bwd_kernels.py models on the CPU against
-# JAX's _fa_bwd) at TRAIN_GRAD_TOL
+# from the kernel forward's out and lse, of max |grad|: fp32 (tf32x3: each
+# product as three TF32 products, summed in short chains and in another
+# order, which tests/test_torch_bwd_kernels.py models against JAX) at
+# tests/test_kernels.py::_tol's 2e-5; bf16 (tensor cores: P and dS rounded
+# once to bf16 before their products, which tests/test_torch_bwd_kernels.py
+# models on the CPU against JAX's _fa_bwd) at TRAIN_GRAD_TOL
 FLASH_BWD_TOL = {"float32": 2e-5, "bfloat16": TRAIN_GRAD_TOL}
 # widths beside 64 and 128 the backward is held at, in both dtypes: hd 80
 # (bf16 zero-padded to 128 on the tensor cores), nemotron-4-340b's 192 and
 # 256 (bf16 on the tensor cores, dk/dv split over two warpgroups), 300
 # (bf16 zero-padded to 320), 576 and 1,024 (bf16 above 256: the tensor
 # cores in column blocks, hd in 64-column chunks, 2 / 3 / 4 column blocks
-# of 192 / 192 / 256); fp32 on the CUDA cores at every width
+# of 192 / 192 / 256); fp32 on tf32x3 at every width (80 and 300 zero-padded
+# to 96 and 320)
 FLASH_BWD_WIDE = (80, 192, 256, 300, 576, 1024)
-# widths the bf16 CUDA-core pair is still held at, its C functions called
-# directly, as the yardstick of the tensor-core routes that replaced it:
-# 192 and 576
+# widths the CUDA-core pair is still held at in both dtypes, its C
+# functions called directly, as the yardstick of the tensor-core routes
+# that replaced it: 192 and 576
 FLASH_BWD_CC = (192, 576)
 # one batch entry of exactly 2^31 elements of q at hd 256 (the split dk/dv
 # kernel) and at hd 1,024 (the column kernels), window FLASH_ENTRY_WINDOW,
@@ -2675,18 +2684,50 @@ TRAIN_LSE_ROUTES = ((1, 256, 4, 2, 256, "float32", "cuda_core"),
                     (1, 256, 4, 2, 576, "float32", "hd_chunked"))
 
 
-def flash_bwd_bound_ms(B, S, H, Kv, hd, elem_bytes=2):
+def flash_bwd_bound_ms(B, S, H, Kv, hd, elem_bytes=2, peak=None):
     """The causal backward's work: five products over the S(S+1)/2 visible
     pairs of each head (s = q k^T recomputed, dv, dp, dq, dk; 2 flops a
     multiply-add) at the peak rate of its inputs' type (bf16: the tensor
-    cores; fp32: the CUDA cores); q, k, v, out and dout read once, lse once
-    (fp32), dq, dk and dv written once, in the inputs' type."""
+    cores; fp32: the TF32 tensor cores at a third of their rate, each fp32
+    product being three TF32 products, PEAK_TF32X3_FLOP_S, the least time
+    the card takes for fp32-accurate products; ``peak`` overrides, e.g.
+    PEAK_FP32_FLOP_S for the CUDA cores); q, k, v, out and dout read once,
+    lse once (fp32), dq, dk and dv written once, in the inputs' type."""
     flops = 5 * 2 * B * H * hd * S * (S + 1) // 2
     moved = elem_bytes * (3 * B * S * H * hd + 4 * B * S * Kv * hd) + \
         4 * B * H * S
-    peak = PEAK_BF16_FLOP_S if elem_bytes == 2 else PEAK_FP32_FLOP_S
+    if peak is None:
+        peak = PEAK_BF16_FLOP_S if elem_bytes == 2 else PEAK_TF32X3_FLOP_S
     t_b, t_o = moved / PEAK_BYTES_S, flops / peak
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def x3_cols(hd):
+    """The output columns a warpgroup of the tf32x3 backward owns at hd, as
+    ``x3::warp_cols`` in flash_attention_bwd.cu sets them: (dq's, dk/dv's);
+    a dq block owns twice its warpgroup's columns, a dk/dv block as many."""
+    return (64 if hd <= 128 else 128 if hd <= 256 else 256,
+            64 if hd <= 64 else 128 if hd <= 128 else 256)
+
+
+def x3_work(B, S, H, Kv, hd):
+    """A model of what the tf32x3 backward does in one causal call, counted
+    from the shapes and the kernels' tiling, not measured: (full-width
+    products over the visited 64 x 64 tile pairs, GB requested by TMA).
+    Each column block (``x3_cols``) forms S and dP again (dq: 2 products
+    and dS k; dk/dv: 2 and P^T dout, dS^T q), and requests for each tile
+    pair the own side's 64 rows and the other side's 64 positions of its
+    four inputs over the full width, then the other side's rows of its
+    output columns (dq: k's; dk/dv: q's and dout's)."""
+    wc_q, wc_kv = x3_cols(hd)
+    cb_q, cb_kv = -(-hd // (2 * wc_q)), -(-hd // wc_kv)
+    n_t = -(-S // 64)
+    pairs = B * H * n_t * (n_t + 1) // 2       # visited tile pairs a launch
+    exact = B * H * S * (S + 1) // 2 / (pairs * 64 * 64)
+    products = (2 * (cb_q + cb_kv) + 3) / exact
+    moved = pairs * 4 * (64 * hd * (4 * cb_q + 4 * cb_kv) +
+                         64 * hd * (1 + 2))
+    return products, moved / 1e9
 
 
 def grads_of(torch, fn, leaves, cot):
@@ -2705,10 +2746,11 @@ def rel_err(torch, got, want) -> float:
 def flash_bwd_sweep(torch, FA, ref):
     """The flash backward kernels against the plain backward, both from the
     kernel forward's out and lse: the JAX sweep x {causal, window 37, full}
-    in fp32 (CUDA cores) and bf16 (tensor cores; hd 16 and 32 zero-padded to
-    64), again at hd 128 in bf16 (GQA and MQA included), and its GQA shape
-    at ``FLASH_BWD_WIDE`` in both dtypes (bf16 on the tensor cores up to
-    256, 80 padded to 128; the CUDA cores above, and fp32 everywhere); each
+    in fp32 (``tf32x3``; hd 16 zero-padded to 32) and bf16 (tensor cores;
+    hd 16 and 32 zero-padded to 64), again at hd 128 in bf16 (GQA and MQA
+    included), and its GQA shape at ``FLASH_BWD_WIDE`` in both dtypes (bf16
+    on ``wgmma`` up to 256, 80 padded to 128, and on ``wgmma_chunked``
+    above; fp32 on ``tf32x3`` at every width, 80 and 300 padded); each
     call counted on its route, and as padded where it ran at a wider
     width. Returns the worst relative error by dtype."""
     from repro_torch.kernels import ops
@@ -2758,63 +2800,66 @@ def flash_bwd_sweep(torch, FA, ref):
     return worst
 
 
-def cuda_core_bwd_bf16(torch, FA, q, k, v, o, lse, do, causal=True,
-                       window=0):
-    """The bf16 CUDA-core backward pair (``flash_bwd_dq_bf16_cc``, then
-    ``flash_bwd_dkdv_bf16_cc``), called through its C functions at q's
-    width, for comparison and timing beside the route that replaced it up
-    to hd 256. Returns (dq, dk, dv)."""
+def cuda_core_bwd(torch, FA, q, k, v, o, lse, do, causal=True, window=0):
+    """The CUDA-core backward pair of q's dtype (``flash_bwd_dq_cc``, then
+    ``flash_bwd_dkdv_cc``; C functions ``flash_bwd_dq_bf16_cc`` /
+    ``flash_bwd_dq_f32`` and their dk/dv launches), called through its C
+    functions at q's width, for comparison and timing beside the routes
+    that replaced it (bf16: ``wgmma`` and ``wgmma_chunked``; fp32:
+    ``tf32x3``). Returns (dq, dk, dv)."""
     B, S, H, hd = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dsum = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream().cuda_stream
-    for fn, ptrs in zip(FA.build_bwd()[torch.bfloat16, "cuda_core"],
+    for fn, ptrs in zip(FA.build_bwd()[q.dtype, "cuda_core"],
                         ((q, k, v, o, do, lse, dsum, dq),
                          (q, k, v, do, lse, dsum, dk, dv))):
         err = fn(*(t.data_ptr() for t in ptrs), B, S, H, k.shape[2], hd,
                  int(causal), window, 1.0 / math.sqrt(hd), stream)
-        check(err == 0, f"the bf16 CUDA-core backward pair failed to "
+        check(err == 0, f"the {q.dtype} CUDA-core backward pair failed to "
                         f"launch: {err}")
     return dq, dk, dv
 
 
 def flash_bwd_cc_gate(torch, FA, ref):
-    """The bf16 CUDA-core pair through its C functions at ``FLASH_BWD_CC``,
-    the sweep's GQA shape x the masks, against the plain backward from the
-    kernel forward's out and lse. Returns the worst relative error."""
+    """The CUDA-core pair of each dtype through its C functions at
+    ``FLASH_BWD_CC``, the sweep's GQA shape x the masks, against the plain
+    backward from the kernel forward's out and lse, at the dtype's
+    ``FLASH_BWD_TOL``. Returns the worst relative error by dtype."""
     from repro_torch.kernels import ops
     B, S, H, Kv = FLASH_SWEEP[1][:4]
-    worst = 0.0
-    for hd in FLASH_BWD_CC:
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for (dt, tol), hd in itertools.product(FLASH_BWD_TOL.items(),
+                                           FLASH_BWD_CC):
+        dtype = getattr(torch, dt)
         for causal, window in FLASH_MASKS:
-            q, k, v, do = (randn(torch, (B, S, n, hd), torch.bfloat16,
-                                 320 + j) for j, n in enumerate((H, Kv, Kv,
-                                                                 H)))
+            q, k, v, do = (randn(torch, (B, S, n, hd), dtype, 320 + j)
+                           for j, n in enumerate((H, Kv, Kv, H)))
             o, lse = FA.flash_attention(q, k, v, causal=causal,
                                         window=window, with_lse=True)
-            got = cuda_core_bwd_bf16(torch, FA, q, k, v, o, lse, do, causal,
-                                     window)
+            got = cuda_core_bwd(torch, FA, q, k, v, o, lse, do, causal,
+                                window)
             want = ref.flash_attention_bwd(q, k, v, o, lse, do,
                                            causal=causal, window=window,
                                            chunk=min(ops.KV_CHUNK, S))
             errs = [rel_err(torch, a, b) for a, b in zip(got, want)]
-            ok = max(errs) <= FLASH_BWD_TOL["bfloat16"]
-            print(f"[train] the bf16 CUDA-core backward pair (C functions) "
+            ok = max(errs) <= tol
+            print(f"[train] the {dt} CUDA-core backward pair (C functions) "
                   f"B={B} S={S} H={H} Kv={Kv} hd={hd} causal={causal} "
                   f"window={window}: max|pair-plain| / max|grad| dq "
                   f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} tol "
-                  f"{FLASH_BWD_TOL['bfloat16']} {'ok' if ok else 'FAIL'}")
-            check(ok, f"the bf16 CUDA-core backward pair disagrees with the "
+                  f"{tol} {'ok' if ok else 'FAIL'}")
+            check(ok, f"the {dt} CUDA-core backward pair disagrees with the "
                       f"plain backward at hd {hd} causal={causal} "
                       f"window={window}")
-            worst = max(worst, max(errs))
+            worst[dt] = max(worst[dt], max(errs))
     return worst
 
 
 def flash_bwd_entry(torch, FA, ref):
     """The flash backward on one batch entry of exactly 2^31 elements of q,
     window 256, causal: at hd 128 (FLASH_ENTRY) in bf16 (tensor cores) and
-    fp32 (CUDA cores), at hd 256 (FLASH_BWD_ENTRY_WIDE) in bf16 (the split
+    fp32 (``tf32x3``), at hd 256 (FLASH_BWD_ENTRY_WIDE) in bf16 (the split
     dk/dv kernel) and at hd 1,024 (FLASH_BWD_ENTRY_COLS) in bf16 (the column
     kernels), one call each: dq of the first and last 1,024 rows
     and dk, dv of the positions whose every pair lies in the same slices,
@@ -2869,12 +2914,19 @@ def flash_bwd_entry(torch, FA, ref):
     return secs
 
 
-def bwd_registers(FA, hd):
-    """ptxas's registers and spills of the tensor-core backward kernels at
-    head width hd: up to 256 those instantiated at hd, above it the column
-    kernels (both of their column blocks)."""
+def bwd_registers(FA, hd, path="wgmma"):
+    """ptxas's registers and spills of the tensor-core backward kernels of
+    ``path`` at head width hd: bf16 up to 256 those instantiated at hd,
+    above it the column kernels (both of their column blocks); fp32
+    (``tf32x3``) the two instantiated at the output columns a warpgroup
+    owns at hd (``x3_cols``)."""
     from repro_torch.kernels import build as kbuild
     report = ptxas_report(kbuild.log_path(FA.BWD_SOURCE).read_text())
+    if path == "tf32x3":
+        dq, kv = x3_cols(hd)
+        return {name: rep for name, rep in report
+                if f"dq_tf32x3<Li{dq}>" in name or
+                f"dkdv_tf32x3<Li{kv}>" in name}
     cols = hd > 256
     return {name: rep for name, rep in report
             if "wgmma" in name and ("_cols" in name) == cols and
@@ -2883,27 +2935,33 @@ def bwd_registers(FA, hd):
 
 # widths the flash backward is timed at, qwen's prefill shape: bf16 192
 # (nemotron-4-340b's) and 256 on the tensor cores (wgmma), 576 and 1,024 on
-# the column kernels (wgmma_chunked), each beside the CUDA-core pair they
-# replaced; fp32 on the pair at the configs' widths (64, 128, 192) and
-# above
+# the column kernels (wgmma_chunked); fp32 (tf32x3) at the configs' widths
+# (64, 128, 192) and above; each beside the CUDA-core pair it replaced
 FLASH_BWD_TIMED = {"bfloat16": (192, 256, 576, 1024),
                    "float32": (64, 128, 192, 256, 576, 1024)}
 # the pair at this width or above takes seconds a call: one timed call
 FLASH_BWD_ONE_CALL = 1024
+# fp32 up to this width is gated faster than SDPA's forward + backward too
+FLASH_BWD_FP32_SDPA_GATE = 256
+# the tensor-core backward routes (each timed beside the CUDA-core pair)
+BWD_TC_ROUTES = ("wgmma", "wgmma_chunked", "tf32x3")
 
 
 def flash_bwd_wide_times(torch, FA, ref):
     """The flash backward at qwen's prefill shape (B=4, S=1,024, 64 over 8
     heads, causal) at FLASH_BWD_TIMED, from the kernel forward's out and
     lse: its time beside SDPA's forward + backward (timed only; the backend
-    it picked named) and the five-product bound; on the bf16 tensor-core
-    routes also beside the plain backward and the CUDA-core pair they
-    replaced (its C functions, in the same call), gated faster than the
-    pair (and, above hd 256, than SDPA's forward + backward), two runs
-    gated bit for bit equal, with each launch's device time (three profiled
-    calls) and ptxas's registers and spills of their kernels. Their agreement with the plain backward at these widths is
-    gated in ``flash_bwd_sweep`` (FLASH_BWD_WIDE), at the training shapes
-    and under autograd (``flash_bwd_autograd_cols``)."""
+    it picked named), the five-product bound (fp32: at the three-product
+    TF32 rate and at the CUDA cores' 67 TFLOP/s), the plain backward and
+    the CUDA-core pair each route replaced (its C functions, in the same
+    call; one call at FLASH_BWD_ONE_CALL and above), gated faster than the
+    pair; bf16 above hd 256 and fp32 up to FLASH_BWD_FP32_SDPA_GATE also
+    faster than SDPA's forward + backward; two runs gated bit for bit
+    equal, with each launch's device time (three profiled calls) and
+    ptxas's registers and spills of their kernels. Their agreement with the
+    plain backward at these widths is gated in ``flash_bwd_sweep``
+    (FLASH_BWD_WIDE), at the training shapes and under autograd
+    (``flash_bwd_autograd_cols``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     B, S, H, Kv = SERVE["batch"], SERVE["prompt"], 64, 8
@@ -2912,12 +2970,12 @@ def flash_bwd_wide_times(torch, FA, ref):
         dtype = getattr(torch, name)
         for hd in widths:
             path = FA.bwd_route(dtype, hd)
+            check(path in BWD_TC_ROUTES, f"hd {hd} {name} routes to {path}")
             q, k, v, do = (randn(torch, (B, S, n, hd), dtype, 400 + j, 0.5)
                            for j, n in enumerate((H, Kv, Kv, H)))
             o, lse = FA.flash_attention(q, k, v, with_lse=True)
-            tc = path in ("wgmma", "wgmma_chunked")
             one = (1, 1, 0) if hd >= FLASH_BWD_ONE_CALL else (2, 1, 1)
-            reps, inner, warm = (5, 3, 1) if tc else one
+            reps, inner, warm = 5, 3, 1
             before = FA.flash_attention_bwd.route_launches[path]
             ms = median_ms(lambda: FA.flash_attention_bwd(q, k, v, o, lse,
                                                           do),
@@ -2936,8 +2994,7 @@ def flash_bwd_wide_times(torch, FA, ref):
 
             torch.use_deterministic_algorithms(False)
             try:
-                lib_ms = median_ms(sdpa_fb, torch, reps=reps, inner=inner,
-                                   warm=1)
+                lib_ms = median_ms(sdpa_fb, torch, reps=5, inner=3, warm=1)
                 backend = sdpa_backend(torch, sdpa(torch, q, k, v))
             finally:
                 torch.use_deterministic_algorithms(True)
@@ -2945,50 +3002,58 @@ def flash_bwd_wide_times(torch, FA, ref):
             row = dict(ms=ms, bound_ms=bound, bound_by=by,
                        sdpa_fwd_bwd_ms=lib_ms, sdpa_backend=backend,
                        route=path)
-            more = ""
-            if tc:
-                first = FA.flash_attention_bwd(q, k, v, o, lse, do)
-                same = all(torch.equal(a, b) for a, b in zip(
-                    first, FA.flash_attention_bwd(q, k, v, o, lse, do)))
-                check(same, f"hd {hd}: two runs of the tensor-core backward "
-                            f"differ")
-                del first
-                cc_ms = median_ms(lambda: cuda_core_bwd_bf16(
-                    torch, FA, q, k, v, o, lse, do), torch, *one)
-                check(ms < cc_ms, f"hd {hd} bf16: the tensor-core backward "
-                                  f"({ms:.4f} ms) is not faster than the "
-                                  f"CUDA-core pair it replaced "
-                                  f"({cc_ms:.4f} ms)")
-                if path == "wgmma_chunked":
-                    check(ms < lib_ms, f"hd {hd} bf16: the column kernels "
-                                       f"({ms:.4f} ms) are not faster than "
-                                       f"SDPA's forward + backward "
-                                       f"({backend}, {lib_ms:.4f} ms)")
-                plain_ms = median_ms(lambda: ref.flash_attention_bwd(
-                    q, k, v, o, lse, do, chunk=ops.KV_CHUNK), torch, reps=2,
-                    inner=1, warm=1)
-                regs = bwd_registers(FA, hd)
-                by_name = profiled(torch, lambda: FA.flash_attention_bwd(
-                    q, k, v, o, lse, do), reps=3)[3]
-                launch_ms = {}
-                for kname, (n, t) in by_name.items():
-                    m = re.search(r"flash_bwd_\w+<\d+>", kname)
-                    launch_ms[m.group(0) if m else kname[:60]] = t / n
-                row.update(cuda_core_ms=cc_ms, plain_ms=plain_ms,
-                           bit_equal=same, registers=regs,
-                           device_ms=launch_ms)
-                more = (f"; plain backward {plain_ms:.3f} ms; the CUDA-core "
-                        f"pair it replaced {cc_ms:.3f} ms; "
-                        f"two runs bit-equal {same}; device ms a launch "
-                        f"(profiler): " + ", ".join(
-                            f"{n} {t:.4f}" for n, t in launch_ms.items()) +
-                        "; ptxas: " + "; ".join(
-                            f"{n} {r}" for n, r in regs.items()))
+            fp32_bound = ""
+            if dtype == torch.float32:
+                cc_bound = flash_bwd_bound_ms(B, S, H, Kv, hd, 4,
+                                              PEAK_FP32_FLOP_S)[0]
+                products, gb = x3_work(B, S, H, Kv, hd)
+                fp32_bound = (f"; bound at the CUDA cores' 67 TFLOP/s "
+                              f"{cc_bound:.4f} ms ({ms / cc_bound:.2f}x); "
+                              f"modelled from the shapes, not measured: "
+                              f"{products:.2f} full-width products (each "
+                              f"three TF32 products), {gb:.1f} GB requested "
+                              f"by TMA")
+            first = FA.flash_attention_bwd(q, k, v, o, lse, do)
+            same = all(torch.equal(a, b) for a, b in zip(
+                first, FA.flash_attention_bwd(q, k, v, o, lse, do)))
+            check(same, f"hd {hd} {name}: two runs of the tensor-core "
+                        f"backward differ")
+            del first
+            cc_ms = median_ms(lambda: cuda_core_bwd(
+                torch, FA, q, k, v, o, lse, do), torch, *one)
+            check(ms < cc_ms, f"hd {hd} {name}: the tensor-core backward "
+                              f"({ms:.4f} ms) is not faster than the "
+                              f"CUDA-core pair it replaced ({cc_ms:.4f} ms)")
+            if path == "wgmma_chunked" or (
+                    path == "tf32x3" and hd <= FLASH_BWD_FP32_SDPA_GATE):
+                check(ms < lib_ms, f"hd {hd} {name}: the {path} backward "
+                                   f"({ms:.4f} ms) is not faster than "
+                                   f"SDPA's forward + backward "
+                                   f"({backend}, {lib_ms:.4f} ms)")
+            plain_ms = median_ms(lambda: ref.flash_attention_bwd(
+                q, k, v, o, lse, do, chunk=ops.KV_CHUNK), torch, reps=2,
+                inner=1, warm=1)
+            regs = bwd_registers(FA, hd, path)
+            by_name = profiled(torch, lambda: FA.flash_attention_bwd(
+                q, k, v, o, lse, do), reps=3)[3]
+            launch_ms = {}
+            for kname, (n, t) in by_name.items():
+                m = re.search(r"flash_bwd_\w+<\d+>", kname)
+                launch_ms[m.group(0) if m else kname[:60]] = t / n
+            row.update(cuda_core_ms=cc_ms, plain_ms=plain_ms,
+                       bit_equal=same, registers=regs, device_ms=launch_ms)
             print(f"[train] flash_attention_bwd time B={B} S={S} H={H} "
                   f"Kv={Kv} hd={hd} {name} causal ({path}, "
                   f"{FA.BWD_LAUNCHES} launches): {ms:.4f} ms, bound "
-                  f"{bound:.4f} ms ({by}, {ms / bound:.1f}x); SDPA forward "
-                  f"+ backward ({backend}) {lib_ms:.3f} ms{more}")
+                  f"{bound:.4f} ms ({by}, {ms / bound:.1f}x){fp32_bound}; "
+                  f"SDPA forward + backward ({backend}) {lib_ms:.3f} ms "
+                  f"({lib_ms / ms:.2f}x the kernel's time); plain backward "
+                  f"{plain_ms:.3f} ms; the CUDA-core pair it replaced "
+                  f"{cc_ms:.3f} ms ({cc_ms / ms:.1f}x); two runs bit-equal "
+                  f"{same}; device ms a launch (profiler): " + ", ".join(
+                      f"{n} {t:.4f}" for n, t in launch_ms.items()) +
+                  "; ptxas: " + "; ".join(
+                      f"{n} {r}" for n, r in regs.items()))
             out[f"hd{hd}/{name}"] = row
             del q, k, v, do, o, lse, qt, kt, vt
             torch.cuda.empty_cache()
@@ -3358,7 +3423,7 @@ def phase_train(torch, K, T):
                         "cuda_core": 0, "hd_chunked": 0},
                 flash_bwd=bwd_step * TRAIN_STEPS,
                 bwd_routes={"wgmma": bwd_step * TRAIN_STEPS,
-                            "wgmma_chunked": 0, "cuda_core": 0},
+                            "wgmma_chunked": 0, "tf32x3": 0},
                 rmsnorm=0, others=0)
     print(f"[train] launches over {TRAIN_STEPS} steps {counts} (expected "
           f"{want}: {TRAIN_FLASH_BWD_CALLS} flash backward calls a step, "
@@ -3477,7 +3542,7 @@ def phase_train_nemotron(torch, K, T, smi):
     """One layer of nemotron-4-340b at its full width through
     ``launch/train.py::run_arch`` (``NEMOTRON_TRAIN``, every count set to 0
     just before and read just after): every flash backward launch on
-    ``wgmma`` at hd 192, none on ``cuda_core``; then one profiled step's
+    ``wgmma`` at hd 192, none on ``tf32x3``; then one profiled step's
     gradients (the device time under the flash backward's node), gated
     against the same step with ``ops.flash_attention_bwd`` patched to the
     plain backward: every gradient leaf within TRAIN_GRAD_TOL of its max
@@ -3528,7 +3593,7 @@ def phase_train_nemotron(torch, K, T, smi):
     want = dict(flash=fwd_step * NEMOTRON_STEPS,
                 flash_bwd=bwd_step * NEMOTRON_STEPS,
                 bwd_routes={"wgmma": bwd_step * NEMOTRON_STEPS,
-                            "wgmma_chunked": 0, "cuda_core": 0},
+                            "wgmma_chunked": 0, "tf32x3": 0},
                 bwd_padded=0, rmsnorm=0)
     print(f"[nemotron] launches over {NEMOTRON_STEPS} steps {counts} "
           f"(expected {want}); per step {res['launches']}")
@@ -3556,7 +3621,7 @@ def phase_train_nemotron(torch, K, T, smi):
     prof_bwd = {r: FA.flash_attention_bwd.route_launches[r] - before[r]
                 for r in before}
     check(prof_bwd == {"wgmma": bwd_step, "wgmma_chunked": 0,
-                       "cuda_core": 0},
+                       "tf32x3": 0},
           f"the profiled step's flash backward launches {prof_bwd}")
     grads_k, mets_k = prof.pop("out")
     bwd_launch_ms = prof["flash_bwd_ms"] / sum(prof_bwd.values())
@@ -3625,13 +3690,13 @@ def phase_train_smoke(torch, TR, FA, RN):
             batch = TR.sample_batch(run["rng"], run["bound"]["batch_shape"],
                                     cfg.vocab, dev)
             before = (FA.flash_attention.launches, RN.rmsnorm.launches,
-                      FA.flash_attention_bwd.route_launches["cuda_core"],
+                      FA.flash_attention_bwd.route_launches["tf32x3"],
                       FA.flash_attention_bwd.launches)
             g, m = run["bound"]["grads"](tree.to_device(params0, dev), batch)
             runs[dev] = (tree.to_device(g, "cpu"), float(m["loss"]),
                          (FA.flash_attention.launches - before[0],
                           RN.rmsnorm.launches - before[1],
-                          FA.flash_attention_bwd.route_launches["cuda_core"] -
+                          FA.flash_attention_bwd.route_launches["tf32x3"] -
                           before[2],
                           FA.flash_attention_bwd.launches - before[3]))
         worst = max(rel_err(torch, a, b) for a, b in zip(
@@ -3639,7 +3704,7 @@ def phase_train_smoke(torch, TR, FA, RN):
         loss_rel = abs(runs["cuda"][1] - runs["cpu"][1]) / runs["cpu"][1]
         # per microbatch: the layers' flash (x2 under remat); the norms: 2
         # a layer (again under remat) and the final one; the flash backward
-        # once a layer, fp32 on the CUDA-core route, all of its launches
+        # once a layer, fp32 on the tf32x3 route, all of its launches
         L, n = cfg.n_layers, TRAIN_SMOKE["micro"]
         bwd = L * n * FA.BWD_LAUNCHES
         want = (2 * L * n, (4 * L + 1) * n if cfg.norm == "rmsnorm" else 0,
@@ -3648,7 +3713,7 @@ def phase_train_smoke(torch, TR, FA, RN):
         print(f"[train] {arch} smoke fp32 step, card vs CPU: loss rel "
               f"{loss_rel:.3e}, worst gradient leaf {worst:.3e} (tol "
               f"{TRAIN_SMOKE_TOL}) {'ok' if ok else 'FAIL'}; card launches "
-              f"flash/rmsnorm/flash backward on the CUDA-core route/flash "
+              f"flash/rmsnorm/flash backward on the tf32x3 route/flash "
               f"backward {runs['cuda'][2]} (expected {want})")
         check(ok, f"{arch}: the smoke step differs card vs CPU")
         check(runs["cuda"][2] == want and runs["cpu"][2] == (0, 0, 0, 0),
@@ -3877,7 +3942,8 @@ def main() -> int:
             "wgmma_chunked": "flash_bwd_dq_wgmma_cols + "
                              "flash_bwd_dkdv_wgmma_cols, bfloat16 above hd "
                              "256",
-            "cuda_core": "flash_bwd_dq_cc + flash_bwd_dkdv_cc, float32"},
+            "tf32x3": "flash_bwd_dq_tf32x3 + flash_bwd_dkdv_tf32x3, "
+                      "float32 as three TF32 products"},
         "autograd_cols_err": train_kern["bwd_autograd_cols"],
         "entry_2_31_s": train_kern["bwd_entry_s"],
         **{key: {k: train_kern[arch][k] for k in (

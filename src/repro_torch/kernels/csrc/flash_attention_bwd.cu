@@ -6,10 +6,13 @@
 // width up to 256 to the next of these); bfloat16 at a multiple of 64
 // above 256 on the tensor cores in column blocks (flash_bwd_dq_wgmma_cols,
 // flash_bwd_dkdv_wgmma_cols; the wrapper pads the width to a multiple of
-// 64); float32 at every width runs on the CUDA cores with fp32 products
-// (flash_bwd_dq_cc, flash_bwd_dkdv_cc; TF32 would break the fp32
-// tolerances), which take any hd at run time (and bfloat16 too, kept as
-// the yardstick of the tensor-core routes).
+// 64); float32 at a multiple of 32 on the tensor cores too, each fp32
+// product as three TF32 products (flash_bwd_dq_tf32x3,
+// flash_bwd_dkdv_tf32x3, route tf32x3; one TF32 product would break the
+// fp32 tolerances, the split of each operand into hi and lo parts keeps
+// them; the wrapper pads the width to a multiple of 32). The CUDA-core pair
+// (flash_bwd_dq_cc, flash_bwd_dkdv_cc; any hd, either dtype) stays as the
+// yardstick of the tensor-core routes; no route reaches it.
 //
 // Replaces the backward of the JAX package's flash attention custom VJP,
 // src/repro/models/layers.py:201 _fa_bwd (jnp; the JAX package has no
@@ -110,12 +113,44 @@
 // it for its rows (64 rows x hd, a small share of its reads) and column
 // block 0 writes it for the dk/dv launch.
 //
-// The CUDA-core kernels: 256 threads a block, 64 rows a block, 4 threads a
-// row, the other side in tiles of 32 positions (8 columns a thread); scores
-// and dP summed over hd in chunks of 64 columns staged in shared memory,
-// then P and dS through shared memory into this block's 64 output columns
-// (blocks own column chunks, so any hd runs; each chunk's block recomputes
-// the scores: exact, simple, not fast).
+// The CUDA-core kernels (the yardstick): 256 threads a block, 64 rows a
+// block, 4 threads a row, the other side in tiles of 32 positions (8
+// columns a thread); scores and dP summed over hd in chunks of 64 columns
+// staged in shared memory, then P and dS through shared memory into this
+// block's 64 output columns (blocks own column chunks, so any hd runs; each
+// chunk's block recomputes the scores: exact, simple, not fast).
+//
+// The fp32 tensor-core kernels (tf32x3). An fp32 operand x is split into
+// hi, x itself (the tensor core reads a raw fp32 value as its TF32
+// truncation, trunc(x), as a one-time probe on an H100 showed; PERF.md
+// section 6), and lo = tf32(x - trunc(x)) by cvt.rna; a product is
+// hi hi' + hi lo' + lo hi' in fp32, ~2^-20 of it dropped. The tensor core's
+// fp32 accumulation truncates (the probe: ~3e-8 of the result per
+// accumulation), so every chain is kept short (12 products: one 32-column
+// chunk of hd; 24: one 64-position tile of an output product) and the
+// chains are added in fp32 registers; the gradients then hold the plain backward's 2e-5 of max
+// |grad| (tests/test_torch_bwd_kernels.py models the split against JAX).
+// Both launches are one template (tf32x3_block): a block owns 64 rows and
+// takes the other side in tiles of 64 positions, its two warpgroups over
+// one ring of 32-column chunks (128 bytes, one row of the 128-byte
+// swizzle) that thread 0 fills by TMA. Per tile, hd / 32 product steps (a
+// chunk of each of the four inputs: warpgroup 0 forms S, or S^T, and
+// warpgroup 1 dP, or dP^T, on wgmma m64n64k8 .tf32 with both operands in
+// shared memory, K-major), then P and dS in registers, exchanged between
+// the warpgroups through shared memory, then output steps of the other
+// side's output columns (dq += dS k over each warpgroup's half of the
+// block's columns; dv += P^T dout on warpgroup 0, dk += dS^T q on
+// warpgroup 1) on mma.sync m16n8k8 .tf32: wgmma reads a 32-bit B only
+// K-major, and these B are MN-major; A is the accumulator as it stands, its
+// k permuted within each group of 8 on the B side. The threads write each
+// landed stage's lo parts beside it while the previous stage's products
+// run. The block owns as many output columns as 255 registers a thread
+// allow (128 accumulators a warpgroup beside its 64 of S or dP): dq 128,
+// 256 or 512 columns, dk/dv 64, 128 or 256, so up to hd 256 each launch
+// forms S and dP once per tile pair (8 products a call, dq's S and dP each
+// on one warpgroup), and above it dq's column blocks are half as many as
+// dk/dv's. What bounds them on the H100 is the bytes they stream: the own
+// side's 64 rows cross L2 once per other tile (PERF.md, §6).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -679,11 +714,14 @@ __device__ __forceinline__ void q_tile_ds(
 
 // D = rowsum(dout * out) of the q tile's rows at position q0 (two threads
 // a row over hd / 2 columns each, 16-byte loads from global memory) into
-// vec[0 .. 63]; when `write`, also into dsum for launch 2.
+// vec[0 .. 63]; when `write`, also into dsum for launch 2. T is bf16 or
+// fp32 (hd / 2 a multiple of 8 or 4).
+template <typename T>
 __device__ __forceinline__ void tile_dsum(
-    float* vec, const __nv_bfloat16* __restrict__ o,
-    const __nv_bfloat16* __restrict__ dout, float* __restrict__ dsum,
-    int q0, int b, int h, int seq, int H, int hd, bool write) {
+    float* vec, const T* __restrict__ o, const T* __restrict__ dout,
+    float* __restrict__ dsum, int q0, int b, int h, int seq, int H, int hd,
+    bool write) {
+  constexpr int kPer = 16 / sizeof(T);
   const int r = threadIdx.x / 2, part = threadIdx.x % 2;
   const int pos = q0 + r;
   float d = 0.0f;
@@ -691,14 +729,14 @@ __device__ __forceinline__ void tile_dsum(
     const int64_t off = ((static_cast<int64_t>(b) * seq + pos) * H + h) *
                             hd + part * (hd / 2);
 #pragma unroll 4
-    for (int c = 0; c < hd / 2; c += 8) {
+    for (int c = 0; c < hd / 2; c += kPer) {
       const uint4 x = *reinterpret_cast<const uint4*>(dout + off + c);
       const uint4 y = *reinterpret_cast<const uint4*>(o + off + c);
-      const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(&x);
-      const __nv_bfloat16* ys = reinterpret_cast<const __nv_bfloat16*>(&y);
+      const T* xs = reinterpret_cast<const T*>(&x);
+      const T* ys = reinterpret_cast<const T*>(&y);
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        d = fmaf(__bfloat162float(xs[e]), __bfloat162float(ys[e]), d);
+      for (int e = 0; e < kPer; ++e)
+        d = fmaf(to_float(xs[e]), to_float(ys[e]), d);
     }
   }
   d += __shfl_xor_sync(0xffffffffu, d, 1);
@@ -1458,21 +1496,23 @@ __global__ void __launch_bounds__(2 * kThreads, 1)
   }
 }
 
-// A [B][S][heads * HD] bf16 view, boxes of 64 positions x 64 columns,
+// A [B][S][heads * HD] view of `elem`-byte values (bf16, or fp32 with elem
+// 4), boxes of 64 positions x 128 bytes of columns (64 bf16 or 32 fp32),
 // 128-byte swizzle.
 int tensor_map(CUtensorMap* map, const void* ptr, int B, int seq, int heads,
-               int hd) {
+               int hd, int elem = 2) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return -1;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(heads) * hd,
                               static_cast<cuuint64_t>(seq),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(heads) * hd * 2,
-      static_cast<cuuint64_t>(seq) * heads * hd * 2};
-  const cuuint32_t box[3] = {64, kTile, 1};
+      static_cast<cuuint64_t>(heads) * hd * elem,
+      static_cast<cuuint64_t>(seq) * heads * hd * elem};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / elem), kTile, 1};
   const cuuint32_t one[3] = {1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  const CUresult r = enc(map, elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                          const_cast<void*>(ptr), dims, strides, box, one,
                          CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B,
@@ -1602,6 +1642,614 @@ int launch_dkdv_cols(const Maps& m, const float* lse, const float* dsum,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// fp32: tensor cores, each product as three TF32 products (tf32x3), any
+// width that is a multiple of 32
+// ---------------------------------------------------------------------------
+
+namespace x3 {
+
+using namespace hopper;
+using tc::Frag;
+
+constexpr int kTile = 64;                  // own rows; other positions a tile
+constexpr int kCols = 32;                  // fp32 columns a chunk (128 bytes)
+constexpr int kChunk = kTile * 128;        // [64 rows][128 bytes], swizzled
+constexpr int kThreads = 128;              // a warpgroup; a block has two
+// A ring stage: four chunks as TMA writes them, then their lo parts kLo
+// further (64 KB). A product step holds the own side's two chunks and the
+// other side's two (own0 other0^T is S or S^T, own1 other1^T dP or dP^T);
+// an output step four chunks of the other side's output columns (dq: two
+// of k's for each warpgroup's columns; dk/dv: two of q's, then two of
+// dout's).
+constexpr int kLo = 4 * kChunk;
+constexpr int kStage = 2 * kLo;
+constexpr int kStages = 3;
+constexpr int kWords = kLo / 16;           // 16-byte words a stage's split
+// Shared memory from a 1024-byte aligned base: three stages, the q-side
+// vectors [2][2][kTile] fp32 (dk/dv: lse * log2(e) and D of the ring's two
+// q tiles; dq: D of the block's rows), two exchange tiles [8][kThreads]
+// float4 (P or P^T from warpgroup 0; dP from warpgroup 1 in dq), then the
+// mbarriers: 231,448 bytes, one block an SM.
+constexpr int kVec = kStages * kStage;
+constexpr int kXchg = kVec + 2 * 2 * kTile * 4;
+constexpr int kXchgTile = 8 * kThreads * 16;
+constexpr int kBar = kXchg + 2 * kXchgTile;
+constexpr int kSmem = kBar + 8 * kStages + 1024;
+static_assert(kSmem <= kMaxSmem, "over the 227 KB a block may opt in to");
+
+// The split of an fp32 x into TF32 parts: hi is x itself, since the tensor
+// core reads a raw fp32 value as its TF32 truncation (the probe: one
+// product on raw values matched the truncated operands' fp64 product to
+// ~3e-6, the rounded ones' only to ~1e-3; should it not, the 2e-5 gates on
+// these kernels fail, as one TF32 product misses them); lo =
+// tf32(x - trunc(x)) (x - trunc(x) is exact in fp32; hi lo' + lo hi'
+// restore the product to ~2^-20 of it, the dropped lo lo' and lo's
+// rounding included).
+__device__ __forceinline__ float lo_part(float x) {
+  return tf32(x - __uint_as_float(__float_as_uint(x) & 0xFFFFE000u));
+}
+
+// lo_part of every value of a stage, written kLo bytes further by the
+// block's 256 threads (the hi parts stay as TMA wrote them); the fence
+// orders these generic-proxy writes before the wgmma reads them.
+__device__ __forceinline__ void split(uint8_t* st) {
+#pragma unroll 2
+  for (int i = 0; i < kWords / (2 * kThreads); ++i) {
+    const int e = threadIdx.x + i * 2 * kThreads;
+    const float4 x = reinterpret_cast<const float4*>(st)[e];
+    reinterpret_cast<float4*>(st + kLo)[e] =
+        make_float4(lo_part(x.x), lo_part(x.y), lo_part(x.z), lo_part(x.w));
+  }
+  fence_proxy_async();
+}
+
+// d = A B^T over one 32-column chunk, A and B [64 x 32] split chunks in
+// shared memory (K-major, 128-byte swizzle, each lo part kLo after its hi
+// part), by wgmma m64n64k8 .tf32: per k step of 8 columns hi hi', hi lo'
+// and lo hi'. The sum starts fresh: the tensor core's fp32 accumulation
+// truncates (the probe: ~3e-8 of the result per accumulation, 1e-5 over
+// 384 of them), so each chain stays 12 products long and the caller adds
+// the chunks in fp32.
+__device__ __forceinline__ void issue_chunk(float (&d)[32], uint32_t a,
+                                            uint32_t b) {
+  const uint64_t ah = tc::k_major(a), al = tc::k_major(a + kLo);
+  const uint64_t bh = tc::k_major(b), bl = tc::k_major(b + kLo);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_tf32(d, ah + 2 * kk, bh + 2 * kk, kk > 0);
+    wgmma_tf32(d, ah + 2 * kk, bl + 2 * kk, 1);
+    wgmma_tf32(d, al + 2 * kk, bh + 2 * kk, 1);
+  }
+}
+
+// acc's n8 blocks n0 .. n0 + 3 (32 output columns) += X B over the 64
+// positions of an other-side tile: X [64 x 64] this warpgroup's tile in the
+// accumulator layout (dS, P^T or dS^T; 32 values a thread), B a split
+// [64 positions][32 columns] chunk at b. mma.sync m16n8k8 .tf32, one warp
+// on its 16 rows: wgmma reads a 32-bit B only K-major, and B is MN-major
+// here. The accumulator holds columns 2t and 2t + 1 of each group of 8 (t =
+// lane % 4) where the A fragment wants t and t + 4, so k is permuted
+// within each group on the B side: slot t reads position 2t, slot t + 4
+// position 2t + 1, and X's values are the A fragment as they stand (split a
+// k step at a time). Each n8 block sums its 24 products fresh in one of 4
+// independent chains (issue_chunk's reason), then adds them to acc in fp32.
+template <int NACC>
+__device__ __forceinline__ void out_chunk(float (&acc)[NACC], int n0,
+                                          const float (&x)[32],
+                                          const uint8_t* b) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  float d[4][4];
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[nb][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < kTile / 8; ++kk) {
+    const float xa[4] = {x[4 * kk], x[4 * kk + 2], x[4 * kk + 1],
+                         x[4 * kk + 3]};
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      ah[e] = __float_as_uint(xa[e]);
+      al[e] = __float_as_uint(lo_part(xa[e]));
+    }
+    // rows 8 kk + 2t (+ 1): 128 bytes each, their 16-byte units swizzled
+    // by row % 8 = 2t (+ 1); a warp's 32 loads hit 32 banks
+    const uint8_t* rows = b + (8 * kk + 2 * t) * 128 + (g & 3) * 4;
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      const int unit = 2 * nb + (g >> 2);
+      const int o0 = (unit ^ (2 * t)) << 4;
+      const int o1 = 128 + ((unit ^ (2 * t + 1)) << 4);
+      const uint32_t bh0 = *reinterpret_cast<const uint32_t*>(rows + o0);
+      const uint32_t bh1 = *reinterpret_cast<const uint32_t*>(rows + o1);
+      const uint32_t bl0 =
+          *reinterpret_cast<const uint32_t*>(rows + kLo + o0);
+      const uint32_t bl1 =
+          *reinterpret_cast<const uint32_t*>(rows + kLo + o1);
+      mma_tf32(d[nb], ah, bh0, bh1);
+      mma_tf32(d[nb], ah, bl0, bl1);
+      mma_tf32(d[nb], al, bh0, bh1);
+    }
+  }
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[4 * (n0 + nb) + e] += d[nb][e];
+}
+
+// Whether no pair of the q rows [q0, q0 + 64) and kv rows [k0, k0 + 64) is
+// masked.
+__device__ __forceinline__ bool whole(int q0, int k0, int seq, int causal,
+                                      int window) {
+  return q0 + kTile <= seq && k0 + kTile <= seq &&
+         (!causal || k0 + kTile - 1 <= q0) &&
+         (window <= 0 || k0 > q0 + kTile - 1 - window);
+}
+
+// acc [64 x NC] of rows r (position row0 + r < seq), its first n_cols
+// columns, into an fp32 [B][S][heads * hd] output at element offset base +
+// position * stride.
+template <int NC>
+__device__ __forceinline__ void store_rows(const float (&acc)[NC / 2],
+                                           float* __restrict__ out,
+                                           int64_t base, int64_t stride,
+                                           int row0, int seq, const Frag& fr,
+                                           int n_cols) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int pos = row0 + fr.row_a + 8 * half;
+    if (pos >= seq) continue;
+    float* o = out + base + pos * stride;
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j)
+      if (8 * j < n_cols)
+        *reinterpret_cast<float2*>(o + 8 * j + fr.cq) =
+            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+  }
+}
+
+// One block of either launch: its own 64-row tile, the iterations over the
+// other side's 64-position tiles that its rows see, and its columns.
+// Launch 1 (DQ): block (column block, head, batch, q tile), q tiles
+// heaviest first when causal; own q and dout, other k and v (kv tiles
+// t_begin + i); it owns dq's columns [c0, c0 + 2 WC), warpgroup w the
+// WC from c0 + w WC. Launch 2: block (column block, kv head, batch, kv
+// tile), kv tile 0 (seen by every q row when causal) first; own k and v,
+// other q and dout of query head kvh G + i / n_q at q tile qt_begin + i %
+// n_q; it owns dk's and dv's columns [c0, c0 + WC).
+template <bool DQ, int WC>
+struct Block {
+  int b, h, kvh, G, H, seq, own0, t_begin, n_t, c0, hd, ncols, n_c, per, n;
+  static constexpr int kOutCols = 2 * kCols;   // a warpgroup's, a step
+
+  __device__ __forceinline__ Block(int H_, int Kv, int B, int seq_, int hd_,
+                                   int causal, int window, int n_cb)
+      : H(H_), seq(seq_), hd(hd_) {
+    const int n_tiles = (seq + kTile - 1) / kTile;
+    const int cb = blockIdx.x % n_cb;
+    const int rest = blockIdx.x / n_cb;
+    G = H / Kv;
+    if constexpr (DQ) {
+      h = rest % H;
+      b = rest / H % B;
+      const int t_lin = rest / H / B;
+      const int qt = causal ? n_tiles - 1 - t_lin : t_lin;
+      kvh = h / G;
+      own0 = qt * kTile;
+      const int2 span = kv_span(own0, min(own0 + kTile, seq) - 1, seq,
+                                causal, window);
+      t_begin = span.x / kTile;
+      n_t = (span.y + kTile - 1) / kTile - t_begin;
+      c0 = cb * 2 * WC;
+      ncols = min(2 * WC, hd - c0);
+    } else {
+      const int kt = rest / (B * Kv);
+      b = rest % (B * Kv) / Kv;
+      kvh = rest % Kv;
+      h = kvh * G;
+      own0 = kt * kTile;
+      const int2 span = q_span(own0, min(own0 + kTile, seq) - 1, seq,
+                               causal, window);
+      t_begin = span.x / kTile;
+      n_t = (span.y + kTile - 1) / kTile - t_begin;
+      c0 = cb * WC;
+      ncols = min(WC, hd - c0);
+    }
+    n_c = hd / kCols;
+    per = n_c + (min(WC, ncols) + kOutCols - 1) / kOutCols;
+    n = (DQ ? n_t : G * n_t) * per;
+  }
+  // iteration i's other tile: its first position and its head
+  __device__ __forceinline__ int other0(int i) const {
+    return (t_begin + (DQ ? i : i % n_t)) * kTile;
+  }
+  __device__ __forceinline__ int head(int i) const {
+    return DQ ? h : kvh * G + i / n_t;
+  }
+  // warpgroup w's output columns: its first, and how many below hd
+  __device__ __forceinline__ int col0(int w) const {
+    return c0 + (DQ ? w * WC : 0);
+  }
+  __device__ __forceinline__ int cols(int w) const {
+    return max(0, min(WC, hd - col0(w)));
+  }
+  // the q-side vector entry t (0..127) of dk/dv iteration i: lse * log2(e)
+  // of q position other0(i) + t for t < 64, D of position other0(i) + t -
+  // 64 above
+  __device__ __forceinline__ float vec(const float* __restrict__ lse,
+                                       const float* __restrict__ dsum,
+                                       int i, int t) const {
+    const int pos = other0(i) + t % kTile;
+    if (pos >= seq) return 0.0f;
+    const int64_t at = (static_cast<int64_t>(b) * H + head(i)) * seq + pos;
+    return t < kTile ? lse[at] * kLog2e : dsum[at];
+  }
+  // step m (iteration m / per) into its ring stage: a product step (chunk
+  // m % per of the four inputs) or an output step (the other side's output
+  // columns from 64 u on, u = m % per - n_c); by one thread
+  __device__ __forceinline__ void load(int m, uint32_t base, uint32_t full,
+                                       const CUtensorMap* qmap,
+                                       const CUtensorMap* dmap,
+                                       const CUtensorMap* kmap,
+                                       const CUtensorMap* vmap) const {
+    const int i = m / per, s = m % per, at = other0(i);
+    const uint32_t st = base + (m % kStages) * kStage;
+    const uint32_t bar = full + 8 * (m % kStages);
+    const int qcol = head(i) * hd, kcol = kvh * hd;
+    if (s < n_c) {                     // own0, own1, other0, other1
+      const int c = kCols * s;
+      const int own = (DQ ? qcol : kcol) + c, other = (DQ ? kcol : qcol) + c;
+      mbar_expect_tx(bar, 4 * kChunk);
+      tma_load(st, DQ ? qmap : kmap, bar, own, own0, b);
+      tma_load(st + kChunk, DQ ? dmap : vmap, bar, own, own0, b);
+      tma_load(st + 2 * kChunk, DQ ? kmap : qmap, bar, other, at, b);
+      tma_load(st + 3 * kChunk, DQ ? vmap : dmap, bar, other, at, b);
+    } else {
+      // chunk j of warpgroup w's 64 columns from its col0(w) + 64 u: dq's
+      // k chunks at slots 2 w + j; dk/dv's q chunks at j, dout's at 2 + j
+      const int u = s - n_c;
+      int chunks = 0;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int off = u * kOutCols + j * kCols;
+        chunks += DQ ? (off < cols(0)) + (off < cols(1)) : 2 * (off < ncols);
+      }
+      mbar_expect_tx(bar, chunks * kChunk);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int off = u * kOutCols + j * kCols;
+        if constexpr (DQ) {
+#pragma unroll
+          for (int w = 0; w < 2; ++w)
+            if (off < cols(w))
+              tma_load(st + (2 * w + j) * kChunk, kmap, bar,
+                       kcol + col0(w) + off, at, b);
+        } else if (off < ncols) {
+          tma_load(st + j * kChunk, qmap, bar, qcol + c0 + off, at, b);
+          tma_load(st + (2 + j) * kChunk, dmap, bar, qcol + c0 + off, at, b);
+        }
+      }
+    }
+  }
+};
+
+// Barrier 1 over both warpgroups of a block (each reaches it from its own
+// loop).
+__device__ __forceinline__ void both_warpgroups() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// One warpgroup's loop over the block's steps, summing its output columns
+// into acc. Warpgroup 0 forms S (S^T in dk/dv) chunk by chunk, then P (P^T),
+// which it leaves in the exchange tile; warpgroup 1 forms dP (dP^T), which
+// in dq it leaves in the other exchange tile. Once the barrier after the
+// last product step has passed, dq's warpgroups both form dS = P (dP - D)
+// scale from their own tile and the other's, and each adds dS k over its
+// columns; dk/dv's warpgroup 1 forms dS^T = P^T (dP^T - D) scale and adds
+// dS^T q into dk, warpgroup 0 P^T dout into dv. Both split each next stage
+// while the products run; warpgroup 0's thread 0 keeps the ring, refilling
+// a stage once both have passed the barrier after its step; in dk/dv
+// warpgroup 0 also writes each next q tile's lse and D into vec.
+template <bool DQ, int WC, int ROLE>
+__device__ __forceinline__ void block_loop(
+    float (&acc)[WC / 2], const Block<DQ, WC>& bk, uint32_t base,
+    uint8_t* sm, float* vec, float4* xchg,
+    const float (&lse2)[2], const CUtensorMap* qmap, const CUtensorMap* dmap,
+    const CUtensorMap* kmap, const CUtensorMap* vmap,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    int causal, int window, float scale) {
+  constexpr int kMaxOut = WC / Block<DQ, WC>::kOutCols;
+  const int tid = threadIdx.x % kThreads;
+  const uint32_t full = base + kBar;
+  const Frag fr;
+  const float c2 = scale * kLog2e;
+  float4* mine = xchg + ROLE * 8 * kThreads;        // the tile this leaves
+  const float4* theirs = xchg + (1 - ROLE) * 8 * kThreads;
+  float drow[2];                       // dq: D of this thread's two rows
+  if constexpr (DQ) {
+    drow[0] = vec[fr.row_a];
+    drow[1] = vec[fr.row_a + 8];
+  }
+  float x[32];                 // S, then P, then dS (DQ: dS in both)
+#pragma unroll
+  for (int e = 0; e < 32; ++e) x[e] = 0.0f;
+  for (int m = 0; m < bk.n; ++m) {
+    const int s = m % bk.per, i = m / bk.per;
+    const uint32_t st = base + (m % kStages) * kStage;
+    if (!DQ && ROLE == 0 && s == 0 && i + 1 < bk.n / bk.per)
+      vec[((i + 1) & 1) * 2 * kTile + tid] = bk.vec(lse, dsum, i + 1, tid);
+    float tx[32];
+    if (s < bk.n_c) {
+      wgmma_fence();
+      issue_chunk(tx, st + ROLE * kChunk, st + (2 + ROLE) * kChunk);
+      wgmma_commit();
+    }
+    if (m + 1 < bk.n) {                // the next stage, meanwhile
+      const int n = m + 1;
+      mbar_wait(full + 8 * (n % kStages), (n / kStages) & 1);
+      split(sm + (n % kStages) * kStage);
+    }
+    if (s < bk.n_c) {
+      wgmma_wait<0>();
+      pin(tx);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) x[e] = s == 0 ? tx[e] : x[e] + tx[e];
+      if (s == bk.n_c - 1) {
+        if constexpr (ROLE == 0) {     // P (P^T), masked
+          const int o0 = bk.other0(i);
+          const bool all = DQ ? whole(bk.own0, o0, bk.seq, causal, window)
+                              : whole(o0, bk.own0, bk.seq, causal, window);
+          const float* sl = vec + (i & 1) * 2 * kTile;
+#pragma unroll
+          for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int idx = 4 * j + u, half = u / 2;
+              const int row = bk.own0 + fr.row_a + 8 * half;
+              const int col = 8 * j + fr.cq + u % 2;
+              const bool ok =
+                  all || (DQ ? sees(row, o0 + col, bk.seq, causal, window)
+                             : sees(o0 + col, row, bk.seq, causal, window));
+              const float l2 = DQ ? lse2[half] : sl[col];
+              x[idx] = ok ? ex2(fmaf(x[idx], c2, -l2)) : 0.0f;
+            }
+        }
+        if (ROLE == 0 || DQ)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            mine[j * kThreads + tid] = make_float4(
+                x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+      }
+    } else {
+      const int u = s - bk.n_c;
+      if (u == 0 && (DQ || ROLE == 1)) {   // dS (dS^T) = P (dP - D) scale
+        const float* sd = vec + (i & 1) * 2 * kTile + kTile;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 o = theirs[j * kThreads + tid];
+          const float ov[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int idx = 4 * j + e;
+            const float d = DQ ? drow[e / 2] : sd[8 * j + fr.cq + e % 2];
+            const float p = ROLE == 0 ? x[idx] : ov[e];
+            const float dp = ROLE == 0 ? ov[e] : x[idx];
+            x[idx] = p * (dp - d) * scale;
+          }
+        }
+      }
+      // this warpgroup's B chunks: dq k's (2 ROLE, + 1), dv dout's (2, 3),
+      // dk q's (0, 1)
+      const uint8_t* stp =
+          sm + (m % kStages) * kStage + (DQ ? 2 * ROLE : 2 - 2 * ROLE) *
+                                            kChunk;
+      const int ncols = DQ ? bk.cols(ROLE) : bk.ncols;
+#pragma unroll
+      for (int uu = 0; uu < kMaxOut; ++uu)
+        if (uu == u)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            if (uu * Block<DQ, WC>::kOutCols + j * kCols < ncols)
+              out_chunk(acc, uu * 8 + 4 * j, x, stp + j * kChunk);
+    }
+    both_warpgroups();                 // stage m is read; m + 1 is split
+    if (ROLE == 0 && tid == 0 && m + kStages < bk.n)
+      bk.load(m + kStages, base, full, qmap, dmap, kmap, vmap);
+  }
+}
+
+// A block of launch 1 (DQ: dq and D) or launch 2 (dk and dv): two
+// warpgroups (block_loop; 256 threads keep ptxas's 255-register budget)
+// over one ring of 64 KB stages. In dq every column block computes D over
+// the full width for its rows (warpgroup 0); column block 0 writes it for
+// launch 2.
+template <bool DQ, int WC>
+__device__ __forceinline__ void tf32x3_block(
+    const CUtensorMap& qmap, const CUtensorMap& dmap,
+    const CUtensorMap& kmap, const CUtensorMap& vmap,
+    const float* __restrict__ o, const float* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ dsum,
+    float* __restrict__ out0, float* __restrict__ out1, int seq, int H,
+    int Kv, int B, int hd, int causal, int window, float scale, int n_cb) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* sm = smem_raw + (base - raw);
+  float* vec = reinterpret_cast<float*>(sm + kVec);
+  float4* xchg = reinterpret_cast<float4*>(sm + kXchg);
+  const uint32_t full = base + kBar;
+  const Block<DQ, WC> bk(H, Kv, B, seq, hd, causal, window, n_cb);
+
+  tc::bar_init(full, kStages);
+  if (threadIdx.x == 0)
+    for (int m = 0; m < min(kStages, bk.n); ++m)
+      bk.load(m, base, full, &qmap, &dmap, &kmap, &vmap);
+  const Frag fr;
+  float lse2[2] = {0.0f, 0.0f};
+  if constexpr (DQ) {
+    // D of the block's rows into vec, by warpgroup 0
+    if (threadIdx.x < kThreads)
+      tc::tile_dsum(vec, o, dout, dsum, bk.own0, bk.b, bk.h, seq, H, hd,
+                    blockIdx.x % n_cb == 0);
+    const int64_t lrow = (static_cast<int64_t>(bk.b) * H + bk.h) * seq;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int pos = bk.own0 + fr.row_a + 8 * half;
+      lse2[half] = pos < seq ? lse[lrow + pos] * kLog2e : 0.0f;
+    }
+  } else if (threadIdx.x < 2 * kTile) {
+    vec[threadIdx.x] = bk.vec(lse, dsum, 0, threadIdx.x);
+  }
+  if (bk.n > 0) {
+    mbar_wait(full, 0);
+    split(sm);
+  }
+  __syncthreads();
+
+  constexpr int NACC = WC / 2;
+  float acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.0f;
+  const int rows = DQ ? H : Kv;
+  const int64_t at = static_cast<int64_t>(bk.b) * seq * rows * hd +
+                     static_cast<int64_t>(DQ ? bk.h : bk.kvh) * hd;
+  const int64_t stride = static_cast<int64_t>(rows) * hd;
+  // the warpgroup, broadcast from lane 0 so that ptxas sees the role branch
+  // as uniform (on a branch it takes for divergent it serializes wgmma)
+  if (__shfl_sync(0xffffffffu, threadIdx.x / kThreads, 0) == 0) {
+    block_loop<DQ, WC, 0>(acc, bk, base, sm, vec, xchg, lse2, &qmap, &dmap,
+                          &kmap, &vmap, lse, dsum, causal, window, scale);
+    // dq's first WC columns; dv
+    store_rows<WC>(acc, out0, at + bk.col0(0), stride, bk.own0, seq, fr,
+                   DQ ? bk.cols(0) : bk.ncols);
+  } else {
+    block_loop<DQ, WC, 1>(acc, bk, base, sm, vec, xchg, lse2, &qmap, &dmap,
+                          &kmap, &vmap, lse, dsum, causal, window, scale);
+    // dq's next WC columns; dk
+    store_rows<WC>(acc, DQ ? out0 : out1, at + bk.col0(1), stride, bk.own0,
+                   seq, fr, DQ ? bk.cols(1) : bk.ncols);
+  }
+}
+
+// Launch 1: dq (out0) and D; a block owns 2 WC of dq's columns.
+template <int WC>
+__global__ void __launch_bounds__(2 * kThreads, 1)
+    flash_bwd_dq_tf32x3(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap dmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const float* __restrict__ o,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        float* __restrict__ dsum, float* __restrict__ dq,
+                        int seq, int H, int Kv, int B, int hd, int causal,
+                        int window, float scale, int n_cb) {
+  tf32x3_block<true, WC>(qmap, dmap, kmap, vmap, o, dout, lse, dsum, dq,
+                         nullptr, seq, H, Kv, B, hd, causal, window, scale,
+                         n_cb);
+}
+
+// Launch 2: dv (out0) and dk (out1); a block owns WC of their columns.
+template <int WC>
+__global__ void __launch_bounds__(2 * kThreads, 1)
+    flash_bwd_dkdv_tf32x3(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap dmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dsum,
+                          float* __restrict__ dv, float* __restrict__ dk,
+                          int seq, int H, int Kv, int B, int hd, int causal,
+                          int window, float scale, int n_cb) {
+  tf32x3_block<false, WC>(qmap, dmap, kmap, vmap, nullptr, nullptr, lse,
+                          const_cast<float*>(dsum), dv, dk, seq, H, Kv, B,
+                          hd, causal, window, scale, n_cb);
+}
+
+// The output columns a warpgroup owns at width hd (a multiple of 32): dq's
+// block owns two warpgroups' worth (128 up to hd 128, 256 up to 256, 512
+// above, in ceil(hd / 512) column blocks), dk/dv's one (64, 128, or 256 in
+// ceil(hd / 256) blocks); up to hd 256 one block a tile, so S and dP are
+// formed once per tile pair.
+int warp_cols(int hd, bool dq) {
+  if (dq) return hd <= 128 ? 64 : hd <= 256 ? 128 : 256;
+  return hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
+}
+
+// fp32 tensor maps, boxes of 64 positions x 32 columns.
+int f32_maps(tc::Maps* m, const void* q, const void* k, const void* v,
+             const void* dout, int B, int seq, int H, int Kv, int hd) {
+  int err = tc::tensor_map(&m->q, q, B, seq, H, hd, 4);
+  if (err == 0) err = tc::tensor_map(&m->d, dout, B, seq, H, hd, 4);
+  if (err == 0) err = tc::tensor_map(&m->k, k, B, seq, Kv, hd, 4);
+  if (err == 0) err = tc::tensor_map(&m->v, v, B, seq, Kv, hd, 4);
+  return err;
+}
+
+template <bool DQ, int WC>
+int launch_wc(const tc::Maps& m, const void* o, const void* dout,
+              const float* lse, float* dsum, void* out0, void* out1, int B,
+              int seq, int H, int Kv, int hd, int causal, int window,
+              float scale, cudaStream_t st) {
+  const int64_t n_tiles = (static_cast<int64_t>(seq) + kTile - 1) / kTile;
+  const int block_cols = DQ ? 2 * WC : WC;
+  const int n_cb = (hd + block_cols - 1) / block_cols;
+  const int64_t blocks = n_tiles * (DQ ? H : Kv) * B * n_cb;
+  if (blocks >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  cudaError_t e;
+  if constexpr (DQ) {
+    e = cudaFuncSetAttribute(flash_bwd_dq_tf32x3<WC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_bwd_dq_tf32x3<WC><<<grid, 2 * kThreads, kSmem, st>>>(
+        m.q, m.d, m.k, m.v, static_cast<const float*>(o),
+        static_cast<const float*>(dout), lse, dsum,
+        static_cast<float*>(out0), seq, H, Kv, B, hd, causal, window, scale,
+        n_cb);
+  } else {
+    e = cudaFuncSetAttribute(flash_bwd_dkdv_tf32x3<WC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_bwd_dkdv_tf32x3<WC><<<grid, 2 * kThreads, kSmem, st>>>(
+        m.q, m.d, m.k, m.v, lse, dsum, static_cast<float*>(out0),
+        static_cast<float*>(out1), seq, H, Kv, B, hd, causal, window, scale,
+        n_cb);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dq (out0 = dq) or dk/dv (out0 = dv, out1 = dk) at width hd.
+template <bool DQ>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* dsum, void* out0,
+           void* out1, int B, int seq, int H, int Kv, long long hd,
+           int causal, int window, float scale, cudaStream_t st) {
+  if (hd < kCols || hd % kCols != 0 || hd > (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int w = static_cast<int>(hd);
+  tc::Maps m;
+  const int err = f32_maps(&m, q, k, v, dout, B, seq, H, Kv, w);
+  if (err != 0) return err;
+  switch (warp_cols(w, DQ)) {
+    case 64:
+      return launch_wc<DQ, 64>(m, o, dout, lse, dsum, out0, out1, B, seq, H,
+                               Kv, w, causal, window, scale, st);
+    case 128:
+      return launch_wc<DQ, 128>(m, o, dout, lse, dsum, out0, out1, B, seq,
+                                H, Kv, w, causal, window, scale, st);
+  }
+  return launch_wc<DQ, 256>(m, o, dout, lse, dsum, out0, out1, B, seq, H,
+                            Kv, w, causal, window, scale, st);
+}
+
+}  // namespace x3
+
 }  // namespace
 
 extern "C" {
@@ -1614,9 +2262,9 @@ extern "C" {
 // == 0; window >= 0 (0: no window); scale = 1 / sqrt(hd). The _dq launch
 // writes dq and dsum (D); the _dkdv launch, on the same stream after it,
 // reads dsum and writes dk and dv. The CUDA-core functions (_f32,
-// _bf16_cc) take any hd; the tensor-core ones (_bf16) hd 64, 128, 192, 256
-// or a multiple of 64 above 256, and 16-byte aligned q, k, v, out and
-// dout.
+// _bf16_cc) take any hd; the tensor-core ones hd 64, 128, 192, 256 or a
+// multiple of 64 above 256 (_bf16) or a multiple of 32 (_f32_tf32x3), and
+// 16-byte aligned q, k, v, out and dout.
 int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const void* lse,
                      void* dsum, void* dq, int B, int seq, int H, int Kv,
@@ -1638,6 +2286,30 @@ int flash_bwd_dkdv_f32(const void* q, const void* k, const void* v,
                                 static_cast<const float*>(dsum), dk, dv, B,
                                 seq, H, Kv, hd, causal, window, scale,
                                 static_cast<cudaStream_t>(stream));
+}
+
+int flash_bwd_dq_f32_tf32x3(const void* q, const void* k, const void* v,
+                            const void* o, const void* dout, const void* lse,
+                            void* dsum, void* dq, int B, int seq, int H,
+                            int Kv, long long hd, int causal, int window,
+                            float scale, void* stream) {
+  return x3::launch<true>(q, k, v, o, dout, static_cast<const float*>(lse),
+                          static_cast<float*>(dsum), dq, nullptr, B, seq, H,
+                          Kv, hd, causal, window, scale,
+                          static_cast<cudaStream_t>(stream));
+}
+
+int flash_bwd_dkdv_f32_tf32x3(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* dsum, void* dk, void* dv, int B,
+                              int seq, int H, int Kv, long long hd,
+                              int causal, int window, float scale,
+                              void* stream) {
+  return x3::launch<false>(q, k, v, nullptr, dout,
+                           static_cast<const float*>(lse),
+                           const_cast<float*>(static_cast<const float*>(dsum)),
+                           dv, dk, B, seq, H, Kv, hd, causal, window, scale,
+                           static_cast<cudaStream_t>(stream));
 }
 
 int flash_bwd_dq_bf16_cc(const void* q, const void* k, const void* v,

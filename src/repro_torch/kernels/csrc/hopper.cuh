@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
 // (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA loads and
 // tensor maps, cp.async copies, wgmma shared-memory descriptors and the
-// wgmma products they use, in inline PTX. Header only; each source that
+// wgmma products they use, TF32 rounding and the TF32 products (wgmma,
+// mma.sync), in inline PTX. Header only; each source that
 // includes it is built on its own by kernels/build.py, which hashes this
 // header into every library's name, so an edit here rebuilds them all.
 #pragma once
@@ -317,6 +318,47 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// x rounded to TF32 (cvt.rna: to nearest, ties away from zero; the low 13
+// bits zero), the value the tensor core reads for it exactly.
+__device__ __forceinline__ float tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xFFFFE000u);
+}
+
+// d[64 x 64] (+)= A[64 x 8] . B[8 x 64] in TF32 (fp32 accumulators), A and
+// B in shared memory, both K-major (wgmma reads a 32-bit operand only
+// K-major).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, "
+      "%1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n "
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[16 x 8] += A[16 x 8] . B[8 x 8] in TF32 (mma.sync m16n8k8, one warp):
+// a the A fragment (rows g, g + 8 at column slots t, t + 4; g = lane / 4,
+// t = lane % 4), b0 / b1 B's slots t / t + 4 of column g, all as TF32 bits.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 16 bytes from global to shared memory through L2 (cp.async.cg), of which

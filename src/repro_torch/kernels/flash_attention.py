@@ -16,16 +16,18 @@ The dtype and the head width pick the kernel (``route``): bfloat16 up to
 hd 256 runs on the tensor cores (``wgmma``, k/v tiles by TMA), and above
 256 on the tensor-core kernel that sums the scores over hd in 64-column
 chunks and owns a block of 128 output columns (``wgmma_chunked``);
-float32 runs on the CUDA cores, whose fp32 products the fp32 tolerances
-need, up to 256 on ``cuda_core`` and above on the kernel that sums over hd
-in chunks (``hd_chunked``). bfloat16 whose kv head holds 2^31 - 256 folded
-rows or more takes the CUDA-core kernels too (the tensor-core kernels keep
-rows in 32 bits). The kernels are built for the head widths ``HEAD_DIMS``
-up to 256; a width between two of them is zero-padded to the next, and a
-bfloat16 width above 256 to the next multiple of 64 (``_pad_call``). Every
-element offset is 64-bit, so one batch entry may hold 2^31 elements or more; a
-batch is split into launches only past the grid's 65,535 entries
-(``_batch_chunks``). ``flash_attention.launches`` counts the launches this
+float32 runs on the CUDA cores with fp32 products (one TF32 product would
+break the fp32 tolerances; the backward's three-product split, ``tf32x3``
+below, keeps them), up to 256 on ``cuda_core`` and above on the kernel
+that sums over hd in chunks (``hd_chunked``). bfloat16 whose kv head
+holds 2^31 - 256 folded rows or more takes the CUDA-core kernels too (the
+tensor-core kernels keep rows in 32 bits). The kernels are built for the
+head widths ``HEAD_DIMS`` up to 256; a width between two of them is
+zero-padded to the next, and a bfloat16 width above 256 to the next
+multiple of 64 (``_pad_call``). Every element offset is 64-bit, so one
+batch entry may hold 2^31 elements or more; a batch is split into launches
+only past the grid's 65,535 entries (``_batch_chunks``).
+``flash_attention.launches`` counts the launches this
 wrapper made, ``flash_attention.route_launches`` the same by route,
 ``flash_attention.padded_launches`` those on padded inputs and
 ``flash_attention.lse_launches`` those that wrote the log-sum-exp, so a run
@@ -41,7 +43,12 @@ built for the widths ``BWD_WGMMA_DIMS``; a width between two of them is
 zero-padded to the next, ``_pad_call``), bfloat16 above 256 on the
 tensor-core kernels that sum over hd in 64-column chunks and own a block
 of output columns (``wgmma_chunked``; the width zero-padded to a multiple
-of 64), float32 at every width on the CUDA cores, which take any width.
+of 64), float32 at every width on the tensor cores as well (``tf32x3``:
+each fp32 operand split into TF32 hi and lo parts, each product as three
+TF32 products, hi hi' + hi lo' + lo hi', summed in fp32 in short chains,
+which keeps the fp32 tolerances; the width zero-padded to a multiple of
+32, one 32-column chunk). The CUDA-core pair that fp32 ran on before
+(``cuda_core``) stays bound as a yardstick; no route reaches it.
 ``flash_attention_bwd.launches`` counts its kernel launches (two a call),
 ``flash_attention_bwd.route_launches`` the same by route and
 ``flash_attention_bwd.padded_launches`` those on zero-padded inputs.
@@ -75,8 +82,14 @@ _ROUTE_NAMES = {"wgmma": "tensor-core kernel",
                 "cuda_core": "CUDA-core kernel",
                 "hd_chunked": "CUDA-core kernel, hd in chunks"}
 _TC_ROUTES = ("wgmma", "wgmma_chunked")
+# the backward's routes (every one reads its inputs by TMA)
+_BWD_ROUTE_NAMES = {
+    "wgmma": _ROUTE_NAMES["wgmma"],
+    "wgmma_chunked": _ROUTE_NAMES["wgmma_chunked"],
+    "tf32x3": "tensor-core kernel, fp32 as three TF32 products"}
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)  # the widths the kernels are built for
 _WIDE_STEP = 64    # bf16 above 256: hd padded to a multiple of one q/k chunk
+_X3_STEP = 32      # fp32 backward: hd padded to a multiple of one chunk
 _GRID_YZ = 65535                   # CUDA's limit on gridDim.y and .z
 # the tensor-core kernel keeps a (batch, kv head)'s folded rows in 32 bits,
 # with room for a block's rounding past the last
@@ -85,7 +98,9 @@ _WGMMA_MAX_ROWS = 2 ** 31 - 256
 # int32 iotas), with room for a tile's rounding past the last
 _MAX_SEQ = 2 ** 31 - 1024
 # the backward's C functions (dq launch, dk/dv launch) of each (dtype, route)
-_BWD_FNS = {(torch.float32, "cuda_core"): ("flash_bwd_dq_f32",
+_BWD_FNS = {(torch.float32, "tf32x3"): ("flash_bwd_dq_f32_tf32x3",
+                                        "flash_bwd_dkdv_f32_tf32x3"),
+            (torch.float32, "cuda_core"): ("flash_bwd_dq_f32",
                                            "flash_bwd_dkdv_f32"),
             (torch.bfloat16, "cuda_core"): ("flash_bwd_dq_bf16_cc",
                                             "flash_bwd_dkdv_bf16_cc"),
@@ -297,9 +312,9 @@ def build_bwd() -> dict:
 def bwd_route(dtype, hd: int) -> str:
     """The backward kernels a call of this dtype and head width runs on:
     ``wgmma`` (bfloat16 up to hd 256), ``wgmma_chunked`` (bfloat16 above
-    256) or ``cuda_core`` (float32)."""
+    256) or ``tf32x3`` (float32, every width)."""
     if dtype != torch.bfloat16:
-        return "cuda_core"
+        return "tf32x3"
     return "wgmma" if hd <= BWD_WGMMA_DIMS[-1] else "wgmma_chunked"
 
 
@@ -307,13 +322,12 @@ def bwd_head_dim(hd: int, dtype) -> int:
     """The width the backward's kernels run hd at: on ``wgmma`` the
     narrowest of ``BWD_WGMMA_DIMS`` that holds it, on ``wgmma_chunked`` the
     next multiple of 64 (the kernels stream hd in 64-column chunks), on
-    ``cuda_core`` hd itself (those kernels take any width)."""
+    ``tf32x3`` the next multiple of 32 (32-column chunks)."""
     path = bwd_route(dtype, hd)
-    if path == "wgmma_chunked":
-        return -(-hd // _WIDE_STEP) * _WIDE_STEP
     if path == "wgmma":
         return next(w for w in BWD_WGMMA_DIMS if w >= hd)
-    return hd
+    step = _WIDE_STEP if path == "wgmma_chunked" else _X3_STEP
+    return -(-hd // step) * step
 
 
 def _check_bwd(q, k, v, out, lse, dout, window):
@@ -361,18 +375,18 @@ def _check_bwd(q, k, v, out, lse, dout, window):
             raise ValueError(f"flash_attention_bwd kernel: {name} is not "
                              f"contiguous")
     path = bwd_route(q.dtype, hd)
-    if path in _TC_ROUTES and bwd_head_dim(hd, q.dtype) == hd:
+    if bwd_head_dim(hd, q.dtype) == hd:
         # TMA reads q, k, v and dout, 16-byte loads out (a padded width
         # reads the padded copies, which are allocated aligned)
         for name, t in ts.items():
             if t.data_ptr() % 16:
                 raise ValueError(f"flash_attention_bwd kernel: {name} is not "
                                  f"16-byte aligned ({q.dtype} hd {hd} runs "
-                                 f"the {_ROUTE_NAMES[path]})")
+                                 f"the {_BWD_ROUTE_NAMES[path]})")
     for name, t in (*ts.items(), ("lse", lse)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention_bwd kernel ({q.dtype} hd "
-                             f"{hd}: {_ROUTE_NAMES[path]}): {name} is on "
+                             f"{hd}: {_BWD_ROUTE_NAMES[path]}): {name} is on "
                              f"{t.device}, not a CUDA device")
         if t.device != q.device:
             raise ValueError(f"flash_attention_bwd kernel: {name} on "
@@ -406,7 +420,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                     raise RuntimeError(
                         f"flash_attention_bwd {what} kernel launch failed: "
                         f"{why} {err} (B={B} S={S} H={H} Kv={Kv} hd={hd} run "
-                        f"at {width}, {q.dtype}, {_ROUTE_NAMES[path]})")
+                        f"at {width}, {q.dtype}, {_BWD_ROUTE_NAMES[path]})")
                 flash_attention_bwd.launches += 1
                 flash_attention_bwd.route_launches[path] += 1
                 flash_attention_bwd.padded_launches += int(padded)
@@ -417,6 +431,5 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.route_launches = {"wgmma": 0, "wgmma_chunked": 0,
-                                      "cuda_core": 0}
+flash_attention_bwd.route_launches = dict.fromkeys(_BWD_ROUTE_NAMES, 0)
 flash_attention_bwd.padded_launches = 0

@@ -6,6 +6,16 @@ against the JAX package.
   and the dtypes and shapes the kernels do not take, and their modules
   build nothing when imported; ``bwd_route`` and ``bwd_head_dim`` by
   (dtype, hd).
+- A CPU model of the fp32 backward's three-product TF32 split
+  (``tf32x3``: each operand x as hi = trunc(x), the TF32 value the tensor
+  core reads for a raw fp32 x, and lo = tf32(x - hi), rounded as
+  ``cvt.rna``; each product hi hi' + hi lo' + lo hi', each 32-column
+  chunk of S and dP and each 64-position tile of dq, dk, dv summed fresh
+  and added in fp32 in the kernels' order) against JAX's ``_fa_bwd`` in fp32 at
+  the card's fp32 gate, 2e-5 of max |grad|: the flash sweep at hd 64, 128,
+  192 and 256, hd 576 and 1,024 at the sweep's GQA shape, width-cut
+  qwen1.5-110b shapes and the wrapper's zero-padding to a multiple of 32;
+  one TF32 product alone misses that gate.
 - A CPU model of the bf16 tensor-core backward's rounding (q, k, v, dout,
   out in bf16; P and dS rounded once to bf16 before their products; fp32
   accumulation in the kernels' tile order, above hd 256 S and dP summed
@@ -134,7 +144,11 @@ def test_kernel_modules_import_without_building():
 @pytest.mark.parametrize("bad,why", [
     ("cpu", r"bfloat16 hd 64: tensor-core kernel\): q is on cpu, not a CUDA "
             r"device"),
-    ("cpu_f32", r"float32 hd 64: CUDA-core kernel\): q is on cpu"),
+    ("cpu_f32", r"float32 hd 64: tensor-core kernel, fp32 as three TF32 "
+                r"products\): q is on cpu"),
+    ("cpu_f32_hd80", r"float32 hd 80: tensor-core kernel, fp32 as three "
+                     r"TF32 products\): q is on cpu"),
+    ("misaligned_f32", "v is not 16-byte aligned"),
     ("cpu_bf16_hd32", r"bfloat16 hd 32: tensor-core kernel\): q is on "
                       r"cpu"),
     ("cpu_bf16_hd192", r"bfloat16 hd 192: tensor-core kernel\): q is on "
@@ -159,7 +173,7 @@ def test_kernel_modules_import_without_building():
                          r"column blocks\): q is on cpu")])
 def test_flash_bwd_wrapper_raises(bad, why):
     hd = int(bad.rsplit("_hd", 1)[1]) if "_hd" in bad else 64
-    dt = torch.float32 if bad == "cpu_f32" else torch.bfloat16
+    dt = torch.float32 if "f32" in bad else torch.bfloat16
     q, k, v, out, do = (torch.zeros(1, 64, n, hd, dtype=dt)
                         for n in (2, 1, 1, 2, 2))
     lse = torch.zeros(1, 2, 64)
@@ -234,16 +248,19 @@ def test_lstm_seq_bwd_wrapper_raises(bad, why):
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 32, "wgmma"),
     (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 192, "wgmma"),
-    (torch.bfloat16, 576, "wgmma_chunked"), (torch.float32, 64, "cuda_core"),
-    (torch.float32, 128, "cuda_core"), (torch.float32, 1024, "cuda_core"),
+    (torch.bfloat16, 576, "wgmma_chunked"), (torch.float32, 64, "tf32x3"),
+    (torch.float32, 128, "tf32x3"), (torch.float32, 1024, "tf32x3"),
     (torch.bfloat16, 1, "wgmma"), (torch.bfloat16, 150, "wgmma"),
     (torch.bfloat16, 255, "wgmma"), (torch.bfloat16, 256, "wgmma"),
-    (torch.bfloat16, 257, "wgmma_chunked"), (torch.float32, 192, "cuda_core"),
-    (torch.float32, 256, "cuda_core"), (torch.bfloat16, 1024, "wgmma_chunked")])
+    (torch.bfloat16, 257, "wgmma_chunked"), (torch.float32, 192, "tf32x3"),
+    (torch.float32, 256, "tf32x3"), (torch.bfloat16, 1024, "wgmma_chunked"),
+    (torch.float32, 1, "tf32x3"), (torch.float32, 576, "tf32x3")])
 def test_flash_bwd_route_by_dtype_and_width(dtype, hd, route):
     assert FA.bwd_route(dtype, hd) == route
     assert set(FA.flash_attention_bwd.route_launches) == {
-        "wgmma", "wgmma_chunked", "cuda_core"}
+        "wgmma", "wgmma_chunked", "tf32x3"}
+    # the CUDA-core pair stays bound as the yardstick; no route reaches it
+    assert (torch.float32, "cuda_core") in FA._BWD_FNS
 
 
 # ---------------------------------------------------------------------------
@@ -433,13 +450,14 @@ PADDED = {80: 128, 150: 192, 200: 256, 300: 320, 600: 640}
     (torch.bfloat16, 129, 192), (torch.bfloat16, 150, 192),
     (torch.bfloat16, 192, 192), (torch.bfloat16, 193, 256),
     (torch.bfloat16, 256, 256), (torch.bfloat16, 257, 320),
-    (torch.bfloat16, 576, 576), (torch.float32, 80, 80),
+    (torch.bfloat16, 576, 576), (torch.float32, 80, 96),
     (torch.float32, 192, 192), (torch.bfloat16, 600, 640),
-    (torch.bfloat16, 1024, 1024), (torch.float32, 576, 576)])
+    (torch.bfloat16, 1024, 1024), (torch.float32, 576, 576),
+    (torch.float32, 1, 32), (torch.float32, 300, 320)])
 def test_flash_bwd_head_dim_by_route(dtype, hd, wide):
     """bf16 up to 256 runs at the next tensor-core width, above 256 at the
-    next multiple of 64 (the column kernels' chunk); the CUDA-core kernels
-    (fp32) at hd itself."""
+    next multiple of 64 (the column kernels' chunk); fp32 (``tf32x3``) at
+    the next multiple of 32 (its chunk)."""
     assert FA.bwd_head_dim(hd, dtype) == wide
 
 
@@ -534,6 +552,184 @@ def test_flash_bwd_padded_tc_model_meets_the_gate(hd, causal, window):
 
     err = _padded_vs_jax(model, hd, causal, window, seed=hd + 1)
     assert err <= GRAD_GATE, err
+
+
+# ---------------------------------------------------------------------------
+# (d'') the fp32 backward's three-product TF32 split, modelled, against JAX
+# ---------------------------------------------------------------------------
+
+X3_TILE, X3_COLS = 64, 32      # tf32x3: tiles either side, chunk width
+
+
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` does it: to nearest, ties
+    away from zero, by adding half a unit of the 13 dropped bits to the bit
+    pattern and masking them off."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _trunc(x):
+    """The TF32 value the tensor core reads for a raw fp32 x: its 13 low
+    mantissa bits dropped, as a probe of the card's tensor cores read it."""
+    i = x.contiguous().view(torch.int32)
+    return (i & ~0x1FFF).view(torch.float32)
+
+
+def _x3_mm(a, b, terms=3):
+    """a @ b as the kernels form it: each operand split into hi = trunc(x)
+    (read raw by the tensor core) and lo = tf32(x - hi), the product hi hi'
+    + hi lo' + lo hi' in fp32 (``terms=1``: hi hi' alone, one TF32
+    product)."""
+    ah, bh = _trunc(a), _trunc(b)
+    out = ah @ bh
+    if terms == 3:
+        out = out + ah @ _tf32(b - bh) + _tf32(a - ah) @ bh
+    return out
+
+
+def _tf32x3_bwd_model(q, k, v, out, lse, dout, causal, window, scale=None,
+                      terms=3):
+    """What the tf32x3 launches (flash_bwd_tf32x3<dq>, then <dk/dv>)
+    compute, in their rounding: fp32 inputs; D = rowsum(dout * out) in
+    fp32; the other side in tiles of 64 positions (kv tiles for dq, q tiles
+    of each query head of the group for dk and dv); per tile S = q k^T and
+    dP = dout v^T summed
+    over hd chunk by chunk in fp32, each 32-column chunk a fresh three-term
+    TF32 product (``_x3_mm``); P = 2^(s * scale * log2(e) - lse * log2(e))
+    (0 where masked), dS = P (dP - D) scale in fp32; each tile's dS k, P^T
+    dout and dS^T q a fresh three-term product added in tile order. hd is a
+    multiple of 32 (the wrapper pads); ``scale`` the one the wrapper passes,
+    by default 1/sqrt(hd)."""
+    B, S, H, hd = q.shape
+    Kv = k.shape[2]
+    G = H // Kv
+    assert hd % X3_COLS == 0
+    scale = torch.tensor(1.0 / math.sqrt(hd) if scale is None else scale,
+                         dtype=torch.float32)
+    c2 = scale * torch.tensor(LOG2E, dtype=torch.float32)
+    qf, kf, vf, of, dof = (t.float().transpose(1, 2)
+                           for t in (q, k, v, out, dout))   # [B, heads, S, hd]
+    D = (dof * of).sum(-1)                                  # [B, H, S]
+    lse2 = lse.float() * torch.tensor(LOG2E, dtype=torch.float32)
+    kv_of = torch.arange(H) // G
+    pos = torch.arange(S)
+    n_t = -(-S // X3_TILE)
+
+    def dot(a, b):                      # a b^T over hd, chunk by chunk
+        acc = None
+        for d in range(0, hd, X3_COLS):
+            part = _x3_mm(a[..., d:d + X3_COLS],
+                          b[..., d:d + X3_COLS].transpose(-1, -2), terms)
+            acc = part if acc is None else acc + part
+        return acc
+
+    def tile_terms(qr, dor, kc, vc, lse_r, d_r, qpos, kpos):
+        s = dot(qr, kc)
+        dp = dot(dor, vc)
+        ok = _visible(qpos, kpos, S, causal, window)
+        p = torch.where(ok, torch.exp2(s * c2 - lse_r[..., None]),
+                        torch.zeros(()))
+        return p, p * (dp - d_r[..., None]) * scale
+
+    dq = torch.zeros(B, H, S, hd)
+    for t in range(n_t):                                    # launch 1
+        ks = slice(t * X3_TILE, (t + 1) * X3_TILE)
+        kc, vc = kf[:, kv_of, ks], vf[:, kv_of, ks]
+        _, ds = tile_terms(qf, dof, kc, vc, lse2, D, pos, pos[ks])
+        dq = dq + _x3_mm(ds, kc, terms)
+    dk = torch.zeros(B, Kv, S, hd)
+    dv = torch.zeros(B, Kv, S, hd)
+    for g in range(G):                                      # launch 2
+        hs = torch.arange(Kv) * G + g
+        for t in range(n_t):
+            qs = slice(t * X3_TILE, (t + 1) * X3_TILE)
+            qr, dor = qf[:, hs, qs], dof[:, hs, qs]
+            p, ds = tile_terms(qr, dor, kf, vf, lse2[:, hs, qs], D[:, hs, qs],
+                               pos[qs], pos)
+            dv = dv + _x3_mm(p.transpose(-1, -2), dor, terms)
+            dk = dk + _x3_mm(ds.transpose(-1, -2), qr, terms)
+    return tuple(x.transpose(1, 2).contiguous() for x in (dq, dk, dv))
+
+
+def _x3_vs_jax(arrs, causal, window, terms=3, padded=False):
+    """The model's worst max|model - JAX| / max|JAX| over dq, dk, dv, fp32
+    inputs from numpy: JAX's forward's out and lse go to both. ``padded``:
+    through the wrapper's zero-padding to ``bwd_head_dim``."""
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in arrs)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in arrs)
+    jout, jlse, want = _jax_fa_bwd(jq, jk, jv, jdo, causal, window)
+    B, S, H, _ = tq.shape
+    tout = torch.from_numpy(np.array(jout))
+    tlse = torch.from_numpy(np.array(jlse)).reshape(B, H, S)
+    if padded:
+        def model(q, k, v, out, lse, dout, causal, window, scale):
+            return _tf32x3_bwd_model(q, k, v, out, lse, dout, causal, window,
+                                     scale, terms)
+
+        got = _padded_bwd(model, tq, tk, tv, tout, tlse, tdo, causal, window)
+    else:
+        got = _tf32x3_bwd_model(tq, tk, tv, tout, tlse, tdo, causal, window,
+                                terms=terms)
+    return [float(np.max(np.abs(g.numpy() - np.asarray(w))) /
+                  np.max(np.abs(np.asarray(w)))) for g, w in zip(got, want)]
+
+
+def _x3_arrs(B, S, H, Kv, hd, seed, scale=1.0):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(B, S, n, hd) * scale).astype(np.float32)
+            for n in (H, Kv, Kv, H)]
+
+
+@pytest.mark.parametrize("hd", [64, 128, 192, 256])
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("B,S,H,Kv", SWEEP, ids=lambda s: str(s))
+def test_flash_bwd_tf32x3_model_meets_the_fp32_gate_against_jax(
+        B, S, H, Kv, causal, window, hd):
+    errs = _x3_vs_jax(_x3_arrs(B, S, H, Kv, hd, S + H + hd), causal, window)
+    assert max(errs) <= TOL["float32"], errs
+
+
+@pytest.mark.parametrize("hd", [576, 1024])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_bwd_tf32x3_wide_model_meets_the_fp32_gate(causal, window,
+                                                         hd):
+    """hd 576 and 1,024 (18 and 32 chunks of S and dP summed in fp32) at the
+    sweep's GQA shape."""
+    errs = _x3_vs_jax(_x3_arrs(*SWEEP[1], hd, 7 + hd), causal, window)
+    assert max(errs) <= TOL["float32"], errs
+
+
+@pytest.mark.parametrize("Kv", [1, 2])
+@pytest.mark.parametrize("scale", [0.5, 2.0])
+def test_flash_bwd_tf32x3_model_meets_the_fp32_gate_at_a_qwen_cut(Kv, scale):
+    """qwen1.5-110b's training attention cut in width (S = 1,024, G = 8, hd
+    128, Kv kv heads), inputs N(0, 1) x scale, causal: a dk/dv row sums over
+    up to 8,192 positions in 256 tiles."""
+    errs = _x3_vs_jax(_x3_arrs(1, 1024, 8 * Kv, Kv, 128, 11 + Kv, scale),
+                      True, 0)
+    assert max(errs) <= TOL["float32"], errs
+
+
+def test_flash_bwd_one_tf32_product_misses_the_fp32_gate():
+    """The split is what holds the gate: the same model with hi hi' alone
+    (one TF32 product, up to 2^-10 of each operand dropped) misses 2e-5 of
+    max |grad| at the qwen cut."""
+    errs = _x3_vs_jax(_x3_arrs(1, 1024, 8, 1, 128, 12, 1.0), True, 0,
+                      terms=1)
+    assert max(errs) > TOL["float32"], errs
+
+
+@pytest.mark.parametrize("hd", [16, 80, 150, 300])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_bwd_padded_tf32x3_model_meets_the_fp32_gate(hd, causal,
+                                                           window):
+    """The wrapper's zero-padding to a multiple of 32 (16 -> 32, 80 -> 96,
+    150 -> 160, 300 -> 320) with the true scale, the model at the padded
+    width, against JAX on the unpadded inputs."""
+    errs = _x3_vs_jax(_x3_arrs(*SWEEP[1], hd, 3 + hd), causal, window,
+                      padded=True)
+    assert max(errs) <= TOL["float32"], errs
 
 
 # ---------------------------------------------------------------------------
