@@ -52,8 +52,9 @@ Phases, each printing its result; any failure exits non-zero:
    {fp32, bf16}, the sweep again at hd = 128 in bf16, at hd = 192 (built
    natively, nemotron-4-340b's width) and at hd = 80 (zero-padded to 128)
    in both dtypes, at hd = 200 (padded to 256), 256, 576 and 1,024 in both
-   dtypes (bf16 on the tensor-core routes, fp32 on the CUDA cores; causal,
-   with and without a window; every route taken), one call
+   dtypes (bf16 on the tensor-core routes, fp32 on ``tf32x3``, the
+   three-product TF32 split, at every width; causal, with and without a
+   window; every route these sizes reach taken), one call
    of more than 2^31 elements (q ``[257,1024,64,128]`` bf16, one launch;
    entries held bit for bit against the kernel on that entry alone and
    against the plain version), one batch entry of exactly 2^31 elements (q
@@ -63,13 +64,15 @@ Phases, each printing its result; any failure exits non-zero:
    and qwen1.5-110b's prefill, q ``[4,1024,64,128]``, k/v
    ``[4,1024,8,128]``, causal, in bf16 and fp32 with a near-uniform and a
    peaked softmax (the peaked fp32 case against an fp64 attention), timed
-   in bf16 (the tensor-core kernel) against SDPA and in fp32 (the CUDA-core
-   kernel) against SDPA in fp32, and at hd 192, 256, 576 and 1,024 in both
-   dtypes against the plain version and SDPA (naming the backend SDPA
-   picked) and the bound, bf16 also beside the CUDA-core kernel the tensor
-   cores replaced there (its C function called in the same run; the new
-   route must be faster, and above 256 faster than SDPA too) and held at
-   the qwen gate with peaked (x2) inputs at 256 and 576;
+   in bf16 (the tensor-core kernel) against SDPA, in fp32 (``tf32x3``) at
+   hd 128 and in both dtypes at hd 192, 256, 576 and 1,024 against the
+   plain version, SDPA in the same dtype (naming the backend SDPA picked),
+   the bound and the CUDA-core kernel each route replaced (its C function
+   called in the same run and held to the plain version; the route must
+   be faster, and faster than SDPA too for bf16 above 256 and fp32 from
+   256), two runs bit-equal, fp32 with ptxas's registers and a model of
+   its products and bytes, and held with peaked (x2) inputs at 256 and 576
+   (bf16 at the qwen gate, fp32 against an fp64 attention);
 3. the gradient of ``lstm_loss`` at the paper width through the sequence
    kernel and its backpropagation through time against autograd through the
    per-step plain path on the card, and the ternary codec's
@@ -128,8 +131,9 @@ Phases, each printing its result; any failure exits non-zero:
    the stated share of the logits' scale (beside the noise floor: the plain
    path against itself with ``F.rms_norm``); a ``torch.profiler`` window
    over one prefill and one decode step; then the same 4-layer model in
-   fp32 (prompt 512), kernels against plain versions within 1e-4 of the
-   logits' scale;
+   fp32 (prompt 512), its flash launches counted by route (all on
+   ``tf32x3``), kernels against plain versions within 1e-4 of the logits'
+   scale;
 7. qwen1.5-110b's smoke config in fp32, the kernel path on the card
    against the plain path on the CPU: equal greedy tokens and logits within
    the stated tolerance;
@@ -181,7 +185,8 @@ Phases, each printing its result; any failure exits non-zero:
    (``plain_kernels``), beside an fp32 plain step; a ``--ckpt`` run
    of the smoke config loading back bit for bit; the stablelm and qwen
    smoke configs' step gradients card vs CPU (fp32) and their exact
-   launch counts, the backward's on the ``tf32x3`` route;
+   launch counts, the forward's and the backward's on the ``tf32x3``
+   route;
 10. one layer of nemotron-4-340b at its full width (d_model 18,432, 96 over
    8 heads, hd 192, squared-ReLU d_ff 73,728; vocab cut to 4,096:
    3,605,114,880 parameters, bf16, random from seed 0) through
@@ -1729,18 +1734,19 @@ RMS_SWEEP = [(4, 64), (2, 17, 256), (1, 3, 5, 128), (3, 129), (2, 130)]
 FLASH_SWEEP = [(1, 64, 4, 4, 32), (2, 129, 8, 4, 64), (1, 200, 8, 1, 16)]
 FLASH_MASKS = [(True, 0), (True, 37), (False, 0)]
 FLASH_HD_WIDE = 128        # the sweep's cases again at qwen's head dim
-# ... at nemotron-4-340b's 192 (built natively) and at 80 (zero-padded to
-# 128 by the wrapper), both dtypes
+# ... at nemotron-4-340b's 192 (built natively) and at 80 (zero-padded by
+# the wrapper, bf16 to 128 and fp32 to 96), both dtypes
 FLASH_HD_MORE = (192, 80)
-# ... above 192 in both dtypes: 200 (zero-padded to 256) and 256 (bf16 on
-# flash_kernel_wgmma<256>, fp32 on the CUDA-core flash_kernel<256>), 576
-# and 1,024 (bf16 on the tensor-core column blocks, flash_kernel_wgmma_cols;
-# fp32 on the CUDA-core kernel that sums over hd in chunks)
+# ... above 192 in both dtypes: 200 (bf16 zero-padded to 256, fp32 to
+# 224) and 256 (bf16 on flash_kernel_wgmma<256>), 576 and 1,024 (bf16 on
+# the tensor-core column blocks, flash_kernel_wgmma_cols); fp32 on
+# flash_kernel_tf32x3 at every width (tf32x3)
 FLASH_HD_WIDE_MORE = (200, 256, 576, 1024)
-# ... and timed at qwen's prefill shape, bf16 beside the CUDA-core kernel
-# it replaced (its C function called in the same run), and held there at
-# the qwen gate with peaked (x2) inputs at 256 and 576 too; 192 is
-# nemotron-4-340b's width (flash_kernel_wgmma<192>)
+# ... and timed at qwen's prefill shape in both dtypes beside the CUDA-core
+# kernel each route replaced (its C function called in the same run), and
+# held there at the qwen gate with peaked (x2) inputs at 256 and 576 too
+# (fp32: against an fp64 attention); 192 is nemotron-4-340b's width
+# (flash_kernel_wgmma<192>); fp32 is timed at qwen's 128 too (phase_flash)
 FLASH_HD_TIMED = (192, 256, 576, 1024)
 FLASH_HD_PEAKED = (256, 576)
 # one call of more than 2^31 elements (2^31 + 2^23 in q), one launch
@@ -1846,15 +1852,57 @@ def rms_bound_ms(rows, d, elem_bytes):
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
-def flash_bound_ms(B, S, H, Kv, hd, elem_bytes):
+def flash_bound_ms(B, S, H, Kv, hd, elem_bytes, peak=None):
     """The causal pairs' two products (S(S+1)/2 pairs a head, 2 flops a
     multiply-add) at the peak rate of the inputs' type (bf16: the tensor
-    cores; fp32: the CUDA cores); q, k, v and out each crossed once."""
+    cores; fp32: the TF32 tensor cores at a third of their rate, each fp32
+    product being three TF32 products, PEAK_TF32X3_FLOP_S, the least time
+    the card takes for fp32-accurate products; ``peak`` overrides, e.g.
+    PEAK_FP32_FLOP_S for the CUDA cores); q, k, v and out each crossed
+    once."""
     flops = 4 * B * H * hd * S * (S + 1) // 2
     moved = elem_bytes * (2 * B * S * H * hd + 2 * B * S * Kv * hd)
-    peak = PEAK_BF16_FLOP_S if elem_bytes == 2 else PEAK_FP32_FLOP_S
+    if peak is None:
+        peak = PEAK_BF16_FLOP_S if elem_bytes == 2 else PEAK_TF32X3_FLOP_S
     t_b, t_o = moved / PEAK_BYTES_S, flops / peak
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def x3_fwd_cols(hd):
+    """The output columns a warpgroup of flash_kernel_tf32x3 owns at width
+    hd (a multiple of 32), as ``fx3::warp_cols`` in flash_attention.cu sets
+    them; a block owns twice as many."""
+    return 64 if hd <= 128 else 128 if hd <= 256 else 256
+
+
+def x3_fwd_work(B, S, H, Kv, hd):
+    """A model of what flash_kernel_tf32x3 does in one causal call at width
+    hd (a multiple of 32), counted from the shapes and its tiling, not
+    measured: (its products over the bound's two, each three TF32
+    products; GB requested by TMA; steps of its ring over all blocks). Each
+    of its n_cb column blocks forms S over the full width again and adds
+    P V over its columns, on every visited 64 x 64 tile pair (the
+    diagonal's whole), and requests for each pair q's and k's 64 rows over
+    the full width and v's over its columns, in ceil(hd / 64) product
+    steps and one output step per 64 columns of its first warpgroup."""
+    wc = x3_fwd_cols(hd)
+    n_cb = -(-hd // (2 * wc))
+    n_t = -(-S // 64)
+    pairs = B * H * n_t * (n_t + 1) // 2       # visited tile pairs
+    exact = B * H * S * (S + 1) // 2 / (pairs * 64 * 64)
+    moved = pairs * 64 * 4 * (2 * hd * n_cb + hd)
+    steps = pairs * sum(-(-hd // 64) + -(-min(wc, hd - 2 * wc * cb) // 64)
+                        for cb in range(n_cb))
+    return (n_cb + 1) / 2 / exact, moved / 1e9, steps
+
+
+def fwd_registers(FA, hd):
+    """ptxas's registers and spills of flash_kernel_tf32x3 at width hd (the
+    instance of its warpgroup's columns, ``x3_fwd_cols``)."""
+    from repro_torch.kernels import build as kbuild
+    report = ptxas_report(kbuild.log_path(FA.SOURCE).read_text())
+    return {name: rep for name, rep in report
+            if f"tf32x3<Li{x3_fwd_cols(hd)}>" in name}
 
 
 def ptxas_report(log):
@@ -2052,8 +2100,8 @@ def phase_flash(torch, FA, ref):
                                             window=window),
                          ref.flash_attention(q, k, v, causal=causal,
                                              window=window), rtol, atol)
-            # widths above 192, on the CUDA cores in both dtypes, causal
-            # with and without a window
+            # widths above 192 in both dtypes (bf16 on the wide tensor-core
+            # routes, fp32 on tf32x3), causal with and without a window
             if not causal:
                 continue
             for hd_x in FLASH_HD_WIDE_MORE:
@@ -2071,12 +2119,20 @@ def phase_flash(torch, FA, ref):
                                             window=window),
                          ref.flash_attention(q, k, v, causal=causal,
                                              window=window), rtol, atol)
+    # every route the sweep's sizes reach was taken; the CUDA-core kernels
+    # (bf16 only past 2^31 - 256 folded rows) are held through their C
+    # functions in flash_wide_times
+    reach = {FA.route(dtype, hd_x, S, H // Kv)
+             for B, S, H, Kv, hd in FLASH_SWEEP
+             for dtype in (torch.float32, torch.bfloat16)
+             for hd_x in (hd, FLASH_HD_WIDE, *FLASH_HD_MORE,
+                          *FLASH_HD_WIDE_MORE)}
     print(f"[kernel] flash_attention sweep launches by route "
-          f"{FA.flash_attention.route_launches}, of them on padded inputs "
+          f"{FA.flash_attention.route_launches} (reachable at these sizes: "
+          f"{sorted(reach)}), of them on padded inputs "
           f"{FA.flash_attention.padded_launches}")
-    check(all(FA.flash_attention.route_launches[r] > 0
-              for r in FA.flash_attention.route_launches),
-          f"a flash route was never taken: "
+    check(all(FA.flash_attention.route_launches[r] > 0 for r in reach),
+          f"a flash route the sweep reaches was never taken: "
           f"{FA.flash_attention.route_launches}")
     B, S, H, Kv, hd = SERVE["batch"], SERVE["prompt"], 64, 8, 128
     worst = 0.0
@@ -2102,9 +2158,6 @@ def phase_flash(torch, FA, ref):
                      QWEN_FLASH_SCALES[0]) for j, n in enumerate((H, Kv, Kv)))
     ms = median_ms(lambda: FA.flash_attention(q, k, v), torch, reps=10,
                    inner=3)
-    q32, k32, v32 = (t.float() for t in (q, k, v))
-    fp32_ms = median_ms(lambda: FA.flash_attention(q32, k32, v32), torch,
-                        reps=5, inner=2)
     plain_ms = median_ms(lambda: ref.flash_attention(q, k, v), torch,
                          reps=10, inner=3)
     # SDPA picks kernels that deterministic mode may refuse: off for it only
@@ -2114,50 +2167,58 @@ def phase_flash(torch, FA, ref):
         lib_err = (lib().float() - ref.flash_attention(q, k, v).float()) \
             .abs().max().item()
         lib_ms = median_ms(lib, torch, reps=10, inner=3)
-        lib32_ms = median_ms(sdpa(torch, q32, k32, v32), torch, reps=5,
-                             inner=2)
     finally:
         torch.use_deterministic_algorithms(True)
-    del q32, k32, v32
+    del q, k, v
+    # fp32 at qwen's own width (tf32x3) beside the CUDA-core kernel it
+    # replaced and SDPA in fp32; then the wider widths in both dtypes
+    fp32 = flash_wide_times(torch, FA, ref, B, S, H, Kv, hd,
+                            dtypes=(torch.float32,))["float32"]
     wide = {f"hd{w}": flash_wide_times(torch, FA, ref, B, S, H, Kv, w)
             for w in FLASH_HD_TIMED}
     bound, by = flash_bound_ms(B, S, H, Kv, hd, 2)
     print(f"[kernel] flash_attention time B={B} S={S} H={H} Kv={Kv} "
           f"hd={hd} causal bf16 (tensor-core kernel): kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (max|SDPA-plain| "
-          f"{lib_err:.3e}), bound {bound:.5f} ms ({by}); the fp32 inputs "
-          f"(CUDA-core kernel) {fp32_ms:.4f} ms, SDPA in fp32 "
-          f"{lib32_ms:.4f} ms")
+          f"{lib_err:.3e}), bound {bound:.5f} ms ({by}); fp32 (tf32x3) "
+          f"{fp32['ms']:.4f} ms, SDPA in fp32 {fp32['library_ms']:.4f} ms")
     return worst, dict(shape=[B, S, H, Kv, hd], ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound, bound_by=by,
-                       fp32_ms=fp32_ms, fp32_library_ms=lib32_ms,
+                       hd128={"float32": fp32},
                        **wide)
 
 
-def cuda_core_bf16(torch, FA, q, k, v):
-    """The bf16 CUDA-core kernel (``flash_attention_bf16_cc``: flash_kernel
-    at hd 256, flash_kernel_chunked above), called through its C function
-    at q's width, causal, for comparison and timing beside the route that
-    replaced it at these widths."""
+def cuda_core(torch, FA, q, k, v):
+    """The CUDA-core kernel of q's dtype (``flash_attention_f32`` /
+    ``flash_attention_bf16_cc``: flash_kernel at the built widths,
+    flash_kernel_chunked at any other), called through its C function at
+    q's width, causal, for comparison and timing beside the route that
+    replaced it."""
     B, S, H, hd = q.shape
     out = torch.empty_like(q)
-    err = FA.build()[torch.bfloat16, "cuda_core"](
+    err = FA.build()[q.dtype, "cuda_core"](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, B, S,
         H, k.shape[2], hd, 1, 0, 1.0 / math.sqrt(hd),
         torch.cuda.current_stream().cuda_stream)
-    check(err == 0, f"flash_attention_bf16_cc launch failed: {err}")
+    check(err == 0, f"{FA._FNS[q.dtype, 'cuda_core']} launch failed: {err}")
     return out
 
 
-def flash_wide_times(torch, FA, ref, B, S, H, Kv, hd):
-    """Per-call times at a head width of 192 or more, both dtypes, beside the
-    plain version, SDPA in the same dtype (and the backend SDPA picked) and
-    the bound; in bf16 (the tensor-core routes) also beside the CUDA-core
-    kernel those replaced, its C function called here. Each held to its
-    plain version first, at the qwen gate (bf16; at FLASH_HD_PEAKED also
-    with x2 inputs) or the sweep's tolerance (fp32)."""
+def flash_wide_times(torch, FA, ref, B, S, H, Kv, hd, dtypes=None):
+    """Per-call times at head width hd in each of ``dtypes`` (both by
+    default) beside the plain version, SDPA in the same dtype (and the
+    backend SDPA picked), the bound and the CUDA-core kernel the route
+    replaced (its C function called here, held to the plain version too),
+    which must be slower; bf16 above 256 and fp32 from 256 must be faster
+    than SDPA too. Each held to its plain version first, at the qwen gate
+    (bf16) or the sweep's tolerance (fp32), two runs bit-equal, and at
+    FLASH_HD_PEAKED also with x2 inputs (fp32: within
+    QWEN_FLASH_EXACT_FACTOR of the plain version's distance from an fp64
+    attention). For fp32 it also prints the bound at the CUDA cores' rate
+    and the model of products and bytes (``x3_fwd_work``), and adds
+    ptxas's registers to the row."""
     out = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         path = FA.route(dtype, hd, S, H // Kv)
         q, k, v = (randn(torch, (B, S, n, hd), dtype, 80 + j, 0.5)
@@ -2165,9 +2226,14 @@ def flash_wide_times(torch, FA, ref, B, S, H, Kv, hd):
         rtol, atol = (FLASH_RTOL, FLASH_ATOL) if name == "float32" \
             else (TOL[name], QWEN_FLASH_BF16_ATOL)
         plain = ref.flash_attention(q, k, v)
+        got = FA.flash_attention(q, k, v)
         err = held(torch, f"flash_attention B={B} S={S} H={H} Kv={Kv} "
-                   f"hd={hd} causal {name} ({path})",
-                   FA.flash_attention(q, k, v), plain, rtol, atol)
+                   f"hd={hd} causal {name} ({path})", got, plain, rtol, atol)
+        again = FA.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        same = torch.equal(got, again)
+        check(same, f"hd {hd} {name}: two runs of {path} differ")
+        del got, again
         reps, inner = (5, 2) if hd <= 256 else (3, 1)
         ms = median_ms(lambda: FA.flash_attention(q, k, v), torch, reps=reps,
                        inner=inner, warm=3)
@@ -2181,41 +2247,63 @@ def flash_wide_times(torch, FA, ref, B, S, H, Kv, hd):
         finally:
             torch.use_deterministic_algorithms(True)
         bound, by = flash_bound_ms(B, S, H, Kv, hd, q.element_size())
+        cc_name = FA._FNS[dtype, "cuda_core"]
+        err_cc = held(torch, f"{cc_name} B={B} S={S} H={H} Kv={Kv} hd={hd} "
+                      f"causal {name} (the CUDA-core kernel replaced)",
+                      cuda_core(torch, FA, q, k, v), plain, rtol, atol)
+        cc_ms = median_ms(lambda: cuda_core(torch, FA, q, k, v), torch,
+                          reps=3, inner=1, warm=1)
+        check(ms < cc_ms, f"hd {hd} {name}: {path} ({ms:.4f} ms) is not "
+                          f"faster than the CUDA-core kernel it replaced "
+                          f"({cc_ms:.4f} ms)")
+        if hd > 256 or (name == "float32" and hd >= 256):
+            check(ms < lib_ms, f"hd {hd} {name}: {path} ({ms:.4f} ms) is not "
+                               f"faster than SDPA ({backend}, {lib_ms:.4f} "
+                               f"ms)")
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    library_backend=backend, bound_ms=bound, bound_by=by,
-                   max_abs_err=err, route=path)
-        before = ""
-        if name == "bfloat16":
-            err_cc = held(torch, f"flash_attention_bf16_cc B={B} S={S} "
-                          f"H={H} Kv={Kv} hd={hd} causal bfloat16 (the "
-                          f"CUDA-core kernel replaced)",
-                          cuda_core_bf16(torch, FA, q, k, v), plain, rtol,
-                          atol)
-            cc_ms = median_ms(lambda: cuda_core_bf16(torch, FA, q, k, v),
-                              torch, reps=3, inner=1, warm=1)
-            check(ms < cc_ms, f"hd {hd} bf16: {path} ({ms:.4f} ms) is not "
-                              f"faster than the CUDA-core kernel it "
-                              f"replaced ({cc_ms:.4f} ms)")
-            if hd > 256:
-                check(ms < lib_ms, f"hd {hd} bf16: {path} ({ms:.4f} ms) is "
-                                   f"not faster than SDPA ({backend}, "
-                                   f"{lib_ms:.4f} ms)")
-            row.update(cuda_core_ms=cc_ms, cuda_core_err=err_cc)
-            before = f", the CUDA-core kernel it replaced {cc_ms:.4f} ms"
-            if hd in FLASH_HD_PEAKED:
-                del plain
-                q, k, v = (randn(torch, (B, S, n, hd), dtype, 90 + j, 2.0)
-                           for j, n in enumerate((H, Kv, Kv)))
+                   max_abs_err=err, route=path, bit_equal=same,
+                   cuda_core_ms=cc_ms, cuda_core_err=err_cc)
+        more = ""
+        if name == "float32":
+            bound_cc, _ = flash_bound_ms(B, S, H, Kv, hd, 4,
+                                         PEAK_FP32_FLOP_S)
+            work, gb, steps = x3_fwd_work(B, S, H, Kv,
+                                          FA.native_head_dim(hd))
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            regs = fwd_registers(FA, FA.native_head_dim(hd))
+            # the model's numbers and the CUDA cores' bound go to the log
+            # only: every number of the kernels line is measured
+            row["registers"] = regs
+            more = (f"; bound at the CUDA cores' 67 TFLOP/s {bound_cc:.4f} "
+                    f"ms; {work:.3f}x the bound's products (each three TF32 "
+                    f"products), {gb:.2f} GB requested by TMA (a model: "
+                    f"{gb / ms:.2f} TB/s), {steps:,} ring steps (a model: "
+                    f"{ms * 1e3 / (steps / sms):.3f} us a step on each of "
+                    f"{sms} SMs); ptxas: "
+                    f"{'; '.join(f'{n} {r}' for n, r in regs.items())}")
+        if hd in FLASH_HD_PEAKED:
+            del plain
+            q, k, v = (randn(torch, (B, S, n, hd), dtype, 90 + j, 2.0)
+                       for j, n in enumerate((H, Kv, Kv)))
+            tag = (f"flash_attention B={B} S={S} H={H} Kv={Kv} hd={hd} "
+                   f"causal inputs x2 {name} ({path})")
+            if name == "float32":
+                row["max_abs_err_x2"] = held_exact(
+                    torch, tag, FA.flash_attention(q, k, v),
+                    ref.flash_attention(q, k, v),
+                    exact_causal_attention(torch, q, k, v))
+            else:
                 row["max_abs_err_x2"] = held(
-                    torch, f"flash_attention B={B} S={S} H={H} Kv={Kv} "
-                    f"hd={hd} causal inputs x2 {name} ({path})",
-                    FA.flash_attention(q, k, v), ref.flash_attention(q, k, v),
-                    rtol, atol)
+                    torch, tag, FA.flash_attention(q, k, v),
+                    ref.flash_attention(q, k, v), rtol, atol)
         print(f"[kernel] flash_attention time B={B} S={S} H={H} Kv={Kv} "
               f"hd={hd} causal {name} ({path}): kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms ({backend} backend)"
-              f"{before}, bound {bound:.5f} ms ({by}); kernel / bound "
-              f"{ms / bound:.2f}, kernel / SDPA {ms / lib_ms:.2f}")
+              f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms ({backend} backend), "
+              f"the CUDA-core kernel it replaced {cc_ms:.4f} ms, bound "
+              f"{bound:.5f} ms ({by}); kernel / bound {ms / bound:.2f}, "
+              f"kernel / SDPA {ms / lib_ms:.2f}, CUDA-core kernel / kernel "
+              f"{cc_ms / ms:.2f}; two runs bit-equal {same}{more}")
         out[name] = row
         del q, k, v
         torch.cuda.empty_cache()
@@ -2444,7 +2532,7 @@ def phase_serve(torch, K, T):
         k: v for k, v in want.items() if k != "others"},
         f"serve launches {counts} / {res['launches']}, expected {want}")
     check(routes == {"wgmma": want["flash_attention"], "wgmma_chunked": 0,
-                     "cuda_core": 0, "hd_chunked": 0},
+                     "tf32x3": 0, "cuda_core": 0, "hd_chunked": 0},
           f"serve flash_attention routes {routes}: every bf16 launch should "
           f"run the tensor-core kernel")
     print(f"[serve] flash_attention launches that wrote lse: {lse_launches} "
@@ -2481,11 +2569,15 @@ def phase_serve(torch, K, T):
 
 def phase_serve_fp32(torch):
     """The same 4-layer model in fp32 (31.7 GB), where rounding noise is
-    ~1e-5: a greedy run through the kernels, then kernel vs plain
+    ~1e-5: a greedy run through the kernels, its flash launches counted by
+    route (one a layer in the prefill, all on tf32x3), then kernel vs plain
     teacher-forced on its tokens within 1e-4 of the logits' scale. Holds
-    both kernels at full width where bf16 noise cannot hide an error."""
+    both kernels at full width where bf16 noise cannot hide an error.
+    Returns (max|kernel - plain|, the greedy run's flash launches by
+    route)."""
     import numpy as np
     import repro_torch.configs as C
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch.serve import greedy, make_prompts
     from repro_torch.models import model as M
     from repro_torch.models.runtime import DEFAULT
@@ -2496,6 +2588,7 @@ def phase_serve_fp32(torch):
         SERVE["seed"]), "cuda")
     p = torch.from_numpy(np.stack(make_prompts(cfg, B, P, SERVE["seed"]))) \
         .cuda()
+    before = dict(FA.flash_attention.route_launches)
     with torch.no_grad():
         cache = M.init_cache(cfg, B, P + Tn + 8, device="cuda")
         logits, cache = M.prefill(params, cfg, DEFAULT, {"tokens": p},
@@ -2505,9 +2598,17 @@ def phase_serve_fp32(torch):
             logits, cache = M.decode_step(params, cfg, DEFAULT, toks[-1],
                                           cache, P + t)
             toks.append(greedy(logits))
+    torch.cuda.synchronize()
+    routes = {r: n - before[r]
+              for r, n in FA.flash_attention.route_launches.items()}
+    want = dict.fromkeys(routes, 0) | {"tf32x3": SERVE_LAYERS}
+    print(f"[serve] fp32 greedy run, flash_attention launches by route "
+          f"{routes} (expected {want}: one a layer in the prefill)")
+    check(routes == want, f"fp32 serve flash routes {routes}, expected "
+                          f"{want}")
     err, _ = hold_logits(torch, M, params, cfg, p, torch.stack(toks, 1),
                          f"fp32, batch {B}, prompt {P}")
-    return err
+    return err, routes
 
 
 def phase_serve_profile(torch, served):
@@ -2674,14 +2775,15 @@ TRAIN_RMS_SHAPE = (4096, 8192)
 # domain): |lse - plain| <= rtol * |plain| + atol
 TRAIN_LSE_TOL = (1e-5, 1e-5)
 # the other routes' lse (B, S, H, Kv, hd, dtype, route), GQA G = 2,
-# causal: flash_kernel at hd 256 (fp32), flash_kernel_wgmma<256> (bf16),
+# causal: flash_kernel_tf32x3 at hd 256 and 576 (fp32; at 576 column block
+# 0's warpgroup 0 writes it), flash_kernel_wgmma<256> (bf16),
 # flash_kernel_wgmma_cols at hd 576 and 1,024 (bf16; column block 0 writes
-# it) and flash_kernel_chunked at hd 576 (fp32)
-TRAIN_LSE_ROUTES = ((1, 256, 4, 2, 256, "float32", "cuda_core"),
+# it)
+TRAIN_LSE_ROUTES = ((1, 256, 4, 2, 256, "float32", "tf32x3"),
                     (1, 256, 4, 2, 256, "bfloat16", "wgmma"),
                     (1, 256, 4, 2, 576, "bfloat16", "wgmma_chunked"),
                     (1, 256, 4, 2, 1024, "bfloat16", "wgmma_chunked"),
-                    (1, 256, 4, 2, 576, "float32", "hd_chunked"))
+                    (1, 256, 4, 2, 576, "float32", "tf32x3"))
 
 
 def flash_bwd_bound_ms(B, S, H, Kv, hd, elem_bytes=2, peak=None):
@@ -3420,7 +3522,7 @@ def phase_train(torch, K, T):
     bwd_step = TRAIN_FLASH_BWD_CALLS * FA.BWD_LAUNCHES
     want = dict(flash=per_step * TRAIN_STEPS, lse=per_step * TRAIN_STEPS,
                 routes={"wgmma": per_step * TRAIN_STEPS, "wgmma_chunked": 0,
-                        "cuda_core": 0, "hd_chunked": 0},
+                        "tf32x3": 0, "cuda_core": 0, "hd_chunked": 0},
                 flash_bwd=bwd_step * TRAIN_STEPS,
                 bwd_routes={"wgmma": bwd_step * TRAIN_STEPS,
                             "wgmma_chunked": 0, "tf32x3": 0},
@@ -3689,34 +3791,40 @@ def phase_train_smoke(torch, TR, FA, RN):
                 params0 = run["params"]
             batch = TR.sample_batch(run["rng"], run["bound"]["batch_shape"],
                                     cfg.vocab, dev)
-            before = (FA.flash_attention.launches, RN.rmsnorm.launches,
+            before = (FA.flash_attention.launches,
+                      FA.flash_attention.route_launches["tf32x3"],
+                      RN.rmsnorm.launches,
                       FA.flash_attention_bwd.route_launches["tf32x3"],
                       FA.flash_attention_bwd.launches)
             g, m = run["bound"]["grads"](tree.to_device(params0, dev), batch)
             runs[dev] = (tree.to_device(g, "cpu"), float(m["loss"]),
                          (FA.flash_attention.launches - before[0],
-                          RN.rmsnorm.launches - before[1],
+                          FA.flash_attention.route_launches["tf32x3"] -
+                          before[1],
+                          RN.rmsnorm.launches - before[2],
                           FA.flash_attention_bwd.route_launches["tf32x3"] -
-                          before[2],
-                          FA.flash_attention_bwd.launches - before[3]))
+                          before[3],
+                          FA.flash_attention_bwd.launches - before[4]))
         worst = max(rel_err(torch, a, b) for a, b in zip(
             tree.leaves(runs["cuda"][0]), tree.leaves(runs["cpu"][0])))
         loss_rel = abs(runs["cuda"][1] - runs["cpu"][1]) / runs["cpu"][1]
-        # per microbatch: the layers' flash (x2 under remat); the norms: 2
-        # a layer (again under remat) and the final one; the flash backward
-        # once a layer, fp32 on the tf32x3 route, all of its launches
+        # per microbatch: the layers' flash (x2 under remat), all fp32 on the
+        # tf32x3 route; the norms: 2 a layer (again under remat) and the
+        # final one; the flash backward once a layer, fp32 on the tf32x3
+        # route, all of its launches
         L, n = cfg.n_layers, TRAIN_SMOKE["micro"]
         bwd = L * n * FA.BWD_LAUNCHES
-        want = (2 * L * n, (4 * L + 1) * n if cfg.norm == "rmsnorm" else 0,
-                bwd, bwd)
+        want = (2 * L * n, 2 * L * n,
+                (4 * L + 1) * n if cfg.norm == "rmsnorm" else 0, bwd, bwd)
         ok = worst <= TRAIN_SMOKE_TOL and loss_rel <= TRAIN_SMOKE_TOL
         print(f"[train] {arch} smoke fp32 step, card vs CPU: loss rel "
               f"{loss_rel:.3e}, worst gradient leaf {worst:.3e} (tol "
               f"{TRAIN_SMOKE_TOL}) {'ok' if ok else 'FAIL'}; card launches "
-              f"flash/rmsnorm/flash backward on the tf32x3 route/flash "
-              f"backward {runs['cuda'][2]} (expected {want})")
+              f"flash/flash on the tf32x3 route/rmsnorm/flash backward on "
+              f"the tf32x3 route/flash backward {runs['cuda'][2]} (expected "
+              f"{want})")
         check(ok, f"{arch}: the smoke step differs card vs CPU")
-        check(runs["cuda"][2] == want and runs["cpu"][2] == (0, 0, 0, 0),
+        check(runs["cuda"][2] == want and runs["cpu"][2] == (0,) * 5,
               f"{arch}: smoke launches {runs['cuda'][2]}, expected {want}")
         out[arch] = dict(grad_err=worst, loss_rel=loss_rel)
     return out
@@ -3764,6 +3872,12 @@ def main() -> int:
         for line in log.splitlines():
             if re.search(r"\(C75\d\d\)", line):
                 print(f"[build] {src.name} {line.strip()}")
+    # the fp32 forward's kernel must keep its wgmma in flight
+    serial = [line for line in kbuild.log_path(FA.SOURCE).read_text()
+              .splitlines() if re.search(r"\(C751[28]\)", line) and
+              "flash_kernel_tf32x3" in line]
+    check(not serial, f"ptxas serialized flash_kernel_tf32x3's wgmma: "
+                      f"{serial}")
     hgmma = {src.name: hgmma_count(src) for src in (FA.SOURCE,
                                                      FA.BWD_SOURCE)}
     for name, n in hgmma.items():
@@ -3792,7 +3906,7 @@ def main() -> int:
     serve_prof = phase_serve_profile(torch, served)
     del served["params"]
     torch.cuda.empty_cache()
-    fp32_err = phase_serve_fp32(torch)
+    fp32_err, fp32_routes = phase_serve_fp32(torch)
     torch.cuda.empty_cache()
     phase_smoke_cpu(torch)
     torch.cuda.empty_cache()
@@ -3908,15 +4022,21 @@ def main() -> int:
                               "launches": served["routes"]["wgmma_chunked"],
                               "hd576": fa["hd576"]["bfloat16"],
                               "hd1024": fa["hd1024"]["bfloat16"]},
-            "cuda_core": {"kernel": "flash_kernel", "dtype": "float32",
-                          "launches": served["routes"]["cuda_core"],
-                          "ms": fa["fp32_ms"],
-                          "hd256": fa["hd256"]["float32"]},
+            "tf32x3": {"kernel": "flash_kernel_tf32x3",
+                       "dtype": "float32, every width",
+                       "launches": fp32_routes["tf32x3"],
+                       "launches_on": "the fp32 serve phase's greedy run",
+                       **{f"hd{w}": fa[f"hd{w}"]["float32"]
+                          for w in (128, *FLASH_HD_TIMED)}},
+            "cuda_core": {"kernel": "flash_kernel",
+                          "dtype": "bfloat16 at 2^31 - 256 folded rows or "
+                                   "more; both dtypes' yardstick",
+                          "launches": served["routes"]["cuda_core"]},
             "hd_chunked": {"kernel": "flash_kernel_chunked",
-                           "dtype": "float32 above hd 256",
-                           "launches": served["routes"]["hd_chunked"],
-                           "hd576": fa["hd576"]["float32"],
-                           "hd1024": fa["hd1024"]["float32"]}},
+                           "dtype": "bfloat16 above hd 256 at 2^31 - 256 "
+                                    "folded rows or more; both dtypes' "
+                                    "yardstick",
+                           "launches": served["routes"]["hd_chunked"]}},
         "hgmma_in_sass": hgmma[FA.SOURCE.name]})
     lm = train_kern[TRAIN_ARCH]
     kernels.append({
@@ -3958,6 +4078,7 @@ def main() -> int:
     serve_line = {k: served[k] for k in ("prefill_ms", "decode_ms", "tok_s",
                                          "peak_gb", "logit_err")}
     serve_line["fp32_logit_err"] = fp32_err
+    serve_line["fp32_flash_routes"] = fp32_routes
     serve_line["profile"] = serve_prof
     train_line = {k: v for k, v in train.items() if k != "counts"}
     print(json.dumps({"s_per_version": per_version,

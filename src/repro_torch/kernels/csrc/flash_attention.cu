@@ -1,14 +1,18 @@
 // Flash attention (GQA, causal and/or sliding window, forward) for Hopper
-// (sm_90a), bound to Python with ctypes. Four kernels: bfloat16 runs on
+// (sm_90a), bound to Python with ctypes. Five kernels: bfloat16 runs on
 // the tensor cores, flash_kernel_wgmma up to hd 256 and
 // flash_kernel_wgmma_cols above (the scores summed over hd in 64-column
-// chunks, the output in column blocks); float32 on the CUDA cores
-// (flash_kernel up to 256, flash_kernel_chunked above, which sums over hd
-// in chunks: the fp32 tolerances need fp32 products, TF32 would break
-// them), and so does bfloat16 where a (batch, kv head) holds 2^31 - 256
-// folded rows or more. flash_kernel and flash_kernel_wgmma are built for
-// hd 16, 32, 64, 128, 192 and 256; the wrapper zero-pads a width between
-// them to the next, and a bfloat16 width above 256 to a multiple of 64.
+// chunks, the output in column blocks); float32 on the tensor cores too,
+// flash_kernel_tf32x3 at any multiple of 32, each fp32 product as three
+// TF32 products (one TF32 product would break the fp32 tolerances; the
+// split of each operand into hi and lo parts keeps them). The CUDA-core
+// kernels (flash_kernel at hd 16, 32, 64, 128, 192 and 256,
+// flash_kernel_chunked at any other width, fp32 products) take either
+// dtype: they are the float32 route's yardstick, and bfloat16 runs on them
+// where a (batch, kv head) holds 2^31 - 256 folded rows or more. The
+// wrapper zero-pads a bfloat16 width below 256 to the next built one, a
+// bfloat16 width above 256 to a multiple of 64 and a float32 width to a
+// multiple of 32.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_fa_kernel
 // (Pallas). For q [B, S, H, hd] and k, v [B, S, Kv, hd] (self-attention,
@@ -30,8 +34,8 @@
 // the 989 TFLOP/s bf16 tensor-core rate) against ~151 MB of q, k, v and out
 // (~45 us at 3.35 TB/s), so operations bound it.
 //
-// Every kernel folds the G query heads of a kv head into a tile's rows, as
-// _fa_kernel does: folded row r is query position r / G, head
+// Every kernel but flash_kernel_tf32x3 folds the G query heads of a kv
+// head into a tile's rows, as _fa_kernel does: folded row r is query position r / G, head
 // kv_head * G + r % G, so one kv tile in shared memory serves all G heads.
 // Masked scores are -1e30, not -inf: a row that sees only masked positions
 // in its first tile keeps finite junk that alpha = exp(-1e30 - m) = 0 wipes
@@ -115,8 +119,46 @@
 // writes lse; the output leaves straight from the accumulators in 4-byte
 // stores.
 //
-// flash_kernel (fp32): one block of 256 threads per (q tile, kv head,
-// batch). A tile holds 64 folded rows (8 positions at G = 8); each row
+// flash_kernel_tf32x3 (fp32, hd a multiple of 32) runs the backward's
+// split (csrc/tf32x3.cuh): an fp32 operand is hi, the raw value (the
+// tensor core reads it as its TF32 truncation), and lo = tf32(x -
+// trunc(x)); a product is hi hi' + hi lo' + lo hi'. The tensor core's fp32
+// accumulation truncates, so every chain is short and fresh: S a 32-column
+// chunk of hd at a time (12 wgmma m64n64k8 .tf32), P V a 64-position kv
+// tile at a time (24 mma.sync m16n8k8 .tf32 an n8 block), each added in
+// fp32. A block owns 64 rows of one query head, not the G heads of a kv
+// head folded: the position-indexed tensor maps of the backward serve
+// unchanged (a folded row's q lies on no TMA stride), at the cost of k and
+// v crossing L2 once per query head. Two warpgroups (256 threads keep
+// ptxas's 255-register budget; a producer warpgroup would cut it to 168)
+// share one three-stage TMA ring of 64 KB stages, each four 32-column
+// chunks and their lo parts, which the block writes beside a landed stage
+// while the previous stage's products run. Per kv tile: ceil(hd / 64)
+// product steps, in which warpgroup w forms chunk 2s + w of S and adds it
+// in fp32 to its share (registers), which it leaves in an exchange tile of
+// shared memory after the last; then output steps of 64 columns, the first
+// of which adds the two shares (S = S_0 + S_1, the same bits in both),
+// and both run the online softmax on the whole S (the same m, l and P),
+// rescale their accumulators and add P V over their own columns, P in the
+// accumulator layout as mma.sync's A fragment (k permuted within each
+// group of 8 on the B side) and v MN-major. A block owns 2 WC output
+// columns: 128 up to hd 128 and 256 up to 256, so S is formed once per
+// tile pair, and 512 above, in n_cb = ceil(hd / 512) column blocks that
+// each form S again: (n_cb + 1) / 2 of the bound's products, 1.5x at hd
+// 576 and 1,024. Per visited 64 x 64 tile pair and column block it
+// requests q's and k's 64 rows over the full width and v's over its
+// columns, 256 (2 n_cb hd + hd) bytes: at qwen1.5-110b's prefill (B=4,
+// S=1,024, 64 heads, causal) 3.42 / 6.85 / 25.7 / 45.6 GB at hd 128 / 256
+// / 576 / 1,024, a model from the shapes (chip_smoke.py x3_fwd_work), not
+// measured. Blocks run (column block, head, batch, q tile), the heaviest
+// causal q tiles first. The scale is applied after the product, in the
+// log2 domain, with ex2.approx, as the bf16 kernels do; the CPU model in
+// tests/test_torch_fwd_kernels.py holds that (and q scaled first, and exp2
+// off by 2^-21 either way) within the fp32 gates against JAX. Warpgroup 0
+// of column block 0 writes lse.
+//
+// flash_kernel (CUDA cores, either dtype; the fp32 yardstick): one block of
+// 256 threads per (q tile, kv head, batch). A tile holds 64 folded rows (8 positions at G = 8); each row
 // belongs to 4 threads. The block copies its q rows (scaled, fp32) into
 // shared memory once, then streams kv tiles of 32 positions through shared
 // memory from the first tile the window can see to the causal bound of its
@@ -133,6 +175,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -1366,6 +1409,414 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// fp32: tensor cores, each product as three TF32 products (tf32x3), any
+// width that is a multiple of 32
+// ---------------------------------------------------------------------------
+
+namespace fx3 {
+
+using namespace hopper;
+using tf32x3::issue_chunk;
+using tf32x3::kChunk;
+using tf32x3::kCols;
+using tf32x3::kStage;
+using tf32x3::kStages;
+using tf32x3::kThreads;
+using tf32x3::kTile;
+using tf32x3::out_chunk;
+using tf32x3::split;
+using tf32x3::store_rows;
+using tf32x3::whole;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kOutCols = 2 * kCols;        // a warpgroup's columns, a step
+// Shared memory from a 1024-byte aligned base: three ring stages, two
+// exchange tiles [8][kThreads] float4 (each warpgroup's share of S), the
+// mbarriers, then the block's Pos: 230,448 bytes, one block an SM.
+constexpr int kXchg = kStages * kStage;
+constexpr int kXchgTile = 8 * kThreads * 16;
+constexpr int kBar = kXchg + 2 * kXchgTile;
+constexpr int kPos = kBar + 32;
+constexpr int kSmem = kPos + 16 + 1024;
+static_assert(kSmem <= kMaxSmem, "over the 227 KB a block may opt in to");
+
+// The tensor maps of q, k and v, one kernel parameter (one pointer to
+// carry).
+struct Maps {
+  CUtensorMap q, k, v;
+};
+
+// The block's batch entry, query head, kv head and first output column.
+// Thread 0 leaves them in shared memory (kPos) and every use reads them
+// back (a volatile load), so that no register carries them through the
+// loop beside 128 accumulators (carried, they spilled).
+struct Pos {
+  int b, h, kvh, c0;
+};
+template <int WC>
+__device__ __forceinline__ Pos block_pos(int H, int Kv, int B, int n_cb) {
+  const int rest = blockIdx.x / n_cb, h = rest % H;
+  return Pos{rest / H % B, h, h / (H / Kv),
+             static_cast<int>(blockIdx.x % n_cb) * 2 * WC};
+}
+__device__ __forceinline__ void write_pos(uint32_t addr, const Pos& p) {
+  asm volatile("st.shared.v4.s32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(p.b), "r"(p.h), "r"(p.kvh), "r"(p.c0)
+               : "memory");
+}
+__device__ __forceinline__ Pos read_pos(uint32_t addr) {
+  Pos p;
+  asm volatile("ld.shared.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(p.b), "=r"(p.h), "=r"(p.kvh), "=r"(p.c0)
+               : "r"(addr)
+               : "memory");
+  return p;
+}
+
+// One block: 64 q rows of one query head (position own0 + r), the kv tiles
+// of 64 positions its rows see, and the output columns [c0, c0 + 2 WC),
+// warpgroup w's the WC from c0 + w WC. Blocks run (column block, head,
+// batch, q tile), q tiles heaviest first when causal. Per kv tile, n_p
+// product steps (a stage holds q's and k's chunks 2s and 2s + 1 of hd, at
+// slots 0, 1 and 2, 3; warpgroup w takes chunk 2s + w), then n_o output
+// steps (v's chunks of warpgroup w's columns from 64 u on, at slots 2 w
+// and 2 w + 1).
+template <int WC>
+struct Block {
+  int seq, hd, own0, t_begin, n_c, n_p, per, n;
+
+  __device__ __forceinline__ Block(int c0, int H, int B, int seq_, int hd_,
+                                   int causal, int window, int n_cb)
+      : seq(seq_), hd(hd_) {
+    const int n_tiles = (seq + kTile - 1) / kTile;
+    const int t_lin = blockIdx.x / n_cb / H / B;
+    own0 = (causal ? n_tiles - 1 - t_lin : t_lin) * kTile;
+    const int last = min(own0 + kTile, seq) - 1;
+    const int lo = window > 0 ? max(0, own0 - window + 1) : 0;
+    const int hi = causal ? min(seq, last + 1) : seq;
+    t_begin = lo / kTile;
+    const int n_t = (hi + kTile - 1) / kTile - t_begin;
+    n_c = hd / kCols;
+    n_p = (n_c + 1) / 2;
+    per = n_p + (cols(c0, 0) + kOutCols - 1) / kOutCols;
+    n = n_t * per;
+  }
+  // warpgroup w's output columns below hd, from the block's first c0
+  __device__ __forceinline__ int cols(int c0, int w) const {
+    return max(0, min(WC, hd - c0 - w * WC));
+  }
+  __device__ __forceinline__ int k0(int i) const {
+    return (t_begin + i) * kTile;
+  }
+  // step m into its ring stage, by one thread
+  __device__ __forceinline__ void load(int m, uint32_t base, uint32_t full,
+                                       const Maps* maps) const {
+    const int s = m % per, at = k0(m / per);
+    const uint32_t st = base + (m % kStages) * kStage;
+    const uint32_t bar = full + 8 * (m % kStages);
+    const Pos p = read_pos(base + kPos);
+    if (s < n_p) {
+      const int two = min(2, n_c - 2 * s);
+      mbar_expect_tx(bar, 2 * two * kChunk);
+      for (int j = 0; j < two; ++j) {
+        const int c = kCols * (2 * s + j);
+        tma_load(st + j * kChunk, &maps->q, bar, p.h * hd + c, own0, p.b);
+        tma_load(st + (2 + j) * kChunk, &maps->k, bar, p.kvh * hd + c, at,
+                 p.b);
+      }
+    } else {
+      const int off = (s - n_p) * kOutCols;
+      int chunks = 0;
+      for (int w = 0; w < 2; ++w)
+        for (int j = 0; j < 2; ++j) chunks += off + j * kCols < cols(p.c0, w);
+      mbar_expect_tx(bar, chunks * kChunk);
+      for (int w = 0; w < 2; ++w)
+        for (int j = 0; j < 2; ++j)
+          if (off + j * kCols < cols(p.c0, w))
+            tma_load(st + (2 * w + j) * kChunk, &maps->v, bar,
+                     p.kvh * hd + p.c0 + w * WC + off + j * kCols, at, p.b);
+    }
+  }
+};
+
+// Barrier 1 over both warpgroups of a block.
+__device__ __forceinline__ void both_warpgroups() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// The online softmax of this thread's rows a and b = a + 8, in the log2
+// domain of the scaled scores.
+struct Rows {
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+};
+
+// One warpgroup's loop over the block's steps into acc, its WC columns.
+// Each forms its chunks' share of S (x, a fresh 12-product chain a chunk,
+// the chunks added in fp32) and leaves it in its exchange tile after the
+// last product step; at the first output step both add the other's share
+// (S = S_0 + S_1, the same bits in both), and each runs the online softmax
+// on the full S (the same m, l and P in both), rescales acc and adds P V
+// over its columns. Both split each next stage while the products run;
+// warpgroup 0's thread 0 keeps the ring, refilling a stage once both have
+// passed the barrier after its step.
+template <int WC, int ROLE>
+__device__ __forceinline__ void block_loop(
+    float (&acc)[WC / 2], Rows& rw, const Block<WC>& bk, uint32_t base,
+    uint8_t* sm, float4* xchg, const Maps* maps, int causal,
+    int window, float c2) {
+  constexpr int kMaxOut = WC / kOutCols;
+  const int tid = threadIdx.x % kThreads;
+  const uint32_t full = base + kBar;
+  const Frag fr;
+  float4* mine = xchg + ROLE * 8 * kThreads + tid;
+  const float4* theirs = xchg + (1 - ROLE) * 8 * kThreads + tid;
+  // this warpgroup's columns, read back where used
+  const auto ncols = [&] { return bk.cols(read_pos(base + kPos).c0, ROLE); };
+  float x[32];                         // S, then P
+  for (int m = 0; m < bk.n; ++m) {
+    const int s = m % bk.per, i = m / bk.per;
+    const uint32_t st = base + (m % kStages) * kStage;
+    const bool product = s < bk.n_p && 2 * s + ROLE < bk.n_c;
+    float tx[32];
+    if (product) {
+      wgmma_fence();
+      issue_chunk(tx, st + ROLE * kChunk, st + (2 + ROLE) * kChunk);
+      wgmma_commit();
+    }
+    if (m + 1 < bk.n) {                // the next stage, meanwhile
+      const int n = m + 1;
+      mbar_wait(full + 8 * (n % kStages), (n / kStages) & 1);
+      split(sm + (n % kStages) * kStage);
+    }
+    if (s < bk.n_p) {
+      if (product) {
+        wgmma_wait<0>();
+        pin(tx);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) x[e] = s == 0 ? tx[e] : x[e] + tx[e];
+      } else if (s == 0) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) x[e] = 0.0f;
+      }
+      if (s == bk.n_p - 1)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          mine[j * kThreads] =
+              make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+    } else if (ncols() > 0) {
+      const int u = s - bk.n_p;
+      if (u == 0) {                    // S, then P; acc rescaled
+        const int k0 = bk.k0(i);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 o = theirs[j * kThreads];
+          x[4 * j] += o.x;
+          x[4 * j + 1] += o.y;
+          x[4 * j + 2] += o.z;
+          x[4 * j + 3] += o.w;
+        }
+        // a tile that crosses the diagonal, the window's lower edge or seq
+        // is scaled first and masked with -1e30 in the scaled domain; a
+        // whole one takes the max on the raw scores and one FMA a score
+        float c = c2;
+        if (!whole(bk.own0, k0, bk.seq, causal, window)) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qp = bk.own0 + fr.row_a + 8 * (e / 2);
+              const int kp = k0 + 8 * j + fr.cq + e % 2;
+              const bool ok = qp < bk.seq && kp < bk.seq &&
+                              (!causal || kp <= qp) &&
+                              (window <= 0 || kp > qp - window);
+              x[4 * j + e] = ok ? x[4 * j + e] * c2 : kNegInf;
+            }
+          c = 1.0f;
+        }
+        float alpha[2];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float mx = kNegInf;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            mx = fmaxf(mx, fmaxf(x[4 * j + 2 * half],
+                                 x[4 * j + 2 * half + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float mn = fmaxf(rw.m[half], mx * c);
+          alpha[half] = ex2(rw.m[half] - mn);
+          rw.m[half] = mn;
+          float sum = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& p = x[4 * j + 2 * half + e];
+              p = ex2(fmaf(p, c, -mn));
+              sum += p;
+            }
+          rw.l[half] = rw.l[half] * alpha[half] + sum;
+        }
+#pragma unroll
+        for (int j = 0; j < WC / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[4 * j + e] *= alpha[e / 2];
+      }
+      const uint8_t* stp = sm + (m % kStages) * kStage + 2 * ROLE * kChunk;
+#pragma unroll
+      for (int uu = 0; uu < kMaxOut; ++uu)
+        if (uu == u)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            if (uu * kOutCols + j * kCols < ncols())
+              out_chunk(acc, uu * 8 + 4 * j, x, stp + j * kChunk);
+    }
+    both_warpgroups();                 // stage m is read; m + 1 is split
+    if (ROLE == 0 && tid == 0 && m + kStages < bk.n)
+      bk.load(m + kStages, base, full, maps);
+  }
+}
+
+// acc / l into out; warpgroup 0 of column block 0 also writes lse = ln 2
+// (m + log2 l) of its rows where lse is non-null.
+template <int WC>
+__device__ __forceinline__ void finish(float (&acc)[WC / 2], Rows& rw,
+                                       const Block<WC>& bk, uint32_t base,
+                                       float* out, float* lse, int H,
+                                       int w) {
+  const Frag fr;
+  const Pos p = read_pos(base + kPos);
+  float inv[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float l = rw.l[half];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l = l == 0.0f ? 1.0f : l;
+    inv[half] = 1.0f / l;
+    const int pos = bk.own0 + fr.row_a + 8 * half;
+    if (w == 0 && lse != nullptr && p.c0 == 0 && fr.cq == 0 &&
+        pos < bk.seq)
+      lse[(static_cast<int64_t>(p.b) * H + p.h) * bk.seq + pos] =
+          kLn2 * (rw.m[half] + log2f(l));
+  }
+#pragma unroll
+  for (int j = 0; j < WC / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[4 * j + e] *= inv[e / 2];
+  const int64_t stride = static_cast<int64_t>(H) * bk.hd;
+  store_rows<WC>(acc, out,
+                 static_cast<int64_t>(p.b) * bk.seq * stride +
+                     static_cast<int64_t>(p.h) * bk.hd + p.c0 + w * WC,
+                 stride, bk.own0, bk.seq, fr, bk.cols(p.c0, w));
+}
+
+// Two warpgroups (256 threads keep ptxas's 255-register budget) over one
+// ring of 64 KB stages.
+template <int WC>
+__global__ void __launch_bounds__(2 * kThreads, 1)
+    flash_kernel_tf32x3(const __grid_constant__ Maps maps,
+                        float* __restrict__ o, float* __restrict__ lse,
+                        int seq, int H, int Kv, int B, int hd, int causal,
+                        int window, float c2, int n_cb) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* sm = smem_raw + (base - raw);
+  float4* xchg = reinterpret_cast<float4*>(sm + kXchg);
+  const uint32_t full = base + kBar;
+  const Pos pos = block_pos<WC>(H, Kv, B, n_cb);
+  const Block<WC> bk(pos.c0, H, B, seq, hd, causal, window, n_cb);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) mbar_init(full + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    write_pos(base + kPos, pos);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int m = 0; m < min(kStages, bk.n); ++m)
+      bk.load(m, base, full, &maps);
+  if (bk.n > 0) {
+    mbar_wait(full, 0);
+    split(sm);
+  }
+  __syncthreads();
+
+  float acc[WC / 2];
+#pragma unroll
+  for (int i = 0; i < WC / 2; ++i) acc[i] = 0.0f;
+  Rows rw;
+  // the warpgroup, broadcast from lane 0 so that ptxas sees the role branch
+  // as uniform (on a branch it takes for divergent it serializes wgmma)
+  if (__shfl_sync(0xffffffffu, threadIdx.x / kThreads, 0) == 0) {
+    block_loop<WC, 0>(acc, rw, bk, base, sm, xchg, &maps, causal, window,
+                      c2);
+    finish<WC>(acc, rw, bk, base, o, lse, H, 0);
+  } else {
+    block_loop<WC, 1>(acc, rw, bk, base, sm, xchg, &maps, causal, window,
+                      c2);
+    if (bk.cols(read_pos(base + kPos).c0, 1) > 0)
+      finish<WC>(acc, rw, bk, base, o, lse, H, 1);
+  }
+}
+
+// The output columns a warpgroup owns at width hd (a multiple of 32): a
+// block owns two warpgroups' worth, 128 up to hd 128, 256 up to 256 (one
+// block a q tile: S formed once per tile pair) and 512 above, in
+// ceil(hd / 512) column blocks, each forming S again.
+int warp_cols(int hd) { return hd <= 128 ? 64 : hd <= 256 ? 128 : 256; }
+
+template <int WC>
+int launch_wc(const Maps& maps, void* o, float* lse, int B, int seq, int H,
+              int Kv, int hd, int causal, int window, float scale,
+              cudaStream_t st) {
+  const int64_t n_tiles = (static_cast<int64_t>(seq) + kTile - 1) / kTile;
+  const int n_cb = (hd + 2 * WC - 1) / (2 * WC);
+  const int64_t blocks = n_tiles * H * B * n_cb;
+  if (blocks >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_kernel_tf32x3<WC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_kernel_tf32x3<WC><<<static_cast<unsigned>(blocks), 2 * kThreads,
+                            kSmem, st>>>(
+      maps, static_cast<float*>(o), lse, seq, H, Kv, B, hd, causal, window,
+      scale * kLog2e, n_cb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int seq, int H, int Kv, long long hd, int causal,
+           int window, float scale, void* stream) {
+  // TMA's column coordinate (head * hd + column) is 32-bit
+  if (hd < kCols || hd % kCols != 0 ||
+      static_cast<long long>(H) * hd >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int w = static_cast<int>(hd);
+  Maps maps;
+  int err = tensor_map_128b(&maps.q, q, B, seq, H, w, 4);
+  if (err == 0) err = tensor_map_128b(&maps.k, k, B, seq, Kv, w, 4);
+  if (err == 0) err = tensor_map_128b(&maps.v, v, B, seq, Kv, w, 4);
+  if (err != 0) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (warp_cols(w)) {
+    case 64:
+      return launch_wc<64>(maps, o, lse, B, seq, H, Kv, w, causal, window,
+                           scale, st);
+    case 128:
+      return launch_wc<128>(maps, o, lse, B, seq, H, Kv, w, causal, window,
+                            scale, st);
+  }
+  return launch_wc<256>(maps, o, lse, B, seq, H, Kv, w, causal, window,
+                        scale, st);
+}
+
+}  // namespace fx3
+
 }  // namespace
 
 extern "C" {
@@ -1375,17 +1826,20 @@ extern "C" {
 // be built (-1: no cuTensorMapEncodeTiled in the driver; -1000 - CUresult:
 // it refused). q and o hold B * seq * H * hd contiguous elements, k and v
 // B * seq * Kv * hd; lse is null (not written) or holds B * H * seq fp32;
-// H % Kv == 0; window >= 0 (0: no window). Element
-// offsets are 64-bit in every kernel; rows of a (batch, kv head) are
-// 64-bit in the CUDA-core kernels and 32-bit in the tensor-core ones
-// (seq * H / Kv below 2^31 - 256, the wrapper routes larger ones to the
-// CUDA cores). The CUDA-core functions (_f32, _bf16_cc) take any hd:
-// {16, 32, 64, 128, 192, 256} run flash_kernel, any other
+// H % Kv == 0; window >= 0 (0: no window). Element offsets are 64-bit in
+// every kernel; rows of a (batch, kv head) are 64-bit in the CUDA-core
+// kernels and 32-bit in the bf16 tensor-core ones (seq * H / Kv below 2^31
+// - 256, the wrapper routes larger ones to the CUDA cores);
+// flash_kernel_tf32x3's rows are one head's positions. The CUDA-core
+// functions (_f32, _bf16_cc) take any hd: {16, 32, 64, 128, 192, 256} run
+// flash_kernel, any other
 // flash_kernel_chunked. The tensor-core one (_bf16) takes hd in {16, 32,
 // 64, 128, 192, 256} (flash_kernel_wgmma) or a multiple of 64 above 256
 // (flash_kernel_wgmma_cols; Kv * hd below 2^31), and 16-byte aligned
-// pointers. The wrapper zero-pads other widths to the next the route takes
-// and splits a batch only where a launch's grid would be too large.
+// pointers; _f32_tf32x3 (flash_kernel_tf32x3) a multiple of 32 with H * hd
+// below 2^31, and 16-byte aligned q, k and v. The wrapper zero-pads other
+// widths to the next the route takes and splits a batch only where a
+// launch's grid would be too large.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         void* lse, int B, int seq, int H, int Kv,
                         long long hd, int causal, int window, float scale,
@@ -1400,6 +1854,14 @@ int flash_attention_bf16_cc(const void* q, const void* k, const void* v,
                             void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), B, seq,
                                H, Kv, hd, causal, window, scale, stream);
+}
+
+int flash_attention_f32_tf32x3(const void* q, const void* k, const void* v,
+                               void* o, void* lse, int B, int seq, int H,
+                               int Kv, long long hd, int causal, int window,
+                               float scale, void* stream) {
+  return fx3::launch(q, k, v, o, static_cast<float*>(lse), B, seq, H, Kv,
+                     hd, causal, window, scale, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,

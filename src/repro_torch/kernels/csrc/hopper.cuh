@@ -417,4 +417,40 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
+// Rows of this thread in its warpgroup's 64-row accumulator (a, and b = a
+// + 8), and the first of its columns in each n8 block (8 j + cq, + 1).
+struct Frag {
+  int row_a, cq;
+  __device__ __forceinline__ Frag() {
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    row_a = 16 * warp + lane / 4;
+    cq = 2 * (lane % 4);
+  }
+};
+
+// A [B][S][heads * hd] view of `elem`-byte values (bf16, or fp32 with elem
+// 4), boxes of 64 positions x 128 bytes of columns (64 bf16 or 32 fp32),
+// 128-byte swizzle; 0, or -1 (no encoder) or -1000 - the CUresult.
+inline int tensor_map_128b(CUtensorMap* map, const void* ptr, int B,
+                           int seq, int heads, int hd, int elem = 2) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return -1;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(heads) * hd,
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(heads) * hd * elem,
+      static_cast<cuuint64_t>(seq) * heads * hd * elem};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / elem), 64, 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  const CUresult r = enc(map, elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         const_cast<void*>(ptr), dims, strides, box, one,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(r);
+}
+
 }  // namespace hopper

@@ -16,17 +16,21 @@ The dtype and the head width pick the kernel (``route``): bfloat16 up to
 hd 256 runs on the tensor cores (``wgmma``, k/v tiles by TMA), and above
 256 on the tensor-core kernel that sums the scores over hd in 64-column
 chunks and owns a block of 128 output columns (``wgmma_chunked``);
-float32 runs on the CUDA cores with fp32 products (one TF32 product would
-break the fp32 tolerances; the backward's three-product split, ``tf32x3``
-below, keeps them), up to 256 on ``cuda_core`` and above on the kernel
-that sums over hd in chunks (``hd_chunked``). bfloat16 whose kv head
-holds 2^31 - 256 folded rows or more takes the CUDA-core kernels too (the
-tensor-core kernels keep rows in 32 bits). The kernels are built for the
-head widths ``HEAD_DIMS`` up to 256; a width between two of them is
-zero-padded to the next, and a bfloat16 width above 256 to the next
-multiple of 64 (``_pad_call``). Every element offset is 64-bit, so one
-batch entry may hold 2^31 elements or more; a batch is split into launches
-only past the grid's 65,535 entries (``_batch_chunks``).
+float32 runs on the tensor cores at every width (``tf32x3``): each fp32
+operand split into TF32 hi and lo parts, each product as three TF32
+products, hi hi' + hi lo' + lo hi', in short chains added in fp32, which
+keeps the fp32 tolerances (one TF32 product would break them); q, k and v
+stream in 32-column chunks, a block owns 64 rows of one query head and 128
+to 512 output columns. The CUDA-core kernels that float32 ran on before
+(``cuda_core`` up to 256, ``hd_chunked`` above) stay bound as its
+yardstick, and bfloat16 whose kv head holds 2^31 - 256 folded rows or more
+still takes them (the bfloat16 tensor-core kernels keep folded rows in 32
+bits). The bfloat16 kernels are built for the head widths ``HEAD_DIMS`` up
+to 256; a width between two of them is zero-padded to the next, a
+bfloat16 width above 256 to the next multiple of 64 and a float32 width to
+the next multiple of 32 (``_pad_call``). Every element offset is 64-bit,
+so one batch entry may hold 2^31 elements or more; a batch is split into
+launches only past the grid's 65,535 entries (``_batch_chunks``).
 ``flash_attention.launches`` counts the launches this
 wrapper made, ``flash_attention.route_launches`` the same by route,
 ``flash_attention.padded_launches`` those on padded inputs and
@@ -47,8 +51,9 @@ of 64), float32 at every width on the tensor cores as well (``tf32x3``:
 each fp32 operand split into TF32 hi and lo parts, each product as three
 TF32 products, hi hi' + hi lo' + lo hi', summed in fp32 in short chains,
 which keeps the fp32 tolerances; the width zero-padded to a multiple of
-32, one 32-column chunk). The CUDA-core pair that fp32 ran on before
-(``cuda_core``) stays bound as a yardstick; no route reaches it.
+32, one 32-column chunk; the split is the forward's). The CUDA-core pair
+that fp32 ran on before (``cuda_core``) stays bound as a yardstick; no
+route reaches it.
 ``flash_attention_bwd.launches`` counts its kernel launches (two a call),
 ``flash_attention_bwd.route_launches`` the same by route and
 ``flash_attention_bwd.padded_launches`` those on zero-padded inputs.
@@ -69,27 +74,27 @@ SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / \
     "flash_attention.cu"
 BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 
-# the C function of each (dtype, route)
-_FNS = {(torch.float32, "cuda_core"): "flash_attention_f32",
-        (torch.float32, "hd_chunked"): "flash_attention_f32",
+# the C function of each (dtype, route); fp32's CUDA-core kernels (one C
+# function, any width) are no route's since tf32x3, but stay bound as its
+# yardstick
+_FNS = {(torch.float32, "tf32x3"): "flash_attention_f32_tf32x3",
+        (torch.float32, "cuda_core"): "flash_attention_f32",
         (torch.bfloat16, "wgmma"): "flash_attention_bf16",
         (torch.bfloat16, "wgmma_chunked"): "flash_attention_bf16",
         (torch.bfloat16, "cuda_core"): "flash_attention_bf16_cc",
         (torch.bfloat16, "hd_chunked"): "flash_attention_bf16_cc"}
-ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda_core"}  # hd <= 256
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}  # up to hd 256
 _ROUTE_NAMES = {"wgmma": "tensor-core kernel",
                 "wgmma_chunked": "tensor-core kernel, hd in column blocks",
+                "tf32x3": "tensor-core kernel, fp32 as three TF32 products",
                 "cuda_core": "CUDA-core kernel",
                 "hd_chunked": "CUDA-core kernel, hd in chunks"}
-_TC_ROUTES = ("wgmma", "wgmma_chunked")
+_TC_ROUTES = ("wgmma", "wgmma_chunked", "tf32x3")
 # the backward's routes (every one reads its inputs by TMA)
-_BWD_ROUTE_NAMES = {
-    "wgmma": _ROUTE_NAMES["wgmma"],
-    "wgmma_chunked": _ROUTE_NAMES["wgmma_chunked"],
-    "tf32x3": "tensor-core kernel, fp32 as three TF32 products"}
+_BWD_ROUTE_NAMES = {key: _ROUTE_NAMES[key] for key in _TC_ROUTES}
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)  # the widths the kernels are built for
 _WIDE_STEP = 64    # bf16 above 256: hd padded to a multiple of one q/k chunk
-_X3_STEP = 32      # fp32 backward: hd padded to a multiple of one chunk
+_X3_STEP = 32      # fp32 (tf32x3): hd padded to a multiple of one chunk
 _GRID_YZ = 65535                   # CUDA's limit on gridDim.y and .z
 # the tensor-core kernel keeps a (batch, kv head)'s folded rows in 32 bits,
 # with room for a block's rounding past the last
@@ -130,12 +135,16 @@ def build() -> dict:
 
 def route(dtype, hd: int, S: int, G: int) -> str:
     """The kernel a call of this dtype, head width, length and group size
-    runs on: bf16 where its 32-bit rows hold the S * G folded rows of a kv
-    head on the tensor cores, ``wgmma`` up to hd 256 and ``wgmma_chunked``
-    above; otherwise the CUDA cores, ``cuda_core`` up to 256 and
-    ``hd_chunked`` above."""
+    runs on: fp32 on ``tf32x3`` at every width and length (its blocks take
+    one query head's positions, which ``_check`` keeps within 32 bits, so
+    it has no folded-row limit); bf16 where its 32-bit rows hold the S * G
+    folded rows of a kv head on the tensor cores, ``wgmma`` up to hd 256
+    and ``wgmma_chunked`` above, otherwise on the CUDA cores,
+    ``cuda_core`` up to 256 and ``hd_chunked`` above."""
+    if dtype != torch.bfloat16:
+        return "tf32x3"
     narrow = hd <= HEAD_DIMS[-1]
-    if dtype == torch.bfloat16 and S * G < _WGMMA_MAX_ROWS:
+    if S * G < _WGMMA_MAX_ROWS:
         return "wgmma" if narrow else "wgmma_chunked"
     return "cuda_core" if narrow else "hd_chunked"
 
@@ -178,7 +187,8 @@ def _check(q, k, v, window):
             raise ValueError(f"flash_attention kernel: {name} is not "
                              f"contiguous")
     if path in _TC_ROUTES:
-        # TMA reads k and v, 16-byte loads q; the output is allocated aligned
+        # TMA reads k and v (fp32: q too), 16-byte loads q; the output is
+        # allocated aligned
         for name, t in ts.items():
             if t.data_ptr() % 16:
                 raise ValueError(f"flash_attention kernel: {name} is not "
@@ -196,13 +206,15 @@ def _check(q, k, v, window):
 
 
 def native_head_dim(hd: int, dtype=torch.float32) -> int:
-    """The narrowest width in ``HEAD_DIMS`` that holds hd; above the widest,
-    for bfloat16 the next multiple of 64 (the column-block kernel streams
-    q and k in 64-column chunks), for float32 hd itself (the chunked
-    kernel takes any width)."""
+    """The width a call of this dtype runs hd at: float32 the next multiple
+    of 32 (``tf32x3`` streams hd in 32-column chunks); bfloat16 the
+    narrowest width in ``HEAD_DIMS`` that holds hd, above the widest the
+    next multiple of 64 (the column-block kernel streams q and k in
+    64-column chunks)."""
+    if dtype != torch.bfloat16:
+        return -(-hd // _X3_STEP) * _X3_STEP
     if hd > HEAD_DIMS[-1]:
-        return -(-hd // _WIDE_STEP) * _WIDE_STEP \
-            if dtype == torch.bfloat16 else hd
+        return -(-hd // _WIDE_STEP) * _WIDE_STEP
     return next(w for w in HEAD_DIMS if w >= hd)
 
 

@@ -421,11 +421,13 @@ def test_rmsnorm_wrapper_raises(bad, why):
 
 @pytest.mark.parametrize("dtype,route,kernel", [
     (torch.bfloat16, "wgmma", "tensor-core kernel"),
-    (torch.float32, "cuda_core", "CUDA-core kernel")])
+    (torch.float32, "tf32x3",
+     "tensor-core kernel, fp32 as three TF32 products")])
 def test_flash_wrapper_routes_by_dtype(dtype, route, kernel):
-    """bf16 goes to the tensor-core kernel, fp32 to the CUDA-core one: the
-    wrapper picks the route before its device check, whose refusal names
-    it, and counts nothing."""
+    """bf16 goes to the tensor-core kernel, fp32 to the tensor-core one that
+    runs each fp32 product as three TF32 products: the wrapper picks the
+    route before its device check, whose refusal names it, and counts
+    nothing."""
     assert FA.ROUTES[dtype] == route
     q, k, v = (torch.ones(1, 8, n, 16, dtype=dtype) for n in (4, 2, 2))
     before = (FA.flash_attention.launches,
@@ -441,11 +443,11 @@ def test_flash_wrapper_routes_by_dtype(dtype, route, kernel):
                                      ("seq", "Sq == Skv"),
                                      ("groups", "not a positive multiple"),
                                      # hd 200 passes every check up to the
-                                     # device's (padded to 256: fp32 on the
-                                     # CUDA cores, bf16 on the tensor cores)
+                                     # device's (fp32 padded to 224 on
+                                     # tf32x3, bf16 to 256 on wgmma)
                                      pytest.param(
-                                         "head_dim", r"CUDA-core kernel\): q "
-                                         r"is on cpu, not a CUDA device",
+                                         "head_dim", r"three TF32 products\): "
+                                         r"q is on cpu, not a CUDA device",
                                          id="head_dim-head dim 200"),
                                      pytest.param(
                                          "head_dim_bf16", r"bfloat16: "
@@ -465,7 +467,7 @@ def test_flash_wrapper_raises(bad, why):
         q = torch.ones(1, 6, 4, 16)
     elif bad == "groups":
         k = v = torch.ones(1, 8, 3, 16)
-    elif bad == "head_dim":         # fp32 above the 192 tier
+    elif bad == "head_dim":         # fp32 above the 192 tier, padded
         q, k, v = (torch.ones(1, 8, n, 200) for n in (4, 2, 2))
     elif bad == "head_dim_bf16":
         q, k, v = (torch.ones(1, 8, n, 200, dtype=torch.bfloat16)
@@ -508,13 +510,14 @@ def test_dense_config_head_dims_reach_the_device_check(arch, dtype):
     assert FA.native_head_dim(hd) == hd
 
 
-@pytest.mark.parametrize("hd", [8, 48, 80, 96, 160])
+@pytest.mark.parametrize("hd", [8, 48, 80, 100, 170])
 @pytest.mark.parametrize("causal,window", MASKS)
 def test_flash_padded_path_equals_unpadded_plain(hd, causal, window):
-    """The wrapper's padding (zero columns up to the next built width, the
-    true 1/sqrt(hd) passed as the scale, the output cut back), run with the
-    plain version, against the plain version at hd itself; fp32 at the
-    sweep's tolerance (the scale is multiplied, not divided: last bits)."""
+    """The wrapper's padding (fp32: zero columns up to the next multiple of
+    32, the true 1/sqrt(hd) passed as the scale, the output cut back), run
+    with the plain version, against the plain version at hd itself; fp32 at
+    the sweep's tolerance (the scale is multiplied, not divided: last
+    bits)."""
     (_, tq), (_, tk), (_, tv) = _qkv(2, 33, 4, 2, hd, "float32", hd)
     seen = []
 
@@ -623,9 +626,9 @@ WIDE_HDS = [200, 256, 576, 1024]
 @pytest.mark.parametrize("hd", WIDE_HDS)
 @pytest.mark.parametrize("causal,window", MASKS)
 def test_flash_wide_path_plain_matches_jax(hd, causal, window):
-    """The wrapper's path at a wide head width (200 zero-padded to 256;
-    256, 576 and 1,024 unpadded), run with the plain version, against the
-    JAX oracle in fp32 at the sweep's tolerance."""
+    """The wrapper's path at a wide head width (fp32: 200 zero-padded to
+    224; 256, 576 and 1,024 unpadded), run with the plain version, against
+    the JAX oracle in fp32 at the sweep's tolerance."""
     (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 33, 4, 2, hd, "float32", hd)
     widths = []
 
@@ -634,7 +637,7 @@ def test_flash_wide_path_plain_matches_jax(hd, causal, window):
         return _plain_attend(q, k, v, causal, window, scale)
 
     got = _fwd_padded(attend, tq, tk, tv, causal, window)
-    assert widths == [FA.native_head_dim(hd)] == [256 if hd <= 256 else hd]
+    assert widths == [FA.native_head_dim(hd)] == [-(-hd // 32) * 32]
     assert got.shape == tq.shape and got.is_contiguous()
     _close(got, jref.flash_attention(jq, jk, jv, causal=causal,
                                      window=window), FLASH_RTOL, FLASH_ATOL)
@@ -655,15 +658,15 @@ def test_flash_wide_path_plain_matches_pallas(hd):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_check_takes_wide_head_dims(hd, dtype):
     """Every width above 192 passes the checks up to the device refusal
-    (meta tensors): fp32 on the CUDA cores (the tier kernel up to 256, the
-    chunked one above), bf16 on the tensor cores (hd whole up to 256, in
-    column blocks above)."""
+    (meta tensors): fp32 on the tensor cores as three TF32 products
+    (``tf32x3``), bf16 on the tensor cores (hd whole up to 256, in column
+    blocks above)."""
     q, k, v = (torch.empty(2, 64, n, hd, dtype=dtype, device="meta")
                for n in (8, 2, 2))
     if dtype == torch.bfloat16:
         path = "wgmma" if hd <= 256 else "wgmma_chunked"
     else:
-        path = "cuda_core" if hd <= 256 else "hd_chunked"
+        path = "tf32x3"
     assert FA.route(dtype, hd, 64, 4) == path
     with pytest.raises(ValueError, match=f"{FA._ROUTE_NAMES[path]}\\): q is "
                                          f"on meta, not a CUDA device"):
@@ -673,8 +676,9 @@ def test_flash_check_takes_wide_head_dims(hd, dtype):
 def test_flash_route_by_dtype_width_and_rows():
     """bf16 takes the tensor cores at every width while a kv head's folded
     rows fit 32 bits (hd whole up to 256, column blocks above), else the
-    CUDA cores; fp32 always the CUDA cores, the chunked kernel above 256;
-    every route has a C function."""
+    CUDA cores; fp32 always ``tf32x3`` (its blocks hold one head's
+    positions, so no folded-row limit), at the next multiple of 32; every
+    route has a C function, and fp32's CUDA-core kernels stay bound."""
     assert FA.route(torch.bfloat16, 192, 1024, 8) == "wgmma"
     assert FA.route(torch.bfloat16, 16, 1024, 8) == "wgmma"
     assert FA.route(torch.bfloat16, 200, 1024, 8) == "wgmma"
@@ -688,18 +692,19 @@ def test_flash_route_by_dtype_width_and_rows():
                      (1024, "hd_chunked")):
         assert FA.route(torch.bfloat16, hd, 2 ** 28, 8) == path
         assert FA.route(torch.bfloat16, hd, 2 ** 28 - 33, 8) in FA._TC_ROUTES
-    for hd, path in ((128, "cuda_core"), (256, "cuda_core"),
-                     (257, "hd_chunked"), (1024, "hd_chunked")):
-        assert FA.route(torch.float32, hd, 1024, 8) == path
-        assert FA.route(torch.float32, hd, 2 ** 28, 8) == path
+    for hd in (1, 128, 256, 257, 1024):
+        assert FA.route(torch.float32, hd, 1024, 8) == "tf32x3"
+        assert FA.route(torch.float32, hd, 2 ** 28, 8) == "tf32x3"
     assert set(FA.flash_attention.route_launches) == set(FA._ROUTE_NAMES)
-    for dtype in (torch.float32, torch.bfloat16):
-        for path in ("cuda_core", "hd_chunked"):
-            assert (dtype, path) in FA._FNS
-    for path in FA._TC_ROUTES:
+    for path in ("cuda_core", "hd_chunked"):
+        assert (torch.bfloat16, path) in FA._FNS
+    assert FA._FNS[torch.float32, "cuda_core"] == "flash_attention_f32"
+    for path in ("wgmma", "wgmma_chunked"):
         assert FA._FNS[torch.bfloat16, path] == "flash_attention_bf16"
-    assert FA.native_head_dim(1) == 16 and FA.native_head_dim(193) == 256
-    assert FA.native_head_dim(257) == 257
+    assert FA._FNS[torch.float32, "tf32x3"] == "flash_attention_f32_tf32x3"
+    assert FA.ROUTES[torch.float32] == "tf32x3" and "tf32x3" in FA._TC_ROUTES
+    assert FA.native_head_dim(1) == 32 and FA.native_head_dim(193) == 224
+    assert FA.native_head_dim(257) == 288 and FA.native_head_dim(256) == 256
     bf = torch.bfloat16
     assert FA.native_head_dim(193, bf) == 256
     assert FA.native_head_dim(256, bf) == 256
@@ -728,12 +733,30 @@ def test_flash_tensor_core_routes_refuse_misaligned(hd, path, name):
     assert FA.flash_attention.launches == before
 
 
+@pytest.mark.parametrize("hd", [32, 128, 576])
+@pytest.mark.parametrize("name", ["q", "k", "v"])
+def test_flash_tf32x3_refuses_misaligned(hd, name):
+    """fp32 reads q, k and v by TMA: a tensor off 16-byte alignment is
+    refused, naming the route, before any launch."""
+    shapes = {"q": (1, 8, 4, hd), "k": (1, 8, 2, hd), "v": (1, 8, 2, hd)}
+    ts = {n: torch.ones(*sh) for n, sh in shapes.items()}
+    ts[name] = torch.ones(math.prod(shapes[name]) + 1)[1:] \
+        .view(*shapes[name])
+    before = FA.flash_attention.launches
+    with pytest.raises(ValueError, match=f"{name} is not 16-byte aligned "
+                                         f"\\(torch.float32 runs the "
+                                         f"{FA._ROUTE_NAMES['tf32x3']}\\)"):
+        FA.flash_attention(ts["q"], ts["k"], ts["v"])
+    assert FA.flash_attention.launches == before
+
+
 @pytest.mark.parametrize("hd", [300, 600])
 def test_flash_bf16_wide_pads_to_a_multiple_of_64(hd):
     """bf16 above 256 is zero-padded to the next multiple of 64 (the
-    column-block kernel's chunk), with the true scale, and the output cut
-    back: run with the plain version, equal to the unpadded plain version
-    within _tol's 2e-2 (fp32 alike at the sweep's tolerance)."""
+    column-block kernel's chunk), fp32 to the next multiple of 32
+    (tf32x3's), with the true scale, and the output cut back: run with the
+    plain version, equal to the unpadded plain version within _tol's 2e-2
+    (fp32 at the sweep's tolerance)."""
     for dtype in ("bfloat16", "float32"):
         (_, tq), (_, tk), (_, tv) = _qkv(1, 40, 4, 2, hd, dtype, hd)
         widths = []
@@ -744,7 +767,8 @@ def test_flash_bf16_wide_pads_to_a_multiple_of_64(hd):
 
         got = _fwd_padded(attend, tq, tk, tv, True, 7)
         want = ref.flash_attention(tq, tk, tv, causal=True, window=7)
-        wide = -(-hd // 64) * 64 if dtype == "bfloat16" else hd
+        step = 64 if dtype == "bfloat16" else 32
+        wide = -(-hd // step) * step
         assert widths == [wide] and got.shape == tq.shape
         tol = (TOL["bfloat16"],) * 2 if dtype == "bfloat16" else \
             (FLASH_RTOL, FLASH_ATOL)
