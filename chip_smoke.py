@@ -72,7 +72,13 @@ Phases, each printing its result; any failure exits non-zero:
    be faster, and faster than SDPA too for bf16 above 256 and fp32 from
    256), two runs bit-equal, fp32 with ptxas's registers and a model of
    its products and bytes, and held with peaked (x2) inputs at 256 and 576
-   (bf16 at the qwen gate, fp32 against an fp64 attention);
+   (bf16 at the qwen gate, fp32 against an fp64 attention); bf16 at hd 192
+   (``flash_kernel_wgmma_pipe``) also timed in turns beside the kernel it
+   replaced, ``flash_kernel_wgmma<192, 64>`` (its own C function, held to
+   the plain version too), which must be slower, and held at the qwen gate
+   at hd 192, 160 and 129 over the masks with x2 inputs at 8 and at 12
+   query heads a kv head, lse too, two runs bit-equal (``flash_pipe_gate``);
+   the build fails the run if ptxas spills in it or serializes its wgmma;
 3. the gradient of ``lstm_loss`` at the paper width through the sequence
    kernel and its backpropagation through time against autograd through the
    per-step plain path on the card, and the ternary codec's
@@ -164,7 +170,10 @@ Phases, each printing its result; any failure exits non-zero:
    lse against the plain lse, dq/dk/dv against the plain forward and
    backward within 2e-2 of max |grad| beside the bf16 plain path's distance
    from an fp32 one, the backward kernels against the plain backward on
-   the same out and lse; ``RMSNorm`` forward + backward at ``[4096, 8192]``
+   the same out and lse; at nemotron's shape the forward also held at the
+   qwen gate and timed in turns, with and without lse, beside
+   ``flash_kernel_wgmma<192, 64>`` (which must be slower) and SDPA's
+   forward; ``RMSNorm`` forward + backward at ``[4096, 8192]``
    bf16; the forward with and without lse, the backward kernels (with
    ptxas's registers and spills), the plain backward, ``FlashAttention``'s
    forward + backward and SDPA's forward + backward timed beside their
@@ -192,11 +201,12 @@ Phases, each printing its result; any failure exits non-zero:
    3,605,114,880 parameters, bf16, random from seed 0) through
    ``run_arch``: SGD, 2 microbatches of 1 x 4,096 tokens, remat on, 2 steps
    (the first a warm-up), every count set to 0 just before and read just
-   after: 4 flash and 4 flash backward launches a step, every backward
-   launch on the tensor-core route, none padded, no rmsnorm; seconds per
+   after: 4 flash and 4 flash backward launches a step, every forward and
+   backward launch on the tensor-core route (the forwards on
+   ``flash_kernel_wgmma_pipe``), none padded, no rmsnorm; seconds per
    step, tokens/s and peak memory; a profiled step (the device time under
-   the flash backward's node, printed beside the card's name and power
-   limit); that step's loss and gradients against the same step with
+   the flash backward's node and of the forward's kernels a launch,
+   printed beside the card's name and power limit); that step's loss and gradients against the same step with
    ``ops.flash_attention_bwd`` patched to the plain backward.
 
 The line before the last is a JSON object of per-kernel numbers; the last is
@@ -1749,6 +1759,14 @@ FLASH_HD_WIDE_MORE = (200, 256, 576, 1024)
 # (flash_kernel_wgmma<192>); fp32 is timed at qwen's 128 too (phase_flash)
 FLASH_HD_TIMED = (192, 256, 576, 1024)
 FLASH_HD_PEAKED = (256, 576)
+# bf16 at hd 129-192 runs flash_kernel_wgmma_pipe: held at the qwen gate
+# at 192 and zero-padded to it from 160 and 129, over the masks, peaked
+# (x2), lse too, two runs bit-equal, at qwen's prefill cut to one batch
+# entry (G = 8: q tiles of 128 folded rows) and at nemotron-4-340b's 96
+# over 8 heads (G = 12: q tiles of 120 rows, 10 whole positions)
+FLASH_PIPE_WIDTHS = (192, 160, 129)
+FLASH_PIPE_SHAPES = ((1, 1024, 64, 8), (1, 1024, 96, 8))
+FLASH_PIPE_SCALE = 2.0
 # one call of more than 2^31 elements (2^31 + 2^23 in q), one launch
 FLASH_SPLIT = (257, 1024, 64, 8, 128)
 # one batch entry of exactly 2^31 elements of q, sliding window 256: the
@@ -1903,6 +1921,14 @@ def fwd_registers(FA, hd):
     report = ptxas_report(kbuild.log_path(FA.SOURCE).read_text())
     return {name: rep for name, rep in report
             if f"tf32x3<Li{x3_fwd_cols(hd)}>" in name}
+
+
+def pipe_registers(FA):
+    """ptxas's registers and spills of flash_kernel_wgmma_pipe (bf16 at hd
+    129-192)."""
+    from repro_torch.kernels import build as kbuild
+    report = ptxas_report(kbuild.log_path(FA.SOURCE).read_text())
+    return {name: rep for name, rep in report if "wgmma_pipe" in name}
 
 
 def ptxas_report(log):
@@ -2176,6 +2202,7 @@ def phase_flash(torch, FA, ref):
                             dtypes=(torch.float32,))["float32"]
     wide = {f"hd{w}": flash_wide_times(torch, FA, ref, B, S, H, Kv, w)
             for w in FLASH_HD_TIMED}
+    pipe_err, pipe_lse_err = flash_pipe_gate(torch, FA, ref)
     bound, by = flash_bound_ms(B, S, H, Kv, hd, 2)
     print(f"[kernel] flash_attention time B={B} S={S} H={H} Kv={Kv} "
           f"hd={hd} causal bf16 (tensor-core kernel): kernel {ms:.4f} ms, "
@@ -2185,23 +2212,39 @@ def phase_flash(torch, FA, ref):
     return worst, dict(shape=[B, S, H, Kv, hd], ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound, bound_by=by,
                        hd128={"float32": fp32},
+                       pipe_gate=dict(max_abs_err=pipe_err,
+                                      lse_err=pipe_lse_err),
                        **wide)
+
+
+def c_call(torch, FA, key, q, k, v, with_lse=False):
+    """The forward C function bound as ``FA._FNS[q.dtype, key]``, called
+    directly at q's width, causal, for comparison and timing beside the
+    route that replaced its kernel; out, and lse too ``with_lse``."""
+    B, S, H, hd = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    err = FA.build()[q.dtype, key](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, S, H, k.shape[2], hd, 1,
+        0, 1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"{FA._FNS[q.dtype, key]} launch failed: {err}")
+    return (out, lse) if with_lse else out
 
 
 def cuda_core(torch, FA, q, k, v):
     """The CUDA-core kernel of q's dtype (``flash_attention_f32`` /
     ``flash_attention_bf16_cc``: flash_kernel at the built widths,
-    flash_kernel_chunked at any other), called through its C function at
-    q's width, causal, for comparison and timing beside the route that
-    replaced it."""
-    B, S, H, hd = q.shape
-    out = torch.empty_like(q)
-    err = FA.build()[q.dtype, "cuda_core"](
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, B, S,
-        H, k.shape[2], hd, 1, 0, 1.0 / math.sqrt(hd),
-        torch.cuda.current_stream().cuda_stream)
-    check(err == 0, f"{FA._FNS[q.dtype, 'cuda_core']} launch failed: {err}")
-    return out
+    flash_kernel_chunked at any other), through its C function."""
+    return c_call(torch, FA, "cuda_core", q, k, v)
+
+
+def wgmma192(torch, FA, q, k, v, with_lse=False):
+    """flash_kernel_wgmma<192, 64>, which bf16 ran on at hd 129-192 before
+    flash_kernel_wgmma_pipe, through its own C function
+    (``flash_attention_bf16_wgmma192``, hd 192 only): the yardstick."""
+    return c_call(torch, FA, "wgmma192_yardstick", q, k, v, with_lse)
 
 
 def flash_wide_times(torch, FA, ref, B, S, H, Kv, hd, dtypes=None):
@@ -2256,6 +2299,23 @@ def flash_wide_times(torch, FA, ref, B, S, H, Kv, hd, dtypes=None):
         check(ms < cc_ms, f"hd {hd} {name}: {path} ({ms:.4f} ms) is not "
                           f"faster than the CUDA-core kernel it replaced "
                           f"({cc_ms:.4f} ms)")
+        yard = {}
+        if name == "bfloat16" and hd == 192:
+            # flash_kernel_wgmma_pipe beside the kernel it replaced, timed
+            # in turns
+            yard["yardstick_err"] = held(
+                torch, f"flash_kernel_wgmma<192, 64> B={B} S={S} H={H} "
+                f"Kv={Kv} hd={hd} causal bfloat16 (the yardstick)",
+                wgmma192(torch, FA, q, k, v), plain, rtol, atol)
+            turns = [median_ms(fn, torch, reps=reps, inner=inner, warm=3)
+                     for fn in (lambda: wgmma192(torch, FA, q, k, v),
+                                lambda: FA.flash_attention(q, k, v))]
+            yard["yardstick_ms"], ms = turns
+            check(ms < yard["yardstick_ms"],
+                  f"hd 192 bf16: flash_kernel_wgmma_pipe ({ms:.4f} ms) is "
+                  f"not faster than flash_kernel_wgmma<192, 64> "
+                  f"({yard['yardstick_ms']:.4f} ms)")
+            yard["registers"] = pipe_registers(FA)
         if hd > 256 or (name == "float32" and hd >= 256):
             check(ms < lib_ms, f"hd {hd} {name}: {path} ({ms:.4f} ms) is not "
                                f"faster than SDPA ({backend}, {lib_ms:.4f} "
@@ -2263,8 +2323,11 @@ def flash_wide_times(torch, FA, ref, B, S, H, Kv, hd, dtypes=None):
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    library_backend=backend, bound_ms=bound, bound_by=by,
                    max_abs_err=err, route=path, bit_equal=same,
-                   cuda_core_ms=cc_ms, cuda_core_err=err_cc)
-        more = ""
+                   cuda_core_ms=cc_ms, cuda_core_err=err_cc, **yard)
+        more = "" if not yard else (
+            f"; flash_kernel_wgmma<192, 64> {yard['yardstick_ms']:.4f} ms "
+            f"(it / the kernel {yard['yardstick_ms'] / ms:.2f}); ptxas: "
+            f"{'; '.join(f'{n} {r}' for n, r in yard['registers'].items())}")
         if name == "float32":
             bound_cc, _ = flash_bound_ms(B, S, H, Kv, hd, 4,
                                          PEAK_FP32_FLOP_S)
@@ -2308,6 +2371,60 @@ def flash_wide_times(torch, FA, ref, B, S, H, Kv, hd, dtypes=None):
         del q, k, v
         torch.cuda.empty_cache()
     return out
+
+
+def flash_pipe_gate(torch, FA, ref):
+    """flash_kernel_wgmma_pipe (bf16, hd 129-192) against the plain version
+    at FLASH_PIPE_WIDTHS x FLASH_PIPE_SHAPES x the masks, inputs x2: out at
+    the qwen gate, lse within TRAIN_LSE_TOL, two runs bit-equal, every
+    launch on ``wgmma`` (160 and 129 counted as padded). Returns the worst
+    max|kernel - plain| of out and of lse."""
+    worst, worst_lse = 0.0, 0.0
+    rtol, atol = TOL["bfloat16"], QWEN_FLASH_BF16_ATOL
+    lrtol, latol = TRAIN_LSE_TOL
+    before = (FA.flash_attention.route_launches["wgmma"],
+              FA.flash_attention.padded_launches)
+    n = 0
+    for hd in FLASH_PIPE_WIDTHS:
+        check(FA.native_head_dim(hd, torch.bfloat16) == 192,
+              f"hd {hd} bf16 does not run at 192")
+        for B, S, H, Kv in FLASH_PIPE_SHAPES:
+            q, k, v = (randn(torch, (B, S, m, hd), torch.bfloat16, 300 + j,
+                             FLASH_PIPE_SCALE)
+                       for j, m in enumerate((H, Kv, Kv)))
+            for causal, window in FLASH_MASKS:
+                tag = (f"flash_attention B={B} S={S} H={H} Kv={Kv} hd={hd} "
+                       f"causal={causal} window={window} inputs "
+                       f"x{FLASH_PIPE_SCALE} bfloat16 (wgmma, "
+                       f"flash_kernel_wgmma_pipe)")
+                got, lse = FA.flash_attention(q, k, v, causal=causal,
+                                              window=window, with_lse=True)
+                again = FA.flash_attention(q, k, v, causal=causal,
+                                           window=window)
+                n += 2
+                want, plse = ref.flash_attention(q, k, v, causal=causal,
+                                                 window=window, with_lse=True)
+                worst = max(worst, held(torch, tag, got, want, rtol, atol))
+                lse_err = (lse - plse).abs().max().item()
+                check(bool(((lse - plse).abs() <=
+                            lrtol * plse.abs() + latol).all()),
+                      f"{tag}: lse off by {lse_err:.3e}")
+                check(torch.equal(got, again), f"{tag}: two runs differ")
+                worst_lse = max(worst_lse, lse_err)
+            del q, k, v, got, again, want, lse, plse
+    padded = n // len(FLASH_PIPE_WIDTHS) * sum(
+        hd != 192 for hd in FLASH_PIPE_WIDTHS)
+    got_n = (FA.flash_attention.route_launches["wgmma"] - before[0],
+             FA.flash_attention.padded_launches - before[1])
+    check(got_n == (n, padded), f"hd 129-192 launches (wgmma, padded) "
+                                f"{got_n}, expected {(n, padded)}")
+    print(f"[kernel] flash_kernel_wgmma_pipe over hd {FLASH_PIPE_WIDTHS} x "
+          f"{len(FLASH_PIPE_SHAPES)} shapes x {len(FLASH_MASKS)} masks, "
+          f"inputs x{FLASH_PIPE_SCALE}: worst max|kernel-plain| {worst:.3e} "
+          f"(out), {worst_lse:.3e} (lse); two runs bit-equal; {n} launches "
+          f"on wgmma, {padded} padded")
+    torch.cuda.empty_cache()
+    return worst, worst_lse
 
 
 def phase_flash_split(torch, FA, ref):
@@ -3298,6 +3415,44 @@ def phase_train_kernels(torch, FA, RN, ref):
                            torch, reps=10, inner=5)
         ms = median_ms(lambda: FA.flash_attention(q, k, v), torch, reps=10,
                        inner=5)
+        yard, more = {}, ""
+        if hd == 192:
+            # flash_kernel_wgmma_pipe held at the qwen gate and timed in
+            # turns beside flash_kernel_wgmma<192, 64> (its C function),
+            # with and without lse, and beside SDPA's forward
+            tag = f"{arch} B={B} S={S} H={H} Kv={Kv} hd={hd} causal bfloat16"
+            yard["max_abs_err"] = held(
+                torch, f"flash_attention {tag} (wgmma, "
+                f"flash_kernel_wgmma_pipe)", o, po, TOL["bfloat16"],
+                QWEN_FLASH_BF16_ATOL)
+            yard["yardstick_err"] = held(
+                torch, f"flash_kernel_wgmma<192, 64> {tag} (the yardstick)",
+                wgmma192(torch, FA, q, k, v), po, TOL["bfloat16"],
+                QWEN_FLASH_BF16_ATOL)
+            turns = [median_ms(fn, torch, reps=10, inner=5) for fn in (
+                lambda: wgmma192(torch, FA, q, k, v, with_lse=True),
+                lambda: FA.flash_attention(q, k, v, with_lse=True),
+                lambda: wgmma192(torch, FA, q, k, v),
+                lambda: FA.flash_attention(q, k, v))]
+            yard.update(yardstick_lse_ms=turns[0], yardstick_ms=turns[2])
+            ms_lse, ms = turns[1], turns[3]
+            check(ms_lse < turns[0] and ms < turns[2],
+                  f"{arch}: flash_kernel_wgmma_pipe ({ms_lse:.4f} / {ms:.4f} "
+                  f"ms with / without lse) is not faster than "
+                  f"flash_kernel_wgmma<192, 64> ({turns[0]:.4f} / "
+                  f"{turns[2]:.4f} ms)")
+            torch.use_deterministic_algorithms(False)
+            try:
+                fwd_lib = sdpa(torch, q, k, v)
+                yard["sdpa_fwd_ms"] = median_ms(fwd_lib, torch, reps=10,
+                                                inner=5)
+                yard["sdpa_fwd_backend"] = sdpa_backend(torch, fwd_lib)
+            finally:
+                torch.use_deterministic_algorithms(True)
+            more = (f"; flash_kernel_wgmma<192, 64> {turns[0]:.4f} ms with "
+                    f"lse ({turns[2]:.4f} without), SDPA forward "
+                    f"({yard['sdpa_fwd_backend']}) {yard['sdpa_fwd_ms']:.4f} "
+                    f"ms")
         bwd_ms = median_ms(lambda: ref.flash_attention_bwd(
             q, k, v, o, lse, do, chunk=chunk), torch, reps=3, inner=2)
         plain_ms = median_ms(lambda: ref.flash_attention(
@@ -3330,7 +3485,7 @@ def phase_train_kernels(torch, FA, RN, ref):
               f"{bwd_by}; {kbwd_ms / bwd_bound:.2f}x), plain backward "
               f"{bwd_ms:.3f} ms; FlashAttention forward + backward "
               f"{fb_ms:.4f} ms, SDPA forward + backward ({lib_backend}) "
-              f"{lib_ms:.4f} ms; ptxas: " + "; ".join(
+              f"{lib_ms:.4f} ms{more}; ptxas: " + "; ".join(
                   f"{n} {r}" for n, r in regs.items()))
         out[arch] = dict(shape=[B, S, H, Kv, hd], lse_err=lse_err,
                          grad_err={n: e[0] for n, e in errs.items()},
@@ -3341,7 +3496,7 @@ def phase_train_kernels(torch, FA, RN, ref):
                          bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by,
                          fwd_bwd_ms=fb_ms, plain_fwd_ms=plain_ms,
                          sdpa_fwd_bwd_ms=lib_ms, sdpa_backend=lib_backend,
-                         bwd_registers=regs)
+                         bwd_registers=regs, **yard)
         del q, k, v, do, o, lse, po, plse, gk, gp, g32, qt, kt, vt, qa, ka, va
         torch.cuda.empty_cache()
 
@@ -3457,6 +3612,9 @@ def train_profile(torch, fn):
     bwd_ms = sum(getattr(e, "device_time_total", 0.0) for e in
                  prof.key_averages() if e.key == "FlashAttentionBackward")
     bwd_ms /= 1e3
+    # the flash forward's kernels (flash_kernel*) by name
+    fwd = [(n, t) for name, (n, t) in by_name.items()
+           if "flash_kernel" in name]
     print(f"[profile] one training step's gradients: window {window_ms:.1f} "
           f"ms, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / window_ms:.1f}%), {len(kernels)} kernels; "
@@ -3469,7 +3627,9 @@ def train_profile(torch, fn):
                                  key=lambda kv: -kv[1][1])[:12]:
         print(f"[profile]   {t:.2f} ms in {cnt} x {name[:100]}")
     return dict(out=out, window_ms=window_ms, busy_ms=busy_ms,
-                kernels=len(kernels), kinds=kinds, flash_bwd_ms=bwd_ms)
+                kernels=len(kernels), kinds=kinds, flash_bwd_ms=bwd_ms,
+                flash_fwd_ms=sum(t for _, t in fwd),
+                flash_fwd_launches=sum(n for n, _ in fwd))
 
 
 def model_flops(n_params, tokens, layers, heads, hd, seq):
@@ -3684,6 +3844,8 @@ def phase_train_nemotron(torch, K, T, smi):
     res = TR.run_arch(cfg, steps=NEMOTRON_STEPS, label="1 layer, full width",
                       remat=True, device="cuda", **tr)
     counts = dict(flash=FA.flash_attention.launches,
+                  fwd_routes=dict(FA.flash_attention.route_launches),
+                  fwd_padded=FA.flash_attention.padded_launches,
                   flash_bwd=FA.flash_attention_bwd.launches,
                   bwd_routes=dict(FA.flash_attention_bwd.route_launches),
                   bwd_padded=FA.flash_attention_bwd.padded_launches,
@@ -3692,7 +3854,12 @@ def phase_train_nemotron(torch, K, T, smi):
     layers, micro = cfg.n_layers, tr["micro"]
     bwd_step = layers * micro * FA.BWD_LAUNCHES
     fwd_step = 2 * layers * micro
+    # every forward on wgmma at hd 192 (flash_kernel_wgmma_pipe)
     want = dict(flash=fwd_step * NEMOTRON_STEPS,
+                fwd_routes=dict(dict.fromkeys(FA.flash_attention
+                                              .route_launches, 0),
+                                wgmma=fwd_step * NEMOTRON_STEPS),
+                fwd_padded=0,
                 flash_bwd=bwd_step * NEMOTRON_STEPS,
                 bwd_routes={"wgmma": bwd_step * NEMOTRON_STEPS,
                             "wgmma_chunked": 0, "tf32x3": 0},
@@ -3719,14 +3886,22 @@ def phase_train_nemotron(torch, K, T, smi):
                                                       tr["lr"]),
                              shape, num_microbatches=micro)["grads"]
     before = dict(FA.flash_attention_bwd.route_launches)
+    before_fwd = dict(FA.flash_attention.route_launches)
     prof = train_profile(torch, lambda: grads_fn(params, batch))
     prof_bwd = {r: FA.flash_attention_bwd.route_launches[r] - before[r]
                 for r in before}
+    prof_fwd = {r: FA.flash_attention.route_launches[r] - before_fwd[r]
+                for r in before_fwd}
     check(prof_bwd == {"wgmma": bwd_step, "wgmma_chunked": 0,
                        "tf32x3": 0},
           f"the profiled step's flash backward launches {prof_bwd}")
+    check(prof_fwd["wgmma"] == fwd_step == sum(prof_fwd.values()) ==
+          prof["flash_fwd_launches"],
+          f"the profiled step's flash forward launches {prof_fwd}, "
+          f"{prof['flash_fwd_launches']} flash_kernel* kernels")
     grads_k, mets_k = prof.pop("out")
     bwd_launch_ms = prof["flash_bwd_ms"] / sum(prof_bwd.values())
+    fwd_launch_ms = prof["flash_fwd_ms"] / fwd_step
     with mock.patch.object(ops, "flash_attention_bwd",
                            ref.flash_attention_bwd):
         grads_p, mets_p = grads_fn(params, batch)
@@ -3753,12 +3928,15 @@ def phase_train_nemotron(torch, K, T, smi):
           f"{peak_gb:.2f} GB; the flash backward's node "
           f"{prof['flash_bwd_ms']:.3f} ms of device time over "
           f"{sum(prof_bwd.values())} launches, {bwd_launch_ms:.4f} ms a "
-          f"launch")
+          f"launch; the flash forward (flash_kernel_wgmma_pipe) "
+          f"{prof['flash_fwd_ms']:.3f} ms over {fwd_step} launches, "
+          f"{fwd_launch_ms:.4f} ms a launch")
     return dict(step_s=step_s, steps_s=steps_s, tokens_s=tokens / step_s,
                 model_tflop_s=mflops / step_s / 1e12, peak_gb=peak_gb,
                 counts=counts,
                 launches_per_step=counts["flash_bwd"] // NEMOTRON_STEPS,
                 profile=prof, bwd_device_ms_per_launch=bwd_launch_ms,
+                fwd_device_ms_per_launch=fwd_launch_ms,
                 grad_err=max(errs), loss_rel=loss_rel, n_params=n_params,
                 cuts=NEMOTRON_CUTS)
 
@@ -3872,12 +4050,19 @@ def main() -> int:
         for line in log.splitlines():
             if re.search(r"\(C75\d\d\)", line):
                 print(f"[build] {src.name} {line.strip()}")
-    # the fp32 forward's kernel must keep its wgmma in flight
-    serial = [line for line in kbuild.log_path(FA.SOURCE).read_text()
-              .splitlines() if re.search(r"\(C751[28]\)", line) and
-              "flash_kernel_tf32x3" in line]
-    check(not serial, f"ptxas serialized flash_kernel_tf32x3's wgmma: "
-                      f"{serial}")
+    # the fp32 forward's kernel and bf16's at hd 129-192 must keep their
+    # wgmma in flight, the latter without a spill
+    fa_log = kbuild.log_path(FA.SOURCE).read_text()
+    serial = [line for line in fa_log.splitlines()
+              if re.search(r"\(C751[28]\)", line) and
+              re.search(r"flash_kernel_tf32x3|flash_kernel_wgmma_pipe", line)]
+    check(not serial, f"ptxas serialized flash_kernel_tf32x3's or "
+                      f"flash_kernel_wgmma_pipe's wgmma: {serial}")
+    pipe_regs = pipe_registers(FA)
+    check(bool(pipe_regs) and all(
+        re.search(r"\b0 bytes spill stores, 0 bytes spill loads", r)
+        for r in pipe_regs.values()),
+          f"flash_kernel_wgmma_pipe spills or was not built: {pipe_regs}")
     hgmma = {src.name: hgmma_count(src) for src in (FA.SOURCE,
                                                      FA.BWD_SOURCE)}
     for name, n in hgmma.items():
@@ -4038,6 +4223,32 @@ def main() -> int:
                                     "yardstick",
                            "launches": served["routes"]["hd_chunked"]}},
         "hgmma_in_sass": hgmma[FA.SOURCE.name]})
+    h192, nem = fa["hd192"]["bfloat16"], train_kern[NEMOTRON_ARCH]
+    kernels.append({
+        "name": "flash_attention_hd192", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:30",
+        "kernel": "flash_kernel_wgmma_pipe<192>",
+        "dtype": "bfloat16 at hd 129-192 (route wgmma)",
+        # its main path: the one-layer nemotron-4-340b step's forwards
+        "launches": nemotron["counts"]["fwd_routes"]["wgmma"],
+        "max_abs_err": max(h192["max_abs_err"], nem["max_abs_err"],
+                           fa["pipe_gate"]["max_abs_err"]),
+        "lse_err": fa["pipe_gate"]["lse_err"],
+        "ms": h192["ms"], "plain_ms": h192["plain_ms"],
+        "bound_ms": h192["bound_ms"], "bound_by": h192["bound_by"],
+        "library_ms": h192["library_ms"],
+        "library_backend": h192["library_backend"],
+        "shape": fa["shape"][:4] + [192],
+        "yardstick": "flash_kernel_wgmma<192, 64>",
+        "yardstick_ms": h192["yardstick_ms"], "registers": pipe_regs,
+        "nemotron": {k: nem[k] for k in (
+            "shape", "fwd_lse_ms", "fwd_ms", "fwd_bound_ms", "plain_fwd_ms",
+            "yardstick_lse_ms", "yardstick_ms", "sdpa_fwd_ms",
+            "sdpa_fwd_backend", "max_abs_err")},
+        "device_ms": nemotron["fwd_device_ms_per_launch"],
+        "launches_per_step": nemotron["counts"]["fwd_routes"]["wgmma"] //
+        NEMOTRON_STEPS})
     lm = train_kern[TRAIN_ARCH]
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",

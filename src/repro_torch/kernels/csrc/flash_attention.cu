@@ -1,8 +1,9 @@
 // Flash attention (GQA, causal and/or sliding window, forward) for Hopper
-// (sm_90a), bound to Python with ctypes. Five kernels: bfloat16 runs on
-// the tensor cores, flash_kernel_wgmma up to hd 256 and
-// flash_kernel_wgmma_cols above (the scores summed over hd in 64-column
-// chunks, the output in column blocks); float32 on the tensor cores too,
+// (sm_90a), bound to Python with ctypes. Six kernels: bfloat16 runs on
+// the tensor cores, flash_kernel_wgmma up to hd 256 (but at 192),
+// flash_kernel_wgmma_pipe at 192 and flash_kernel_wgmma_cols above 256
+// (the scores summed over hd in 64-column chunks, the output in column
+// blocks); float32 on the tensor cores too,
 // flash_kernel_tf32x3 at any multiple of 32, each fp32 product as three
 // TF32 products (one TF32 product would break the fp32 tolerances; the
 // split of each operand into hi and lo parts keeps them). The CUDA-core
@@ -92,7 +93,36 @@
 // and the ring 128 KB. It still spills (PERF.md gives ptxas's bytes) and
 // ptxas serializes its wgmma; tiles of 64 spilled more and ran slower, and
 // a producer warpgroup handing its registers to the consumers (setmaxnreg)
-// left ptxas's allocation at 168.
+// left ptxas's allocation at 168. At hd 192 the same budget spilled and
+// serialized the wgmma too; flash_kernel_wgmma<192, 64> stays built as the
+// yardstick of the kernel that replaced it there.
+//
+// flash_kernel_wgmma_pipe (bf16 at hd 192; the wrapper pads 129-191 to it)
+// computes what flash_kernel_wgmma does, in the same order (S over hd in
+// one wgmma chain, the online softmax, P_hi V then P_lo V onto the
+// rescaled accumulator), on a block built for the register file. 256
+// threads, two warpgroups of 64 folded rows and no producer warp, so ptxas
+// budgets 255 registers a thread, not 168: 96 accumulators, S (32) and P
+// hi + lo (32) fit beside each other, with no spill. One thread loads q
+// once by TMA, one box a 64-column chunk from a 4-D view of q {hd, H, S,
+// B}: a box of G heads x kRows / G positions is a q tile's folded rows in
+// order, so a tile holds whole positions, 128 rows where G divides 128
+// and fewer otherwise (120 at G = 12, nemotron-4-340b's, where 8 of a
+// tile's rows idle; where G is above 128, one position's share, the
+// widest divisor of G up to 128). k and v stream through a ring of three
+// stages of 64 positions (q 48 KB and the ring 144 KB): the last of the
+// block's 8 warps to finish with a stage (a shared counter) loads the
+// tile three ahead into it, so no thread waits to refill. Inside a
+// warpgroup each step issues S of tile i and P V of tile i - 1 together,
+// waits for S alone (wgmma_wait<1>) and runs tile i's softmax while P V
+// is on the tensor cores, then packs P and rescales the accumulator once
+// P V is done (FlashAttention-3's pipelining inside a warpgroup; packing
+// P while P V still read the last one made ptxas serialize the wgmma,
+// C7513). Turns between the two warpgroups on named barriers (ping-pong)
+// on top of it, and the same block without the pipelining, were no
+// faster on the H100 (PERF.md). Blocks start with the heaviest causal
+// tiles; out leaves through the warpgroup's q region as in
+// flash_kernel_wgmma.
 //
 // flash_kernel_wgmma_cols (bf16, hd above 256, a multiple of 64): q and k
 // no longer fit shared memory beside each other (a 128-row q tile is 256
@@ -787,6 +817,29 @@ struct Softmax {
   __device__ __forceinline__ void tile(float (&sc)[KV / 2],
                                        uint32_t (&p_hi)[KV / 4],
                                        uint32_t (&p_lo)[KV / 4], int k0) {
+    const float c = rows_max<KV>(sc, k0);
+    float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+    for (int j = 0; j < KV / 8; ++j) {
+      const float pa0 = ex2(fmaf(sc[4 * j], c, -m_a));
+      const float pa1 = ex2(fmaf(sc[4 * j + 1], c, -m_a));
+      const float pb0 = ex2(fmaf(sc[4 * j + 2], c, -m_b));
+      const float pb1 = ex2(fmaf(sc[4 * j + 3], c, -m_b));
+      sum_a += pa0 + pa1;
+      sum_b += pb0 + pb1;
+      p_hi[2 * j] = hi_pair(pa0, pa1);
+      p_hi[2 * j + 1] = hi_pair(pb0, pb1);
+      p_lo[2 * j] = bf16x2(pa0 - hi_part(pa0), pa1 - hi_part(pa1));
+      p_lo[2 * j + 1] = bf16x2(pb0 - hi_part(pb0), pb1 - hi_part(pb1));
+    }
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
+  }
+
+  // tile's first part: the masking, each row's new max m and alpha; the
+  // factor the exponent's FMA takes (scale_log2, or 1 once scaled).
+  template <int KV>
+  __device__ __forceinline__ float rows_max(float (&sc)[KV / 2], int k0) {
     const bool whole = k0 + KV <= seq &&
                        (!causal || k0 + KV - 1 <= wq_lo) &&
                        (window <= 0 || k0 > wq_hi - window);
@@ -828,22 +881,46 @@ struct Softmax {
     alpha_b = ex2(m_b - mn_b);
     m_a = mn_a;
     m_b = mn_b;
+    return c;
+  }
+
+  // tile in two parts, for a caller that runs the first while a P V
+  // product still reads the last P: the scores into p, in place (fp32), m,
+  // l and alpha updated, the same arithmetic as tile's ... (tile keeps its
+  // fused loop: built as probs then pack, it made ptxas serialize
+  // flash_kernel_wgmma_cols's wgmma, C7518)
+  template <int KV>
+  __device__ __forceinline__ void probs(float (&sc)[KV / 2], int k0) {
+    const float c = rows_max<KV>(sc, k0);
     float sum_a = 0.0f, sum_b = 0.0f;
 #pragma unroll
     for (int j = 0; j < KV / 8; ++j) {
-      const float pa0 = ex2(fmaf(sc[4 * j], c, -mn_a));
-      const float pa1 = ex2(fmaf(sc[4 * j + 1], c, -mn_a));
-      const float pb0 = ex2(fmaf(sc[4 * j + 2], c, -mn_b));
-      const float pb1 = ex2(fmaf(sc[4 * j + 3], c, -mn_b));
-      sum_a += pa0 + pa1;
-      sum_b += pb0 + pb1;
-      p_hi[2 * j] = hi_pair(pa0, pa1);
-      p_hi[2 * j + 1] = hi_pair(pb0, pb1);
-      p_lo[2 * j] = bf16x2(pa0 - hi_part(pa0), pa1 - hi_part(pa1));
-      p_lo[2 * j + 1] = bf16x2(pb0 - hi_part(pb0), pb1 - hi_part(pb1));
+      sc[4 * j] = ex2(fmaf(sc[4 * j], c, -m_a));
+      sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], c, -m_a));
+      sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], c, -m_b));
+      sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], c, -m_b));
+      sum_a += sc[4 * j] + sc[4 * j + 1];
+      sum_b += sc[4 * j + 2] + sc[4 * j + 3];
     }
     l_a = l_a * alpha_a + sum_a;
     l_b = l_b * alpha_b + sum_b;
+  }
+
+  // ... and, once that product is done, p as bf16 hi + lo in wgmma's
+  // A-register layout.
+  template <int KV>
+  __device__ __forceinline__ void pack(const float (&p)[KV / 2],
+                                       uint32_t (&p_hi)[KV / 4],
+                                       uint32_t (&p_lo)[KV / 4]) const {
+#pragma unroll
+    for (int j = 0; j < KV / 8; ++j) {
+      p_hi[2 * j] = hi_pair(p[4 * j], p[4 * j + 1]);
+      p_hi[2 * j + 1] = hi_pair(p[4 * j + 2], p[4 * j + 3]);
+      p_lo[2 * j] = bf16x2(p[4 * j] - hi_part(p[4 * j]),
+                           p[4 * j + 1] - hi_part(p[4 * j + 1]));
+      p_lo[2 * j + 1] = bf16x2(p[4 * j + 2] - hi_part(p[4 * j + 2]),
+                               p[4 * j + 3] - hi_part(p[4 * j + 3]));
+    }
   }
 
   // O *= alpha, row by row, before the tile's P V joins it.
@@ -905,6 +982,55 @@ struct BlockPos {
     b = rest / n_cb / Kv;
   }
 };
+
+// A warpgroup's 64 output rows from w0 (acc times 1 / l, bf16) through its
+// q region, which its wgmma reads no more, in the region's swizzled layout,
+// so the 4-byte writes of the accumulator layout meet no bank conflicts;
+// then whole rows leave in 16-byte pieces, none from row_end on.
+template <class C>
+__device__ __forceinline__ void store_out(const float (&acc)[C::kHd / 2],
+                                          const float (&inv)[2],
+                                          uint8_t* smem,
+                                          __nv_bfloat16* __restrict__ o,
+                                          int wg, int w0, int row_end,
+                                          int seq, int H, int G, int kvh,
+                                          int b) {
+  constexpr int HD = C::kHd;
+  constexpr int kVecs = HD / 8;                 // 16-byte pieces of a row
+  constexpr int kPer = 64 * kVecs / 128;        // pieces a thread
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x % 128;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int col = 8 * j + 2 * (lane % 4);
+      const int r = 64 * wg + 16 * (warp % 4) + lane / 4 + 8 * half;
+      uint32_t off = (col / C::kCW) * C::kQChunk + r * C::kRowBytes +
+                     (col % C::kCW) * 2;
+      off ^= ((off >> 7) & C::kSwz) << 4;
+      *reinterpret_cast<uint32_t*>(smem + off) =
+          bf16x2(acc[4 * j + 2 * half] * inv[half],
+                 acc[4 * j + 2 * half + 1] * inv[half]);
+    }
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int idx = tid + 128 * u;
+    const int row = w0 + idx / kVecs;
+    if (row >= row_end) continue;
+    const int col = (idx % kVecs) * 8;
+    uint32_t off = (col / C::kCW) * C::kQChunk +
+                   (64 * wg + idx / kVecs) * C::kRowBytes + (col % C::kCW) * 2;
+    off ^= ((off >> 7) & C::kSwz) << 4;
+    const int pos = row / G, g = row - pos * G;
+    __nv_bfloat16* orow = o + ((b * static_cast<int64_t>(seq) + pos) * H +
+                               static_cast<int64_t>(kvh) * G + g) * HD;
+    *reinterpret_cast<uint4*>(orow + col) =
+        *reinterpret_cast<const uint4*>(smem + off);
+  }
+}
 
 template <int HD, int KV>
 __global__ void __launch_bounds__(threads(false), 1)
@@ -1010,7 +1136,6 @@ __global__ void __launch_bounds__(threads(false), 1)
 
   const int row_a = w0 + 16 * (warp % 4) + lane / 4;   // and row_a + 8
   Softmax sm(w0, warp, lane, n_rows, G, seq, causal, window, scale_log2);
-  const int cq = sm.cq;
 
   float acc[HD / 2];
 #pragma unroll
@@ -1042,39 +1167,166 @@ __global__ void __launch_bounds__(threads(false), 1)
 
   float inv[2];
   sm.finish(inv, lse, row_a, n_rows, G, H, kvh, b, lane);
-  // out goes through this warpgroup's q region (read by no wgmma any more),
-  // in its swizzled layout, so the 4-byte writes of the accumulator layout
-  // meet no bank conflicts; then whole rows leave in 16-byte pieces
+  store_out<C>(acc, inv, smem, o, wg, w0, n_rows, seq, H, G, kvh, b);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at hd 192: two warpgroups, no producer, a three-stage ring
+// ---------------------------------------------------------------------------
+
+// flash_kernel_wgmma_pipe's shared memory, from a 1024-byte aligned base:
+// q [kChunks][kRows][64] as Cfg lays it out, a ring of three stages of k
+// and v tiles of 64 positions (k [3][kChunks][64][64], then v likewise),
+// the stages' full barriers, q's barrier and a count of the warps that
+// have released each stage: 192 KB at hd 192.
+template <int HD>
+struct PipeCfg : Cfg<HD, 64> {
+  using Base = Cfg<HD, 64>;
+  static constexpr int kStages = 3;
+  static constexpr int kBar = Base::kQBytes + 2 * kStages * Base::kTile;
+  static constexpr int kQBar = kBar + 8 * kStages;
+  static constexpr int kReleased = kQBar + 8;
+  static constexpr int kSmem = kReleased + 4 * kStages + 1024;
+  static_assert(kSmem <= kMaxSmem, "over the 227 KB a block may opt in to");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(2 * 128, 1)
+    flash_kernel_wgmma_pipe(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int seq, int H, int Kv,
+                            int causal, int window, float scale_log2,
+                            int n_qtiles, int tile_rows) {
+  using C = PipeCfg<HD>;
+  constexpr int KV = C::kKv;
+  constexpr int kStages = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + C::kQBytes;
+  const uint32_t sV = sK + kStages * C::kTile;
+  const uint32_t full = base + C::kBar;         // kStages barriers of 8 bytes
+  const uint32_t qbar = base + C::kQBar;
+  uint32_t* released = reinterpret_cast<uint32_t*>(smem + C::kReleased);
+
+  const BlockPos at(n_qtiles, 1, Kv, causal);
+  const int kvh = at.kvh, b = at.b;
+  const int G = H / Kv;
+  const int n_rows = seq * G;
+  // the tile's folded rows r0 .. row_end - 1: whole positions (or one
+  // position's share of its G rows), as its q box holds them
+  const int r0 = at.qt * tile_rows;
+  const int row_end = min(r0 + tile_rows, n_rows);
+  const int kv_end = causal ? min(seq, (row_end - 1) / G + 1) : seq;
+  const int kv_begin = window > 0 ? max(0, r0 / G - window + 1) : 0;
+  const int t_begin = kv_begin / KV;
+  const int n_t = (kv_end + KV - 1) / KV - t_begin;
+
+  // k and v of tile i into stage i % kStages, by one thread
+  const auto load = [&](int i) {
+    const int s = i % kStages;
+    mbar_expect_tx(full + 8 * s, 2 * C::kTile);
+    const int k0 = (t_begin + i) * KV;
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int col = 8 * j + cq;
-      const int r = 64 * wg + 16 * (warp % 4) + lane / 4 + 8 * half;
-      uint32_t off = (col / C::kCW) * C::kQChunk + r * C::kRowBytes +
-                     (col % C::kCW) * 2;
-      off ^= ((off >> 7) & C::kSwz) << 4;
-      *reinterpret_cast<uint32_t*>(smem + off) =
-          bf16x2(acc[4 * j + 2 * half] * inv[half],
-                 acc[4 * j + 2 * half + 1] * inv[half]);
+    for (int c = 0; c < C::kChunks; ++c) {
+      const int col = kvh * HD + c * C::kCW;
+      tma_load(sK + s * C::kTile + c * C::kKvChunk, &kmap, full + 8 * s, col,
+               k0, b);
+      tma_load(sV + s * C::kTile + c * C::kKvChunk, &vmap, full + 8 * s, col,
+               k0, b);
     }
-  }
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      released[s] = 0;
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // q: one box a 64-column chunk, rows past S as zeros
+    mbar_expect_tx(qbar, C::kChunks * tile_rows * C::kRowBytes);
 #pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    const int idx = tid + 128 * u;
-    const int row = w0 + idx / kVecs;
-    if (row >= n_rows) continue;
-    const int col = (idx % kVecs) * 8;
-    uint32_t off = (col / C::kCW) * C::kQChunk +
-                   (64 * wg + idx / kVecs) * C::kRowBytes + (col % C::kCW) * 2;
-    off ^= ((off >> 7) & C::kSwz) << 4;
-    const int pos = row / G, g = row - pos * G;
-    __nv_bfloat16* orow = o + ((b * static_cast<int64_t>(seq) + pos) * H +
-                               static_cast<int64_t>(kvh) * G + g) * HD;
-    *reinterpret_cast<uint4*>(orow + col) =
-        *reinterpret_cast<const uint4*>(smem + off);
+    for (int c = 0; c < C::kChunks; ++c)
+      tma_load_4d(sQ + c * C::kQChunk, &qmap, qbar, c * C::kCW,
+                  kvh * G + r0 % G, r0 / G, b);
+    for (int i = 0; i < min(kStages, n_t); ++i) load(i);
   }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  // the warpgroup, broadcast from lane 0 so that ptxas sees it as uniform
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int w0 = r0 + 64 * wg;
+  const int row_a = w0 + 16 * (warp % 4) + lane / 4;   // and row_a + 8
+  Softmax sm(w0, warp, lane, row_end, G, seq, causal, window, scale_log2);
+  // once every warp of the block is done with tile i, the last to get here
+  // loads tile i + kStages into its stage
+  const auto release = [&](int i) {
+    if (lane == 0) {
+      __threadfence_block();
+      const uint32_t n = atomicAdd(released + i % kStages, 1u);
+      if (n % 8 == 7 && i + kStages < n_t) {
+        __threadfence_block();
+        load(i + kStages);
+      }
+    }
+  };
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  const uint64_t dq = k_major<C>(sQ + 64 * wg * C::kRowBytes);
+  float sc[KV / 2];
+  uint32_t p_hi[KV / 4], p_lo[KV / 4];
+  mbar_wait(qbar, 0);
+
+  // tile 0's S and P; then each step issues S of tile i and P V of tile
+  // i - 1 together and runs tile i's softmax while P V is on the tensor
+  // cores; the accumulator takes tile i's rescale once P V is in
+  mbar_wait(full, 0);
+  wgmma_fence();
+  issue_qk<C>(sc, dq, k_major<C>(sK));
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(sc);
+  sm.tile<KV>(sc, p_hi, p_lo, t_begin * KV);
+  for (int i = 1; i < n_t; ++i) {
+    const int s = i % kStages;
+    mbar_wait(full + 8 * s, (i / kStages) & 1);
+    wgmma_fence();
+    issue_qk<C>(sc, dq, k_major<C>(sK + s * C::kTile));
+    wgmma_commit();
+    issue_pv<HD, KV, C::kRowBytes>(
+        acc, p_hi, p_lo, mn_major<C>(sV + ((i - 1) % kStages) * C::kTile));
+    wgmma_commit();
+    wgmma_wait<1>();
+    pin(sc);
+    sm.probs<KV>(sc, (t_begin + i) * KV);
+    wgmma_wait<0>();
+    pin(acc);
+    pin(p_hi);
+    pin(p_lo);
+    release(i - 1);
+    sm.rescale(acc);
+    sm.pack<KV>(sc, p_hi, p_lo);
+  }
+  wgmma_fence();
+  issue_pv<HD, KV, C::kRowBytes>(
+      acc, p_hi, p_lo, mn_major<C>(sV + ((n_t - 1) % kStages) * C::kTile));
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(acc);
+  pin(p_hi);
+  pin(p_lo);
+
+  float inv[2];
+  sm.finish(inv, lse, row_a, row_end, G, H, kvh, b, lane);
+  store_out<C>(acc, inv, smem, o, wg, w0, row_end, seq, H, G, kvh, b);
 }
 
 // ---------------------------------------------------------------------------
@@ -1345,6 +1597,73 @@ int launch_hd(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// q [B][S][H][hd] as a 4-D view {hd, H, S, B}: boxes of 64 columns x gh
+// heads x np positions, the folded rows of one q tile in their order,
+// 128-byte swizzle.
+int q_tensor_map(CUtensorMap* map, const void* ptr, int B, int seq, int H,
+                 int hd, int gh, int np) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return -1;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(hd) * 2, static_cast<cuuint64_t>(H) * hd * 2,
+      static_cast<cuuint64_t>(seq) * H * hd * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(gh),
+                             static_cast<cuuint32_t>(np), 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(ptr), dims, strides, box, one,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(r);
+}
+
+template <int HD>
+int launch_pipe(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int seq, int H, int Kv, int causal,
+                int window, float scale, cudaStream_t st) {
+  using C = PipeCfg<HD>;
+  // a q tile is one TMA box a chunk, from a swizzle atom (1024 bytes):
+  // kRows / G whole positions of G folded rows, or, where G is larger,
+  // one position's share of them, the widest divisor of G up to kRows
+  const int G = H / Kv;
+  int gh = G, np = kRows / G;
+  if (G > kRows) {
+    for (gh = kRows; G % gh; --gh) {
+    }
+    np = 1;
+  }
+  const int tile_rows = gh * np;
+  CUtensorMap qmap, kmap, vmap;
+  int err = q_tensor_map(&qmap, q, B, seq, H, HD, gh, np);
+  if (err == 0)
+    err = tensor_map(&kmap, k, B, seq, static_cast<long long>(Kv) * HD,
+                     C::kCW, C::kKv);
+  if (err == 0)
+    err = tensor_map(&vmap, v, B, seq, static_cast<long long>(Kv) * HD,
+                     C::kCW, C::kKv);
+  if (err != 0) return err;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_kernel_wgmma_pipe<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t n_rows = static_cast<int64_t>(seq) * G;
+  const int64_t n_qtiles = (n_rows + tile_rows - 1) / tile_rows;
+  const int64_t blocks = n_qtiles * Kv * B;
+  if (blocks >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_kernel_wgmma_pipe<HD><<<static_cast<unsigned>(blocks), 2 * 128,
+                                C::kSmem, st>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse, seq, H, Kv,
+      causal, window, scale * kLog2e, static_cast<int>(n_qtiles), tile_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_cols(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int seq, int H, int Kv, int hd,
                 int causal, int window, float scale, cudaStream_t st) {
@@ -1391,8 +1710,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
       return launch_hd<128>(q, k, v, o, lse, B, seq, H, Kv, causal, window,
                             scale, st);
     case 192:
-      return launch_hd<192>(q, k, v, o, lse, B, seq, H, Kv, causal, window,
-                            scale, st);
+      return launch_pipe<192>(q, k, v, o, lse, B, seq, H, Kv, causal, window,
+                              scale, st);
     case 256:
       return launch_hd<256>(q, k, v, o, lse, B, seq, H, Kv, causal, window,
                             scale, st);
@@ -1870,6 +2189,20 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          void* stream) {
   return tc::launch(q, k, v, o, static_cast<float*>(lse), B, seq, H, Kv, hd,
                     causal, window, scale, stream);
+}
+
+// hd 192 only: flash_kernel_wgmma<192, 64> (a producer warp beside the two
+// consumer warpgroups, ptxas's 168 registers), which the bf16 route ran at
+// 192 before flash_kernel_wgmma_pipe; no route reaches it, it stays bound
+// as that kernel's yardstick.
+int flash_attention_bf16_wgmma192(const void* q, const void* k, const void* v,
+                                  void* o, void* lse, int B, int seq, int H,
+                                  int Kv, long long hd, int causal, int window,
+                                  float scale, void* stream) {
+  if (hd != 192) return static_cast<int>(cudaErrorInvalidValue);
+  return tc::launch_hd<192>(q, k, v, o, static_cast<float*>(lse), B, seq, H,
+                            Kv, causal, window, scale,
+                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -13,7 +13,9 @@ log-sum-exp, fp32 ``[B, H, S]``, for the backward
 writes nothing more.
 
 The dtype and the head width pick the kernel (``route``): bfloat16 up to
-hd 256 runs on the tensor cores (``wgmma``, k/v tiles by TMA), and above
+hd 256 runs on the tensor cores (``wgmma``, k/v tiles by TMA; at 129-192
+on ``flash_kernel_wgmma_pipe``, two warpgroups with no producer warp, q
+by TMA too, each tile's softmax under the previous tile's P.V), and above
 256 on the tensor-core kernel that sums the scores over hd in 64-column
 chunks and owns a block of 128 output columns (``wgmma_chunked``);
 float32 runs on the tensor cores at every width (``tf32x3``): each fp32
@@ -76,13 +78,16 @@ BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 
 # the C function of each (dtype, route); fp32's CUDA-core kernels (one C
 # function, any width) are no route's since tf32x3, but stay bound as its
-# yardstick
+# yardstick, and so does flash_kernel_wgmma<192, 64> (its own C function,
+# hd 192 only), which bf16 ran on at 129-192 before flash_kernel_wgmma_pipe
 _FNS = {(torch.float32, "tf32x3"): "flash_attention_f32_tf32x3",
         (torch.float32, "cuda_core"): "flash_attention_f32",
         (torch.bfloat16, "wgmma"): "flash_attention_bf16",
         (torch.bfloat16, "wgmma_chunked"): "flash_attention_bf16",
         (torch.bfloat16, "cuda_core"): "flash_attention_bf16_cc",
-        (torch.bfloat16, "hd_chunked"): "flash_attention_bf16_cc"}
+        (torch.bfloat16, "hd_chunked"): "flash_attention_bf16_cc",
+        (torch.bfloat16, "wgmma192_yardstick"):
+            "flash_attention_bf16_wgmma192"}
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}  # up to hd 256
 _ROUTE_NAMES = {"wgmma": "tensor-core kernel",
                 "wgmma_chunked": "tensor-core kernel, hd in column blocks",
@@ -187,8 +192,8 @@ def _check(q, k, v, window):
             raise ValueError(f"flash_attention kernel: {name} is not "
                              f"contiguous")
     if path in _TC_ROUTES:
-        # TMA reads k and v (fp32: q too), 16-byte loads q; the output is
-        # allocated aligned
+        # TMA reads k and v (fp32 and bf16 at 129-192: q too), 16-byte loads
+        # q; the output is allocated aligned
         for name, t in ts.items():
             if t.data_ptr() % 16:
                 raise ValueError(f"flash_attention kernel: {name} is not "

@@ -168,10 +168,15 @@ TC_KV_TILE = 64        # kv positions a tile of flash_kernel_wgmma (hd < 256)
 def _tc_plan(hd):
     """The tensor-core kernels' choices at a (padded) bf16 width, as
     csrc/flash_attention.cu makes them: (kv tile, hd chunk the scores are
-    summed over, output columns a block owns). Up to 256 flash_kernel_wgmma
-    takes hd whole (kv tiles of 32 at 256, else 64); above, the
-    column-block kernel sums S over 64-column chunks, in kv tiles of 64,
-    and owns 128 output columns a block."""
+    summed over, output columns a block owns). Up to 256 the kernels take
+    hd whole: flash_kernel_wgmma in kv tiles of 32 at 256, else 64, and at
+    192 flash_kernel_wgmma_pipe in kv tiles of 64 with the same order of
+    sums (S over hd in one chain, then a tile's P_hi V and P_lo V added to
+    the rescaled accumulator); its pipeline only moves a tile's softmax
+    under the previous tile's P.V, and a q tile's rows (whole positions)
+    change no row's arithmetic. Above 256 the column-block kernel sums S
+    over 64-column chunks, in kv tiles of 64, and owns 128 output columns
+    a block."""
     if hd <= 256:
         return (32 if hd == 256 else TC_KV_TILE), None, hd
     return TC_KV_TILE, 64, 128
@@ -312,17 +317,37 @@ def test_flash_tc_model_single_bf16_p_misses_qwen_gate():
 
 
 def test_tc_plan_is_the_kernels():
-    """The widths the kernels' choices are modelled at: hd 256 whole in kv
-    tiles of 32; above 256 (padded to a multiple of 64) S summed over
-    64-column chunks and 128 output columns a block, so 576 takes 5 blocks
-    (the last one cut at 576) and 1,024 takes 8."""
+    """The widths the kernels' choices are modelled at: 129-192 padded to
+    192, taken whole in kv tiles of 64 (flash_kernel_wgmma_pipe); hd 256
+    whole in kv tiles of 32; above 256 (padded to a multiple of 64) S
+    summed over 64-column chunks and 128 output columns a block, so 576
+    takes 5 blocks (the last one cut at 576) and 1,024 takes 8."""
     assert _tc_plan(128) == (64, None, 128)
+    assert _tc_plan(192) == (64, None, 192)
+    assert all(FA.native_head_dim(hd, torch.bfloat16) == 192
+               for hd in range(129, 193))
     assert _tc_plan(256) == (32, None, 256)
     assert _tc_plan(576) == _tc_plan(1024) == (64, 64, 128)
     for hd in range(257, 2049, 7):
         wide = FA.native_head_dim(hd, torch.bfloat16)
         assert wide % 64 == 0 and wide - 64 < hd <= wide
         assert _tc_plan(wide)[1:] == (64, 128)
+
+
+@pytest.mark.parametrize("hd", [192, 129, 160, 191])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_tc_hd192_model_matches_jax_oracle_bf16(hd, causal, window):
+    """flash_kernel_wgmma_pipe's arithmetic at 192 and, through the
+    wrapper's zero-padding to 192 with the true scale, at 129, 160 and 191,
+    at nemotron-4-340b's 12 query heads a kv head (a q tile of 120 folded
+    rows, 10 whole positions) against the JAX oracle in bf16 within _tol's
+    2e-2."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 72, 24, 2, hd, "bfloat16", hd)
+    got = _tc_wrapped(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    _close(got, jref.flash_attention(jq, jk, jv, causal=causal,
+                                     window=window), TOL["bfloat16"],
+           TOL["bfloat16"])
 
 
 @pytest.mark.parametrize("hd", [200, 256, 576, 1024])
@@ -354,23 +379,23 @@ def _qwen_cut_hd(hd, scale):
                                   np.float32)
 
 
-@pytest.mark.parametrize("hd", [256, 576])
+@pytest.mark.parametrize("hd", [192, 256, 576])
 @pytest.mark.parametrize("scale", [0.5, 2.0])
 def test_flash_tc_wide_model_meets_qwen_gate(hd, scale):
-    """At the width-cut qwen shape, x0.5 and x2, the wide routes' modelled
-    arithmetic meets chip_smoke.py's bf16 gate against the JAX oracle:
-    rtol 2e-2, atol 5e-4."""
+    """At the width-cut qwen shape, x0.5 and x2, the modelled arithmetic
+    of hd 192's kernel and of the wider routes meets chip_smoke.py's bf16
+    gate against the JAX oracle: rtol 2e-2, atol 5e-4."""
     tq, tk, tv, want = _qwen_cut_hd(hd, scale)
     assert _gate_excess(_tc_wrapped(tq, tk, tv), want, QWEN_RTOL) <= \
         QWEN_ATOL
 
 
-@pytest.mark.parametrize("hd", [256, 576])
+@pytest.mark.parametrize("hd", [192, 256, 576])
 @pytest.mark.parametrize("scale", [0.5, 2.0])
 def test_flash_tc_wide_single_bf16_p_misses_qwen_gate(hd, scale):
-    """Why the wide routes keep P as bf16 hi + lo: P rounded once to bf16
-    misses the same gate at the same inputs at both widths and both
-    scales (by 1.8-11x its atol)."""
+    """Why hd 192's kernel and the wider routes keep P as bf16 hi + lo: P
+    rounded once to bf16 misses the same gate at the same inputs at every
+    width and both scales."""
     tq, tk, tv, want = _qwen_cut_hd(hd, scale)
     assert _gate_excess(_tc_wrapped(tq, tk, tv, split_p=False), want,
                         QWEN_RTOL) > QWEN_ATOL
@@ -702,6 +727,10 @@ def test_flash_route_by_dtype_width_and_rows():
     for path in ("wgmma", "wgmma_chunked"):
         assert FA._FNS[torch.bfloat16, path] == "flash_attention_bf16"
     assert FA._FNS[torch.float32, "tf32x3"] == "flash_attention_f32_tf32x3"
+    # hd 129-192's old kernel, bound as the new one's yardstick, on no route
+    assert FA._FNS[torch.bfloat16, "wgmma192_yardstick"] == \
+        "flash_attention_bf16_wgmma192"
+    assert "wgmma192_yardstick" not in FA.flash_attention.route_launches
     assert FA.ROUTES[torch.float32] == "tf32x3" and "tf32x3" in FA._TC_ROUTES
     assert FA.native_head_dim(1) == 32 and FA.native_head_dim(193) == 224
     assert FA.native_head_dim(257) == 288 and FA.native_head_dim(256) == 256
