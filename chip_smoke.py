@@ -140,9 +140,31 @@ Phases, each printing its result; any failure exits non-zero:
    fp32 (prompt 512), its flash launches counted by route (all on
    ``tf32x3``), kernels against plain versions within 1e-4 of the logits'
    scale;
-7. qwen1.5-110b's smoke config in fp32, the kernel path on the card
-   against the plain path on the CPU: equal greedy tokens and logits within
-   the stated tolerance;
+6b. deepseek-moe-16b at its published size (28 layers, d_model 2,048, 64
+   routed experts top-6 + 2 shared, 16,879,568,896 parameters, bf16, random
+   from seed 0; no reduction) served by ``serve`` with qwen's traffic and
+   every count set to 0 just before and read just after: exactly 28 flash
+   launches a prefill, all on ``wgmma``, 57 ``rmsnorm`` launches a prefill
+   and a decode step, no backward launch; prefill ms, decode ms a step
+   beside its bound (every step reads all the weights), tokens/s, peak
+   memory; the sort dispatch against the dense oracle on the post-norm
+   inputs of layers 0, 13 and 27 at a capacity where nothing drops; the
+   kernel path against the plain path teacher-forced, the plain runs
+   replaying the kernel run's expert choices (``RouteBook``), with the
+   route flips and the dropped (token, expert) assignments at the default
+   capacity printed; a profiled prefill and decode step by kernel kind;
+   the flash forward at its attention shape (G = 1, hd 128) beside SDPA;
+7. qwen1.5-110b's smoke config and the moe smoke configs (deepseek-moe-16b,
+   arctic-480b) in fp32, the kernel path on the card against the plain
+   path on the CPU (the moe runs replaying the card's expert choices):
+   equal greedy tokens and logits (and the moe configs' forward logits and
+   router loss) within the stated tolerance;
+7b. the RMSNorm backward kernel (``rmsnorm_bwd``: dx and the blocks'
+   column partials, then dscale; no atomics) against ``ref.rmsnorm_bwd``
+   over the JAX sweep in fp32 and bf16 and at ``[4096, 8192]`` and
+   ``[4096, 2048]`` bf16, 2e-5 / 2e-2 of max |grad|, two runs bit-equal,
+   timed at the two training shapes beside the plain backward,
+   ``F.rms_norm``'s forward + backward and backward alone, and its bound;
 8. the transformer kernels as training runs them, at full width: the flash
    backward kernels against the plain backward (both from the kernel
    forward's out and lse) over the JAX sweep x {causal, window 37, full} in
@@ -192,10 +214,20 @@ Phases, each printing its result; any failure exits non-zero:
    share, top kernels, device ms under the flash backward); that
    step's gradients against every kernel swapped for its plain version
    (``plain_kernels``), beside an fp32 plain step; a ``--ckpt`` run
-   of the smoke config loading back bit for bit; the stablelm and qwen
-   smoke configs' step gradients card vs CPU (fp32) and their exact
-   launch counts, the forward's and the backward's on the ``tf32x3``
-   route;
+   of the smoke config loading back bit for bit; the stablelm, qwen,
+   deepseek-moe-16b and arctic-480b smoke configs' step gradients card vs
+   CPU (fp32; the moe CPU steps replaying the card's expert choices) and
+   their exact launch counts, the forward's and the backward's on the
+   ``tf32x3`` route, the RMSNorm backward's two a call;
+9b. deepseek-moe-16b at full width and vocabulary cut to 2 of its 28
+   layers (1,595,156,480 parameters, 591,669,248 active) through
+   ``run_arch`` with stablelm's traffic (AdamW, 8 x 4,096 tokens, remat),
+   every count set to 0 just before and read just after: 32 flash forward
+   launches a step (all writing lse) and 32 backward launches, all on
+   ``wgmma``, 72 ``rmsnorm`` and 80 ``rmsnorm_bwd`` launches (40 calls);
+   seconds a step, tokens/s, model FLOP/s from the active parameters,
+   peak memory; a profiled step; its loss and every gradient leaf against
+   the all-plain step with the expert choices replayed;
 10. one layer of nemotron-4-340b at its full width (d_model 18,432, 96 over
    8 heads, hd 192, squared-ReLU d_ff 73,728; vocab cut to 4,096:
    3,605,114,880 parameters, bf16, random from seed 0) through
@@ -215,6 +247,7 @@ of the repository, it fails before printing either.
 """
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import math
@@ -1128,13 +1161,27 @@ def phase_grad(torch, ref):
     check(ok, "kernel-forward gradients disagree with the plain path")
 
 
+def serve_counts(K, T):
+    """The serve path's launch counts since ``reset_counts``: rmsnorm,
+    flash, the rmsnorm backward and every other kernel together."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    return dict(rmsnorm=RN.rmsnorm.launches,
+                flash_attention=FA.flash_attention.launches,
+                rmsnorm_bwd=RN.rmsnorm_bwd.launches,
+                others=K.lstm_cell.launches + K.lstm_seq.launches +
+                K.lstm_seq_bwd.launches + FA.flash_attention_bwd.launches +
+                T.ternary_encode.launches + T.ternary_decode.launches +
+                T.ef_compress_leaves.launches)
+
+
 def reset_counts(K, T):
     """Set every kernel's launch count to 0."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
     for fn in (K.lstm_cell, K.lstm_seq, K.lstm_seq_bwd, T.ternary_encode,
                T.ternary_decode, T.ef_compress_leaves, RN.rmsnorm,
-               FA.flash_attention, FA.flash_attention_bwd):
+               RN.rmsnorm_bwd, FA.flash_attention, FA.flash_attention_bwd):
         fn.launches = 0
     for fn in (FA.flash_attention, FA.flash_attention_bwd):
         fn.route_launches = dict.fromkeys(fn.route_launches, 0)
@@ -2527,7 +2574,8 @@ def plain_kernels(rmsnorm=None):
     ``models/lstm.py::_Seq`` call the patched names too, forward and
     backward); ``rmsnorm`` replaces the plain RMSNorm (the noise-floor
     run). ``ops.lstm_seq`` keeps its kernel: the LSTM comparisons hold the
-    backward alone."""
+    backward alone. A moe model's comparison also replays the kernel run's
+    expert choices (``recorded_routes`` / ``replayed_routes``)."""
     import contextlib
     from unittest import mock
     from repro_torch.kernels import ops, ref
@@ -2535,9 +2583,84 @@ def plain_kernels(rmsnorm=None):
     for name, fn in (("rmsnorm", rmsnorm or ref.rmsnorm),
                      ("flash_attention", ref.flash_attention),
                      ("flash_attention_bwd", ref.flash_attention_bwd),
+                     ("rmsnorm_bwd", ref.rmsnorm_bwd),
                      ("lstm_seq_bwd", ref.lstm_seq_bwd)):
         stack.enter_context(mock.patch.object(ops, name, fn))
     return stack
+
+
+class RouteBook:
+    """One run's expert choices (``models/moe.py::route``'s idx, in call
+    order), to be replayed in another run of the same model: with random
+    weights the router's top-k holds near-ties, and a kernel's rounding
+    against a plain version's flips an expert choice now and then, which
+    changes that token by far more than any kernel error. ``flips`` counts
+    the (token, expert) choices a replaying run would have made otherwise;
+    ``calls`` the replayed calls; ``alone`` (``hold_logits``) the logits'
+    distance from the plain path with one kernel kept."""
+
+    def __init__(self):
+        self.idx = []
+        self.pos = 0
+        self.flips = 0
+        self.calls = 0
+        self.alone = {}
+
+
+def recorded_routes(book):
+    """``with`` block: every ``moe.route`` call appends its idx to book."""
+    from unittest import mock
+    from repro_torch.models import moe
+    real = moe.route
+
+    def record(probs, k):
+        gate, idx = real(probs, k)
+        book.idx.append(idx.detach())
+        return gate, idx
+
+    return mock.patch.object(moe, "route", record)
+
+
+def replayed_routes(book):
+    """``with`` block: each ``moe.route`` call takes the recorded run's idx
+    of the same call (from the start), with the gates read from this run's
+    own probabilities at those experts (so the router's gradient stays),
+    and counts where this run would have chosen otherwise."""
+    from unittest import mock
+    from repro_torch.models import moe
+    real = moe.route
+    book.pos = book.flips = book.calls = 0
+
+    def replay(probs, k):
+        idx = book.idx[book.pos].to(probs.device)
+        book.pos += 1
+        _, own = real(probs, k)
+        book.flips += int((chosen(probs, own) & ~chosen(probs, idx)).sum())
+        book.calls += 1
+        return probs.gather(-1, idx), idx
+
+    return mock.patch.object(moe, "route", replay)
+
+
+def chosen(probs, idx):
+    """[T, E] bool: the experts idx [T, k] chooses."""
+    return probs.new_zeros(probs.shape).scatter_(1, idx, 1.0) > 0
+
+
+def route_drops(torch, book, cfg, capacity_factor):
+    """For each recorded call: (tokens, slots an expert C, the (token,
+    expert) assignments past their expert's C, the largest expert load)."""
+    from repro_torch.models import moe
+    out = []
+    for idx in book.idx:
+        T = idx.shape[0]
+        C = moe.capacity(cfg, T, capacity_factor)
+        loads = torch.zeros(cfg.moe.num_experts, dtype=torch.int64,
+                            device=idx.device).scatter_add_(
+            0, idx.reshape(-1), torch.ones_like(idx.reshape(-1)))
+        out.append((T, C, int((loads - C).clamp_min(0).sum()),
+                    int(loads.max())))
+    return out
 
 
 def teacher_forced(torch, M, params, cfg, prompt_toks, gen_toks):
@@ -2562,26 +2685,59 @@ def lib_rmsnorm(x, scale, eps=1e-6):
     return F.rms_norm(x, (x.shape[-1],), scale, eps)
 
 
-def hold_logits(torch, M, params, cfg, prompt_toks, gen_toks, tag):
+def hold_logits(torch, M, params, cfg, prompt_toks, gen_toks, tag,
+                book=None):
     """The kernel path, the plain path and the plain path with
     ``F.rms_norm`` (the noise floor), teacher-forced on ``gen_toks``;
     fails unless kernel vs plain is within SERVE_LOGIT_TOL of the logits'
-    scale. Returns (max|kernel-plain|, the kernel path's tokens agree)."""
+    scale. With a ``RouteBook`` (a moe model) the kernel run records its
+    expert choices into it and both plain runs replay them, and two more
+    replaying runs keep one kernel each (the flash kernel with the plain
+    rmsnorm, then the rmsnorm kernel with the plain flash), to say which
+    kernel the distance comes from. Returns
+    (max|kernel-plain|, the kernel path's tokens agree)."""
+    import contextlib
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.launch.serve import greedy
+
+    def routes(record):
+        if book is None:
+            return contextlib.nullcontext()
+        return recorded_routes(book) if record else replayed_routes(book)
+
+    if book is not None:
+        book.__init__()
     with torch.no_grad():
-        kern = teacher_forced(torch, M, params, cfg, prompt_toks,
-                              gen_toks)
+        with routes(True):
+            kern = teacher_forced(torch, M, params, cfg, prompt_toks,
+                                  gen_toks)
         before = (RN.rmsnorm.launches, FA.flash_attention.launches)
-        with plain_kernels():
+        with plain_kernels(), routes(False):
             plain = teacher_forced(torch, M, params, cfg, prompt_toks,
                                    gen_toks)
-        with plain_kernels(rmsnorm=lib_rmsnorm):
+        flips = None if book is None else (book.flips, book.calls)
+        with plain_kernels(rmsnorm=lib_rmsnorm), routes(False):
             floor = teacher_forced(torch, M, params, cfg, prompt_toks,
                                    gen_toks)
         check((RN.rmsnorm.launches, FA.flash_attention.launches) == before,
               "a plain run launched a kernel")
+        if book is not None:
+            # where kernel vs plain comes from: one plain version at a time
+            from unittest import mock
+            from repro_torch.kernels import ops, ref
+            alone = {}
+            for kept, name, fn in (
+                    ("flash_attention", "rmsnorm", ref.rmsnorm),
+                    ("rmsnorm", "flash_attention", ref.flash_attention)):
+                with mock.patch.object(ops, name, fn), routes(False):
+                    alone[kept] = teacher_forced(torch, M, params, cfg,
+                                                 prompt_toks, gen_toks)
+    if flips is not None:
+        print(f"[serve] {tag}: the plain run replayed the kernel run's "
+              f"expert choices over {flips[1]} router calls; on its own it "
+              f"would have chosen {flips[0]} (token, expert) pairs "
+              f"otherwise")
     torch.cuda.synchronize()
     err = (kern - plain).abs().max().item()
     noise = (floor - plain).abs().max().item()
@@ -2592,6 +2748,15 @@ def hold_logits(torch, M, params, cfg, prompt_toks, gen_toks, tag):
           f"logits max|kernel-plain| {err:.3e}, max|plain-plain with "
           f"F.rms_norm| {noise:.3e}, max|logit| {scale:.3f}; tol "
           f"{tol} x max|logit| = {tol * scale:.3e} {'ok' if ok else 'FAIL'}")
+    if book is not None:
+        book.alone = {k: (v - plain).abs().max().item()
+                      for k, v in alone.items()}
+        print(f"[serve] {tag}: the kernels one at a time against the plain "
+              f"path: the flash kernel alone (plain rmsnorm) max|diff| "
+              f"{book.alone['flash_attention']:.3e}, the rmsnorm kernel "
+              f"alone (plain flash) {book.alone['rmsnorm']:.3e}; the gate's "
+              f"margin {100 * (1 - err / (tol * scale)):.1f}% of "
+              f"{tol * scale:.3e}")
     check(ok, f"serve logits ({tag}): kernel path disagrees with the plain "
               f"path")
     return err, torch.equal(greedy(kern).t(), gen_toks)
@@ -2617,19 +2782,15 @@ def phase_serve(torch, K, T):
     res = serve(cfg, device="cuda", **SERVE)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    counts = dict(rmsnorm=RN.rmsnorm.launches,
-                  flash_attention=FA.flash_attention.launches,
-                  others=K.lstm_cell.launches + K.lstm_seq.launches +
-                  K.lstm_seq_bwd.launches + FA.flash_attention_bwd.launches +
-                  T.ternary_encode.launches + T.ternary_decode.launches +
-                  T.ef_compress_leaves.launches)
+    counts = serve_counts(K, T)
     routes = dict(FA.flash_attention.route_launches)
     lse_launches = FA.flash_attention.lse_launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_batches = -(-SERVE["requests"] // SERVE["batch"])
     per_pass = 2 * SERVE_LAYERS + 1
     want = dict(rmsnorm=per_pass * SERVE["tokens"] * n_batches,
-                flash_attention=SERVE_LAYERS * n_batches, others=0)
+                flash_attention=SERVE_LAYERS * n_batches, rmsnorm_bwd=0,
+                others=0)
     toks = res["tokens"]
     # per batch: the first includes the first allocations, the last is warm
     prefill_ms = [t * 1e3 for t in res["prefill_s"]]
@@ -2780,9 +2941,12 @@ def phase_serve_profile(torch, served):
 
 
 def phase_smoke_cpu(torch):
-    """qwen1.5-110b's smoke config in fp32: the kernel path on the card
-    against the plain path on the CPU, from the same weights and prompt,
-    prefill + 3 greedy decode steps."""
+    """qwen1.5-110b's smoke config and the moe family's (deepseek-moe-16b,
+    arctic-480b) in fp32: the kernel path on the card against the plain
+    path on the CPU, from the same weights and prompt, prefill + 3 greedy
+    decode steps, and for the moe configs also ``forward``'s logits and
+    router loss; the CPU runs replay the card's expert choices."""
+    import contextlib
     import numpy as np
     import repro_torch.configs as C
     from repro_torch import tree
@@ -2792,35 +2956,58 @@ def phase_smoke_cpu(torch):
     from repro_torch.models import model as M
     from repro_torch.models.runtime import DEFAULT
 
-    cfg = C.get_smoke(SERVE_ARCH)
-    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    toks = torch.from_numpy(np.random.RandomState(0).randint(
-        0, cfg.vocab, size=(2, 9)).astype(np.int32))
-    runs = {}
-    before = (RN.rmsnorm.launches, FA.flash_attention.launches)
-    for dev in ("cuda", "cpu"):
-        p = tree.to_device(params, dev)
-        cache = M.init_cache(cfg, 2, 20, device=dev)
-        logits, cache = M.prefill(p, cfg, DEFAULT, {"tokens": toks.to(dev)},
-                                  cache)
-        outs = [logits]
-        for t in range(3):
-            logits, cache = M.decode_step(p, cfg, DEFAULT, greedy(outs[-1]),
-                                          cache, 9 + t)
-            outs.append(logits)
-        runs[dev] = torch.stack(outs).cpu()
-    launched = (RN.rmsnorm.launches - before[0],
-                FA.flash_attention.launches - before[1])
-    err = (runs["cuda"] - runs["cpu"]).abs().max().item()
-    same = torch.equal(greedy(runs["cuda"]), greedy(runs["cpu"]))
-    print(f"[smoke] {cfg.name} smoke fp32, card kernels vs CPU plain: greedy "
-          f"tokens equal {same}, logits max|diff| {err:.3e} "
-          f"tol={SMOKE_LOGIT_TOL}; card launches rmsnorm/flash {launched} "
-          f"(expected (20, 2))")
-    check(same and err <= SMOKE_LOGIT_TOL, "card and CPU disagree at smoke "
-                                           "size")
-    check(launched == (20, 2), f"smoke launches {launched}, expected (20, 2)")
-
+    for arch in (SERVE_ARCH, *MOE_SMOKE_ARCHS):
+        cfg = C.get_smoke(arch)
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        toks = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab, size=(2, 9)).astype(np.int32))
+        book = RouteBook()
+        runs, fwd = {}, {}
+        before = (RN.rmsnorm.launches, FA.flash_attention.launches)
+        for dev in ("cuda", "cpu"):
+            routes = contextlib.nullcontext()
+            if cfg.family == "moe":
+                routes = recorded_routes(book) if dev == "cuda" else \
+                    replayed_routes(book)
+            p = tree.to_device(params, dev)
+            with routes:
+                cache = M.init_cache(cfg, 2, 20, device=dev)
+                logits, cache = M.prefill(p, cfg, DEFAULT,
+                                          {"tokens": toks.to(dev)}, cache)
+                outs = [logits]
+                for t in range(3):
+                    logits, cache = M.decode_step(p, cfg, DEFAULT,
+                                                  greedy(outs[-1]), cache,
+                                                  9 + t)
+                    outs.append(logits)
+                runs[dev] = torch.stack(outs).cpu()
+                if dev == "cuda":
+                    launched = (RN.rmsnorm.launches - before[0],
+                                FA.flash_attention.launches - before[1])
+                if cfg.family == "moe":
+                    with torch.no_grad():
+                        lg, aux = M.forward(p, cfg, DEFAULT,
+                                            {"tokens": toks.to(dev)})
+                    fwd[dev] = (lg.cpu(), float(aux))
+        err = (runs["cuda"] - runs["cpu"]).abs().max().item()
+        same = torch.equal(greedy(runs["cuda"]), greedy(runs["cpu"]))
+        ok = same and err <= SMOKE_LOGIT_TOL
+        extra = ""
+        if cfg.family == "moe":
+            f_err = (fwd["cuda"][0] - fwd["cpu"][0]).abs().max().item()
+            a_rel = abs(fwd["cuda"][1] - fwd["cpu"][1]) / fwd["cpu"][1]
+            ok = ok and f_err <= SMOKE_LOGIT_TOL and a_rel <= SMOKE_LOGIT_TOL
+            extra = (f"; forward logits max|diff| {f_err:.3e}, router loss "
+                     f"rel {a_rel:.3e} (the CPU replayed the card's expert "
+                     f"choices; on its own it would have chosen "
+                     f"{book.flips} of the last run's pairs otherwise)")
+        print(f"[smoke] {cfg.name} smoke fp32, card kernels vs CPU plain: "
+              f"greedy tokens equal {same}, logits max|diff| {err:.3e} "
+              f"tol={SMOKE_LOGIT_TOL}{extra}; card launches rmsnorm/flash "
+              f"{launched} (expected (20, 2))")
+        check(ok, f"{arch}: card and CPU disagree at smoke size")
+        check(launched == (20, 2), f"{arch}: smoke launches {launched}, "
+                                   f"expected (20, 2)")
 
 
 # ---------------------------------------------------------------------------
@@ -3537,38 +3724,25 @@ def phase_train_kernels(torch, FA, RN, ref):
     def norm(x_, s_):
         return ops.rms_norm(x_, s_, 1e-6)
 
-    before = RN.rmsnorm.launches
+    before = (RN.rmsnorm.launches, RN.rmsnorm_bwd.launches)
     yk = norm(x, s)
     gk = grads_of(torch, norm, (x, s), dy)
-    check(RN.rmsnorm.launches - before == 2, "RMSNorm did not launch")
+    check((RN.rmsnorm.launches - before[0],
+           RN.rmsnorm_bwd.launches - before[1]) == (2, RN.BWD_LAUNCHES),
+          "RMSNorm did not launch its forward and backward kernels")
     with plain_kernels():
         yp = norm(x, s)
         gp = grads_of(torch, norm, (x, s), dy)
     errs = [rel_err(torch, a, b) for a, b in zip((yk, *gk), (yp, *gp))]
     ok = all(e <= TOL["bfloat16"] for e in errs)
-    print(f"[train] RMSNorm [{rows}, {d}] bf16 forward + backward, kernel "
-          f"forward vs plain, max|diff| / max|value|: y {errs[0]:.3e}, dx "
-          f"{errs[1]:.3e}, dscale {errs[2]:.3e}; tol {TOL['bfloat16']} "
-          f"{'ok' if ok else 'FAIL'}")
-    check(ok, "RMSNorm gradients through the kernel disagree with the plain "
-              "path")
-    bwd_ms = median_ms(lambda: ref.rmsnorm_bwd(x, s, dy), torch, reps=10,
-                       inner=5)
-    lib = (x.detach().clone().requires_grad_(),
-           s.detach().clone().requires_grad_())
-
-    def lib_fb():
-        y = F.rms_norm(lib[0], (d,), lib[1], 1e-6)
-        torch.autograd.grad(y, lib, dy)
-
-    lib_ms = median_ms(lib_fb, torch, reps=10, inner=5)
-    # the backward reads x, scale and dy and writes dx and dscale once
-    bound = 2 * (3 * rows * d + 2 * d) / PEAK_BYTES_S * 1e3
-    print(f"[train] RMSNorm [{rows}, {d}] bf16: plain backward {bwd_ms:.4f} "
-          f"ms (bound {bound:.4f} ms, bytes), F.rms_norm forward + backward "
-          f"{lib_ms:.4f} ms")
-    out["rmsnorm"] = dict(shape=[rows, d], errs=errs, bwd_plain_ms=bwd_ms,
-                          bwd_bound_ms=bound, lib_fwd_bwd_ms=lib_ms)
+    print(f"[train] RMSNorm [{rows}, {d}] bf16 forward + backward, the "
+          f"kernels (forward, backward) vs plain, max|diff| / max|value|: y "
+          f"{errs[0]:.3e}, dx {errs[1]:.3e}, dscale {errs[2]:.3e}; tol "
+          f"{TOL['bfloat16']} {'ok' if ok else 'FAIL'} (times: the "
+          f"rmsnorm_bwd phase)")
+    check(ok, "RMSNorm gradients through the kernels disagree with the "
+              "plain path")
+    out["rmsnorm"] = dict(shape=[rows, d], errs=errs)
     return out
 
 
@@ -3576,6 +3750,9 @@ def phase_train_kernels(torch, FA, RN, ref):
 TRAIN_KERNEL_KINDS = (
     ("flash_kernel_wgmma", r"flash_kernel"),
     ("flash backward (flash_bwd_dq/dkdv_wgmma)", r"flash_bwd"),
+    ("rmsnorm forward and backward", r"rmsnorm"),
+    ("sort, index, scatter, gather (moe dispatch, embedding, the loss)",
+     r"[Ss]ort|[Rr]adix|[Ii]ndex|[Ss]catter|[Gg]ather"),
     ("fp32 GEMMs (the fp32 logits)", r"f32f32_f32f32|sgemm"),
     ("bf16 GEMMs", r"bf16|nvjet|gemm"),
     ("NaN fills (deterministic mode)", r"[Ff]ill"),
@@ -3626,10 +3803,14 @@ def train_profile(torch, fn):
     for name, (cnt, t) in sorted(by_name.items(),
                                  key=lambda kv: -kv[1][1])[:12]:
         print(f"[profile]   {t:.2f} ms in {cnt} x {name[:100]}")
+    rms_bwd = [(n, t) for name, (n, t) in by_name.items()
+               if "rmsnorm_bwd" in name]
     return dict(out=out, window_ms=window_ms, busy_ms=busy_ms,
                 kernels=len(kernels), kinds=kinds, flash_bwd_ms=bwd_ms,
                 flash_fwd_ms=sum(t for _, t in fwd),
-                flash_fwd_launches=sum(n for n, _ in fwd))
+                flash_fwd_launches=sum(n for n, _ in fwd),
+                rmsnorm_bwd_ms=sum(t for _, t in rms_bwd),
+                rmsnorm_bwd_launches=sum(n for n, _ in rms_bwd))
 
 
 def model_flops(n_params, tokens, layers, heads, hd, seq):
@@ -3674,6 +3855,7 @@ def phase_train(torch, K, T):
                   flash_bwd=FA.flash_attention_bwd.launches,
                   bwd_routes=dict(FA.flash_attention_bwd.route_launches),
                   rmsnorm=RN.rmsnorm.launches,
+                  rmsnorm_bwd=RN.rmsnorm_bwd.launches,
                   others=K.lstm_cell.launches + K.lstm_seq.launches +
                   K.lstm_seq_bwd.launches + T.ternary_encode.launches +
                   T.ternary_decode.launches + T.ef_compress_leaves.launches)
@@ -3686,13 +3868,14 @@ def phase_train(torch, K, T):
                 flash_bwd=bwd_step * TRAIN_STEPS,
                 bwd_routes={"wgmma": bwd_step * TRAIN_STEPS,
                             "wgmma_chunked": 0, "tf32x3": 0},
-                rmsnorm=0, others=0)
+                rmsnorm=0, rmsnorm_bwd=0, others=0)
     print(f"[train] launches over {TRAIN_STEPS} steps {counts} (expected "
           f"{want}: {TRAIN_FLASH_BWD_CALLS} flash backward calls a step, "
           f"{FA.BWD_LAUNCHES} launches each); per step {res['launches']}")
     check(counts == want and all(
         s == {"flash_attention": per_step, "flash_lse": per_step,
-              "flash_bwd": bwd_step, "rmsnorm": 0} for s in res["launches"]),
+              "flash_bwd": bwd_step, "rmsnorm": 0, "rmsnorm_bwd": 0}
+        for s in res["launches"]),
           f"training launches {counts}, per step {res['launches']}, "
           f"expected {want}")
     check(all(math.isfinite(x) for x in res["losses"]),
@@ -3838,6 +4021,7 @@ def phase_train_nemotron(torch, K, T, smi):
           f"n_layers {full.n_layers} -> {cfg.n_layers}, vocab {full.vocab} "
           f"-> {cfg.vocab}; {n_params:,} parameters")
     tr = NEMOTRON_TRAIN
+    gc.collect()         # earlier phases' tensors held only by cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(K, T)
@@ -3849,7 +4033,7 @@ def phase_train_nemotron(torch, K, T, smi):
                   flash_bwd=FA.flash_attention_bwd.launches,
                   bwd_routes=dict(FA.flash_attention_bwd.route_launches),
                   bwd_padded=FA.flash_attention_bwd.padded_launches,
-                  rmsnorm=RN.rmsnorm.launches)
+                  rmsnorm=RN.rmsnorm.launches + RN.rmsnorm_bwd.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     layers, micro = cfg.n_layers, tr["micro"]
     bwd_step = layers * micro * FA.BWD_LAUNCHES
@@ -3944,8 +4128,10 @@ def phase_train_nemotron(torch, K, T, smi):
 def phase_train_smoke(torch, TR, FA, RN):
     """The smoke configs (fp32) on the card: a ``--ckpt`` run through
     ``run_arch`` whose saved state loads back bit for bit; each config's
-    step gradients on the card against the CPU; qwen1.5-110b's RMSNorm and
-    flash launches exact."""
+    step gradients on the card against the CPU (the moe configs' CPU step
+    replaying the card's expert choices); the RMSNorm forward and backward
+    and flash launches exact."""
+    import contextlib
     import tempfile
     from repro_torch import tree
     out = {}
@@ -3960,9 +4146,10 @@ def phase_train_smoke(torch, TR, FA, RN):
               f"({len(tree.leaves(saved))} leaves, meta {meta}): loaded "
               f"state bit-equal {same}")
         check(same and meta == {"step": 2}, "checkpoint round trip differs")
-    for arch in (TRAIN_ARCH, SERVE_ARCH):
+    for arch in (TRAIN_ARCH, SERVE_ARCH, *MOE_SMOKE_ARCHS):
         cfg = TR.arch_config(arch)
         runs = {}
+        book = RouteBook()
         for dev in ("cuda", "cpu"):
             run = TR.setup_arch(cfg, device=dev, **TRAIN_SMOKE)
             if dev == "cuda":
@@ -3973,8 +4160,15 @@ def phase_train_smoke(torch, TR, FA, RN):
                       FA.flash_attention.route_launches["tf32x3"],
                       RN.rmsnorm.launches,
                       FA.flash_attention_bwd.route_launches["tf32x3"],
-                      FA.flash_attention_bwd.launches)
-            g, m = run["bound"]["grads"](tree.to_device(params0, dev), batch)
+                      FA.flash_attention_bwd.launches,
+                      RN.rmsnorm_bwd.launches)
+            routes = contextlib.nullcontext()
+            if cfg.family == "moe":
+                routes = recorded_routes(book) if dev == "cuda" else \
+                    replayed_routes(book)
+            with routes:
+                g, m = run["bound"]["grads"](tree.to_device(params0, dev),
+                                             batch)
             runs[dev] = (tree.to_device(g, "cpu"), float(m["loss"]),
                          (FA.flash_attention.launches - before[0],
                           FA.flash_attention.route_launches["tf32x3"] -
@@ -3982,30 +4176,558 @@ def phase_train_smoke(torch, TR, FA, RN):
                           RN.rmsnorm.launches - before[2],
                           FA.flash_attention_bwd.route_launches["tf32x3"] -
                           before[3],
-                          FA.flash_attention_bwd.launches - before[4]))
+                          FA.flash_attention_bwd.launches - before[4],
+                          RN.rmsnorm_bwd.launches - before[5]))
         worst = max(rel_err(torch, a, b) for a, b in zip(
             tree.leaves(runs["cuda"][0]), tree.leaves(runs["cpu"][0])))
         loss_rel = abs(runs["cuda"][1] - runs["cpu"][1]) / runs["cpu"][1]
         # per microbatch: the layers' flash (x2 under remat), all fp32 on the
         # tf32x3 route; the norms: 2 a layer (again under remat) and the
         # final one; the flash backward once a layer, fp32 on the tf32x3
-        # route, all of its launches
+        # route, all of its launches; the norms' backward once each (2 a
+        # layer and the final one), two launches a call
         L, n = cfg.n_layers, TRAIN_SMOKE["micro"]
         bwd = L * n * FA.BWD_LAUNCHES
-        want = (2 * L * n, 2 * L * n,
-                (4 * L + 1) * n if cfg.norm == "rmsnorm" else 0, bwd, bwd)
+        rms = cfg.norm == "rmsnorm"
+        want = (2 * L * n, 2 * L * n, (4 * L + 1) * n if rms else 0, bwd, bwd,
+                (2 * L + 1) * n * RN.BWD_LAUNCHES if rms else 0)
         ok = worst <= TRAIN_SMOKE_TOL and loss_rel <= TRAIN_SMOKE_TOL
+        replay = (f"; the CPU replayed the card's expert choices ({book.calls}"
+                  f" router calls; on its own {book.flips} pairs otherwise)"
+                  if cfg.family == "moe" else "")
         print(f"[train] {arch} smoke fp32 step, card vs CPU: loss rel "
               f"{loss_rel:.3e}, worst gradient leaf {worst:.3e} (tol "
               f"{TRAIN_SMOKE_TOL}) {'ok' if ok else 'FAIL'}; card launches "
               f"flash/flash on the tf32x3 route/rmsnorm/flash backward on "
-              f"the tf32x3 route/flash backward {runs['cuda'][2]} (expected "
-              f"{want})")
+              f"the tf32x3 route/flash backward/rmsnorm backward "
+              f"{runs['cuda'][2]} (expected {want}){replay}")
         check(ok, f"{arch}: the smoke step differs card vs CPU")
-        check(runs["cuda"][2] == want and runs["cpu"][2] == (0,) * 5,
+        check(runs["cuda"][2] == want and runs["cpu"][2] == (0,) * 6,
               f"{arch}: smoke launches {runs['cuda'][2]}, expected {want}")
         out[arch] = dict(grad_err=worst, loss_rel=loss_rel)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the RMSNorm backward kernel, and the moe family: deepseek-moe-16b served at
+# its published size and trained at 2 layers, the smoke configs card vs CPU
+# ---------------------------------------------------------------------------
+
+# the backward at the training path's rows, bf16: qwen1.5-110b's width and
+# deepseek-moe-16b's (a microbatch of 4,096 tokens)
+RMS_BWD_SHAPES = ((4096, 8192), (4096, 2048))
+MOE_ARCH = "deepseek-moe-16b"
+MOE_SMOKE_ARCHS = ("deepseek-moe-16b", "arctic-480b")
+# no reduction: the published model, bf16, fits one card (33.76 GB)
+MOE_PARAMS = 16_879_568_896
+# the training leg's one reduction: depth 28 -> 2 layers at full width and
+# vocabulary (all and active parameters); stablelm's traffic (TRAIN)
+MOE_TRAIN_CUTS = dict(n_layers=2)
+MOE_TRAIN_PARAMS = (1_595_156_480, 591_669_248)
+MOE_TRAIN_STEPS = 3
+# layers whose post-norm input the sort path is held on against the dense
+# oracle: first, middle, last
+MOE_ORACLE_LAYERS = (0, 13, 27)
+# sort vs dense at a capacity where nothing drops: the same bf16 products,
+# the combine summed in another order and rounding (2e-2 of max |out|, bf16
+# at tests/test_kernels.py::_tol); the router loss from the same fp32 probs
+# and choices
+MOE_ORACLE_TOL, MOE_AUX_RTOL = 2e-2, 1e-5
+# kernels of a profiled moe prefill or decode step by kind, first match wins
+MOE_KERNEL_KINDS = (
+    ("flash_attention", r"flash_kernel"),
+    ("rmsnorm", r"rmsnorm"),
+    ("sort (route, dispatch order)", r"[Ss]ort|[Rr]adix"),
+    ("index, scatter, gather (dispatch, combine)",
+     r"[Ii]ndex|[Ss]catter|[Gg]ather"),
+    ("fp32 GEMMs (router, logits)", r"f32f32_f32f32|sgemm"),
+    ("bf16 GEMMs (projections, expert bmm, shared experts)",
+     r"bf16|nvjet|gemm"),
+    ("NaN fills (deterministic mode)", r"[Ff]ill"),
+    ("other", r""))
+
+
+def rms_bwd_bound_ms(rows, d, elem_bytes):
+    """x, dy and scale read once, dx and dscale written once; ~12 flops an
+    element at the fp32 rate."""
+    moved = elem_bytes * (3 * rows * d + 2 * d)
+    t_b, t_o = moved / PEAK_BYTES_S, 12 * rows * d / PEAK_FP32_FLOP_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def phase_rmsnorm_bwd(torch, RN, ref):
+    """The RMSNorm backward kernel (two launches: dx and the blocks' column
+    partials, then dscale) against ``ref.rmsnorm_bwd`` over the JAX sweep
+    (fp32, bf16) and the training rows ``RMS_BWD_SHAPES`` (bf16): dx and
+    dscale within TOL of max |grad|, two runs bit-equal; timed at the
+    training rows beside the plain backward, ``F.rms_norm``'s forward +
+    backward and its backward alone, and the bound."""
+    import torch.nn.functional as F
+    cases = [(shape, dt) for shape in RMS_SWEEP
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(shape, torch.bfloat16) for shape in RMS_BWD_SHAPES]
+    worst_abs, worst_rel = 0.0, 0.0
+    for i, (shape, dtype) in enumerate(cases):
+        name = str(dtype).split(".")[-1]
+        x = randn(torch, shape, dtype, 300 + i)
+        s = randn(torch, shape[-1:], dtype, 400 + i, 0.1) + 1
+        dy = randn(torch, shape, dtype, 500 + i)
+        before = RN.rmsnorm_bwd.launches
+        got = RN.rmsnorm_bwd(x, s, dy)
+        again = RN.rmsnorm_bwd(x, s, dy)
+        launched = RN.rmsnorm_bwd.launches - before
+        want = ref.rmsnorm_bwd(x, s, dy)
+        torch.cuda.synchronize()
+        rel = [rel_err(torch, g, w) for g, w in zip(got, want)]
+        absd = max((g.float() - w.float()).abs().max().item()
+                   for g, w in zip(got, want))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = max(rel) <= TOL[name] and same and \
+            launched == 2 * RN.BWD_LAUNCHES and \
+            got[0].dtype == got[1].dtype == dtype
+        print(f"[kernel] rmsnorm_bwd {list(shape)} {name}: dx "
+              f"{rel[0]:.3e}, dscale {rel[1]:.3e} of max |grad| (tol "
+              f"{TOL[name]}), max|kernel-plain| {absd:.3e}, two runs "
+              f"bit-equal {same}, {launched} launches "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"rmsnorm_bwd {shape} {name}: the kernel disagrees with "
+                  f"its plain version, differs run to run or did not launch")
+        worst_abs, worst_rel = max(worst_abs, absd), max(worst_rel, *rel)
+    times = {}
+    for rows, d in RMS_BWD_SHAPES:
+        x = randn(torch, (rows, d), torch.bfloat16, 7)
+        s = randn(torch, (d,), torch.bfloat16, 8, 0.1) + 1
+        dy = randn(torch, (rows, d), torch.bfloat16, 9)
+        ms = median_ms(lambda: RN.rmsnorm_bwd(x, s, dy), torch, reps=20,
+                       inner=10)
+        plain_ms = median_ms(lambda: ref.rmsnorm_bwd(x, s, dy), torch,
+                             reps=10, inner=3)
+        lib = (x.detach().clone().requires_grad_(),
+               s.detach().clone().requires_grad_())
+
+        def lib_fb():
+            y = F.rms_norm(lib[0], (d,), lib[1], 1e-6)
+            torch.autograd.grad(y, lib, dy)
+
+        y_lib = F.rms_norm(lib[0], (d,), lib[1], 1e-6)
+        fb_ms = median_ms(lib_fb, torch, reps=20, inner=5)
+        lib_ms = median_ms(lambda: torch.autograd.grad(
+            y_lib, lib, dy, retain_graph=True), torch, reps=20, inner=5)
+        del y_lib
+        bound, by = rms_bwd_bound_ms(rows, d, 2)
+        print(f"[kernel] rmsnorm_bwd time [{rows}, {d}] bf16: kernel "
+              f"{ms:.5f} ms ({ms / bound:.2f}x the bound {bound:.5f} ms, "
+              f"{by}), plain {plain_ms:.4f} ms, F.rms_norm forward + "
+              f"backward {fb_ms:.4f} ms, its backward alone {lib_ms:.4f} ms")
+        times[f"{rows}x{d}"] = dict(shape=[rows, d], ms=ms,
+                                    plain_ms=plain_ms, library_ms=lib_ms,
+                                    lib_fwd_bwd_ms=fb_ms, bound_ms=bound,
+                                    bound_by=by)
+    return dict(max_abs_err=worst_abs, max_rel_err=worst_rel, **times)
+
+
+def weight_bytes(params):
+    from repro_torch import tree
+    return sum(t.numel() * t.element_size() for t in tree.leaves(params))
+
+
+def moe_attention_times(torch, FA, ref, cfg):
+    """The flash forward at deepseek-moe-16b's prefill shape (B=4, S=1,024,
+    16 over 16 heads, hd 128, causal, bf16): held at the qwen gate against
+    the plain version, timed beside it, SDPA and the bound."""
+    B, S, H, Kv, hd = SERVE["batch"], SERVE["prompt"], cfg.n_heads, \
+        cfg.n_kv_heads, cfg.hd
+    q, k, v = (randn(torch, (B, S, n, hd), torch.bfloat16, 60 + j,
+                     QWEN_FLASH_SCALES[0]) for j, n in enumerate((H, Kv, Kv)))
+    before = dict(FA.flash_attention.route_launches)
+    err = held(torch, f"flash_attention {cfg.name} prefill B={B} S={S} H={H}"
+               f" Kv={Kv} hd={hd} causal bf16", FA.flash_attention(q, k, v),
+               ref.flash_attention(q, k, v), TOL["bfloat16"],
+               QWEN_FLASH_BF16_ATOL)
+    check(FA.flash_attention.route_launches["wgmma"] - before["wgmma"] == 1,
+          "deepseek's attention shape did not run on the wgmma route")
+    ms = median_ms(lambda: FA.flash_attention(q, k, v), torch, reps=10,
+                   inner=5)
+    plain_ms = median_ms(lambda: ref.flash_attention(q, k, v), torch,
+                         reps=5, inner=2)
+    torch.use_deterministic_algorithms(False)
+    try:
+        lib = sdpa(torch, q, k, v)
+        backend = sdpa_backend(torch, lib)
+        lib_ms = median_ms(lib, torch, reps=10, inner=5)
+    finally:
+        torch.use_deterministic_algorithms(True)
+    bound, by = flash_bound_ms(B, S, H, Kv, hd, 2)
+    print(f"[kernel] flash_attention time {cfg.name} prefill B={B} S={S} "
+          f"H={H} Kv={Kv} (G = 1) hd={hd} causal bf16: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, SDPA ({backend}) {lib_ms:.4f} ms, "
+          f"bound {bound:.5f} ms ({by})")
+    return dict(shape=[B, S, H, Kv, hd], ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library_backend=backend, bound_ms=bound,
+                bound_by=by, max_abs_err=err)
+
+
+def moe_oracle(torch, M, params, cfg, prompt_toks):
+    """The post-norm inputs of layers ``MOE_ORACLE_LAYERS`` in a full-size
+    prefill, each through ``apply_moe_sort`` at a capacity where nothing
+    drops (cf = E / k; C at least the largest expert load, printed) against
+    ``apply_moe_dense``: out within MOE_ORACLE_TOL of max |out|, the router
+    loss within MOE_AUX_RTOL."""
+    from unittest import mock
+    from repro_torch.models import moe
+    from repro_torch.models.runtime import DEFAULT
+    seen = []
+    real = moe.apply_moe
+
+    def capture(p, x, cfg_, rt, **kw):
+        seen.append((p, x) if len(seen) in MOE_ORACLE_LAYERS else None)
+        return real(p, x, cfg_, rt, **kw)
+
+    with torch.no_grad(), mock.patch.object(moe, "apply_moe", capture):
+        cache = M.init_cache(cfg, prompt_toks.shape[0],
+                             prompt_toks.shape[1] + 8, device="cuda")
+        M.prefill(params, cfg, DEFAULT, {"tokens": prompt_toks}, cache)
+        del cache
+    check(len(seen) == cfg.n_layers, f"{len(seen)} moe calls in a prefill")
+    m = cfg.moe
+    cf = m.num_experts / m.top_k
+    out = {}
+    with torch.no_grad():
+        for layer in MOE_ORACLE_LAYERS:
+            p, x = seen[layer]
+            xt = x.reshape(-1, x.shape[-1])
+            T = xt.shape[0]
+            book = RouteBook()
+            book.idx.append(moe.route(moe.router_probs(p, xt), m.top_k)[1])
+            _, C, _, load = route_drops(torch, book, cfg, cf)[0]
+            o_s, a_s = moe.apply_moe_sort(p, xt, cfg, cf)
+            o_d, a_d = moe.apply_moe_dense(p, xt, cfg)
+            err = rel_err(torch, o_s, o_d)
+            a_rel = abs(float(a_s) - float(a_d)) / abs(float(a_d))
+            ok = C >= load and err <= MOE_ORACLE_TOL and a_rel <= MOE_AUX_RTOL
+            print(f"[moe] layer {layer}: sort dispatch at cf {cf:.4f} (C = "
+                  f"{C} for {T} tokens, largest expert load {load}) vs the "
+                  f"dense oracle: out max|diff| / max|out| {err:.3e} (tol "
+                  f"{MOE_ORACLE_TOL}), router loss rel {a_rel:.3e} (tol "
+                  f"{MOE_AUX_RTOL}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"layer {layer}: the sort dispatch disagrees with the "
+                      f"dense oracle where nothing drops")
+            out[layer] = dict(C=C, max_load=load, out_err=err, aux_rel=a_rel)
+            del o_s, o_d
+    return out
+
+
+def moe_profile(torch, M, params, cfg, prompt_toks):
+    """One prefill and one decode step of the full-size moe model under
+    ``torch.profiler``: window, busy share, kernels, device ms by kind
+    (``MOE_KERNEL_KINDS``), the top kernels."""
+    from repro_torch.launch.serve import greedy
+    from repro_torch.models.runtime import DEFAULT
+    B, P = prompt_toks.shape
+    state = {}
+
+    def pre():
+        cache = M.init_cache(cfg, B, P + SERVE["tokens"] + 8, device="cuda")
+        logits, state["cache"] = M.prefill(params, cfg, DEFAULT,
+                                           {"tokens": prompt_toks}, cache)
+        state["tok"] = greedy(logits)
+
+    def dec():
+        M.decode_step(params, cfg, DEFAULT, state["tok"], state["cache"], P)
+
+    out = {}
+    with torch.no_grad():
+        pre()
+        dec()
+        for key, fn in (("prefill", pre), ("decode", dec)):
+            window_ms, busy_ms, n_kernels, by_name, _ = profiled(torch, fn)
+            kinds = dict.fromkeys((k for k, _ in MOE_KERNEL_KINDS), 0.0)
+            for name, (_, t) in by_name.items():
+                kinds[next(k for k, pat in MOE_KERNEL_KINDS
+                           if re.search(pat, name))] += t
+            print(f"[profile] {cfg.name} one {key} (B={B}, {P} prompt "
+                  f"tokens): window {window_ms:.2f} ms, device busy "
+                  f"{busy_ms:.2f} ms ({100 * busy_ms / window_ms:.1f}%), "
+                  f"{n_kernels} kernels; by kind: " +
+                  ", ".join(f"{k} {t:.3f} ms" for k, t in kinds.items()))
+            for name, (n, t) in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1][1])[:8]:
+                print(f"[profile]   {t:.3f} ms in {n} x {name[:90]}")
+            out[key] = dict(window_ms=window_ms, busy_ms=busy_ms,
+                            kernels=n_kernels, kinds=kinds,
+                            rmsnorm_ms=per_launch_ms(by_name, "rmsnorm_"),
+                            flash_ms=per_launch_ms(by_name, "flash_kernel"))
+    return out
+
+
+def phase_serve_moe(torch, K, T, smi):
+    """deepseek-moe-16b at its published size (no reduction) served through
+    ``launch/serve.py::serve`` with every count set to 0 just before and
+    read just after: 28 flash launches a prefill, all on ``wgmma``; 57
+    rmsnorm launches a prefill and a decode step; no backward launch. Then,
+    on the same weights: the sort dispatch against the dense oracle on
+    three layers' inputs, the kernel path against the plain path
+    teacher-forced with the expert choices replayed (and the dropped
+    assignments at the default capacity), a profiled prefill and decode
+    step, and the flash forward timed at its attention shape."""
+    import numpy as np
+    import repro_torch.configs as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models import model as M
+
+    cfg = C.get(MOE_ARCH)
+    n_params = M.param_count(cfg)
+    n_active = M.param_count(cfg, active_only=True)
+    check(n_params == MOE_PARAMS, f"{n_params} parameters, expected "
+                                  f"{MOE_PARAMS}")
+    gc.collect()         # earlier phases' tensors held only by cycles
+    torch.cuda.empty_cache()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(K, T)
+    t0 = time.perf_counter()
+    res = serve(cfg, device="cuda", **SERVE)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = serve_counts(K, T)
+    routes = dict(FA.flash_attention.route_launches)
+    lse_launches = FA.flash_attention.lse_launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_batches = -(-SERVE["requests"] // SERVE["batch"])
+    L = cfg.n_layers
+    want = dict(rmsnorm=(2 * L + 1) * SERVE["tokens"] * n_batches,
+                flash_attention=L * n_batches, rmsnorm_bwd=0, others=0)
+    prefill_ms = [t * 1e3 for t in res["prefill_s"]]
+    decode_ms = [t / (SERVE["tokens"] - 1) * 1e3 for t in res["decode_s"]]
+    tok_s = SERVE["requests"] * SERVE["tokens"] / (sum(res["prefill_s"]) +
+                                                  sum(res["decode_s"]))
+    toks = res["tokens"]
+    print(f"[moe] {cfg.name} published size ({n_params:,} parameters, "
+          f"{n_active:,} active a token; {L} layers, d_model {cfg.d_model}, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} + "
+          f"{cfg.moe.num_shared} shared, bf16, sort dispatch at capacity "
+          f"factor {cfg.moe.capacity_factor}), requests={SERVE['requests']} "
+          f"batch={SERVE['batch']} prompt={SERVE['prompt']} tokens="
+          f"{SERVE['tokens']}: prefill ms per batch "
+          f"{', '.join(f'{t:.2f}' for t in prefill_ms)}; decode ms per "
+          f"token step {', '.join(f'{t:.3f}' for t in decode_ms)}; "
+          f"{tok_s:.1f} tok/s over the run (wall {wall_s:.1f} s with the "
+          f"weights' init); peak memory {peak_gb:.2f} GB ({base_gb:.2f} GB "
+          f"allocated before the phase); launches {counts} (expected "
+          f"{want}), flash_attention by route {routes}")
+    check(counts == want and res["launches"] == {
+        k: v for k, v in want.items() if k != "others"},
+        f"moe serve launches {counts} / {res['launches']}, expected {want}")
+    check(routes == dict(dict.fromkeys(routes, 0),
+                         wgmma=want["flash_attention"]),
+          f"moe serve flash routes {routes}: every launch should run wgmma")
+    check(lse_launches == 0, f"{lse_launches} serve launches wrote lse")
+    check(tuple(toks.shape) == (SERVE["requests"], SERVE["tokens"]) and
+          bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"served tokens {tuple(toks.shape)} out of shape or range")
+
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SERVE["seed"]), "cuda")
+    w_bytes = weight_bytes(params)
+    decode_bound_ms = w_bytes / PEAK_BYTES_S * 1e3
+    print(f"[moe] {smi}: decode {min(decode_ms):.3f} ms a step at best "
+          f"against its bound {decode_bound_ms:.3f} ms (every step reads "
+          f"all {w_bytes / 1e9:.2f} GB of weights: the sort dispatch runs "
+          f"all {cfg.moe.num_experts} experts' products at C = 1; "
+          f"{w_bytes / 1e9 / (min(decode_ms) / 1e3) / 1e3:.2f} TB/s "
+          f"achieved)")
+    prompts = make_prompts(cfg, SERVE["requests"], SERVE["prompt"],
+                           SERVE["seed"])
+    batch0 = torch.from_numpy(np.stack(prompts[:SERVE["batch"]])).cuda()
+    oracle = moe_oracle(torch, M, params, cfg, batch0)
+
+    worst, drops, alone = 0.0, None, {}
+    book = RouteBook()
+    for b0 in range(0, SERVE["requests"], SERVE["batch"]):
+        p = torch.from_numpy(np.stack(prompts[b0:b0 + SERVE["batch"]])).cuda()
+        g = toks[b0:b0 + SERVE["batch"]].cuda()
+        err, same = hold_logits(torch, M, params, cfg, p, g,
+                                f"{cfg.name} requests {b0}-"
+                                f"{b0 + SERVE['batch'] - 1}", book=book)
+        check(same, "the kernel path gave other tokens on a second run")
+        worst = max(worst, err)
+        alone = {k: max(v, alone.get(k, 0.0)) for k, v in book.alone.items()}
+        if drops is None:
+            # the kernel run's calls: the prefill's L, then L a decode step
+            per_call = route_drops(torch, book, cfg,
+                                   cfg.moe.capacity_factor)
+            steps = [per_call[i:i + L] for i in range(0, len(per_call), L)]
+            drops = dict(prefill=sum(d for _, _, d, _ in steps[0]),
+                         prefill_C=steps[0][0][1],
+                         prefill_assignments=steps[0][0][0] * cfg.moe.top_k
+                         * L,
+                         decode=[sum(d for _, _, d, _ in st)
+                                 for st in steps[1:]],
+                         decode_C=steps[1][0][1],
+                         decode_assignments=steps[1][0][0] * cfg.moe.top_k
+                         * L)
+            print(f"[moe] dropped (token, expert) assignments at capacity "
+                  f"factor {cfg.moe.capacity_factor}: prefill "
+                  f"{drops['prefill']} of {drops['prefill_assignments']} "
+                  f"(C = {drops['prefill_C']} for {steps[0][0][0]} tokens a "
+                  f"layer, summed over {L} layers); decode steps "
+                  f"{drops['decode']} of {drops['decode_assignments']} each "
+                  f"(C = {drops['decode_C']} for {steps[1][0][0]} tokens)")
+    prof = moe_profile(torch, M, params, cfg, batch0)
+    del params
+    torch.cuda.empty_cache()
+    attn = moe_attention_times(torch, FA, ref, cfg)
+    return dict(n_params=n_params, n_active=n_active, counts=counts,
+                routes=routes, prefill_ms=prefill_ms, decode_ms=decode_ms,
+                decode_bound_ms=decode_bound_ms, tok_s=tok_s,
+                peak_gb=peak_gb, base_gb=base_gb, logit_err=worst,
+                logit_err_alone=alone, drops=drops,
+                oracle=oracle, profile=prof, attention=attn)
+
+
+def phase_train_moe(torch, K, T, smi):
+    """deepseek-moe-16b at full width and vocabulary cut to 2 layers
+    (``MOE_TRAIN_CUTS``) through ``launch/train.py::run_arch`` with
+    stablelm's traffic (``TRAIN``: AdamW, 8 microbatches of 4,096 tokens,
+    remat on), every count set to 0 just before and read just after: flash
+    32 forward (all writing lse) and 32 backward launches a step, all on
+    ``wgmma``; rmsnorm 72 and rmsnorm_bwd 80 (40 calls of 2 launches) a
+    step. Seconds a step, tokens/s, model FLOP/s from the active
+    parameters, peak memory; a profiled step; that step's loss and every
+    gradient leaf against the all-plain step (forward, flash backward and
+    RMSNorm backward plain) replaying its expert choices."""
+    import numpy as np
+    import repro_torch.configs as C
+    from repro_torch import tree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import steps as ST
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.launch import train as TR
+    from repro_torch.models import model as M
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.optim import make as make_opt
+
+    full = TR.arch_config(MOE_ARCH, full=True)
+    cfg = full.replace(**MOE_TRAIN_CUTS)
+    n_params = M.param_count(cfg)
+    n_active = M.param_count(cfg, active_only=True)
+    check((n_params, n_active) == MOE_TRAIN_PARAMS,
+          f"{n_params} / {n_active} parameters, expected {MOE_TRAIN_PARAMS}")
+    gc.collect()         # earlier phases' tensors held only by cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(K, T)
+    res = TR.run_arch(cfg, steps=MOE_TRAIN_STEPS, label="2 layers, full width",
+                      remat=True, device="cuda", **TRAIN)
+    counts = dict(flash=FA.flash_attention.launches,
+                  lse=FA.flash_attention.lse_launches,
+                  routes=dict(FA.flash_attention.route_launches),
+                  flash_bwd=FA.flash_attention_bwd.launches,
+                  bwd_routes=dict(FA.flash_attention_bwd.route_launches),
+                  rmsnorm=RN.rmsnorm.launches,
+                  rmsnorm_bwd=RN.rmsnorm_bwd.launches,
+                  others=K.lstm_cell.launches + K.lstm_seq.launches +
+                  K.lstm_seq_bwd.launches + T.ternary_encode.launches +
+                  T.ternary_decode.launches + T.ef_compress_leaves.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    L, micro, n = cfg.n_layers, TRAIN["micro"], MOE_TRAIN_STEPS
+    step = {"flash_attention": 2 * L * micro, "flash_lse": 2 * L * micro,
+            "flash_bwd": L * micro * FA.BWD_LAUNCHES,
+            "rmsnorm": (4 * L + 1) * micro,
+            "rmsnorm_bwd": (2 * L + 1) * micro * RN.BWD_LAUNCHES}
+    want = dict(flash=step["flash_attention"] * n,
+                lse=step["flash_lse"] * n,
+                routes=dict(dict.fromkeys(counts["routes"], 0),
+                            wgmma=step["flash_attention"] * n),
+                flash_bwd=step["flash_bwd"] * n,
+                bwd_routes=dict(dict.fromkeys(counts["bwd_routes"], 0),
+                                wgmma=step["flash_bwd"] * n),
+                rmsnorm=step["rmsnorm"] * n,
+                rmsnorm_bwd=step["rmsnorm_bwd"] * n, others=0)
+    print(f"[moe-train] launches over {n} steps {counts} (expected {want}: "
+          f"{(2 * L + 1) * micro} rmsnorm backward calls a step, "
+          f"{RN.BWD_LAUNCHES} launches each); per step {res['launches']}")
+    check(counts == want and all(s == step for s in res["launches"]),
+          f"moe training launches {counts}, expected {want}")
+    check(all(math.isfinite(x) for x in res["losses"]),
+          f"non-finite losses {res['losses']}")
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    timed = res["step_s"][1:]
+    step_s = statistics.mean(timed)
+    mflops = model_flops(n_active, tokens, L, cfg.n_heads, cfg.hd,
+                         TRAIN["seq"])
+    mfu = mflops / step_s / PEAK_BF16_FLOP_S
+    print(f"[moe-train] {smi}: {cfg.name} cut to {L} of {full.n_layers} "
+          f"layers at full width ({n_params:,} parameters, {n_active:,} "
+          f"active), bf16, batch {TRAIN['batch']} x {TRAIN['seq']} in "
+          f"{res['n_micro']} microbatches, AdamW, remat: s per step "
+          f"{', '.join(f'{t:.3f}' for t in res['step_s'])} (first: "
+          f"warm-up); timed mean {step_s:.3f} s, {tokens / step_s:.0f} "
+          f"tokens/s; model FLOPs from active parameters {mflops / 1e12:.1f}"
+          f" T a step, {mflops / step_s / 1e12:.1f} TFLOP/s = "
+          f"{100 * mfu:.2f}% of the bf16 peak; peak memory {peak_gb:.2f} GB;"
+          f" losses {[round(x, 4) for x in res['losses']]}")
+    params = res["params"]
+    del res
+    torch.cuda.empty_cache()
+
+    shape = InputShape("train", TRAIN["seq"], TRAIN["batch"], "train")
+    batch = TR.sample_batch(np.random.RandomState(TRAIN["seed"]),
+                            M.train_batch_spec(cfg, shape), cfg.vocab,
+                            "cuda")
+    grads_fn = ST.bind_train(cfg, Runtime(), make_opt(TRAIN["optimizer"],
+                                                      TRAIN["lr"]),
+                             shape, num_microbatches=TRAIN["micro"])["grads"]
+    book = RouteBook()
+
+    def kernel_step():
+        with recorded_routes(book):
+            return grads_fn(params, batch)
+
+    prof = train_profile(torch, kernel_step)
+    grads_k, mets_k = prof.pop("out")
+    rms_bwd_launch_ms = prof["rmsnorm_bwd_ms"] / max(
+        prof["rmsnorm_bwd_launches"], 1)
+    with plain_kernels(), replayed_routes(book):
+        grads_p, mets_p = grads_fn(params, batch)
+    loss_k, loss_p = float(mets_k["loss"]), float(mets_p["loss"])
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    names = ["/".join(map(str, pth)) for pth in tree.leaf_paths(grads_k)]
+    errs = [rel_err(torch, a, b) for a, b in zip(tree.leaves(grads_k),
+                                                 tree.leaves(grads_p))]
+    ok = max(errs) <= TRAIN_GRAD_TOL and loss_rel <= TRAIN_LOSS_RTOL
+    worst_leaf = names[errs.index(max(errs))]
+    print(f"[moe-train] kernel step vs the all-plain step (expert choices "
+          f"replayed over {book.calls} router calls; on its own the plain "
+          f"step would have chosen {book.flips} (token, expert) pairs "
+          f"otherwise): loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+          f"{loss_rel:.3e}, tol {TRAIN_LOSS_RTOL}), aux "
+          f"{float(mets_k['aux']):.6f} vs {float(mets_p['aux']):.6f}; worst "
+          f"of {len(errs)} gradient leaves max|diff| / max|g| "
+          f"{max(errs):.3e} at {worst_leaf} (tol {TRAIN_GRAD_TOL}); router "
+          f"{max(e for e, nm in zip(errs, names) if 'router' in nm):.3e}, "
+          f"experts {max(e for e, nm in zip(errs, names) if 'experts' in nm):.3e}"
+          f", shared {max(e for e, nm in zip(errs, names) if 'shared' in nm):.3e}"
+          f", norm scales {max(e for e, nm in zip(errs, names) if 'norm' in nm):.3e}"
+          f" {'ok' if ok else 'FAIL'}; the {prof['rmsnorm_bwd_launches']} "
+          f"rmsnorm_bwd launches of the profiled step "
+          f"{prof['rmsnorm_bwd_ms']:.3f} ms of device time, "
+          f"{rms_bwd_launch_ms:.4f} ms a launch")
+    check(ok, "the moe training step through the kernels disagrees with the "
+              "all-plain step")
+    del grads_k, grads_p, params, batch
+    torch.cuda.empty_cache()
+    return dict(n_params=n_params, n_active=n_active, step_s=step_s,
+                steps_s=timed, tokens_s=tokens / step_s,
+                model_tflop_s=mflops / step_s / 1e12, mfu=mfu,
+                peak_gb=peak_gb, counts=counts,
+                launches_per_step=step, profile=prof,
+                rmsnorm_bwd_device_ms=rms_bwd_launch_ms,
+                grad_err=max(errs), loss_rel=loss_rel,
+                route_flips=book.flips, cuts=MOE_TRAIN_CUTS)
 
 
 def main() -> int:
@@ -4040,6 +4762,7 @@ def main() -> int:
     for mod in (K, T, RN, FA):
         mod.build()
     FA.build_bwd()
+    RN.build_bwd()
     print(f"[build] {', '.join(src.name for src in sources)} built (in "
           f"parallel) and loaded in {time.time() - t0:.1f} s")
     for src in sources:
@@ -4093,10 +4816,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     fp32_err, fp32_routes = phase_serve_fp32(torch)
     torch.cuda.empty_cache()
+    moe_served = phase_serve_moe(torch, K, T, smi)
+    torch.cuda.empty_cache()
     phase_smoke_cpu(torch)
     torch.cuda.empty_cache()
+    rms_bwd = phase_rmsnorm_bwd(torch, RN, ref)
     train_kern = phase_train_kernels(torch, FA, RN, ref)
     train = phase_train(torch, K, T)
+    moe_train = phase_train_moe(torch, K, T, smi)
     nemotron = phase_train_nemotron(torch, K, T, smi)
 
     layer0, seq0 = rows[0], seq_rows[0]
@@ -4179,10 +4906,37 @@ def main() -> int:
         "decode": dict(rms["decode"],
                        device_ms=serve_prof["decode"]["rmsnorm_ms"]),
         # the training path: stablelm-1.6b uses LayerNorm (no launch); the
-        # qwen smoke config's counts are gated in phase_train_smoke
+        # smoke configs' counts are gated in phase_train_smoke
         "train": dict(train_kern["rmsnorm"],
                       launches_per_step=train["counts"]["rmsnorm"] //
-                      TRAIN_STEPS)})
+                      TRAIN_STEPS,
+                      moe_launches_per_step=moe_train[
+                          "launches_per_step"]["rmsnorm"]),
+        "moe_serve_launches": moe_served["counts"]["rmsnorm"],
+        "moe_device_ms": {k: moe_served["profile"][k]["rmsnorm_ms"]
+                          for k in ("prefill", "decode")}})
+    rb = rms_bwd["4096x2048"]
+    kernels.append({
+        "name": "rmsnorm_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        # jax.grad of the formula: the JAX package has no kernel for it
+        "replaces": "src/repro/models/layers.py:45",
+        "kernels": "rmsnorm_bwd_row_kernel (or rmsnorm_bwd_any_kernel) + "
+                   "rmsnorm_bwd_cols_kernel",
+        # deepseek-moe-16b's 2-layer step: 40 calls of 2 launches a step
+        "launches": moe_train["counts"]["rmsnorm_bwd"],
+        "launches_per_step": moe_train["launches_per_step"]["rmsnorm_bwd"],
+        "calls_per_step": moe_train["launches_per_step"]["rmsnorm_bwd"] //
+        RN.BWD_LAUNCHES,
+        "max_abs_err": rms_bwd["max_abs_err"],
+        "max_rel_err": rms_bwd["max_rel_err"],
+        "ms": rb["ms"], "plain_ms": rb["plain_ms"],
+        "bound_ms": rb["bound_ms"], "bound_by": rb["bound_by"],
+        # F.rms_norm's backward alone (torch.autograd.grad), timed only
+        "library_ms": rb["library_ms"],
+        "lib_fwd_bwd_ms": rb["lib_fwd_bwd_ms"], "shape": rb["shape"],
+        "qwen_width": rms_bwd["4096x8192"],
+        "device_ms": moe_train["rmsnorm_bwd_device_ms"]})
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4191,6 +4945,12 @@ def main() -> int:
         "max_abs_err": fa_err, **fa,
         "device_ms": serve_prof["prefill"]["flash_ms"],
         "split_launches": split_launches,
+        "moe_serve_launches": moe_served["counts"]["flash_attention"],
+        "moe_train_launches_per_step":
+            moe_train["launches_per_step"]["flash_attention"],
+        "deepseek": dict(moe_served["attention"],
+                         device_ms=moe_served["profile"]["prefill"][
+                             "flash_ms"]),
         "train": dict({a: train_kern[a] for a in TRAIN_FLASH_SHAPES},
                       lse_route_err=train_kern["lse_routes"],
                       launches_per_step=train["counts"]["flash"] //
@@ -4292,10 +5052,17 @@ def main() -> int:
     serve_line["fp32_flash_routes"] = fp32_routes
     serve_line["profile"] = serve_prof
     train_line = {k: v for k, v in train.items() if k != "counts"}
+    moe_serve_line = {k: moe_served[k] for k in (
+        "n_params", "n_active", "prefill_ms", "decode_ms", "decode_bound_ms",
+        "tok_s", "peak_gb", "base_gb", "logit_err", "logit_err_alone",
+        "drops", "oracle", "profile")}
+    moe_train_line = {k: v for k, v in moe_train.items() if k != "counts"}
     print(json.dumps({"s_per_version": per_version,
                       "wire_bytes": wire_bytes, "serve": serve_line,
                       "gateway": gw, "train": train_line,
-                      "train_nemotron": nemotron}))
+                      "train_nemotron": nemotron,
+                      "serve_moe": moe_serve_line,
+                      "train_moe": moe_train_line}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

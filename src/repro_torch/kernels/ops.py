@@ -9,10 +9,12 @@ autograd: each forward goes through the dispatch below (the kernel on the
 card, the plain version on the CPU). ``FlashAttention``'s backward goes
 through ``flash_attention_bwd`` likewise: on the card the hand-written
 backward kernels (the JAX package's backward is jnp, ``_fa_bwd``), on the
-CPU its plain version over kv chunks. ``RMSNorm``'s backward is plain torch
-on both devices (the JAX package's RMSNorm has no custom VJP). Each
-``Function`` calls this module's ``flash_attention`` /
-``flash_attention_bwd`` / ``rmsnorm`` by name, and ``models/lstm.py::_Seq``
+CPU its plain version over kv chunks. ``RMSNorm``'s backward goes through
+``rmsnorm_bwd``: the hand-written backward kernel on the card (the JAX
+package's RMSNorm has no custom VJP: ``jax.grad`` differentiates the
+formula), ``ref.rmsnorm_bwd`` on the CPU. Each ``Function`` calls this
+module's ``flash_attention`` / ``flash_attention_bwd`` / ``rmsnorm`` /
+``rmsnorm_bwd`` by name, and ``models/lstm.py::_Seq``
 calls ``lstm_seq`` / ``lstm_seq_bwd`` by name, so a comparison that patches
 those names runs the whole model on the plain versions.
 """
@@ -55,6 +57,14 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     if x.device.type == "cpu":
         return ref.rmsnorm(x, scale, eps)
     return _rms.rmsnorm(x, scale, eps)
+
+
+def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6):
+    """The gradient of ``rmsnorm`` for the cotangent dy of y -> (dx in x's
+    dtype, dscale in scale's dtype); on the card two launches."""
+    if x.device.type == "cpu":
+        return ref.rmsnorm_bwd(x, scale, dy, eps)
+    return _rms.rmsnorm_bwd(x, scale, dy, eps)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -140,7 +150,8 @@ class FlashAttention(torch.autograd.Function):
 
 class RMSNorm(torch.autograd.Function):
     """``rmsnorm`` under autograd: ``RMSNorm.apply(x, scale, eps)``; the
-    backward is ``ref.rmsnorm_bwd``."""
+    backward is ``rmsnorm_bwd`` (the kernel on the card, ``ref.rmsnorm_bwd``
+    on the CPU)."""
 
     @staticmethod
     def forward(ctx, x, scale, eps):
@@ -151,7 +162,7 @@ class RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
-        dx, dscale = ref.rmsnorm_bwd(x, scale, dy, ctx.eps)
+        dx, dscale = rmsnorm_bwd(x, scale, dy.contiguous(), ctx.eps)
         return dx, dscale, None
 
 

@@ -6,8 +6,15 @@ x ``[..., D]`` and scale ``[D]`` (both float32 or both bfloat16) and
 returns ``x * rsqrt(mean(x^2) + eps) * scale``, computed in fp32 and
 stored in x's dtype.
 
-``rmsnorm.launches`` counts the launches this wrapper made, so a run can
-show that its path went through the kernel.
+``rmsnorm_bwd`` launches the backward for the cotangent dy of y: (dx like
+x, dscale like scale), the formula's gradient in fp32, in two launches (dx
+and each block's column partials of dscale, then the partials added in a
+fixed order; no atomics, so two runs give the same bits). It replaces
+``jax.grad`` of ``repro/models/layers.py::apply_norm``, which the JAX
+package runs as jnp.
+
+``rmsnorm.launches`` and ``rmsnorm_bwd.launches`` count the launches each
+wrapper made, so a run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -22,7 +29,14 @@ from repro_torch.kernels import build as kbuild
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu"
 
 _FNS = {torch.float32: "rmsnorm_f32", torch.bfloat16: "rmsnorm_bf16"}
+_BWD_FNS = {torch.float32: ("rmsnorm_bwd_rows_f32", "rmsnorm_bwd_cols_f32"),
+            torch.bfloat16: ("rmsnorm_bwd_rows_bf16",
+                             "rmsnorm_bwd_cols_bf16")}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}    # elements in 16 bytes
+# the backward's blocks (at most; one a row below it): each walks a strip
+# of rows and keeps one fp32 row of column partials
+BWD_BLOCKS = 264
+BWD_LAUNCHES = 2                   # kernel launches a backward call
 
 
 @functools.cache
@@ -37,6 +51,22 @@ def build() -> dict:
             [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[dtype] = fn
+    return fns
+
+
+@functools.cache
+def build_bwd() -> dict:
+    """The backward's bound C functions of each dtype: (rows, cols)."""
+    lib = kbuild.load(SOURCE)
+    fns = {}
+    for dtype, (rows_name, cols_name) in _BWD_FNS.items():
+        rows_fn, cols_fn = getattr(lib, rows_name), getattr(lib, cols_name)
+        rows_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
+            [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        cols_fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + \
+            [ctypes.c_void_p]
+        rows_fn.restype = cols_fn.restype = ctypes.c_int
+        fns[dtype] = (rows_fn, cols_fn)
     return fns
 
 
@@ -110,3 +140,54 @@ def rmsnorm(x, scale, eps: float = 1e-6):
 
 
 rmsnorm.launches = 0
+
+
+def _check_bwd(x, scale, dy):
+    """``_check`` of x and scale, then dy: x's shape, dtype and device,
+    contiguous; the device check last."""
+    if not all(isinstance(t, torch.Tensor) for t in (x, scale, dy)):
+        raise TypeError("rmsnorm backward kernel: takes torch tensors")
+    if dy.dtype != x.dtype:
+        raise ValueError(f"rmsnorm backward kernel: dy is {dy.dtype}, x is "
+                         f"{x.dtype}")
+    if dy.shape != x.shape:
+        raise ValueError(f"rmsnorm backward kernel: dy has shape "
+                         f"{tuple(dy.shape)}, x {tuple(x.shape)}")
+    if not dy.is_contiguous():
+        raise ValueError("rmsnorm backward kernel: dy must be contiguous")
+    rows, D = _check(x, scale)
+    if not dy.is_cuda or dy.get_device() != x.get_device():
+        raise ValueError(f"rmsnorm backward kernel: dy on {dy.device}, x on "
+                         f"{x.device}")
+    return rows, D
+
+
+def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6):
+    """Launch the backward on CUDA tensors x [..., D], scale [D] and the
+    cotangent dy like x: the rows launch (dx, and each block's fp32 column
+    partials of dscale), then the cols launch (dscale). Returns (dx like x,
+    dscale like scale). Raises on any other input or a failed launch."""
+    rows, D = _check_bwd(x, scale, dy)
+    rows_fn, cols_fn = build_bwd()[x.dtype]
+    dx = kbuild.empty_like(x)
+    dscale = kbuild.empty_like(scale)
+    blocks = min(rows, BWD_BLOCKS)
+    part = kbuild.empty(blocks, D, dtype=torch.float32, device=x.device)
+    ptrs = (x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr())
+    vec = D % _VEC[x.dtype] == 0 and all(p % 16 == 0 for p in ptrs)
+    with torch.cuda.device(x.device):
+        stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+        err = rows_fn(*ptrs, part.data_ptr(), rows, D, blocks, eps, vec,
+                      stream)
+        if err == 0:
+            rmsnorm_bwd.launches += 1
+            err = cols_fn(part.data_ptr(), dscale.data_ptr(), blocks, D,
+                          stream)
+    if err != 0:
+        raise RuntimeError(f"rmsnorm backward kernel launch failed: CUDA "
+                           f"error {err} (rows={rows} D={D} {x.dtype})")
+    rmsnorm_bwd.launches += 1
+    return dx, dscale
+
+
+rmsnorm_bwd.launches = 0

@@ -5,12 +5,17 @@ Serves an architecture (reduced by default, the published config with
 requests is packed into fixed batches (the last one padded), each batch is
 prefilled into a fresh KV cache, then decoded token by token. On the card
 every RMSNorm runs in the hand-written ``rmsnorm`` kernel and every prefill
-attention in the hand-written ``flash_attention`` kernel. The dense family
-runs; other families raise. Without ``--device cpu`` and without a card it
-raises: a run never drops to the CPU on its own.
+attention in the hand-written ``flash_attention`` kernel. The dense and moe
+families run (moe layers through the sort dispatch at the config's
+capacity factor, the reference's runtime); other families raise. Without
+``--device cpu`` and without a card it raises: a run never drops to the
+CPU on its own.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-110b \\
       --device cpu --requests 2 --batch 2 --prompt 8 --tokens 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
+      --device cpu --requests 2 --batch 2 --prompt 8 --tokens 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --full
 """
 from __future__ import annotations
 
@@ -54,7 +59,8 @@ def serve(cfg, *, requests: int, batch: int, prompt: int, tokens: int,
     ``tokens - 1`` greedy decode steps. Weights come from a
     ``torch.Generator`` on the device seeded with ``seed``. Returns
     ``{"tokens": int32 [requests, tokens] on the host, "launches":
-    {"rmsnorm": n, "flash_attention": n}, "prefill_s": [...], "decode_s":
+    {"rmsnorm": n, "flash_attention": n, "rmsnorm_bwd": 0}, "prefill_s":
+    [...], "decode_s":
     [...]}``, the seconds of each batch's prefill and of its decode steps
     on the host clock (each ends in a synchronize; the first batch's
     include the first allocations)."""
@@ -65,7 +71,8 @@ def serve(cfg, *, requests: int, batch: int, prompt: int, tokens: int,
     params = M.init_params(
         cfg, torch.Generator(device=dev).manual_seed(seed), dev)
     prompts = make_prompts(cfg, requests, prompt, seed)
-    launches0 = (RN.rmsnorm.launches, FA.flash_attention.launches)
+    launches0 = (RN.rmsnorm.launches, FA.flash_attention.launches,
+                 RN.rmsnorm_bwd.launches)
     out: List[torch.Tensor] = []
     prefill_s: List[float] = []
     decode_s: List[float] = []
@@ -99,7 +106,9 @@ def serve(cfg, *, requests: int, batch: int, prompt: int, tokens: int,
     return {"tokens": torch.cat(out),
             "launches": {"rmsnorm": RN.rmsnorm.launches - launches0[0],
                          "flash_attention":
-                             FA.flash_attention.launches - launches0[1]},
+                             FA.flash_attention.launches - launches0[1],
+                         "rmsnorm_bwd":
+                             RN.rmsnorm_bwd.launches - launches0[2]},
             "prefill_s": prefill_s, "decode_s": decode_s}
 
 

@@ -14,17 +14,20 @@ its packed size in ``bytes_sent``; ``--transport wire`` round-trips every
 protocol message through bytes and reports them as ``wire_bytes`` (the
 gradient crosses decoded, as in the JAX package).
 
-``--arch <id>`` trains a dense architecture (its smoke config, or the
-published one with ``--full``) as ``repro.launch.train --arch`` does: the
+``--arch <id>`` trains a dense or moe architecture (its smoke config, or
+the published one with ``--full``) as ``repro.launch.train --arch`` does:
+the
 same step (``distributed/steps.py``: microbatch gradients summed in an fp32
 accumulator, one mean and one optimizer update a step), the same
 optimizers, the same random token batches (``RandomState(seed)``, one draw
 a step), the same checkpoint files (``--ckpt``). Every attention runs the
 hand-written flash kernel under autograd (once a layer a microbatch, and
 again in the backward under remat), writing its log-sum-exp for the plain
-backward; every RMSNorm the ``rmsnorm`` kernel. The JAX package binds the
-step to a device mesh; the port runs it on one card. Other families raise,
-naming the ROADMAP item that brings them.
+backward; every RMSNorm the ``rmsnorm`` kernel forward and the
+``rmsnorm_bwd`` kernel backward; a moe layer's router loss joins the loss
+at ``router_aux_weight``. The JAX package binds the step to a device mesh;
+the port runs it on one card. Other families raise, naming the ROADMAP
+item that brings them.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --paper --workers 3 --versions 3
@@ -32,6 +35,7 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --paper --device cpu --versions 1
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b --full --batch 8 --seq 4096 --micro 8 --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-110b --device cpu --steps 2 --batch 4 --seq 16 --micro 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-moe-16b --device cpu --steps 2 --batch 4 --seq 16 --micro 2
 """
 from __future__ import annotations
 
@@ -118,8 +122,8 @@ def sample_batch(rng, spec, vocab: int, device):
     out = {}
     for k, s in spec.items():
         if s.dtype != torch.int32:
-            raise ValueError(f"batch entry {k}: {s.dtype}; the dense family "
-                             f"trains on tokens only")
+            raise ValueError(f"batch entry {k}: {s.dtype}; the dense and "
+                             f"moe families train on tokens only")
         out[k] = torch.from_numpy(rng.randint(0, vocab, size=s.shape)
                                   .astype(np.int32)).to(device)
     return out
@@ -155,8 +159,8 @@ def run_arch(cfg, *, steps: int = 20, ckpt=None, ckpt_every: int = 50,
     and print the reference's lines, each step's with its kernel launches.
     Returns dict(params, opt_state, losses, step_s (each step's seconds on
     the host clock, ending in a synchronize), launches (per step: flash,
-    flash writing lse, flash backward, rmsnorm), n_params, n_micro,
-    store)."""
+    flash writing lse, flash backward, rmsnorm, rmsnorm backward),
+    n_params, n_micro, store)."""
     run = setup_arch(cfg, **setup)
     dev, bound = run["device"], run["bound"]
     # popped: each step's inputs are freed once its outputs exist
@@ -171,7 +175,7 @@ def run_arch(cfg, *, steps: int = 20, ckpt=None, ckpt_every: int = 50,
         batch = sample_batch(run["rng"], bound["batch_shape"], cfg.vocab, dev)
         before = (FA.flash_attention.launches,
                   FA.flash_attention.lse_launches, RN.rmsnorm.launches,
-                  FA.flash_attention_bwd.launches)
+                  FA.flash_attention_bwd.launches, RN.rmsnorm_bwd.launches)
         _sync(dev)
         ts = time.perf_counter()
         params, opt_state, mets = bound["step"](params, opt_state, batch)
@@ -184,7 +188,8 @@ def run_arch(cfg, *, steps: int = 20, ckpt=None, ckpt_every: int = 50,
                          before[1],
                          "flash_bwd": FA.flash_attention_bwd.launches -
                          before[3],
-                         "rmsnorm": RN.rmsnorm.launches - before[2]})
+                         "rmsnorm": RN.rmsnorm.launches - before[2],
+                         "rmsnorm_bwd": RN.rmsnorm_bwd.launches - before[4]})
         if step % max(steps // 10, 1) == 0 or step == steps - 1:
             print(f"  step {step:4d} loss {losses[-1]:.4f} "
                   f"({(time.time() - t0) / (step + 1):.2f}s/step; this step "

@@ -1,5 +1,5 @@
 """Transformer blocks and the loop over stacked layers, as
-``repro.models.blocks`` for the dense family.
+``repro.models.blocks`` for the dense and moe families.
 
 A dense model's repeating unit is one layer. Layers are initialised one by
 one and stacked leaf-wise under ``l0``, the JAX package's ``blocks.l0``
@@ -13,7 +13,11 @@ of a stack is one ``stack`` of its layers' gradients, not one full-size
 zero gradient a layer. With ``rt.remat`` and a gradient wanted, each layer
 runs under ``torch.utils.checkpoint`` (the JAX package's
 ``jax.checkpoint`` of the scan body): its activations are recomputed in
-the backward, kernels included.
+the backward, kernels included. A moe layer's feed-forward is
+``models/moe.py`` (with a dense MLP beside it when the config has a dense
+residual, as Arctic does); without a cache each layer returns its router's
+aux loss, which the loop sums (through the checkpoint too). A cached
+prefill or decode takes no loss, so it computes none.
 """
 from __future__ import annotations
 
@@ -24,19 +28,20 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
-# the ROADMAP item that ports each family this slice does not run
+# the ROADMAP item that ports each family the port does not run yet
 _NOT_PORTED = {
-    "moe": "ROADMAP 'Next, in order': the moe family (models/moe.py)",
-    "ssm": "ROADMAP 'Next, in order': the ssm and hybrid families "
+    "ssm": "ROADMAP Queue 1 item 7: the ssm and hybrid families "
            "(models/ssm.py)",
-    "hybrid": "ROADMAP 'Next, in order': the ssm and hybrid families "
-              "(models/ssm.py, models/moe.py)",
-    "encdec": "ROADMAP 'Next, in order': the encdec and vlm families "
+    "hybrid": "ROADMAP Queue 1 item 7: the ssm and hybrid families "
+              "(models/ssm.py, the hybrid period)",
+    "encdec": "ROADMAP Queue 1 item 8: the encdec and vlm families "
               "(encoder, cross-attention)",
-    "vlm": "ROADMAP 'Next, in order': the encdec and vlm families "
+    "vlm": "ROADMAP Queue 1 item 8: the encdec and vlm families "
            "(patch-prefix prefill)",
 }
+_PORTED = ("dense", "moe")
 
 
 def check_family(cfg) -> None:
@@ -45,7 +50,7 @@ def check_family(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet; see "
             f"{_NOT_PORTED[cfg.family]}")
-    if cfg.family != "dense":
+    if cfg.family not in _PORTED:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} has no "
                          f"transformer blocks")
 
@@ -55,11 +60,19 @@ def check_family(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 def _init_sublayer(generator, cfg, dtype, device):
-    """One residual layer: norm1 + attention + norm2 + mlp."""
-    return {"norm1": L.init_norm(cfg.norm, cfg.d_model, dtype, device),
-            "attn": L.init_attention(generator, cfg, dtype, device),
-            "norm2": L.init_norm(cfg.norm, cfg.d_model, dtype, device),
-            "mlp": L.init_mlp(generator, cfg, dtype, device)}
+    """One residual layer: norm1 + attention + norm2 + the feed-forward (an
+    mlp; or moe, with an mlp beside it under a dense residual). Every layer
+    is layer 0 of its one-layer unit, as in the JAX package's scan."""
+    p = {"norm1": L.init_norm(cfg.norm, cfg.d_model, dtype, device),
+         "attn": L.init_attention(generator, cfg, dtype, device),
+         "norm2": L.init_norm(cfg.norm, cfg.d_model, dtype, device)}
+    if cfg.layer_is_moe(0):
+        p["moe"] = MOE.init_moe(generator, cfg, dtype, device)
+        if cfg.moe.dense_residual:
+            p["mlp"] = L.init_mlp(generator, cfg, dtype, device)
+    else:
+        p["mlp"] = L.init_mlp(generator, cfg, dtype, device)
+    return p
 
 
 def init_stacked_units(generator, cfg, dtype, device):
@@ -94,10 +107,12 @@ def init_cache(cfg, batch: int, max_seq: int, dtype, device):
 # sublayer / unit application
 # ---------------------------------------------------------------------------
 
-def _apply_sublayer(p, x, cfg, *, positions, pos, cache: Optional[dict],
-                    causal: bool = True, window: int = 0):
+def _apply_sublayer(p, x, cfg, rt, *, positions, pos,
+                    cache: Optional[dict], causal: bool = True,
+                    window: int = 0):
     """One layer; its k/v go into ``cache`` (a layer's slice) in place.
-    Returns x."""
+    Returns (x, aux): aux the router's load-balance loss (fp32), None
+    without moe or with a cache."""
     h = L.apply_norm(cfg.norm, p["norm1"], x)
     attn_cache = None
     if cache is not None:
@@ -105,7 +120,14 @@ def _apply_sublayer(p, x, cfg, *, positions, pos, cache: Optional[dict],
     x = x + L.self_attention(p["attn"], h, cfg, positions=positions,
                              causal=causal, window=window, cache=attn_cache)
     h2 = L.apply_norm(cfg.norm, p["norm2"], x)
-    return x + L.apply_mlp(p["mlp"], h2, cfg.mlp)
+    aux = y = None
+    if "moe" in p:
+        y, aux = MOE.apply_moe(p["moe"], h2, cfg, rt,
+                               with_aux=cache is None)
+    if "mlp" in p:
+        ym = L.apply_mlp(p["mlp"], h2, cfg.mlp)
+        y = ym if y is None else y + ym
+    return x + y, aux
 
 
 def unstack(stacked, n: int):
@@ -121,18 +143,25 @@ def unstack(stacked, n: int):
 def scan_units(units_p, x, cfg, rt, *, positions, pos=None, cache=None,
                causal: bool = True, window: int = 0):
     """The stacked layers in order (the JAX package's ``lax.scan``).
-    Returns (x, cache): the cache given, updated in place, or None."""
+    Returns (x, cache, aux): the cache given, updated in place, or None;
+    aux the layers' router losses summed (fp32), None without moe layers
+    or with a cache."""
     remat = rt.remat and cache is None and torch.is_grad_enabled()
+    aux = None
     for i, layer in enumerate(unstack(units_p["l0"], cfg.n_layers)):
         if remat:
-            x = checkpoint(_apply_sublayer, layer, x, cfg,
-                           positions=positions, pos=pos, cache=None,
-                           causal=causal, window=window,
-                           use_reentrant=False)
-            continue
-        layer_cache = None
-        if cache is not None:
-            layer_cache = {"k": cache["l0"]["k"][i], "v": cache["l0"]["v"][i]}
-        x = _apply_sublayer(layer, x, cfg, positions=positions, pos=pos,
-                            cache=layer_cache, causal=causal, window=window)
-    return x, cache
+            x, a = checkpoint(_apply_sublayer, layer, x, cfg, rt,
+                              positions=positions, pos=pos, cache=None,
+                              causal=causal, window=window,
+                              use_reentrant=False)
+        else:
+            layer_cache = None
+            if cache is not None:
+                layer_cache = {"k": cache["l0"]["k"][i],
+                               "v": cache["l0"]["v"][i]}
+            x, a = _apply_sublayer(layer, x, cfg, rt, positions=positions,
+                                   pos=pos, cache=layer_cache, causal=causal,
+                                   window=window)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, cache, aux

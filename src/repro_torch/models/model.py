@@ -1,4 +1,4 @@
-"""Top-level model API of the dense transformer family, as
+"""Top-level model API of the dense and moe transformer families, as
 ``repro.models.model``: init, forward, the training loss, prefill and
 decode, batch specs and the parameter count.
 
@@ -7,7 +7,9 @@ holds ``S + 1`` tokens a row (inputs and next-token labels). Decode: one
 token per sequence against a KV cache of ``max_seq`` positions. ``rt``
 (``models/runtime.py``) picks the attention implementation and remat;
 serving passes ``runtime.DEFAULT``, and decode always masks with
-``cfg.sliding_window``. The moe/ssm/hybrid/encdec/vlm families come in
+``cfg.sliding_window``. ``forward`` returns the moe layers' summed router
+loss beside the logits (0 for the dense family), which ``loss_fn`` adds at
+``cfg.moe.router_aux_weight``. The ssm/hybrid/encdec/vlm families come in
 later slices (``init_params`` and ``init_cache`` raise for them).
 """
 from __future__ import annotations
@@ -81,14 +83,16 @@ def _positions(tokens, start: int = 0):
 
 def forward(params, cfg, rt, batch, *, start_pos: int = 0
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits [B, S, V], aux = 0)."""
+    """Full-sequence forward. Returns (logits [B, S, V], aux): aux the
+    layers' router losses summed (fp32; 0 without moe layers)."""
     B.check_family(cfg)
     tokens = batch["tokens"]
     x = _embed(cfg, params, tokens)
-    x, _ = B.scan_units(params["blocks"], x, cfg, rt,
-                        positions=_positions(tokens, start_pos))
+    x, _, aux = B.scan_units(params["blocks"], x, cfg, rt,
+                             positions=_positions(tokens, start_pos))
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(cfg, params, x), aux
 
 
@@ -124,8 +128,9 @@ def prefill(params, cfg, rt, batch, cache) -> Tuple[torch.Tensor, Any]:
     B.check_family(cfg)
     tokens = batch["tokens"]
     x = _embed(cfg, params, tokens)
-    x, cache = B.scan_units(params["blocks"], x, cfg, rt,
-                            positions=_positions(tokens), pos=0, cache=cache)
+    x, cache, _ = B.scan_units(params["blocks"], x, cfg, rt,
+                               positions=_positions(tokens), pos=0,
+                               cache=cache)
     x = L.apply_norm(cfg.norm, params["final_norm"], x[:, -1:])
     return _logits(cfg, params, x)[:, 0], cache
 
@@ -139,9 +144,9 @@ def decode_step(params, cfg, rt, token, cache, pos: int
     x = _embed(cfg, params, token[:, None])
     positions = torch.full((token.shape[0], 1), pos, dtype=torch.int32,
                            device=token.device)
-    x, cache = B.scan_units(params["blocks"], x, cfg, rt,
-                            positions=positions, pos=pos, cache=cache,
-                            window=cfg.sliding_window)
+    x, cache, _ = B.scan_units(params["blocks"], x, cfg, rt,
+                               positions=positions, pos=pos, cache=cache,
+                               window=cfg.sliding_window)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     return _logits(cfg, params, x)[:, 0], cache
 
@@ -158,14 +163,23 @@ class Spec(NamedTuple):
 
 def train_batch_spec(cfg, shape) -> Dict[str, Spec]:
     """One global training batch of the ``InputShape``: ``S + 1`` tokens a
-    row (the dense family)."""
+    row (the dense and moe families)."""
     B.check_family(cfg)
     return {"tokens": Spec((shape.global_batch, shape.seq_len + 1),
                            torch.int32)}
 
 
-def param_count(cfg) -> int:
+def param_count(cfg, active_only: bool = False) -> int:
     """Parameters of ``init_params``'s tree, counted on the meta device
-    (nothing is allocated)."""
+    (nothing is allocated). With ``active_only`` the routed experts
+    (``blocks.l0.moe.experts``) count at ``top_k / num_experts`` (the
+    parameters a token runs through), as
+    ``repro.models.model.param_count`` counts them."""
     p = init_params(cfg, None, "meta")
-    return sum(t.numel() for t in tree.leaves(p))
+    total = sum(t.numel() for t in tree.leaves(p))
+    if active_only and "moe" in p["blocks"]["l0"]:
+        m = cfg.moe
+        experts = sum(t.numel() for t in tree.leaves(
+            p["blocks"]["l0"]["moe"]["experts"]))
+        total -= experts * (1 - m.top_k / max(m.num_experts, 1))
+    return int(total)

@@ -39,6 +39,25 @@ def leaves(tree, is_leaf: IsLeaf = None) -> List[Any]:
     return out
 
 
+def leaf_paths(tree) -> List[Tuple[Any, ...]]:
+    """The key path of each leaf (dict keys, sequence indices), in
+    ``leaves`` order: ``jax.tree_util.tree_flatten_with_path``'s keys."""
+    out: List[Tuple[Any, ...]] = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,))
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, path + (i,))
+        else:
+            out.append(path)
+
+    walk(tree, ())
+    return out
+
+
 def flatten(tree) -> Tuple[List[Any], Any]:
     """(leaves, spec): ``unflatten(spec, leaves)`` rebuilds the tree. The
     spec is the tree itself; only its containers are read back."""

@@ -207,9 +207,8 @@ def test_config_registry_matches_jax():
                                                        128, "decode")
 
 
-@pytest.mark.parametrize("arch", ["arctic-480b", "falcon-mamba-7b",
-                                  "jamba-v0.1-52b", "whisper-base",
-                                  "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-v0.1-52b",
+                                  "whisper-base", "internvl2-1b"])
 def test_unported_families_raise(arch):
     cfg = TC.get_smoke(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -231,7 +230,8 @@ def test_serve_on_the_cpu():
         torch.int32
     assert ((res["tokens"] >= 0) & (res["tokens"] < cfg.vocab)).all()
     # on the CPU the plain versions run: no kernel launch is counted
-    assert res["launches"] == {"rmsnorm": 0, "flash_attention": 0}
+    assert res["launches"] == {"rmsnorm": 0, "flash_attention": 0,
+                               "rmsnorm_bwd": 0}
     assert (RN.rmsnorm.launches, FA.flash_attention.launches) == before
     assert len(res["prefill_s"]) == len(res["decode_s"]) == 2
     assert min(res["prefill_s"] + res["decode_s"]) > 0

@@ -418,12 +418,12 @@ def test_run_arch_returns_the_checkpointed_state(tmp_path):
     assert len(res["step_s"]) == len(res["launches"]) == 2
     # the CPU runs the plain versions: no kernel launch
     assert res["launches"][0] == {"flash_attention": 0, "flash_lse": 0,
-                                  "flash_bwd": 0, "rmsnorm": 0}
+                                  "flash_bwd": 0, "rmsnorm": 0,
+                                  "rmsnorm_bwd": 0}
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "falcon-mamba-7b",
-                                  "jamba-v0.1-52b", "whisper-base",
-                                  "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-v0.1-52b",
+                                  "whisper-base", "internvl2-1b"])
 def test_arch_refuses_families_not_ported(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TRAIN.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
