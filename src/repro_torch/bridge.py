@@ -6,8 +6,12 @@ LSTM kernel ``[Din+H, 4H]`` in Keras gate order i,f,g,o, bias ``[4H]``, head
 ``w [H, V]`` and ``b [V]``; optimizer state ``{"ms": tree, "step": int32}``
 (RMSprop), ``{"m", "v", "step"}`` (AdamW), ``{"mu", "step"}`` or
 ``{"step"}`` (SGD with and without momentum);
-a transformer's ``{"embed", "blocks": {"l0": ...stacked over layers},
-"final_norm", "unembed"}`` with every leaf in the JAX shape.
+a transformer's ``{"embed", "blocks": {"l0": ..., "l{P-1}": ...},
+"final_norm", "unembed"}`` with every leaf in the JAX shape, each of a
+unit's sublayers stacked over the units (one layer a unit, the 8-layer
+period for the hybrid family), and each leaf in its own dtype: an ssm
+layer's ``dt_bias``, ``A_log`` and ``Dskip`` and a moe layer's router stay
+fp32 inside a bf16 tree.
 
 A bfloat16 leaf (numpy's ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses) crosses as its raw 16-bit words, bit for bit, as

@@ -3,19 +3,23 @@
 Serves an architecture (reduced by default, the published config with
 ``--full``) as the JAX package's ``repro.launch.serve`` does: a queue of
 requests is packed into fixed batches (the last one padded), each batch is
-prefilled into a fresh KV cache, then decoded token by token. On the card
-every RMSNorm runs in the hand-written ``rmsnorm`` kernel and every prefill
-attention in the hand-written ``flash_attention`` kernel. The dense and moe
-families run (moe layers through the sort dispatch at the config's
-capacity factor, the reference's runtime); other families raise. Without
-``--device cpu`` and without a card it raises: a run never drops to the
-CPU on its own.
+prefilled into a fresh KV/SSM cache, then decoded token by token. On the
+card every RMSNorm runs in the hand-written ``rmsnorm`` kernel and every
+prefill attention in the hand-written ``flash_attention`` kernel. The
+dense, moe, ssm and hybrid families run (moe layers through the sort
+dispatch at the config's capacity factor, the reference's runtime; ssm
+layers through the chunked selective scan, plain torch); the encdec and
+vlm families raise. Without ``--device cpu`` and without a card it raises:
+a run never drops to the CPU on its own.
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+      --device cpu --requests 8 --batch 4 --prompt 32 --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-110b \\
       --device cpu --requests 2 --batch 2 --prompt 8 --tokens 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
       --device cpu --requests 2 --batch 2 --prompt 8 --tokens 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --full
 """
 from __future__ import annotations
 

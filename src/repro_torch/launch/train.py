@@ -14,8 +14,8 @@ its packed size in ``bytes_sent``; ``--transport wire`` round-trips every
 protocol message through bytes and reports them as ``wire_bytes`` (the
 gradient crosses decoded, as in the JAX package).
 
-``--arch <id>`` trains a dense or moe architecture (its smoke config, or
-the published one with ``--full``) as ``repro.launch.train --arch`` does:
+``--arch <id>`` trains a dense, moe, ssm or hybrid architecture (its
+smoke config, or the published one with ``--full``) as ``repro.launch.train --arch`` does:
 the
 same step (``distributed/steps.py``: microbatch gradients summed in an fp32
 accumulator, one mean and one optimizer update a step), the same
@@ -25,8 +25,9 @@ hand-written flash kernel under autograd (once a layer a microbatch, and
 again in the backward under remat), writing its log-sum-exp for the plain
 backward; every RMSNorm the ``rmsnorm`` kernel forward and the
 ``rmsnorm_bwd`` kernel backward; a moe layer's router loss joins the loss
-at ``router_aux_weight``. The JAX package binds the step to a device mesh;
-the port runs it on one card. Other families raise, naming the ROADMAP
+at ``router_aux_weight``; an ssm layer's selective scan runs in plain torch
+under autograd. The JAX package binds the step to a device mesh; the port
+runs it on one card. The encdec and vlm families raise, naming the ROADMAP
 item that brings them.
 
 Examples:
@@ -36,6 +37,7 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b --full --batch 8 --seq 4096 --micro 8 --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-110b --device cpu --steps 2 --batch 4 --seq 16 --micro 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-moe-16b --device cpu --steps 2 --batch 4 --seq 16 --micro 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b --device cpu --steps 1
 """
 from __future__ import annotations
 
@@ -122,8 +124,8 @@ def sample_batch(rng, spec, vocab: int, device):
     out = {}
     for k, s in spec.items():
         if s.dtype != torch.int32:
-            raise ValueError(f"batch entry {k}: {s.dtype}; the dense and "
-                             f"moe families train on tokens only")
+            raise ValueError(f"batch entry {k}: {s.dtype}; the families "
+                             f"the port trains take tokens only")
         out[k] = torch.from_numpy(rng.randint(0, vocab, size=s.shape)
                                   .astype(np.int32)).to(device)
     return out

@@ -1,16 +1,18 @@
-"""Top-level model API of the dense and moe transformer families, as
+"""Top-level model API of the dense, moe, ssm and hybrid families, as
 ``repro.models.model``: init, forward, the training loss, prefill and
 decode, batch specs and the parameter count.
 
 Batch convention (integer tokens): ``{"tokens": [B, S]}``; a training batch
 holds ``S + 1`` tokens a row (inputs and next-token labels). Decode: one
-token per sequence against a KV cache of ``max_seq`` positions. ``rt``
-(``models/runtime.py``) picks the attention implementation and remat;
-serving passes ``runtime.DEFAULT``, and decode always masks with
-``cfg.sliding_window``. ``forward`` returns the moe layers' summed router
-loss beside the logits (0 for the dense family), which ``loss_fn`` adds at
-``cfg.moe.router_aux_weight``. The ssm/hybrid/encdec/vlm families come in
-later slices (``init_params`` and ``init_cache`` raise for them).
+token per sequence against a cache of ``max_seq`` positions (k/v for the
+attention layers, the conv window and the fp32 scan state for the ssm
+layers). ``rt`` (``models/runtime.py``) picks remat, the moe dispatch and
+the scan's chunk; serving passes ``runtime.DEFAULT``, and decode always
+masks with ``cfg.sliding_window``. ``forward`` returns the moe layers'
+summed router loss beside the logits (0 without moe layers), which
+``loss_fn`` adds at ``cfg.moe.router_aux_weight``. The encdec and vlm
+families come in a later slice (``init_params`` and ``init_cache`` raise
+for them).
 """
 from __future__ import annotations
 
@@ -40,8 +42,9 @@ def init_params(cfg, generator: torch.Generator, device) -> Params:
     """Random params in ``cfg.dtype`` from ``generator``, drawn on the
     generator's device (torch's stream, not JAX's: the tests carry JAX's
     weights across with ``bridge``); with no generator, unfilled (on the
-    meta device: shapes only). The JAX tree: embed, final_norm, blocks.l0
-    (stacked), unembed (unless tied)."""
+    meta device: shapes only). The JAX tree: embed, final_norm,
+    blocks.l0..l{P-1} (each stacked over the units), unembed (unless
+    tied)."""
     B.check_family(cfg)
     dt = _dtype(cfg)
     V = cfg.padded_vocab
@@ -117,7 +120,7 @@ def loss_fn(params, cfg, rt, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_seq: int, device="cpu"):
-    """Zeroed KV cache in ``cfg.dtype``."""
+    """Zeroed decode cache in ``cfg.dtype`` (an ssm layer's h in fp32)."""
     return B.init_cache(cfg, batch, max_seq, _dtype(cfg), device)
 
 
@@ -163,7 +166,7 @@ class Spec(NamedTuple):
 
 def train_batch_spec(cfg, shape) -> Dict[str, Spec]:
     """One global training batch of the ``InputShape``: ``S + 1`` tokens a
-    row (the dense and moe families)."""
+    row (the dense, moe, ssm and hybrid families)."""
     B.check_family(cfg)
     return {"tokens": Spec((shape.global_batch, shape.seq_len + 1),
                            torch.int32)}
@@ -171,15 +174,16 @@ def train_batch_spec(cfg, shape) -> Dict[str, Spec]:
 
 def param_count(cfg, active_only: bool = False) -> int:
     """Parameters of ``init_params``'s tree, counted on the meta device
-    (nothing is allocated). With ``active_only`` the routed experts
-    (``blocks.l0.moe.experts``) count at ``top_k / num_experts`` (the
-    parameters a token runs through), as
-    ``repro.models.model.param_count`` counts them."""
+    (nothing is allocated). With ``active_only`` every leaf under an
+    ``experts`` key, wherever it sits (jamba's in l1, l3, l5 and l7),
+    counts at ``top_k / num_experts`` (the parameters a token runs
+    through), as ``repro.models.model.param_count`` counts them."""
     p = init_params(cfg, None, "meta")
-    total = sum(t.numel() for t in tree.leaves(p))
-    if active_only and "moe" in p["blocks"]["l0"]:
-        m = cfg.moe
-        experts = sum(t.numel() for t in tree.leaves(
-            p["blocks"]["l0"]["moe"]["experts"]))
-        total -= experts * (1 - m.top_k / max(m.num_experts, 1))
+    m = cfg.moe
+    total = 0
+    for path, t in zip(tree.leaf_paths(p), tree.leaves(p)):
+        n = t.numel()
+        if active_only and "experts" in path:
+            n = n * (m.top_k / max(m.num_experts, 1))
+        total += n
     return int(total)

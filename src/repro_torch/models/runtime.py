@@ -8,13 +8,15 @@ family's ``moe_impl`` (``"sort"``, the capacity-bounded dispatch at
 ``cfg.moe.capacity_factor``, or ``"dense"``, the all-experts oracle the
 tests hold the sort path to).
 Left out until a path of the port reads them: ``capacity_factor`` and
-``cf`` (no entry point overrides the config's factor), ``attn_impl`` and the
+``cf`` (no entry point overrides the config's factor), ``ssm_chunk`` and
+``sschunk`` (no entry point overrides the scan's chunk; ``models/ssm.py``
+reads ``cfg.ssm.chunk``), ``attn_impl`` and the
 ``BASELINE`` instance (the port always attends through the flash kernel
 where there is no cache; ``plain_kernels()`` in ``chip_smoke.py`` swaps in
 the plain versions for a comparison), ``kv_chunk`` (the flash backward's kv
 chunk is ``kernels.ops.KV_CHUNK``), the expert-parallel knobs
-(``moe_expert_axis``, ``moe_token_axes``; ROADMAP Queue 1 item 9),
-``ssm_chunk`` (item 7), the sharding hints (``seq_parallel``, ``act_spec``,
+(``moe_expert_axis``, ``moe_token_axes``; ROADMAP Queue 1 item 9), the
+sharding hints (``seq_parallel``, ``act_spec``,
 ``act_inner_spec``; item 9), ``decode_window_only`` (decode always masks
 with ``cfg.sliding_window``), ``scan_layers`` (the port always loops over
 stacked layers) and ``use_pallas`` / ``pallas_interpret`` (the port's

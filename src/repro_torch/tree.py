@@ -3,6 +3,11 @@
 Stands in for ``jax.tree`` in the port. Leaves are visited in ``jax.tree``
 order — dict keys sorted, sequences in order — so a flattened gradient or
 model has the same leaf order on both sides of the bridge.
+
+The walks recurse through module-level functions, not nested closures: a
+nested function that calls itself is a reference cycle, which would keep
+the list of leaves it built (a whole model's tensors) alive until the
+garbage collector's next full pass.
 """
 from __future__ import annotations
 
@@ -22,40 +27,40 @@ def leaves(tree, is_leaf: IsLeaf = None) -> List[Any]:
     """Leaves in ``jax.tree.leaves`` order. ``is_leaf`` marks containers
     that count as one leaf, as in ``jax.tree``."""
     out: List[Any] = []
-
-    def walk(t):
-        if is_leaf is not None and is_leaf(t):
-            out.append(t)
-        elif isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k])
-        elif isinstance(t, (list, tuple)):
-            for v in t:
-                walk(v)
-        else:
-            out.append(t)
-
-    walk(tree)
+    _walk_leaves(tree, is_leaf, out)
     return out
+
+
+def _walk_leaves(t, is_leaf: IsLeaf, out: List[Any]) -> None:
+    if is_leaf is not None and is_leaf(t):
+        out.append(t)
+    elif isinstance(t, dict):
+        for k in sorted(t):
+            _walk_leaves(t[k], is_leaf, out)
+    elif isinstance(t, (list, tuple)):
+        for v in t:
+            _walk_leaves(v, is_leaf, out)
+    else:
+        out.append(t)
 
 
 def leaf_paths(tree) -> List[Tuple[Any, ...]]:
     """The key path of each leaf (dict keys, sequence indices), in
     ``leaves`` order: ``jax.tree_util.tree_flatten_with_path``'s keys."""
     out: List[Tuple[Any, ...]] = []
-
-    def walk(t, path):
-        if isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k], path + (k,))
-        elif isinstance(t, (list, tuple)):
-            for i, v in enumerate(t):
-                walk(v, path + (i,))
-        else:
-            out.append(path)
-
-    walk(tree, ())
+    _walk_paths(tree, (), out)
     return out
+
+
+def _walk_paths(t, path, out: List[Tuple[Any, ...]]) -> None:
+    if isinstance(t, dict):
+        for k in sorted(t):
+            _walk_paths(t[k], path + (k,), out)
+    elif isinstance(t, (list, tuple)):
+        for i, v in enumerate(t):
+            _walk_paths(v, path + (i,), out)
+    else:
+        out.append(path)
 
 
 def flatten(tree) -> Tuple[List[Any], Any]:
@@ -66,19 +71,19 @@ def flatten(tree) -> Tuple[List[Any], Any]:
 
 def unflatten(spec, new_leaves) -> Any:
     it = iter(new_leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
-
-    out = build(spec)
+    out = _build(spec, it)
     if next(it, None) is not None:
         raise ValueError("unflatten: more leaves than the spec holds")
     return out
+
+
+def _build(t, it) -> Any:
+    if isinstance(t, dict):
+        built = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: built[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    return next(it)
 
 
 def map(fn: Callable, tree, *rest, is_leaf: IsLeaf = None) -> Any:  # noqa: A001 - mirrors jax.tree.map

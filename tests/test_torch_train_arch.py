@@ -422,8 +422,7 @@ def test_run_arch_returns_the_checkpointed_state(tmp_path):
                                   "rmsnorm_bwd": 0}
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-v0.1-52b",
-                                  "whisper-base", "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-1b"])
 def test_arch_refuses_families_not_ported(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TRAIN.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
