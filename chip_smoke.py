@@ -180,16 +180,45 @@ Phases, each printing its result; any failure exits non-zero:
    flash forward at the prefill's shape (B=4, S=1,024, 32 over 8 heads, hd
    128, causal, bf16) on the wgmma route, timed beside SDPA; then one
    period (8 layers) in fp32 held at 1e-4, routes replayed;
+6e. whisper-base at its published size (6 encoder + 6 decoder layers,
+   d_model 512, 8 heads, hd 64, LayerNorm, cross-attention, tied
+   embeddings; 70,655,488 parameters, bf16, random from seed 0) served by
+   ``serve`` (8 requests in batches of 4: 1,500 zero frame embeddings, the
+   conv/mel front end stubbed as in the reference, a 64-token prompt, 16
+   greedy tokens) with every count set to 0 just before and read just
+   after: exactly 12 flash launches a prefill (6 non-causal at S 1,500, 6
+   causal at S 64), all on ``wgmma``, none writing lse, no rmsnorm and no
+   backward launch; prefill and decode ms beside the decode's bound; the
+   kernel path against the plain path teacher-forced on the served tokens
+   and frames (the flash kernel alone gated at 2e-2, the whole path too
+   where two plain versions lie closer), a profiled prefill and decode
+   step; the flash forward with and without lse at B 4, S 1,500, 8/8, hd
+   64, non-causal (inputs x0.5 and x2, lse at 1e-5), timed beside SDPA,
+   the plain version and the bound (``hold_family_kernels``); then the
+   model in fp32 with frames from the seed at 1e-4;
+6f. internvl2-1b at its published size (24 layers, d_model 896, 14 over 2
+   heads, G = 7, hd 64, QKV bias, RMSNorm; 629,663,872 parameters, bf16)
+   served the same way (256 zero patch embeddings, the ViT and projector
+   stubbed, ahead of 1,024 prompt tokens; decode from position 1,280):
+   exactly 24 flash launches a prefill (S 1,280, G = 7) on ``wgmma`` and 49
+   rmsnorm a prefill and a decode step; the same holds, the flash kernel at
+   B 4, S 1,280, causal, G = 7, and rmsnorm at d_model 896 (``[5120,
+   896]`` and ``[4, 896]``, the warp-a-row kernel); the whole bf16 path and
+   the flash kernel alone printed, not gated, since its two plain versions
+   lie past 2% at 24 layers; the model in fp32 with patches from the seed
+   at 1e-4;
 7. the smoke configs of every family served, in fp32 (qwen1.5-110b;
-   deepseek-moe-16b, arctic-480b; falcon-mamba-7b; jamba-v0.1-52b), the
-   kernel path on the card against the plain path on the CPU (the runs with
-   experts replaying the card's expert choices): equal greedy tokens and
-   logits (and outside the dense family the forward's logits, and the
+   deepseek-moe-16b, arctic-480b; falcon-mamba-7b; jamba-v0.1-52b;
+   whisper-base; internvl2-1b, with frames or patches from a numpy seed),
+   the kernel path on the card against the plain path on the CPU (the runs
+   with experts replaying the card's expert choices): equal greedy tokens
+   and logits (and outside the dense family the forward's logits, and the
    router loss where there are experts) within the stated tolerance;
 7b. the RMSNorm backward kernel (``rmsnorm_bwd``: dx and the blocks'
    column partials, then dscale; no atomics) against ``ref.rmsnorm_bwd``
-   over the JAX sweep in fp32 and bf16 and at ``[4096, 8192]`` and
-   ``[4096, 2048]`` bf16, 2e-5 / 2e-2 of max |grad|, two runs bit-equal,
+   over the JAX sweep in fp32 and bf16 and at ``[4096, 8192]``,
+   ``[4096, 2048]`` and ``[4096, 896]`` (internvl2-1b's) bf16, 2e-5 / 2e-2
+   of max |grad|, two runs bit-equal,
    timed at the two training shapes beside the plain backward,
    ``F.rms_norm``'s forward + backward and backward alone, and its bound;
 8. the transformer kernels as training runs them, at full width: the flash
@@ -214,12 +243,16 @@ Phases, each printing its result; any failure exits non-zero:
    against the plain lse; ``FlashAttention``
    (the kernel's forward writing lse, then the backward kernels) at
    stablelm-1.6b's shape (B=1, S=4,096, 32 heads, hd 64),
-   qwen1.5-110b's (S=1,024, 64 over 8 heads, hd 128) and
-   nemotron-4-340b's (S=4,096, 96 over 8 heads, hd 192), bf16, causal: the
+   qwen1.5-110b's (S=1,024, 64 over 8 heads, hd 128),
+   nemotron-4-340b's (S=4,096, 96 over 8 heads, hd 192), internvl2-1b's
+   (S=4,096, 14 over 2 heads, G = 7, hd 64), all causal, and whisper-base's
+   encoder (B=2, S=1,500, 8 heads, hd 64, non-causal), bf16: the
    lse against the plain lse, dq/dk/dv against the plain forward and
    backward within 2e-2 of max |grad| beside the bf16 plain path's distance
    from an fp32 one, the backward kernels against the plain backward on
-   the same out and lse; at nemotron's shape the forward also held at the
+   the same out and lse, the forward and backward launched from a fresh
+   thread (whose first CUDA call is the tensor-map encode, as autograd's
+   worker thread's can be) bit-equal to this thread's; at nemotron's shape the forward also held at the
    qwen gate and timed in turns, with and without lse, beside
    ``flash_kernel_wgmma<192, 64>`` (which must be slower) and SDPA's
    forward; ``RMSNorm`` forward + backward at ``[4096, 8192]``
@@ -255,6 +288,18 @@ Phases, each printing its result; any failure exits non-zero:
    seconds a step, tokens/s, model FLOP/s from the active parameters,
    peak memory; a profiled step; its loss and every gradient leaf against
    the all-plain step with the expert choices replayed;
+9c. whisper-base at its published size through ``run_arch``: AdamW, 8 rows
+   of 1,500 frames + 448 tokens in 4 microbatches, remat, 3 steps (the
+   first a warm-up), every count set to 0 just before and read just after:
+   96 flash forward launches a step (12 layers x 4 microbatches x 2 under
+   remat, all writing lse; the encoder's non-causal) and 96 backward
+   launches, all on ``wgmma``, no rmsnorm; seconds a step, positions/s,
+   model FLOP/s, peak memory; a profiled step; its loss and every gradient
+   leaf against the all-plain step;
+9d. internvl2-1b at its published size the same way with stablelm's
+   traffic (8 x 4,096 positions: 256 patches + 3,840 tokens, 8
+   microbatches): 384 flash forward and 384 backward launches a step at G
+   = 7, 776 rmsnorm and 784 ``rmsnorm_bwd`` launches (392 calls);
 10. one layer of nemotron-4-340b at its full width (d_model 18,432, 96 over
    8 heads, hd 192, squared-ReLU d_ff 73,728; vocab cut to 4,096:
    3,605,114,880 parameters, bf16, random from seed 0) through
@@ -268,7 +313,7 @@ Phases, each printing its result; any failure exits non-zero:
    printed beside the card's name and power limit); that step's loss and gradients against the same step with
    ``ops.flash_attention_bwd`` patched to the plain backward.
 
-Every serving and training phase (6, 6b–6d, 7, 9, 9b, 10) starts with
+Every serving and training phase (6, 6b–6f, 7, 9, 9b–9d, 10) starts with
 ``phase_memory``: reference cycles collected, the allocator's cache freed,
 the memory allocated printed and held under 1 GB.
 
@@ -2005,15 +2050,16 @@ def rms_bound_ms(rows, d, elem_bytes):
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
-def flash_bound_ms(B, S, H, Kv, hd, elem_bytes, peak=None):
-    """The causal pairs' two products (S(S+1)/2 pairs a head, 2 flops a
-    multiply-add) at the peak rate of the inputs' type (bf16: the tensor
+def flash_bound_ms(B, S, H, Kv, hd, elem_bytes, peak=None, causal=True):
+    """The causal pairs' two products (S(S+1)/2 pairs a head, S^2 without
+    the causal mask; 2 flops a multiply-add) at the peak rate of the
+    inputs' type (bf16: the tensor
     cores; fp32: the TF32 tensor cores at a third of their rate, each fp32
     product being three TF32 products, PEAK_TF32X3_FLOP_S, the least time
     the card takes for fp32-accurate products; ``peak`` overrides, e.g.
     PEAK_FP32_FLOP_S for the CUDA cores); q, k, v and out each crossed
     once."""
-    flops = 4 * B * H * hd * S * (S + 1) // 2
+    flops = 4 * B * H * hd * (S * (S + 1) // 2 if causal else S * S)
     moved = elem_bytes * (2 * B * S * H * hd + 2 * B * S * Kv * hd)
     if peak is None:
         peak = PEAK_BF16_FLOP_S if elem_bytes == 2 else PEAK_TF32X3_FLOP_S
@@ -2189,13 +2235,13 @@ def phase_rmsnorm(torch, RN, ref):
     return worst, rows
 
 
-def sdpa(torch, q, k, v):
+def sdpa(torch, q, k, v, causal=True):
     """The one-call PyTorch operator on q [B,S,H,hd], k/v [B,S,Kv,hd]
-    (causal, GQA), for comparison only."""
+    (GQA, causal unless told), for comparison only."""
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     return lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+        qt, kt, vt, is_causal=causal, enable_gqa=True).transpose(1, 2)
 
 
 def sdpa_backend(torch, fn) -> str:
@@ -2775,19 +2821,26 @@ def served_drops(torch, book, cfg, tag):
     return drops
 
 
-def teacher_forced(torch, M, params, cfg, prompt_toks, gen_toks):
-    """Prefill, then decode fed ``gen_toks`` [B, T] (the served tokens):
-    the logits of the prefill and of each decode step, [T, B, V]."""
+def teacher_forced(torch, M, params, cfg, prompt_toks, gen_toks,
+                   extra=None):
+    """Prefill (with the batch's ``extra`` entries, an encdec model's
+    frames or a vlm model's patches), then decode fed ``gen_toks`` [B, T]
+    (the served tokens) from the position after the prompt (and a vlm
+    model's patches): the logits of the prefill and of each decode step,
+    [T, B, V]."""
+    from repro_torch.launch.serve import prefix_len
     from repro_torch.models.runtime import DEFAULT
     B, P = prompt_toks.shape
     T = gen_toks.shape[1]
-    cache = M.init_cache(cfg, B, P + T + 8, device="cuda")
-    logits, cache = M.prefill(params, cfg, DEFAULT, {"tokens": prompt_toks},
+    start = prefix_len(cfg) + P
+    cache = M.init_cache(cfg, B, start + T + 8, device="cuda")
+    logits, cache = M.prefill(params, cfg, DEFAULT,
+                              {"tokens": prompt_toks, **(extra or {})},
                               cache)
     out = [logits]
     for t in range(T - 1):
         logits, cache = M.decode_step(params, cfg, DEFAULT, gen_toks[:, t],
-                                      cache, P + t)
+                                      cache, start + t)
         out.append(logits)
     return torch.stack(out)
 
@@ -2798,7 +2851,7 @@ def lib_rmsnorm(x, scale, eps=1e-6):
 
 
 def hold_logits(torch, M, params, cfg, prompt_toks, gen_toks, tag,
-                book=None, gate_path=True):
+                book=None, gate_path=True, extra=None, alone=False):
     """The kernel path, the plain path and the plain path with
     ``F.rms_norm`` (the noise floor), teacher-forced on ``gen_toks``;
     fails unless kernel vs plain is within SERVE_LOGIT_TOL of the logits'
@@ -2809,8 +2862,11 @@ def hold_logits(torch, M, params, cfg, prompt_toks, gen_toks, tag,
     runs replay them, and two more replaying runs keep one kernel each (the
     flash kernel with the plain rmsnorm, then the rmsnorm kernel with the
     plain flash), to say which kernel the distance comes from; the flash
-    kernel alone is held at SERVE_LOGIT_TOL. Returns
-    (max|kernel-plain|, the kernel path's tokens agree)."""
+    kernel alone is held at SERVE_LOGIT_TOL; ``alone`` asks for those two
+    runs and that gate without a book. ``extra`` goes to every prefill (an
+    encdec model's frames, a vlm model's patches). Returns (max|kernel-
+    plain|, the kernel path's tokens agree, {kernel: max|diff| with that
+    kernel alone} or None without ``alone`` or a book)."""
     import contextlib
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
@@ -2821,33 +2877,34 @@ def hold_logits(torch, M, params, cfg, prompt_toks, gen_toks, tag,
             return contextlib.nullcontext()
         return recorded_routes(book) if record else replayed_routes(book)
 
+    def run():
+        return teacher_forced(torch, M, params, cfg, prompt_toks, gen_toks,
+                              extra)
+
     if book is not None:
         book.__init__()
+    alone = alone or book is not None
     with torch.no_grad():
         with routes(True):
-            kern = teacher_forced(torch, M, params, cfg, prompt_toks,
-                                  gen_toks)
+            kern = run()
         before = (RN.rmsnorm.launches, FA.flash_attention.launches)
         with plain_kernels(), routes(False):
-            plain = teacher_forced(torch, M, params, cfg, prompt_toks,
-                                   gen_toks)
+            plain = run()
         flips = None if book is None else (book.flips, book.calls)
         with plain_kernels(rmsnorm=lib_rmsnorm), routes(False):
-            floor = teacher_forced(torch, M, params, cfg, prompt_toks,
-                                   gen_toks)
+            floor = run()
         check((RN.rmsnorm.launches, FA.flash_attention.launches) == before,
               "a plain run launched a kernel")
-        if book is not None:
+        if alone:
             # where kernel vs plain comes from: one plain version at a time
             from unittest import mock
             from repro_torch.kernels import ops, ref
-            alone = {}
+            kept_runs = {}
             for kept, name, fn in (
                     ("flash_attention", "rmsnorm", ref.rmsnorm),
                     ("rmsnorm", "flash_attention", ref.flash_attention)):
                 with mock.patch.object(ops, name, fn), routes(False):
-                    alone[kept] = teacher_forced(torch, M, params, cfg,
-                                                 prompt_toks, gen_toks)
+                    kept_runs[kept] = run()
     if flips is not None:
         print(f"[serve] {tag}: the plain run replayed the kernel run's "
               f"expert choices over {flips[1]} router calls; on its own it "
@@ -2869,22 +2926,30 @@ def hold_logits(torch, M, params, cfg, prompt_toks, gen_toks, tag,
           f"max|logit|), max|plain-plain with F.rms_norm| {noise:.3e}, "
           f"max|logit| {scale:.3f}; tol {tol} x max|logit| = {limit:.3e} "
           f"{verdict}")
-    if book is not None:
-        book.alone = {k: (v - plain).abs().max().item()
-                      for k, v in alone.items()}
-        flash = book.alone["flash_attention"]
+    dist = None
+    if alone:
+        dist = {k: (v - plain).abs().max().item()
+                for k, v in kept_runs.items()}
+        if book is not None:
+            book.alone = dist
+        flash = dist["flash_attention"]
+        # without a book, as the whole path: gated where the plain versions
+        # lie closer than the gate
+        gated_alone = book is not None or gated
         print(f"[serve] {tag}: the kernels one at a time against the plain "
               f"path: the flash kernel alone (plain rmsnorm) max|diff| "
               f"{flash:.3e} ({flash / scale:.2%} of max|logit|; gate "
-              f"{limit:.3e} {'ok' if flash <= limit else 'FAIL'}), the "
-              f"rmsnorm kernel alone (plain flash) "
-              f"{book.alone['rmsnorm']:.3e}; the whole path's margin "
+              f"{limit:.3e} "
+              f"{('ok' if flash <= limit else 'FAIL') if gated_alone else 'not gated, as the whole path'}"
+              f"), the rmsnorm kernel alone (plain flash) "
+              f"{dist['rmsnorm']:.3e}; the whole path's margin "
               f"{100 * (1 - err / limit):.1f}% of {limit:.3e}")
-        check(flash <= limit, f"serve logits ({tag}): the flash kernel alone "
-                              f"disagrees with the plain path")
+        check(flash <= limit or not gated_alone,
+              f"serve logits ({tag}): the flash kernel alone disagrees with "
+              f"the plain path")
     check(ok or not gated, f"serve logits ({tag}): kernel path disagrees "
                            f"with the plain path")
-    return err, torch.equal(greedy(kern).t(), gen_toks)
+    return err, torch.equal(greedy(kern).t(), gen_toks), dist
 
 
 def phase_serve(torch, K, T):
@@ -2960,7 +3025,7 @@ def phase_serve(torch, K, T):
     for b0 in range(0, SERVE["requests"], SERVE["batch"]):
         p = torch.from_numpy(np.stack(prompts[b0:b0 + SERVE["batch"]])).cuda()
         g = toks[b0:b0 + SERVE["batch"]].cuda()
-        err, same = hold_logits(torch, M, params, cfg, p, g,
+        err, same, _ = hold_logits(torch, M, params, cfg, p, g,
                                 f"requests {b0}-{b0 + SERVE['batch'] - 1}")
         check(same, "the kernel path gave other tokens on a second run")
         worst = max(worst, err)
@@ -2970,79 +3035,105 @@ def phase_serve(torch, K, T):
                 params=params, cfg=cfg, prompts=prompts)
 
 
-def phase_serve_fp32(torch, cfg):
+def phase_serve_fp32(torch, cfg, prompt=SERVE_FP32["prompt"]):
     """A full-width model in fp32 (qwen's 4 layers, 31.7 GB; falcon-mamba-
-    7b whole, 29.1 GB; jamba's one period, 51.0 GB), where rounding noise is
-    ~1e-5: a greedy run through the kernels, its flash launches counted by
-    route (one an attention layer in the prefill, all on tf32x3), then
-    kernel vs plain teacher-forced on its tokens within 1e-4 of the logits'
-    scale (the plain runs replaying the kernel run's expert choices where
-    there are experts). Holds the kernels at full width where bf16 noise
+    7b whole, 29.1 GB; jamba's one period, 51.0 GB; whisper-base and
+    internvl2-1b whole, 0.28 and 2.52 GB), where rounding noise is ~1e-5: a
+    greedy run through the kernels, its flash launches counted by route
+    (one an attention layer in the prefill, the encoder's too, all on
+    tf32x3), then kernel vs plain teacher-forced on its tokens within 1e-4
+    of the logits' scale (the plain runs replaying the kernel run's expert
+    choices where there are experts). An encdec model's frames or a vlm
+    model's patches are drawn from the seed with numpy
+    (``seeded_extra``). Holds the kernels at full width where bf16 noise
     cannot hide an error. Returns (max|kernel - plain|, the greedy run's
     flash launches by route)."""
     import numpy as np
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.launch.serve import greedy, make_prompts
+    from repro_torch.launch.serve import greedy, make_prompts, prefix_len
     from repro_torch.models import model as M
     from repro_torch.models.runtime import DEFAULT
 
     check(cfg.dtype == "float32", f"{cfg.name} is {cfg.dtype}")
     phase_memory(torch, f"serve {cfg.name} fp32")
-    B, P, Tn = SERVE_FP32["batch"], SERVE_FP32["prompt"], SERVE_FP32["tokens"]
+    B, P, Tn = SERVE_FP32["batch"], prompt, SERVE_FP32["tokens"]
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
         SERVE["seed"]), "cuda")
     p = torch.from_numpy(np.stack(make_prompts(cfg, B, P, SERVE["seed"]))) \
         .cuda()
+    extra = seeded_extra(torch, cfg, B, SERVE["seed"])
+    start = prefix_len(cfg) + P
     before = dict(FA.flash_attention.route_launches)
     with torch.no_grad():
-        cache = M.init_cache(cfg, B, P + Tn + 8, device="cuda")
-        logits, cache = M.prefill(params, cfg, DEFAULT, {"tokens": p},
-                                  cache)
+        cache = M.init_cache(cfg, B, start + Tn + 8, device="cuda")
+        logits, cache = M.prefill(params, cfg, DEFAULT,
+                                  {"tokens": p, **extra}, cache)
         toks = [greedy(logits)]
         for t in range(Tn - 1):
             logits, cache = M.decode_step(params, cfg, DEFAULT, toks[-1],
-                                          cache, P + t)
+                                          cache, start + t)
             toks.append(greedy(logits))
     torch.cuda.synchronize()
     routes = {r: n - before[r]
               for r, n in FA.flash_attention.route_launches.items()}
-    attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
-    want = dict.fromkeys(routes, 0) | {"tf32x3": attn}
+    want = dict.fromkeys(routes, 0) | {"tf32x3": attention_layers(cfg)}
     print(f"[serve] {cfg.name} fp32 greedy run, flash_attention launches by "
           f"route {routes} (expected {want}: one an attention layer in the "
           f"prefill)")
     check(routes == want, f"fp32 serve flash routes {routes}, expected "
                           f"{want}")
     book = RouteBook() if cfg.moe.num_experts else None
-    err, _ = hold_logits(torch, M, params, cfg, p, torch.stack(toks, 1),
-                         f"{cfg.name} fp32 ({cfg.n_layers} layers), batch "
-                         f"{B}, prompt {P}", book=book)
+    err, _, _ = hold_logits(torch, M, params, cfg, p, torch.stack(toks, 1),
+                            f"{cfg.name} fp32 ({cfg.n_layers} layers), batch "
+                            f"{B}, prompt {P}", book=book, extra=extra)
     return err, routes
 
 
-def phase_serve_profile(torch, served):
-    """Where a prefill and a decode step spend the card (torch.profiler),
-    and each kernel's device time per launch on the serve path. After the
-    counts were read."""
+def attention_layers(cfg) -> int:
+    """The self-attention layers a prefill runs, each one flash launch: an
+    encdec model's encoder layers too."""
+    n = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    return n + (cfg.n_encoder_layers if cfg.family == "encdec" else 0)
+
+
+def seeded_extra(torch, cfg, batch: int, seed: int) -> dict:
+    """An encdec model's frames or a vlm model's patches for ``batch``
+    rows (``serve.extra_inputs``' shapes), ``randn`` from
+    ``np.random.RandomState(seed)`` in the config's dtype on the card;
+    nothing for the other families."""
     import numpy as np
-    from repro_torch.launch.serve import greedy
+    from repro_torch.launch.serve import extra_inputs
+    rng = np.random.RandomState(seed)
+    return {k: torch.from_numpy(rng.randn(*z.shape).astype(np.float32))
+            .to("cuda", z.dtype)
+            for k, z in extra_inputs(cfg, batch, "meta").items()}
+
+
+def serve_profile(torch, cfg, params, prompts, extra=None):
+    """Where a prefill of ``prompts`` (a batch of numpy prompts; with
+    ``extra``, an encdec model's frames or a vlm model's patches) and one
+    decode step spend the card (torch.profiler), and each kernel's device
+    time per launch on the serve path. After the counts were read."""
+    import numpy as np
+    from repro_torch.launch.serve import greedy, prefix_len
     from repro_torch.models import model as M
     from repro_torch.models.runtime import DEFAULT
 
-    cfg, params = served["cfg"], served["params"]
-    B, P = SERVE["batch"], SERVE["prompt"]
-    toks = torch.from_numpy(np.stack(served["prompts"][:B])).cuda()
+    toks = torch.from_numpy(np.stack(prompts)).cuda()
+    B, P = toks.shape
+    start = prefix_len(cfg) + P
     state = {}
 
     def pre():
-        cache = M.init_cache(cfg, B, P + SERVE["tokens"] + 8, device="cuda")
-        logits, state["cache"] = M.prefill(params, cfg, DEFAULT,
-                                           {"tokens": toks}, cache)
+        cache = M.init_cache(cfg, B, start + SERVE["tokens"] + 8,
+                             device="cuda")
+        logits, state["cache"] = M.prefill(
+            params, cfg, DEFAULT, {"tokens": toks, **(extra or {})}, cache)
         state["tok"] = greedy(logits)
 
     def dec():
         M.decode_step(params, cfg, DEFAULT, state["tok"], state["cache"],
-                      P)
+                      start)
 
     out = {}
     with torch.no_grad():
@@ -3051,9 +3142,10 @@ def phase_serve_profile(torch, served):
         for key, fn in (("prefill", pre), ("decode", dec)):
             window_ms, busy_ms, n_kernels, by_name, host = profiled(torch,
                                                                     fn)
-            print(f"[profile] one {key} (B={B}, {P} prompt tokens): window "
-                  f"{window_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-                  f"({100 * busy_ms / window_ms:.1f}%), {n_kernels} kernels")
+            print(f"[profile] {cfg.name} one {key} (B={B}, {P} prompt "
+                  f"tokens): window {window_ms:.2f} ms, device busy "
+                  f"{busy_ms:.2f} ms ({100 * busy_ms / window_ms:.1f}%), "
+                  f"{n_kernels} kernels")
             for name, (n, t) in sorted(by_name.items(),
                                        key=lambda kv: -kv[1][1])[:6]:
                 print(f"[profile]   {t:.3f} ms in {n} x {name[:90]}")
@@ -3061,7 +3153,7 @@ def phase_serve_profile(torch, served):
                 print(f"[profile]   host: {t:.3f} ms self in {n} x "
                       f"{name[:80]}")
             out[key] = dict(
-                window_ms=window_ms, busy_ms=busy_ms,
+                window_ms=window_ms, busy_ms=busy_ms, kernels=n_kernels,
                 # rmsnorm_{row,warp,}kernel; flash_kernel_wgmma (bf16)
                 rmsnorm_ms=per_launch_ms(by_name, "rmsnorm_"),
                 flash_ms=per_launch_ms(by_name, "flash_kernel"))
@@ -3073,18 +3165,21 @@ def phase_serve_profile(torch, served):
 
 def smoke_launches(cfg, passes: int):
     """(rmsnorm, flash) launches of a prefill and ``passes - 1`` decode
-    steps: norm1 (and norm2 outside the ssm family) a layer and the final
-    norm each pass; one flash launch per attention layer in the prefill."""
+    steps: with RMSNorm, norm1 (and norm2 outside the ssm family) a layer
+    and the final norm each pass (none with LayerNorm); one flash launch
+    per self-attention layer in the prefill (``attention_layers``)."""
     norms = cfg.n_layers * (1 if cfg.family == "ssm" else 2) + 1
-    attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
-    return norms * passes, attn
+    if cfg.norm != "rmsnorm":
+        norms = 0
+    return norms * passes, attention_layers(cfg)
 
 
 def phase_smoke_cpu(torch):
     """The smoke configs of every family the port serves in fp32 (qwen1.5-
     110b; the moe family's deepseek-moe-16b and arctic-480b; falcon-mamba-7b;
-    jamba-v0.1-52b): the kernel path on the card against the plain path on
-    the CPU, from the same weights and prompt, prefill + 3 greedy decode
+    jamba-v0.1-52b; whisper-base; internvl2-1b): the kernel path on the
+    card against the plain path on the CPU, from the same weights, prompt
+    (and frames or patches, from a numpy seed), prefill + 3 greedy decode
     steps, and outside the dense family also ``forward``'s logits (and the
     router loss where there are experts); the CPU runs replay the card's
     expert choices."""
@@ -3094,17 +3189,21 @@ def phase_smoke_cpu(torch):
     from repro_torch import tree
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
-    from repro_torch.launch.serve import greedy
+    from repro_torch.launch.serve import greedy, prefix_len
     from repro_torch.models import model as M
     from repro_torch.models.runtime import DEFAULT
 
     phase_memory(torch, "smoke configs card vs CPU")
-    for arch in (SERVE_ARCH, *MOE_SMOKE_ARCHS, SSM_ARCH, HYBRID_ARCH):
+    for arch in (SERVE_ARCH, *MOE_SMOKE_ARCHS, SSM_ARCH, HYBRID_ARCH,
+                 ENCDEC_ARCH, VLM_ARCH):
         cfg = C.get_smoke(arch)
         routed = cfg.moe.num_experts > 0
         params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         toks = torch.from_numpy(np.random.RandomState(0).randint(
             0, cfg.vocab, size=(2, 9)).astype(np.int32))
+        extra = {k: t.cpu() for k, t in seeded_extra(torch, cfg, 2,
+                                                     1).items()}
+        start = prefix_len(cfg) + 9
         book = RouteBook()
         runs, fwd = {}, {}
         before = (RN.rmsnorm.launches, FA.flash_attention.launches)
@@ -3114,15 +3213,16 @@ def phase_smoke_cpu(torch):
                 routes = recorded_routes(book) if dev == "cuda" else \
                     replayed_routes(book)
             p = tree.to_device(params, dev)
+            batch = {k: t.to(dev) for k, t in
+                     dict(extra, tokens=toks).items()}
             with routes:
-                cache = M.init_cache(cfg, 2, 20, device=dev)
-                logits, cache = M.prefill(p, cfg, DEFAULT,
-                                          {"tokens": toks.to(dev)}, cache)
+                cache = M.init_cache(cfg, 2, start + 11, device=dev)
+                logits, cache = M.prefill(p, cfg, DEFAULT, batch, cache)
                 outs = [logits]
                 for t in range(3):
                     logits, cache = M.decode_step(p, cfg, DEFAULT,
                                                   greedy(outs[-1]), cache,
-                                                  9 + t)
+                                                  start + t)
                     outs.append(logits)
                 runs[dev] = torch.stack(outs).cpu()
                 if dev == "cuda":
@@ -3130,8 +3230,7 @@ def phase_smoke_cpu(torch):
                                 FA.flash_attention.launches - before[1])
                 if cfg.family != "dense":
                     with torch.no_grad():
-                        lg, aux = M.forward(p, cfg, DEFAULT,
-                                            {"tokens": toks.to(dev)})
+                        lg, aux = M.forward(p, cfg, DEFAULT, batch)
                     fwd[dev] = (lg.cpu(), float(aux))
         err = (runs["cuda"] - runs["cpu"]).abs().max().item()
         same = torch.equal(greedy(runs["cuda"]), greedy(runs["cpu"]))
@@ -3214,13 +3313,18 @@ FLASH_BWD_ENTRY_COLS = (1, 32768, 64, 8, 1024)
 # other orders (cuBLAS, the kernels' trees)
 TRAIN_SMOKE_TOL = 1e-4
 TRAIN_SMOKE = dict(batch=4, seq=16, micro=2)
-# kernel-level shapes of the training path: stablelm-1.6b's attention (B=1
-# microbatch, S=4,096, MHA, hd 64), qwen1.5-110b's (GQA 64/8, hd 128) and
-# nemotron-4-340b's (B=1, S=4,096, GQA 96/8, hd 192), bf16, causal; RMSNorm
-# at qwen's [4096, 8192]
-TRAIN_FLASH_SHAPES = {"stablelm-1.6b": (1, 4096, 32, 32, 64),
-                      "qwen1.5-110b": (1, 1024, 64, 8, 128),
-                      "nemotron-4-340b": (1, 4096, 96, 8, 192)}
+# kernel-level shapes of the training path (B, S, H, Kv, hd, causal), bf16:
+# stablelm-1.6b's attention (B=1 microbatch, S=4,096, MHA, hd 64),
+# qwen1.5-110b's (GQA 64/8, hd 128), nemotron-4-340b's (B=1, S=4,096, GQA
+# 96/8, hd 192), whisper-base's encoder (a microbatch of 2 rows of 1,500
+# frames, non-causal: 23 full kv tiles of 64 and a ragged 28) and
+# internvl2-1b's (1 x 4,096, 14 over 2 heads: G = 7, so a 64-row tile of
+# folded rows starts inside a position); RMSNorm at qwen's [4096, 8192]
+TRAIN_FLASH_SHAPES = {"stablelm-1.6b": (1, 4096, 32, 32, 64, True),
+                      "qwen1.5-110b": (1, 1024, 64, 8, 128, True),
+                      "nemotron-4-340b": (1, 4096, 96, 8, 192, True),
+                      "whisper-base": (2, 1500, 8, 8, 64, False),
+                      "internvl2-1b": (1, 4096, 14, 2, 64, True)}
 TRAIN_RMS_SHAPE = (4096, 8192)
 # the kernel's lse against the plain lse (fp32 scores of bf16 inputs, summed
 # in another order; the tensor-core kernel's ex2.approx and log2 in the log2
@@ -3238,16 +3342,18 @@ TRAIN_LSE_ROUTES = ((1, 256, 4, 2, 256, "float32", "tf32x3"),
                     (1, 256, 4, 2, 576, "float32", "tf32x3"))
 
 
-def flash_bwd_bound_ms(B, S, H, Kv, hd, elem_bytes=2, peak=None):
+def flash_bwd_bound_ms(B, S, H, Kv, hd, elem_bytes=2, peak=None,
+                       causal=True):
     """The causal backward's work: five products over the S(S+1)/2 visible
-    pairs of each head (s = q k^T recomputed, dv, dp, dq, dk; 2 flops a
+    pairs of each head (S^2 without the causal mask; s = q k^T recomputed,
+    dv, dp, dq, dk; 2 flops a
     multiply-add) at the peak rate of its inputs' type (bf16: the tensor
     cores; fp32: the TF32 tensor cores at a third of their rate, each fp32
     product being three TF32 products, PEAK_TF32X3_FLOP_S, the least time
     the card takes for fp32-accurate products; ``peak`` overrides, e.g.
     PEAK_FP32_FLOP_S for the CUDA cores); q, k, v, out and dout read once,
     lse once (fp32), dq, dk and dv written once, in the inputs' type."""
-    flops = 5 * 2 * B * H * hd * S * (S + 1) // 2
+    flops = 5 * 2 * B * H * hd * (S * (S + 1) // 2 if causal else S * S)
     moved = elem_bytes * (3 * B * S * H * hd + 4 * B * S * Kv * hd) + \
         4 * B * H * S
     if peak is None:
@@ -3679,13 +3785,15 @@ def phase_train_kernels(torch, FA, RN, ref):
            "bwd_entry_s": flash_bwd_entry(torch, FA, ref),
            "bwd_wide": flash_bwd_wide_times(torch, FA, ref),
            "bwd_autograd_cols": flash_bwd_autograd_cols(torch, FA)}
-    for arch, (B, S, H, Kv, hd) in TRAIN_FLASH_SHAPES.items():
+    for arch, (B, S, H, Kv, hd, causal) in TRAIN_FLASH_SHAPES.items():
+        mask = "causal" if causal else "non-causal"
         q, k, v, do = (randn(torch, (B, S, n, hd), torch.bfloat16, 200 + j)
                        for j, n in enumerate((H, Kv, Kv, H)))
         before = (FA.flash_attention.launches,
                   FA.flash_attention.lse_launches)
-        o, lse = FA.flash_attention(q, k, v, with_lse=True)
-        po, plse = ref.flash_attention(q, k, v, with_lse=True)
+        o, lse = FA.flash_attention(q, k, v, causal=causal, with_lse=True)
+        po, plse = ref.flash_attention(q, k, v, causal=causal,
+                                       with_lse=True)
         torch.cuda.synchronize()
         check((FA.flash_attention.launches - before[0],
                FA.flash_attention.lse_launches - before[1]) == (1, 1),
@@ -3695,17 +3803,17 @@ def phase_train_kernels(torch, FA, RN, ref):
         lse_ok = bool(((lse - plse).abs() <=
                        rtol * plse.abs() + atol).all())
         print(f"[train] {arch} flash B={B} S={S} H={H} Kv={Kv} hd={hd} "
-              f"bf16 causal: lse [B, H, S] max|kernel-plain| {lse_err:.3e} "
+              f"bf16 {mask}: lse [B, H, S] max|kernel-plain| {lse_err:.3e} "
               f"(|lse| up to {plse.abs().max().item():.2f}; rtol {rtol} "
               f"atol {atol}) {'ok' if lse_ok else 'FAIL'}")
         check(lse_ok, f"{arch}: the kernel's lse disagrees with the plain "
                       f"lse")
-        check(torch.equal(o, FA.flash_attention(q, k, v)),
+        check(torch.equal(o, FA.flash_attention(q, k, v, causal=causal)),
               f"{arch}: out differs with and without lse")
         chunk = min(ops.KV_CHUNK, S)
 
         def attend(*xs):
-            return ops.attention(*xs, causal=True)
+            return ops.attention(*xs, causal=causal)
 
         gk = grads_of(torch, attend, (q, k, v), do)
         with plain_kernels():
@@ -3723,8 +3831,9 @@ def phase_train_kernels(torch, FA, RN, ref):
               f"; tol {TRAIN_GRAD_TOL} {'ok' if ok else 'FAIL'}")
         check(ok, f"{arch}: flash gradients through the kernel disagree "
                   f"with the plain path")
-        kb = FA.flash_attention_bwd(q, k, v, o, lse, do)
-        pb = ref.flash_attention_bwd(q, k, v, o, lse, do, chunk=chunk)
+        kb = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        pb = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                     chunk=chunk)
         bwd_errs = [rel_err(torch, a, b) for a, b in zip(kb, pb)]
         bwd_abs = max((a.float() - b.float()).abs().max().item()
                       for a, b in zip(kb, pb))
@@ -3735,21 +3844,31 @@ def phase_train_kernels(torch, FA, RN, ref):
               f"{bwd_abs:.3e}); tol {TRAIN_GRAD_TOL} {'ok' if ok else 'FAIL'}")
         check(ok, f"{arch}: the backward kernels disagree with the plain "
                   f"backward")
-        del kb, pb
-        kbwd_ms = median_ms(lambda: FA.flash_attention_bwd(q, k, v, o, lse,
-                                                           do),
-                            torch, reps=10, inner=5)
+        # a thread whose first CUDA call is a kernel's tensor-map encode, as
+        # autograd's worker thread is when its first node is the flash
+        # backward
+        fresh = in_fresh_thread(torch, lambda: (
+            FA.flash_attention(q, k, v, causal=causal, with_lse=True),
+            FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)))
+        same = torch.equal(fresh[0][0], o) and \
+            torch.equal(fresh[0][1], lse) and \
+            all(torch.equal(a, b) for a, b in zip(fresh[1], kb))
+        print(f"[train] {arch} the forward and the backward launched from a "
+              f"fresh thread bit-equal to this thread's: {same}")
+        check(same, f"{arch}: a fresh thread's launches differ")
+        del kb, pb, fresh
+        kbwd_ms = median_ms(lambda: FA.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal), torch, reps=10, inner=5)
         qa, ka, va = (t.detach().clone().requires_grad_() for t in (q, k, v))
 
         def port_fb():
             torch.autograd.grad(attend(qa, ka, va), (qa, ka, va), do)
 
         fb_ms = median_ms(port_fb, torch, reps=10, inner=5)
-        ms_lse = median_ms(lambda: FA.flash_attention(q, k, v,
-                                                      with_lse=True),
-                           torch, reps=10, inner=5)
-        ms = median_ms(lambda: FA.flash_attention(q, k, v), torch, reps=10,
-                       inner=5)
+        ms_lse = median_ms(lambda: FA.flash_attention(
+            q, k, v, causal=causal, with_lse=True), torch, reps=10, inner=5)
+        ms = median_ms(lambda: FA.flash_attention(q, k, v, causal=causal),
+                       torch, reps=10, inner=5)
         yard, more = {}, ""
         if hd == 192:
             # flash_kernel_wgmma_pipe held at the qwen gate and timed in
@@ -3789,18 +3908,20 @@ def phase_train_kernels(torch, FA, RN, ref):
                     f"({yard['sdpa_fwd_backend']}) {yard['sdpa_fwd_ms']:.4f} "
                     f"ms")
         bwd_ms = median_ms(lambda: ref.flash_attention_bwd(
-            q, k, v, o, lse, do, chunk=chunk), torch, reps=3, inner=2)
+            q, k, v, o, lse, do, causal=causal, chunk=chunk), torch, reps=3,
+            inner=2)
         plain_ms = median_ms(lambda: ref.flash_attention(
-            q, k, v, with_lse=True), torch, reps=3, inner=2)
-        fwd_bound, fwd_by = flash_bound_ms(B, S, H, Kv, hd, 2)
+            q, k, v, causal=causal, with_lse=True), torch, reps=3, inner=2)
+        fwd_bound, fwd_by = flash_bound_ms(B, S, H, Kv, hd, 2, causal=causal)
         fwd_bound = max(fwd_bound, 4 * B * H * S / PEAK_BYTES_S * 1e3)
-        bwd_bound, bwd_by = flash_bwd_bound_ms(B, S, H, Kv, hd)
+        bwd_bound, bwd_by = flash_bwd_bound_ms(B, S, H, Kv, hd,
+                                               causal=causal)
         qt, kt, vt = (t.detach().clone().requires_grad_() for t in (q, k, v))
 
         def sdpa_fb():
             y = F.scaled_dot_product_attention(
                 qt.transpose(1, 2), kt.transpose(1, 2), vt.transpose(1, 2),
-                is_causal=True, enable_gqa=True)
+                is_causal=causal, enable_gqa=True)
             torch.autograd.grad(y, (qt, kt, vt), do.transpose(1, 2))
 
         # SDPA's backward kernels are not all deterministic: timed with the
@@ -3808,11 +3929,12 @@ def phase_train_kernels(torch, FA, RN, ref):
         torch.use_deterministic_algorithms(False)
         try:
             lib_ms = median_ms(sdpa_fb, torch, reps=5, inner=3)
-            lib_backend = sdpa_backend(torch, sdpa(torch, q, k, v))
+            lib_backend = sdpa_backend(torch, sdpa(torch, q, k, v, causal))
         finally:
             torch.use_deterministic_algorithms(True)
         regs = bwd_registers(FA, hd)
-        print(f"[train] {arch} flash times: forward with lse {ms_lse:.4f} "
+        print(f"[train] {arch} flash times ({mask}): forward with lse "
+              f"{ms_lse:.4f} "
               f"ms (without lse {ms:.4f} ms; bound {fwd_bound:.4f} ms, "
               f"{fwd_by}), plain forward with lse {plain_ms:.3f} ms; backward "
               f"kernels {kbwd_ms:.4f} ms ({FA.BWD_LAUNCHES} launches, "
@@ -3822,7 +3944,7 @@ def phase_train_kernels(torch, FA, RN, ref):
               f"{fb_ms:.4f} ms, SDPA forward + backward ({lib_backend}) "
               f"{lib_ms:.4f} ms{more}; ptxas: " + "; ".join(
                   f"{n} {r}" for n, r in regs.items()))
-        out[arch] = dict(shape=[B, S, H, Kv, hd], lse_err=lse_err,
+        out[arch] = dict(shape=[B, S, H, Kv, hd, causal], lse_err=lse_err,
                          grad_err={n: e[0] for n, e in errs.items()},
                          grad_noise={n: e[1] for n, e in errs.items()},
                          bwd_err=bwd_errs, bwd_abs_err=bwd_abs,
@@ -4360,7 +4482,9 @@ def phase_train_smoke(torch, TR, FA, RN):
 
 # the backward at the training path's rows, bf16: qwen1.5-110b's width and
 # deepseek-moe-16b's (a microbatch of 4,096 tokens)
-RMS_BWD_SHAPES = ((4096, 8192), (4096, 2048))
+# the training rows of the RMSNorm backward: qwen's width, deepseek-moe-
+# 16b's and internvl2-1b's (896, 112 16-byte pieces a row)
+RMS_BWD_SHAPES = ((4096, 8192), (4096, 2048), (4096, 896))
 MOE_ARCH = "deepseek-moe-16b"
 MOE_SMOKE_ARCHS = ("deepseek-moe-16b", "arctic-480b")
 # no reduction: the published model, bf16, fits one card (33.76 GB)
@@ -4476,42 +4600,60 @@ def weight_bytes(params):
     return sum(t.numel() * t.element_size() for t in tree.leaves(params))
 
 
-def attention_times(torch, FA, ref, cfg):
-    """The flash forward at a served model's prefill shape (``SERVE``'s
-    B=4, S=1,024; deepseek-moe-16b 16 over 16 heads, jamba-v0.1-52b 32 over
-    8, both hd 128; causal, bf16): held at the qwen gate against the plain
-    version on the wgmma route, timed beside it, SDPA and the bound."""
-    B, S, H, Kv, hd = SERVE["batch"], SERVE["prompt"], cfg.n_heads, \
-        cfg.n_kv_heads, cfg.hd
-    q, k, v = (randn(torch, (B, S, n, hd), torch.bfloat16, 60 + j,
-                     QWEN_FLASH_SCALES[0]) for j, n in enumerate((H, Kv, Kv)))
-    before = dict(FA.flash_attention.route_launches)
-    err = held(torch, f"flash_attention {cfg.name} prefill B={B} S={S} H={H}"
-               f" Kv={Kv} hd={hd} causal bf16", FA.flash_attention(q, k, v),
-               ref.flash_attention(q, k, v), TOL["bfloat16"],
-               QWEN_FLASH_BF16_ATOL)
-    check(FA.flash_attention.route_launches["wgmma"] - before["wgmma"] == 1,
-          f"{cfg.name}'s attention shape did not run on the wgmma route")
-    ms = median_ms(lambda: FA.flash_attention(q, k, v), torch, reps=10,
-                   inner=5)
-    plain_ms = median_ms(lambda: ref.flash_attention(q, k, v), torch,
-                         reps=5, inner=2)
+def flash_held(torch, FA, ref, shape, tag):
+    """The flash forward at one of a model's shapes, bf16 on ``wgmma``,
+    with and without lse: out against the plain version at the qwen gate
+    with inputs x0.5 and x2, lse within TRAIN_LSE_TOL (a zero-filled row
+    past the end left in the softmax would move it), out with and without
+    lse bit-equal; timed beside the plain version, SDPA and the bound."""
+    B, S, H, Kv, hd, causal = shape
+    check(FA.route(torch.bfloat16, hd, S, H // Kv) == "wgmma",
+          f"{tag}: does not route to wgmma")
+    mask = "causal" if causal else "non-causal"
+    name = f"flash_attention {tag} B={B} S={S} H={H} Kv={Kv} (G = " \
+           f"{H // Kv}) hd={hd} {mask} bf16"
+    err = 0.0
+    for j, scale in enumerate(QWEN_FLASH_SCALES):
+        q, k, v = (randn(torch, (B, S, n, hd), torch.bfloat16, 80 + 3 * j + i,
+                         scale) for i, n in enumerate((H, Kv, Kv)))
+        before = FA.flash_attention.route_launches["wgmma"]
+        o, lse = FA.flash_attention(q, k, v, causal=causal, with_lse=True)
+        po, plse = ref.flash_attention(q, k, v, causal=causal, with_lse=True)
+        check(torch.equal(o, FA.flash_attention(q, k, v, causal=causal)),
+              f"{name}: out differs with and without lse")
+        check(FA.flash_attention.route_launches["wgmma"] - before == 2,
+              f"{name}: not two wgmma launches")
+        err = max(err, held(torch, f"{name} x{scale}", o, po,
+                            TOL["bfloat16"], QWEN_FLASH_BF16_ATOL))
+        rtol, atol = TRAIN_LSE_TOL
+        lse_err = (lse - plse).abs().max().item()
+        ok = bool(((lse - plse).abs() <= rtol * plse.abs() + atol).all())
+        print(f"[kernel] {name} x{scale}: lse max|kernel-plain| "
+              f"{lse_err:.3e} (rtol {rtol} atol {atol}) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{name}: the kernel's lse disagrees with the plain lse")
+    ms = median_ms(lambda: FA.flash_attention(q, k, v, causal=causal), torch,
+                   reps=10, inner=5)
+    ms_lse = median_ms(lambda: FA.flash_attention(q, k, v, causal=causal,
+                                                  with_lse=True),
+                       torch, reps=10, inner=5)
+    plain_ms = median_ms(lambda: ref.flash_attention(q, k, v, causal=causal),
+                         torch, reps=5, inner=2)
     torch.use_deterministic_algorithms(False)
     try:
-        lib = sdpa(torch, q, k, v)
+        lib = sdpa(torch, q, k, v, causal)
         backend = sdpa_backend(torch, lib)
         lib_ms = median_ms(lib, torch, reps=10, inner=5)
     finally:
         torch.use_deterministic_algorithms(True)
-    bound, by = flash_bound_ms(B, S, H, Kv, hd, 2)
-    print(f"[kernel] flash_attention time {cfg.name} prefill B={B} S={S} "
-          f"H={H} Kv={Kv} (G = {H // Kv}) hd={hd} causal bf16: kernel "
-          f"{ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, SDPA ({backend}) {lib_ms:.4f} ms, "
-          f"bound {bound:.5f} ms ({by})")
-    return dict(shape=[B, S, H, Kv, hd], ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, library_backend=backend, bound_ms=bound,
-                bound_by=by, max_abs_err=err)
+    bound, by = flash_bound_ms(B, S, H, Kv, hd, 2, causal=causal)
+    print(f"[kernel] {name} time: kernel {ms:.4f} ms (with lse "
+          f"{ms_lse:.4f}), plain {plain_ms:.4f} ms, SDPA ({backend}) "
+          f"{lib_ms:.4f} ms, bound {bound:.5f} ms ({by}); "
+          f"{ms / bound:.2f}x the bound, {ms / lib_ms:.2f}x SDPA")
+    return dict(shape=list(shape), max_abs_err=err, lse_err=lse_err, ms=ms,
+                lse_ms=ms_lse, plain_ms=plain_ms, library_ms=lib_ms,
+                library_backend=backend, bound_ms=bound, bound_by=by)
 
 
 def moe_oracle(torch, M, params, cfg, prompt_toks):
@@ -4692,7 +4834,7 @@ def phase_serve_moe(torch, K, T, smi):
     for b0 in range(0, SERVE["requests"], SERVE["batch"]):
         p = torch.from_numpy(np.stack(prompts[b0:b0 + SERVE["batch"]])).cuda()
         g = toks[b0:b0 + SERVE["batch"]].cuda()
-        err, same = hold_logits(torch, M, params, cfg, p, g,
+        err, same, _ = hold_logits(torch, M, params, cfg, p, g,
                                 f"{cfg.name} requests {b0}-"
                                 f"{b0 + SERVE['batch'] - 1}", book=book)
         check(same, "the kernel path gave other tokens on a second run")
@@ -4703,7 +4845,8 @@ def phase_serve_moe(torch, K, T, smi):
     prof = moe_profile(torch, M, params, cfg, batch0)
     del params
     torch.cuda.empty_cache()
-    attn = attention_times(torch, FA, ref, cfg)
+    attn = flash_held(torch, FA, ref, served_flash_shape(cfg, SERVE),
+                      f"{cfg.name} prefill")
     return dict(n_params=n_params, n_active=n_active, counts=counts,
                 routes=routes, prefill_ms=prefill_ms, decode_ms=decode_ms,
                 decode_bound_ms=decode_bound_ms, tok_s=tok_s,
@@ -4840,30 +4983,63 @@ def family_profile(torch, M, params, cfg, prompt_toks):
     return out
 
 
-def hold_family_kernels(torch, cfg):
-    """Each kernel of a served ssm or hybrid model at the shapes and in the
-    instantiation its main path runs, against the plain version: rmsnorm in
+def rms_held(torch, RN, ref, rows, d, tag):
+    """``rmsnorm`` at [rows, d] bf16 against its plain version at TOL,
+    timed beside it, ``F.rms_norm`` and the bound."""
+    x = randn(torch, (rows, d), torch.bfloat16, seed=9)
+    sc = randn(torch, (d,), torch.bfloat16, seed=10)
+    err = held(torch, f"rmsnorm {tag} [{rows}, {d}] bfloat16 ({d // 8} "
+               f"pieces of 8)", RN.rmsnorm(x, sc), ref.rmsnorm(x, sc),
+               TOL["bfloat16"], TOL["bfloat16"])
+    ms = median_ms(lambda: RN.rmsnorm(x, sc), torch, reps=20, inner=10)
+    plain_ms = median_ms(lambda: ref.rmsnorm(x, sc), torch, reps=10, inner=5)
+    lib_ms = median_ms(lambda: lib_rmsnorm(x, sc), torch, reps=20, inner=10)
+    bound, by = rms_bound_ms(rows, d, 2)
+    print(f"[kernel] rmsnorm time {tag} [{rows}, {d}] bf16: kernel "
+          f"{ms:.5f} ms ({ms / bound:.2f}x the bound {bound:.6f} ms, {by}), "
+          f"plain {plain_ms:.4f} ms, F.rms_norm {lib_ms:.5f} ms")
+    return dict(shape=[rows, d], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound, bound_by=by)
+
+
+def served_flash_shape(cfg, traffic):
+    """(B, S, H, Kv, hd, causal) of a served model's prefill attention
+    under ``traffic``: over the prompt (after a vlm model's patches),
+    causal; an encdec model's encoder's, over its frames, non-causal."""
+    from repro_torch.launch.serve import prefix_len
+    B, H, Kv, hd = traffic["batch"], cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if cfg.family == "encdec":
+        return (B, cfg.encoder_seq, H, Kv, hd, False)
+    return (B, prefix_len(cfg) + traffic["prompt"], H, Kv, hd, True)
+
+
+def hold_family_kernels(torch, cfg, traffic=SERVE):
+    """Each kernel of a served model at the shapes and in the instantiation
+    its main path runs, against the plain version: with RMSNorm, rmsnorm in
     bf16 at the prefill's [B·S, d_model] and a decode step's [B, d_model]
-    (at d_model 4,096: ``rmsnorm_row_kernel<bf16, 2>``, 512 16-byte pieces
-    over 256 threads) at TOL; with attention layers, the flash forward at
-    the prefill's shape on the wgmma route (``attention_times``). Returns
-    (rmsnorm's max |kernel - plain|, the flash times or None)."""
+    (``rms_held``; at d_model 4,096 ``rmsnorm_row_kernel<bf16, 2>``, 512
+    16-byte pieces over 256 threads; at 896, 112 pieces, the warp-a-row
+    kernel); with attention layers, the flash forward at the prefill's
+    shape (``served_flash_shape``) on the wgmma route (``flash_held``).
+    Returns {"rmsnorm": {"prefill", "decode"}, "flash"}, each key where the
+    model runs that kernel."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as RN
-    d, worst = cfg.d_model, 0.0
-    for key, rows in (("prefill", SERVE["batch"] * SERVE["prompt"]),
-                      ("decode", SERVE["batch"])):
-        x = randn(torch, (rows, d), torch.bfloat16, seed=9)
-        sc = randn(torch, (d,), torch.bfloat16, seed=10)
-        worst = max(worst, held(
-            torch, f"rmsnorm {cfg.name} {key} [{rows}, {d}] bfloat16 "
-            f"({d // 8} pieces of 8)", RN.rmsnorm(x, sc), ref.rmsnorm(x, sc),
-            TOL["bfloat16"], TOL["bfloat16"]))
-    attn = None
-    if any(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers)):
-        attn = attention_times(torch, FA, ref, cfg)
-    return worst, attn
+    from repro_torch.launch.serve import prefix_len
+    out = {}
+    if cfg.norm == "rmsnorm":
+        rows = traffic["batch"] * (prefix_len(cfg) + traffic["prompt"])
+        out["rmsnorm"] = {key: rms_held(torch, RN, ref, n, cfg.d_model,
+                                        f"{cfg.name} {key}")
+                          for key, n in (("prefill", rows),
+                                         ("decode", traffic["batch"]))}
+    if attention_layers(cfg):
+        out["flash"] = flash_held(torch, FA, ref,
+                                  served_flash_shape(cfg, traffic),
+                                  f"{cfg.name} prefill")
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_serve_family(torch, K, T, smi, arch, cuts, want_params,
@@ -4962,7 +5138,7 @@ def phase_serve_family(torch, K, T, smi, arch, cuts, want_params,
     for b0 in range(0, SERVE["requests"], SERVE["batch"]):
         p = torch.from_numpy(np.stack(prompts[b0:b0 + SERVE["batch"]])).cuda()
         g = toks[b0:b0 + SERVE["batch"]].cuda()
-        err, same = hold_logits(torch, M, params, cfg, p, g,
+        err, same, _ = hold_logits(torch, M, params, cfg, p, g,
                                 f"{cfg.name} requests {b0}-"
                                 f"{b0 + SERVE['batch'] - 1}", book=book,
                                 gate_path=False)
@@ -4976,7 +5152,9 @@ def phase_serve_family(torch, K, T, smi, arch, cuts, want_params,
     batch0 = torch.from_numpy(np.stack(prompts[:SERVE["batch"]])).cuda()
     prof = family_profile(torch, M, params, cfg, batch0)
     del params, batch0
-    rms_err, attn = hold_family_kernels(torch, cfg)
+    kern = hold_family_kernels(torch, cfg)
+    rms_err = max(r["max_abs_err"] for r in kern["rmsnorm"].values())
+    attn = kern.get("flash")
     fp32_err, _ = phase_serve_fp32(torch, full.replace(dtype="float32",
                                                        **fp32_cuts))
     return dict(n_params=n_params, n_active=n_active, cuts=cuts,
@@ -5150,6 +5328,316 @@ def phase_train_moe(torch, K, T, smi):
                 route_flips=book.flips, cuts=MOE_TRAIN_CUTS)
 
 
+# ---------------------------------------------------------------------------
+# the encdec and vlm families: whisper-base and internvl2-1b, whole
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "whisper-base"
+VLM_ARCH = "internvl2-1b"
+# no reduction: both published models (0.14 and 1.26 GB of bf16 weights)
+PREFIXED_PARAMS = {ENCDEC_ARCH: 70_655_488, VLM_ARCH: 629_663_872}
+# serving, 8 requests in batches of 4, 16 greedy tokens each: whisper 30 s
+# of audio (1,500 frame embeddings; the conv/mel front end stubbed) and a
+# 64-token prompt, inside its 448-token decoder context; internvl2 256
+# patch embeddings (the ViT and projector stubbed) ahead of qwen's 1,024
+# prompt tokens
+PREFIXED_SERVE = {ENCDEC_ARCH: dict(SERVE, prompt=64), VLM_ARCH: dict(SERVE)}
+# training at full width, AdamW lr 1e-3, remat on: whisper 8 rows of 1,500
+# frames + 448 tokens in 4 microbatches; internvl2 stablelm's traffic, 8 x
+# 4,096 positions (256 patches + 3,840 tokens) in 8 microbatches; one
+# warm-up step, then the rest timed
+PREFIXED_TRAIN = {ENCDEC_ARCH: dict(TRAIN, seq=448, micro=4),
+                  VLM_ARCH: dict(TRAIN)}
+PREFIXED_TRAIN_STEPS = 3
+
+
+def in_fresh_thread(torch, fn):
+    """``fn()`` on a new thread (no CUDA context current until a CUDA call
+    binds one), synchronized there; its result, or its exception
+    raised here."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+            torch.cuda.synchronize()
+        except BaseException as e:       # noqa: BLE001 (re-raised below)
+            box["err"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def phase_serve_prefixed(torch, K, T, smi, arch):
+    """whisper-base or internvl2-1b at its published size served through
+    ``launch/serve.py::serve`` (``PREFIXED_SERVE``: zero frames or patches,
+    as the reference serves them) with every count set to 0 just before and
+    read just after: one flash launch a self-attention layer a prefill (the
+    encoder's non-causal ones too), all on ``wgmma`` and none writing lse;
+    with RMSNorm norm1 + norm2 a layer and the final norm each prefill and
+    decode step; no backward launch. Then, on the same weights: the decode
+    bound from the weights' bytes, the kernel path against the plain path
+    teacher-forced on the served tokens with the served inputs (the flash
+    kernel alone gated at SERVE_LOGIT_TOL; the whole path gated too where
+    the two plain versions lie closer than that, else printed), a
+    profiled prefill and decode step, each kernel held at the model's
+    shapes (``hold_family_kernels``), and the model in fp32, frames or
+    patches drawn from the seed, at 1e-4 (``phase_serve_fp32``)."""
+    import numpy as np
+    import repro_torch.configs as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import extra_inputs, make_prompts, serve
+    from repro_torch.models import model as M
+
+    cfg, traffic = C.get(arch), PREFIXED_SERVE[arch]
+    n_params = M.param_count(cfg)
+    check(n_params == PREFIXED_PARAMS[arch],
+          f"{cfg.name}: {n_params} parameters, expected "
+          f"{PREFIXED_PARAMS[arch]}")
+    base_gb = phase_memory(torch, f"serve {cfg.name}")
+    reset_counts(K, T)
+    t0 = time.perf_counter()
+    res = serve(cfg, device="cuda", **traffic)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = serve_counts(K, T)
+    routes = dict(FA.flash_attention.route_launches)
+    lse_launches = FA.flash_attention.lse_launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    B, n_tok = traffic["batch"], traffic["tokens"]
+    n_batches = -(-traffic["requests"] // B)
+    rms_run, attn = smoke_launches(cfg, n_tok * n_batches)
+    want = dict(rmsnorm=rms_run, flash_attention=attn * n_batches,
+                rmsnorm_bwd=0, others=0)
+    prefill_ms = [t * 1e3 for t in res["prefill_s"]]
+    decode_ms = [t / (n_tok - 1) * 1e3 for t in res["decode_s"]]
+    tok_s = traffic["requests"] * n_tok / (sum(res["prefill_s"]) +
+                                           sum(res["decode_s"]))
+    toks = res["tokens"]
+    inputs = (f"{cfg.encoder_seq} frames" if cfg.family == "encdec" else
+              f"{cfg.vision_prefix} patches")
+    print(f"[{cfg.family}] {smi}: {cfg.name} the published size "
+          f"({n_params:,} parameters; d_model {cfg.d_model}, "
+          f"{cfg.n_heads} over {cfg.n_kv_heads} heads, hd {cfg.hd}, "
+          f"{cfg.dtype}), requests={traffic['requests']} batch={B} "
+          f"({inputs} +) prompt={traffic['prompt']} tokens={n_tok}: prefill "
+          f"ms per batch {', '.join(f'{t:.2f}' for t in prefill_ms)}; "
+          f"decode ms per token step "
+          f"{', '.join(f'{t:.3f}' for t in decode_ms)}; {tok_s:.1f} tok/s "
+          f"over the run (wall {wall_s:.1f} s with the weights' init); peak "
+          f"memory {peak_gb:.2f} GB ({base_gb:.3f} GB allocated before the "
+          f"phase); launches {counts} (expected {want}), flash_attention by "
+          f"route {routes}")
+    check(counts == want and res["launches"] == {
+        k: v for k, v in want.items() if k != "others"},
+        f"{cfg.name} serve launches {counts} / {res['launches']}, expected "
+        f"{want}")
+    check(routes == dict(dict.fromkeys(routes, 0),
+                         wgmma=want["flash_attention"]),
+          f"{cfg.name} serve flash routes {routes}: every launch should run "
+          f"wgmma")
+    check(lse_launches == 0, f"{lse_launches} serve launches wrote lse")
+    check(tuple(toks.shape) == (traffic["requests"], n_tok) and
+          bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"served tokens {tuple(toks.shape)} out of shape or range")
+
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        traffic["seed"]), "cuda")
+    w_bytes = weight_bytes(params)
+    decode_bound_ms = w_bytes / PEAK_BYTES_S * 1e3
+    print(f"[{cfg.family}] {smi}: decode {min(decode_ms):.3f} ms a step at "
+          f"best against its bound {decode_bound_ms:.4f} ms (every step "
+          f"reads all {w_bytes / 1e9:.3f} GB of weights)")
+    prompts = make_prompts(cfg, traffic["requests"], traffic["prompt"],
+                           traffic["seed"])
+    served_extra = extra_inputs(cfg, B, "cuda")
+    worst, alone = 0.0, {}
+    for b0 in range(0, traffic["requests"], B):
+        p = torch.from_numpy(np.stack(prompts[b0:b0 + B])).cuda()
+        g = toks[b0:b0 + B].cuda()
+        err, same, dist = hold_logits(
+            torch, M, params, cfg, p, g, f"{cfg.name} requests {b0}-"
+            f"{b0 + B - 1}", gate_path=False, extra=served_extra,
+            alone=True)
+        check(same, "the kernel path gave other tokens on a second run")
+        worst = max(worst, err)
+        alone = {k: max(v, alone.get(k, 0.0)) for k, v in dist.items()}
+    prof = serve_profile(torch, cfg, params, prompts[:B], served_extra)
+    del params
+    kernels = hold_family_kernels(torch, cfg, traffic)
+    fp32_err, fp32_routes = phase_serve_fp32(
+        torch, cfg.replace(dtype="float32"),
+        prompt=min(traffic["prompt"], SERVE_FP32["prompt"]))
+    return dict(n_params=n_params, counts=counts, routes=routes,
+                prefill_ms=prefill_ms, decode_ms=decode_ms,
+                decode_bound_ms=decode_bound_ms, tok_s=tok_s,
+                peak_gb=peak_gb, base_gb=base_gb, logit_err=worst,
+                logit_err_alone=alone, fp32_logit_err=fp32_err,
+                fp32_routes=fp32_routes, kernels=kernels, profile=prof)
+
+
+def prefixed_flops(cfg, batch_rows, seq):
+    """A step's model FLOPs: 6 per parameter per position it runs over
+    (whisper's encoder parameters over the frames, the rest over the
+    tokens; internvl2's over patches and tokens), plus the attention
+    products (forward 2, backward 4, 2 flops a multiply-add): causal
+    self-attention over S/2 keys a query, whisper's encoder over all 1,500
+    and its cross-attention over the 1,500 frames. Remat's recomputed
+    forward is not counted."""
+    from repro_torch import tree
+    from repro_torch.models import model as M
+    H, hd = cfg.n_heads, cfg.hd
+    if cfg.family != "encdec":
+        return model_flops(M.param_count(cfg), batch_rows * seq,
+                           cfg.n_layers, H, hd, seq)
+    p = M.init_params(cfg, None, "meta")
+    enc = sum(t.numel() for t in tree.leaves(p["encoder"]))
+    dec = M.param_count(cfg) - enc
+    Se, L, Le = cfg.encoder_seq, cfg.n_layers, cfg.n_encoder_layers
+    return (6 * enc * batch_rows * Se + 6 * dec * batch_rows * seq +
+            12 * Le * H * hd * Se * Se * batch_rows +
+            6 * L * H * hd * seq * seq * batch_rows +
+            12 * L * H * hd * seq * Se * batch_rows)
+
+
+def phase_train_prefixed(torch, K, T, smi, arch):
+    """whisper-base or internvl2-1b at its published size through
+    ``launch/train.py::run_arch`` (``PREFIXED_TRAIN``: AdamW, remat on),
+    every count set to 0 just before and read just after: a flash forward
+    launch a self-attention layer a microbatch, twice under remat, all
+    writing lse, and a backward call of two launches, all on ``wgmma``; with
+    RMSNorm, rmsnorm (4 L + 1) and rmsnorm_bwd (2 L + 1) x 2 launches a
+    microbatch. Seconds a step, positions/s, model FLOP/s, peak memory; a
+    profiled step; that step's loss (2e-2 rel) and every gradient leaf
+    (2e-2 of its max |g|) against the all-plain step (forward, flash
+    backward and RMSNorm backward plain)."""
+    import numpy as np
+    from repro_torch import tree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import steps as ST
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.launch import train as TR
+    from repro_torch.models import model as M
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.optim import make as make_opt
+
+    cfg, traffic = TR.arch_config(arch, full=True), PREFIXED_TRAIN[arch]
+    n_params = M.param_count(cfg)
+    check(n_params == PREFIXED_PARAMS[arch],
+          f"{n_params} parameters, expected {PREFIXED_PARAMS[arch]}")
+    phase_memory(torch, f"train {cfg.name}")
+    reset_counts(K, T)
+    n = PREFIXED_TRAIN_STEPS
+    res = TR.run_arch(cfg, steps=n, label="full", remat=True, device="cuda",
+                      **traffic)
+    counts = dict(flash=FA.flash_attention.launches,
+                  lse=FA.flash_attention.lse_launches,
+                  routes=dict(FA.flash_attention.route_launches),
+                  flash_bwd=FA.flash_attention_bwd.launches,
+                  bwd_routes=dict(FA.flash_attention_bwd.route_launches),
+                  rmsnorm=RN.rmsnorm.launches,
+                  rmsnorm_bwd=RN.rmsnorm_bwd.launches,
+                  others=K.lstm_cell.launches + K.lstm_seq.launches +
+                  K.lstm_seq_bwd.launches + T.ternary_encode.launches +
+                  T.ternary_decode.launches + T.ef_compress_leaves.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    La, L, micro = attention_layers(cfg), cfg.n_layers, traffic["micro"]
+    rms = cfg.norm == "rmsnorm"
+    step = {"flash_attention": 2 * La * micro, "flash_lse": 2 * La * micro,
+            "flash_bwd": La * micro * FA.BWD_LAUNCHES,
+            "rmsnorm": (4 * L + 1) * micro if rms else 0,
+            "rmsnorm_bwd": (2 * L + 1) * micro * RN.BWD_LAUNCHES if rms
+            else 0}
+    want = dict(flash=step["flash_attention"] * n, lse=step["flash_lse"] * n,
+                routes=dict(dict.fromkeys(counts["routes"], 0),
+                            wgmma=step["flash_attention"] * n),
+                flash_bwd=step["flash_bwd"] * n,
+                bwd_routes=dict(dict.fromkeys(counts["bwd_routes"], 0),
+                                wgmma=step["flash_bwd"] * n),
+                rmsnorm=step["rmsnorm"] * n,
+                rmsnorm_bwd=step["rmsnorm_bwd"] * n, others=0)
+    print(f"[{cfg.family}-train] launches over {n} steps {counts} (expected "
+          f"{want}); per step {res['launches']}")
+    check(counts == want and all(s == step for s in res["launches"]),
+          f"{cfg.name} training launches {counts}, expected {want}")
+    rows, seq = traffic["batch"], traffic["seq"]
+    positions = rows * (seq + cfg.encoder_seq if cfg.family == "encdec"
+                        else seq)
+    timed = res["step_s"][1:]
+    step_s = statistics.mean(timed)
+    mflops = prefixed_flops(cfg, rows, seq)
+    mfu = mflops / step_s / PEAK_BF16_FLOP_S
+    print(f"[{cfg.family}-train] {smi}: {cfg.name} the published size "
+          f"({n_params:,} parameters), bf16, {rows} rows of "
+          f"{'1,500 frames + ' if cfg.family == 'encdec' else ''}{seq} "
+          f"positions in {res['n_micro']} microbatches, AdamW, remat: s per "
+          f"step {', '.join(f'{t:.3f}' for t in res['step_s'])} (first: "
+          f"warm-up); timed mean {step_s:.3f} s, {positions / step_s:.0f} "
+          f"positions/s; model FLOPs {mflops / 1e12:.2f} T a step, "
+          f"{mflops / step_s / 1e12:.1f} TFLOP/s = {100 * mfu:.2f}% of the "
+          f"bf16 peak; peak memory {peak_gb:.2f} GB; losses "
+          f"{[round(x, 4) for x in res['losses']]}")
+    check(all(math.isfinite(x) for x in res["losses"]),
+          f"non-finite losses {res['losses']}")
+    params = res["params"]
+    del res
+    torch.cuda.empty_cache()
+
+    shape = InputShape("train", seq, rows, "train")
+    batch = TR.sample_batch(np.random.RandomState(traffic["seed"]),
+                            M.train_batch_spec(cfg, shape), cfg.vocab,
+                            "cuda")
+    grads_fn = ST.bind_train(cfg, Runtime(), make_opt(traffic["optimizer"],
+                                                      traffic["lr"]),
+                             shape, num_microbatches=micro)["grads"]
+    prof = train_profile(torch, lambda: grads_fn(params, batch))
+    grads_k, mets_k = prof.pop("out")
+    with plain_kernels():
+        grads_p, mets_p = grads_fn(params, batch)
+    loss_k, loss_p = float(mets_k["loss"]), float(mets_p["loss"])
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    names = ["/".join(map(str, pth)) for pth in tree.leaf_paths(grads_k)]
+    gk, gp = dict(zip(names, tree.leaves(grads_k))), dict(
+        zip(names, tree.leaves(grads_p)))
+
+    def err_of(name):
+        """max|kernel - plain| over the plain leaf's max|g|; but a key
+        bias without RoPE (whisper's, and every cross-attention's) adds
+        one constant to a query's scores over all keys, which the softmax
+        takes out: its gradient is 0 and both steps' are rounding noise,
+        so its difference is measured against the key projection's max
+        |g| (the leaf ``wk`` beside it)."""
+        ref_leaf = gp[name]
+        if name.endswith("/bk") and (cfg.rope_fraction == 0 or
+                                     "/cross/" in name):
+            ref_leaf = gp[name[:-2] + "wk"]
+        return ((gk[name].float() - gp[name].float()).abs().max() /
+                ref_leaf.float().abs().max().clamp_min(1e-30)).item()
+
+    errs = [err_of(nm) for nm in names]
+    ok = max(errs) <= TRAIN_GRAD_TOL and loss_rel <= TRAIN_LOSS_RTOL
+    top = max(range(len(errs)), key=errs.__getitem__)
+    print(f"[{cfg.family}-train] kernel step vs the all-plain step: loss "
+          f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3e}, tol "
+          f"{TRAIN_LOSS_RTOL}); worst of {len(errs)} gradient leaves "
+          f"max|diff| / max|g| {errs[top]:.3e} at {names[top]} (tol "
+          f"{TRAIN_GRAD_TOL}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"the {cfg.name} training step through the kernels disagrees "
+              f"with the all-plain step")
+    del grads_k, grads_p, gk, gp, params, batch
+    torch.cuda.empty_cache()
+    return dict(n_params=n_params, step_s=step_s, steps_s=timed,
+                positions_s=positions / step_s,
+                model_tflop_s=mflops / step_s / 1e12, mfu=mfu,
+                peak_gb=peak_gb, counts=counts, launches_per_step=step,
+                profile=prof, grad_err=max(errs), loss_rel=loss_rel)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5232,19 +5720,24 @@ def main() -> int:
     prof = phase_profile(torch, prob)
     gw = phase_gateway(torch, K, T, per_version["none/inproc"]["mean"])
     served = phase_serve(torch, K, T)
-    serve_prof = phase_serve_profile(torch, served)
+    serve_prof = serve_profile(torch, served["cfg"], served["params"],
+                               served["prompts"][:SERVE["batch"]])
     del served["params"]       # each phase below starts with phase_memory
     fp32_err, fp32_routes = phase_serve_fp32(torch, C.get(SERVE_ARCH).replace(
         n_layers=SERVE_LAYERS, dtype="float32"))
     moe_served = phase_serve_moe(torch, K, T, smi)
     ssm_served = phase_serve_ssm(torch, K, T, smi)
     hybrid_served = phase_serve_hybrid(torch, K, T, smi)
+    encdec_served = phase_serve_prefixed(torch, K, T, smi, ENCDEC_ARCH)
+    vlm_served = phase_serve_prefixed(torch, K, T, smi, VLM_ARCH)
     phase_smoke_cpu(torch)
     torch.cuda.empty_cache()
     rms_bwd = phase_rmsnorm_bwd(torch, RN, ref)
     train_kern = phase_train_kernels(torch, FA, RN, ref)
     train = phase_train(torch, K, T)
     moe_train = phase_train_moe(torch, K, T, smi)
+    encdec_train = phase_train_prefixed(torch, K, T, smi, ENCDEC_ARCH)
+    vlm_train = phase_train_prefixed(torch, K, T, smi, VLM_ARCH)
     nemotron = phase_train_nemotron(torch, K, T, smi)
 
     layer0, seq0 = rows[0], seq_rows[0]
@@ -5343,7 +5836,14 @@ def main() -> int:
         "ssm_device_ms": {k: ssm_served["profile"][k]["rmsnorm_ms"]
                           for k in ("prefill", "decode")},
         "hybrid_device_ms": {k: hybrid_served["profile"][k]["rmsnorm_ms"]
-                             for k in ("prefill", "decode")}})
+                             for k in ("prefill", "decode")},
+        # internvl2-1b: d_model 896 on the warp-a-row kernel
+        "vlm_serve_launches": vlm_served["counts"]["rmsnorm"],
+        "vlm_train_launches_per_step":
+            vlm_train["launches_per_step"]["rmsnorm"],
+        "vlm_device_ms": {k: vlm_served["profile"][k]["rmsnorm_ms"]
+                          for k in ("prefill", "decode")},
+        "internvl2": vlm_served["kernels"]["rmsnorm"]})
     rb = rms_bwd["4096x2048"]
     kernels.append({
         "name": "rmsnorm_bwd", "route": "cuda",
@@ -5365,7 +5865,10 @@ def main() -> int:
         "library_ms": rb["library_ms"],
         "lib_fwd_bwd_ms": rb["lib_fwd_bwd_ms"], "shape": rb["shape"],
         "qwen_width": rms_bwd["4096x8192"],
-        "device_ms": moe_train["rmsnorm_bwd_device_ms"]})
+        "device_ms": moe_train["rmsnorm_bwd_device_ms"],
+        "vlm_train_launches_per_step":
+            vlm_train["launches_per_step"]["rmsnorm_bwd"],
+        "internvl2": rms_bwd["4096x896"]})
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -5378,6 +5881,16 @@ def main() -> int:
         "ssm_serve_launches": ssm_served["counts"]["flash_attention"],
         "hybrid_serve_launches": hybrid_served["counts"]["flash_attention"],
         "hybrid_routes": hybrid_served["routes"],
+        "encdec_serve_launches": encdec_served["counts"]["flash_attention"],
+        "vlm_serve_launches": vlm_served["counts"]["flash_attention"],
+        "encdec_train_launches_per_step":
+            encdec_train["launches_per_step"]["flash_attention"],
+        "vlm_train_launches_per_step":
+            vlm_train["launches_per_step"]["flash_attention"],
+        "whisper": dict(encdec_served["kernels"]["flash"], device_ms=
+                        encdec_served["profile"]["prefill"]["flash_ms"]),
+        "internvl2": dict(vlm_served["kernels"]["flash"], device_ms=
+                          vlm_served["profile"]["prefill"]["flash_ms"]),
         "hybrid_device_ms": hybrid_served["profile"]["prefill"]["flash_ms"],
         "jamba": hybrid_served["attention"],
         "moe_train_launches_per_step":
@@ -5479,6 +5992,15 @@ def main() -> int:
         "nemotron_step": {k: nemotron[k] for k in (
             "launches_per_step", "counts", "bwd_device_ms_per_launch",
             "step_s", "grad_err", "loss_rel", "peak_gb")},
+        "encdec_train_launches_per_step":
+            encdec_train["launches_per_step"]["flash_bwd"],
+        "vlm_train_launches_per_step":
+            vlm_train["launches_per_step"]["flash_bwd"],
+        **{key: {k: train_kern[arch][k] for k in (
+            "shape", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "bwd_err",
+            "sdpa_fwd_bwd_ms", "fwd_bwd_ms", "fwd_lse_ms", "fwd_ms")}
+           for key, arch in (("whisper", ENCDEC_ARCH),
+                             ("internvl2", VLM_ARCH))},
         "hgmma_in_sass": hgmma[FA.BWD_SOURCE.name]})
     serve_line = {k: served[k] for k in ("prefill_ms", "decode_ms", "tok_s",
                                          "peak_gb", "base_gb", "logit_err")}
@@ -5503,7 +6025,15 @@ def main() -> int:
                       "serve_ssm": {k: ssm_served[k] for k in family_keys},
                       "serve_hybrid": {k: hybrid_served[k]
                                        for k in family_keys},
-                      "train_moe": moe_train_line}))
+                      "train_moe": moe_train_line,
+                      "serve_encdec": {k: v for k, v in encdec_served.items()
+                                       if k != "kernels"},
+                      "serve_vlm": {k: v for k, v in vlm_served.items()
+                                    if k != "kernels"},
+                      "train_encdec": {k: v for k, v in encdec_train.items()
+                                       if k != "counts"},
+                      "train_vlm": {k: v for k, v in vlm_train.items()
+                                    if k != "counts"}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,10 @@ a transformer's ``{"embed", "blocks": {"l0": ..., "l{P-1}": ...},
 unit's sublayers stacked over the units (one layer a unit, the 8-layer
 period for the hybrid family), and each leaf in its own dtype: an ssm
 layer's ``dt_bias``, ``A_log`` and ``Dskip`` and a moe layer's router stay
-fp32 inside a bf16 tree.
+fp32 inside a bf16 tree. An encdec model has ``"encoder"`` (``l0``:
+``norm1``, ``attn``, ``norm2``, ``mlp``), ``"enc_norm"`` and ``"decoder"``
+(``l0``: ``norm1``, ``attn``, ``norm_x``, ``cross``, ``norm2``, ``mlp``) in
+place of ``"blocks"``, and ties its embeddings (no ``"unembed"``).
 
 A bfloat16 leaf (numpy's ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses) crosses as its raw 16-bit words, bit for bit, as

@@ -404,7 +404,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // cuTensorMapEncodeTiled from the driver, through the runtime, so the
-// library needs no -lcuda.
+// library needs no -lcuda. The encode needs a current context, which a
+// thread has only once a runtime call bound it: a thread whose first CUDA
+// call is an encode (an autograd worker thread whose first node is the flash
+// backward) would get CUDA_ERROR_INVALID_CONTEXT, so encoder() first makes
+// the primary context of the thread's device current (cudaSetDevice does).
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -413,6 +417,8 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapFloatOOBfill);
 
 inline EncodeTiled encoder() {
+  int device = 0;
+  if (cudaGetDevice(&device) == cudaSuccess) cudaSetDevice(device);
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;

@@ -5,12 +5,15 @@ Serves an architecture (reduced by default, the published config with
 requests is packed into fixed batches (the last one padded), each batch is
 prefilled into a fresh KV/SSM cache, then decoded token by token. On the
 card every RMSNorm runs in the hand-written ``rmsnorm`` kernel and every
-prefill attention in the hand-written ``flash_attention`` kernel. The
-dense, moe, ssm and hybrid families run (moe layers through the sort
-dispatch at the config's capacity factor, the reference's runtime; ssm
-layers through the chunked selective scan, plain torch); the encdec and
-vlm families raise. Without ``--device cpu`` and without a card it raises:
-a run never drops to the CPU on its own.
+prefill attention in the hand-written ``flash_attention`` kernel (the
+whisper encoder's non-causal self-attention too; cross-attention and
+decode attention stay plain). Every family runs: moe layers through the
+sort dispatch at the config's capacity factor, the reference's runtime;
+ssm layers through the chunked selective scan, plain torch; an encdec
+model's batches carry zero ``frames`` (the stubbed audio front end's
+output) and a vlm model's zero ``patches`` (the stubbed ViT's), which a vlm
+decode counts ahead of the prompt. Without ``--device cpu`` and without a
+card it raises: a run never drops to the CPU on its own.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
       --device cpu --requests 8 --batch 4 --prompt 32 --tokens 16
@@ -20,6 +23,9 @@ a run never drops to the CPU on its own.
       --device cpu --requests 2 --batch 2 --prompt 8 --tokens 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
+      --device cpu --requests 2 --batch 2 --prompt 8 --tokens 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b --full
 """
 from __future__ import annotations
 
@@ -52,6 +58,27 @@ def make_prompts(cfg, requests: int, prompt: int, seed: int
             for _ in range(requests)]
 
 
+def prefix_len(cfg) -> int:
+    """The positions a prefill holds ahead of the prompt: the vlm family's
+    patches."""
+    return cfg.vision_prefix if cfg.family == "vlm" else 0
+
+
+def extra_inputs(cfg, batch: int, device) -> dict:
+    """A batch's entries beside its tokens, as ``repro.launch.serve``
+    builds them: zero ``frames`` ``[batch, encoder_seq, d_model]``
+    (encdec) or ``patches`` ``[batch, vision_prefix, d_model]`` (vlm) in
+    ``cfg.dtype``."""
+    dt = M.dtype_of(cfg)
+    if cfg.family == "encdec":
+        return {"frames": torch.zeros(batch, cfg.encoder_seq, cfg.d_model,
+                                      dtype=dt, device=device)}
+    if cfg.family == "vlm":
+        return {"patches": torch.zeros(batch, cfg.vision_prefix, cfg.d_model,
+                                       dtype=dt, device=device)}
+    return {}
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -60,7 +87,9 @@ def _sync(dev):
 def serve(cfg, *, requests: int, batch: int, prompt: int, tokens: int,
           seed: int, device=None) -> dict:
     """Serve ``requests`` prompts in batches of ``batch``: prefill, then
-    ``tokens - 1`` greedy decode steps. Weights come from a
+    ``tokens - 1`` greedy decode steps (each batch with
+    ``extra_inputs``, the decode from position ``prefix_len + prompt``;
+    the cache holds the prefix too). Weights come from a
     ``torch.Generator`` on the device seeded with ``seed``. Returns
     ``{"tokens": int32 [requests, tokens] on the host, "launches":
     {"rmsnorm": n, "flash_attention": n, "rmsnorm_bwd": 0}, "prefill_s":
@@ -71,7 +100,8 @@ def serve(cfg, *, requests: int, batch: int, prompt: int, tokens: int,
     if min(requests, batch, prompt, tokens) < 1:
         raise ValueError("requests, batch, prompt and tokens must be >= 1")
     dev = D.resolve(device)
-    max_seq = prompt + tokens + 8
+    start = prefix_len(cfg) + prompt
+    max_seq = start + tokens + 8
     params = M.init_params(
         cfg, torch.Generator(device=dev).manual_seed(seed), dev)
     prompts = make_prompts(cfg, requests, prompt, seed)
@@ -87,15 +117,16 @@ def serve(cfg, *, requests: int, batch: int, prompt: int, tokens: int,
         cache = M.init_cache(cfg, batch, max_seq, device=dev)
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = M.prefill(params, cfg, DEFAULT, {"tokens": toks},
-                                  cache)
+        logits, cache = M.prefill(params, cfg, DEFAULT,
+                                  {"tokens": toks,
+                                   **extra_inputs(cfg, batch, dev)}, cache)
         tok = greedy(logits)
         _sync(dev)
         t1 = time.perf_counter()
         outs = [tok]
         for t in range(tokens - 1):
             logits, cache = M.decode_step(params, cfg, DEFAULT, tok, cache,
-                                          prompt + t)
+                                          start + t)
             tok = greedy(logits)
             outs.append(tok)
         gen = torch.stack(outs, dim=1).cpu()

@@ -14,21 +14,21 @@ its packed size in ``bytes_sent``; ``--transport wire`` round-trips every
 protocol message through bytes and reports them as ``wire_bytes`` (the
 gradient crosses decoded, as in the JAX package).
 
-``--arch <id>`` trains a dense, moe, ssm or hybrid architecture (its
-smoke config, or the published one with ``--full``) as ``repro.launch.train --arch`` does:
-the
-same step (``distributed/steps.py``: microbatch gradients summed in an fp32
+``--arch <id>`` trains any transformer architecture (its smoke config, or
+the published one with ``--full``) as ``repro.launch.train --arch`` does:
+the same step (``distributed/steps.py``: microbatch gradients summed in an fp32
 accumulator, one mean and one optimizer update a step), the same
-optimizers, the same random token batches (``RandomState(seed)``, one draw
-a step), the same checkpoint files (``--ckpt``). Every attention runs the
+optimizers, the same random batches (``RandomState(seed)``, one draw a
+step: tokens, and an encdec model's ``frames`` or a vlm model's
+``patches``), the same checkpoint files (``--ckpt``). Every attention runs the
 hand-written flash kernel under autograd (once a layer a microbatch, and
 again in the backward under remat), writing its log-sum-exp for the plain
 backward; every RMSNorm the ``rmsnorm`` kernel forward and the
 ``rmsnorm_bwd`` kernel backward; a moe layer's router loss joins the loss
 at ``router_aux_weight``; an ssm layer's selective scan runs in plain torch
-under autograd. The JAX package binds the step to a device mesh; the port
-runs it on one card. The encdec and vlm families raise, naming the ROADMAP
-item that brings them.
+under autograd; an encdec model's cross-attention runs plain, and its
+gradient reaches the encoder. The JAX package binds the step to a device
+mesh; the port runs it on one card.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --paper --workers 3 --versions 3
@@ -38,6 +38,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-110b --device cpu --steps 2 --batch 4 --seq 16 --micro 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-moe-16b --device cpu --steps 2 --batch 4 --seq 16 --micro 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b --device cpu --steps 1
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base --device cpu --steps 1 --batch 4 --seq 16 --micro 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-1b --full --batch 8 --seq 4096 --micro 8 --steps 3
 """
 from __future__ import annotations
 
@@ -59,7 +61,6 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import lstm_cell as K
 from repro_torch.kernels import rmsnorm as RN
 from repro_torch.kernels import ternary as T
-from repro_torch.models import blocks as B
 from repro_torch.models import model as M
 from repro_torch.models.runtime import Runtime
 from repro_torch.optim import make as make_opt
@@ -109,25 +110,27 @@ def run_paper(*, workers: int = 4, versions: int = 8, seed: int = 0,
 
 def arch_config(arch: str, full: bool = False):
     """The config ``--arch`` trains: the published one with ``full``, else
-    the smoke config. Raises for the LSTM and for a family the port does
-    not train yet."""
+    the smoke config. Raises for the LSTM."""
     cfg = C.get(arch) if full else C.get_smoke(arch)
     if cfg.family == "rnn":
         raise SystemExit("use --paper for the LSTM workload")
-    B.check_family(cfg)
     return cfg
 
 
 def sample_batch(rng, spec, vocab: int, device):
-    """One training batch from ``rng``, as ``repro.launch.train`` draws it:
-    ``rng.randint(0, vocab, size=shape)`` for every integer entry."""
+    """One training batch from ``rng``, as ``repro.launch.train`` draws it,
+    entry by entry in the spec's order: ``rng.randint(0, vocab,
+    size=shape)`` for an integer entry, ``rng.randn(*shape)`` for a float
+    one (``frames``, ``patches``), rounded to fp32 and then to the spec's
+    dtype, as JAX converts the float64 draw."""
     out = {}
     for k, s in spec.items():
-        if s.dtype != torch.int32:
-            raise ValueError(f"batch entry {k}: {s.dtype}; the families "
-                             f"the port trains take tokens only")
-        out[k] = torch.from_numpy(rng.randint(0, vocab, size=s.shape)
-                                  .astype(np.int32)).to(device)
+        if s.dtype == torch.int32:
+            a = rng.randint(0, vocab, size=s.shape).astype(np.int32)
+            out[k] = torch.from_numpy(a).to(device)
+        else:
+            a = rng.randn(*s.shape).astype(np.float32)
+            out[k] = torch.from_numpy(a).to(device=device, dtype=s.dtype)
     return out
 
 

@@ -1,5 +1,5 @@
 """Transformer and SSM blocks and the loop over stacked units, as
-``repro.models.blocks`` for the dense, moe, ssm and hybrid families.
+``repro.models.blocks``, for every transformer family.
 
 A *unit* is the repeating parameter structure: one layer for the uniform
 families, the whole period (``cfg.hybrid.period`` layers, 8 for Jamba) for
@@ -21,7 +21,11 @@ recomputed in the backward, kernels included. A moe layer's feed-forward
 is ``models/moe.py`` (with a dense MLP beside it when the config has a
 dense residual, as Arctic does); without a cache each moe layer returns its
 router's aux loss, which the loop sums (through the checkpoint too). A
-cached prefill or decode takes no loss, so it computes none.
+cached prefill or decode takes no loss, so it computes none. The encdec
+family's decoder layers (drawn with ``cross=True``) add a cross-attention
+sublayer (``norm_x``, ``cross``) over the encoder's memory after the mixer,
+run wherever the tree holds one; their decode cache holds its projected
+k/v (``ck``/``cv``, ``[B, Se, Kv, hd]``), written once by the prefill.
 """
 from __future__ import annotations
 
@@ -35,23 +39,12 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
-# the ROADMAP item that ports each family the port does not run yet
-_NOT_PORTED = {
-    "encdec": "ROADMAP Queue 1 item 8: the encdec and vlm families "
-              "(encoder, cross-attention)",
-    "vlm": "ROADMAP Queue 1 item 8: the encdec and vlm families "
-           "(patch-prefix prefill)",
-}
-_PORTED = ("dense", "moe", "ssm", "hybrid")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def check_family(cfg) -> None:
-    """Raise for a family whose layers the port does not run yet."""
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; see "
-            f"{_NOT_PORTED[cfg.family]}")
-    if cfg.family not in _PORTED:
+    """Raise for a family without transformer blocks (the LSTM's)."""
+    if cfg.family not in _FAMILIES:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} has no "
                          f"transformer blocks")
 
@@ -60,10 +53,12 @@ def check_family(cfg) -> None:
 # sublayer init
 # ---------------------------------------------------------------------------
 
-def _init_sublayer(generator, cfg, dtype, device, layer_idx: int):
-    """One residual layer: norm1 + mixer (attention or ssm) + norm2 + the
-    feed-forward (an mlp; or moe, with an mlp beside it under a dense
-    residual); the ssm family's layers stop after the mixer. The layer's
+def _init_sublayer(generator, cfg, dtype, device, layer_idx: int, *,
+                   cross: bool = False):
+    """One residual layer: norm1 + mixer (attention or ssm) (+ norm_x and
+    the cross-attention with ``cross``) + norm2 + the feed-forward (an mlp;
+    or moe, with an mlp beside it under a dense residual); the ssm family's
+    layers stop after the mixer. The layer's
     kind is ``cfg.layer_kind(layer_idx)``, read again where it is applied:
     the tree holds tensors only (the reference's ``"kind"`` marker is
     stripped before stacking)."""
@@ -73,6 +68,9 @@ def _init_sublayer(generator, cfg, dtype, device, layer_idx: int):
         p["ssm"] = SSM.init_ssm(generator, cfg, dtype, device)
     else:
         p["attn"] = L.init_attention(generator, cfg, dtype, device)
+    if cross:
+        p["norm_x"] = L.init_norm(cfg.norm, cfg.d_model, dtype, device)
+        p["cross"] = L.init_attention(generator, cfg, dtype, device)
     if cfg.family != "ssm":
         p["norm2"] = L.init_norm(cfg.norm, cfg.d_model, dtype, device)
         if cfg.layer_is_moe(layer_idx):
@@ -95,9 +93,11 @@ def num_units(cfg) -> int:
     return cfg.n_layers // unit_size(cfg)
 
 
-def init_stacked_units(generator, cfg, dtype, device):
+def init_stacked_units(generator, cfg, dtype, device, *,
+                       cross: bool = False):
     """``{"l0": ..., "l{P-1}": ...}`` with every leaf stacked over the
-    units. Sublayers are drawn one at a time, unit by unit, each copied
+    units (with ``cross``, each layer with its cross-attention). Sublayers
+    are drawn one at a time, unit by unit, each copied
     into its slot as it is drawn, so the draws need room for one sublayer
     beside the stack: a whole jamba period beside its 52 GB stack would not
     fit one card."""
@@ -107,7 +107,8 @@ def init_stacked_units(generator, cfg, dtype, device):
     for u in range(U):
         for i in range(unit_size(cfg)):
             key = f"l{i}"
-            layer = _init_sublayer(generator, cfg, dtype, device, i)
+            layer = _init_sublayer(generator, cfg, dtype, device, i,
+                                   cross=cross)
             if u == 0:
                 stacked[key] = tree.map(
                     lambda a: a.new_empty((U,) + a.shape), layer)
@@ -120,29 +121,36 @@ def init_stacked_units(generator, cfg, dtype, device):
 # caches
 # ---------------------------------------------------------------------------
 
-def init_unit_cache(cfg, batch: int, max_seq: int, dtype, device):
+def init_unit_cache(cfg, batch: int, max_seq: int, dtype, device, *,
+                    cross_seq: int = 0):
     """Decode cache for one unit: ``{conv, h}`` (``ssm.init_ssm_state``)
     for an ssm sublayer, ``{k, v}`` ``[batch, max_seq, Kv, hd]`` for an
-    attention one."""
+    attention one, and with ``cross_seq`` (an encdec decoder) ``{ck, cv}``
+    ``[batch, cross_seq, Kv, hd]`` beside them."""
+    def zeros(seq):
+        return torch.zeros((batch, seq, cfg.n_kv_heads, cfg.hd), dtype=dtype,
+                           device=device)
+
     cache: Dict[str, Any] = {}
     for i in range(unit_size(cfg)):
         if cfg.layer_kind(i) == "ssm":
             cache[f"l{i}"] = SSM.init_ssm_state(cfg, batch, dtype, device)
         else:
-            shape = (batch, max_seq, cfg.n_kv_heads, cfg.hd)
-            cache[f"l{i}"] = {
-                "k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+            cache[f"l{i}"] = {"k": zeros(max_seq), "v": zeros(max_seq)}
+        if cross_seq:
+            cache[f"l{i}"].update(ck=zeros(cross_seq), cv=zeros(cross_seq))
     return cache
 
 
-def init_cache(cfg, batch: int, max_seq: int, dtype, device):
+def init_cache(cfg, batch: int, max_seq: int, dtype, device, *,
+               cross_seq: int = 0):
     """Decode cache, every leaf of ``init_unit_cache`` stacked over the
     units (``[U, ...]``)."""
     check_family(cfg)
     U = num_units(cfg)
     return tree.map(lambda a: a.new_zeros((U,) + a.shape),
-                    init_unit_cache(cfg, batch, max_seq, dtype, device))
+                    init_unit_cache(cfg, batch, max_seq, dtype, device,
+                                    cross_seq=cross_seq))
 
 
 # ---------------------------------------------------------------------------
@@ -150,11 +158,16 @@ def init_cache(cfg, batch: int, max_seq: int, dtype, device):
 # ---------------------------------------------------------------------------
 
 def _apply_sublayer(p, x, cfg, rt, layer_idx: int, *, positions, pos,
-                    cache: Optional[dict], causal: bool = True,
+                    cache: Optional[dict], memory=None, causal: bool = True,
                     window: int = 0):
     """One layer; its new k/v or ssm state go into ``cache`` (a layer's
-    slice) in place. Returns (x, aux): aux the router's load-balance loss
-    (fp32), None without moe or with a cache."""
+    slice) in place. A layer with a cross-attention attends to the
+    encoder's ``memory`` [B, Se, D]: a prefill (cache and memory) projects
+    it once into the cache's ``ck``/``cv`` (cast to the cache's dtype) and
+    attends with the uncast k/v, as the JAX package does; a decode step
+    reads ``ck``/``cv``; training attends to ``memory`` itself. Returns (x,
+    aux): aux the router's load-balance loss (fp32), None without moe or
+    with a cache."""
     h = L.apply_norm(cfg.norm, p["norm1"], x)
     if cfg.layer_kind(layer_idx) == "ssm":
         if cache is None:
@@ -174,6 +187,18 @@ def _apply_sublayer(p, x, cfg, rt, layer_idx: int, *, positions, pos,
                                causal=causal, window=window,
                                cache=attn_cache)
     x = x + mix
+    if "cross" in p:
+        hx = L.apply_norm(cfg.norm, p["norm_x"], x)
+        if cache is not None and memory is not None:
+            _, ck, cv = L.attention_qkv(p["cross"], hx, xkv=memory)
+            cache["ck"].copy_(ck)
+            cache["cv"].copy_(cv)
+            x = x + L.cross_attention(p["cross"], hx, mem_kv=(ck, cv))
+        elif cache is not None:
+            x = x + L.cross_attention(p["cross"], hx,
+                                      mem_kv=(cache["ck"], cache["cv"]))
+        else:
+            x = x + L.cross_attention(p["cross"], hx, memory=memory)
     if "norm2" not in p:
         return x, None
     h2 = L.apply_norm(cfg.norm, p["norm2"], x)
@@ -187,7 +212,7 @@ def _apply_sublayer(p, x, cfg, rt, layer_idx: int, *, positions, pos,
     return x + y, aux
 
 
-def apply_unit(up, x, cfg, rt, *, positions, pos, cache=None,
+def apply_unit(up, x, cfg, rt, *, positions, pos, cache=None, memory=None,
                causal: bool = True, window: int = 0):
     """One unit's sublayers in order. Returns (x, cache, aux): the unit's
     cache given, updated in place, or None; aux the sublayers' router
@@ -198,7 +223,7 @@ def apply_unit(up, x, cfg, rt, *, positions, pos, cache=None,
         x, a = _apply_sublayer(up[key], x, cfg, rt, i, positions=positions,
                                pos=pos,
                                cache=None if cache is None else cache[key],
-                               causal=causal, window=window)
+                               memory=memory, causal=causal, window=window)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, cache, aux
@@ -215,26 +240,28 @@ def unstack(stacked, n: int):
 
 
 def scan_units(units_p, x, cfg, rt, *, positions, pos=None, cache=None,
-               causal: bool = True, window: int = 0):
+               memory=None, causal: bool = True, window: int = 0):
     """The stacked units in order (the JAX package's ``lax.scan``).
-    Returns (x, cache, aux): the cache given, updated in place, or None;
-    aux the units' router losses summed (fp32), None without moe layers
-    or with a cache."""
+    ``memory``: the encoder's output, which the encdec decoder's
+    cross-attention reads (under remat it enters each checkpoint as an
+    argument, so its gradient reaches the encoder). Returns (x, cache,
+    aux): the cache given, updated in place, or None; aux the units' router
+    losses summed (fp32), None without moe layers or with a cache."""
     remat = rt.remat and cache is None and torch.is_grad_enabled()
     aux = None
     for u, unit in enumerate(unstack(units_p, num_units(cfg))):
         if remat:
             x, _, a = checkpoint(apply_unit, unit, x, cfg, rt,
                                  positions=positions, pos=pos, cache=None,
-                                 causal=causal, window=window,
+                                 memory=memory, causal=causal, window=window,
                                  use_reentrant=False)
         else:
             unit_cache = None
             if cache is not None:
                 unit_cache = tree.map(lambda c: c[u], cache)
             x, _, a = apply_unit(unit, x, cfg, rt, positions=positions,
-                                 pos=pos, cache=unit_cache, causal=causal,
-                                 window=window)
+                                 pos=pos, cache=unit_cache, memory=memory,
+                                 causal=causal, window=window)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, cache, aux

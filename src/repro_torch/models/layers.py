@@ -1,5 +1,6 @@
-"""Core layers of the dense transformer, as ``repro.models.layers``: init
-helpers, norms, RoPE, attention (the flash kernel and plain), MLP variants.
+"""Core layers of the transformer, as ``repro.models.layers``: init helpers,
+norms, RoPE, attention (the flash kernel and plain), cross-attention, MLP
+variants and sinusoidal positions.
 
 Plain functions on tensors over dict params, the JAX package's tree and
 shapes (``wq [D, H, hd]``, ``wo [H, hd, D]``, ...). ``init_*`` draws from an
@@ -8,8 +9,9 @@ JAX's weights across with ``bridge``). RMSNorm goes through
 ``kernels.ops.rms_norm`` and attention over fresh k/v (prefill, training)
 through ``kernels.ops.attention``: the hand-written kernels on the card,
 their plain versions on the CPU, under autograd where a gradient is wanted.
-LayerNorm and decode attention stay plain, as in the JAX package (which has
-no kernel for either).
+LayerNorm, decode attention and cross-attention stay plain, as in the JAX
+package (which has no kernel for them: its flash kernel, like the port's,
+is self-attention only, Sq == Skv).
 """
 from __future__ import annotations
 
@@ -149,9 +151,12 @@ def _project(x, w):
     return (x @ w.reshape(D, N * hd)).reshape(*x.shape[:-1], N, hd)
 
 
-def attention_qkv(p, x):
-    """Project. x [B,S,D] -> q [B,S,H,hd], k/v [B,S,Kv,hd]."""
-    q, k, v = _project(x, p["wq"]), _project(x, p["wk"]), _project(x, p["wv"])
+def attention_qkv(p, x, xkv=None):
+    """Project. x [B,S,D] -> q [B,S,H,hd]; k/v [B,Skv,Kv,hd] from ``xkv``
+    (the encoder's memory of a cross-attention), else from x."""
+    xkv = x if xkv is None else xkv
+    q, k, v = (_project(x, p["wq"]), _project(xkv, p["wk"]),
+               _project(xkv, p["wv"]))
     if "bq" in p:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -196,6 +201,24 @@ def self_attention(p, x, cfg, *, positions, causal=True, window=0,
     return attention_out(p, out)
 
 
+def cross_attention(p, x, *, memory=None, mem_kv=None):
+    """Decoder -> encoder attention, plain (non-causal, Sq != Skv). x
+    [B,S,D]; memory [B,Se,D], or its projected ``mem_kv`` = (k, v)
+    [B,Se,Kv,hd] (the decode cache's ``ck``/``cv``). Returns [B,S,D]."""
+    if mem_kv is None:
+        _, k, v = attention_qkv(p, x, xkv=memory)
+    else:
+        k, v = mem_kv
+    q = _project(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    B, Sq = x.shape[:2]
+    qpos = torch.zeros((B, Sq), dtype=torch.int32, device=x.device)
+    kpos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
+    out = plain_attention(q, k, v, qpos, kpos, causal=False)
+    return attention_out(p, out)
+
+
 # ---------------------------------------------------------------------------
 # MLP variants
 # ---------------------------------------------------------------------------
@@ -219,3 +242,17 @@ def apply_mlp(p, x, kind: str):
     else:  # gelu
         h = F.gelu(x @ p["wi"], approximate="tanh")
     return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# sinusoidal positions (whisper-style, computed on the fly)
+# ---------------------------------------------------------------------------
+
+def sinusoidal_positions(positions, d_model: int):
+    """positions [...] -> [..., d_model] fp32: ``sin`` then ``cos`` of the
+    positions over ``d_model / 2`` geometric frequencies."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / max(half - 1, 1))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

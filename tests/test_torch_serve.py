@@ -207,13 +207,13 @@ def test_config_registry_matches_jax():
                                                        128, "decode")
 
 
-@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-1b"])
-def test_unported_families_raise(arch):
-    cfg = TC.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        TM.init_cache(cfg, 1, 4)
+def test_check_family_refuses_only_the_lstm():
+    """Every transformer family has blocks; the LSTM has none."""
+    from repro_torch.models import blocks as TB
+    with pytest.raises(ValueError, match="no transformer blocks"):
+        TB.check_family(TC.get("paper-lstm"))
+    for arch in TC.ARCH_IDS:
+        TB.check_family(TC.get(arch))
 
 
 # ---------------------------------------------------------------------------
