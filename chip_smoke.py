@@ -2104,11 +2104,13 @@ def fwd_registers(FA, hd):
             if f"tf32x3<Li{x3_fwd_cols(hd)}>" in name}
 
 
-def pipe_registers(FA):
+def pipe_registers(FA, source=None):
     """ptxas's registers and spills of flash_kernel_wgmma_pipe (bf16 at hd
-    129-192)."""
+    129-192), or with ``source`` FA.BWD_SOURCE of the backward's
+    two-warpgroup kernels (flash_bwd_dq_wgmma_pipe and
+    flash_bwd_dkdv_wgmma_pipe at hd 64 and 128)."""
     from repro_torch.kernels import build as kbuild
-    report = ptxas_report(kbuild.log_path(FA.SOURCE).read_text())
+    report = ptxas_report(kbuild.log_path(source or FA.SOURCE).read_text())
     return {name: rep for name, rep in report if "wgmma_pipe" in name}
 
 
@@ -3412,7 +3414,8 @@ def flash_bwd_sweep(torch, FA, ref):
     on ``wgmma`` up to 256, 80 padded to 128, and on ``wgmma_chunked``
     above; fp32 on ``tf32x3`` at every width, 80 and 300 padded); each
     call counted on its route, and as padded where it ran at a wider
-    width. Returns the worst relative error by dtype."""
+    width, and a second call bit for bit equal. Returns the worst relative
+    error by dtype."""
     from repro_torch.kernels import ops
     worst = {"float32": 0.0, "bfloat16": 0.0}
     cases = [(shape, dt) for shape in FLASH_SWEEP
@@ -3441,17 +3444,23 @@ def flash_bwd_sweep(torch, FA, ref):
             n = FA.flash_attention_bwd.route_launches[path] - before[0]
             n_pad = FA.flash_attention_bwd.padded_launches - before[1]
             errs = [rel_err(torch, a, b) for a, b in zip(got, want)]
-            ok = max(errs) <= FLASH_BWD_TOL[dt] and all(
+            # a second run bit for bit equal (the bf16 kernels at hd 64 and
+            # 128 sum over warpgroups and cluster blocks in a fixed order)
+            same = all(torch.equal(a, b) for a, b in zip(
+                got, FA.flash_attention_bwd(q, k, v, o, lse, do,
+                                            causal=causal, window=window)))
+            ok = max(errs) <= FLASH_BWD_TOL[dt] and same and all(
                 a.dtype == dtype and a.shape == t.shape
                 for a, t in zip(got, (q, k, v)))
             print(f"[train] flash_attention_bwd B={B} S={S} H={H} Kv={Kv} "
                   f"hd={hd} {dt} causal={causal} window={window} ({path} at "
                   f"hd {width}, {n} launches): max|kernel-plain| / max|grad| "
                   f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} tol "
-                  f"{FLASH_BWD_TOL[dt]} {'ok' if ok else 'FAIL'}")
+                  f"{FLASH_BWD_TOL[dt]}; two runs bit-equal {same} "
+                  f"{'ok' if ok else 'FAIL'}")
             check(ok, f"flash_attention_bwd disagrees with its plain version "
-                      f"at B={B} S={S} H={H} Kv={Kv} hd={hd} {dt} "
-                      f"causal={causal} window={window}")
+                      f"or between two runs at B={B} S={S} H={H} Kv={Kv} "
+                      f"hd={hd} {dt} causal={causal} window={window}")
             check(n == FA.BWD_LAUNCHES and
                   n_pad == (n if width != hd else 0),
                   f"flash_attention_bwd counted {n} launches on {path}, "
@@ -3720,6 +3729,294 @@ def flash_bwd_wide_times(torch, FA, ref):
     return out
 
 
+# the bf16 backward at hd 64 and 128 (the two-warpgroup pair, route wgmma)
+# against its yardstick, the one-warpgroup pair it replaced: the training
+# shapes at those widths (TRAIN_FLASH_SHAPES), qwen1.5-110b's prefill shape
+# (B=4) and deepseek-moe-16b's training attention (the moe phase's
+# microbatch of 4,096 tokens, 16 heads of 128, one query head a kv head)
+PIPE_SHAPES = {**{arch: shape for arch, shape in TRAIN_FLASH_SHAPES.items()
+                  if shape[4] in (64, 128)},
+               "qwen1.5-110b prefill": (4, 1024, 64, 8, 128, True),
+               "deepseek-moe-16b": (1, 4096, 16, 16, 128, True)}
+# the training shapes whose G is here must run faster on the pair than on
+# the yardstick; every other shape whose route runs a kernel the yardstick
+# does not, no slower than the yardstick's slowest turn
+PIPE_GATED_G = (7, 8)
+# rounds of turns (yardstick, pair, pair, yardstick), each turn both
+# launches of a pair timed by events (``bwd_launch_ms``); each pair's time
+# is the median of its turns
+PIPE_ROUNDS = 5
+# calls a profiled window, and windows taken before a device time is given
+# up as not recorded (the profiler loses a window's device trace, whole or
+# its first events, now and then)
+PIPE_REPS = 10
+PIPE_TRIES = 6
+
+
+def pipe_kernels(hd, G):
+    """The kernels that the route's C functions launch for bf16 at hd 64 or
+    128 with G query heads a kv head (``flash_bwd_dq_bf16``,
+    ``flash_bwd_dkdv_bf16``), as (dq, dk/dv); the profiler's names check
+    it."""
+    return (f"flash_bwd_dq_wgmma{'_pipe' if hd == 128 else ''}<{hd}>",
+            f"flash_bwd_dkdv_wgmma{'_pipe' if G > 1 else ''}<{hd}>")
+
+
+def yardstick_bwd(torch, FA, q, k, v, o, lse, do, causal=True, window=0):
+    """The one-warpgroup bf16 pair (``flash_bwd_dq_wgmma``, then
+    ``flash_bwd_dkdv_wgmma``) through its C functions
+    (``flash_bwd_dq_bf16_yardstick``, ``flash_bwd_dkdv_bf16_yardstick``) at
+    hd 64 or 128, for comparison and timing beside the two-warpgroup pair
+    that replaced it on the route. Returns (dq, dk, dv)."""
+    from repro_torch.kernels import build as kbuild
+    B, S, H, hd = q.shape
+    # allocated as the wrapper allocates (no fill under deterministic mode)
+    dq, dk, dv = (kbuild.empty_like(t) for t in (q, k, v))
+    dsum = kbuild.empty(B, H, S, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    for fn, ptrs in zip(FA.build_bwd()[torch.bfloat16, "wgmma_yardstick"],
+                        ((q, k, v, o, do, lse, dsum, dq),
+                         (q, k, v, do, lse, dsum, dk, dv))):
+        err = fn(*(t.data_ptr() for t in ptrs), B, S, H, k.shape[2], hd,
+                 int(causal), window, 1.0 / math.sqrt(hd), stream)
+        check(err == 0, f"the one-warpgroup bf16 backward pair failed to "
+                        f"launch: {err}")
+    return dq, dk, dv
+
+
+def bwd_launch_ms(torch, FA, key, q, k, v, o, lse, do, causal):
+    """The dq launch and the dk/dv launch of the bf16 C functions ``key``
+    (``wgmma``: the route's; ``wgmma_yardstick``) timed apart, each by CUDA
+    events over back-to-back launches of it alone (dk/dv reading the D of
+    one dq launch before), no Python wrapper around them: (dq ms, dk/dv ms)
+    a launch."""
+    from repro_torch.kernels import build as kbuild
+    B, S, H, hd = q.shape
+    dq, dk, dv = (kbuild.empty_like(t) for t in (q, k, v))
+    dsum = kbuild.empty(B, H, S, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    fns = FA.build_bwd()[torch.bfloat16, key]
+    calls = [(fn, [t.data_ptr() for t in ptrs]) for fn, ptrs in zip(
+        fns, ((q, k, v, o, do, lse, dsum, dq),
+              (q, k, v, do, lse, dsum, dk, dv)))]
+    out = []
+    for fn, ptrs in calls:
+        def launch(fn=fn, ptrs=ptrs):
+            err = fn(*ptrs, B, S, H, k.shape[2], hd, int(causal), 0,
+                     1.0 / math.sqrt(hd), stream)
+            check(err == 0, f"{key}: a backward launch failed: {err}")
+        out.append(median_ms(launch, torch, reps=10, inner=5, warm=3))
+    return tuple(out)
+
+
+def device_ms_a_call(torch, fn):
+    """Device ms a call of ``fn`` and {kernel: (ms a launch, launches a
+    call)} from a profiled window of PIPE_REPS calls: each kernel's launches
+    a call are its launches in the window over PIPE_REPS, rounded (a kernel
+    launched once a window, such as a first call's set-up, rounds to none),
+    its ms a launch the mean over the launches recorded, so a window whose
+    first few device events the profiler lost still gives the call's time.
+    Up to PIPE_TRIES windows while one records no event, else (None, {}):
+    not recorded."""
+    for attempt in range(PIPE_TRIES):
+        by_name = profiled(torch, fn, reps=PIPE_REPS)[3]
+        per_call = {name: (t / n, round(n / PIPE_REPS))
+                    for name, (n, t) in by_name.items()
+                    if round(n / PIPE_REPS)}
+        if per_call:
+            return sum(t * c for t, c in per_call.values()), per_call
+        print(f"[profile] window {attempt + 1} of {PIPE_TRIES} recorded no "
+              f"kernel launched every call; taken again")
+    return None, {}
+
+
+def flash_bwd_pipe_times(torch, FA, ref):
+    """The bf16 backward at hd 64 and 128 at ``PIPE_SHAPES``, from the
+    kernel forward's out and lse: the two-warpgroup pair (the route) and
+    its yardstick (``yardstick_bwd``) each against the plain backward
+    within TRAIN_GRAD_TOL of max |grad|, two runs of each bit for bit
+    equal; both timed in turns (yardstick, pair, pair, yardstick;
+    ``bwd_launch_ms``, PIPE_ROUNDS rounds, the median of each pair's
+    turns), dq and dk/dv apart; the profiler's device time of each launch,
+    its kernels' names (held to ``pipe_kernels``), the kernel forward with
+    lse and SDPA's forward and its backward alone (``torch.autograd.grad``
+    of one forward's output, timed only), where a window recorded them;
+    beside the bound and the plain backward. Gated: at the training shapes
+    whose G is in PIPE_GATED_G the pair's median below the yardstick's; at
+    every other shape where the route runs a kernel the yardstick does
+    not, the pair's median at most the yardstick's slowest turn. Returns a
+    row a shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    out = {}
+    for arch, (B, S, H, Kv, hd, causal) in PIPE_SHAPES.items():
+        G = H // Kv
+        q, k, v, do = (randn(torch, (B, S, n, hd), torch.bfloat16, 240 + j)
+                       for j, n in enumerate((H, Kv, Kv, H)))
+        o, lse = FA.flash_attention(q, k, v, causal=causal, with_lse=True)
+        before = FA.flash_attention_bwd.route_launches["wgmma"]
+        new = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        check(FA.flash_attention_bwd.route_launches["wgmma"] - before ==
+              FA.BWD_LAUNCHES, f"{arch}: the backward did not run on wgmma")
+        new2 = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        old = yardstick_bwd(torch, FA, q, k, v, o, lse, do, causal)
+        old2 = yardstick_bwd(torch, FA, q, k, v, o, lse, do, causal)
+        want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                       chunk=min(ops.KV_CHUNK, S))
+        errs = [rel_err(torch, a, b) for a, b in zip(new, want)]
+        errs_old = [rel_err(torch, a, b) for a, b in zip(old, want)]
+        abs_err, abs_err_old = (max(
+            (a.float() - b.float()).abs().max().item()
+            for a, b in zip(got, want)) for got in (new, old))
+        same = all(torch.equal(a, b) for a, b in zip(new, new2))
+        same_old = all(torch.equal(a, b) for a, b in zip(old, old2))
+        del new, new2, old, old2, want
+        tag = (f"{arch} B={B} S={S} H={H} Kv={Kv} (G = {G}) hd={hd} "
+               f"{'causal' if causal else 'non-causal'}")
+        ok = max(errs) <= TRAIN_GRAD_TOL and max(errs_old) <= TRAIN_GRAD_TOL
+        print(f"[train] flash backward pair (two warpgroups) and yardstick "
+              f"(one) at {tag}: max|kernel-plain| / max|grad| dq/dk/dv "
+              f"{'/'.join(f'{e:.3e}' for e in errs)} (yardstick "
+              f"{'/'.join(f'{e:.3e}' for e in errs_old)}), tol "
+              f"{TRAIN_GRAD_TOL}; two runs bit-equal {same} (yardstick "
+              f"{same_old}) {'ok' if ok and same and same_old else 'FAIL'}")
+        check(ok and same and same_old,
+              f"{arch}: the hd-{hd} backward pairs disagree with the plain "
+              f"backward or between runs")
+        keys = {"yardstick": "wgmma_yardstick", "pair": "wgmma"}
+        names = {"yardstick": (f"flash_bwd_dq_wgmma<{hd}>",
+                               f"flash_bwd_dkdv_wgmma<{hd}>"),
+                 "pair": pipe_kernels(hd, G)}
+        turns = {"yardstick": [], "pair": []}
+        each = {"yardstick": [], "pair": []}
+        for name in ("yardstick", "pair", "pair", "yardstick") * PIPE_ROUNDS:
+            t = bwd_launch_ms(torch, FA, keys[name], q, k, v, o, lse, do,
+                              causal)
+            turns[name].append(sum(t))
+            each[name].append(t)
+        ms = {name: statistics.median(t) for name, t in turns.items()}
+        launch_ms = {name: {n: statistics.median(t[i] for t in each[name])
+                            for i, n in enumerate(names[name])}
+                     for name in names}
+        runs = {"yardstick": lambda: yardstick_bwd(torch, FA, q, k, v, o, lse,
+                                                   do, causal),
+                "pair": lambda: FA.flash_attention_bwd(q, k, v, o, lse, do,
+                                                       causal=causal)}
+        # the profiler: each launch's device time and the kernels' names
+        device_ms, device_launch_ms = {}, {}
+        for name, fn in runs.items():
+            call_ms, per_call = device_ms_a_call(torch, fn)
+            hits = {}
+            for kname, (t, c) in per_call.items():
+                m = re.search(r"flash_bwd_\w+<\d+>", kname)
+                if m:
+                    hits[m.group(0)] = (t, c)
+            check(call_ms is None or (
+                set(hits) == set(names[name]) and
+                all(c == 1 for _, c in hits.values())),
+                  f"{arch}: the {name} ran {hits} a call, not one launch of "
+                  f"each of {list(names[name])}")
+            device_ms[name] = call_ms
+            device_launch_ms[name] = {n: t for n, (t, _) in hits.items()}
+        wall_ms = median_ms(runs["pair"], torch, reps=10, inner=5, warm=5)
+        fwd_ms = device_ms_a_call(torch, lambda: FA.flash_attention(
+            q, k, v, causal=causal, with_lse=True))[0]
+        plain_ms = median_ms(lambda: ref.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal, chunk=min(ops.KV_CHUNK, S)),
+            torch, reps=2, inner=1, warm=1)
+        qt, kt, vt = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        dy = do.transpose(1, 2)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(
+                qt.transpose(1, 2), kt.transpose(1, 2), vt.transpose(1, 2),
+                is_causal=causal, enable_gqa=True)
+
+        # SDPA's backward kernels are not all deterministic: timed with the
+        # switch off, used nowhere in the port
+        torch.use_deterministic_algorithms(False)
+        try:
+            y = sdpa_fwd()
+
+            def sdpa_bwd():
+                torch.autograd.grad(y, (qt, kt, vt), dy, retain_graph=True)
+
+            sdpa_bwd()
+            lib_fwd_ms, lib_bwd_ms = (device_ms_a_call(torch, fn)[0]
+                                      for fn in (sdpa_fwd, sdpa_bwd))
+            # its backward by events too (host time included)
+            lib_bwd_wall_ms = median_ms(sdpa_bwd, torch, reps=10, inner=5,
+                                        warm=3)
+            backend = sdpa_backend(torch, sdpa(torch, q, k, v, causal))
+            del y
+        finally:
+            torch.use_deterministic_algorithms(True)
+        bound, by = flash_bwd_bound_ms(B, S, H, Kv, hd, causal=causal)
+        timed = None not in (fwd_ms, device_ms["pair"], lib_fwd_ms,
+                             lib_bwd_ms)
+        lib_ms = lib_fwd_ms + lib_bwd_ms if timed else None
+        fwd_bwd_ms = fwd_ms + device_ms["pair"] if timed else None
+        print(f"[train] flash backward time at {tag} (events, each launch "
+              f"alone, ms a call): the pair "
+              f"{'/'.join(f'{t:.4f}' for t in turns['pair'])}, the yardstick "
+              f"{'/'.join(f'{t:.4f}' for t in turns['yardstick'])} (in "
+              f"turns; {ms['yardstick'] / ms['pair']:.2f}x); bound "
+              f"{bound:.4f} ms ({by}, the pair {ms['pair'] / bound:.2f}x); "
+              f"the pair through the wrapper {wall_ms:.4f} ms; plain "
+              f"backward {plain_ms:.3f} ms; device ms a call (profiler): the "
+              f"pair {fmt_ms(device_ms['pair'])}, the yardstick "
+              f"{fmt_ms(device_ms['yardstick'])}, SDPA's backward alone "
+              f"({backend}) {fmt_ms(lib_bwd_ms)} (by events, host included, "
+              f"{lib_bwd_wall_ms:.4f} ms), the forward with lse "
+              f"{fmt_ms(fwd_ms)}, forward + the pair {fmt_ms(fwd_bwd_ms)} "
+              f"against SDPA's forward + backward {fmt_ms(lib_ms)}: " +
+              ("not measured" if not timed else "faster" if fwd_bwd_ms <
+               lib_ms else "slower") +
+              "; ms a launch (events): " + "; ".join(
+                  f"{w} " + ", ".join(f"{n} {t:.4f}" for n, t in d.items())
+                  for w, d in launch_ms.items()) +
+              "; device ms a launch (profiler): " + "; ".join(
+                  f"{w} " + (", ".join(f"{n} {t:.4f}" for n, t in d.items())
+                             or "not recorded")
+                  for w, d in device_launch_ms.items()))
+        if arch in TRAIN_FLASH_SHAPES and G in PIPE_GATED_G:
+            gate = "faster"
+            check(ms["pair"] < ms["yardstick"],
+                  f"{arch}: the two-warpgroup backward ({ms['pair']:.4f} ms) "
+                  f"is not faster than the one-warpgroup pair "
+                  f"({ms['yardstick']:.4f} ms)")
+        elif names["pair"] != names["yardstick"]:
+            gate = "no slower than the yardstick's slowest turn"
+            check(ms["pair"] <= max(turns["yardstick"]),
+                  f"{arch}: the backward on {names['pair']} "
+                  f"({ms['pair']:.4f} ms) is slower than the one-warpgroup "
+                  f"pair's slowest turn ({max(turns['yardstick']):.4f} ms)")
+        else:
+            gate = "none: the route runs the yardstick's kernels"
+        print(f"[train] flash backward gate at {arch}: {gate} ok")
+        out[arch] = dict(shape=[B, S, H, Kv, hd, causal], err=errs,
+                         yardstick_err=errs_old, max_abs_err=abs_err,
+                         yardstick_abs_err=abs_err_old,
+                         bit_equal=same, ms=ms["pair"],
+                         yardstick_ms=ms["yardstick"], turns=turns,
+                         launch_ms=launch_ms["pair"],
+                         yardstick_launch_ms=launch_ms["yardstick"],
+                         device_ms=device_ms["pair"],
+                         yardstick_device_ms=device_ms["yardstick"],
+                         device_launch_ms=device_launch_ms["pair"],
+                         yardstick_device_launch_ms=device_launch_ms[
+                             "yardstick"],
+                         gate=gate, wall_ms=wall_ms,
+                         bound_ms=bound, bound_by=by, plain_ms=plain_ms,
+                         fwd_lse_ms=fwd_ms, fwd_bwd_ms=fwd_bwd_ms,
+                         sdpa_fwd_ms=lib_fwd_ms, sdpa_bwd_ms=lib_bwd_ms,
+                         sdpa_bwd_wall_ms=lib_bwd_wall_ms,
+                         sdpa_fwd_bwd_ms=lib_ms, sdpa_backend=backend)
+        del q, k, v, do, o, lse, qt, kt, vt, dy
+        torch.cuda.empty_cache()
+    return out
+
+
 # the column kernels under autograd: one ops.attention step at qwen's
 # training attention (B=1, S=1,024, 64 over 8 heads) widened, bf16, causal
 FLASH_BWD_AUTOGRAD = ((1, 1024, 64, 8, 576), (1, 1024, 64, 8, 1024))
@@ -3784,6 +4081,7 @@ def phase_train_kernels(torch, FA, RN, ref):
            "bwd_cc_err": flash_bwd_cc_gate(torch, FA, ref),
            "bwd_entry_s": flash_bwd_entry(torch, FA, ref),
            "bwd_wide": flash_bwd_wide_times(torch, FA, ref),
+           "bwd_pipe": flash_bwd_pipe_times(torch, FA, ref),
            "bwd_autograd_cols": flash_bwd_autograd_cols(torch, FA)}
     for arch, (B, S, H, Kv, hd, causal) in TRAIN_FLASH_SHAPES.items():
         mask = "causal" if causal else "non-causal"
@@ -4075,12 +4373,26 @@ def train_profile(torch, fn):
         print(f"[profile]   {t:.2f} ms in {cnt} x {name[:100]}")
     rms_bwd = [(n, t) for name, (n, t) in by_name.items()
                if "rmsnorm_bwd" in name]
+    # the backward kernels one by one (flash: by kernel and width; rmsnorm:
+    # by kernel, its instantiations together): launches, ms, ms a launch
+    apart = {}
+    for name, (n, t) in by_name.items():
+        m = re.search(r"flash_bwd_\w+<\d+>|rmsnorm_bwd_\w+_kernel", name)
+        if m:
+            a, b = apart.get(m.group(0), (0, 0.0))
+            apart[m.group(0)] = (a + n, b + t)
+    apart = {k: dict(launches=n, ms=t, ms_per_launch=t / n)
+             for k, (n, t) in sorted(apart.items())}
+    print("[profile]   backward kernels, device ms a launch: " + ", ".join(
+        f"{k} {v['ms_per_launch']:.4f} ({v['launches']} launches, "
+        f"{v['ms']:.2f} ms)" for k, v in apart.items()))
     return dict(out=out, window_ms=window_ms, busy_ms=busy_ms,
                 kernels=len(kernels), kinds=kinds, flash_bwd_ms=bwd_ms,
                 flash_fwd_ms=sum(t for _, t in fwd),
                 flash_fwd_launches=sum(n for n, _ in fwd),
                 rmsnorm_bwd_ms=sum(t for _, t in rms_bwd),
-                rmsnorm_bwd_launches=sum(n for n, _ in rms_bwd))
+                rmsnorm_bwd_launches=sum(n for n, _ in rms_bwd),
+                bwd_kernels=apart)
 
 
 def model_flops(n_params, tokens, layers, heads, hd, seq):
@@ -5695,6 +6007,23 @@ def main() -> int:
         re.search(r"\b0 bytes spill stores, 0 bytes spill loads", r)
         for r in pipe_regs.values()),
           f"flash_kernel_wgmma_pipe spills or was not built: {pipe_regs}")
+    # the backward's two-warpgroup kernels (bf16: dq at hd 128, dk/dv at hd
+    # 64 and 128): their wgmma in flight (no note that ptxas serialized
+    # them) and no spill
+    bwd_log = kbuild.log_path(FA.BWD_SOURCE).read_text()
+    serial = [line for line in bwd_log.splitlines()
+              if re.search(r"\(C75\d\d\).*serialized", line) and
+              "wgmma_pipe" in line]
+    check(not serial, f"ptxas serialized the wgmma of the backward's "
+                      f"two-warpgroup kernels: {serial}")
+    bwd_pipe_regs = pipe_registers(FA, FA.BWD_SOURCE)
+    print(f"[build] the backward's two-warpgroup kernels: " + "; ".join(
+        f"{n} {r}" for n, r in bwd_pipe_regs.items()))
+    check(len(bwd_pipe_regs) == 3 and all(
+        re.search(r"\b0 bytes spill stores, 0 bytes spill loads", r)
+        for r in bwd_pipe_regs.values()),
+          f"the backward's two-warpgroup kernels spill or were not built: "
+          f"{bwd_pipe_regs}")
     hgmma = {src.name: hgmma_count(src) for src in (FA.SOURCE,
                                                      FA.BWD_SOURCE)}
     for name, n in hgmma.items():
@@ -5868,6 +6197,11 @@ def main() -> int:
         "device_ms": moe_train["rmsnorm_bwd_device_ms"],
         "vlm_train_launches_per_step":
             vlm_train["launches_per_step"]["rmsnorm_bwd"],
+        # device ms a launch of each rmsnorm_bwd kernel in internvl2-1b's
+        # profiled training step (d_model 896)
+        "vlm_step_device_ms": {
+            k: v for k, v in vlm_train["profile"]["bwd_kernels"].items()
+            if k.startswith("rmsnorm_bwd")},
         "internvl2": rms_bwd["4096x896"]})
     kernels.append({
         "name": "flash_attention", "route": "cuda",
@@ -5975,8 +6309,11 @@ def main() -> int:
         "cuda_core_pair_err": train_kern["bwd_cc_err"],
         "wide": train_kern["bwd_wide"],
         "route_kernels": {
-            "wgmma": "flash_bwd_dq_wgmma + flash_bwd_dkdv_wgmma(_split), "
-                     "bfloat16 up to hd 256",
+            "wgmma": "bfloat16 up to hd 256: flash_bwd_dq_wgmma_pipe at hd "
+                     "128, flash_bwd_dq_wgmma at 64, 192 and 256; "
+                     "flash_bwd_dkdv_wgmma_pipe at 64 and 128 with G > 1, "
+                     "flash_bwd_dkdv_wgmma with G = 1, "
+                     "flash_bwd_dkdv_wgmma_split at 192 and 256",
             "wgmma_chunked": "flash_bwd_dq_wgmma_cols + "
                              "flash_bwd_dkdv_wgmma_cols, bfloat16 above hd "
                              "256",
@@ -6002,6 +6339,64 @@ def main() -> int:
            for key, arch in (("whisper", ENCDEC_ARCH),
                              ("internvl2", VLM_ARCH))},
         "hgmma_in_sass": hgmma[FA.BWD_SOURCE.name]})
+    # bf16 at hd 64 and 128: the two-warpgroup pair on the route and its
+    # yardstick; their main path internvl2-1b's training step (G = 7: dq on
+    # flash_bwd_dq_wgmma<64>, dk/dv on flash_bwd_dkdv_wgmma_pipe<64>) at
+    # its shape: ms by events over each launch alone, device_ms and
+    # library_ms (SDPA's backward alone, null where the profiler recorded
+    # none) by the profiler
+    pipe = train_kern["bwd_pipe"]
+    iv = pipe[VLM_ARCH]
+    common = {"source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+              "replaces": "src/repro/models/layers.py:201",
+              "plain_ms": iv["plain_ms"], "bound_ms": iv["bound_ms"],
+              "bound_by": iv["bound_by"], "shape": iv["shape"],
+              # SDPA's backward alone (cuDNN), timed only
+              "library_ms": iv["sdpa_bwd_ms"],
+              "library_wall_ms": iv["sdpa_bwd_wall_ms"],
+              "sdpa_fwd_bwd_ms": iv["sdpa_fwd_bwd_ms"]}
+    # the training steps' profiles: launches of each backward kernel a step
+    step_launches = {
+        arch: {k: r["profile"]["bwd_kernels"][k]["launches"]
+               for k in r["profile"]["bwd_kernels"]
+               if k.startswith("flash_bwd_")}
+        for arch, r in ((TRAIN_ARCH, train), (MOE_ARCH, moe_train),
+                        (ENCDEC_ARCH, encdec_train), (VLM_ARCH, vlm_train))}
+    yard_names = {f"flash_bwd_{p}_wgmma<{w}>" for p in ("dq", "dkdv")
+                  for w in (64, 128)}
+    kernels.append({
+        "name": "flash_attention_bwd_hd64_128", "route": "cuda", **common,
+        "kernels": "dq: flash_bwd_dq_wgmma_pipe<128>, flash_bwd_dq_wgmma<64>; "
+                   "dk/dv: flash_bwd_dkdv_wgmma_pipe<64|128> (G > 1), "
+                   "flash_bwd_dkdv_wgmma<64|128> (G = 1)",
+        "launches": vlm_train["counts"]["flash_bwd"],
+        "launches_per_step": vlm_train["launches_per_step"]["flash_bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in pipe.values()),
+        "ms": iv["ms"], "launch_ms": iv["launch_ms"],
+        "device_ms": iv["device_ms"],
+        "fwd_bwd_ms": iv["fwd_bwd_ms"], "wall_ms": iv["wall_ms"],
+        "registers": bwd_pipe_regs, "step_launches": step_launches,
+        "step_device_ms": {
+            VLM_ARCH: vlm_train["profile"]["bwd_kernels"],
+            TRAIN_ARCH: train["profile"]["bwd_kernels"]},
+        "step_flash_bwd_ms": {
+            VLM_ARCH: vlm_train["profile"]["flash_bwd_ms"],
+            TRAIN_ARCH: train["profile"]["flash_bwd_ms"]},
+        "shapes": pipe})
+    kernels.append({
+        "name": "flash_attention_bwd_hd64_128_yardstick", "route": "cuda",
+        **common,
+        "kernels": "flash_bwd_dq_wgmma<64|128> + flash_bwd_dkdv_wgmma<64|128> "
+                   "through flash_bwd_dq_bf16_yardstick and "
+                   "flash_bwd_dkdv_bf16_yardstick",
+        # its kernels' launches in the training steps' profiles, where the
+        # route still runs them (dq at hd 64, dk/dv at G = 1); the C
+        # functions themselves are no route's
+        "launches": sum(n for d in step_launches.values()
+                        for k, n in d.items() if k in yard_names),
+        "max_abs_err": max(r["yardstick_abs_err"] for r in pipe.values()),
+        "ms": iv["yardstick_ms"], "launch_ms": iv["yardstick_launch_ms"],
+        "device_ms": iv["yardstick_device_ms"]})
     serve_line = {k: served[k] for k in ("prefill_ms", "decode_ms", "tok_s",
                                          "peak_gb", "base_gb", "logit_err")}
     serve_line["fp32_logit_err"] = fp32_err

@@ -1,9 +1,13 @@
 // Flash attention backward (GQA, causal and/or sliding window) for Hopper
 // (sm_90a), bound to Python with ctypes. Three routes, each two launches:
 // bfloat16 at head widths 64, 128, 192 and 256 runs on the tensor cores
-// (flash_bwd_dq_wgmma, then flash_bwd_dkdv_wgmma at 64 and 128 or
-// flash_bwd_dkdv_wgmma_split at 192 and 256; the wrapper zero-pads any
-// width up to 256 to the next of these); bfloat16 at a multiple of 64
+// (dq: flash_bwd_dq_wgmma_pipe at 128, flash_bwd_dq_wgmma at 64, 192 and
+// 256; dk/dv: flash_bwd_dkdv_wgmma_pipe at 64 and 128 when G > 1,
+// flash_bwd_dkdv_wgmma at 64 and 128 when G = 1, flash_bwd_dkdv_wgmma_split
+// at 192 and 256; the wrapper zero-pads any width up to 256 to the next of
+// these; the one-warpgroup pair at 64 and 128 stays bound as the
+// two-warpgroup kernels' yardstick, flash_bwd_dq_bf16_yardstick and
+// flash_bwd_dkdv_bf16_yardstick); bfloat16 at a multiple of 64
 // above 256 on the tensor cores in column blocks (flash_bwd_dq_wgmma_cols,
 // flash_bwd_dkdv_wgmma_cols; the wrapper pads the width to a multiple of
 // 64); float32 at a multiple of 32 on the tensor cores too, each fp32
@@ -53,7 +57,7 @@
 // That is FlashAttention-2's backward order (Dao, 2023) with its atomic dq
 // replaced by a second pass, so the card keeps deterministic mode.
 //
-// The tensor-core kernels: one warpgroup (128 threads) a block. Its own two
+// The one-warpgroup tensor-core kernels (128 threads a block). Its own two
 // tiles (q and dout, or k and v) and a two-stage ring of the other side's
 // tiles come into shared memory by TMA (64 positions x 64 columns a box,
 // 128-byte swizzle; rows past S arrive as zeros), each stage on a "full"
@@ -69,6 +73,42 @@
 // memory, MN-major. Blocks start with the heaviest causal tiles. P and dS
 // in bf16 (2^-9 relative each) keep dq/dk/dv within 2e-2 of max |grad|
 // (tests/test_torch_bwd_kernels.py models this rounding on the CPU).
+//
+// The two-warpgroup kernels (hd 64 and 128; 256 threads, no producer
+// warpgroup, so ptxas still budgets 255 registers a thread). The
+// one-warpgroup dk/dv block walks G x n_q iterations in one chain, one
+// warpgroup an SM, and ends every iteration in a block barrier: at
+// internvl2-1b's G = 7 its 128 blocks leave one warpgroup on each SM and
+// kv tile 0's chain is 448 iterations, twice an SM's mean load.
+// flash_bwd_dkdv_wgmma_pipe splits a kv tile's iterations between two
+// warpgroups (i to warpgroup i % 2), each with its own dk and dv, and while
+// the kv tiles are fewer than the SMs between the two blocks of a thread
+// block cluster as well (pairs of iterations alternating between them: four
+// warpgroups, kv tile 0's chain 112 iterations); a ring of q and dout
+// stages (8 at hd 64, 4 at 128), each with a full and an empty mbarrier,
+// takes the place of the barrier: the warpgroup that read a stage releases
+// it and refills it (TMA by its thread 0, the stage's lse and D by its 128
+// threads, read from global memory an iteration ahead). Within a warpgroup
+// S^T and dP^T are two product groups: P^T is formed while dP^T runs,
+// dS^T while dv's product runs, and dk's product runs on into the next
+// iteration. At the end a block's warpgroup 1 hands its dv and warpgroup 0
+// its dk over through shared memory (dv = dv_0 + dv_1, dk = dk_0 + dk_1),
+// and a cluster's block 1 its sums to block 0 through distributed shared
+// memory (block 0's + block 1's): a fixed order, no atomics, no sum through
+// global memory. At G = 1 there is no chain to split and the blocks are
+// many (stablelm-1.6b: 2,048), and the one-warpgroup kernel (163
+// registers, three blocks an SM at hd 64) measured faster, so it keeps G =
+// 1. flash_bwd_dq_wgmma_pipe (hd 128)
+// takes the (q tile, query head) units of a kv head two a block in
+// q-tile-major order, so its warpgroups' q tiles are one or two neighbours,
+// and streams the pair's kv tiles once through one ring that both read
+// (each warpgroup computes on its own unit's span and passes the rest): at
+// qwen1.5-110b's G = 8 the two are two query heads of one q tile, and the k
+// and v reads and the block count halve. At hd 64 the one-warpgroup dq
+// kernel (128 registers, four blocks an SM) measured faster than the pair
+// and stays. Sums start with a product of scale_d 0, not with zeroed
+// registers: a zeroing of accumulators that a product in flight across the
+// loop's back edge adds into made ptxas serialize every wgmma (C7515).
 //
 // At hd 192 and 256 the dq kernel is the same template (96 / 128
 // accumulators beside S and dP: 160 / 192 registers of the 255 a thread
@@ -613,17 +653,18 @@ __device__ __forceinline__ void issue_ss(float (&d)[32], uint32_t a,
 }
 
 // acc[64 x HD] += A B over the 64 rows of B, A in registers (wgmma's
-// A-register layout, 4 registers a k step of 16), B a tile (MN-major).
+// A-register layout, 4 registers a k step of 16), B a tile (MN-major);
+// with scale_d 0, acc = A B (acc need not be zeroed first).
 template <int HD>
 __device__ __forceinline__ void issue_rs(float (&acc)[HD / 2],
                                          const uint32_t (&a)[kTile / 4],
-                                         uint32_t b) {
+                                         uint32_t b, int scale_d = 1) {
   const uint64_t db = mn_major(b);
 #pragma unroll
   for (int t = 0; t < kTile / 16; ++t) {
     const uint32_t f[4] = {a[4 * t], a[4 * t + 1], a[4 * t + 2],
                            a[4 * t + 3]};
-    wgmma_rs(acc, f, db + ((t * 16 * 128) >> 4));
+    wgmma_rs(acc, f, db + ((t * 16 * 128) >> 4), t > 0 || scale_d);
   }
 }
 
@@ -705,15 +746,16 @@ __device__ __forceinline__ void q_tile_ds(
 
 // D = rowsum(dout * out) of the q tile's rows at position q0 (two threads
 // a row over hd / 2 columns each, 16-byte loads from global memory) into
-// vec[0 .. 63]; when `write`, also into dsum for launch 2. T is bf16 or
+// vec[0 .. 63], by the 128 threads of one warpgroup (tid: the thread's
+// index in it); when `write`, also into dsum for launch 2. T is bf16 or
 // fp32 (hd / 2 a multiple of 8 or 4).
 template <typename T>
 __device__ __forceinline__ void tile_dsum(
     float* vec, const T* __restrict__ o, const T* __restrict__ dout,
     float* __restrict__ dsum, int q0, int b, int h, int seq, int H, int hd,
-    bool write) {
+    bool write, int tid) {
   constexpr int kPer = 16 / sizeof(T);
-  const int r = threadIdx.x / 2, part = threadIdx.x % 2;
+  const int r = tid / 2, part = tid % 2;
   const int pos = q0 + r;
   float d = 0.0f;
   if (pos < seq) {
@@ -783,7 +825,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                   t_begin * kTile, b);
   }
   // D of the tile's rows while the tiles arrive
-  tile_dsum(vec, o, dout, dsum, q0, b, h, seq, H, HD, true);
+  tile_dsum(vec, o, dout, dsum, q0, b, h, seq, H, HD, true, threadIdx.x);
   __syncthreads();
   const Frag fr;
   const int64_t lrow = (static_cast<int64_t>(b) * H + h) * seq;
@@ -1187,6 +1229,467 @@ __global__ void __launch_bounds__(2 * kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at hd 64 and 128: two consumer warpgroups a block over one ring
+// ---------------------------------------------------------------------------
+
+// The two-warpgroup kernels' shared memory, from a 1024-byte aligned base:
+// the block's own tiles (dk/dv: k and v; dq: q and dout of each
+// warpgroup), a ring of kStages stages of two tiles of the other side
+// (dk/dv: q and dout; dq: k and v), the q-side vectors (dk/dv: [kStages][2]
+// [kTile] fp32, a stage's lse * log2(e) and D; dq: [2][kTile], each
+// warpgroup's D), then the mbarriers full[kStages], empty[kStages] and own
+// (dq: one a warpgroup). At the end of dk/dv the ring holds the two
+// warpgroups' exchanged partial sums, then the block's sums that block 1
+// of a cluster hands to block 0: [4][HD / 2][kThreads] fp32.
+template <int HD, bool DQ>
+struct PipeCfg {
+  static constexpr int kTileBytes = HD / 64 * kChunkBytes;
+  static constexpr int kOwn = (DQ ? 4 : 2) * kTileBytes;
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  // dq runs at hd 128 only (flash_bwd_dq_wgmma keeps 64)
+  static constexpr int kStages = !DQ && HD == 64 ? 8 : 4;
+  static constexpr int kVec = kOwn + kStages * kStageBytes;
+  static constexpr int kVecFloats = (DQ ? 1 : kStages) * 2 * kTile;
+  static constexpr int kBar = kVec + 4 * kVecFloats;
+  static constexpr int kSmem = kBar + 8 * (2 * kStages + 2) + 1024;
+  static_assert(kSmem <= kMaxSmem, "over the 227 KB a block may opt in to");
+  static_assert(kStages >= 2, "a stage is refilled once both its readers "
+                              "are past it");
+  static_assert(DQ || 4 * HD / 2 * kThreads * 4 <= kStages * kStageBytes,
+                "the partial sums' exchanges fit the ring");
+};
+
+// Launch 2 at hd 64 and 128 with G > 1: dk and dv. Cluster: (kv tile,
+// batch, kv head) (KvBlock) on one or two blocks (dkdv_cluster), two
+// warpgroups a block: the block's warpgroup w takes the block's iterations
+// i = w, w + 2, w + 4, ... into its own dk and dv; at the end warpgroup 1
+// hands its dv and warpgroup 0 its dk over through shared memory, and with
+// two blocks block 1 its sums to block 0; dv and dk are stored by block 0's
+// warpgroups 0 and 1. The block's iteration i's q and dout tiles and its
+// lse * log2(e) and D come into ring stage i % kStages. Per iteration a
+// warpgroup issues S^T and dP^T as two product groups, waits for S^T alone
+// (wgmma_wait<1>: iteration i - 2's dv and dk products are then done too,
+// so it frees their stage), forms P^T while dP^T runs, issues dv += P^T
+// dout, waits for dP^T, forms dS^T while dv's product runs, and issues dk
+// += dS^T q, which stays in flight into the next iteration.
+template <int HD>
+__global__ void __launch_bounds__(2 * kThreads, 1)
+    flash_bwd_dkdv_wgmma_pipe(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap dmap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ dsum,
+                              __nv_bfloat16* __restrict__ dk,
+                              __nv_bfloat16* __restrict__ dv, int seq, int H,
+                              int Kv, int B, int causal, int window,
+                              float scale) {
+  using C = PipeCfg<HD, false>;
+  constexpr int kS = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  float* vec = reinterpret_cast<float*>(smem + C::kVec);
+  const uint32_t sK = base, sV = base + C::kTileBytes, ring = base + C::kOwn;
+  const uint32_t full = base + C::kBar, empty = full + 8 * kS;
+  const uint32_t own = empty + 8 * kS;
+  // A cluster of nc blocks (1 or 2, set by the launch) shares the kv tile:
+  // its block of rank r takes the kv tile's pairs of iterations 2p, 2p + 1
+  // with p % nc == r, iteration 2p + w to its warpgroup w. Below i counts
+  // the block's own iterations; at(i) is the kv tile's.
+  const int nc = cluster_size(), rank = cluster_rank();
+  const KvBlock kb(blockIdx.x / nc, seq, H, Kv, B, causal, window);
+  const int n_all = kb.iterations(), n_pairs = (n_all + 1) / 2;
+  const int n_it =
+      n_pairs > rank
+          ? 2 * ((n_pairs - rank + nc - 1) / nc) -
+                ((n_all & 1) && (n_pairs - 1) % nc == rank ? 1 : 0)
+          : 0;
+  const auto at = [&](int i) { return 2 * (nc * (i / 2) + rank) + i % 2; };
+  const int lane = threadIdx.x % 32;
+  // the warpgroup, broadcast from lane 0 so that ptxas sees it as uniform
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kThreads, 0);
+  const int tid = threadIdx.x % kThreads;
+  const Frag fr;
+  const float c2 = scale * kLog2e;
+
+  // iteration f's lse * log2(e) and D (entry, this thread's, read from
+  // global memory ahead) and its q and dout tiles into stage f % kS, by the
+  // 128 threads of one warpgroup; each warp arrives on the stage's full
+  // barrier once its lanes' entries are written, warp 0's lane 0 with the
+  // tiles' bytes
+  const auto fill = [&](int f, float entry) {
+    const int s = f % kS;
+    vec[s * 2 * kTile + tid] = entry;
+    __syncwarp();
+    if (tid == 0)
+      kb.load_stage<HD>(at(f), ring + s * C::kStageBytes, &qmap, &dmap,
+                        full + 8 * s);
+    else if (lane == 0)
+      mbar_arrive(full + 8 * s);
+  };
+  // this warpgroup's reads of iteration u's stage are done: each warp
+  // releases it; once all four have, the warpgroup fills it with
+  // iteration u + kS
+  const auto release = [&](int u, float entry) {
+    const int s = u % kS;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+    if (u + kS < n_it) {
+      mbar_wait(empty + 8 * s, (u / kS) & 1);
+      fill(u + kS, entry);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full + 8 * s, 4);
+      mbar_init(empty + 8 * s, 4);
+    }
+    mbar_init(own, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(own, 2 * C::kTileBytes);
+    load_tile<HD>(sK, &kmap, own, kb.kvh * HD, kb.k0, kb.b);
+    load_tile<HD>(sV, &vmap, own, kb.kvh * HD, kb.k0, kb.b);
+  }
+  for (int f = wg; f < min(kS, n_it); f += 2)
+    fill(f, kb.vec(lse, dsum, at(f), tid));
+
+  // The sums start with the warpgroup's first products (scale_d 0): a
+  // zeroing of registers that a product in flight across the loop's back
+  // edge accumulates into made ptxas serialize every wgmma (C7515).
+  float ak[HD / 2], av[HD / 2];
+  uint32_t pf[kTile / 4], dsf[kTile / 4];
+  mbar_wait(own, 0);
+  for (int i = wg; i < n_it; i += 2) {
+    const int s = i % kS;
+    const uint32_t sQ = ring + s * C::kStageBytes;
+    const uint32_t sDo = sQ + C::kTileBytes;
+    // the entry this iteration's refill writes, its load under the products
+    const float entry = i >= 2 && i - 2 + kS < n_it
+                            ? kb.vec(lse, dsum, at(i - 2 + kS), tid) : 0.0f;
+    mbar_wait(full + 8 * s, (i / kS) & 1);
+    float st[32], dpt[32];
+    wgmma_fence();
+    issue_ss<HD>(st, sK, sQ);
+    wgmma_commit();
+    issue_ss<HD>(dpt, sV, sDo);
+    wgmma_commit();
+    wgmma_wait<1>();                 // S^T, and iteration i - 2's products
+    pin(st);
+    if (i >= 2) release(i - 2, entry);
+    const float* sl = vec + s * 2 * kTile;     // this stage's lse * log2(e)
+    const float* sd = sl + kTile;              // and D
+    const int q0 = kb.q0(at(i));
+    // P^T over S^T in fp32, in place (as flash_bwd_dkdv_wgmma forms it; a
+    // tile that no mask cuts skips the mask's tests), then in bf16 in the
+    // A-register layout
+    if (kb.whole(q0)) {
+#pragma unroll
+      for (int idx = 0; idx < 32; ++idx)
+        st[idx] = ex2(fmaf(st[idx], c2, -sl[8 * (idx / 4) + fr.cq + idx % 2]));
+    } else {
+#pragma unroll
+      for (int idx = 0; idx < 32; ++idx) {
+        const int col = 8 * (idx / 4) + fr.cq + idx % 2;
+        st[idx] = sees(q0 + col, kb.k0 + fr.row_a + 8 * ((idx % 4) / 2),
+                       seq, causal, window)
+                      ? ex2(fmaf(st[idx], c2, -sl[col])) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+      pf[2 * j] = bf16x2(st[4 * j], st[4 * j + 1]);
+      pf[2 * j + 1] = bf16x2(st[4 * j + 2], st[4 * j + 3]);
+    }
+    wgmma_fence();
+    issue_rs<HD>(av, pf, sDo, i >= 2);
+    wgmma_commit();
+    wgmma_wait<1>();                 // dP^T
+    pin(dpt);
+    // dS^T, while dv's product runs
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+      float d[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int idx = 4 * j + u, col = 8 * j + fr.cq + u % 2;
+        d[u] = st[idx] * (dpt[idx] - sd[col]) * scale;
+      }
+      dsf[2 * j] = bf16x2(d[0], d[1]);
+      dsf[2 * j + 1] = bf16x2(d[2], d[3]);
+    }
+    wgmma_fence();
+    issue_rs<HD>(ak, dsf, sQ, i >= 2);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  pin(ak);
+  pin(av);
+  // a warpgroup with no iteration (n_it 1 or 0) adds zeros
+  const bool any = wg < n_it;
+
+  // the partials' exchange: every stage has been read, so the ring is free
+  __syncthreads();
+  float* xs = reinterpret_cast<float*>(smem + C::kOwn);
+  float* mine = xs + wg * (HD / 2) * kThreads;
+  const float* theirs = xs + (wg ^ 1) * (HD / 2) * kThreads;
+  if (wg == 0) {
+#pragma unroll
+    for (int r = 0; r < HD / 2; ++r)
+      mine[r * kThreads + tid] = any ? ak[r] : 0.0f;
+  } else {
+#pragma unroll
+    for (int r = 0; r < HD / 2; ++r)
+      mine[r * kThreads + tid] = any ? av[r] : 0.0f;
+  }
+  __syncthreads();
+  // the block's sums: dv = dv_0 + dv_1 in warpgroup 0, dk = dk_0 + dk_1 in
+  // warpgroup 1
+  if (wg == 0) {
+#pragma unroll
+    for (int r = 0; r < HD / 2; ++r)
+      av[r] = (any ? av[r] : 0.0f) + theirs[r * kThreads + tid];
+  } else {
+#pragma unroll
+    for (int r = 0; r < HD / 2; ++r)
+      ak[r] = theirs[r * kThreads + tid] + (any ? ak[r] : 0.0f);
+  }
+  if (nc > 1) {
+    // block 1's sums cross the cluster to block 0, which adds them to its
+    // own: dv = (block 0's) + (block 1's), dk likewise
+    float* out = xs + (2 + wg) * (HD / 2) * kThreads;
+    if (rank == 1) {
+      if (wg == 0) {
+#pragma unroll
+        for (int r = 0; r < HD / 2; ++r) out[r * kThreads + tid] = av[r];
+      } else {
+#pragma unroll
+        for (int r = 0; r < HD / 2; ++r) out[r * kThreads + tid] = ak[r];
+      }
+    }
+    cluster_sync();
+    if (rank == 0) {
+      const uint32_t addr = smem_u32(out + tid);
+      if (wg == 0) {
+#pragma unroll
+        for (int r = 0; r < HD / 2; ++r)
+          av[r] = av[r] + ld_cluster(addr + 4 * r * kThreads, 1);
+      } else {
+#pragma unroll
+        for (int r = 0; r < HD / 2; ++r)
+          ak[r] = ak[r] + ld_cluster(addr + 4 * r * kThreads, 1);
+      }
+    }
+  }
+  if (rank == 0) {
+    const int64_t kv_base = static_cast<int64_t>(kb.b) * seq * Kv * HD +
+                            static_cast<int64_t>(kb.kvh) * HD;
+    if (wg == 0)
+      store_rows<HD>(av, dv, kv_base, static_cast<int64_t>(Kv) * HD, kb.k0,
+                     seq, fr);
+    else
+      store_rows<HD>(ak, dk, kv_base, static_cast<int64_t>(Kv) * HD, kb.k0,
+                     seq, fr);
+  }
+  // block 1's shared memory stays until block 0 has read it
+  if (nc > 1) cluster_sync();
+}
+
+// The kv tiles [x, y) that the rows of q tile qt see.
+__device__ __forceinline__ int2 kv_tiles(int qt, int seq, int causal,
+                                         int window) {
+  const int q0 = qt * kTile;
+  const int2 span = kv_span(q0, min(q0 + kTile, seq) - 1, seq, causal,
+                            window);
+  return make_int2(span.x / kTile, (span.y + kTile - 1) / kTile);
+}
+
+// Launch 1 at hd 128: dq and D. The (q tile, query head) units of a
+// (batch, kv head), in q-tile-major order (unit u: q tile u / G, query head
+// u % G of the group), are taken two a block: block pair m holds units 2m
+// and 2m + 1, one a warpgroup (the second missing when the count is odd),
+// so its two q tiles are one tile or two neighbours. The pair's kv tiles
+// (the union of its units' spans: the lower unit's start to the upper
+// unit's end) stream once through one ring of k and v stages that both
+// warpgroups read; a warpgroup computes on its own unit's steps and passes
+// the others (waits for the stage, releases it). Per step it issues S and
+// dP as two product groups, waits for S (the previous step's dS k product
+// is then done too, so it frees that stage), forms P while dP runs, waits
+// for dP, forms dS and issues dq += dS k, which stays in flight into the
+// next step. Pairs come heaviest first when causal. Thread 0 fills a stage
+// once both warpgroups have released it.
+template <int HD>
+__global__ void __launch_bounds__(2 * kThreads, 1)
+    flash_bwd_dq_wgmma_pipe(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap dmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const __nv_bfloat16* __restrict__ o,
+                            const __nv_bfloat16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            float* __restrict__ dsum,
+                            __nv_bfloat16* __restrict__ dq, int seq, int H,
+                            int Kv, int B, int causal, int window,
+                            float scale, int n_tiles) {
+  using C = PipeCfg<HD, true>;
+  constexpr int kS = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const int lane = threadIdx.x % 32;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kThreads, 0);
+  const int tid = threadIdx.x % kThreads;
+  float* vec = reinterpret_cast<float*>(smem + C::kVec) + wg * kTile;
+  const uint32_t sQ = base + wg * 2 * C::kTileBytes;
+  const uint32_t sDo = sQ + C::kTileBytes, ring = base + C::kOwn;
+  const uint32_t full = base + C::kBar, empty = full + 8 * kS;
+  const uint32_t own = empty + 8 * kS + 8 * wg;
+
+  const int G = H / Kv;
+  const int n_units = n_tiles * G;
+  const int n_pairs = (n_units + 1) / 2;
+  const int m_lin = blockIdx.x / (B * Kv);
+  const int b = (blockIdx.x % (B * Kv)) / Kv, kvh = blockIdx.x % Kv;
+  const int m = causal ? n_pairs - 1 - m_lin : m_lin;
+  const int unit = 2 * m + wg;
+  const bool has = unit < n_units;
+  const int qt = (has ? unit : 2 * m) / G;
+  const int h = kvh * G + (has ? unit : 2 * m) % G;
+  const int q0 = qt * kTile;
+  // the pair's kv tiles [lo, lo + n_steps), this warpgroup's [beg, end) of
+  // them (none for a missing unit)
+  const int lo = kv_tiles(2 * m / G, seq, causal, window).x;
+  const int n_steps =
+      kv_tiles(min(2 * m + 1, n_units - 1) / G, seq, causal, window).y - lo;
+  const int2 mine = kv_tiles(qt, seq, causal, window);
+  const int beg = has ? mine.x - lo : n_steps;
+  const int end = has ? mine.y - lo : n_steps;
+
+  // step t's k and v tiles into stage t % kS, by one thread
+  const auto fill = [&](int t) {
+    const int s = t % kS;
+    const uint32_t dst = ring + s * C::kStageBytes;
+    mbar_expect_tx(full + 8 * s, 2 * C::kTileBytes);
+    load_tile<HD>(dst, &kmap, full + 8 * s, kvh * HD, (lo + t) * kTile, b);
+    load_tile<HD>(dst + C::kTileBytes, &vmap, full + 8 * s, kvh * HD,
+                  (lo + t) * kTile, b);
+  };
+  // this warpgroup's reads of step t's stage are done: each warp releases
+  // it; warpgroup 0 waits until both warpgroups have, then its thread 0
+  // fills it with step t + kS
+  const auto release = [&](int t) {
+    const int s = t % kS;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+    if (wg == 0 && t + kS < n_steps) {
+      mbar_wait(empty + 8 * s, (t / kS) & 1);
+      if (tid == 0) fill(t + kS);
+    }
+  };
+  const auto pass = [&](int t) {
+    mbar_wait(full + 8 * (t % kS), (t / kS) & 1);
+    release(t);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
+    mbar_init(empty + 8 * kS, 1);
+    mbar_init(empty + 8 * kS + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int t = 0; t < min(kS, n_steps); ++t) fill(t);
+  if (has) {
+    if (tid == 0) {
+      mbar_expect_tx(own, 2 * C::kTileBytes);
+      load_tile<HD>(sQ, &qmap, own, h * HD, q0, b);
+      load_tile<HD>(sDo, &dmap, own, h * HD, q0, b);
+    }
+    // D of the unit's rows while the tiles arrive
+    tile_dsum(vec, o, dout, dsum, q0, b, h, seq, H, HD, true, tid);
+  }
+  __syncthreads();
+  const Frag fr;
+  const int64_t lrow = (static_cast<int64_t>(b) * H + h) * seq;
+  float lse2[2], drow[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = fr.row_a + 8 * half, pos = q0 + r;
+    lse2[half] = pos < seq ? lse[lrow + pos] * kLog2e : 0.0f;
+    drow[half] = vec[r];
+  }
+  const float c2 = scale * kLog2e;
+
+  float acc[HD / 2];                   // from its first product (scale_d 0)
+  uint32_t ds[kTile / 4];
+  for (int t = 0; t < beg; ++t) pass(t);
+  if (has) mbar_wait(own, 0);
+  for (int t = beg; t < end; ++t) {
+    const int s = t % kS;
+    const uint32_t sK = ring + s * C::kStageBytes;
+    const uint32_t sV = sK + C::kTileBytes;
+    mbar_wait(full + 8 * s, (t / kS) & 1);
+    float sc[32], dp[32];
+    wgmma_fence();
+    issue_ss<HD>(sc, sQ, sK);
+    wgmma_commit();
+    issue_ss<HD>(dp, sDo, sV);
+    wgmma_commit();
+    wgmma_wait<1>();                 // S, and the previous step's dS k
+    pin(sc);
+    if (t > beg) release(t - 1);
+    const int k0 = (lo + t) * kTile;
+    // P over S in fp32, in place (as q_tile_ds forms it), while dP runs
+    if (tile_whole(q0, k0, seq, causal, window)) {
+#pragma unroll
+      for (int idx = 0; idx < 32; ++idx)
+        sc[idx] = ex2(fmaf(sc[idx], c2, -lse2[(idx % 4) / 2]));
+    } else {
+#pragma unroll
+      for (int idx = 0; idx < 32; ++idx) {
+        const int half = (idx % 4) / 2;
+        sc[idx] = sees(q0 + fr.row_a + 8 * half,
+                       k0 + 8 * (idx / 4) + fr.cq + idx % 2, seq, causal,
+                       window)
+                      ? ex2(fmaf(sc[idx], c2, -lse2[half])) : 0.0f;
+      }
+    }
+    wgmma_wait<0>();                 // dP
+    pin(dp);
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+      float d[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        d[u] = sc[4 * j + u] * (dp[4 * j + u] - drow[u / 2]) * scale;
+      ds[2 * j] = bf16x2(d[0], d[1]);
+      ds[2 * j + 1] = bf16x2(d[2], d[3]);
+    }
+    wgmma_fence();
+    issue_rs<HD>(acc, ds, sK, t > beg);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  pin(acc);
+  if (end > beg) release(end - 1);
+  for (int t = end; t < n_steps; ++t) pass(t);
+  if (has)
+    store_rows<HD>(acc, dq, static_cast<int64_t>(b) * seq * H * HD +
+                                static_cast<int64_t>(h) * HD,
+                   static_cast<int64_t>(H) * HD, q0, seq, fr);
+}
+
+// ---------------------------------------------------------------------------
 // bf16 above hd 256: tensor cores in column blocks
 // ---------------------------------------------------------------------------
 
@@ -1297,7 +1800,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int m = 0; m < min(K, n_chunks); ++m) load_chunk(m);
     load_cols(0);
   }
-  tile_dsum(vec, o, dout, dsum, q0, b, h, seq, H, hd, cb == 0);
+  tile_dsum(vec, o, dout, dsum, q0, b, h, seq, H, hd, cb == 0,
+            threadIdx.x);
   __syncthreads();
   const Frag fr;
   const int64_t lrow = (static_cast<int64_t>(b) * H + h) * seq;
@@ -1547,6 +2051,82 @@ int launch_dkdv_hd(const Maps& m, const float* lse, const float* dsum,
            C::kSmem, st>>>(
       m.q, m.d, m.k, m.v, lse, dsum, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), seq, H, Kv, B, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The two-warpgroup kernels: dq over pairs of (q tile, query head) units
+// (hd 128), dk/dv over kv tiles (hd 64 and 128, G > 1)
+template <int HD>
+int launch_dq_pipe(const Maps& m, const void* o, const void* dout,
+                   const float* lse, float* dsum, void* dq, int B, int seq,
+                   int H, int Kv, int causal, int window, float scale,
+                   cudaStream_t st) {
+  using C = PipeCfg<HD, true>;
+  const int64_t n_tiles = (static_cast<int64_t>(seq) + kTile - 1) / kTile;
+  const int64_t n_pairs = (n_tiles * (H / Kv) + 1) / 2;
+  const int64_t blocks = n_pairs * Kv * B;
+  if (blocks >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_pipe<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dq_wgmma_pipe<HD><<<static_cast<unsigned>(blocks), 2 * kThreads,
+                                C::kSmem, st>>>(
+      m.q, m.d, m.k, m.v, static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, dsum,
+      static_cast<__nv_bfloat16*>(dq), seq, H, Kv, B, causal, window, scale,
+      static_cast<int>(n_tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The streaming multiprocessors of the current device.
+inline int sm_count() {
+  int device = 0, n = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
+// Blocks a kv tile's dk/dv takes (flash_bwd_dkdv_wgmma_pipe's cluster): two
+// when the kv tiles are fewer than the SMs (internvl2-1b's and qwen1.5-110b's
+// training microbatches: 128 on 132), so four warpgroups split each chain
+// and every SM works; one when the kv tiles fill the card.
+int dkdv_cluster(int64_t kv_tiles) { return kv_tiles < sm_count() ? 2 : 1; }
+
+template <int HD>
+int launch_dkdv_pipe(const Maps& m, const float* lse, const float* dsum,
+                     void* dk, void* dv, int B, int seq, int H, int Kv,
+                     int causal, int window, float scale, cudaStream_t st) {
+  using C = PipeCfg<HD, false>;
+  const int64_t n_tiles = (static_cast<int64_t>(seq) + kTile - 1) / kTile;
+  const int nc = dkdv_cluster(n_tiles * Kv * B);
+  const int64_t blocks = n_tiles * Kv * B * nc;
+  if (blocks >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkdv_wgmma_pipe<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(2 * kThreads);
+  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t l = cudaLaunchKernelEx(
+      &cfg, flash_bwd_dkdv_wgmma_pipe<HD>, m.q, m.d, m.k, m.v, lse, dsum,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), seq,
+      H, Kv, B, causal, window, scale);
+  if (l != cudaSuccess) return static_cast<int>(l);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1929,7 +2509,7 @@ __device__ __forceinline__ void tf32x3_block(
     // D of the block's rows into vec, by warpgroup 0
     if (threadIdx.x < kThreads)
       tc::tile_dsum(vec, o, dout, dsum, bk.own0, bk.b, bk.h, seq, H, hd,
-                    blockIdx.x % n_cb == 0);
+                    blockIdx.x % n_cb == 0, threadIdx.x);
     const int64_t lrow = (static_cast<int64_t>(bk.b) * H + bk.h) * seq;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -2188,8 +2768,8 @@ int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
       return tc::launch_dq_hd<64>(m, o, dout, l, ds, dq, B, seq, H, Kv,
                                   causal, window, scale, st);
     case 128:
-      return tc::launch_dq_hd<128>(m, o, dout, l, ds, dq, B, seq, H, Kv,
-                                   causal, window, scale, st);
+      return tc::launch_dq_pipe<128>(m, o, dout, l, ds, dq, B, seq, H, Kv,
+                                     causal, window, scale, st);
     case 192:
       return tc::launch_dq_hd<192>(m, o, dout, l, ds, dq, B, seq, H, Kv,
                                    causal, window, scale, st);
@@ -2221,11 +2801,17 @@ int flash_bwd_dkdv_bf16(const void* q, const void* k, const void* v,
   const float* ds = static_cast<const float*>(dsum);
   switch (hd) {
     case 64:
-      return tc::launch_dkdv_hd<64>(m, l, ds, dk, dv, B, seq, H, Kv, causal,
-                                    window, scale, st);
+      return H == Kv ? tc::launch_dkdv_hd<64>(m, l, ds, dk, dv, B, seq, H,
+                                              Kv, causal, window, scale, st)
+                     : tc::launch_dkdv_pipe<64>(m, l, ds, dk, dv, B, seq, H,
+                                                Kv, causal, window, scale,
+                                                st);
     case 128:
-      return tc::launch_dkdv_hd<128>(m, l, ds, dk, dv, B, seq, H, Kv, causal,
-                                     window, scale, st);
+      return H == Kv ? tc::launch_dkdv_hd<128>(m, l, ds, dk, dv, B, seq, H,
+                                               Kv, causal, window, scale, st)
+                     : tc::launch_dkdv_pipe<128>(m, l, ds, dk, dv, B, seq, H,
+                                                 Kv, causal, window, scale,
+                                                 st);
     case 192:
       return tc::launch_dkdv_hd<192>(m, l, ds, dk, dv, B, seq, H, Kv, causal,
                                      window, scale, st);
@@ -2241,6 +2827,49 @@ int flash_bwd_dkdv_bf16(const void* q, const void* k, const void* v,
                                          causal, window, scale, st)
              : tc::launch_dkdv_cols<256>(m, l, ds, dk, dv, B, seq, H, Kv, w,
                                          causal, window, scale, st);
+}
+
+// The one-warpgroup pair that bf16 ran on at hd 64 and 128 before the
+// two-warpgroup kernels (flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma), kept
+// bound as their yardstick; hd 64 or 128 only, no route reaches it.
+int flash_bwd_dq_bf16_yardstick(const void* q, const void* k, const void* v,
+                                const void* o, const void* dout,
+                                const void* lse, void* dsum, void* dq, int B,
+                                int seq, int H, int Kv, long long hd,
+                                int causal, int window, float scale,
+                                void* stream) {
+  if (hd != 64 && hd != 128) return static_cast<int>(cudaErrorInvalidValue);
+  tc::Maps m;
+  const int err = tc::make_maps(&m, q, k, v, dout, B, seq, H, Kv,
+                                static_cast<int>(hd));
+  if (err != 0) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* ds = static_cast<float*>(dsum);
+  return hd == 64 ? tc::launch_dq_hd<64>(m, o, dout, l, ds, dq, B, seq, H,
+                                         Kv, causal, window, scale, st)
+                  : tc::launch_dq_hd<128>(m, o, dout, l, ds, dq, B, seq, H,
+                                          Kv, causal, window, scale, st);
+}
+
+int flash_bwd_dkdv_bf16_yardstick(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* lse, const void* dsum, void* dk,
+                                  void* dv, int B, int seq, int H, int Kv,
+                                  long long hd, int causal, int window,
+                                  float scale, void* stream) {
+  if (hd != 64 && hd != 128) return static_cast<int>(cudaErrorInvalidValue);
+  tc::Maps m;
+  const int err = tc::make_maps(&m, q, k, v, dout, B, seq, H, Kv,
+                                static_cast<int>(hd));
+  if (err != 0) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* ds = static_cast<const float*>(dsum);
+  return hd == 64 ? tc::launch_dkdv_hd<64>(m, l, ds, dk, dv, B, seq, H, Kv,
+                                           causal, window, scale, st)
+                  : tc::launch_dkdv_hd<128>(m, l, ds, dk, dv, B, seq, H, Kv,
+                                            causal, window, scale, st);
 }
 
 }  // extern "C"

@@ -46,7 +46,13 @@ dk and dv in two launches, dq (which also writes D = rowsum(dout * out))
 then dk and dv, with no atomics. ``bwd_route`` picks the kernels by dtype
 and head width: bfloat16 up to hd 256 on the tensor cores (``wgmma``,
 built for the widths ``BWD_WGMMA_DIMS``; a width between two of them is
-zero-padded to the next, ``_pad_call``), bfloat16 above 256 on the
+zero-padded to the next, ``_pad_call``; at hd 64 and 128 with G > 1 query
+heads a kv head the dk/dv launch splits each kv tile's iterations between
+two warpgroups, and between the two blocks of a cluster while the kv tiles
+are fewer than the card's SMs, and at hd 128 the dq launch takes two (q
+tile, query head) units a block over one stream of k and v; the
+one-warpgroup pair they replaced stays bound as their yardstick,
+``wgmma_yardstick``, which no route reaches), bfloat16 above 256 on the
 tensor-core kernels that sum over hd in 64-column chunks and own a block
 of output columns (``wgmma_chunked``; the width zero-padded to a multiple
 of 64), float32 at every width on the tensor cores as well (``tf32x3``:
@@ -107,7 +113,9 @@ _WGMMA_MAX_ROWS = 2 ** 31 - 256
 # every kernel keeps positions in 32 bits, as the Pallas kernel does (its
 # int32 iotas), with room for a tile's rounding past the last
 _MAX_SEQ = 2 ** 31 - 1024
-# the backward's C functions (dq launch, dk/dv launch) of each (dtype, route)
+# the backward's C functions (dq launch, dk/dv launch) of each (dtype, route),
+# and of the yardstick of bf16 at hd 64 and 128 (no route's): the
+# one-warpgroup pair that the two-warpgroup kernels replaced
 _BWD_FNS = {(torch.float32, "tf32x3"): ("flash_bwd_dq_f32_tf32x3",
                                         "flash_bwd_dkdv_f32_tf32x3"),
             (torch.float32, "cuda_core"): ("flash_bwd_dq_f32",
@@ -117,7 +125,10 @@ _BWD_FNS = {(torch.float32, "tf32x3"): ("flash_bwd_dq_f32_tf32x3",
             (torch.bfloat16, "wgmma"): ("flash_bwd_dq_bf16",
                                         "flash_bwd_dkdv_bf16"),
             (torch.bfloat16, "wgmma_chunked"): ("flash_bwd_dq_bf16",
-                                                "flash_bwd_dkdv_bf16")}
+                                                "flash_bwd_dkdv_bf16"),
+            (torch.bfloat16, "wgmma_yardstick"): (
+                "flash_bwd_dq_bf16_yardstick",
+                "flash_bwd_dkdv_bf16_yardstick")}
 BWD_WGMMA_DIMS = (64, 128, 192, 256)   # the tensor-core backward's widths
 BWD_LAUNCHES = 2                   # kernel launches a backward call
 
