@@ -74,11 +74,20 @@ Phases, each printing its result; any failure exits non-zero:
    its products and bytes, and held with peaked (x2) inputs at 256 and 576
    (bf16 at the qwen gate, fp32 against an fp64 attention); bf16 at hd 192
    (``flash_kernel_wgmma_pipe``) also timed in turns beside the kernel it
-   replaced, ``flash_kernel_wgmma<192, 64>`` (its own C function, held to
-   the plain version too), which must be slower, and held at the qwen gate
-   at hd 192, 160 and 129 over the masks with x2 inputs at 8 and at 12
-   query heads a kv head, lse too, two runs bit-equal (``flash_pipe_gate``);
-   the build fails the run if ptxas spills in it or serializes its wgmma;
+   replaced, ``flash_kernel_wgmma<192, 64>`` (its yardstick C function,
+   held to the plain version too), which must be slower; bf16 at hd 33-192
+   (``flash_kernel_wgmma_pipe``) held at the qwen gate at hd 192, 160,
+   129, 128, 96, 64 and 48 over the masks with x2 inputs at 8, 12, 7 and 1
+   query heads a kv head, lse too, two runs bit-equal, and at 64, 128 and
+   192 bit for bit equal to ``flash_kernel_wgmma<HD, 64>`` where G divides
+   the block's rows (``flash_pipe_gate``); at hd 64 and 128 timed in turns
+   beside that yardstick at every config's forward shape (the C functions
+   alone by CUDA events, then both and SDPA's forward by the profiler's
+   device time, the bound by two products and by three), held at the qwen
+   gate (x0.5, x2) with lse, faster than the yardstick at qwen's B=4
+   prefill and no slower than its slowest turn elsewhere
+   (``flash_fwd_pipe_times``); the build fails the run if ptxas spills in
+   any of its instances or serializes its wgmma;
 3. the gradient of ``lstm_loss`` at the paper width through the sequence
    kernel and its backpropagation through time against autograd through the
    per-step plain path on the card, and the ternary codec's
@@ -315,7 +324,10 @@ Phases, each printing its result; any failure exits non-zero:
 
 Every serving and training phase (6, 6b–6f, 7, 9, 9b–9d, 10) starts with
 ``phase_memory``: reference cycles collected, the allocator's cache freed,
-the memory allocated printed and held under 1 GB.
+the memory allocated printed and held under 1 GB. Every profiled prefill
+and training step holds the flash forward kernels it ran, by name (width
+and warpgroups) and count, to what its path should run
+(``check_fwd_kernels``).
 
 The line before the last is a JSON object of per-kernel numbers; the last is
 ``{"ok": true, "device": {...}}``. With no CUDA card, or outside a checkout
@@ -1927,14 +1939,40 @@ FLASH_HD_WIDE_MORE = (200, 256, 576, 1024)
 # (flash_kernel_wgmma<192>); fp32 is timed at qwen's 128 too (phase_flash)
 FLASH_HD_TIMED = (192, 256, 576, 1024)
 FLASH_HD_PEAKED = (256, 576)
-# bf16 at hd 129-192 runs flash_kernel_wgmma_pipe: held at the qwen gate
-# at 192 and zero-padded to it from 160 and 129, over the masks, peaked
-# (x2), lse too, two runs bit-equal, at qwen's prefill cut to one batch
-# entry (G = 8: q tiles of 128 folded rows) and at nemotron-4-340b's 96
-# over 8 heads (G = 12: q tiles of 120 rows, 10 whole positions)
-FLASH_PIPE_WIDTHS = (192, 160, 129)
-FLASH_PIPE_SHAPES = ((1, 1024, 64, 8), (1, 1024, 96, 8))
+# bf16 at hd 33-192 runs flash_kernel_wgmma_pipe: held at the qwen gate
+# at 192, 128 and 64 and zero-padded to them from 160 and 129, 96 and 48,
+# over the masks, peaked (x2), lse too, two runs bit-equal, at the built
+# widths against flash_kernel_wgmma<HD, 64> too (bit for bit where the
+# pipe's warpgroups own that kernel's rows, ``fwd_pipe_bit_equal``), at
+# qwen's prefill cut to one batch entry (G = 8: q tiles of 128 folded
+# rows, 192 at hd 128), nemotron-4-340b's 96 over 8 heads (G = 12: 120
+# rows, 10 whole positions; 192 at hd 128), internvl2-1b's 14 over 2 (G =
+# 7: 126 rows, 189 at hd 128) and deepseek-moe-16b's 16 over 16 (G = 1)
+FLASH_PIPE_WIDTHS = (192, 160, 129, 128, 96, 64, 48)
+FLASH_PIPE_SHAPES = ((1, 1024, 64, 8), (1, 1024, 96, 8), (1, 1024, 14, 2),
+                     (1, 1024, 16, 16))
 FLASH_PIPE_SCALE = 2.0
+# the bf16 forward at hd 64 and 128 (flash_kernel_wgmma_pipe) timed beside
+# its yardstick, flash_kernel_wgmma<HD, 64>, at every config's forward
+# shape (B, S, H, Kv, hd, causal, with lse): the training microbatches
+# (forward with lse, as autograd runs it) and qwen1.5-110b's B=4 prefill
+# with lse (the shape the issue's table of losses read), and the serve
+# paths' prefills (no lse): deepseek-moe-16b's, jamba-v0.1-52b's attention
+# layers, whisper-base's encoder and internvl2-1b's prefill (256 patches +
+# 1,024 tokens); FWD_PIPE_FASTER must beat the yardstick's median, every
+# other shape stay within its slowest turn
+FWD_PIPE_SHAPES = {
+    "qwen1.5-110b prefill": (4, 1024, 64, 8, 128, True, True),
+    "qwen1.5-110b train": (1, 1024, 64, 8, 128, True, True),
+    "stablelm-1.6b train": (1, 4096, 32, 32, 64, True, True),
+    "internvl2-1b train": (1, 4096, 14, 2, 64, True, True),
+    "deepseek-moe-16b train": (1, 4096, 16, 16, 128, True, True),
+    "whisper-base train": (2, 1500, 8, 8, 64, False, True),
+    "deepseek-moe-16b serve": (4, 1024, 16, 16, 128, True, False),
+    "jamba-v0.1-52b serve": (4, 1024, 32, 8, 128, True, False),
+    "whisper-base serve": (4, 1500, 8, 8, 64, False, False),
+    "internvl2-1b serve": (4, 1280, 14, 2, 64, True, False)}
+FWD_PIPE_FASTER = ("qwen1.5-110b prefill",)
 # one call of more than 2^31 elements (2^31 + 2^23 in q), one launch
 FLASH_SPLIT = (257, 1024, 64, 8, 128)
 # one batch entry of exactly 2^31 elements of q, sliding window 256: the
@@ -2050,7 +2088,8 @@ def rms_bound_ms(rows, d, elem_bytes):
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
-def flash_bound_ms(B, S, H, Kv, hd, elem_bytes, peak=None, causal=True):
+def flash_bound_ms(B, S, H, Kv, hd, elem_bytes, peak=None, causal=True,
+                   products=2):
     """The causal pairs' two products (S(S+1)/2 pairs a head, S^2 without
     the causal mask; 2 flops a multiply-add) at the peak rate of the
     inputs' type (bf16: the tensor
@@ -2058,8 +2097,10 @@ def flash_bound_ms(B, S, H, Kv, hd, elem_bytes, peak=None, causal=True):
     product being three TF32 products, PEAK_TF32X3_FLOP_S, the least time
     the card takes for fp32-accurate products; ``peak`` overrides, e.g.
     PEAK_FP32_FLOP_S for the CUDA cores); q, k, v and out each crossed
-    once."""
-    flops = 4 * B * H * hd * (S * (S + 1) // 2 if causal else S * S)
+    once. ``products`` 3 counts the bf16 kernels' P_hi V and P_lo V as two
+    products (their own floor, not the function's)."""
+    flops = 2 * products * B * H * hd * (S * (S + 1) // 2 if causal
+                                         else S * S)
     moved = elem_bytes * (2 * B * S * H * hd + 2 * B * S * Kv * hd)
     if peak is None:
         peak = PEAK_BF16_FLOP_S if elem_bytes == 2 else PEAK_TF32X3_FLOP_S
@@ -2105,19 +2146,86 @@ def fwd_registers(FA, hd):
 
 
 def pipe_registers(FA, source=None):
-    """ptxas's registers and spills of flash_kernel_wgmma_pipe (bf16 at hd
-    129-192), or with ``source`` FA.BWD_SOURCE of the backward's
-    two-warpgroup kernels (flash_bwd_dq_wgmma_pipe and
+    """ptxas's registers and spills of each instance of
+    flash_kernel_wgmma_pipe (bf16 at hd 33-192; named with its width and
+    warpgroups, as the profiler names it), or with ``source`` FA.BWD_SOURCE
+    of the backward's two-warpgroup kernels (flash_bwd_dq_wgmma_pipe and
     flash_bwd_dkdv_wgmma_pipe at hd 64 and 128)."""
     from repro_torch.kernels import build as kbuild
-    report = ptxas_report(kbuild.log_path(source or FA.SOURCE).read_text())
+    report = ptxas_report(kbuild.log_path(source or FA.SOURCE).read_text(),
+                          all_args=source is None)
     return {name: rep for name, rep in report if "wgmma_pipe" in name}
 
 
-def ptxas_report(log):
+# the widths flash_kernel_wgmma_pipe is built at (bf16; the wrapper pads
+# hd 33-63 to 64, 65-127 to 128 and 129-191 to 192)
+FWD_PIPE_DIMS = (64, 128, 192)
+
+
+def fwd_pipe_warpgroups(hd):
+    """The warpgroups of flash_kernel_wgmma_pipe at width hd (64, 128 or
+    192): three at 128, else two."""
+    return 3 if hd == 128 else 2
+
+
+def fwd_pipe_instance(hd):
+    """The profiler's name of flash_kernel_wgmma_pipe's instance at width
+    hd, with its warpgroups."""
+    return f"flash_kernel_wgmma_pipe<{hd}, {fwd_pipe_warpgroups(hd)}>"
+
+
+def fwd_pipe_kernel(hd, G):
+    """The profiler's name of the bf16 forward kernel the route runs at
+    width hd (64, 128 or 192) with G query heads a kv head, as
+    flash_attention.cu's ``tc::launch`` picks it: flash_kernel_wgmma_pipe
+    with its warpgroups, but flash_kernel_wgmma<128, 64> at hd 128 with G
+    = 1 (``pipe_at_128``)."""
+    if hd == 128 and G == 1:
+        return "flash_kernel_wgmma<128, 64>"
+    return fwd_pipe_instance(hd)
+
+
+def fwd_pipe_bit_equal(hd, G):
+    """Whether the route's forward at (hd, G) sums every row as its
+    yardstick flash_kernel_wgmma<hd, 64> does, bit for bit: where it runs
+    that kernel, and where G divides flash_kernel_wgmma_pipe's block rows
+    (64 a warpgroup), so that each warpgroup owns the same 64 rows in both
+    and each kv tile takes the same scaling (the source's header note)."""
+    return fwd_pipe_kernel(hd, G).startswith("flash_kernel_wgmma<") or \
+        64 * fwd_pipe_warpgroups(hd) % G == 0
+
+
+def fwd_name(name):
+    """The flash forward kernel a profiler's kernel name holds, with its
+    template arguments (``flash_kernel_wgmma_pipe<128, 3>``), or None."""
+    m = re.search(r"flash_kernel\w*(?:<[\w, ]+>)?", name)
+    return m.group(0) if m else None
+
+
+def fwd_kernels(by_name):
+    """{forward kernel: launches} of a profiled window."""
+    out = {}
+    for name, (n, _) in by_name.items():
+        if fwd_name(name):
+            out[fwd_name(name)] = out.get(fwd_name(name), 0) + n
+    return out
+
+
+def check_fwd_kernels(tag, by_name, want):
+    """Fails unless the profiled window ran exactly the forward kernels
+    ``want`` ({name: launches}); returns what it ran."""
+    got = fwd_kernels(by_name)
+    print(f"[profile] {tag}: flash forward kernels {got or 'none'} "
+          f"(expected {want or 'none'}) {'ok' if got == want else 'FAIL'}")
+    check(got == want, f"{tag}: the flash forward ran {got}, not {want}")
+    return got
+
+
+def ptxas_report(log, all_args=False):
     """[(kernel, "spills, registers")] from an ``-Xptxas -v`` log, each
-    kernel named with its mangled template arguments (``fLi192``: float,
-    hd 192)."""
+    kernel named with its first mangled template argument (``fLi192``:
+    float, hd 192), or with ``all_args`` with all its integer ones as the
+    profiler writes them (``flash_kernel_wgmma_pipe<128, 3>``)."""
     out = []
     for line in log.splitlines():
         hit = re.search(r"Compiling entry function '(\w+)'", line)
@@ -2126,6 +2234,11 @@ def ptxas_report(log):
                           r"(I\w*?E)?", hit.group(1))
             name = (m.group(1) + (f"<{m.group(2)[1:-1]}>" if m.group(2)
                                   else "")) if m else hit.group(1)
+            full = re.search(r"\d+((?:flash)[a-z0-9_]*)I((?:Li\d+E)+)E",
+                             hit.group(1))
+            if all_args and full:
+                name = f"{full.group(1)}<" + ", ".join(
+                    re.findall(r"Li(\d+)E", full.group(2))) + ">"
             out.append([name, {}])
         elif out and ("registers" in line or "spill" in line):
             out[-1][1][line.split(":", 1)[-1].strip()] = None
@@ -2385,7 +2498,7 @@ def phase_flash(torch, FA, ref):
                             dtypes=(torch.float32,))["float32"]
     wide = {f"hd{w}": flash_wide_times(torch, FA, ref, B, S, H, Kv, w)
             for w in FLASH_HD_TIMED}
-    pipe_err, pipe_lse_err = flash_pipe_gate(torch, FA, ref)
+    pipe_err, pipe_lse_err, pipe_same = flash_pipe_gate(torch, FA, ref)
     bound, by = flash_bound_ms(B, S, H, Kv, hd, 2)
     print(f"[kernel] flash_attention time B={B} S={S} H={H} Kv={Kv} "
           f"hd={hd} causal bf16 (tensor-core kernel): kernel {ms:.4f} ms, "
@@ -2396,22 +2509,25 @@ def phase_flash(torch, FA, ref):
                        library_ms=lib_ms, bound_ms=bound, bound_by=by,
                        hd128={"float32": fp32},
                        pipe_gate=dict(max_abs_err=pipe_err,
-                                      lse_err=pipe_lse_err),
+                                      lse_err=pipe_lse_err,
+                                      bit_equal_to_yardstick=pipe_same),
                        **wide)
 
 
-def c_call(torch, FA, key, q, k, v, with_lse=False):
+def c_call(torch, FA, key, q, k, v, with_lse=False, causal=True, window=0):
     """The forward C function bound as ``FA._FNS[q.dtype, key]``, called
-    directly at q's width, causal, for comparison and timing beside the
-    route that replaced its kernel; out, and lse too ``with_lse``."""
+    directly at q's width (causal by default), for comparison and timing
+    beside the route that replaced its kernel; out, and lse too
+    ``with_lse``."""
     B, S, H, hd = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device) \
         if with_lse else None
     err = FA.build()[q.dtype, key](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, S, H, k.shape[2], hd, 1,
-        0, 1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+        None if lse is None else lse.data_ptr(), B, S, H, k.shape[2], hd,
+        int(causal), window, 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream().cuda_stream)
     check(err == 0, f"{FA._FNS[q.dtype, key]} launch failed: {err}")
     return (out, lse) if with_lse else out
 
@@ -2423,11 +2539,16 @@ def cuda_core(torch, FA, q, k, v):
     return c_call(torch, FA, "cuda_core", q, k, v)
 
 
-def wgmma192(torch, FA, q, k, v, with_lse=False):
-    """flash_kernel_wgmma<192, 64>, which bf16 ran on at hd 129-192 before
+def fwd_yardstick(torch, FA, q, k, v, with_lse=False, causal=True,
+                  window=0):
+    """flash_kernel_wgmma<HD, 64>, which bf16 ran on at hd 33-192 before
     flash_kernel_wgmma_pipe, through its own C function
-    (``flash_attention_bf16_wgmma192``, hd 192 only): the yardstick."""
-    return c_call(torch, FA, "wgmma192_yardstick", q, k, v, with_lse)
+    (``flash_attention_bf16_yardstick``, hd 64, 128 and 192 only): the
+    yardstick."""
+    check(q.shape[-1] in FA.YARDSTICK_DIMS,
+          f"the forward yardstick takes hd {FA.YARDSTICK_DIMS}")
+    return c_call(torch, FA, "wgmma_yardstick", q, k, v, with_lse, causal,
+                  window)
 
 
 def flash_wide_times(torch, FA, ref, B, S, H, Kv, hd, dtypes=None):
@@ -2489,9 +2610,9 @@ def flash_wide_times(torch, FA, ref, B, S, H, Kv, hd, dtypes=None):
             yard["yardstick_err"] = held(
                 torch, f"flash_kernel_wgmma<192, 64> B={B} S={S} H={H} "
                 f"Kv={Kv} hd={hd} causal bfloat16 (the yardstick)",
-                wgmma192(torch, FA, q, k, v), plain, rtol, atol)
+                fwd_yardstick(torch, FA, q, k, v), plain, rtol, atol)
             turns = [median_ms(fn, torch, reps=reps, inner=inner, warm=3)
-                     for fn in (lambda: wgmma192(torch, FA, q, k, v),
+                     for fn in (lambda: fwd_yardstick(torch, FA, q, k, v),
                                 lambda: FA.flash_attention(q, k, v))]
             yard["yardstick_ms"], ms = turns
             check(ms < yard["yardstick_ms"],
@@ -2557,21 +2678,27 @@ def flash_wide_times(torch, FA, ref, B, S, H, Kv, hd, dtypes=None):
 
 
 def flash_pipe_gate(torch, FA, ref):
-    """flash_kernel_wgmma_pipe (bf16, hd 129-192) against the plain version
+    """flash_kernel_wgmma_pipe (bf16, hd 33-192) against the plain version
     at FLASH_PIPE_WIDTHS x FLASH_PIPE_SHAPES x the masks, inputs x2: out at
     the qwen gate, lse within TRAIN_LSE_TOL, two runs bit-equal, every
-    launch on ``wgmma`` (160 and 129 counted as padded). Returns the worst
-    max|kernel - plain| of out and of lse."""
+    launch on ``wgmma`` (the widths between the built ones counted as
+    padded); at the built widths its yardstick flash_kernel_wgmma<HD, 64>
+    (``fwd_yardstick``) at the qwen gate too, and bit for bit equal to the
+    route's output where ``fwd_pipe_bit_equal``. Returns the worst
+    max|kernel - plain| of out and of lse and the cases held bit-equal to
+    the yardstick."""
     worst, worst_lse = 0.0, 0.0
     rtol, atol = TOL["bfloat16"], QWEN_FLASH_BF16_ATOL
     lrtol, latol = TRAIN_LSE_TOL
     before = (FA.flash_attention.route_launches["wgmma"],
               FA.flash_attention.padded_launches)
-    n = 0
+    n = padded = same_as_yard = 0
     for hd in FLASH_PIPE_WIDTHS:
-        check(FA.native_head_dim(hd, torch.bfloat16) == 192,
-              f"hd {hd} bf16 does not run at 192")
+        wide = FA.native_head_dim(hd, torch.bfloat16)
+        check(wide in FWD_PIPE_DIMS, f"hd {hd} bf16 runs at {wide}, not at "
+                                     f"a width of the pipe kernel")
         for B, S, H, Kv in FLASH_PIPE_SHAPES:
+            G = H // Kv
             q, k, v = (randn(torch, (B, S, m, hd), torch.bfloat16, 300 + j,
                              FLASH_PIPE_SCALE)
                        for j, m in enumerate((H, Kv, Kv)))
@@ -2579,12 +2706,13 @@ def flash_pipe_gate(torch, FA, ref):
                 tag = (f"flash_attention B={B} S={S} H={H} Kv={Kv} hd={hd} "
                        f"causal={causal} window={window} inputs "
                        f"x{FLASH_PIPE_SCALE} bfloat16 (wgmma, "
-                       f"flash_kernel_wgmma_pipe)")
+                       f"{fwd_pipe_kernel(wide, G)})")
                 got, lse = FA.flash_attention(q, k, v, causal=causal,
                                               window=window, with_lse=True)
                 again = FA.flash_attention(q, k, v, causal=causal,
                                            window=window)
                 n += 2
+                padded += 2 * (wide != hd)
                 want, plse = ref.flash_attention(q, k, v, causal=causal,
                                                  window=window, with_lse=True)
                 worst = max(worst, held(torch, tag, got, want, rtol, atol))
@@ -2594,20 +2722,31 @@ def flash_pipe_gate(torch, FA, ref):
                       f"{tag}: lse off by {lse_err:.3e}")
                 check(torch.equal(got, again), f"{tag}: two runs differ")
                 worst_lse = max(worst_lse, lse_err)
+                if wide == hd:
+                    yard, ylse = fwd_yardstick(torch, FA, q, k, v, True,
+                                               causal, window)
+                    held(torch, f"{tag}: flash_kernel_wgmma<{hd}, 64> (the "
+                         f"yardstick)", yard, want, rtol, atol)
+                    if fwd_pipe_bit_equal(hd, G):
+                        check(torch.equal(got, yard) and
+                              torch.equal(lse, ylse),
+                              f"{tag}: not bit-equal to its yardstick")
+                        same_as_yard += 1
+                    del yard, ylse
             del q, k, v, got, again, want, lse, plse
-    padded = n // len(FLASH_PIPE_WIDTHS) * sum(
-        hd != 192 for hd in FLASH_PIPE_WIDTHS)
     got_n = (FA.flash_attention.route_launches["wgmma"] - before[0],
              FA.flash_attention.padded_launches - before[1])
-    check(got_n == (n, padded), f"hd 129-192 launches (wgmma, padded) "
+    check(got_n == (n, padded), f"hd 33-192 launches (wgmma, padded) "
                                 f"{got_n}, expected {(n, padded)}")
     print(f"[kernel] flash_kernel_wgmma_pipe over hd {FLASH_PIPE_WIDTHS} x "
           f"{len(FLASH_PIPE_SHAPES)} shapes x {len(FLASH_MASKS)} masks, "
           f"inputs x{FLASH_PIPE_SCALE}: worst max|kernel-plain| {worst:.3e} "
           f"(out), {worst_lse:.3e} (lse); two runs bit-equal; {n} launches "
-          f"on wgmma, {padded} padded")
+          f"on wgmma, {padded} padded; out and lse bit-equal to "
+          f"flash_kernel_wgmma<HD, 64> in {same_as_yard} cases (where G "
+          f"divides the block's rows)")
     torch.cuda.empty_cache()
-    return worst, worst_lse
+    return worst, worst_lse, same_as_yard
 
 
 def phase_flash_split(torch, FA, ref):
@@ -3098,6 +3237,20 @@ def attention_layers(cfg) -> int:
     return n + (cfg.n_encoder_layers if cfg.family == "encdec" else 0)
 
 
+def prefill_fwd_kernels(cfg, passes: int = 1) -> dict:
+    """{forward kernel: launches} that ``passes`` bf16 prefills (or
+    forwards) of cfg run: one flash launch an attention layer, all on the
+    route's kernel at the width the wrapper runs the config's hd at (64,
+    128 or 192) and G, ``fwd_pipe_kernel``; none for a model without
+    attention."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    n = attention_layers(cfg) * passes
+    wide = FA.native_head_dim(cfg.hd, torch.bfloat16)
+    return {fwd_pipe_kernel(wide, cfg.n_heads // cfg.n_kv_heads): n} \
+        if n else {}
+
+
 def seeded_extra(torch, cfg, batch: int, seed: int) -> dict:
     """An encdec model's frames or a vlm model's patches for ``batch``
     rows (``serve.extra_inputs``' shapes), ``randn`` from
@@ -3115,7 +3268,9 @@ def serve_profile(torch, cfg, params, prompts, extra=None):
     """Where a prefill of ``prompts`` (a batch of numpy prompts; with
     ``extra``, an encdec model's frames or a vlm model's patches) and one
     decode step spend the card (torch.profiler), and each kernel's device
-    time per launch on the serve path. After the counts were read."""
+    time per launch on the serve path; the prefill's flash forward kernels
+    held to ``prefill_fwd_kernels``, the decode step's to none. After the
+    counts were read."""
     import numpy as np
     from repro_torch.launch.serve import greedy, prefix_len
     from repro_torch.models import model as M
@@ -3156,9 +3311,12 @@ def serve_profile(torch, cfg, params, prompts, extra=None):
                       f"{name[:80]}")
             out[key] = dict(
                 window_ms=window_ms, busy_ms=busy_ms, kernels=n_kernels,
-                # rmsnorm_{row,warp,}kernel; flash_kernel_wgmma (bf16)
+                # rmsnorm_{row,warp,}kernel; flash_kernel_wgmma_pipe (bf16)
                 rmsnorm_ms=per_launch_ms(by_name, "rmsnorm_"),
-                flash_ms=per_launch_ms(by_name, "flash_kernel"))
+                flash_ms=per_launch_ms(by_name, "flash_kernel"),
+                fwd_kernels=check_fwd_kernels(
+                    f"{cfg.name} one {key}", by_name,
+                    prefill_fwd_kernels(cfg) if key == "prefill" else {}))
             print(f"[profile] device time per launch in the {key}: rmsnorm "
                   f"{fmt_ms(out[key]['rmsnorm_ms'])}, flash_attention "
                   f"{fmt_ms(out[key]['flash_ms'])}")
@@ -4017,6 +4175,171 @@ def flash_bwd_pipe_times(torch, FA, ref):
     return out
 
 
+def fwd_launcher(torch, FA, key, q, k, v, out, lse, causal):
+    """One launch of the bf16 forward C function ``key`` (``wgmma``: the
+    route's; ``wgmma_yardstick``) on q, k, v into out (and lse, if not
+    None), with no Python wrapper around it: for timing."""
+    B, S, H, hd = q.shape
+    fn = FA.build()[torch.bfloat16, key]
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, S, H, k.shape[2], hd,
+            int(causal), 0, 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        err = fn(*args)
+        check(err == 0, f"{FA._FNS[torch.bfloat16, key]} launch failed: "
+                        f"{err}")
+    return launch
+
+
+def flash_fwd_pipe_times(torch, FA, ref):
+    """The bf16 forward at hd 64 and 128 at ``FWD_PIPE_SHAPES``: the route
+    (``fwd_pipe_kernel``) and its yardstick flash_kernel_wgmma<HD, 64>
+    (``fwd_yardstick``) each held against the plain version at the qwen
+    gate with inputs x0.5 and x2, lse within TRAIN_LSE_TOL, two runs of the
+    route bit-equal, and the route bit-equal to the yardstick where
+    ``fwd_pipe_bit_equal``; both timed in turns (yardstick, route, route,
+    yardstick; PIPE_ROUNDS rounds of CUDA events over launches of the C
+    functions alone, ``fwd_launcher``; the median of each one's turns),
+    with lse where the shape's path writes it; the profiler's device time
+    a call of each, its kernel's name and one launch a call held to what
+    the route should run, SDPA's forward by device time (and by events),
+    the plain version, and the bound by two products (the function's) and
+    by three (the kernels' P_hi V + P_lo V). Gated: at FWD_PIPE_FASTER the
+    route's median below the yardstick's, at every other shape at most the
+    yardstick's slowest turn. Returns a row a shape."""
+    from repro_torch.kernels import build as kbuild
+    rtol, atol = TOL["bfloat16"], QWEN_FLASH_BF16_ATOL
+    lrtol, latol = TRAIN_LSE_TOL
+    out = {}
+    for name, (B, S, H, Kv, hd, causal, with_lse) in FWD_PIPE_SHAPES.items():
+        G = H // Kv
+        kname = fwd_pipe_kernel(hd, G)
+        yname = f"flash_kernel_wgmma<{hd}, 64>"
+        tag = (f"{name} B={B} S={S} H={H} Kv={Kv} (G = {G}) hd={hd} "
+               f"{'causal' if causal else 'non-causal'}")
+        errs, yard_errs, lse_errs = [], [], []
+        same = yard_same = True
+        for j, scale in enumerate(QWEN_FLASH_SCALES[::-1]):
+            # x2 first; the x0.5 inputs stay for the timing
+            q, k, v = (randn(torch, (B, S, n, hd), torch.bfloat16, 400 + i,
+                             scale) for i, n in enumerate((H, Kv, Kv)))
+            got, lse = FA.flash_attention(q, k, v, causal=causal,
+                                          with_lse=True)
+            again, lse2 = FA.flash_attention(q, k, v, causal=causal,
+                                             with_lse=True)
+            yard, ylse = fwd_yardstick(torch, FA, q, k, v, True, causal)
+            want, plse = ref.flash_attention(q, k, v, causal=causal,
+                                             with_lse=True)
+            what = f"flash_attention {tag} inputs x{scale} bfloat16"
+            errs.append(held(torch, f"{what} ({kname})", got, want, rtol,
+                             atol))
+            yard_errs.append(held(torch, f"{what} ({yname}, the yardstick)",
+                                  yard, want, rtol, atol))
+            lse_errs.append((lse - plse).abs().max().item())
+            check(bool(((lse - plse).abs() <=
+                        lrtol * plse.abs() + latol).all()),
+                  f"{what}: lse off by {lse_errs[-1]:.3e}")
+            same &= torch.equal(got, again) and torch.equal(lse, lse2)
+            yard_same &= torch.equal(got, yard) and torch.equal(lse, ylse)
+            del got, again, lse, lse2, yard, ylse, want, plse
+            if j == 0:
+                del q, k, v
+        check(same, f"{tag}: two runs of {kname} differ")
+        gate_bits = fwd_pipe_bit_equal(hd, G)
+        check(yard_same or not gate_bits,
+              f"{tag}: {kname} is not bit-equal to {yname}, whose order of "
+              f"sums it keeps")
+        o = kbuild.empty_like(q)
+        lse_buf = kbuild.empty(B, H, S, dtype=torch.float32,
+                               device=q.device) if with_lse else None
+        launch = {who: fwd_launcher(torch, FA, key, q, k, v, o, lse_buf,
+                                    causal)
+                  for who, key in (("route", "wgmma"),
+                                   ("yardstick", "wgmma_yardstick"))}
+        turns = {"yardstick": [], "route": []}
+        for who in ("yardstick", "route", "route", "yardstick") * PIPE_ROUNDS:
+            turns[who].append(median_ms(launch[who], torch, reps=10, inner=5,
+                                        warm=3))
+        ms = {who: statistics.median(t) for who, t in turns.items()}
+        # a window that never records leaves the call's kernel unchecked
+        # here and its time "not measured"; the shape is listed in the
+        # kernels line (``unrecorded``)
+        device = {}
+        for who, kern in (("route", kname), ("yardstick", yname)):
+            call_ms, per_call = device_ms_a_call(torch, launch[who])
+            hits = {fwd_name(n_) or n_: c for n_, (_, c) in per_call.items()}
+            if call_ms is None:
+                print(f"[profile] {tag}: no window recorded the {who}: its "
+                      f"device time not measured, its kernel not checked")
+            check(call_ms is None or hits == {kern: 1},
+                  f"{tag}: the {who} ran {hits} a call, not one launch of "
+                  f"{kern}")
+            device[who] = call_ms
+        plain_ms = median_ms(lambda: ref.flash_attention(
+            q, k, v, causal=causal, with_lse=with_lse), torch, reps=2,
+            inner=1, warm=1)
+        torch.use_deterministic_algorithms(False)
+        try:
+            lib = sdpa(torch, q, k, v, causal)
+            backend = sdpa_backend(torch, lib)
+            lib_ms = device_ms_a_call(torch, lib)[0]
+            lib_event_ms = median_ms(lib, torch, reps=10, inner=5, warm=3)
+        finally:
+            torch.use_deterministic_algorithms(True)
+        bound, by = flash_bound_ms(B, S, H, Kv, hd, 2, causal=causal)
+        bound3, by3 = flash_bound_ms(B, S, H, Kv, hd, 2, causal=causal,
+                                     products=3)
+        print(f"[kernel] flash forward time at {tag} "
+              f"{'with' if with_lse else 'without'} lse (events, C functions "
+              f"alone, ms a call): {kname} "
+              f"{'/'.join(f'{t:.4f}' for t in turns['route'])}, {yname} "
+              f"{'/'.join(f'{t:.4f}' for t in turns['yardstick'])} (in "
+              f"turns; {ms['yardstick'] / ms['route']:.3f}x); device ms a "
+              f"call (profiler): {fmt_ms(device['route'])} against "
+              f"{fmt_ms(device['yardstick'])}; SDPA's forward ({backend}) "
+              f"{fmt_ms(lib_ms)} ({lib_event_ms:.4f} ms by events); plain "
+              f"{plain_ms:.3f} ms; bound {bound:.4f} ms ({by}), by three "
+              f"products {bound3:.4f} ms ({by3}; the route "
+              f"{100 * bound3 / ms['route']:.1f}% of it); max|kernel-plain| "
+              f"{max(errs):.3e} (yardstick {max(yard_errs):.3e}), lse "
+              f"{max(lse_errs):.2e}; two runs bit-equal; bit-equal to the "
+              f"yardstick {yard_same} (" + ("gated" if gate_bits else
+                                            "not gated: G does not divide "
+                                            "the block's rows") + ")")
+        if kname == yname:
+            gate = "none: the route runs the yardstick's kernel"
+        elif name in FWD_PIPE_FASTER:
+            gate = "faster than the yardstick's median"
+            check(ms["route"] < ms["yardstick"],
+                  f"{tag}: {kname} ({ms['route']:.4f} ms) is not faster "
+                  f"than {yname} ({ms['yardstick']:.4f} ms)")
+        else:
+            gate = "no slower than the yardstick's slowest turn"
+            check(ms["route"] <= max(turns["yardstick"]),
+                  f"{tag}: {kname} ({ms['route']:.4f} ms) is slower than "
+                  f"{yname}'s slowest turn ({max(turns['yardstick']):.4f} "
+                  f"ms)")
+        print(f"[kernel] flash forward gate at {name}: {gate} ok")
+        out[name] = dict(shape=[B, S, H, Kv, hd, causal], with_lse=with_lse,
+                         kernel=kname, yardstick=yname, ms=ms["route"],
+                         yardstick_ms=ms["yardstick"], turns=turns,
+                         device_ms=device["route"],
+                         yardstick_device_ms=device["yardstick"],
+                         sdpa_fwd_ms=lib_ms, sdpa_fwd_event_ms=lib_event_ms,
+                         sdpa_backend=backend, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, bound3_ms=bound3,
+                         bound3_by=by3, max_abs_err=max(errs),
+                         yardstick_err=max(yard_errs),
+                         lse_err=max(lse_errs), bit_equal=same,
+                         bit_equal_to_yardstick=yard_same,
+                         bit_equal_gated=gate_bits, gate=gate)
+        del q, k, v, o, lse_buf
+        torch.cuda.empty_cache()
+    return out
+
+
 # the column kernels under autograd: one ops.attention step at qwen's
 # training attention (B=1, S=1,024, 64 over 8 heads) widened, bf16, causal
 FLASH_BWD_AUTOGRAD = ((1, 1024, 64, 8, 576), (1, 1024, 64, 8, 1024))
@@ -4179,12 +4502,12 @@ def phase_train_kernels(torch, FA, RN, ref):
                 QWEN_FLASH_BF16_ATOL)
             yard["yardstick_err"] = held(
                 torch, f"flash_kernel_wgmma<192, 64> {tag} (the yardstick)",
-                wgmma192(torch, FA, q, k, v), po, TOL["bfloat16"],
+                fwd_yardstick(torch, FA, q, k, v), po, TOL["bfloat16"],
                 QWEN_FLASH_BF16_ATOL)
             turns = [median_ms(fn, torch, reps=10, inner=5) for fn in (
-                lambda: wgmma192(torch, FA, q, k, v, with_lse=True),
+                lambda: fwd_yardstick(torch, FA, q, k, v, with_lse=True),
                 lambda: FA.flash_attention(q, k, v, with_lse=True),
-                lambda: wgmma192(torch, FA, q, k, v),
+                lambda: fwd_yardstick(torch, FA, q, k, v),
                 lambda: FA.flash_attention(q, k, v))]
             yard.update(yardstick_lse_ms=turns[0], yardstick_ms=turns[2])
             ms_lse, ms = turns[1], turns[3]
@@ -4327,13 +4650,13 @@ TRAIN_KERNEL_KINDS = (
     ("other", r""))
 
 
-def train_profile(torch, fn):
+def train_profile(torch, fn, fwd_want):
     """One call of ``fn`` (a training step's gradients) under
     ``torch.profiler``: window and device busy ms, kernel count, device ms
     by kind (``TRAIN_KERNEL_KINDS``) and the device ms under the plain
     flash backward's autograd node (the backward kernels); prints the top
-    kernels. Returns them
-    with fn's result under ``out``."""
+    kernels; holds the flash forward's kernels to ``fwd_want`` ({name:
+    launches}). Returns them with fn's result under ``out``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -4360,6 +4683,8 @@ def train_profile(torch, fn):
     # the flash forward's kernels (flash_kernel*) by name
     fwd = [(n, t) for name, (n, t) in by_name.items()
            if "flash_kernel" in name]
+    fwd_names = check_fwd_kernels("one training step's gradients", by_name,
+                                  fwd_want)
     print(f"[profile] one training step's gradients: window {window_ms:.1f} "
           f"ms, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / window_ms:.1f}%), {len(kernels)} kernels; "
@@ -4390,6 +4715,7 @@ def train_profile(torch, fn):
                 kernels=len(kernels), kinds=kinds, flash_bwd_ms=bwd_ms,
                 flash_fwd_ms=sum(t for _, t in fwd),
                 flash_fwd_launches=sum(n for n, _ in fwd),
+                fwd_kernels=fwd_names,
                 rmsnorm_bwd_ms=sum(t for _, t in rms_bwd),
                 rmsnorm_bwd_launches=sum(n for n, _ in rms_bwd),
                 bwd_kernels=apart)
@@ -4505,7 +4831,8 @@ def phase_train(torch, K, T):
     # one profiled step's gradients (remat on, the training path's)
     grads_fn = ST.bind_train(cfg, Runtime(), opt, shape,
                              num_microbatches=TRAIN["micro"])["grads"]
-    prof = train_profile(torch, lambda: grads_fn(params, batch))
+    prof = train_profile(torch, lambda: grads_fn(params, batch),
+                         prefill_fwd_kernels(cfg, 2 * TRAIN['micro']))
     grads_k, mets_k = prof.pop("out")
 
     # every kernel swapped for its plain version: the same step's gradients
@@ -4650,7 +4977,8 @@ def phase_train_nemotron(torch, K, T, smi):
                              shape, num_microbatches=micro)["grads"]
     before = dict(FA.flash_attention_bwd.route_launches)
     before_fwd = dict(FA.flash_attention.route_launches)
-    prof = train_profile(torch, lambda: grads_fn(params, batch))
+    prof = train_profile(torch, lambda: grads_fn(params, batch),
+                         prefill_fwd_kernels(cfg, 2 * micro))
     prof_bwd = {r: FA.flash_attention_bwd.route_launches[r] - before[r]
                 for r in before}
     prof_fwd = {r: FA.flash_attention.route_launches[r] - before_fwd[r]
@@ -5021,7 +5349,8 @@ def moe_oracle(torch, M, params, cfg, prompt_toks):
 def moe_profile(torch, M, params, cfg, prompt_toks):
     """One prefill and one decode step of the full-size moe model under
     ``torch.profiler``: window, busy share, kernels, device ms by kind
-    (``MOE_KERNEL_KINDS``), the top kernels."""
+    (``MOE_KERNEL_KINDS``), the top kernels; the prefill's flash forward
+    kernels held to ``prefill_fwd_kernels``, the decode step's to none."""
     from repro_torch.launch.serve import greedy
     from repro_torch.models.runtime import DEFAULT
     B, P = prompt_toks.shape
@@ -5057,7 +5386,11 @@ def moe_profile(torch, M, params, cfg, prompt_toks):
             out[key] = dict(window_ms=window_ms, busy_ms=busy_ms,
                             kernels=n_kernels, kinds=kinds,
                             rmsnorm_ms=per_launch_ms(by_name, "rmsnorm_"),
-                            flash_ms=per_launch_ms(by_name, "flash_kernel"))
+                            flash_ms=per_launch_ms(by_name, "flash_kernel"),
+                            fwd_kernels=check_fwd_kernels(
+                                f"{cfg.name} one {key}", by_name,
+                                prefill_fwd_kernels(cfg) if key == "prefill"
+                                else {}))
     return out
 
 
@@ -5225,7 +5558,8 @@ def family_profile(torch, M, params, cfg, prompt_toks):
     Mamba mixers (``ssm.apply_ssm`` / ``apply_ssm_step``, projections
     included) and the selective scan's chunks (``ssm._chunk``: exp, b, the
     associative scan, the readout) span on the card (their spans' device
-    annotations, which are not kernels)."""
+    annotations, which are not kernels); the prefill's flash forward
+    kernels held to ``prefill_fwd_kernels``, the decode step's to none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import greedy
@@ -5291,7 +5625,11 @@ def family_profile(torch, M, params, cfg, prompt_toks):
                             mixer_ms=under["ssm_mixer"],
                             scan_ms=under["ssm_scan"],
                             rmsnorm_ms=per_launch_ms(by_name, "rmsnorm_"),
-                            flash_ms=per_launch_ms(by_name, "flash_kernel"))
+                            flash_ms=per_launch_ms(by_name, "flash_kernel"),
+                            fwd_kernels=check_fwd_kernels(
+                                f"{cfg.name} one {key}", by_name,
+                                prefill_fwd_kernels(cfg) if key == "prefill"
+                                else {}))
     return out
 
 
@@ -5597,7 +5935,8 @@ def phase_train_moe(torch, K, T, smi):
         with recorded_routes(book):
             return grads_fn(params, batch)
 
-    prof = train_profile(torch, kernel_step)
+    prof = train_profile(torch, kernel_step,
+                         prefill_fwd_kernels(cfg, 2 * TRAIN['micro']))
     grads_k, mets_k = prof.pop("out")
     rms_bwd_launch_ms = prof["rmsnorm_bwd_ms"] / max(
         prof["rmsnorm_bwd_launches"], 1)
@@ -5907,7 +6246,8 @@ def phase_train_prefixed(torch, K, T, smi, arch):
     grads_fn = ST.bind_train(cfg, Runtime(), make_opt(traffic["optimizer"],
                                                       traffic["lr"]),
                              shape, num_microbatches=micro)["grads"]
-    prof = train_profile(torch, lambda: grads_fn(params, batch))
+    prof = train_profile(torch, lambda: grads_fn(params, batch),
+                         prefill_fwd_kernels(cfg, 2 * micro))
     grads_k, mets_k = prof.pop("out")
     with plain_kernels():
         grads_p, mets_p = grads_fn(params, batch)
@@ -5994,8 +6334,8 @@ def main() -> int:
         for line in log.splitlines():
             if re.search(r"\(C75\d\d\)", line):
                 print(f"[build] {src.name} {line.strip()}")
-    # the fp32 forward's kernel and bf16's at hd 129-192 must keep their
-    # wgmma in flight, the latter without a spill
+    # the fp32 forward's kernel and bf16's at hd 33-192 must keep their
+    # wgmma in flight, the latter without a spill in each of its instances
     fa_log = kbuild.log_path(FA.SOURCE).read_text()
     serial = [line for line in fa_log.splitlines()
               if re.search(r"\(C751[28]\)", line) and
@@ -6003,10 +6343,14 @@ def main() -> int:
     check(not serial, f"ptxas serialized flash_kernel_tf32x3's or "
                       f"flash_kernel_wgmma_pipe's wgmma: {serial}")
     pipe_regs = pipe_registers(FA)
-    check(bool(pipe_regs) and all(
+    want_pipes = {fwd_pipe_instance(hd) for hd in FWD_PIPE_DIMS}
+    print(f"[build] flash_kernel_wgmma_pipe: " + "; ".join(
+        f"{n} {r}" for n, r in pipe_regs.items()))
+    check(set(pipe_regs) == want_pipes and all(
         re.search(r"\b0 bytes spill stores, 0 bytes spill loads", r)
         for r in pipe_regs.values()),
-          f"flash_kernel_wgmma_pipe spills or was not built: {pipe_regs}")
+          f"flash_kernel_wgmma_pipe spills or its instances {want_pipes} "
+          f"were not all built: {pipe_regs}")
     # the backward's two-warpgroup kernels (bf16: dq at hd 128, dk/dv at hd
     # 64 and 128): their wgmma in flight (no note that ptxas serialized
     # them) and no spill
@@ -6039,6 +6383,7 @@ def main() -> int:
     tern = phase_ternary(torch, T, ref)
     rms_err, rms = phase_rmsnorm(torch, RN, ref)
     fa_err, fa = phase_flash(torch, FA, ref)
+    fwd_pipe = flash_fwd_pipe_times(torch, FA, ref)
     split_launches = phase_flash_split(torch, FA, ref)
     phase_grad(torch, ref)
     phase_codec(torch, T)
@@ -6239,7 +6584,8 @@ def main() -> int:
                       lse_launches=train["counts"]["lse"],
                       no_remat_launches_per_step=train["no_remat_flash"]),
         "routes": {
-            "wgmma": {"kernel": "flash_kernel_wgmma",
+            "wgmma": {"kernel": "flash_kernel_wgmma_pipe at hd 33-192, "
+                                "flash_kernel_wgmma at 1-32 and 193-256",
                       "dtype": "bfloat16 up to hd 256",
                       "launches": served["routes"]["wgmma"], "ms": fa["ms"],
                       "hd256": fa["hd256"]["bfloat16"]},
@@ -6269,7 +6615,7 @@ def main() -> int:
         "name": "flash_attention_hd192", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:30",
-        "kernel": "flash_kernel_wgmma_pipe<192>",
+        "kernel": fwd_pipe_kernel(192, 8),
         "dtype": "bfloat16 at hd 129-192 (route wgmma)",
         # its main path: the one-layer nemotron-4-340b step's forwards
         "launches": nemotron["counts"]["fwd_routes"]["wgmma"],
@@ -6290,6 +6636,80 @@ def main() -> int:
         "device_ms": nemotron["fwd_device_ms_per_launch"],
         "launches_per_step": nemotron["counts"]["fwd_routes"]["wgmma"] //
         NEMOTRON_STEPS})
+    # bf16 at hd 64 and 128: one entry for each instance of
+    # flash_kernel_wgmma_pipe on the route, each at a shape that runs it
+    # (ms by events over launches of the C functions alone, device_ms and
+    # library_ms, SDPA's forward, by the profiler, null where no window
+    # recorded), its launches the wrapper's count in its main path (every
+    # forward there on that instance, as the profiles show): <64, 2> at
+    # stablelm-1.6b's training shape and steps, <128, 3> at qwen1.5-110b's
+    # B=4 prefill shape and serving; then the yardstick. The profiled
+    # prefills' and steps' forward kernels, by name and count
+    fwd_profiled = {
+        "serve": {arch: r["profile"]["prefill"]["fwd_kernels"]
+                  for arch, r in ((SERVE_ARCH, {"profile": serve_prof}),
+                                  (MOE_ARCH, moe_served),
+                                  (HYBRID_ARCH, hybrid_served),
+                                  (ENCDEC_ARCH, encdec_served),
+                                  (VLM_ARCH, vlm_served))},
+        "train": {arch: r["profile"]["fwd_kernels"]
+                  for arch, r in ((TRAIN_ARCH, train),
+                                  (MOE_ARCH, moe_train),
+                                  (ENCDEC_ARCH, encdec_train),
+                                  (VLM_ARCH, vlm_train))}}
+
+    def profiled_launches(names):
+        return sum(n for paths in fwd_profiled.values()
+                   for got in paths.values()
+                   for k, n in got.items() if k in names)
+
+    unrecorded = [name for name, r in fwd_pipe.items()
+                  if r["device_ms"] is None or r["yardstick_device_ms"] is None]
+    fwd_common = {"source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                  "replaces": "src/repro/kernels/flash_attention.py:30"}
+
+    def fwd_figures(r, who=""):
+        return {"ms": r[who + "ms"], "device_ms": r[who + "device_ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "bound3_ms": r["bound3_ms"],
+                "library_ms": r["sdpa_fwd_ms"], "shape": r["shape"],
+                "with_lse": r["with_lse"]}
+
+    for width, at, main_launches, per_step in (
+            (64, "stablelm-1.6b train", train["counts"]["flash"],
+             train["counts"]["flash"] // TRAIN_STEPS),
+            (128, "qwen1.5-110b prefill", served["routes"]["wgmma"], None)):
+        inst = fwd_pipe_instance(width)
+        rows = [r for r in fwd_pipe.values() if r["kernel"] == inst]
+        kernels.append({
+            "name": f"flash_attention_hd{width}", "route": "cuda",
+            **fwd_common, "kernel": inst,
+            "dtype": f"bfloat16 at hd {width // 2 + 1}-{width}" +
+                     (" with G > 1" if width == 128 else ""),
+            "launches": main_launches, "launches_per_step": per_step,
+            "profiled_launches": profiled_launches({inst}),
+            **fwd_figures(fwd_pipe[at]),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "lse_err": max(r["lse_err"] for r in rows),
+            "registers": pipe_regs[inst],
+            "shapes": {n: r for n, r in fwd_pipe.items()
+                       if r["kernel"] == inst}})
+    yard_names = {f"flash_kernel_wgmma<{w}, 64>" for w in (64, 128)}
+    kernels.append({
+        "name": "flash_attention_hd64_128_yardstick", "route": "cuda",
+        **fwd_common,
+        "kernels": "flash_kernel_wgmma<64, 64>, flash_kernel_wgmma<128, 64> "
+                   "through flash_attention_bf16_yardstick",
+        # its kernels' launches in the profiled prefills and training
+        # steps, where the route still runs one (flash_kernel_wgmma<128,
+        # 64> at G = 1: deepseek-moe-16b); the C function itself is no
+        # route's. Its figures: flash_kernel_wgmma<128, 64> at qwen1.5-
+        # 110b's B=4 prefill shape
+        "launches": profiled_launches(yard_names),
+        **fwd_figures(fwd_pipe["qwen1.5-110b prefill"], "yardstick_"),
+        "max_abs_err": max(r["yardstick_err"] for r in fwd_pipe.values()),
+        "profiled_fwd_kernels": fwd_profiled,
+        "unrecorded": unrecorded})
     lm = train_kern[TRAIN_ARCH]
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",

@@ -1,9 +1,10 @@
 // Flash attention (GQA, causal and/or sliding window, forward) for Hopper
 // (sm_90a), bound to Python with ctypes. Six kernels: bfloat16 runs on
-// the tensor cores, flash_kernel_wgmma up to hd 256 (but at 192),
-// flash_kernel_wgmma_pipe at 192 and flash_kernel_wgmma_cols above 256
-// (the scores summed over hd in 64-column chunks, the output in column
-// blocks); float32 on the tensor cores too,
+// the tensor cores, flash_kernel_wgmma_pipe at hd 64, 128 (G > 1) and
+// 192, flash_kernel_wgmma at 16, 32, 256 and 128 (G = 1) and
+// flash_kernel_wgmma_cols above 256 (the scores summed over hd in
+// 64-column chunks, the output in column blocks); float32 on the tensor
+// cores too,
 // flash_kernel_tf32x3 at any multiple of 32, each fp32 product as three
 // TF32 products (one TF32 product would break the fp32 tolerances; the
 // split of each operand into hi and lo parts keeps them). The CUDA-core
@@ -94,24 +95,38 @@
 // ptxas serializes its wgmma; tiles of 64 spilled more and ran slower, and
 // a producer warpgroup handing its registers to the consumers (setmaxnreg)
 // left ptxas's allocation at 168. At hd 192 the same budget spilled and
-// serialized the wgmma too; flash_kernel_wgmma<192, 64> stays built as the
-// yardstick of the kernel that replaced it there.
+// serialized the wgmma too. flash_kernel_wgmma<HD, 64> at hd 64, 128 and
+// 192 stays built as the yardstick of flash_kernel_wgmma_pipe, which
+// replaced it at those widths (it still runs hd 16, 32 and 256, and 128
+// where a kv head has one query head).
 //
-// flash_kernel_wgmma_pipe (bf16 at hd 192; the wrapper pads 129-191 to it)
-// computes what flash_kernel_wgmma does, in the same order (S over hd in
+// flash_kernel_wgmma_pipe (bf16 at hd 64 and 192, and at 128 when G > 1;
+// the wrapper pads 33-63, 65-127 and 129-191 to them) computes what
+// flash_kernel_wgmma does, in the same order (kv tiles of 64, S over hd in
 // one wgmma chain, the online softmax, P_hi V then P_lo V onto the
-// rescaled accumulator), on a block built for the register file. 256
-// threads, two warpgroups of 64 folded rows and no producer warp, so ptxas
-// budgets 255 registers a thread, not 168: 96 accumulators, S (32) and P
-// hi + lo (32) fit beside each other, with no spill. One thread loads q
-// once by TMA, one box a 64-column chunk from a 4-D view of q {hd, H, S,
-// B}: a box of G heads x kRows / G positions is a q tile's folded rows in
-// order, so a tile holds whole positions, 128 rows where G divides 128
-// and fewer otherwise (120 at G = 12, nemotron-4-340b's, where 8 of a
-// tile's rows idle; where G is above 128, one position's share, the
-// widest divisor of G up to 128). k and v stream through a ring of three
-// stages of 64 positions (q 48 KB and the ring 144 KB): the last of the
-// block's 8 warps to finish with a stage (a shared counter) loads the
+// rescaled accumulator), on a block built for the register file:
+// warpgroups of 64 folded rows and no producer warp. Two warpgroups (256
+// threads) get ptxas's 255 registers a thread, not 168: at hd 192 96
+// accumulators, S (32) and P hi + lo (32) fit beside each other with no
+// spill (191 registers; 128 at hd 64). At hd 128 the block has three (384
+// threads, 192 rows, ptxas's 168 registers, of which it takes 155 with no
+// spill), so every kv tile that streams through the ring serves 1.5 times
+// the rows; at G = 1 hd 128 keeps flash_kernel_wgmma<128, 64>
+// (pipe_at_128). One thread loads q once by TMA, one box
+// a 64-column chunk from a 4-D view of q {hd, H, S, B}: a box of G heads
+// x kRows / G positions is a q tile's folded rows in order, so a tile
+// holds whole positions, kRows (64 a warpgroup) rows where G divides it
+// and fewer otherwise (126 at G = 7, internvl2-1b's, and 120 at G = 12,
+// nemotron-4-340b's, where some of a tile's rows idle; where G is above
+// kRows, one position's share, the widest divisor of G up to kRows). Where
+// G divides kRows every warpgroup owns the 64 rows it owns in
+// flash_kernel_wgmma, and the two kernels agree bit for bit; elsewhere a
+// kv tile that crosses the diagonal, the window or S for one kernel's
+// warpgroup and not for the other's is scaled before or after its max
+// (Softmax::rows_max), which moves last bits. k and v stream through a
+// ring of three stages of 64 positions (16 KB a stage at hd 64, 32 KB at
+// 128, 48 KB at 192, beside q's 16 / 32 or 48 / 48 KB): the last of the
+// block's warps to finish with a stage (a shared counter) loads the
 // tile three ahead into it, so no thread waits to refill. Inside a
 // warpgroup each step issues S of tile i and P V of tile i - 1 together,
 // waits for S alone (wgmma_wait<1>) and runs tile i's softmax while P V
@@ -1171,27 +1186,34 @@ __global__ void __launch_bounds__(threads(false), 1)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at hd 192: two warpgroups, no producer, a three-stage ring
+// bf16 at hd 64, 128 and 192: two warpgroups, no producer, a TMA ring
 // ---------------------------------------------------------------------------
 
-// flash_kernel_wgmma_pipe's shared memory, from a 1024-byte aligned base:
-// q [kChunks][kRows][64] as Cfg lays it out, a ring of three stages of k
-// and v tiles of 64 positions (k [3][kChunks][64][64], then v likewise),
-// the stages' full barriers, q's barrier and a count of the warps that
-// have released each stage: 192 KB at hd 192.
-template <int HD>
+// flash_kernel_wgmma_pipe's block and shared memory, from a 1024-byte
+// aligned base: NWG warpgroups of 64 folded rows (128 NWG threads), q
+// [kChunks][kRows][64] with kRows = 64 NWG, a ring of three stages of k and
+// v tiles of 64 positions (k [3][kChunks][64][64], then v likewise), the
+// stages' full barriers, q's barrier and a count of the warps that have
+// released each stage: 192 KB at hd 192 (two warpgroups), 144 KB at hd
+// 128 (three), 64 KB at hd 64 (two).
+template <int HD, int NWG>
 struct PipeCfg : Cfg<HD, 64> {
   using Base = Cfg<HD, 64>;
+  static constexpr int kThreads = 128 * NWG;
+  static constexpr int kRows = 64 * NWG;
+  static constexpr int kQChunk = kRows * Base::kRowBytes;
+  static constexpr int kQBytes = Base::kChunks * kQChunk;
   static constexpr int kStages = 3;
-  static constexpr int kBar = Base::kQBytes + 2 * kStages * Base::kTile;
+  static constexpr int kBar = kQBytes + 2 * kStages * Base::kTile;
   static constexpr int kQBar = kBar + 8 * kStages;
   static constexpr int kReleased = kQBar + 8;
   static constexpr int kSmem = kReleased + 4 * kStages + 1024;
   static_assert(kSmem <= kMaxSmem, "over the 227 KB a block may opt in to");
+  static_assert(kQChunk % 1024 == 0, "q chunks must stay 1024-byte aligned");
 };
 
-template <int HD>
-__global__ void __launch_bounds__(2 * 128, 1)
+template <int HD, int NWG>
+__global__ void __launch_bounds__(128 * NWG, 1)
     flash_kernel_wgmma_pipe(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
@@ -1199,7 +1221,7 @@ __global__ void __launch_bounds__(2 * 128, 1)
                             float* __restrict__ lse, int seq, int H, int Kv,
                             int causal, int window, float scale_log2,
                             int n_qtiles, int tile_rows) {
-  using C = PipeCfg<HD>;
+  using C = PipeCfg<HD, NWG>;
   constexpr int KV = C::kKv;
   constexpr int kStages = C::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -1270,7 +1292,7 @@ __global__ void __launch_bounds__(2 * 128, 1)
     if (lane == 0) {
       __threadfence_block();
       const uint32_t n = atomicAdd(released + i % kStages, 1u);
-      if (n % 8 == 7 && i + kStages < n_t) {
+      if (n % (4 * NWG) == 4 * NWG - 1 && i + kStages < n_t) {
         __threadfence_block();
         load(i + kStages);
       }
@@ -1623,18 +1645,31 @@ int q_tensor_map(CUtensorMap* map, const void* ptr, int B, int seq, int H,
   return r == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(r);
 }
 
-template <int HD>
+// The bf16 kernel at hd 128 with G query heads a kv head: when G > 1
+// flash_kernel_wgmma_pipe with three warpgroups, 192 rows a block (G = 8:
+// 24 positions), so each kv tile that streams through the ring serves half
+// as many rows again (ptxas budgets 384 threads at 168 registers; hd 128's
+// 64 accumulators, S and P hi + lo take 155 with no spill, hd 192's 96 do
+// not fit). At G = 1 a 192-row tile holds 192 causal positions (fewer
+// blocks, a longer last one), and the two-warpgroup block measured no
+// faster than flash_kernel_wgmma<128, 64> at deepseek-moe-16b's G = 1
+// shapes on the H100, so G = 1 keeps that kernel. hd 64 takes two
+// warpgroups at every G: a third or a fourth gained nothing at the
+// configs' shapes (PERF.md).
+constexpr bool pipe_at_128(int G) { return G > 1; }
+
+template <int HD, int NWG>
 int launch_pipe(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int seq, int H, int Kv, int causal,
                 int window, float scale, cudaStream_t st) {
-  using C = PipeCfg<HD>;
+  using C = PipeCfg<HD, NWG>;
   // a q tile is one TMA box a chunk, from a swizzle atom (1024 bytes):
-  // kRows / G whole positions of G folded rows, or, where G is larger,
-  // one position's share of them, the widest divisor of G up to kRows
+  // C::kRows / G whole positions of G folded rows, or, where G is larger,
+  // one position's share of them, the widest divisor of G up to C::kRows
   const int G = H / Kv;
-  int gh = G, np = kRows / G;
-  if (G > kRows) {
-    for (gh = kRows; G % gh; --gh) {
+  int gh = G, np = C::kRows / G;
+  if (G > C::kRows) {
+    for (gh = C::kRows; G % gh; --gh) {
     }
     np = 1;
   }
@@ -1649,16 +1684,16 @@ int launch_pipe(const void* q, const void* k, const void* v, void* o,
                      C::kCW, C::kKv);
   if (err != 0) return err;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel_wgmma_pipe<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::kSmem);
+      flash_kernel_wgmma_pipe<HD, NWG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int64_t n_rows = static_cast<int64_t>(seq) * G;
   const int64_t n_qtiles = (n_rows + tile_rows - 1) / tile_rows;
   const int64_t blocks = n_qtiles * Kv * B;
   if (blocks >= (int64_t{1} << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  flash_kernel_wgmma_pipe<HD><<<static_cast<unsigned>(blocks), 2 * 128,
-                                C::kSmem, st>>>(
+  flash_kernel_wgmma_pipe<HD, NWG>
+      <<<static_cast<unsigned>(blocks), C::kThreads, C::kSmem, st>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse, seq, H, Kv,
       causal, window, scale * kLog2e, static_cast<int>(n_qtiles), tile_rows);
   return static_cast<int>(cudaGetLastError());
@@ -1704,14 +1739,17 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
       return launch_hd<32>(q, k, v, o, lse, B, seq, H, Kv, causal, window,
                            scale, st);
     case 64:
-      return launch_hd<64>(q, k, v, o, lse, B, seq, H, Kv, causal, window,
-                           scale, st);
+      return launch_pipe<64, 2>(q, k, v, o, lse, B, seq, H, Kv, causal,
+                                window, scale, st);
     case 128:
+      if (pipe_at_128(H / Kv))
+        return launch_pipe<128, 3>(q, k, v, o, lse, B, seq, H, Kv, causal,
+                                   window, scale, st);
       return launch_hd<128>(q, k, v, o, lse, B, seq, H, Kv, causal, window,
                             scale, st);
     case 192:
-      return launch_pipe<192>(q, k, v, o, lse, B, seq, H, Kv, causal, window,
-                              scale, st);
+      return launch_pipe<192, 2>(q, k, v, o, lse, B, seq, H, Kv, causal,
+                                 window, scale, st);
     case 256:
       return launch_hd<256>(q, k, v, o, lse, B, seq, H, Kv, causal, window,
                             scale, st);
@@ -2152,13 +2190,15 @@ extern "C" {
 // flash_kernel_tf32x3's rows are one head's positions. The CUDA-core
 // functions (_f32, _bf16_cc) take any hd: {16, 32, 64, 128, 192, 256} run
 // flash_kernel, any other
-// flash_kernel_chunked. The tensor-core one (_bf16) takes hd in {16, 32,
-// 64, 128, 192, 256} (flash_kernel_wgmma) or a multiple of 64 above 256
-// (flash_kernel_wgmma_cols; Kv * hd below 2^31), and 16-byte aligned
-// pointers; _f32_tf32x3 (flash_kernel_tf32x3) a multiple of 32 with H * hd
-// below 2^31, and 16-byte aligned q, k and v. The wrapper zero-pads other
-// widths to the next the route takes and splits a batch only where a
-// launch's grid would be too large.
+// flash_kernel_chunked. The tensor-core one (_bf16) takes hd in {64, 128,
+// 192} (flash_kernel_wgmma_pipe; flash_kernel_wgmma at 128 with one query
+// head a kv head), {16, 32, 256} (flash_kernel_wgmma) or a multiple of 64
+// above 256 (flash_kernel_wgmma_cols; Kv * hd below 2^31);
+// _bf16_yardstick hd in {64, 128, 192} (flash_kernel_wgmma); both take
+// 16-byte aligned pointers; _f32_tf32x3 (flash_kernel_tf32x3) a multiple
+// of 32 with H * hd below 2^31, and 16-byte aligned q, k and v. The
+// wrapper zero-pads other widths to the next the route takes and splits a
+// batch only where a launch's grid would be too large.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         void* lse, int B, int seq, int H, int Kv,
                         long long hd, int causal, int window, float scale,
@@ -2191,18 +2231,32 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                     causal, window, scale, stream);
 }
 
-// hd 192 only: flash_kernel_wgmma<192, 64> (a producer warp beside the two
-// consumer warpgroups, ptxas's 168 registers), which the bf16 route ran at
-// 192 before flash_kernel_wgmma_pipe; no route reaches it, it stays bound
-// as that kernel's yardstick.
-int flash_attention_bf16_wgmma192(const void* q, const void* k, const void* v,
-                                  void* o, void* lse, int B, int seq, int H,
-                                  int Kv, long long hd, int causal, int window,
-                                  float scale, void* stream) {
-  if (hd != 192) return static_cast<int>(cudaErrorInvalidValue);
-  return tc::launch_hd<192>(q, k, v, o, static_cast<float*>(lse), B, seq, H,
-                            Kv, causal, window, scale,
-                            static_cast<cudaStream_t>(stream));
+// hd 64, 128 and 192 only: flash_kernel_wgmma<HD, 64> (a producer warp
+// beside the two consumer warpgroups, ptxas's 168 registers), which the
+// bf16 route ran at these widths before flash_kernel_wgmma_pipe (and still
+// runs at hd 128 with one query head a kv head, through
+// flash_attention_bf16); no route calls this function, it stays bound as
+// flash_kernel_wgmma_pipe's yardstick.
+int flash_attention_bf16_yardstick(const void* q, const void* k,
+                                   const void* v, void* o, void* lse, int B,
+                                   int seq, int H, int Kv, long long hd,
+                                   int causal, int window, float scale,
+                                   void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  switch (hd) {
+    case 64:
+      return tc::launch_hd<64>(q, k, v, o, l, B, seq, H, Kv, causal, window,
+                               scale, st);
+    case 128:
+      return tc::launch_hd<128>(q, k, v, o, l, B, seq, H, Kv, causal, window,
+                                scale, st);
+    case 192:
+      return tc::launch_hd<192>(q, k, v, o, l, B, seq, H, Kv, causal, window,
+                                scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -13,11 +13,16 @@ log-sum-exp, fp32 ``[B, H, S]``, for the backward
 writes nothing more.
 
 The dtype and the head width pick the kernel (``route``): bfloat16 up to
-hd 256 runs on the tensor cores (``wgmma``, k/v tiles by TMA; at 129-192
-on ``flash_kernel_wgmma_pipe``, two warpgroups with no producer warp, q
-by TMA too, each tile's softmax under the previous tile's P.V), and above
-256 on the tensor-core kernel that sums the scores over hd in 64-column
-chunks and owns a block of 128 output columns (``wgmma_chunked``);
+hd 256 runs on the tensor cores (``wgmma``, k/v tiles by TMA; at 33-192
+on ``flash_kernel_wgmma_pipe``, warpgroups of 64 rows with no producer
+warp, q by TMA too, each tile's softmax under the previous tile's P.V:
+two warpgroups at hd 64 and 192, three at 128, where a kv head with one
+query head keeps ``flash_kernel_wgmma<128, 64>``, which ran hd 33-192
+before; that kernel at hd 64, 128 and 192 stays bound through a C
+function of its own as the pipe's yardstick, ``wgmma_yardstick``, which
+no route calls), and above 256 on
+the tensor-core kernel that sums the scores over hd in 64-column chunks
+and owns a block of 128 output columns (``wgmma_chunked``);
 float32 runs on the tensor cores at every width (``tf32x3``): each fp32
 operand split into TF32 hi and lo parts, each product as three TF32
 products, hi hi' + hi lo' + lo hi', in short chains added in fp32, which
@@ -84,16 +89,19 @@ BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 
 # the C function of each (dtype, route); fp32's CUDA-core kernels (one C
 # function, any width) are no route's since tf32x3, but stay bound as its
-# yardstick, and so does flash_kernel_wgmma<192, 64> (its own C function,
-# hd 192 only), which bf16 ran on at 129-192 before flash_kernel_wgmma_pipe
+# yardstick, and so does flash_kernel_wgmma<HD, 64> at hd 64, 128 and 192
+# (one C function of its own, those widths only), which bf16 ran on there
+# before flash_kernel_wgmma_pipe
 _FNS = {(torch.float32, "tf32x3"): "flash_attention_f32_tf32x3",
         (torch.float32, "cuda_core"): "flash_attention_f32",
         (torch.bfloat16, "wgmma"): "flash_attention_bf16",
         (torch.bfloat16, "wgmma_chunked"): "flash_attention_bf16",
         (torch.bfloat16, "cuda_core"): "flash_attention_bf16_cc",
         (torch.bfloat16, "hd_chunked"): "flash_attention_bf16_cc",
-        (torch.bfloat16, "wgmma192_yardstick"):
-            "flash_attention_bf16_wgmma192"}
+        (torch.bfloat16, "wgmma_yardstick"):
+            "flash_attention_bf16_yardstick"}
+# the widths flash_attention_bf16_yardstick takes
+YARDSTICK_DIMS = (64, 128, 192)
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}  # up to hd 256
 _ROUTE_NAMES = {"wgmma": "tensor-core kernel",
                 "wgmma_chunked": "tensor-core kernel, hd in column blocks",

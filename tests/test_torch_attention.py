@@ -170,11 +170,13 @@ def _tc_plan(hd):
     csrc/flash_attention.cu makes them: (kv tile, hd chunk the scores are
     summed over, output columns a block owns). Up to 256 the kernels take
     hd whole: flash_kernel_wgmma in kv tiles of 32 at 256, else 64, and at
-    192 flash_kernel_wgmma_pipe in kv tiles of 64 with the same order of
-    sums (S over hd in one chain, then a tile's P_hi V and P_lo V added to
-    the rescaled accumulator); its pipeline only moves a tile's softmax
-    under the previous tile's P.V, and a q tile's rows (whole positions)
-    change no row's arithmetic. Above 256 the column-block kernel sums S
+    64, 128 and 192 flash_kernel_wgmma_pipe in kv tiles of 64 with the same
+    order of sums (S over hd in one chain, then a tile's P_hi V and P_lo V
+    added to the rescaled accumulator); its pipeline only moves a tile's
+    softmax under the previous tile's P.V, and its q tiles' rows (whole
+    positions; two or three warpgroups, tests/test_torch_flash_fwd_pipe.py)
+    move where a kv tile is scaled before or after its max, which this
+    model leaves out (last bits). Above 256 the column-block kernel sums S
     over 64-column chunks, in kv tiles of 64, and owns 128 output columns
     a block."""
     if hd <= 256:
@@ -317,15 +319,18 @@ def test_flash_tc_model_single_bf16_p_misses_qwen_gate():
 
 
 def test_tc_plan_is_the_kernels():
-    """The widths the kernels' choices are modelled at: 129-192 padded to
-    192, taken whole in kv tiles of 64 (flash_kernel_wgmma_pipe); hd 256
-    whole in kv tiles of 32; above 256 (padded to a multiple of 64) S
-    summed over 64-column chunks and 128 output columns a block, so 576
-    takes 5 blocks (the last one cut at 576) and 1,024 takes 8."""
+    """The widths the kernels' choices are modelled at: 33-64, 65-128 and
+    129-192 padded to 64, 128 and 192, taken whole in kv tiles of 64
+    (flash_kernel_wgmma_pipe); hd 256 whole in kv tiles of 32; above 256
+    (padded to a multiple of 64) S summed over 64-column chunks and 128
+    output columns a block, so 576 takes 5 blocks (the last one cut at
+    576) and 1,024 takes 8."""
+    assert _tc_plan(64) == (64, None, 64)
     assert _tc_plan(128) == (64, None, 128)
     assert _tc_plan(192) == (64, None, 192)
-    assert all(FA.native_head_dim(hd, torch.bfloat16) == 192
-               for hd in range(129, 193))
+    for lo, wide in ((33, 64), (65, 128), (129, 192)):
+        assert all(FA.native_head_dim(hd, torch.bfloat16) == wide
+                   for hd in range(lo, wide + 1))
     assert _tc_plan(256) == (32, None, 256)
     assert _tc_plan(576) == _tc_plan(1024) == (64, 64, 128)
     for hd in range(257, 2049, 7):
@@ -727,10 +732,12 @@ def test_flash_route_by_dtype_width_and_rows():
     for path in ("wgmma", "wgmma_chunked"):
         assert FA._FNS[torch.bfloat16, path] == "flash_attention_bf16"
     assert FA._FNS[torch.float32, "tf32x3"] == "flash_attention_f32_tf32x3"
-    # hd 129-192's old kernel, bound as the new one's yardstick, on no route
-    assert FA._FNS[torch.bfloat16, "wgmma192_yardstick"] == \
-        "flash_attention_bf16_wgmma192"
-    assert "wgmma192_yardstick" not in FA.flash_attention.route_launches
+    # hd 33-192's old kernel, bound as the new one's yardstick at 64, 128
+    # and 192, on no route
+    assert FA._FNS[torch.bfloat16, "wgmma_yardstick"] == \
+        "flash_attention_bf16_yardstick"
+    assert FA.YARDSTICK_DIMS == (64, 128, 192)
+    assert "wgmma_yardstick" not in FA.flash_attention.route_launches
     assert FA.ROUTES[torch.float32] == "tf32x3" and "tf32x3" in FA._TC_ROUTES
     assert FA.native_head_dim(1) == 32 and FA.native_head_dim(193) == 224
     assert FA.native_head_dim(257) == 288 and FA.native_head_dim(256) == 256
