@@ -1522,18 +1522,35 @@ def phase_wire_paths(torch, K, T, prob, seq, dense_s):
     return counts, per_version, wire_bytes
 
 
+def flash_fwd_launches() -> int:
+    """The flash forward wrapper's launch count so far."""
+    from repro_torch.kernels import flash_attention as FA
+    return FA.flash_attention.launches
+
+
+def lost_launches(kernels, launched: int):
+    """What a profiled window's device events (``kernels``) lack of the
+    ``launched`` flash forward launches the wrapper counted in it (one
+    kernel a launch), as words; None where none is missing."""
+    seen = sum(1 for e in kernels if fwd_name(e.name))
+    if seen >= launched:
+        return None
+    return f"{seen} of the {launched} flash forward launches made in it"
+
+
 def profiled(torch, fn, reps: int = 1, tries: int = 3):
     """Run ``fn`` ``reps`` times under ``torch.profiler``: (window ms on the
     host clock, device busy ms, kernel count, {kernel name: (launches,
     ms)}, [(host op or runtime call, calls, self host ms)] by self time),
-    over all ``reps`` runs. A window that recorded no device event at all
-    (the profiler now and then loses a short window's whole device trace)
+    over all ``reps`` runs. A window whose device trace the profiler lost
+    (now and then all of a short window's, or part of one: ``lost_launches``)
     is taken again, up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(tries):
         torch.cuda.synchronize()   # the window holds fn's work alone
+        before = flash_fwd_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1543,10 +1560,11 @@ def profiled(torch, fn, reps: int = 1, tries: int = 3):
             window_ms = (time.perf_counter() - t0) * 1e3
         kernels = [e for e in prof.events()
                    if e.device_type == DeviceType.CUDA]
-        if kernels:
+        lost = lost_launches(kernels, flash_fwd_launches() - before)
+        if kernels and not lost:
             break
-        print(f"[profile] window {attempt + 1} of {tries} recorded no "
-              f"device event; taken again")
+        print(f"[profile] window {attempt + 1} of {tries} recorded "
+              f"{lost or 'no device event'}; taken again")
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_name = {}
     for e in kernels:
@@ -1711,6 +1729,53 @@ def gateway_run(torch, G, prob, policy, specs, n_versions=GATEWAY_VERSIONS):
     return dt, blobs["final"], results, sorted(server.ds._models), n
 
 
+def instrumented_gateway(torch, G, prob):
+    """The real-apply ``GatewayServer`` over TCP and WebSocket once more,
+    one version, with ``ANALYSIS_INSTRUMENT=1`` set before the server and
+    the volunteers are built: every gateway lock is a ``MonitoredLock`` of
+    the runtime monitor, which holds the static lock graph of the port's
+    core (``analysis/locks.py``), and every volunteer park is checked.
+    Fails unless ``Analysis.report()`` returns 0 with locks made and static
+    edges loaded. Kept apart from the timed runs, which carry no monitor."""
+    import contextlib
+    import io
+    from repro_torch.analysis.runtime import Analysis
+    old = os.environ.get("ANALYSIS_INSTRUMENT")
+    Analysis.reset()
+    os.environ["ANALYSIS_INSTRUMENT"] = "1"
+    try:
+        mon = Analysis.instrument()
+        dt, _, finals, versions, n = gateway_run(
+            torch, G, prob, "staleness:2", [("i0", G.SocketTransport),
+                                            ("i1", G.WsClientTransport)],
+            n_versions=1)
+        sink = io.StringIO()
+        with contextlib.redirect_stdout(sink):     # its clean line
+            rc = mon.report(stream=sink)
+        static = len(mon._static)
+        found = dict(locks=mon.locks_made, static_edges=static,
+                     runtime_edges=len(mon._edges), parks=mon.parks,
+                     blocking_sites=mon.blocking_notes,
+                     violations=len(mon.violations))
+    finally:
+        if old is None:
+            os.environ.pop("ANALYSIS_INSTRUMENT", None)
+        else:
+            os.environ["ANALYSIS_INSTRUMENT"] = old
+        Analysis.reset()
+    print(f"[gateway] instrumented (ANALYSIS_INSTRUMENT=1, staleness:2, TCP + "
+          f"WebSocket): {n} updates in {dt:.3f} s, finals {finals}; monitor "
+          f"{found}; report() = {rc}: "
+          f"{sink.getvalue().strip().splitlines()[-1]!r}")
+    check(set(finals.values()) == {n} and versions[-1] == n,
+          f"instrumented gateway: finals {finals}, expected {n}")
+    check(rc == 0, f"the lock monitor found violations: {sink.getvalue()}")
+    check(found["locks"] > 0 and static > 0,
+          f"the monitor made {found['locks']} locks and loaded {static} "
+          f"static edges")
+    return dict(s=dt, updates=n, report=rc, **found)
+
+
 def phase_gateway(torch, K, T, coord_s):
     """The JSDoop deployment on the card: volunteers join a
     ``GatewayServer`` over real loopback TCP and WebSocket sockets, compute
@@ -1782,6 +1847,8 @@ def phase_gateway(torch, K, T, coord_s):
                            [("r0", G.SocketTransport),
                             ("r1", G.SocketTransport),
                             ("r2", G.WsClientTransport)], None)
+
+    out["instrumented"] = instrumented_gateway(torch, G, prob)
 
     # the applier alone: one drain of 16 staged paper gradients (numpy, the
     # form they arrive in off the wire), batched and single, against the
@@ -1905,6 +1972,56 @@ def phase_gateway(torch, K, T, coord_s):
                           busy_share=busy_ms / window_ms)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[gateway] phase took {out['phase_s']:.1f} s")
+    return out
+
+
+# the model checker's budget in the analysis phase: a state budget and a
+# clock a world (the CLI's defaults are 4,000 states and 12 s)
+ANALYSIS_MC = ("--mc-states", "1500", "--mc-seconds", "10")
+CHAOS_SEEDS = 2
+CHAOS_POLICIES = ("sync", "staleness:2")
+
+
+def phase_analysis():
+    """The port's static passes and model checker over its own control
+    plane (``python -m repro_torch.analysis --strict --mc`` at a small
+    budget, ``ANALYSIS_MC``), then the chaos harness's sweep (``python -m
+    repro_torch.core.chaos``) over ``CHAOS_SEEDS`` seeds under each of
+    ``CHAOS_POLICIES``: single-server against sharded SimResults bit for
+    bit. Host only; any violation or assertion fails the run."""
+    import contextlib
+    import io
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.core import chaos
+    out = {}
+    argv = ["--strict", "--mc", *ANALYSIS_MC]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = analysis_main(argv)
+    out["analysis_s"] = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines[-4:]:
+        print(f"[analysis] {line}")
+    print(f"[analysis] python -m repro_torch.analysis {' '.join(argv)}: exit "
+          f"{rc} in {out['analysis_s']:.1f} s")
+    check(rc == 0, "the static passes or the model checker found "
+                   "violations:\n" + "\n".join(lines[-20:]))
+    for policy in CHAOS_POLICIES:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                chaos.main(seeds=CHAOS_SEEDS, policy=policy)
+        except AssertionError as e:
+            raise SmokeFailure(f"chaos sweep under {policy} failed: {e!r}")
+        out[f"chaos_{policy}_s"] = time.perf_counter() - t0
+        runs = buf.getvalue().count("chaos_smoke,")
+        print(f"[analysis] python -m repro_torch.core.chaos --seeds "
+              f"{CHAOS_SEEDS} --policy {policy}: {runs} metamorphic pairs "
+              f"printed in {out[f'chaos_{policy}_s']:.1f} s; "
+              f"{buf.getvalue().strip().splitlines()[-1]}")
+        check(runs > 0, f"the chaos sweep under {policy} ran nothing")
     return out
 
 
@@ -3323,12 +3440,18 @@ def serve_profile(torch, cfg, params, prompts, extra=None):
     return out
 
 
+def layer_norms(cfg) -> int:
+    """The RMSNorms of cfg's layers: norm1 a layer, and norm2 outside the
+    ssm family (whose layers stop after the mixer)."""
+    return cfg.n_layers * (1 if cfg.family == "ssm" else 2)
+
+
 def smoke_launches(cfg, passes: int):
     """(rmsnorm, flash) launches of a prefill and ``passes - 1`` decode
     steps: with RMSNorm, norm1 (and norm2 outside the ssm family) a layer
     and the final norm each pass (none with LayerNorm); one flash launch
     per self-attention layer in the prefill (``attention_layers``)."""
-    norms = cfg.n_layers * (1 if cfg.family == "ssm" else 2) + 1
+    norms = layer_norms(cfg) + 1
     if cfg.norm != "rmsnorm":
         norms = 0
     return norms * passes, attention_layers(cfg)
@@ -3479,12 +3602,15 @@ TRAIN_SMOKE = dict(batch=4, seq=16, micro=2)
 # 96/8, hd 192), whisper-base's encoder (a microbatch of 2 rows of 1,500
 # frames, non-causal: 23 full kv tiles of 64 and a ragged 28) and
 # internvl2-1b's (1 x 4,096, 14 over 2 heads: G = 7, so a 64-row tile of
-# folded rows starts inside a position); RMSNorm at qwen's [4096, 8192]
+# folded rows starts inside a position) and jamba-v0.1-52b's attention
+# layer (1 x 4,096, 32 over 8 heads, hd 128: G = 4, which no other
+# training shape has); RMSNorm at qwen's [4096, 8192]
 TRAIN_FLASH_SHAPES = {"stablelm-1.6b": (1, 4096, 32, 32, 64, True),
                       "qwen1.5-110b": (1, 1024, 64, 8, 128, True),
                       "nemotron-4-340b": (1, 4096, 96, 8, 192, True),
                       "whisper-base": (2, 1500, 8, 8, 64, False),
-                      "internvl2-1b": (1, 4096, 14, 2, 64, True)}
+                      "internvl2-1b": (1, 4096, 14, 2, 64, True),
+                      "jamba-v0.1-52b": (1, 4096, 32, 8, 128, True)}
 TRAIN_RMS_SHAPE = (4096, 8192)
 # the kernel's lse against the plain lse (fp32 scores of bf16 inputs, summed
 # in another order; the tensor-core kernel's ex2.approx and log2 in the log2
@@ -4650,23 +4776,51 @@ TRAIN_KERNEL_KINDS = (
     ("other", r""))
 
 
-def train_profile(torch, fn, fwd_want):
+def train_profile(torch, fn, fwd_want, annotations=(), tries=2):
     """One call of ``fn`` (a training step's gradients) under
     ``torch.profiler``: window and device busy ms, kernel count, device ms
     by kind (``TRAIN_KERNEL_KINDS``) and the device ms under the plain
     flash backward's autograd node (the backward kernels); prints the top
     kernels; holds the flash forward's kernels to ``fwd_want`` ({name:
-    launches}). Returns them with fn's result under ``out``."""
+    launches}). ``annotations`` names ``record_function`` spans (``spans``):
+    their device annotations are not counted as kernels, and ``under``
+    holds, for each, the device ms of the kernels that start inside one of
+    its spans. A window whose trace the profiler lost (``profiled``) is
+    taken again, up to ``tries`` times. Returns them with fn's result under
+    ``out`` and the seconds the profiler took to hand its events over
+    (``parse_s``)."""
+    import bisect
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
+    for attempt in range(tries):
         torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        before = flash_fwd_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        t_parse = time.perf_counter()
+        device = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        parse_s = time.perf_counter() - t_parse
+        kernels = [e for e in device if e.name not in annotations]
+        lost = lost_launches(kernels, flash_fwd_launches() - before)
+        if kernels and not lost:
+            break
+        print(f"[profile] the training step's window {attempt + 1} of "
+              f"{tries} recorded {lost or 'no kernel'}; taken again")
+    under = {}
+    for name in annotations:
+        ranges = sorted((e.time_range.start, e.time_range.end)
+                        for e in device if e.name == name)
+        starts = [a for a, _ in ranges]
+        under[name] = 0.0
+        for e in kernels:
+            i = bisect.bisect_right(starts, e.time_range.start) - 1
+            if i >= 0 and e.time_range.start < ranges[i][1]:
+                under[name] += e.time_range.elapsed_us() / 1e3
     check(bool(kernels), "the profiled training step recorded no kernel")
     by_name = {}
     for e in kernels:
@@ -4711,7 +4865,8 @@ def train_profile(torch, fn, fwd_want):
     print("[profile]   backward kernels, device ms a launch: " + ", ".join(
         f"{k} {v['ms_per_launch']:.4f} ({v['launches']} launches, "
         f"{v['ms']:.2f} ms)" for k, v in apart.items()))
-    return dict(out=out, window_ms=window_ms, busy_ms=busy_ms,
+    return dict(out=out, window_ms=window_ms, busy_ms=busy_ms, under=under,
+                parse_s=parse_s,
                 kernels=len(kernels), kinds=kinds, flash_bwd_ms=bwd_ms,
                 flash_fwd_ms=sum(t for _, t in fwd),
                 flash_fwd_launches=sum(n for n, _ in fwd),
@@ -5035,9 +5190,9 @@ def phase_train_nemotron(torch, K, T, smi):
 def phase_train_smoke(torch, TR, FA, RN):
     """The smoke configs (fp32) on the card: a ``--ckpt`` run through
     ``run_arch`` whose saved state loads back bit for bit; each config's
-    step gradients on the card against the CPU (the moe configs' CPU step
-    replaying the card's expert choices); the RMSNorm forward and backward
-    and flash launches exact."""
+    step gradients on the card against the CPU (dense, moe, ssm and
+    hybrid; with experts the CPU step replays the card's expert choices);
+    the RMSNorm forward and backward and flash launches exact."""
     import contextlib
     import tempfile
     from repro_torch import tree
@@ -5053,7 +5208,8 @@ def phase_train_smoke(torch, TR, FA, RN):
               f"({len(tree.leaves(saved))} leaves, meta {meta}): loaded "
               f"state bit-equal {same}")
         check(same and meta == {"step": 2}, "checkpoint round trip differs")
-    for arch in (TRAIN_ARCH, SERVE_ARCH, *MOE_SMOKE_ARCHS):
+    for arch in (TRAIN_ARCH, SERVE_ARCH, *MOE_SMOKE_ARCHS, SSM_ARCH,
+                 HYBRID_ARCH):
         cfg = TR.arch_config(arch)
         runs = {}
         book = RouteBook()
@@ -5070,7 +5226,7 @@ def phase_train_smoke(torch, TR, FA, RN):
                       FA.flash_attention_bwd.launches,
                       RN.rmsnorm_bwd.launches)
             routes = contextlib.nullcontext()
-            if cfg.family == "moe":
+            if cfg.moe.num_experts:
                 routes = recorded_routes(book) if dev == "cuda" else \
                     replayed_routes(book)
             with routes:
@@ -5088,20 +5244,22 @@ def phase_train_smoke(torch, TR, FA, RN):
         worst = max(rel_err(torch, a, b) for a, b in zip(
             tree.leaves(runs["cuda"][0]), tree.leaves(runs["cpu"][0])))
         loss_rel = abs(runs["cuda"][1] - runs["cpu"][1]) / runs["cpu"][1]
-        # per microbatch: the layers' flash (x2 under remat), all fp32 on the
-        # tf32x3 route; the norms: 2 a layer (again under remat) and the
-        # final one; the flash backward once a layer, fp32 on the tf32x3
-        # route, all of its launches; the norms' backward once each (2 a
-        # layer and the final one), two launches a call
-        L, n = cfg.n_layers, TRAIN_SMOKE["micro"]
-        bwd = L * n * FA.BWD_LAUNCHES
+        # per microbatch: the attention layers' flash (x2 under remat), all
+        # fp32 on the tf32x3 route; the norms (``layer_norms``: 2 a layer,
+        # 1 in the ssm family), again under remat, and the final one; the
+        # flash backward once an attention layer, fp32 on the tf32x3 route,
+        # all of its launches; the norms' backward once each, two launches
+        # a call
+        La, n, norms = attention_layers(cfg), TRAIN_SMOKE["micro"], \
+            layer_norms(cfg)
+        bwd = La * n * FA.BWD_LAUNCHES
         rms = cfg.norm == "rmsnorm"
-        want = (2 * L * n, 2 * L * n, (4 * L + 1) * n if rms else 0, bwd, bwd,
-                (2 * L + 1) * n * RN.BWD_LAUNCHES if rms else 0)
+        want = (2 * La * n, 2 * La * n, (2 * norms + 1) * n if rms else 0,
+                bwd, bwd, (norms + 1) * n * RN.BWD_LAUNCHES if rms else 0)
         ok = worst <= TRAIN_SMOKE_TOL and loss_rel <= TRAIN_SMOKE_TOL
         replay = (f"; the CPU replayed the card's expert choices ({book.calls}"
                   f" router calls; on its own {book.flips} pairs otherwise)"
-                  if cfg.family == "moe" else "")
+                  if cfg.moe.num_experts else "")
         print(f"[train] {arch} smoke fp32 step, card vs CPU: loss rel "
               f"{loss_rel:.3e}, worst gradient leaf {worst:.3e} (tol "
               f"{TRAIN_SMOKE_TOL}) {'ok' if ok else 'FAIL'}; card launches "
@@ -5123,8 +5281,9 @@ def phase_train_smoke(torch, TR, FA, RN):
 # the backward at the training path's rows, bf16: qwen1.5-110b's width and
 # deepseek-moe-16b's (a microbatch of 4,096 tokens)
 # the training rows of the RMSNorm backward: qwen's width, deepseek-moe-
-# 16b's and internvl2-1b's (896, 112 16-byte pieces a row)
-RMS_BWD_SHAPES = ((4096, 8192), (4096, 2048), (4096, 896))
+# 16b's, internvl2-1b's (896, 112 16-byte pieces a row) and falcon-mamba-
+# 7b's and jamba's (4,096, a microbatch of their training steps)
+RMS_BWD_SHAPES = ((4096, 8192), (4096, 2048), (4096, 896), (4096, 4096))
 MOE_ARCH = "deepseek-moe-16b"
 MOE_SMOKE_ARCHS = ("deepseek-moe-16b", "arctic-480b")
 # no reduction: the published model, bf16, fits one card (33.76 GB)
@@ -5837,6 +5996,165 @@ def phase_serve_hybrid(torch, K, T, smi):
                               HYBRID_PARAMS, fp32_cuts=HYBRID_FP32_CUTS)
 
 
+# falcon-mamba-7b's training cut: depth 64 -> 4 layers at full width and
+# vocabulary (65,024); (all, active) parameters. Its traffic is stablelm's
+# (TRAIN)
+SSM_TRAIN_CUTS = dict(n_layers=4)
+SSM_TRAIN_PARAMS = (953_929_728, 953_929_728)
+# a warm-up step and a timed one: a step takes ~20 s (host-bound)
+SSM_TRAIN_STEPS = 2
+
+
+def phase_train_ssm(torch, K, T, smi):
+    """falcon-mamba-7b at full width and vocabulary cut to 4 layers
+    (``SSM_TRAIN_CUTS``) through ``launch/train.py::run_arch`` with
+    stablelm's traffic (``TRAIN``: AdamW, 8 x 4,096 tokens, remat on),
+    every count set to 0 just before and read just after: rmsnorm (2 L + 1)
+    and rmsnorm_bwd (L + 1) x 2 launches a microbatch (norm1 a layer, run
+    again under remat, and the final norm), no flash launch. Seconds a
+    step, tokens/s, peak memory. Then one microbatch of the step (its own
+    1 x 4,096 tokens; a whole step's profile takes minutes to read back)
+    profiled: kernels, the device's busy share, the device time of the
+    kernels inside the selective scan's chunks, forward and remat's
+    recompute (``spans``); its loss and every gradient leaf against the
+    all-plain microbatch (plain RMSNorm forward and backward) at 2e-2,
+    beside the distance of two plain versions (the plain run with
+    ``F.rms_norm``): gated where that noise floor lies within the gate,
+    printed otherwise (the kernel alone is held at the step's own rows in
+    ``phase_rmsnorm_bwd``, ``RMS_BWD_SHAPES``)."""
+    import numpy as np
+    from repro_torch import tree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import steps as ST
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.launch import train as TR
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.optim import make as make_opt
+
+    t_phase = time.perf_counter()
+    full = TR.arch_config(SSM_ARCH, full=True)
+    cfg = full.replace(**SSM_TRAIN_CUTS)
+    n_params = M.param_count(cfg)
+    n_active = M.param_count(cfg, active_only=True)
+    check((n_params, n_active) == SSM_TRAIN_PARAMS,
+          f"{n_params} / {n_active} parameters, expected {SSM_TRAIN_PARAMS}")
+    phase_memory(torch, f"train {cfg.name} ({cfg.n_layers} layers)")
+    reset_counts(K, T)
+    n = SSM_TRAIN_STEPS
+    res = TR.run_arch(cfg, steps=n, label=f"{cfg.n_layers} layers, full "
+                      f"width", remat=True, device="cuda", **TRAIN)
+    counts = dict(flash=FA.flash_attention.launches,
+                  flash_bwd=FA.flash_attention_bwd.launches,
+                  rmsnorm=RN.rmsnorm.launches,
+                  rmsnorm_bwd=RN.rmsnorm_bwd.launches,
+                  others=K.lstm_cell.launches + K.lstm_seq.launches +
+                  K.lstm_seq_bwd.launches + T.ternary_encode.launches +
+                  T.ternary_decode.launches + T.ef_compress_leaves.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    L, micro = cfg.n_layers, TRAIN["micro"]
+    norms = layer_norms(cfg)
+    step = {"flash_attention": 0, "flash_lse": 0, "flash_bwd": 0,
+            "rmsnorm": (2 * norms + 1) * micro,
+            "rmsnorm_bwd": (norms + 1) * micro * RN.BWD_LAUNCHES}
+    want = dict(flash=0, flash_bwd=0, rmsnorm=step["rmsnorm"] * n,
+                rmsnorm_bwd=step["rmsnorm_bwd"] * n, others=0)
+    print(f"[ssm-train] launches over {n} steps {counts} (expected {want}: "
+          f"{norms + 1} rmsnorm backward calls a microbatch, "
+          f"{RN.BWD_LAUNCHES} launches each); per step {res['launches']}")
+    check(counts == want and all(s == step for s in res["launches"]),
+          f"ssm training launches {counts}, expected {want}")
+    check(all(math.isfinite(x) for x in res["losses"]),
+          f"non-finite losses {res['losses']}")
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    timed = res["step_s"][1:]
+    step_s = statistics.mean(timed)
+    print(f"[ssm-train] {smi}: {cfg.name} cut to {L} of {full.n_layers} "
+          f"layers at full width ({n_params:,} parameters; d_inner "
+          f"{cfg.d_inner()}, d_state {cfg.ssm.d_state}, scan chunk "
+          f"{cfg.ssm.chunk}), bf16, batch {TRAIN['batch']} x "
+          f"{TRAIN['seq']} in {res['n_micro']} microbatches, AdamW, "
+          f"remat: s per step {', '.join(f'{t:.3f}' for t in res['step_s'])}"
+          f" (first: warm-up); timed mean {step_s:.3f} s, "
+          f"{tokens / step_s:.0f} tokens/s; peak memory {peak_gb:.2f} GB; "
+          f"losses {[round(x, 4) for x in res['losses']]}")
+    params = res["params"]
+    del res
+    torch.cuda.empty_cache()
+
+    # one microbatch of the step (1 x 4,096 tokens, the step's own shape a
+    # microbatch): the profile of a whole step takes minutes to read back
+    rows = TRAIN["batch"] // micro
+    shape = InputShape("train", TRAIN["seq"], rows, "train")
+    batch = TR.sample_batch(np.random.RandomState(TRAIN["seed"]),
+                            M.train_batch_spec(cfg, shape), cfg.vocab,
+                            "cuda")
+    grads_fn = ST.bind_train(cfg, Runtime(), make_opt(TRAIN["optimizer"],
+                                                      TRAIN["lr"]),
+                             shape, num_microbatches=1)["grads"]
+
+    def kernel_step():
+        with spans(((SSM, "apply_ssm", "ssm_mixer"),
+                    (SSM, "_chunk", "ssm_scan"))):
+            return grads_fn(params, batch)
+
+    prof = train_profile(torch, kernel_step, {},
+                         annotations=("ssm_mixer", "ssm_scan"))
+    grads_k, mets_k = prof.pop("out")
+    scan_ms, mixer_ms = prof["under"]["ssm_scan"], prof["under"]["ssm_mixer"]
+    busy_share = prof["busy_ms"] / prof["window_ms"]
+    scan_share = scan_ms / prof["busy_ms"]
+    print(f"[ssm-train] one profiled microbatch ({rows} x {TRAIN['seq']}"
+          f" tokens, 1/{micro} of a step): {prof['kernels']} kernels (x "
+          f"{micro} = {prof['kernels'] * micro} a step), device busy "
+          f"{prof['busy_ms']:.1f} of {prof['window_ms']:.1f} ms "
+          f"({100 * busy_share:.1f}%); kernels inside the Mamba mixers' "
+          f"forward and remat's recompute {mixer_ms:.1f} ms, inside the "
+          f"selective scan's chunks {scan_ms:.1f} ms ({100 * scan_share:.1f}"
+          f"% of the device's busy time; the backward nodes are not spanned)"
+          f"; the profiler handed its events over in {prof['parse_s']:.1f} s")
+    with plain_kernels():
+        grads_p, mets_p = grads_fn(params, batch)
+    with plain_kernels(rmsnorm=lib_rmsnorm):
+        grads_f, mets_f = grads_fn(params, batch)
+    loss_k, loss_p = float(mets_k["loss"]), float(mets_p["loss"])
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    floor_rel = abs(float(mets_f["loss"]) - loss_p) / abs(loss_p)
+    names = ["/".join(map(str, pth)) for pth in tree.leaf_paths(grads_k)]
+    errs = [rel_err(torch, a, b) for a, b in zip(tree.leaves(grads_k),
+                                                 tree.leaves(grads_p))]
+    noise = [rel_err(torch, a, b) for a, b in zip(tree.leaves(grads_f),
+                                                  tree.leaves(grads_p))]
+    gated = max(noise) <= TRAIN_GRAD_TOL and floor_rel <= TRAIN_LOSS_RTOL
+    ok = max(errs) <= TRAIN_GRAD_TOL and loss_rel <= TRAIN_LOSS_RTOL
+    top = max(range(len(errs)), key=errs.__getitem__)
+    print(f"[ssm-train] the microbatch's kernel step vs the all-plain step: "
+          f"loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3e}, tol "
+          f"{TRAIN_LOSS_RTOL}); worst of {len(errs)} gradient leaves "
+          f"max|diff| / max|g| {errs[top]:.3e} at {names[top]} (tol "
+          f"{TRAIN_GRAD_TOL}); two plain versions (F.rms_norm for the plain "
+          f"RMSNorm) lie {max(noise):.3e} apart at their worst leaf, loss "
+          f"rel {floor_rel:.3e}: " + (("gated " + ("ok" if ok else "FAIL"))
+                                      if gated else "printed, not gated"))
+    if gated:
+        check(ok, f"the {cfg.name} training step through the kernels "
+                  f"disagrees with the all-plain step")
+    del grads_k, grads_p, grads_f, params, batch
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[ssm-train] phase took {phase_s:.1f} s")
+    return dict(n_params=n_params, cuts=SSM_TRAIN_CUTS, step_s=step_s,
+                phase_s=phase_s,
+                steps_s=timed, tokens_s=tokens / step_s, peak_gb=peak_gb,
+                counts=counts, launches_per_step=step, profile=prof,
+                kernels_per_step=prof["kernels"] * micro,
+                scan_ms=scan_ms, mixer_ms=mixer_ms, scan_share=scan_share,
+                busy_share=busy_share, grad_err=max(errs),
+                grad_noise=max(noise), gated=gated, loss_rel=loss_rel)
+
+
 def phase_train_moe(torch, K, T, smi):
     """deepseek-moe-16b at full width and vocabulary cut to 2 layers
     (``MOE_TRAIN_CUTS``) through ``launch/train.py::run_arch`` with
@@ -6393,6 +6711,7 @@ def main() -> int:
         torch, K, T, prob, seq, dense_s)
     prof = phase_profile(torch, prob)
     gw = phase_gateway(torch, K, T, per_version["none/inproc"]["mean"])
+    analysis = phase_analysis()
     served = phase_serve(torch, K, T)
     serve_prof = serve_profile(torch, served["cfg"], served["params"],
                                served["prompts"][:SERVE["batch"]])
@@ -6413,6 +6732,7 @@ def main() -> int:
     encdec_train = phase_train_prefixed(torch, K, T, smi, ENCDEC_ARCH)
     vlm_train = phase_train_prefixed(torch, K, T, smi, VLM_ARCH)
     nemotron = phase_train_nemotron(torch, K, T, smi)
+    ssm_train = phase_train_ssm(torch, K, T, smi)
 
     layer0, seq0 = rows[0], seq_rows[0]
     # a map's forward: one sequence launch per layer
@@ -6517,6 +6837,8 @@ def main() -> int:
             vlm_train["launches_per_step"]["rmsnorm"],
         "vlm_device_ms": {k: vlm_served["profile"][k]["rmsnorm_ms"]
                           for k in ("prefill", "decode")},
+        "ssm_train_launches_per_step":
+            ssm_train["launches_per_step"]["rmsnorm"],
         "internvl2": vlm_served["kernels"]["rmsnorm"]})
     rb = rms_bwd["4096x2048"]
     kernels.append({
@@ -6547,7 +6869,14 @@ def main() -> int:
         "vlm_step_device_ms": {
             k: v for k, v in vlm_train["profile"]["bwd_kernels"].items()
             if k.startswith("rmsnorm_bwd")},
-        "internvl2": rms_bwd["4096x896"]})
+        "internvl2": rms_bwd["4096x896"],
+        # falcon-mamba-7b's 4-layer step (norm1 a layer and the final norm)
+        "ssm_train_launches_per_step":
+            ssm_train["launches_per_step"]["rmsnorm_bwd"],
+        "ssm_step_device_ms": {
+            k: v for k, v in ssm_train["profile"]["bwd_kernels"].items()
+            if k.startswith("rmsnorm_bwd")},
+        "d_model_4096": rms_bwd["4096x4096"]})
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -6847,6 +7176,9 @@ def main() -> int:
                                     if k != "kernels"},
                       "train_encdec": {k: v for k, v in encdec_train.items()
                                        if k != "counts"},
+                      "train_ssm": {k: v for k, v in ssm_train.items()
+                                    if k not in ("counts", "profile")},
+                      "analysis": analysis,
                       "train_vlm": {k: v for k, v in vlm_train.items()
                                     if k != "counts"}}))
     print(smi)

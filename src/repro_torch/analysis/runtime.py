@@ -106,11 +106,8 @@ class Analysis:
     @classmethod
     def instrument(cls) -> "Analysis":
         if cls._singleton is None:
+            from repro_torch.analysis import locks as _locks
             try:
-                # the static pass (``analysis/locks.py``) is not ported yet
-                # (ROADMAP Queue 1 item 5): the import fails and the
-                # monitor runs on its runtime half alone
-                from repro_torch.analysis import locks as _locks
                 static = _locks.static_edges(_locks.default_paths())
             except Exception as e:           # pragma: no cover - defensive
                 # instrumentation must never take the server down; without

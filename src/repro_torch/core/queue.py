@@ -30,8 +30,7 @@ a rebalance is invisible to consumers except that ~1/K of queue names change
 owner. Cross-queue side-effect order (expiry requeues, consumer drops) is
 defined by (deadline, queue-name) / queue-name, NOT by shard layout, so a
 sharded run is bit-identical to a single-server run — asserted by the chaos
-metamorphic suite (the reference's ``core/chaos.py``; the port's copy is
-ROADMAP Queue 1 item 5).
+metamorphic suite (``repro_torch.core.chaos``).
 """
 from __future__ import annotations
 

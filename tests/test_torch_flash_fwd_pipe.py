@@ -260,3 +260,24 @@ def test_pipe_model_single_bf16_p_misses_the_gate_at_hd64(arch, H, Kv):
     tq, tk, tv, want = _cut(512, H, Kv, 64, 2.0, H + 64)
     assert _gate_excess(_tc_wrapped(tq, tk, tv, split_p=False), want,
                         QWEN_RTOL) > QWEN_ATOL
+
+
+def test_lost_launches_flags_a_partial_trace():
+    """chip_smoke.py's ``lost_launches``: a profiled window whose device
+    events hold fewer flash forward kernels than the wrapper counted is
+    flagged (and taken again), whatever the window's other kernels; a
+    whole trace is not."""
+    from types import SimpleNamespace as E
+    lost = _chip_smoke().lost_launches
+    pipe = "void flash_kernel_wgmma_pipe<64, 2>(bf16 const*, float)"
+    others = [E(name="void rmsnorm_row_kernel<bf16>()"),
+              E(name="void flash_bwd_dq_wgmma<64>()"),
+              E(name="ampere_bf16_s16816gemm_bf16_128x64")]
+    whole = others + [E(name=pipe)] * 12
+    assert lost(whole, 12) is None
+    assert lost(others, 0) is None
+    assert lost([], 0) is None
+    partial = others + [E(name=pipe)]
+    assert lost(partial, 12) == ("1 of the 12 flash forward launches made "
+                                 "in it")
+    assert lost(others * 4, 3) is not None
