@@ -13,7 +13,8 @@ Phases, each printing its result; any failure exits non-zero:
    one ``nvcc`` per source, all started together (timed), with each
    kernel's registers, shared memory and spills, and the count of HGMMA
    (tensor-core) instructions in the two flash libraries' SASS where
-   ``cuobjdump`` exists;
+   ``cuobjdump`` exists; the redesigned backward kernels
+   (``NEW_BWD_KERNELS``) must not spill;
 2. each kernel against its plain PyTorch version on the card, and its time
    at the main path's shapes beside the plain version, the one-call PyTorch
    equivalent (where one exists) and the card's bound: ``lstm_cell`` over
@@ -23,13 +24,20 @@ Phases, each printing its result; any failure exits non-zero:
    chained ``lstm_cell`` launches, timed at the paper's two layers beside
    its bound, the plain version, a CUDA graph replaying 40 ``lstm_cell``
    launches and cuDNN's ``torch.nn.LSTM`` on the same weights;
-   ``lstm_seq_bwd`` (backpropagation through time, one launch a layer)
-   over the same shapes against its plain version (the per-step loop),
-   fp32 within 2e-5 and bf16 within 2e-2 of max |grad|, two runs bit-equal,
-   and ``_Seq``'s gradients at the paper's layers with and without dx
-   against the plain BPTT, timed at the paper's layers beside its bound,
-   the plain loop, the layer's forward + backward and cuDNN ``nn.LSTM``'s
-   forward + backward; each LSTM kernel at the widest input its wrapper
+   ``lstm_seq_bwd`` (backpropagation through time, one launch a layer:
+   ``lstm_seq_bwd_staged_kernel`` on the paper's layers) and its
+   yardstick (``lstm_seq_bwd_kernel``, the first one) over the same shapes and
+   at sequences past one shared-memory window against its plain version
+   (the per-step loop), fp32 within 2e-5 and bf16 within 2e-2 of max
+   |grad|, two runs bit-equal, and ``_Seq``'s gradients at the paper's
+   layers with and without dx against the plain BPTT, timed at the
+   paper's layers and the sweep's register-tier shapes in turns with the
+   yardstick (events, and the device time a launch from profiled windows
+   whose launch count is held; faster than the yardstick by device time
+   at the paper's layers, no slower at the sweep's), with both kernels'
+   clock-stamp split of a step, beside its bound, the plain loop, the
+   layer's forward + backward and cuDNN ``nn.LSTM``'s forward + backward;
+   each LSTM kernel at the widest input its wrapper
    takes (just inside its launcher's shared memory: ``lstm_cell`` at Din +
    H = 7,264, ``lstm_seq`` at Din = 19,254, ``lstm_seq_bwd`` at H = 5,808)
    against its plain version in both dtypes, one wider refused before any
@@ -223,13 +231,19 @@ Phases, each printing its result; any failure exits non-zero:
    with experts replaying the card's expert choices): equal greedy tokens
    and logits (and outside the dense family the forward's logits, and the
    router loss where there are experts) within the stated tolerance;
-7b. the RMSNorm backward kernel (``rmsnorm_bwd``: dx and the blocks'
-   column partials, then dscale; no atomics) against ``ref.rmsnorm_bwd``
-   over the JAX sweep in fp32 and bf16 and at ``[4096, 8192]``,
-   ``[4096, 2048]`` and ``[4096, 896]`` (internvl2-1b's) bf16, 2e-5 / 2e-2
-   of max |grad|, two runs bit-equal,
-   timed at the two training shapes beside the plain backward,
-   ``F.rms_norm``'s forward + backward and backward alone, and its bound;
+7b. the RMSNorm backward kernel (``rmsnorm_bwd``: one C call of two
+   launches, dx and the blocks' column partials on the rows kernel of its
+   tier, then dscale; no atomics) and its yardstick (the first kernels)
+   against ``ref.rmsnorm_bwd`` over the JAX sweep in fp32 and bf16 and at
+   ``RMS_BWD_SHAPES`` (``[4096, 896]``, internvl2-1b's, to ``[4096,
+   8192]``) bf16, 2e-5 / 2e-2 of max |grad|, two runs bit-equal, a strided
+   dy refused on the card; timed at ``RMS_BWD_SHAPES`` in turns with the
+   yardstick (events over wrapper calls, and the device time a call from
+   profiled windows in turns whose launch count is held; by their medians
+   faster than the yardstick at ``[4096, 896]``, no slower elsewhere)
+   beside the plain backward, ``F.rms_norm``'s forward + backward and
+   backward alone, and its bound and the device time's share of it; the
+   wrapper's host time step by step at ``[4096, 896]``;
 8. the transformer kernels as training runs them, at full width: the flash
    backward kernels against the plain backward (both from the kernel
    forward's out and lse) over the JAX sweep x {causal, window 37, full} in
@@ -378,6 +392,16 @@ SWEEP = [(1, 7, 5), (8, 96, 50), (16, 128, 128), (5, 33, 200)]
 # the plain loop through cuBLAS; fp32 at tests/test_kernels.py::_tol's 2e-5,
 # bf16 (the same fp32 math from bf16 inputs) at its 2e-2
 LSTM_BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the backward kernels redesigned for Hopper, none of which may
+# spill; their yardsticks (the first backward kernels) stay bound and are
+# timed beside them in rounds of turns (yardstick, kernel, kernel,
+# yardstick)
+NEW_BWD_KERNELS = ("rmsnorm_bwd_warp_kernel", "rmsnorm_bwd_block_kernel",
+                   "lstm_seq_bwd_staged_kernel")
+BWD_TURNS = 3
+# sequences past one shared-memory window of the staged kernel (register
+# tier, both dtypes): (T, B, Din, H)
+LSTM_BWD_LONG = ((200, 8, 50, 50), (257, 3, 20, 64))
 
 
 class SmokeFailure(RuntimeError):
@@ -407,6 +431,67 @@ def median_ms(fn, torch, reps: int = 50, inner: int = 20,
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def in_turns(torch, kernel, yardstick, rounds=BWD_TURNS, **kw):
+    """CUDA-event ms a call of ``kernel`` and of ``yardstick`` (each a
+    ``median_ms`` over back-to-back calls), in ``rounds`` rounds of turns
+    (yardstick, kernel, kernel, yardstick): {"kernel": [ms, ...],
+    "yardstick": [ms, ...]}."""
+    out = {"kernel": [], "yardstick": []}
+    for _ in range(rounds):
+        for name in ("yardstick", "kernel", "kernel", "yardstick"):
+            out[name].append(median_ms(
+                kernel if name == "kernel" else yardstick, torch, **kw))
+    return out
+
+
+def device_ms_counted(torch, fn, launches):
+    """Device ms a call of ``fn`` and {kernel: ms a launch} from a profiled
+    window of PIPE_REPS calls, each kernel's mean a launch times its
+    launches a call. The window's launch count is held: the profiler loses
+    a window's first event most of the time on these short windows, so a
+    window may lack up to one call's ``launches`` and no more; a window
+    short of that, or with other kernels, is taken again, up to
+    PIPE_TRIES; (None, {}) when none held (not measured)."""
+    for attempt in range(PIPE_TRIES):
+        by_name = profiled(torch, fn, reps=PIPE_REPS, tries=1)[3]
+        seen = sum(n for n, _ in by_name.values())
+        per_call = {name: round(n / PIPE_REPS)
+                    for name, (n, _) in by_name.items()}
+        want = launches * PIPE_REPS
+        if want - launches <= seen <= want and \
+                sum(per_call.values()) == launches:
+            kernels = {re.sub(r"^void |\(anonymous namespace\)::", "",
+                              name): t / n
+                       for name, (n, t) in by_name.items()}
+            return (sum(by_name[name][1] / by_name[name][0] * c
+                        for name, c in per_call.items()), kernels)
+        print(f"[profile] window {attempt + 1} of {PIPE_TRIES} recorded "
+              f"{seen} of its {want} launches ({per_call}); taken again")
+    return None, {}
+
+
+def device_in_turns(torch, kernel, yardstick, launches, rounds=BWD_TURNS):
+    """``device_ms_counted`` of ``kernel`` and of ``yardstick`` in
+    ``rounds`` rounds of turns (yardstick, kernel, kernel, yardstick):
+    ({"kernel": [ms, ...], "yardstick": [ms, ...]}, the kernel's first
+    {kernel: ms a launch}, the yardstick's); a window that held no count
+    is left out (not measured)."""
+    out = {"kernel": [], "yardstick": []}
+    names = {}
+    for _ in range(rounds):
+        for who in ("yardstick", "kernel", "kernel", "yardstick"):
+            ms, by_kernel = device_ms_counted(
+                torch, kernel if who == "kernel" else yardstick, launches)
+            if ms is not None:
+                out[who].append(ms)
+                names.setdefault(who, by_kernel)
+    return out, names.get("kernel", {}), names.get("yardstick", {})
+
+
+def fmt_turns(ms):
+    return "/".join(f"{m:.5f}" for m in ms)
 
 
 def cell_inputs(torch, B, Din, H, dtype, seed):
@@ -664,41 +749,83 @@ def seq_layer_grads(torch, leaves, dhs, x_grad):
                                dhs)
 
 
+def stamp_split(torch, K, args, staged):
+    """The stamp instantiation of the staged kernel (``staged``) or of the
+    yardstick at ``args``: the mean SM cycles of each phase of a step
+    (K.STAMP_PHASES after the first: the gate update, the barrier, the
+    dh_next chains, the shuffles), of a whole step, of the launch's steps
+    end to end, and before and after them (the kernel's entry to the
+    first step, the last step to its exit), and the staged kernel's
+    prologue stamps from its entry (K.STAMP_ENDS)."""
+    K.lstm_seq_bwd_stamps(*args, staged=staged)
+    st, ends = (t.cpu().double() for t in
+                K.lstm_seq_bwd_stamps(*args, staged=staged)[3:])
+    phases = st[:, 1:] - st[:, :-1]
+    steps = st[:-1, 0] - st[1:, 0]          # step t - 1 starts after step t
+    out = dict({p: phases[:, i].mean().item()
+                for i, p in enumerate(K.STAMP_PHASES[1:])},
+               step=steps.mean().item(),
+               all_steps=(st[0, -1] - st[-1, 0]).item(),
+               before_steps=(st[-1, 0] - ends[0]).item(),
+               after_steps=(ends[1] - st[0, -1]).item())
+    # the staged kernel's prologue, from its entry
+    for i, name in enumerate(K.STAMP_ENDS[2:], 2):
+        if ends[i] > 0:
+            out[f"to {name}"] = (ends[i] - ends[0]).item()
+    return out
+
+
 def phase_lstm_bwd(torch, K, ref, paper):
-    """lstm_seq_bwd against its plain version (the per-step loop) over the
-    sweep and the paper's layers, fp32 and bf16, twice (bit-equal runs);
-    ``_Seq``'s gradients at the paper's layers, with and without dx,
-    through the kernel against ``plain_kernels()`` (the plain BPTT after
-    the same forward kernel); its time at the paper's layers beside its
-    bound, the plain loop, the layer's forward + backward and cuDNN
-    ``nn.LSTM``'s forward + backward. The launches here are comparisons,
-    made before any path's counts are reset. Returns (worst fp32 relative
-    and absolute errors at the paper's layers, rows)."""
+    """lstm_seq_bwd (the staged kernel on the register tier, the first
+    kernel above it) and its yardstick (``K.lstm_seq_bwd_yardstick``, the
+    first kernel at every width) against the plain version (the per-step
+    loop) over the sweep and the paper's layers, fp32 and bf16, twice
+    (bit-equal runs), and at sequences past one shared-memory window
+    (``LSTM_BWD_LONG``); ``_Seq``'s gradients at the paper's layers, with
+    and without dx, through the kernel against ``plain_kernels()`` (the
+    plain BPTT after the same forward kernel); the kernel and its
+    yardstick timed in turns at the paper's layers and at the sweep's
+    register-tier shapes (CUDA events over back-to-back calls), their
+    device time a launch (a profiled window, its launch count held), the
+    stamp split of a step of each, beside the bound, the plain loop, the
+    layer's forward + backward and cuDNN ``nn.LSTM``'s forward + backward.
+    The kernel must be faster than the yardstick by device time at the
+    paper's layers and no slower at the sweep's register-tier shapes (the
+    calls are host-bound, so the events read the host).
+    The launches here are comparisons, made before any path's counts are
+    reset. Returns (worst fp32 relative and absolute errors at the paper's
+    layers, rows)."""
     worst, worst_abs = 0.0, 0.0
-    for B, Din, Hh in SWEEP + paper:
+    cases = [(SEQ_T, *shape) for shape in SWEEP + paper] + \
+        list(LSTM_BWD_LONG)
+    for T, B, Din, Hh in cases:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
-            x, h, c, w, b = seq_inputs(torch, SEQ_T, B, Din, Hh, dtype,
+            x, h, c, w, b = seq_inputs(torch, T, B, Din, Hh, dtype,
                                        seed=B * 1000 + Din)
             _, cs, gates = K.lstm_seq(x, h, c, w, b)
-            dhs = randn(torch, (SEQ_T, B, Hh), dtype, B + Din)
+            dhs = randn(torch, (T, B, Hh), dtype, B + Din)
             got = K.lstm_seq_bwd(dhs, gates, cs, c, w[Din:])
             again = K.lstm_seq_bwd(dhs, gates, cs, c, w[Din:])
+            yard = K.lstm_seq_bwd_yardstick(dhs, gates, cs, c, w[Din:])
             want = ref.lstm_seq_bwd(dhs, gates, cs, c, w[Din:])
             torch.cuda.synchronize()
             errs = [rel_err(torch, a, p) for a, p in zip(got, want)]
+            yerrs = [rel_err(torch, a, p) for a, p in zip(yard, want)]
             same = all(torch.equal(a, r) for a, r in zip(got, again))
-            ok = max(errs) <= LSTM_BWD_TOL[name]
-            print(f"[kernel] lstm_seq_bwd T={SEQ_T} B={B} Din={Din} H={Hh} "
-                  f"{name}: max|kernel-plain| / max|grad| over dz, dh0, dc0 "
-                  f"{', '.join(f'{e:.3e}' for e in errs)} tol "
+            ok = max(errs) <= LSTM_BWD_TOL[name] and \
+                max(yerrs) <= LSTM_BWD_TOL[name]
+            print(f"[kernel] lstm_seq_bwd T={T} B={B} Din={Din} H={Hh} "
+                  f"{name} ({K.bwd_tier(Hh)}): max|kernel-plain| / max|grad| "
+                  f"over dz, dh0, dc0 {', '.join(f'{e:.3e}' for e in errs)} "
+                  f"(yardstick {', '.join(f'{e:.3e}' for e in yerrs)}) tol "
                   f"{LSTM_BWD_TOL[name]} {'ok' if ok else 'FAIL'}; two runs "
                   f"bit-equal: {same}")
-            check(ok, f"lstm_seq_bwd disagrees with its plain version at "
-                      f"B={B} Din={Din} H={Hh} {name}")
-            check(same, f"lstm_seq_bwd differs between two runs at B={B} "
-                        f"Din={Din} H={Hh} {name}")
-            if name == "float32" and (B, Din, Hh) in paper:
+            check(ok, f"lstm_seq_bwd or its yardstick disagrees with the "
+                      f"plain version at T={T} B={B} Din={Din} H={Hh} {name}")
+            check(same, f"lstm_seq_bwd differs between two runs at T={T} "
+                        f"B={B} Din={Din} H={Hh} {name}")
+            if name == "float32" and (B, Din, Hh) in paper and T == SEQ_T:
                 worst = max(worst, max(errs))
                 worst_abs = max(worst_abs, max(
                     (a - p).abs().max().item() for a, p in zip(got, want)))
@@ -729,10 +856,19 @@ def phase_lstm_bwd(torch, K, ref, paper):
                                    seed=7)
         _, cs, gates = K.lstm_seq(x, h, c, w, b)
         dhs = randn(torch, (SEQ_T, B, Hh), torch.float32, 13)
-        w_h = w[Din:]
-        ms = median_ms(lambda: K.lstm_seq_bwd(dhs, gates, cs, c, w_h), torch)
-        plain_ms = median_ms(lambda: ref.lstm_seq_bwd(dhs, gates, cs, c, w_h),
-                             torch, reps=10, inner=5)
+        args = (dhs, gates, cs, c, w[Din:])
+        turns = in_turns(torch, lambda: K.lstm_seq_bwd(*args),
+                         lambda: K.lstm_seq_bwd_yardstick(*args))
+        ms = statistics.median(turns["kernel"])
+        yard_ms = statistics.median(turns["yardstick"])
+        dev, dev_names = device_ms_counted(
+            torch, lambda: K.lstm_seq_bwd(*args), 1)
+        yard_dev, yard_names = device_ms_counted(
+            torch, lambda: K.lstm_seq_bwd_yardstick(*args), 1)
+        split = {"kernel": stamp_split(torch, K, args, True),
+                 "yardstick": stamp_split(torch, K, args, False)}
+        plain_ms = median_ms(lambda: ref.lstm_seq_bwd(*args), torch, reps=10,
+                             inner=5)
         # as the model trains: layer 0's one-hot input needs no gradient
         x_grad = layer > 0
         fb_ms = median_ms(lambda: seq_layer_grads(torch, (x, h, c, w, b), dhs,
@@ -746,14 +882,57 @@ def phase_lstm_bwd(torch, K, ref, paper):
         finally:
             torch.use_deterministic_algorithms(True)
         bound, by = lstm_bwd_bound_ms(SEQ_T, B, Hh, 4)
+        share = "not measured" if dev is None else f"{100 * bound / dev:.2f}%"
         print(f"[kernel] lstm_seq_bwd time T={SEQ_T} B={B} Din={Din} H={Hh} "
-              f"fp32: kernel {ms:.5f} ms, plain loop {plain_ms:.4f} ms, bound "
-              f"{bound:.6f} ms ({by}); the layer's forward + backward "
+              f"fp32, in turns: kernel {fmt_turns(turns['kernel'])} ms "
+              f"(median {ms:.5f}), yardstick "
+              f"{fmt_turns(turns['yardstick'])} ms (median {yard_ms:.5f}); "
+              f"device time a launch: kernel {fmt_ms(dev)} {dev_names}, "
+              f"yardstick {fmt_ms(yard_dev)} {yard_names}; bound "
+              f"{bound:.6f} ms ({by}, {share} of it by device time); plain "
+              f"loop {plain_ms:.4f} ms; the "
+              f"layer's forward + backward "
               f"({'with' if x_grad else 'without'} dx) {fb_ms:.4f} ms, cuDNN "
               f"nn.LSTM forward + backward {cudnn_fb_ms:.4f} ms")
-        rows.append(dict(shape=[SEQ_T, B, Din, Hh], ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound, bound_by=by, fwd_bwd_ms=fb_ms,
-                         cudnn_fwd_bwd_ms=cudnn_fb_ms))
+        print(f"[kernel] lstm_seq_bwd stamps T={SEQ_T} B={B} Din={Din} "
+              f"H={Hh} fp32, mean SM cycles a step (block 0, thread 0): " +
+              "; ".join(f"{who}: " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in sp.items())
+                  for who, sp in split.items()))
+        # both wrappers' calls are host-bound (the events read the host),
+        # so the verdict is the device time's
+        check(dev is not None and yard_dev is not None and dev < yard_dev,
+              f"lstm_seq_bwd at B={B} Din={Din} H={Hh} is not faster than "
+              f"its yardstick by device time: {dev} / {yard_dev} ms")
+        rows.append(dict(shape=[SEQ_T, B, Din, Hh], ms=ms, turns=turns,
+                         yardstick_ms=yard_ms, device_ms=dev,
+                         yardstick_device_ms=yard_dev, stamps=split,
+                         plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                         fwd_bwd_ms=fb_ms, cudnn_fwd_bwd_ms=cudnn_fb_ms))
+    # the sweep's register-tier shapes: no slower than the yardstick
+    for B, Din, Hh in SWEEP:
+        if K.bwd_tier(Hh) != "staged":
+            continue
+        x, h, c, w, b = seq_inputs(torch, SEQ_T, B, Din, Hh, torch.float32,
+                                   seed=9)
+        _, cs, gates = K.lstm_seq(x, h, c, w, b)
+        args = (randn(torch, (SEQ_T, B, Hh), torch.float32, 14), gates, cs,
+                c, w[Din:])
+        turns = in_turns(torch, lambda: K.lstm_seq_bwd(*args),
+                         lambda: K.lstm_seq_bwd_yardstick(*args), rounds=2,
+                         reps=20, inner=10)
+        dev = [device_ms_counted(torch, fn, 1)[0] for fn in (
+            lambda: K.lstm_seq_bwd(*args),
+            lambda: K.lstm_seq_bwd_yardstick(*args))]
+        print(f"[kernel] lstm_seq_bwd time T={SEQ_T} B={B} Din={Din} H={Hh} "
+              f"fp32, in turns: kernel {fmt_turns(turns['kernel'])} ms, "
+              f"yardstick {fmt_turns(turns['yardstick'])} ms; device time a "
+              f"launch: kernel {fmt_ms(dev[0])}, yardstick {fmt_ms(dev[1])}")
+        check(None not in dev and dev[0] <= dev[1],
+              f"lstm_seq_bwd at the sweep's B={B} Din={Din} H={Hh} is "
+              f"slower than its yardstick by device time: {dev}")
+        rows[0].setdefault("sweep", {})[f"{B}x{Din}x{Hh}"] = dict(
+            turns=turns, device_ms=dev[0], yardstick_device_ms=dev[1])
     return worst, worst_abs, rows
 
 
@@ -1612,8 +1791,15 @@ def phase_profile(torch, prob):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     map_ms = statistics.median(walls[1:])
-    window_ms, busy_ms, n_kernels, by_name, _ = profiled(
-        torch, lambda: prob.map_compute(params, 0, 0))
+    # the backward's kernel is checked below, so a window that lost its
+    # lstm_seq_bwd events is taken again
+    for attempt in range(PIPE_TRIES):
+        window_ms, busy_ms, n_kernels, by_name, _ = profiled(
+            torch, lambda: prob.map_compute(params, 0, 0))
+        if launches_named(by_name, "lstm_seq_bwd"):
+            break
+        print(f"[profile] map window {attempt + 1} of {PIPE_TRIES} recorded "
+              f"no lstm_seq_bwd launch; taken again")
     print(f"[profile] one map (B=8, T=40): {map_ms:.3f} ms wall (median of "
           f"5, no profiler); profiled window {window_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / window_ms:.1f}%), "
@@ -1621,13 +1807,22 @@ def phase_profile(torch, prob):
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"[profile]   {t:.3f} ms in {n} x {name[:90]}")
     seq_ms = per_launch_ms(by_name, "lstm_seq_kernel")
-    bwd_ms = per_launch_ms(by_name, "lstm_seq_bwd_kernel")
+    # the route's backward: lstm_seq_bwd_staged_kernel at the paper's layers
+    bwd_ms = per_launch_ms(by_name, "lstm_seq_bwd")
+    bwd_names = sorted({re.sub(r"<.*", "", name.split("::")[-1])
+                        for name in by_name if "lstm_seq_bwd" in name})
+    bwd_map_ms = sum(t for name, (_, t) in by_name.items()
+                     if "lstm_seq_bwd" in name)
     print(f"[profile] device time per launch: lstm_seq kernel "
           f"{fmt_ms(seq_ms)}, lstm_seq_bwd kernel {fmt_ms(bwd_ms)} "
           f"({launches_named(by_name, 'lstm_seq_kernel')} / "
-          f"{launches_named(by_name, 'lstm_seq_bwd_kernel')} launches in the "
-          f"map; lstm_cell kernel launches "
+          f"{launches_named(by_name, 'lstm_seq_bwd')} launches in the "
+          f"map, {bwd_names}; lstm_seq_bwd device ms a map "
+          f"{bwd_map_ms:.5f}; lstm_cell kernel launches "
           f"{launches_named(by_name, 'lstm_cell_kernel')})")
+    # the wrapper's count holds the launches; the trace holds their kernel
+    check(set(bwd_names) == {"lstm_seq_bwd_staged_kernel"},
+          f"the map's backward ran {bwd_names}, not the staged kernel")
     map_prof = dict(window_ms=window_ms, busy_ms=busy_ms, kernels=n_kernels,
                     busy_share=busy_ms / window_ms)
 
@@ -5323,13 +5518,70 @@ def rms_bwd_bound_ms(rows, d, elem_bytes):
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
+def rms_bwd_host_steps(torch, RN, x, s, dy):
+    """Host microseconds of each step of one ``rmsnorm_bwd`` call at x's
+    shape, each step alone in a loop, beside the whole call and the
+    yardstick's whole call (two ctypes calls and three allocations): the
+    wrapper's cost is host time when the device works ~10 us."""
+    from repro_torch.kernels import build as kbuild
+    fn = RN.build_bwd()[x.dtype]
+    dx, ds = RN.rmsnorm_bwd(x, s, dy)
+    rows, D = x.shape
+    dev = x.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    ptrs = (x.data_ptr(), s.data_ptr(), dy.data_ptr(), dx.data_ptr())
+    n_part = RN.BWD_PART_ROWS * D
+    part = RN._part(dev, stream, n_part).data_ptr()
+    steps = {
+        "whole call": lambda: RN.rmsnorm_bwd(x, s, dy),
+        "yardstick's whole call": lambda: RN.rmsnorm_bwd_yardstick(x, s, dy),
+        "checks": lambda: RN._check_bwd(x, s, dy),
+        "bind": lambda: RN.build_bwd()[x.dtype],
+        "outputs (no fill)": lambda: kbuild.empty_likes(x, s),
+        "pointers and alignment": lambda: (
+            x.data_ptr() | s.data_ptr() | dy.data_ptr() | dx.data_ptr()) % 16,
+        "current device test": lambda: dev == torch.cuda.current_device(),
+        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(dev),
+        "partials' buffer": lambda: RN._part(dev, stream, n_part),
+        "C call and its two launches": lambda: fn(
+            *ptrs, ds.data_ptr(), part, rows, D, 1e-6, 1, stream),
+    }
+    before = RN.rmsnorm_bwd.launches
+    us = {}
+    for name, step in steps.items():
+        for _ in range(100):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            step()
+        us[name] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    RN.rmsnorm_bwd.launches = before      # timing calls are not the path's
+    print(f"[host] rmsnorm_bwd wrapper steps at {list(x.shape)} "
+          f"{str(x.dtype).split('.')[-1]}, us a call: " +
+          ", ".join(f"{k} {v:.3f}" for k, v in us.items()))
+    return us
+
+
 def phase_rmsnorm_bwd(torch, RN, ref):
-    """The RMSNorm backward kernel (two launches: dx and the blocks' column
-    partials, then dscale) against ``ref.rmsnorm_bwd`` over the JAX sweep
+    """The RMSNorm backward (one C call of two launches: the rows kernel of
+    the row's tier, dx and the blocks' column partials, then the cols
+    kernel, dscale) and its yardstick (``RN.rmsnorm_bwd_yardstick``,
+    the first kernels) against ``ref.rmsnorm_bwd`` over the JAX sweep
     (fp32, bf16) and the training rows ``RMS_BWD_SHAPES`` (bf16): dx and
-    dscale within TOL of max |grad|, two runs bit-equal; timed at the
-    training rows beside the plain backward, ``F.rms_norm``'s forward +
-    backward and its backward alone, and the bound."""
+    dscale within TOL of max |grad|, two runs bit-equal, exact launches;
+    a non-contiguous dy on the card refused before any launch; timed at
+    the training rows in turns with the yardstick (CUDA events over
+    back-to-back wrapper calls) and by the device time a call (profiled
+    windows in turns, each window's launch count held), beside the plain
+    backward, ``F.rms_norm``'s forward + backward and its backward alone
+    (events), the bound and the device time's share of it (the aim: at
+    least half); the wrapper's host time step by step at internvl2-1b's
+    rows. By the medians of the device windows the kernel must be faster
+    than the yardstick at ``[4096, 896]`` and no slower at the other rows;
+    at ``[4096, 896]`` its event median must also be below the yardstick's
+    fastest turn."""
     import torch.nn.functional as F
     cases = [(shape, dt) for shape in RMS_SWEEP
              for dt in (torch.float32, torch.bfloat16)]
@@ -5344,30 +5596,51 @@ def phase_rmsnorm_bwd(torch, RN, ref):
         got = RN.rmsnorm_bwd(x, s, dy)
         again = RN.rmsnorm_bwd(x, s, dy)
         launched = RN.rmsnorm_bwd.launches - before
+        yard = RN.rmsnorm_bwd_yardstick(x, s, dy)
         want = ref.rmsnorm_bwd(x, s, dy)
         torch.cuda.synchronize()
         rel = [rel_err(torch, g, w) for g, w in zip(got, want)]
+        yrel = [rel_err(torch, g, w) for g, w in zip(yard, want)]
         absd = max((g.float() - w.float()).abs().max().item()
                    for g, w in zip(got, want))
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        ok = max(rel) <= TOL[name] and same and \
+        ok = max(rel) <= TOL[name] and max(yrel) <= TOL[name] and same and \
             launched == 2 * RN.BWD_LAUNCHES and \
             got[0].dtype == got[1].dtype == dtype
         print(f"[kernel] rmsnorm_bwd {list(shape)} {name}: dx "
-              f"{rel[0]:.3e}, dscale {rel[1]:.3e} of max |grad| (tol "
-              f"{TOL[name]}), max|kernel-plain| {absd:.3e}, two runs "
-              f"bit-equal {same}, {launched} launches "
-              f"{'ok' if ok else 'FAIL'}")
-        check(ok, f"rmsnorm_bwd {shape} {name}: the kernel disagrees with "
-                  f"its plain version, differs run to run or did not launch")
+              f"{rel[0]:.3e}, dscale {rel[1]:.3e} of max |grad| (yardstick "
+              f"{yrel[0]:.3e}, {yrel[1]:.3e}; tol {TOL[name]}), "
+              f"max|kernel-plain| {absd:.3e}, two runs bit-equal {same}, "
+              f"{launched} launches {'ok' if ok else 'FAIL'}")
+        check(ok, f"rmsnorm_bwd {shape} {name}: the kernel or its yardstick "
+                  f"disagrees with the plain version, differs run to run or "
+                  f"did not launch")
         worst_abs, worst_rel = max(worst_abs, absd), max(worst_rel, *rel)
+    # the checks refuse a strided dy on the card too, before any launch
+    x = randn(torch, (64, 128), torch.bfloat16, 1)
+    before = RN.rmsnorm_bwd.launches
+    try:
+        RN.rmsnorm_bwd(x, x[0].contiguous(), x.t().contiguous().t())
+        check(False, "rmsnorm_bwd took a strided dy")
+    except ValueError as e:
+        print(f"[kernel] rmsnorm_bwd refuses a strided dy on the card: {e}")
+    check(RN.rmsnorm_bwd.launches == before, "a refused call launched")
     times = {}
     for rows, d in RMS_BWD_SHAPES:
         x = randn(torch, (rows, d), torch.bfloat16, 7)
         s = randn(torch, (d,), torch.bfloat16, 8, 0.1) + 1
         dy = randn(torch, (rows, d), torch.bfloat16, 9)
-        ms = median_ms(lambda: RN.rmsnorm_bwd(x, s, dy), torch, reps=20,
-                       inner=10)
+        turns = in_turns(torch, lambda: RN.rmsnorm_bwd(x, s, dy),
+                         lambda: RN.rmsnorm_bwd_yardstick(x, s, dy),
+                         reps=20, inner=10)
+        ms = statistics.median(turns["kernel"])
+        yard_ms = statistics.median(turns["yardstick"])
+        dev_turns, dev_names, yard_names = device_in_turns(
+            torch, lambda: RN.rmsnorm_bwd(x, s, dy),
+            lambda: RN.rmsnorm_bwd_yardstick(x, s, dy), RN.BWD_LAUNCHES)
+        dev, yard_dev = (statistics.median(dev_turns[who])
+                         if dev_turns[who] else None
+                         for who in ("kernel", "yardstick"))
         plain_ms = median_ms(lambda: ref.rmsnorm_bwd(x, s, dy), torch,
                              reps=10, inner=3)
         lib = (x.detach().clone().requires_grad_(),
@@ -5378,20 +5651,52 @@ def phase_rmsnorm_bwd(torch, RN, ref):
             torch.autograd.grad(y, lib, dy)
 
         y_lib = F.rms_norm(lib[0], (d,), lib[1], 1e-6)
+
+        def lib_bwd():
+            torch.autograd.grad(y_lib, lib, dy, retain_graph=True)
+
         fb_ms = median_ms(lib_fb, torch, reps=20, inner=5)
-        lib_ms = median_ms(lambda: torch.autograd.grad(
-            y_lib, lib, dy, retain_graph=True), torch, reps=20, inner=5)
+        lib_ms = median_ms(lib_bwd, torch, reps=20, inner=5)
         del y_lib
         bound, by = rms_bwd_bound_ms(rows, d, 2)
-        print(f"[kernel] rmsnorm_bwd time [{rows}, {d}] bf16: kernel "
-              f"{ms:.5f} ms ({ms / bound:.2f}x the bound {bound:.5f} ms, "
-              f"{by}), plain {plain_ms:.4f} ms, F.rms_norm forward + "
-              f"backward {fb_ms:.4f} ms, its backward alone {lib_ms:.4f} ms")
-        times[f"{rows}x{d}"] = dict(shape=[rows, d], ms=ms,
-                                    plain_ms=plain_ms, library_ms=lib_ms,
-                                    lib_fwd_bwd_ms=fb_ms, bound_ms=bound,
-                                    bound_by=by)
-    return dict(max_abs_err=worst_abs, max_rel_err=worst_rel, **times)
+        share = None if dev is None else bound / dev
+        print(f"[kernel] rmsnorm_bwd time [{rows}, {d}] bf16, in turns: "
+              f"kernel {fmt_turns(turns['kernel'])} ms (median {ms:.5f}), "
+              f"yardstick {fmt_turns(turns['yardstick'])} ms (median "
+              f"{yard_ms:.5f}); device time a call in turns: kernel "
+              f"{fmt_turns(dev_turns['kernel'])} ms (median {fmt_ms(dev)}) "
+              f"{dev_names}, yardstick {fmt_turns(dev_turns['yardstick'])} "
+              f"ms (median {fmt_ms(yard_dev)}) {yard_names}; bound "
+              f"{bound:.5f} ms ({by}; "
+              f"{'not measured' if share is None else f'{100 * share:.1f}%'}"
+              f" of it by device time, at least half: "
+              f"{'not measured' if share is None else share >= 0.5}), plain "
+              f"{plain_ms:.4f} ms, F.rms_norm forward + backward "
+              f"{fb_ms:.4f} ms, its backward alone {lib_ms:.4f} ms")
+        check(dev is not None and yard_dev is not None,
+              f"rmsnorm_bwd at [{rows}, {d}]: no device window held its "
+              f"launch count: {dev_turns}")
+        if (rows, d) == (4096, 896):
+            check(ms < min(turns["yardstick"]) and dev < yard_dev,
+                  f"rmsnorm_bwd at [{rows}, {d}] is not faster than its "
+                  f"yardstick: {turns}, device {dev_turns}")
+        else:
+            check(dev <= yard_dev,
+                  f"rmsnorm_bwd at [{rows}, {d}] is slower than its "
+                  f"yardstick by device time: {dev_turns}")
+        times[f"{rows}x{d}"] = dict(
+            shape=[rows, d], ms=ms, turns=turns, yardstick_ms=yard_ms,
+            device_ms=dev, device_turns=dev_turns, kernel_ms=dev_names,
+            yardstick_device_ms=yard_dev,
+            yardstick_kernel_ms=yard_names, bound_share=share,
+            plain_ms=plain_ms, library_ms=lib_ms,
+            lib_fwd_bwd_ms=fb_ms, bound_ms=bound, bound_by=by)
+    x = randn(torch, (4096, 896), torch.bfloat16, 7)
+    host = rms_bwd_host_steps(torch, RN, x, randn(
+        torch, (896,), torch.bfloat16, 8, 0.1) + 1, randn(
+        torch, (4096, 896), torch.bfloat16, 9))
+    return dict(max_abs_err=worst_abs, max_rel_err=worst_rel,
+                host_us=host, **times)
 
 
 def weight_bytes(params):
@@ -6567,6 +6872,14 @@ def phase_train_prefixed(torch, K, T, smi, arch):
     prof = train_profile(torch, lambda: grads_fn(params, batch),
                          prefill_fwd_kernels(cfg, 2 * micro))
     grads_k, mets_k = prof.pop("out")
+    if prof["rmsnorm_bwd_launches"]:
+        from repro_torch.kernels import rmsnorm as RN
+        call_ms = prof["rmsnorm_bwd_ms"] / prof["rmsnorm_bwd_launches"] * \
+            RN.BWD_LAUNCHES
+        print(f"[{cfg.family}-train] rmsnorm_bwd in the profiled step: "
+              f"{prof['rmsnorm_bwd_ms']:.4f} ms of device time a step over "
+              f"{prof['rmsnorm_bwd_launches']} launches ({call_ms:.5f} ms a "
+              f"call of {RN.BWD_LAUNCHES} launches)")
     with plain_kernels():
         grads_p, mets_p = grads_fn(params, batch)
     loss_k, loss_p = float(mets_k["loss"]), float(mets_p["loss"])
@@ -6686,6 +6999,18 @@ def main() -> int:
         for r in bwd_pipe_regs.values()),
           f"the backward's two-warpgroup kernels spill or were not built: "
           f"{bwd_pipe_regs}")
+    # the redesigned backward kernels (rmsnorm_bwd's rows kernels,
+    # lstm_seq_bwd's staged kernel and its stamp instantiation): each
+    # built, none spilling
+    new_bwd = [(name, rep) for src in (RN.SOURCE, K.SOURCE)
+               for name, rep in ptxas_report(kbuild.log_path(src).read_text())
+               if any(k in name for k in NEW_BWD_KERNELS)]
+    print(f"[build] the redesigned backward kernels: " + "; ".join(
+        f"{n} {r}" for n, r in new_bwd))
+    check(all(any(k in n for n, _ in new_bwd) for k in NEW_BWD_KERNELS) and
+          all(re.search(r"\b0 bytes spill stores, 0 bytes spill loads", r)
+              for _, r in new_bwd),
+          f"a redesigned backward kernel spills or was not built: {new_bwd}")
     hgmma = {src.name: hgmma_count(src) for src in (FA.SOURCE,
                                                      FA.BWD_SOURCE)}
     for name, n in hgmma.items():
@@ -6777,6 +7102,12 @@ def main() -> int:
         "library_ms": bwd_rows[0]["cudnn_fwd_bwd_ms"],
         "fwd_bwd_ms": bwd_rows[0]["fwd_bwd_ms"],
         "shape": bwd_rows[0]["shape"], "layer1": bwd_rows[1],
+        "kernel": "lstm_seq_bwd_staged_kernel",
+        "yardstick": "lstm_seq_bwd_kernel",
+        "yardstick_ms": bwd_rows[0]["yardstick_ms"],
+        "launch_device_ms": bwd_rows[0]["device_ms"],
+        "yardstick_device_ms": bwd_rows[0]["yardstick_device_ms"],
+        "stamps": bwd_rows[0]["stamps"], "sweep": bwd_rows[0].get("sweep"),
         "device_ms": prof["bwd_ms"], "map_ms": prof["map_ms"],
         "gateway_launches": {k: gw[k]["lstm_seq_bwd"] for k in (
             "tcp", "ws", "local", "race")},
@@ -6846,8 +7177,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
         # jax.grad of the formula: the JAX package has no kernel for it
         "replaces": "src/repro/models/layers.py:45",
-        "kernels": "rmsnorm_bwd_row_kernel (or rmsnorm_bwd_any_kernel) + "
-                   "rmsnorm_bwd_cols_kernel",
+        "kernels": "rmsnorm_bwd_warp_kernel or rmsnorm_bwd_block_kernel "
+                   "(the yardstick's rows kernels on other rows) + "
+                   "rmsnorm_bwd_cols_kernel, one C call",
+        "yardstick": "rmsnorm_bwd_row_kernel (or rmsnorm_bwd_any_kernel) "
+                     "+ rmsnorm_bwd_cols_kernel",
+        "host_us": rms_bwd["host_us"],
         # deepseek-moe-16b's 2-layer step: 40 calls of 2 launches a step
         "launches": moe_train["counts"]["rmsnorm_bwd"],
         "launches_per_step": moe_train["launches_per_step"]["rmsnorm_bwd"],

@@ -9,7 +9,7 @@ shared memory, spills) is kept beside it as ``<name>.log``.
 
 ``compile_sources`` starts one ``nvcc`` per missing library, all at once, and
 waits for them together; ``load`` builds one source if needed and loads it.
-``empty`` and ``empty_like`` allocate a kernel's output.
+``empty``, ``empty_like`` and ``empty_likes`` allocate a kernel's outputs.
 """
 from __future__ import annotations
 
@@ -116,3 +116,9 @@ def empty(*shape, dtype, device):
 def empty_like(x):
     """A kernel's output like x, not filled (``_unfilled``)."""
     return _unfilled(torch.empty_like, x)
+
+
+def empty_likes(*ts):
+    """Outputs like each of ts, none filled, with one switch of the fill
+    (``_unfilled``) for all of them."""
+    return _unfilled(lambda: tuple(torch.empty_like(t) for t in ts))

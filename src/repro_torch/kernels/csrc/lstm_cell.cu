@@ -1,7 +1,8 @@
 // Fused LSTM cell for Hopper (sm_90a), bound to Python with ctypes: one
 // step (lstm_cell_kernel), a whole sequence in one launch
 // (lstm_seq_kernel), and its backpropagation through time in one launch
-// (lstm_seq_bwd_kernel, whose note stands above it).
+// (lstm_seq_bwd_staged_kernel on the paper's layers, lstm_seq_bwd_kernel
+// above them and as its yardstick; each note stands above its kernel).
 //
 // Replaces the TPU kernel repro/kernels/lstm_cell.py::_cell_kernel (Pallas).
 // A step computes, for x [B,Din], h/c [B,H], W [Din+H, 4H], b [4H] (Keras
@@ -56,6 +57,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -347,6 +349,41 @@ __global__ void __launch_bounds__(kWReg > 0 ? kSeqThreadsReg : kSeqThreads)
 // on the CPU against jax.grad).
 constexpr int kBwdRegCols = 64;    // most columns of W_h a thread holds
 
+// The step clock of the stamp instantiations: thread 0 of block 0 writes
+// the SM's clock into stamps[t * kStampPhases + phase] once v (the
+// phase's last result) is ready: v is stored to the slot first (a warp
+// issues in order, so that store waits for v's producer), then the clock,
+// read by an asm with a memory clobber so that nothing moves across it.
+// Phases: 0 the step's start, 1 the gate update done (dz in shared
+// memory), 2 past the barrier, 3 the dh_next chains done, 4 the quad's
+// shuffles done. After the T steps' stamps, kStampEnds more (stamp_ends):
+// 0 the kernel's entry, 1 its exit; the staged kernel's prologue: 2 its
+// copies issued, 3 the first window's copies landed, 4 W_h in registers,
+// 5 the first window's factors computed.
+constexpr int kStampPhases = 5;
+constexpr int kStampEnds = 6;
+
+__device__ __forceinline__ void stamp_slot(long long* stamps, int index,
+                                           float v) {
+  if (blockIdx.x != 0 || threadIdx.x != 0) return;
+  volatile long long* slot = stamps + index;
+  *reinterpret_cast<volatile float*>(slot) = v;
+  long long clk;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(clk)::"memory");
+  *slot = clk;
+}
+
+__device__ __forceinline__ void stamp_step(long long* stamps, int t,
+                                           int phase, float v) {
+  stamp_slot(stamps, t * kStampPhases + phase, v);
+}
+
+// end: the slot (kStampEnds) after the steps' stamps
+__device__ __forceinline__ void stamp_ends(long long* stamps, int n_t,
+                                           int end, float v) {
+  stamp_slot(stamps, n_t * kStampPhases + end, v);
+}
+
 // One step's inputs of column (j, g): its gate's activation, dhs, c_t and
 // c_{t-1} (c0 at t = 0).
 struct BwdIn {
@@ -401,14 +438,19 @@ __device__ __forceinline__ float dz_dot(const float* __restrict__ z,
   return a;
 }
 
-template <typename T, int kWReg>
+// kStamp (off on every route; chip_smoke.py launches it through
+// lstm_seq_bwd_stamps_*): thread 0 of block 0 writes clock64 at each
+// step's phase boundaries (stamp_step).
+template <typename T, int kWReg, bool kStamp = false>
 __global__ void __launch_bounds__(kWReg > 0 ? kSeqThreadsReg : kSeqThreads)
     lstm_seq_bwd_kernel(const T* __restrict__ dhs,
                         const float* __restrict__ gates,
                         const T* __restrict__ cs, const T* __restrict__ c0,
                         const T* __restrict__ w_h, float* __restrict__ dz,
                         float* __restrict__ dh0, float* __restrict__ dc0,
-                        int n_t, int B, int H) {
+                        int n_t, int B, int H,
+                        long long* __restrict__ stamps = nullptr) {
+  if (kStamp) stamp_ends(stamps, n_t, 0, 0.f);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int hp = (H + 3) & ~3;
@@ -441,6 +483,7 @@ __global__ void __launch_bounds__(kWReg > 0 ? kSeqThreadsReg : kSeqThreads)
   for (int t = n_t - 1; t >= 0; --t) {
     float* z = sdz + (t & 1) * 4 * hp;
     const size_t rt = static_cast<size_t>(t) * B + row;
+    if (kStamp) stamp_step(stamps, t, 0, 0.f);
     BwdIn nxt = {0.f, 0.f, 0.f, 0.f};
     if (kWReg > 0 && tid < H4 && t > 0)      // next step's inputs in flight
       nxt = bwd_load(dhs, gates, cs, c0, t - 1, B, H, row, tid >> 2,
@@ -479,9 +522,11 @@ __global__ void __launch_bounds__(kWReg > 0 ? kSeqThreadsReg : kSeqThreads)
       dz[rt * H4 + g * H + j] = d;
       z[g * hp + j] = d;
       if (g == 0) sdc[j] = __fmul_rn(dc, gf);
+      if (kStamp) stamp_step(stamps, t, 1, d);
     }
     cur = nxt;
     __syncthreads();
+    if (kStamp) stamp_step(stamps, t, 2, 0.f);
     // dh_next[j] = sum over the 4H columns of dz_t W_h[j, :]: lane (j, g)
     // sums gate block g, the quad adds the four in a fixed order
     for (int base = 0; base < H4; base += nt) {
@@ -493,9 +538,11 @@ __global__ void __launch_bounds__(kWReg > 0 ? kSeqThreadsReg : kSeqThreads)
         a = kWReg > 0 ? dz_dot_reg(z + g * hp, wr, hp >> 2)
                       : dz_dot(z + g * hp,
                                w_h + static_cast<size_t>(j) * H4 + g * H, H);
+      if (kStamp) stamp_step(stamps, t, 3, a);
       a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, 1));
       a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, 2));
       if (live && g == 0) sdh[j] = a;
+      if (kStamp) stamp_step(stamps, t, 4, a);
     }
     __syncwarp();                // the quad's next step reads what lane 0 wrote
   }
@@ -504,39 +551,50 @@ __global__ void __launch_bounds__(kWReg > 0 ? kSeqThreadsReg : kSeqThreads)
     dh0[static_cast<size_t>(row) * H + j] = sdh[j];
     dc0[static_cast<size_t>(row) * H + j] = sdc[j];
   }
+  if (kStamp) stamp_ends(stamps, n_t, 1, sdh[0]);
 }
 
-template <typename T, int kWReg>
+template <typename T, int kWReg, bool kStamp = false>
 int launch_seq_bwd_as(const void* dhs, const void* gates, const void* cs,
                       const void* c0, const void* w_h, void* dz, void* dh0,
                       void* dc0, int n_t, int B, int H, size_t smem,
-                      int threads, cudaStream_t stream) {
-  lstm_seq_bwd_kernel<T, kWReg><<<B, threads, smem, stream>>>(
+                      int threads, cudaStream_t stream,
+                      long long* stamps = nullptr) {
+  lstm_seq_bwd_kernel<T, kWReg, kStamp><<<B, threads, smem, stream>>>(
       static_cast<const T*>(dhs), static_cast<const float*>(gates),
       static_cast<const T*>(cs), static_cast<const T*>(c0),
       static_cast<const T*>(w_h), static_cast<float*>(dz),
-      static_cast<float*>(dh0), static_cast<float*>(dc0), n_t, B, H);
+      static_cast<float*>(dh0), static_cast<float*>(dc0), n_t, B, H, stamps);
   return static_cast<int>(cudaGetLastError());
 }
 
-// W_h in registers, one column a thread, when the 4H columns fit one block
-// of kSeqThreadsReg and H <= kBwdRegCols (the paper's layers); else read from
-// global memory, the block's threads looping over the columns.
-template <typename T>
+// The register tier of both backward kernels: the 4H columns fit one block
+// of kSeqThreadsReg and H <= kBwdRegCols (the paper's layers).
+inline bool bwd_reg_tier(int H) {
+  return (4 * H + 31) / 32 * 32 <= kSeqThreadsReg && H <= kBwdRegCols;
+}
+
+// The yardstick (lstm_seq_bwd_kernel, the first one): W_h in registers,
+// one column a thread, on the register tier; else read from global memory,
+// the block's threads looping over the columns (the route's kernel there
+// too).
+template <typename T, bool kStamp = false>
 int launch_seq_bwd(const void* dhs, const void* gates, const void* cs,
                    const void* c0, const void* w_h, void* dz, void* dh0,
-                   void* dc0, int n_t, int B, int H, void* stream) {
+                   void* dc0, int n_t, int B, int H, void* stream,
+                   long long* stamps = nullptr) {
   const size_t hp = (static_cast<size_t>(H) + 3) & ~size_t{3};
   const size_t smem = (8 * hp + 2 * static_cast<size_t>(H)) * sizeof(float);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int cols = (4 * H + 31) / 32 * 32;
-  if (cols <= kSeqThreadsReg && H <= kBwdRegCols) {
+  if (bwd_reg_tier(H)) {
     const int threads = cols < kSeqThreadsMin ? kSeqThreadsMin : cols;
-    return launch_seq_bwd_as<T, kBwdRegCols>(dhs, gates, cs, c0, w_h, dz,
-                                             dh0, dc0, n_t, B, H, smem,
-                                             threads, st);
+    return launch_seq_bwd_as<T, kBwdRegCols, kStamp>(
+        dhs, gates, cs, c0, w_h, dz, dh0, dc0, n_t, B, H, smem, threads, st,
+        stamps);
   }
+  if (kStamp) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         lstm_seq_bwd_kernel<T, 0>,
@@ -546,6 +604,414 @@ int launch_seq_bwd(const void* dhs, const void* gates, const void* cs,
   const int threads = cols > kSeqThreads ? kSeqThreads : cols;
   return launch_seq_bwd_as<T, 0>(dhs, gates, cs, c0, w_h, dz, dh0, dc0, n_t,
                                  B, H, smem, threads, st);
+}
+
+// lstm_seq_bwd_staged_kernel: the route's backward on the register tier
+// (the paper's layers), redesigned for Hopper; the same recurrence and
+// outputs as lstm_seq_bwd_kernel, which stays as its yardstick and runs
+// wider layers. One block a batch row for all T steps, thread c = 4j + g
+// on column (j, g) with W_h[j, g*H ..] in its registers, as there. What
+// changes:
+//   - no global memory inside the step loop. The block stages its row of
+//     a window of W steps in shared memory, every copy in flight at once by
+//     cp.async: each step's gates (16H bytes, by 16-byte copies where the
+//     gates are 16-byte aligned), dhs and cs (the 16-byte chunks covering
+//     a step's H elements) and c_{t-1} of the window's first step (c0 at t =
+//     0). At the paper's T = 40, H = 50 (fp32) the whole sequence is one
+//     window; longer sequences walk windows of W steps from the last, two
+//     buffers, the next window's copies in flight under the current one;
+//   - what does not depend on the recurrence is computed before a window's
+//     steps by the whole block at once, a (step, unit) a thread: tanh(c_t),
+//     f2 = o(1 - tanh(c_t)^2), each column's gate factor (g i(1-i),
+//     c_{t-1} f(1-f), i(1-g^2) or tanh(c_t) o(1-o)) and dhs in fp32, so a
+//     step loads four values a lane (the next step's under the current
+//     step's dot) and its chain is dh = dhs + dh_next, dc += dh * f2, dz =
+//     factor * dc (or * dh), dc *= f: the yardstick's roundings;
+//   - dz is written to shared memory (over the lane's own factor) and stored
+//     a window at a time, 16-byte stores, coalesced;
+//   - dh_next and dc stay in registers: every lane of a unit's quad computes
+//     them (same inputs, same bits), so no shared memory carries them;
+//   - each lane's dot over its gate block runs as kBwdChains = 8
+//     independent fmaf chains (chain k takes u = k, k + 8, ...; 7 deep at H
+//     = 50 instead of 50), added ((c0 + c1) + (c2 + c3)) + ((c4 + c5) + (c6
+//     + c7)), then the quad's four as (p0 + p1) + (p2 + p3) by two xor
+//     shuffles. tests/test_torch_bwd_kernels.py models this order.
+// One __syncthreads a step remains (dz of the step, double-buffered for the
+// dot). kStamp: as lstm_seq_bwd_kernel's. At the paper's layers a window of
+// all 40 steps takes ~96 KB of shared memory.
+constexpr int kBwdChains = 8;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// The 4-byte words of shared memory a step's H elements of T are staged in:
+// the 16-byte chunks covering them (one more for a start inside a chunk).
+// A 16-byte aligned chunk never crosses a page, so reading a whole chunk
+// around elements of the tensor is safe wherever the tensor starts.
+__host__ __device__ __forceinline__ int staged_words(int H, int elem) {
+  return 4 * ((H * elem + 15) / 16 + 1);
+}
+
+// Chunk k of the 16-byte chunks covering n elements of T from src, by
+// cp.async, into dst + 4k (dst 16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void stage_chunk(unsigned* dst, const T* src,
+                                            int n, int k) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t base =
+      (a & ~uintptr_t{15}) + 16 * static_cast<uintptr_t>(k);
+  if (base < a + n * sizeof(T))
+    cp_async16(dst + 4 * k, reinterpret_cast<const void*>(base));
+}
+
+// Element j of the H elements from src staged in slot (stage_chunk).
+template <typename T>
+__device__ __forceinline__ float staged(const unsigned* slot, const T* src,
+                                        int j) {
+  const int off =
+      static_cast<int>((reinterpret_cast<uintptr_t>(src) & 15) / sizeof(T));
+  return to_f32(reinterpret_cast<const T*>(slot)[off + j]);
+}
+
+// A window's buffer, in 4-byte words, each part 16-byte aligned but the
+// last two: the gates [W][4H] (fp32), the factors [W][4H] (the gate factor
+// of each column, then dz over it), the staged chunks of dhs [W][hw] and
+// cs [W + 1][hw] (slot 0 holds c_{t-1} of the window's first step), f2
+// [W][H] and dhs [W][H] (fp32), rounded up to 16 bytes.
+__host__ __device__ __forceinline__ int window_step_words(int H, int hw) {
+  return 10 * H + 2 * hw;
+}
+
+__host__ __device__ __forceinline__ int window_words(int W, int H, int hw) {
+  return (W * window_step_words(H, hw) + hw + 3) & ~3;
+}
+
+struct Window {
+  float *gates, *fac, *f2, *dhs;
+  unsigned *sdh, *scs;
+};
+
+__device__ __forceinline__ Window window_at(float* buf, int W, int H,
+                                            int hw) {
+  Window w;
+  w.gates = buf;
+  w.fac = buf + W * 4 * H;
+  w.sdh = reinterpret_cast<unsigned*>(w.fac + W * 4 * H);
+  w.scs = w.sdh + W * hw;
+  w.f2 = reinterpret_cast<float*>(w.scs + (W + 1) * hw);
+  w.dhs = w.f2 + W * H;
+  return w;
+}
+
+// The (step, index) pairs of a loop over `steps` steps of `per` indices,
+// per <= blockDim.x: thread tid takes index tid % per of steps s0, s0 +
+// spw, ... (spw = blockDim.x / per steps a pass, s0 = tid / per; threads
+// past spw * per idle), so a warp's lanes walk their steps together.
+struct StepWalk {
+  int s0, q, spw;
+};
+
+__device__ __forceinline__ StepWalk step_walk(int per) {
+  StepWalk w;
+  w.spw = blockDim.x / per;
+  w.s0 = threadIdx.x / per;
+  w.q = threadIdx.x - w.s0 * per;
+  if (w.s0 >= w.spw) w.s0 = 1 << 30;            // idle
+  return w;
+}
+
+// Issue the copies of steps lo .. lo + steps - 1 of batch row `row` into
+// the window at buf, as one cp.async group.
+template <typename T>
+__device__ __forceinline__ void stage_window(
+    float* buf, const float* __restrict__ gates, const T* __restrict__ dhs,
+    const T* __restrict__ cs, const T* __restrict__ c0, int lo, int steps,
+    int W, int B, int H, int hw, int row) {
+  const int H4 = 4 * H;
+  const Window w = window_at(buf, W, H, hw);
+  const bool g16 = (reinterpret_cast<uintptr_t>(gates) & 15) == 0;
+  const StepWalk gw = step_walk(g16 ? H : H4);
+  for (int s = gw.s0; s < steps; s += gw.spw) {
+    const float* src = gates + (static_cast<size_t>(lo + s) * B + row) * H4;
+    if (g16)
+      cp_async16(w.gates + s * H4 + 4 * gw.q, src + 4 * gw.q);
+    else
+      cp_async4(w.gates + s * H4 + gw.q, src + gw.q);
+  }
+  const StepWalk ww = step_walk(hw / 4);          // 16-byte chunks a step
+  for (int s = ww.s0; s < steps; s += ww.spw)
+    stage_chunk(w.sdh + s * hw, dhs + (static_cast<size_t>(lo + s) * B + row)
+                                          * H, H, ww.q);
+  for (int s = ww.s0; s <= steps; s += ww.spw) {   // slot s: step lo - 1 + s
+    const T* src = lo + s > 0
+                       ? cs + (static_cast<size_t>(lo + s - 1) * B + row) * H
+                       : c0 + static_cast<size_t>(row) * H;
+    stage_chunk(w.scs + s * hw, src, H, ww.q);
+  }
+  cp_async_commit();
+}
+
+// What the steps of a staged window need that does not depend on the
+// recurrence, computed by the whole block at once (one thread a (step,
+// unit)): each column's gate factor (g i(1-i), c_{t-1} f(1-f), i(1-g^2),
+// tanh(c_t) o(1-o)), f2 = o(1 - tanh(c_t)^2) and dhs in fp32; the
+// yardstick's roundings.
+template <typename T>
+__device__ __forceinline__ void window_factors(
+    const Window& w, const T* __restrict__ dhs, const T* __restrict__ cs,
+    const T* __restrict__ c0, int lo, int steps, int B, int H, int hw,
+    int row) {
+  const int H4 = 4 * H;
+  const StepWalk sw = step_walk(H);
+  const int j = sw.q;
+  for (int s = sw.s0; s < steps; s += sw.spw) {
+    const int t = lo + s;
+    const float* gs = w.gates + s * H4;
+    const float gi = gs[j], gf = gs[H + j], gg = gs[2 * H + j],
+                gc = gs[3 * H + j];
+    const size_t rt = static_cast<size_t>(t) * B + row;
+    const float ct = staged(w.scs + (s + 1) * hw, cs + rt * H, j);
+    const float cp = staged(
+        w.scs + s * hw,
+        t > 0 ? cs + (rt - B) * H : c0 + static_cast<size_t>(row) * H, j);
+    const float tc = tanhf(ct);
+    float* fs = w.fac + s * H4;
+    fs[j] = __fmul_rn(__fmul_rn(gg, gi), __fsub_rn(1.f, gi));
+    fs[H + j] = __fmul_rn(__fmul_rn(cp, gf), __fsub_rn(1.f, gf));
+    fs[2 * H + j] = __fmul_rn(gi, __fsub_rn(1.f, __fmul_rn(gg, gg)));
+    fs[3 * H + j] = __fmul_rn(__fmul_rn(tc, gc), __fsub_rn(1.f, gc));
+    w.f2[s * H + j] = __fmul_rn(gc, __fsub_rn(1.f, __fmul_rn(tc, tc)));
+    w.dhs[s * H + j] = staged(w.sdh + s * hw, dhs + rt * H, j);
+  }
+}
+
+// One step's loads of column (j, g) from its window slot s: dhs, f2, the
+// column's gate factor and f.
+struct StepF {
+  float dhs, f2, fg, gf;
+};
+
+__device__ __forceinline__ StepF step_loads(const Window& w, int s, int H,
+                                            int j, int g) {
+  StepF f;
+  f.dhs = w.dhs[s * H + j];
+  f.f2 = w.f2[s * H + j];
+  f.fg = w.fac[s * 4 * H + g * H + j];
+  f.gf = w.gates[s * 4 * H + H + j];
+  return f;
+}
+
+// dz_dot_reg's sum as kBwdChains independent fmaf chains: chain k adds u =
+// k, k + 8, ... in order, then ((c0 + c1) + (c2 + c3)) + ((c4 + c5) + (c6 +
+// c7)).
+template <int kCols>
+__device__ __forceinline__ float dz_dot_chains(const float* __restrict__ z,
+                                               const float (&wr)[kCols],
+                                               int n4) {
+  static_assert(kBwdChains == 8, "two float4 a round");
+  const float4* z4 = reinterpret_cast<const float4*>(z);
+  float c[kBwdChains];
+#pragma unroll
+  for (int k = 0; k < kBwdChains; ++k) c[k] = 0.f;
+#pragma unroll
+  for (int q = 0; q < kCols / 4; ++q) {
+    if (q < n4) {
+      const float4 v = z4[q];
+      const int k = 4 * (q & 1);
+      c[k] = fmaf(v.x, wr[4 * q], c[k]);
+      c[k + 1] = fmaf(v.y, wr[4 * q + 1], c[k + 1]);
+      c[k + 2] = fmaf(v.z, wr[4 * q + 2], c[k + 2]);
+      c[k + 3] = fmaf(v.w, wr[4 * q + 3], c[k + 3]);
+    }
+  }
+  return __fadd_rn(
+      __fadd_rn(__fadd_rn(c[0], c[1]), __fadd_rn(c[2], c[3])),
+      __fadd_rn(__fadd_rn(c[4], c[5]), __fadd_rn(c[6], c[7])));
+}
+
+// One block an SM (B blocks, a batch row each): ptxas is told so, or it
+// holds the kernel to 128 registers, for two blocks an SM, and spills.
+template <typename T, bool kStamp>
+__global__ void __launch_bounds__(kSeqThreadsReg, 1)
+    lstm_seq_bwd_staged_kernel(const T* __restrict__ dhs,
+                               const float* __restrict__ gates,
+                               const T* __restrict__ cs,
+                               const T* __restrict__ c0,
+                               const T* __restrict__ w_h,
+                               float* __restrict__ dz,
+                               float* __restrict__ dh0,
+                               float* __restrict__ dc0, int n_t, int B,
+                               int H, int W, long long* __restrict__ stamps) {
+  if (kStamp) stamp_ends(stamps, n_t, 0, 0.f);
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int hp = (H + 3) & ~3;
+  const int H4 = 4 * H;
+  const int hw = staged_words(H, sizeof(T));
+  const int buf_words = window_words(W, H, hw);
+  float* zb = smem;                                        // [2][4][hp]
+  float* bufs = zb + 8 * hp;
+  const int row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int j = tid >> 2, g = tid & 3;
+  const bool live = tid < H4;
+  const int nwin = (n_t + W - 1) / W;
+
+  // window k: steps lo(k) .. hi(k), from the last. The first two windows'
+  // copies go out first, then W_h's register loads, which land under the
+  // first window's factor pass.
+  const int hi0 = n_t - 1, lo0 = max(0, hi0 - W + 1);
+  stage_window(bufs, gates, dhs, cs, c0, lo0, hi0 - lo0 + 1, W, B, H, hw,
+               row);
+  if (nwin > 1) {
+    const int hi1 = hi0 - W, lo1 = max(0, hi1 - W + 1);
+    stage_window(bufs + buf_words, gates, dhs, cs, c0, lo1, hi1 - lo1 + 1, W,
+                 B, H, hw, row);
+  }
+  float wr[kBwdRegCols];                    // W_h[j, g*H + u], zero past H
+  const T* wp = w_h + static_cast<size_t>(j) * H4 + g * H;
+#pragma unroll
+  for (int u = 0; u < kBwdRegCols; ++u)
+    wr[u] = live && u < H ? to_f32(wp[u]) : 0.f;
+  for (int i = tid; i < 8 * hp; i += blockDim.x) zb[i] = 0.f;
+  if (kStamp) stamp_ends(stamps, n_t, 2, 0.f);
+
+  float dhn = 0.f, dc = 0.f;        // dh_next and dc_next of unit j
+  for (int k = 0; k < nwin; ++k) {
+    const int hi = n_t - 1 - k * W, lo = max(0, hi - W + 1);
+    float* buf = bufs + (k & 1) * buf_words;
+    const Window win = window_at(buf, W, H, hw);
+    if (k + 1 < nwin)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    if (kStamp && k == 0) {
+      stamp_ends(stamps, n_t, 3, 0.f);
+      stamp_ends(stamps, n_t, 4, wr[0] + wr[kBwdRegCols - 1]);
+    }
+    window_factors(win, dhs, cs, c0, lo, hi - lo + 1, B, H, hw, row);
+    __syncthreads();
+    if (kStamp && k == 0) stamp_ends(stamps, n_t, 5, 0.f);
+    StepF f = {0.f, 0.f, 0.f, 0.f};
+    if (live) f = step_loads(win, hi - lo, H, j, g);
+    for (int t = hi; t >= lo; --t) {
+      const int s = t - lo;
+      if (kStamp) stamp_step(stamps, t, 0, 0.f);
+      const float dh = __fadd_rn(f.dhs, dhn);
+      dc = __fadd_rn(dc, __fmul_rn(dh, f.f2));
+      const float d = __fmul_rn(f.fg, g == 3 ? dh : dc);
+      dc = __fmul_rn(dc, f.gf);
+      float* z = zb + (t & 1) * 4 * hp;
+      if (live) {
+        z[g * hp + j] = d;
+        win.fac[s * H4 + g * H + j] = d;   // over the lane's own factor
+      }
+      if (kStamp) stamp_step(stamps, t, 1, d);
+      __syncthreads();
+      if (kStamp) stamp_step(stamps, t, 2, 0.f);
+      if (live && t > lo) f = step_loads(win, s - 1, H, j, g);
+      float a = dz_dot_chains(z + g * hp, wr, hp >> 2);
+      if (kStamp) stamp_step(stamps, t, 3, a);
+      a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, 1));
+      a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, 2));
+      dhn = a;
+      if (kStamp) stamp_step(stamps, t, 4, a);
+    }
+    __syncthreads();                       // the window's dz, all in fac
+    for (int i = tid; i < (hi - lo + 1) * H; i += blockDim.x) {
+      const int s = i / H, q = i - s * H;
+      reinterpret_cast<float4*>(
+          dz + (static_cast<size_t>(lo + s) * B + row) * H4)[q] =
+          reinterpret_cast<const float4*>(win.fac + s * H4)[q];
+    }
+    if (k + 2 < nwin) {
+      __syncthreads();             // buf's dz are read before copies land
+      const int hi2 = hi - 2 * W, lo2 = max(0, hi2 - W + 1);
+      stage_window(buf, gates, dhs, cs, c0, lo2, hi2 - lo2 + 1, W, B, H, hw,
+                   row);
+    }
+  }
+  if (live && g == 0) {
+    dh0[static_cast<size_t>(row) * H + j] = dhn;
+    dc0[static_cast<size_t>(row) * H + j] = dc;
+  }
+  if (kStamp) stamp_ends(stamps, n_t, 1, dc);
+}
+
+// The staged kernel's window: every step in one buffer where it fits the
+// shared memory, else two buffers of as many steps as fit.
+template <typename T, bool kStamp = false>
+int launch_seq_bwd_staged(const void* dhs, const void* gates, const void* cs,
+                          const void* c0, const void* w_h, void* dz,
+                          void* dh0, void* dc0, int n_t, int B, int H,
+                          void* stream, long long* stamps = nullptr) {
+  if (!bwd_reg_tier(H)) return static_cast<int>(cudaErrorInvalidValue);
+  const int hw = staged_words(H, sizeof(T));
+  const int hp = (H + 3) & ~3;
+  const int fixed = 8 * hp;
+  const int cap = static_cast<int>(kMaxSmem / sizeof(float)) - fixed;
+  int W = n_t, nbuf = 1;
+  if (window_words(W, H, hw) > cap) {
+    nbuf = 2;
+    W = (cap / 2 - hw - 3) / window_step_words(H, hw);
+  }
+  const size_t smem =
+      (static_cast<size_t>(fixed) + nbuf * window_words(W, H, hw)) *
+      sizeof(float);
+  auto kern = lstm_seq_bwd_staged_kernel<T, kStamp>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int cols = (4 * H + 31) / 32 * 32;
+  const int threads = cols < kSeqThreadsMin ? kSeqThreadsMin : cols;
+  kern<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(dhs), static_cast<const float*>(gates),
+      static_cast<const T*>(cs), static_cast<const T*>(c0),
+      static_cast<const T*>(w_h), static_cast<float*>(dz),
+      static_cast<float*>(dh0), static_cast<float*>(dc0), n_t, B, H, W,
+      stamps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The route: the staged kernel on the register tier, the yardstick's
+// global-memory kernel above it.
+template <typename T>
+int launch_seq_bwd_route(const void* dhs, const void* gates, const void* cs,
+                         const void* c0, const void* w_h, void* dz, void* dh0,
+                         void* dc0, int n_t, int B, int H, void* stream) {
+  if (bwd_reg_tier(H))
+    return launch_seq_bwd_staged<T>(dhs, gates, cs, c0, w_h, dz, dh0, dc0,
+                                    n_t, B, H, stream);
+  return launch_seq_bwd<T>(dhs, gates, cs, c0, w_h, dz, dh0, dc0, n_t, B, H,
+                           stream);
 }
 
 template <typename T>
@@ -663,18 +1129,57 @@ int lstm_seq_bf16(const void* x, const void* h0, const void* c0,
 
 // dhs/cs [n_t,B,H], c0 [B,H], w_h [H,4H] in one type; gates [n_t,B,4H]
 // fp32; dz [n_t,B,4H], dh0/dc0 [B,H] fp32.
+// The route: lstm_seq_bwd_staged_kernel on the register tier (4H <= 256,
+// H <= 64), else lstm_seq_bwd_kernel from global memory.
 int lstm_seq_bwd_f32(const void* dhs, const void* gates, const void* cs,
                      const void* c0, const void* w_h, void* dz, void* dh0,
                      void* dc0, int n_t, int B, int H, void* stream) {
-  return launch_seq_bwd<float>(dhs, gates, cs, c0, w_h, dz, dh0, dc0, n_t, B,
-                               H, stream);
+  return launch_seq_bwd_route<float>(dhs, gates, cs, c0, w_h, dz, dh0, dc0,
+                                     n_t, B, H, stream);
 }
 
 int lstm_seq_bwd_bf16(const void* dhs, const void* gates, const void* cs,
                       const void* c0, const void* w_h, void* dz, void* dh0,
                       void* dc0, int n_t, int B, int H, void* stream) {
+  return launch_seq_bwd_route<__nv_bfloat16>(dhs, gates, cs, c0, w_h, dz,
+                                             dh0, dc0, n_t, B, H, stream);
+}
+
+// The yardstick: lstm_seq_bwd_kernel at every width, as the route ran it
+// before the staged kernel. Same arguments.
+int lstm_seq_bwd_yardstick_f32(const void* dhs, const void* gates,
+                               const void* cs, const void* c0,
+                               const void* w_h, void* dz, void* dh0,
+                               void* dc0, int n_t, int B, int H,
+                               void* stream) {
+  return launch_seq_bwd<float>(dhs, gates, cs, c0, w_h, dz, dh0, dc0, n_t, B,
+                               H, stream);
+}
+
+int lstm_seq_bwd_yardstick_bf16(const void* dhs, const void* gates,
+                                const void* cs, const void* c0,
+                                const void* w_h, void* dz, void* dh0,
+                                void* dc0, int n_t, int B, int H,
+                                void* stream) {
   return launch_seq_bwd<__nv_bfloat16>(dhs, gates, cs, c0, w_h, dz, dh0, dc0,
                                        n_t, B, H, stream);
+}
+
+// The stamp instantiations (fp32, register tier only, else CUDA error 1):
+// staged != 0 the route's kernel, 0 the yardstick's, with stamps n_t *
+// kStampPhases + kStampEnds int64 written by thread 0 of block 0
+// (stamp_step, stamp_ends). Timing probes only.
+int lstm_seq_bwd_stamps_f32(const void* dhs, const void* gates,
+                            const void* cs, const void* c0, const void* w_h,
+                            void* dz, void* dh0, void* dc0, int n_t, int B,
+                            int H, void* stamps, int staged, void* stream) {
+  long long* st = static_cast<long long*>(stamps);
+  if (staged)
+    return launch_seq_bwd_staged<float, true>(dhs, gates, cs, c0, w_h, dz,
+                                              dh0, dc0, n_t, B, H, stream,
+                                              st);
+  return launch_seq_bwd<float, true>(dhs, gates, cs, c0, w_h, dz, dh0, dc0,
+                                     n_t, B, H, stream, st);
 }
 
 }  // extern "C"

@@ -53,6 +53,30 @@
 // as the forward's. Bound on an H100: x and dy read once, dx written once
 // ([4096, 8192] bf16: 201 MB, 0.0601 ms at 3.35 TB/s; part adds
 // 2 * 4 * G * D bytes).
+//   Those kernels (rmsnorm_bwd_row_kernel, rmsnorm_bwd_any_kernel,
+// rmsnorm_bwd_cols_kernel) stay bound as the yardstick, through
+// rmsnorm_bwd_rows_* and rmsnorm_bwd_cols_*. The route, rmsnorm_bwd_f32 /
+// rmsnorm_bwd_bf16, is one C call that issues both launches; its rows
+// launch keeps the next row's loads in flight while it finishes the
+// current one, so each SM holds two rows of x and dy in flight:
+//   narrow rows (up to kBwdWarpPieces = 128 pieces; internvl2-1b's 896
+//     bf16 is 112) take rmsnorm_bwd_warp_kernel: a warp a row, eight
+//     warps a block, both row sums reduced by warp shuffles alone (no block
+//     barrier a row); warp w of block b walks rows b * 8 + w, then every
+//     8 * G-th row after it, and keeps its lanes' column sums of dscale in
+//     registers; at the end the block adds its 8 warps' sums in warp order
+//     (through shared memory) into part[b, :];
+//   wide rows (up to kBwdBlockPieces = 1,024 pieces; 2,048 to 8,192 bf16)
+//     take rmsnorm_bwd_block_kernel: a block a row as rmsnorm_bwd_row_kernel,
+//     with the two sums' one barrier a row on a double-buffered red;
+//   other rows (wider, or not 16-byte aligned) take the yardstick's rows
+//     kernels;
+// then the yardstick's rmsnorm_bwd_cols_kernel adds part's G rows. The new
+// kernels round every operation explicitly (__fmaf_rn, __fmul_rn,
+// __fsub_rn), so nvcc contracts nothing and tests/test_torch_rmsnorm_bwd.py
+// repeats their order on the CPU. launch_bwd picks the tier and G, which
+// fixes the order of dscale's sums; the wrapper's part holds kBwdPartRows
+// rows, the most G of any tier.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -499,6 +523,342 @@ int launch_bwd_cols(const void* part, void* dscale, int blocks, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the route's backward (see the note at the top) ----
+
+constexpr int kBwdWarpPieces = 128;     // widest row of the warp tier
+constexpr int kBwdBlockPieces = 1024;   // widest row of the block tier
+// the yardstick's blocks at most (kernels/rmsnorm.py BWD_BLOCKS), and the
+// rows of part the route's wrapper holds (BWD_PART_ROWS): the most blocks
+// of any rows launch of launch_bwd
+constexpr int kBwdBlocks = 264;
+constexpr int kBwdPartRows = 396;
+static_assert(kBwdBlocks <= kBwdPartRows, "part holds every G");
+
+// One row's two sums over a thread's pieces, in piece order: sum x^2 and
+// sum (dy * scale) * x, each an fma chain.
+template <typename T, int VEC>
+__device__ __forceinline__ void piece_sums(const Pack<T, VEC>& x,
+                                           const Pack<T, VEC>& g,
+                                           const Pack<T, VEC>& s, float& ss,
+                                           float& dot) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const float xf = to_float(x.v[j]);
+    ss = __fmaf_rn(xf, xf, ss);
+    dot = __fmaf_rn(__fmul_rn(to_float(g.v[j]), to_float(s.v[j])), xf, dot);
+  }
+}
+
+// dx of a piece, and its terms of the column sums of dscale:
+// dx = (r * scale) * dy - x * c, acc += dy * (x * r).
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> piece_dx(const Pack<T, VEC>& x,
+                                                 const Pack<T, VEC>& g,
+                                                 const Pack<T, VEC>& s,
+                                                 float r, float c,
+                                                 float (&acc)[VEC]) {
+  Pack<T, VEC> out;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const float xf = to_float(x.v[j]);
+    const float gf = to_float(g.v[j]);
+    out.v[j] = from_float<T>(__fsub_rn(
+        __fmul_rn(__fmul_rn(r, to_float(s.v[j])), gf), __fmul_rn(xf, c)));
+    acc[j] = __fmaf_rn(gf, __fmul_rn(xf, r), acc[j]);
+  }
+  return out;
+}
+
+// r = 1 / sqrt(ss / D + eps) and c = r^3 * (dot / D) from a row's sums.
+__device__ __forceinline__ float2 row_scalars(float ss, float dot,
+                                              float inv_d, float eps) {
+  const float r = __frcp_rn(__fsqrt_rn(__fmaf_rn(ss, inv_d, eps)));
+  return make_float2(r, __fmul_rn(__fmul_rn(__fmul_rn(r, r), r),
+                                  __fmul_rn(dot, inv_d)));
+}
+
+// The pieces first, first + kStep, ... (NV of them) of a row's x and dy.
+template <int kStep, typename P, int NV>
+__device__ __forceinline__ void load_row(const P* __restrict__ xv,
+                                         const P* __restrict__ gv,
+                                         int first, int nvec, P (&xp)[NV],
+                                         P (&gp)[NV]) {
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int i = first + kStep * k;
+    if (i < nvec) {
+      xp[k] = xv[i];
+      gp[k] = gv[i];
+    }
+  }
+}
+
+// A thread's share of a row's two sums, its pieces in order.
+template <int kStep, typename T, int VEC, int NV>
+__device__ __forceinline__ void thread_sums(const Pack<T, VEC> (&xp)[NV],
+                                            const Pack<T, VEC> (&gp)[NV],
+                                            const Pack<T, VEC> (&s)[NV],
+                                            int first, int nvec, float& ss,
+                                            float& dot) {
+  ss = 0.0f;
+  dot = 0.0f;
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+    if (first + kStep * k < nvec) piece_sums(xp[k], gp[k], s[k], ss, dot);
+}
+
+// The butterfly of xor shuffles over a warp: every lane gets both sums.
+__device__ __forceinline__ void warp_sums2(float& ss, float& dot) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, o));
+    dot = __fadd_rn(dot, __shfl_xor_sync(0xffffffffu, dot, o));
+  }
+}
+
+// A thread's pieces of dx from the row's r and c, and their column terms.
+template <int kStep, typename T, int VEC, int NV>
+__device__ __forceinline__ void write_dx(Pack<T, VEC>* __restrict__ dxv,
+                                         const Pack<T, VEC> (&xp)[NV],
+                                         const Pack<T, VEC> (&gp)[NV],
+                                         const Pack<T, VEC> (&s)[NV],
+                                         int first, int nvec, float2 rc,
+                                         float (&acc)[NV][VEC]) {
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int i = first + kStep * k;
+    if (i < nvec) dxv[i] = piece_dx(xp[k], gp[k], s[k], rc.x, rc.y, acc[k]);
+  }
+}
+
+// Warp tier: lane l of warp w holds pieces l, l + 32, ... (NV of them) of
+// its row; the loads of the warp's next row are issued before the current
+// row's sums, so two rows are in flight a warp.
+template <typename T, int NV>
+__device__ __forceinline__ void bwd_warp_rows(const T* __restrict__ x,
+                                              const T* __restrict__ scale,
+                                              const T* __restrict__ dy,
+                                              T* __restrict__ dx,
+                                              float* __restrict__ part,
+                                              int rows, int d, float eps) {
+  constexpr int VEC = 16 / sizeof(T);
+  using P = Pack<T, VEC>;
+  const int nvec = d / VEC;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const P* sv = reinterpret_cast<const P*>(scale);
+  P s[NV];
+  float acc[NV][VEC];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int i = lane + 32 * k;
+    if (i < nvec) s[k] = sv[i];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[k][j] = 0.0f;
+  }
+  const float inv_d = 1.0f / static_cast<float>(d);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps;
+  P xa[NV], ga[NV], xb[NV], gb[NV];
+  int64_t row = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+#define RMS_ROW(R) reinterpret_cast<const P*>(x + (R) * d), \
+                   reinterpret_cast<const P*>(dy + (R) * d)
+#define RMS_FINISH(XP, GP)                                                \
+  {                                                                       \
+    float ss, dot;                                                        \
+    thread_sums<32>(XP, GP, s, lane, nvec, ss, dot);                      \
+    warp_sums2(ss, dot);                                                  \
+    write_dx<32>(reinterpret_cast<P*>(dx + row * d), XP, GP, s, lane,     \
+                 nvec, row_scalars(ss, dot, inv_d, eps), acc);            \
+  }
+  if (row < rows) load_row<32>(RMS_ROW(row), lane, nvec, xa, ga);
+  while (row < rows) {                   // two rows an iteration: a, then b
+    int64_t next = row + stride;
+    if (next < rows) load_row<32>(RMS_ROW(next), lane, nvec, xb, gb);
+    RMS_FINISH(xa, ga);
+    row = next;
+    if (row >= rows) break;
+    next = row + stride;
+    if (next < rows) load_row<32>(RMS_ROW(next), lane, nvec, xa, ga);
+    RMS_FINISH(xb, gb);
+    row = next;
+  }
+#undef RMS_FINISH
+  // the block's 8 warps' column sums, added in warp order
+  __shared__ float4 red[kWarps][NV * 32 * VEC / 4];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int i = lane + 32 * k;
+#pragma unroll
+    for (int j = 0; j < VEC; j += 4)
+      red[warp][(i * VEC + j) / 4] = make_float4(
+          acc[k][j], acc[k][j + 1], acc[k][j + 2], acc[k][j + 3]);
+  }
+  __syncthreads();
+  float4* pp = reinterpret_cast<float4*>(part +
+                                         static_cast<int64_t>(blockIdx.x) * d);
+  for (int q = threadIdx.x; q < d / 4; q += kThreads) {
+    float4 t = red[0][q];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      const float4 u = red[w][q];
+      t = make_float4(__fadd_rn(t.x, u.x), __fadd_rn(t.y, u.y),
+                      __fadd_rn(t.z, u.z), __fadd_rn(t.w, u.w));
+    }
+    pp[q] = t;
+  }
+}
+
+// Block tier: thread t holds pieces t, t + 256, ... (NV of them) of the
+// block's row, as rmsnorm_bwd_row_kernel; the loads of the block's next
+// row are issued before the current row's sums, so two rows are in flight
+// a block. One barrier a row: the warps' partials go to red[row parity], so
+// the next row's writes cannot meet this row's reads (a warp writes row i +
+// 2's only after the barrier of row i + 1, which every warp reaches after
+// reading row i's).
+template <typename T, int NV>
+__device__ __forceinline__ void bwd_block_rows(const T* __restrict__ x,
+                                               const T* __restrict__ scale,
+                                               const T* __restrict__ dy,
+                                               T* __restrict__ dx,
+                                               float* __restrict__ part,
+                                               int rows, int d, float eps) {
+  constexpr int VEC = 16 / sizeof(T);
+  using P = Pack<T, VEC>;
+  const int nvec = d / VEC;
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const P* sv = reinterpret_cast<const P*>(scale);
+  P s[NV];
+  float acc[NV][VEC];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int i = t + k * kThreads;
+    if (i < nvec) s[k] = sv[i];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[k][j] = 0.0f;
+  }
+  __shared__ float red[2][2][kWarps];
+  const float inv_d = 1.0f / static_cast<float>(d);
+  const int64_t stride = gridDim.x;
+#define RMS_FINISH(XP, GP, PAR)                                          \
+  {                                                                       \
+    float ss, dot;                                                        \
+    thread_sums<kThreads>(XP, GP, s, t, nvec, ss, dot);                   \
+    warp_sums2(ss, dot);                                                  \
+    if (lane == 0) {                                                      \
+      red[PAR][0][warp] = ss;                                             \
+      red[PAR][1][warp] = dot;                                            \
+    }                                                                     \
+    __syncthreads();                                                      \
+    ss = red[PAR][0][0];                                                  \
+    dot = red[PAR][1][0];                                                 \
+    _Pragma("unroll") for (int w = 1; w < kWarps; ++w) {                  \
+      ss = __fadd_rn(ss, red[PAR][0][w]);                                 \
+      dot = __fadd_rn(dot, red[PAR][1][w]);                               \
+    }                                                                     \
+    write_dx<kThreads>(reinterpret_cast<P*>(dx + row * d), XP, GP, s, t,  \
+                       nvec, row_scalars(ss, dot, inv_d, eps), acc);      \
+  }
+  P xa[NV], ga[NV], xb[NV], gb[NV];
+  int64_t row = blockIdx.x;
+  if (row < rows) load_row<kThreads>(RMS_ROW(row), t, nvec, xa, ga);
+  while (row < rows) {                   // two rows an iteration: a, then b
+    int64_t next = row + stride;
+    if (next < rows) load_row<kThreads>(RMS_ROW(next), t, nvec, xb, gb);
+    RMS_FINISH(xa, ga, 0);
+    row = next;
+    if (row >= rows) break;
+    next = row + stride;
+    if (next < rows) load_row<kThreads>(RMS_ROW(next), t, nvec, xa, ga);
+    RMS_FINISH(xb, gb, 1);
+    row = next;
+  }
+#undef RMS_FINISH
+#undef RMS_ROW
+  float* pp = part + static_cast<int64_t>(blockIdx.x) * d;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int i = t + k * kThreads;
+    if (i < nvec) {
+#pragma unroll
+      for (int j = 0; j < VEC; j += 4)
+        *reinterpret_cast<float4*>(pp + i * VEC + j) =
+            make_float4(acc[k][j], acc[k][j + 1], acc[k][j + 2],
+                        acc[k][j + 3]);
+    }
+  }
+}
+
+// The route's kernels: the bodies above, one launch each.
+template <typename T, int NV>
+__global__ void __launch_bounds__(kThreads)
+    rmsnorm_bwd_warp_kernel(const T* __restrict__ x,
+                            const T* __restrict__ scale,
+                            const T* __restrict__ dy, T* __restrict__ dx,
+                            float* __restrict__ part, int rows, int d,
+                            float eps) {
+  bwd_warp_rows<T, NV>(x, scale, dy, dx, part, rows, d, eps);
+}
+
+template <typename T, int NV>
+__global__ void __launch_bounds__(kThreads)
+    rmsnorm_bwd_block_kernel(const T* __restrict__ x,
+                             const T* __restrict__ scale,
+                             const T* __restrict__ dy, T* __restrict__ dx,
+                             float* __restrict__ part, int rows, int d,
+                             float eps) {
+  bwd_block_rows<T, NV>(x, scale, dy, dx, part, rows, d, eps);
+}
+
+// The route's backward: the rows launch of the row's tier (the yardstick's
+// rows kernels where neither new tier takes it) at G blocks, then the
+// yardstick's cols launch. Each tier's G is its walkers (a warp tier block
+// takes kWarps rows at once) up to a grid, one block an SM where a thread
+// holds four pieces (ptxas gives those kernels more than 128 registers),
+// else as many as were fastest on the card at the training rows: 3 an SM
+// at 2,048 bf16, 2 at 4,096.
+template <typename T>
+int launch_bwd(const void* x, const void* scale, const void* dy, void* dx,
+               void* dscale, void* part, int rows, int d, float eps, int vec,
+               void* stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* xp = static_cast<const T*>(x);
+  const T* sp = static_cast<const T*>(scale);
+  const T* gp = static_cast<const T*>(dy);
+  T* dxp = static_cast<T*>(dx);
+  float* pp = static_cast<float*>(part);
+  const int nvec = d / kVec;
+  int blocks = rows < kBwdBlocks ? rows : kBwdBlocks;
+#define RMS_BWD_NEW(KERNEL, NV, WALK, GRID)                               \
+  do {                                                                    \
+    static_assert(GRID <= kBwdPartRows, "part holds every G");            \
+    const int64_t walkers = (static_cast<int64_t>(rows) + WALK - 1) / WALK; \
+    blocks = walkers < GRID ? static_cast<int>(walkers) : GRID;           \
+    KERNEL<T, NV><<<blocks, kThreads, 0, st>>>(xp, sp, gp, dxp, pp, rows,  \
+                                               d, eps);                   \
+  } while (0)
+  if (vec && nvec <= 32)
+    RMS_BWD_NEW(rmsnorm_bwd_warp_kernel, 1, kWarps, 264);
+  else if (vec && nvec <= 64)
+    RMS_BWD_NEW(rmsnorm_bwd_warp_kernel, 2, kWarps, 264);
+  else if (vec && nvec <= kBwdWarpPieces)
+    RMS_BWD_NEW(rmsnorm_bwd_warp_kernel, 4, kWarps, 132);
+  else if (vec && nvec <= kThreads)
+    RMS_BWD_NEW(rmsnorm_bwd_block_kernel, 1, 1, 396);
+  else if (vec && nvec <= 2 * kThreads)
+    RMS_BWD_NEW(rmsnorm_bwd_block_kernel, 2, 1, 264);
+  else if (vec && nvec <= kBwdBlockPieces)
+    RMS_BWD_NEW(rmsnorm_bwd_block_kernel, 4, 1, 132);
+  else {
+    const int err = launch_bwd_rows<T>(x, scale, dy, dx, part, rows, d,
+                                       blocks, eps, vec, stream);
+    if (err != 0) return err;
+  }
+#undef RMS_BWD_NEW
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_bwd_cols<T>(part, dscale, blocks, d, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -516,7 +876,24 @@ int rmsnorm_bf16(const void* x, const void* scale, void* y, int rows, int d,
   return launch<__nv_bfloat16>(x, scale, y, rows, d, eps, vec, stream);
 }
 
-// The backward's launch 1: dx (rows * d, x's type) and the fp32 column
+// The backward, the route's one call: dx (rows * d, x's type) and dscale
+// (d, scale's type), through the fp32 column partials part[kBwdPartRows,
+// d]; vec as below. Two launches.
+int rmsnorm_bwd_f32(const void* x, const void* scale, const void* dy,
+                    void* dx, void* dscale, void* part, int rows, int d,
+                    float eps, int vec, void* stream) {
+  return launch_bwd<float>(x, scale, dy, dx, dscale, part, rows, d, eps, vec,
+                           stream);
+}
+
+int rmsnorm_bwd_bf16(const void* x, const void* scale, const void* dy,
+                     void* dx, void* dscale, void* part, int rows, int d,
+                     float eps, int vec, void* stream) {
+  return launch_bwd<__nv_bfloat16>(x, scale, dy, dx, dscale, part, rows, d,
+                                   eps, vec, stream);
+}
+
+// The yardstick's launch 1: dx (rows * d, x's type) and the fp32 column
 // partials part[blocks, d], blocks <= rows; vec != 0 only when d is a
 // multiple of 16 / sizeof(T) and x, dy, dx and scale are 16-byte aligned
 // (part, from the allocator, is).
@@ -534,7 +911,7 @@ int rmsnorm_bwd_rows_bf16(const void* x, const void* scale, const void* dy,
                                         blocks, eps, vec, stream);
 }
 
-// The backward's launch 2: dscale[d] (scale's type) from part[blocks, d].
+// The yardstick's launch 2: dscale[d] (scale's type) from part[blocks, d].
 int rmsnorm_bwd_cols_f32(const void* part, void* dscale, int blocks, int d,
                          void* stream) {
   return launch_bwd_cols<float>(part, dscale, blocks, d, stream);

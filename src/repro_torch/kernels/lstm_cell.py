@@ -7,9 +7,14 @@ source's header note gives the design and its bound. Three entry points:
 chained ``lstm_cell`` launches, and ``lstm_seq_bwd`` runs the sequence's
 backpropagation through time in one launch (the backward of the JAX
 package's ``lax.scan``, ``repro/models/lstm.py:68``); the model runs
-``lstm_seq`` forward and ``lstm_seq_bwd`` backward. The shared library is
-compiled with ``nvcc`` for ``sm_90a`` at first use (``kernels/build.py``)
-and bound with ``ctypes`` through a plain C interface.
+``lstm_seq`` forward and ``lstm_seq_bwd`` backward. The backward runs
+``lstm_seq_bwd_staged_kernel`` on the register tier (``bwd_tier``: the
+paper's layers) and ``lstm_seq_bwd_kernel`` above it; the latter stays
+bound at every width as the yardstick (``lstm_seq_bwd_yardstick``), and
+``lstm_seq_bwd_stamps`` times either one's steps by the SM's clock. The
+shared library is compiled with ``nvcc`` for ``sm_90a`` at first use
+(``kernels/build.py``) and bound with ``ctypes`` through a plain C
+interface.
 
 ``lstm_cell.launches``, ``lstm_seq.launches`` and ``lstm_seq_bwd.launches``
 count the launches each wrapper made, so a run can show that its path went
@@ -31,6 +36,20 @@ _FNS = {torch.float32: "lstm_cell_f32", torch.bfloat16: "lstm_cell_bf16"}
 _SEQ_FNS = {torch.float32: "lstm_seq_f32", torch.bfloat16: "lstm_seq_bf16"}
 _BWD_FNS = {torch.float32: "lstm_seq_bwd_f32",
             torch.bfloat16: "lstm_seq_bwd_bf16"}
+_BWD_YARDSTICK_FNS = {torch.float32: "lstm_seq_bwd_yardstick_f32",
+                      torch.bfloat16: "lstm_seq_bwd_yardstick_bf16"}
+_BWD_STAMPS_FN = "lstm_seq_bwd_stamps_f32"
+# the backward's register tier (csrc/lstm_cell.cu bwd_reg_tier): the 4H
+# columns, rounded up to a warp, fit one block of 256 threads and H <= 64
+BWD_REG_THREADS, BWD_REG_COLS = 256, 64
+# the stamps of a step (csrc/lstm_cell.cu kStampPhases): its start, the gate
+# update done, past the barrier, the dh_next chains done, the shuffles done
+STAMP_PHASES = ("start", "gate update", "barrier", "dh_next chains",
+                "shuffles")
+# and the launch's (csrc/lstm_cell.cu kStampEnds): its entry and exit, and
+# the staged kernel's prologue (the yardstick leaves these 0)
+STAMP_ENDS = ("entry", "exit", "copies issued", "first window landed",
+              "W_h in registers", "first window's factors")
 # the shared memory a block may opt in to (csrc/lstm_cell.cu kMaxSmem); each
 # launcher refuses a launch past it with CUDA error 1, so the wrappers
 # refuse such inputs first, with the launcher's formula
@@ -76,12 +95,25 @@ def build() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    for name in _BWD_FNS.values():
+    for name in (*_BWD_FNS.values(), *_BWD_YARDSTICK_FNS.values()):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    fn = getattr(lib, _BWD_STAMPS_FN)
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
+
+
+def bwd_tier(H: int) -> str:
+    """The backward route's kernel for hidden width H: ``staged``
+    (``lstm_seq_bwd_staged_kernel``) on the register tier, else ``global``
+    (``lstm_seq_bwd_kernel`` reading W_h from global memory)."""
+    cols = (4 * H + 31) // 32 * 32
+    return "staged" if cols <= BWD_REG_THREADS and H <= BWD_REG_COLS \
+        else "global"
 
 
 def _check(x, h, c, kernel, bias, what="lstm_cell"):
@@ -218,14 +250,11 @@ def _check_bwd(dhs, gates, cs, c0, w_h):
     return n_t, B, H
 
 
-def lstm_seq_bwd(dhs, gates, cs, c0, w_h):
-    """Launch the backpropagation-through-time kernel on CUDA tensors: the
-    cotangent dhs [T,B,H] of the forward's hs, its saved gates [T,B,4H]
-    (float32) and cs [T,B,H], c0 [B,H] and w_h = kernel[Din:] [H,4H].
-    Returns (dz [T,B,4H], dh0 [B,H], dc0 [B,H]), all float32: the gate
-    pre-activations' gradients of every step and the gradients of the
-    initial state. Raises on any other input."""
+def _bwd_call(fns, dhs, gates, cs, c0, w_h, *extra):
+    """Check, allocate (dz, dh0, dc0: float32) and call the C function
+    ``fns[dtype]`` with ``extra`` before the stream."""
     n_t, B, H = _check_bwd(dhs, gates, cs, c0, w_h)
+    name = fns[dhs.dtype]
     lib = build()
     dev = dhs.device
     dz = kbuild.empty(n_t, B, 4 * H, dtype=torch.float32, device=dev)
@@ -233,15 +262,54 @@ def lstm_seq_bwd(dhs, gates, cs, c0, w_h):
     dc0 = kbuild.empty(B, H, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, _BWD_FNS[dhs.dtype])(
+        err = getattr(lib, name)(
             dhs.data_ptr(), gates.data_ptr(), cs.data_ptr(), c0.data_ptr(),
             w_h.data_ptr(), dz.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            n_t, B, H, stream)
+            n_t, B, H, *extra, stream)
     if err != 0:
-        raise RuntimeError(f"lstm_seq_bwd kernel launch failed: CUDA error "
-                           f"{err} (T={n_t} B={B} H={H} {dhs.dtype})")
-    lstm_seq_bwd.launches += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"(T={n_t} B={B} H={H} {dhs.dtype})")
     return dz, dh0, dc0
 
 
+def lstm_seq_bwd(dhs, gates, cs, c0, w_h):
+    """Launch the backpropagation-through-time kernel on CUDA tensors: the
+    cotangent dhs [T,B,H] of the forward's hs, its saved gates [T,B,4H]
+    (float32) and cs [T,B,H], c0 [B,H] and w_h = kernel[Din:] [H,4H].
+    Returns (dz [T,B,4H], dh0 [B,H], dc0 [B,H]), all float32: the gate
+    pre-activations' gradients of every step and the gradients of the
+    initial state. Raises on any other input."""
+    out = _bwd_call(_BWD_FNS, dhs, gates, cs, c0, w_h)
+    lstm_seq_bwd.launches += 1
+    return out
+
+
 lstm_seq_bwd.launches = 0
+
+
+def lstm_seq_bwd_yardstick(dhs, gates, cs, c0, w_h):
+    """``lstm_seq_bwd`` on the first backward kernel at every
+    width, kept as the staged kernel's yardstick: the same arguments and
+    outputs. For comparisons only: no path calls it, and it counts no
+    launch."""
+    return _bwd_call(_BWD_YARDSTICK_FNS, dhs, gates, cs, c0, w_h)
+
+
+def lstm_seq_bwd_stamps(dhs, gates, cs, c0, w_h, staged: bool):
+    """One launch of the stamp instantiation of the staged kernel
+    (``staged``) or of the yardstick, float32 on the register tier: (dz,
+    dh0, dc0, stamps, ends), stamps [T, len(STAMP_PHASES)] int64, the SM
+    clock of block 0's thread 0 at each step's phase boundaries, and ends
+    [len(STAMP_ENDS)] at the launch's (``STAMP_ENDS``; the yardstick
+    writes the entry and the exit only). For timing probes only; it counts
+    no launch."""
+    if dhs.dtype != torch.float32 or bwd_tier(dhs.shape[-1]) != "staged":
+        raise ValueError("lstm_seq_bwd stamps: float32 on the register "
+                         "tier only")
+    n_t, steps = dhs.shape[0], dhs.shape[0] * len(STAMP_PHASES)
+    stamps = torch.zeros(steps + len(STAMP_ENDS), dtype=torch.int64,
+                         device=dhs.device)
+    out = _bwd_call({torch.float32: _BWD_STAMPS_FN}, dhs, gates, cs, c0,
+                    w_h, stamps.data_ptr(), int(staged))
+    return (*out, stamps[:steps].view(n_t, len(STAMP_PHASES)),
+            stamps[steps:])

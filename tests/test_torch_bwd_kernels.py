@@ -32,7 +32,10 @@ against the JAX package.
   summation order (each dh_next[j] as four fmaf chains over a gate block,
   added as (p0 + p1) + (p2 + p3)) against ``jax.grad`` of the reference's
   ``lax.scan`` within 2e-5 (``tests/test_kernels.py::_tol``, fp32): dz of
-  every step (the gradient of a zero added to z), dh0 and dc0.
+  every step (the gradient of a zero added to z), dh0 and dc0; the same
+  model at ``lstm_seq_bwd_staged_kernel``'s order (each lane's sum as 8
+  chains added pairwise), shown to differ from the yardstick's bits;
+  ``bwd_tier`` and the stamp phases against the source.
 - ``_Seq.backward`` and ``FlashAttention.backward`` reach the ``ops`` names,
   so a patch of those names (``chip_smoke.py::plain_kernels``) takes them.
 
@@ -42,6 +45,7 @@ made with numpy from a seed and handed to both packages.
 from __future__ import annotations
 
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -765,12 +769,16 @@ def _fma32(a, x, y):
     return (a.double() + x.double() * y.double()).float()
 
 
-def _bptt_kernel_model(dhs, gates, cs, c0, w_h):
+def _bptt_kernel_model(dhs, gates, cs, c0, w_h, chains=1):
     """lstm_seq_bwd_kernel's arithmetic on the CPU: every fp32 operation in
     the kernel's order (``__fmul_rn`` / ``__fadd_rn`` round each step), and
     dh_next[j] summed as the kernel does: lane (j, g) runs an fmaf chain
     over u = 0 .. H-1 of dz[g*H + u] * W_h[j, g*H + u], the quad adds the
-    four as (p0 + p1) + (p2 + p3)."""
+    four as (p0 + p1) + (p2 + p3). ``chains``: the lane's sum as that many
+    independent fmaf chains, chain k over u = k, k + chains, ..., added
+    pairwise ((c0 + c1) + (c2 + c3)) + ... before the quad's sum:
+    ``lstm_seq_bwd_staged_kernel``'s 8 (the same elementwise arithmetic,
+    its factors computed ahead with the same roundings)."""
     T, B, H = dhs.shape
     f32 = torch.float32
     dz = torch.empty(T, B, 4 * H, dtype=f32)
@@ -789,9 +797,13 @@ def _bptt_kernel_model(dhs, gates, cs, c0, w_h):
                           -1)
         dc = dc * gf
         z = dz[t].reshape(B, 4, H)                        # [b, g, u]
-        part = torch.zeros(B, H, 4, dtype=f32)            # [b, j, g]
+        part = torch.zeros(chains, B, H, 4, dtype=f32)    # [k, b, j, g]
         for u in range(H):
-            part = _fma32(part, z[:, None, :, u], w[None, :, :, u])
+            part[u % chains] = _fma32(part[u % chains], z[:, None, :, u],
+                                      w[None, :, :, u])
+        while part.shape[0] > 1:                          # pairwise
+            part = part[0::2] + part[1::2]
+        part = part[0]
         dh_next = (part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3])
     return dz, dh_next, dc
 
@@ -824,6 +836,87 @@ def test_lstm_bptt_kernel_model_is_not_the_plain_order():
     assert not torch.equal(got, want)
     torch.testing.assert_close(got, want, rtol=TOL["float32"],
                                atol=TOL["float32"])
+
+
+def _staged_chains():
+    """kBwdChains of csrc/lstm_cell.cu: the staged kernel's chains a lane."""
+    m = re.search(r"constexpr int kBwdChains = (\d+);", K.SOURCE.read_text())
+    return int(m.group(1))
+
+
+@pytest.mark.parametrize("T,B,Din,H", [(8, 1, 7, 5), (10, 8, 95, 50),
+                                       (6, 3, 33, 20), (40, 8, 50, 50),
+                                       (12, 2, 9, 64)])
+def test_lstm_bptt_staged_model_matches_jax_grad(T, B, Din, H):
+    """The staged kernel's order (8 chains a lane) against jax.grad of the
+    scan at the fp32 gate, the widest register-tier H (64) included."""
+    x, h0, c0, w, b, hs, cs, gates = _seq_state(T, B, Din, H, seed=Din + H)
+    r = np.random.RandomState(B).randn(T, B, H).astype(np.float32)
+    got = _bptt_kernel_model(torch.from_numpy(r), gates, cs, c0, w[Din:],
+                             chains=_staged_chains())
+    want = _jax_scan_grads(*(jnp.asarray(t.numpy()) for t in
+                             (x, h0, c0, w, b)), r)
+    for name, g, wj in zip(("dz", "dh0", "dc0"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wj),
+                                   rtol=TOL["float32"], atol=TOL["float32"],
+                                   err_msg=name)
+
+
+def test_lstm_staged_model_is_not_the_yardstick_order():
+    """At the paper's width the staged kernel's chains give other bits
+    than the yardstick's one chain a lane (so the test above holds the
+    staged order), within the fp32 gate of each other."""
+    x, h0, c0, w, b, hs, cs, gates = _seq_state(40, 8, 95, 50, seed=4)
+    dhs = torch.from_numpy(np.random.RandomState(5).randn(40, 8, 50)
+                           .astype(np.float32))
+    staged = _bptt_kernel_model(dhs, gates, cs, c0, w[95:],
+                                chains=_staged_chains())
+    old = _bptt_kernel_model(dhs, gates, cs, c0, w[95:])
+    assert not torch.equal(staged[0], old[0])
+    for a, o in zip(staged, old):
+        torch.testing.assert_close(a, o, rtol=TOL["float32"],
+                                   atol=TOL["float32"])
+
+
+def test_lstm_bwd_tier_is_the_launchers():
+    """``bwd_tier`` and the stamp phases are the source's: the register
+    tier's test (``bwd_reg_tier``), its constants, the route sending it to
+    the staged kernel and the rest to the yardstick's kernel, and five
+    stamps a step."""
+    src = K.SOURCE.read_text()
+    consts = {name: int(v) for name, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kSeqThreadsReg"] == K.BWD_REG_THREADS == 256
+    assert consts["kBwdRegCols"] == K.BWD_REG_COLS == 64
+    assert consts["kStampPhases"] == len(K.STAMP_PHASES) == 5
+    assert consts["kStampEnds"] == len(K.STAMP_ENDS) == 6
+    assert consts["kBwdChains"] == 8
+    assert "return (4 * H + 31) / 32 * 32 <= kSeqThreadsReg && " \
+           "H <= kBwdRegCols;" in src
+    route = src[src.index("int launch_seq_bwd_route("):]
+    route = route[:route.index("\n}\n")]
+    assert "if (bwd_reg_tier(H))" in route and \
+        "launch_seq_bwd_staged<T>" in route and "launch_seq_bwd<T>" in route
+    for H in range(1, 400):
+        cols = (4 * H + 31) // 32 * 32
+        want = "staged" if cols <= 256 and H <= 64 else "global"
+        assert K.bwd_tier(H) == want
+    assert K.bwd_tier(50) == "staged"            # the paper's layers
+    assert K.bwd_tier(5808) == "global"          # the wrapper's ceiling
+
+
+def test_lstm_bwd_yardstick_and_stamps_refuse_cpu_tensors():
+    x, h0, c0, w, b, hs, cs, gates = _seq_state(5, 3, 4, 6, seed=2)
+    dhs = torch.randn(5, 3, 6)
+    before = K.lstm_seq_bwd.launches
+    with pytest.raises(ValueError, match="dhs is on cpu, not a CUDA"):
+        K.lstm_seq_bwd_yardstick(dhs, gates, cs, c0, w[4:])
+    with pytest.raises(ValueError, match="dhs is on cpu, not a CUDA"):
+        K.lstm_seq_bwd_stamps(dhs, gates, cs, c0, w[4:], staged=True)
+    with pytest.raises(ValueError, match="float32 on the register tier"):
+        K.lstm_seq_bwd_stamps(dhs.bfloat16(), gates, cs.bfloat16(),
+                              c0.bfloat16(), w[4:].bfloat16(), staged=False)
+    assert K.lstm_seq_bwd.launches == before
 
 
 # ---------------------------------------------------------------------------

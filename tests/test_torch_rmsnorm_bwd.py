@@ -15,8 +15,25 @@ order. The model is held against ``jax.grad`` of
 at ``tests/test_kernels.py::_tol``: 2e-5 (fp32) and 2e-2 (bf16) of max
 |grad|, at the JAX sweep's shapes and at row counts past ``BWD_BLOCKS`` (so
 blocks take several rows and the cols launch adds every warp's share).
+
+Since the redesign the route runs other rows kernels (the first ones stay
+as its yardstick); ``_route_model`` does their sums in their order, at the
+tier and grid G the C launcher picks (``_plan``, which reads the
+launcher's branches from the source): every operation rounded as the kernels'
+explicit intrinsics round it (``__fmaf_rn`` as one rounding); each
+thread's pieces in order as fma chains, then a butterfly of xor shuffles
+over the warp (the warp tier: a warp a row) or that and the 8 warps'
+sums in order (the block tier); dscale's column terms as fma chains over
+each warp's (warp tier: rows b * 8 + w + k * 8G) or block's (block tier:
+rows b + kG) rows, the warp tier's 8 warps added in order into part[b],
+then the yardstick's cols launch. It is held against ``jax.grad`` at the
+same tolerances, at shapes where a warp or a block walks more than one row,
+and shown to differ from ``_kernel_model``'s order; the launcher's
+branches are held to the tiers and grids they were chosen as.
 """
 from __future__ import annotations
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -61,6 +78,134 @@ def _kernel_model(x, scale, dy, eps=1e-6, blocks_max=RN.BWD_BLOCKS):
     return dx.reshape(x.shape).to(x.dtype), dscale.to(scale.dtype)
 
 
+def _fma(a, x, y):
+    """fp32 a + x * y with one rounding of the product and the sum
+    (computed in fp64, where the product of two fp32 values is exact)."""
+    return (a.double() + x.double() * y.double()).float()
+
+
+def _butterfly(v):
+    """The xor-shuffle butterfly over the last dim's 32 lanes (every lane
+    ends with the same bits): lane 0's total."""
+    idx = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., idx ^ o]
+    return v[..., 0]
+
+
+def _thread_sums(xf, gf, sf, threads, nv, vec):
+    """Each thread's two row sums [rows, threads]: its pieces t + threads *
+    k (k < nv) of ``vec`` elements, in order, as fma chains (sum x^2 and
+    sum (dy * scale) * x)."""
+    rows, D = xf.shape
+    ss = torch.zeros(rows, threads)
+    dot = torch.zeros(rows, threads)
+    for k in range(nv):
+        piece = torch.arange(threads) + threads * k
+        ok = piece < D // vec
+        for j in range(vec):
+            col = (piece * vec + j).clamp(max=D - 1)
+            xv = torch.where(ok, xf[:, col], 0.0)
+            gs = torch.where(ok, gf[:, col] * sf[col], 0.0)
+            ss, dot = _fma(ss, xv, xv), _fma(dot, gs, xv)
+    return ss, dot
+
+
+def _in_order(parts):
+    """parts[0] + parts[1] + ... in fp32, left to right."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+def _launcher():
+    """The source's integer constants and the route launcher's rows
+    branches, in order: (the most pieces, tier, pieces a thread, rows a
+    walker, grid), read from ``launch_bwd``."""
+    src = RN.SOURCE.read_text()
+    consts = {name: int(v) for name, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    consts["kWarps"] = consts["kThreads"] // 32
+
+    def value(expr):
+        n = 1
+        for factor in expr.split("*"):
+            factor = factor.strip()
+            n *= int(factor) if factor.isdigit() else consts[factor]
+        return n
+
+    body = src[src.index("int launch_bwd(const void* x"):]
+    body = body[:body.index("#undef RMS_BWD_NEW")]
+    return consts, [
+        (value(most), tier, int(nv), value(walk), int(grid))
+        for most, tier, nv, walk, grid in re.findall(
+            r"vec && nvec <= ([\w *]+)\)\s*RMS_BWD_NEW\(rmsnorm_bwd_(\w+)"
+            r"_kernel, (\d), (\w+), (\d+)\);", body)]
+
+
+CONSTS, BRANCHES = _launcher()
+
+
+def _plan(rows, D, dtype, vec):
+    """The route's rows launch as ``launch_bwd`` picks it for ``rows`` rows
+    of D: (tier, pieces a thread, blocks G); ``vec``: every row 16-byte
+    aligned. The first branch that takes the row's 16-byte pieces gives the
+    tier, G its walkers up to the branch's grid; else ``yardstick`` (the
+    first kernels' rows launch, G = min(rows, kBwdBlocks))."""
+    pieces = D // RN._VEC[dtype]
+    for most, tier, nv, walk, grid in BRANCHES:
+        if vec and pieces <= most:
+            return tier, nv, min(-(-rows // walk), grid)
+    return "yardstick", None, min(rows, CONSTS["kBwdBlocks"])
+
+
+def _route_model(x, scale, dy, eps=1e-6):
+    """(dx in x's dtype, dscale in scale's dtype) summed in the route's
+    order at the launcher's tier and grid (``_plan``; module docstring);
+    rows of 16-byte pieces, as fresh tensors are."""
+    D = x.shape[-1]
+    xf = x.reshape(-1, D).float()
+    gf = dy.reshape(-1, D).float()
+    sf = scale.float()
+    rows = xf.shape[0]
+    vec = RN._VEC[x.dtype]
+    tier, nv, G = _plan(rows, D, x.dtype, D % vec == 0)
+    if tier == "yardstick":
+        return _kernel_model(x, scale, dy, eps)
+    ss, dot = _thread_sums(xf, gf, sf, 32 if tier == "warp" else 256, nv,
+                           vec)
+    if tier == "warp":
+        ss, dot = _butterfly(ss), _butterfly(dot)
+    else:
+        ss = _in_order(_butterfly(ss.reshape(rows, WARPS, 32)).unbind(-1))
+        dot = _in_order(_butterfly(dot.reshape(rows, WARPS, 32)).unbind(-1))
+    inv_d = torch.tensor(1.0) / D
+    r = torch.ones(rows) / torch.sqrt(_fma(torch.tensor(eps), ss, inv_d))
+    c = ((r * r) * r) * (dot * inv_d)
+    dx = (r[:, None] * sf) * gf - xf * c[:, None]
+    xr = xf * r[:, None]
+    # dscale's column terms, fma chains over each walker's rows in order:
+    # a warp's (rows b * 8 + w + k * 8G) or a block's (rows b + k * G)
+    walkers = G * WARPS if tier == "warp" else G
+    steps = -(-rows // walkers)
+    pad = steps * walkers - rows
+    gk = torch.cat([gf, torch.zeros(pad, D)]).reshape(steps, walkers, D)
+    xk = torch.cat([xr, torch.zeros(pad, D)]).reshape(steps, walkers, D)
+    acc = torch.zeros(walkers, D)
+    for k in range(steps):
+        acc = _fma(acc, gk[k], xk[k])
+    if tier == "warp":               # the block's 8 warps, in warp order
+        acc = _in_order(acc.reshape(G, WARPS, D).unbind(1))
+    # the cols launch: warp w adds blocks w, w + 8, ... from 0, then the
+    # warps' sums in order
+    warp = [torch.zeros(D) for _ in range(WARPS)]
+    for b in range(G):
+        warp[b % WARPS] = warp[b % WARPS] + acc[b]
+    dscale = _in_order(warp)
+    return dx.reshape(x.shape).to(x.dtype), dscale.to(scale.dtype)
+
+
 def _inputs(shape, dtype, seed):
     rng = np.random.RandomState(seed)
     arrays = (rng.randn(*shape).astype(np.float32),
@@ -90,6 +235,84 @@ def test_kernel_model_matches_jax_grad(shape, dtype):
     assert dx.dtype == ds.dtype == TDT[dtype]
     _close(dx, jdx, TOL[dtype], "dx")
     _close(ds, jds, TOL[dtype], "dscale")
+
+
+# the JAX sweep's shapes, then rows past one walk of each tier: the warp
+# tier at 1, 2 and 4 pieces a lane (with more rows than 8 * G, so a warp
+# takes several), the block tier at 1, 2 and 4 pieces a thread (more rows
+# than G)
+ROUTE_SHAPES = [(4, 64), (2, 17, 256), (1, 3, 5, 128), (3, 129), (2, 130),
+                (600, 64), (2, 265, 96), (4300, 128), (2200, 512),
+                (1100, 1024), (800, 2048), (280, 4096), (140, 8192)]
+
+
+@pytest.fixture(scope="module")
+def jax_grads():
+    """jax.vjp of ``apply_norm`` at each (shape, dtype) of ROUTE_SHAPES,
+    with the torch inputs, computed once for the module."""
+    out = {}
+    for shape in ROUTE_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            (jx, js, jdy), ts = _inputs(shape, dtype, seed=shape[-1] + 1)
+            _, vjp = jax.vjp(lambda x, s: JL.apply_norm(
+                "rmsnorm", {"scale": s}, x), jx, js)
+            out[shape, dtype] = (ts, vjp(jdy))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ROUTE_SHAPES, ids=str)
+def test_route_model_matches_jax_grad(jax_grads, shape, dtype):
+    (x, s, dy), (jdx, jds) = jax_grads[shape, dtype]
+    dx, ds = _route_model(x, s, dy)
+    assert dx.dtype == ds.dtype == TDT[dtype]
+    _close(dx, jdx, TOL[dtype], "dx")
+    _close(ds, jds, TOL[dtype], "dscale")
+
+
+@pytest.mark.parametrize("shape", [(2200, 512), (800, 2048)], ids=str)
+def test_route_model_is_not_the_yardstick_order(jax_grads, shape):
+    """At a warp-tier and a block-tier shape the route's order gives other
+    bits than the yardstick's (``_kernel_model``) in fp32, within the fp32
+    tolerance of each other: the agreement above is of the route's order."""
+    (x, s, dy), _ = jax_grads[shape, "float32"]
+    got, old = _route_model(x, s, dy), _kernel_model(x, s, dy)
+    assert not torch.equal(got[1], old[1])
+    for a, b in zip(got, old):
+        torch.testing.assert_close(a, b, rtol=TOL["float32"],
+                                   atol=TOL["float32"] * b.abs().max().item())
+
+
+def test_launchers_tiers_and_grids():
+    """The C launcher's rows branches (read from the source) are the tiers
+    and grids chosen on the card, every grid within the partials the
+    wrapper holds; at every row width of 16-byte pieces up to past the
+    block tier, in both dtypes, the launcher takes the warp tier up to
+    kBwdWarpPieces, the block tier up to kBwdBlockPieces, else the
+    yardstick's rows kernels, with 1 <= G <= the rows its walkers take;
+    unaligned rows take the yardstick's."""
+    assert CONSTS["kBwdWarpPieces"] == 128
+    assert CONSTS["kBwdBlockPieces"] == 1024
+    assert BRANCHES == [(32, "warp", 1, 8, 264), (64, "warp", 2, 8, 264),
+                        (128, "warp", 4, 8, 132), (256, "block", 1, 1, 396),
+                        (512, "block", 2, 1, 264), (1024, "block", 4, 1, 132)]
+    assert CONSTS["kBwdBlocks"] == RN.BWD_BLOCKS
+    assert CONSTS["kBwdPartRows"] == RN.BWD_PART_ROWS == max(
+        RN.BWD_BLOCKS, *(grid for *_, grid in BRANCHES))
+    for dtype, vec in RN._VEC.items():
+        for pieces in range(1, 1100):
+            for rows in (1, 9, 4096):
+                tier, nv, G = _plan(rows, pieces * vec, dtype, True)
+                want = "warp" if pieces <= CONSTS["kBwdWarpPieces"] else \
+                    "block" if pieces <= CONSTS["kBwdBlockPieces"] else \
+                    "yardstick"
+                assert tier == want
+                cap = -(-rows // 8) if tier == "warp" else rows
+                assert 1 <= G <= min(cap, RN.BWD_PART_ROWS)
+        assert _plan(4096, 129, dtype, False) == \
+            ("yardstick", None, RN.BWD_BLOCKS)
+        assert _plan(4096, 896, dtype, False)[0] == "yardstick"
+    assert _plan(4096, 896, torch.bfloat16, True) == ("warp", 4, 132)
 
 
 def test_kernel_model_takes_several_rows_a_block():
@@ -159,5 +382,16 @@ def test_rmsnorm_bwd_wrapper_raises(bad, why):
 
 def test_backward_source_declares_the_bound_functions():
     src = RN.SOURCE.read_text()
-    for rows_name, cols_name in RN._BWD_FNS.values():
+    for name in RN._BWD_FNS.values():
+        assert f"int {name}(" in src
+    for rows_name, cols_name in RN._YARDSTICK_BWD_FNS.values():
         assert f"int {rows_name}(" in src and f"int {cols_name}(" in src
+
+
+def test_rmsnorm_bwd_yardstick_refuses_cpu_tensors():
+    x, s, dy = torch.ones(4, 8), torch.ones(8), torch.ones(4, 8)
+    before = RN.rmsnorm_bwd.launches
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        RN.rmsnorm_bwd_yardstick(x, s, dy)
+    assert RN.rmsnorm_bwd.launches == before
+    assert RN.build_bwd_yardstick.cache_info().currsize == 0
