@@ -334,9 +334,26 @@ Phases, each printing its result; any failure exits non-zero:
    step, tokens/s and peak memory; a profiled step (the device time under
    the flash backward's node and of the forward's kernels a launch,
    printed beside the card's name and power limit); that step's loss and gradients against the same step with
-   ``ops.flash_attention_bwd`` patched to the plain backward.
+   ``ops.flash_attention_bwd`` patched to the plain backward;
+11. the steps on a mesh (``phase_mesh``): a one-rank NCCL process group
+   from a ``FileStore`` in a temporary directory, and ``make_host_mesh``'s
+   ``DeviceMesh("cuda", (1, 1))`` over ("data", "model") under it:
+   stablelm-1.6b at full width cut to 2 layers, one ``run_arch`` step
+   (``bind_train``; stablelm's traffic), its parameters stored as
+   DTensors, and qwen1.5-110b at full width cut to 4 layers, one batch of
+   4 x 1,024 prompt tokens prefilled and 15 tokens decoded through
+   ``bind_prefill`` / ``bind_decode``: each bit-equal to the same calls on
+   the card's host mesh (the parameters and loss after the step; every
+   step's logits and the tokens), every kernel launch count equal, and the
+   collectives issued on the one-rank groups, as many as
+   ``spmd.step_collectives`` predicts from the specs; their calls, bytes
+   and device ms (CUDA events around each call) printed.
 
-Every serving and training phase (6, 6b–6f, 7, 9, 9b–9d, 10) starts with
+The drivers bind their steps as the JAX package's do: ``serve`` through
+``bind_prefill`` / ``bind_decode`` and ``run_arch`` through ``bind_train``
+on the host mesh, which on one card without a process group runs the
+model on plain tensors and issues no collective. Every serving and
+training phase (6, 6b–6f, 7, 9, 9b–9d, 10, 11) starts with
 ``phase_memory``: reference cycles collected, the allocator's cache freed,
 the memory allocated printed and held under 1 GB. Every profiled prefill
 and training step holds the flash forward kernels it ran, by name (width
@@ -365,9 +382,10 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and fp32 FLOP/s
-# outside the tensor cores — the kernel does its fp32 math on CUDA cores
-PEAK_BYTES_S = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s (main sets it
+# from repro_torch.launch.mesh.HBM_BW) and fp32 FLOP/s outside the tensor
+# cores — the kernel does its fp32 math on CUDA cores
+PEAK_BYTES_S = None
 PEAK_FP32_FLOP_S = 67e12
 
 # the paper's gradient: 6 leaves; the codec counts ceil(n/4) + 4 bytes a
@@ -1481,6 +1499,13 @@ def cuda_tensors_held(torch, top: int = 12):
     return sorted(rows, key=lambda r: -r[0])[:top]
 
 
+def host_mesh():
+    """The card's host mesh (one device, no process group), which the
+    drivers bind their steps to."""
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh("cuda")
+
+
 def phase_memory(torch, tag) -> float:
     """The start of a serving or training phase: collect what only
     reference cycles hold, free the allocator's cache, print the memory
@@ -2224,7 +2249,9 @@ def phase_analysis():
 # the dense transformer serving path (qwen1.5-110b at full width, 4 layers)
 # ---------------------------------------------------------------------------
 
-PEAK_BF16_FLOP_S = 989e12          # H100 SXM tensor cores, dense bf16
+# H100 SXM tensor cores, dense bf16 (main sets it from
+# repro_torch.launch.mesh.PEAK_FLOPS_BF16)
+PEAK_BF16_FLOP_S = None
 # ... and dense TF32 (495e12) over the three TF32 products an fp32-accurate
 # product takes (the tf32x3 route's split)
 PEAK_TF32X3_FLOP_S = 495e12 / 3
@@ -5162,8 +5189,8 @@ def phase_train(torch, K, T):
     batch = TR.sample_batch(np.random.RandomState(TRAIN["seed"]),
                             M.train_batch_spec(cfg, shape), cfg.vocab,
                             "cuda")
-    bound = ST.bind_train(cfg, Runtime(remat=False), opt, shape,
-                          num_microbatches=TRAIN["micro"])
+    bound = ST.bind_train(host_mesh(), cfg, Runtime(remat=False), opt,
+                          shape, num_microbatches=TRAIN["micro"])
     before = (FA.flash_attention.launches, FA.flash_attention_bwd.launches)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5179,7 +5206,7 @@ def phase_train(torch, K, T):
           f"no-remat flash launches {n}, backward {n_bwd}")
 
     # one profiled step's gradients (remat on, the training path's)
-    grads_fn = ST.bind_train(cfg, Runtime(), opt, shape,
+    grads_fn = ST.bind_train(host_mesh(), cfg, Runtime(), opt, shape,
                              num_microbatches=TRAIN["micro"])["grads"]
     prof = train_profile(torch, lambda: grads_fn(params, batch),
                          prefill_fwd_kernels(cfg, 2 * TRAIN['micro']))
@@ -5197,7 +5224,7 @@ def phase_train(torch, K, T):
     params32 = tree.map(lambda t: t.float(), params)
     with plain_kernels():
         grads_32, mets_32 = ST.bind_train(
-            cfg32, Runtime(), opt, shape,
+            host_mesh(), cfg32, Runtime(), opt, shape,
             num_microbatches=TRAIN["micro"])["grads"](params32, batch)
     noise = max(rel_err(torch, a, b) for a, b in zip(tree.leaves(grads_p),
                                                      tree.leaves(grads_32)))
@@ -5322,9 +5349,9 @@ def phase_train_nemotron(torch, K, T, smi):
     batch = TR.sample_batch(np.random.RandomState(tr["seed"]),
                             M.train_batch_spec(cfg, shape), cfg.vocab,
                             "cuda")
-    grads_fn = ST.bind_train(cfg, Runtime(), make_opt(tr["optimizer"],
-                                                      tr["lr"]),
-                             shape, num_microbatches=micro)["grads"]
+    grads_fn = ST.bind_train(host_mesh(), cfg, Runtime(),
+                             make_opt(tr["optimizer"], tr["lr"]), shape,
+                             num_microbatches=micro)["grads"]
     before = dict(FA.flash_attention_bwd.route_launches)
     before_fwd = dict(FA.flash_attention.route_launches)
     prof = train_profile(torch, lambda: grads_fn(params, batch),
@@ -6396,8 +6423,8 @@ def phase_train_ssm(torch, K, T, smi):
     batch = TR.sample_batch(np.random.RandomState(TRAIN["seed"]),
                             M.train_batch_spec(cfg, shape), cfg.vocab,
                             "cuda")
-    grads_fn = ST.bind_train(cfg, Runtime(), make_opt(TRAIN["optimizer"],
-                                                      TRAIN["lr"]),
+    grads_fn = ST.bind_train(host_mesh(), cfg, Runtime(),
+                             make_opt(TRAIN["optimizer"], TRAIN["lr"]),
                              shape, num_microbatches=1)["grads"]
 
     def kernel_step():
@@ -6549,8 +6576,8 @@ def phase_train_moe(torch, K, T, smi):
     batch = TR.sample_batch(np.random.RandomState(TRAIN["seed"]),
                             M.train_batch_spec(cfg, shape), cfg.vocab,
                             "cuda")
-    grads_fn = ST.bind_train(cfg, Runtime(), make_opt(TRAIN["optimizer"],
-                                                      TRAIN["lr"]),
+    grads_fn = ST.bind_train(host_mesh(), cfg, Runtime(),
+                             make_opt(TRAIN["optimizer"], TRAIN["lr"]),
                              shape, num_microbatches=TRAIN["micro"])["grads"]
     book = RouteBook()
 
@@ -6866,8 +6893,8 @@ def phase_train_prefixed(torch, K, T, smi, arch):
     batch = TR.sample_batch(np.random.RandomState(traffic["seed"]),
                             M.train_batch_spec(cfg, shape), cfg.vocab,
                             "cuda")
-    grads_fn = ST.bind_train(cfg, Runtime(), make_opt(traffic["optimizer"],
-                                                      traffic["lr"]),
+    grads_fn = ST.bind_train(host_mesh(), cfg, Runtime(),
+                             make_opt(traffic["optimizer"], traffic["lr"]),
                              shape, num_microbatches=micro)["grads"]
     prof = train_profile(torch, lambda: grads_fn(params, batch),
                          prefill_fwd_kernels(cfg, 2 * micro))
@@ -6921,7 +6948,249 @@ def phase_train_prefixed(torch, K, T, smi, arch):
                 profile=prof, grad_err=max(errs), loss_rel=loss_rel)
 
 
+MESH_TRAIN_CUTS = dict(n_layers=2)    # stablelm-1.6b at full width
+MESH_SERVE = dict(batch=4, prompt=1024, tokens=16, seed=0)
+MESH_PG_TIMEOUT_S = 120
+
+
+class TimedCollectives:
+    """For the ``with`` block, every collective of the SPMD layer
+    (``spmd._collective``) between two CUDA events on the current stream,
+    which a blocking NCCL call joins before and after: ``ms`` by kind
+    once the block has ended (after a synchronize)."""
+
+    def __init__(self, torch, SP):
+        self.torch, self.SP, self.pairs, self.ms = torch, SP, [], {}
+
+    def __enter__(self):
+        torch, orig = self.torch, self.SP._collective
+        self.orig = orig
+
+        def timed(kind, out, inp, group):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            orig(kind, out, inp, group)
+            e1.record()
+            self.pairs.append((kind, e0, e1))
+
+        self.SP._collective = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.SP._collective = self.orig
+        self.torch.cuda.synchronize()
+        self.ms = {k: sum(e0.elapsed_time(e1) for kind, e0, e1 in self.pairs
+                          if kind == k) for k in self.SP.KINDS}
+
+
+def bound_serve(torch, mesh, cfg, params, toks):
+    """One batch of prompts ``toks`` prefilled and decoded greedily (``MESH_
+    SERVE["tokens"]`` tokens) through ``bind_prefill`` / ``bind_decode`` on
+    ``mesh``: (logits a step [tokens, B, V], tokens [tokens, B], the
+    collectives issued by the prefill and by the decode steps: calls,
+    bytes, ms by kind)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import spmd as SP
+    from repro_torch.distributed import steps as ST
+    from repro_torch.launch.serve import greedy
+    from repro_torch.models import model as M
+    from repro_torch.models.runtime import DEFAULT
+    B, prompt, n = toks.shape[0], toks.shape[1], MESH_SERVE["tokens"]
+    max_seq = prompt + n + 8
+    pre = ST.bind_prefill(mesh, cfg, DEFAULT,
+                          InputShape("prefill", prompt, B, "prefill"))
+    dec = ST.bind_decode(mesh, cfg, DEFAULT,
+                         InputShape("serve", max_seq, B, "decode"))
+    params = SP.put(mesh, params, pre["param_specs"])
+    cache = SP.put(mesh, M.init_cache(cfg, B, max_seq, device="cuda"),
+                   dec["cache_specs"])
+    coll = []
+    SP.COLLECTIVES.reset()
+    with TimedCollectives(torch, SP) as tc:
+        logits, cache = pre["step"](params, {"tokens": toks}, cache)
+    coll.append(dict(calls=dict(SP.COLLECTIVES.calls),
+                     bytes=dict(SP.COLLECTIVES.bytes), ms=tc.ms))
+    out_l, out_t = [logits], [greedy(logits)]
+    SP.COLLECTIVES.reset()
+    with TimedCollectives(torch, SP) as tc:
+        for t in range(n - 1):
+            logits, cache = dec["step"](params, cache, out_t[-1], prompt + t)
+            out_l.append(logits)
+            out_t.append(greedy(logits))
+    coll.append(dict(calls=dict(SP.COLLECTIVES.calls),
+                     bytes=dict(SP.COLLECTIVES.bytes), ms=tc.ms))
+    return torch.stack(out_l), torch.stack(out_t), coll
+
+
+def phase_mesh(torch, K, T):
+    """The steps on a one-rank NCCL ``DeviceMesh`` ("cuda", (1, 1), over
+    ("data", "model")) against the same calls on the card's host mesh:
+    (a) stablelm-1.6b at full width cut to 2 layers, one ``run_arch``
+    training step (``bind_train``; AdamW, 8 x 4,096 tokens, 8 microbatches,
+    remat), its parameters stored as DTensors; (b) phase 6's qwen1.5-110b
+    at full width cut to 4 layers, one batch of 4 x 1,024 prompt tokens
+    prefilled and 15 tokens decoded through ``bind_prefill`` /
+    ``bind_decode``. Each bit-equal to the host mesh's (parameters and loss
+    after the step; every step's logits and the tokens), every kernel
+    launch count equal, the collectives really issued on the one-rank
+    groups and as many as ``spmd.step_collectives`` predicts from the
+    specs; their calls, bytes and device ms printed."""
+    import datetime
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor
+    import repro_torch.configs as C
+    from repro_torch import tree
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import spmd as SP
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.launch import train as TR
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    tcfg = TR.arch_config(TRAIN_ARCH, full=True).replace(**MESH_TRAIN_CUTS)
+    scfg = C.get(SERVE_ARCH).replace(n_layers=SERVE_LAYERS)
+    phase_memory(torch, f"mesh {tcfg.name} / {scfg.name}")
+
+    def train_run():
+        reset_counts(K, T)
+        SP.COLLECTIVES.reset()
+        with TimedCollectives(torch, SP) as tc:
+            res = TR.run_arch(tcfg, steps=1, label="mesh", remat=True,
+                              device="cuda", **TRAIN)
+        return (res, dict(calls=dict(SP.COLLECTIVES.calls),
+                          bytes=dict(SP.COLLECTIVES.bytes), ms=tc.ms),
+                launch_counts())
+
+    def serve_run(mesh, params, toks):
+        reset_counts(K, T)
+        out = bound_serve(torch, mesh, scfg, params, toks)
+        return out + (launch_counts(),)
+
+    def launch_counts():
+        return dict(flash=FA.flash_attention.launches,
+                    lse=FA.flash_attention.lse_launches,
+                    routes=dict(FA.flash_attention.route_launches),
+                    flash_bwd=FA.flash_attention_bwd.launches,
+                    rmsnorm=RN.rmsnorm.launches,
+                    rmsnorm_bwd=RN.rmsnorm_bwd.launches,
+                    others=serve_counts(K, T)["others"] -
+                    FA.flash_attention_bwd.launches)
+
+    def ms(c):
+        return {k: round(v, 4) for k, v in c["ms"].items()}
+
+    host_train, _, host_train_k = train_run()
+    sparams = M.init_params(scfg, torch.Generator(device="cuda").manual_seed(
+        MESH_SERVE["seed"]), "cuda")
+    toks = torch.from_numpy(np.stack(make_prompts(
+        scfg, MESH_SERVE["batch"], MESH_SERVE["prompt"],
+        MESH_SERVE["seed"]))).cuda()
+    host_l, host_t, host_c, host_k = serve_run(host_mesh(), sparams, toks)
+    check(all(sum(c["calls"].values()) == 0 for c in host_c),
+          f"the host mesh issued collectives: {host_c}")
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    store_dir = tempfile.mkdtemp(prefix="mesh_store_")
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=MESH_PG_TIMEOUT_S))
+    try:
+        mesh = make_host_mesh("cuda")
+        check(isinstance(mesh, DeviceMesh) and tuple(mesh.shape) == (1, 1)
+              and tuple(mesh.mesh_dim_names) == ("data", "model") and
+              mesh.device_type == "cuda",
+              f"make_host_mesh under the process group gave {mesh}")
+        # NCCL starts a group's communicator at its first collective: start
+        # each axis's here, so the steps' collective times exclude it
+        for name in mesh.mesh_dim_names:
+            dist.all_reduce(torch.zeros(1, device="cuda"),
+                            group=mesh.get_group(name))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        mesh_train, train_c, mesh_train_k = train_run()
+        mesh_l, mesh_t, mesh_c, mesh_k = serve_run(mesh, sparams, toks)
+    finally:
+        dist.destroy_process_group()
+    del sparams
+
+    # (a) the training step
+    hp, mp = host_train["params"], mesh_train["params"]
+    stored = all(isinstance(t, DTensor) for t in tree.leaves(mp))
+    same_p = all(torch.equal(SP.local_of(a), b) for a, b in
+                 zip(tree.leaves(mp), tree.leaves(hp), strict=True))
+    same_loss = mesh_train["losses"] == host_train["losses"]
+    pol = SH.ShardingPolicy(("data", "model"), (1, 1))
+    pshape = M.init_params(tcfg, None, "meta")
+    pspecs = SH.param_specs(pshape, pol)
+    want_train = SP.step_collectives(pshape, pspecs, pol, passes=2,
+                                     backward=True,
+                                     micro=mesh_train["n_micro"])
+    print(f"[mesh] one-rank NCCL process group, DeviceMesh (1, 1) over "
+          f"(data, model) and a communicator an axis in {init_s:.2f} s")
+    print(f"[mesh] (a) {tcfg.name} full width, {tcfg.n_layers} layers "
+          f"({mesh_train['n_params']:,} parameters), one bind_train step on "
+          f"the mesh vs the host mesh: loss {mesh_train['losses']} vs "
+          f"{host_train['losses']}, parameters bit-equal {same_p}, stored "
+          f"as DTensors {stored}; kernel launches {mesh_train_k} vs "
+          f"{host_train_k}; collectives {train_c['calls']} (predicted "
+          f"{want_train}), bytes {train_c['bytes']}, device ms "
+          f"{ms(train_c)}; step "
+          f"{mesh_train['step_s'][0]:.3f} s vs {host_train['step_s'][0]:.3f}"
+          f" s on the host mesh")
+    check(same_loss and same_p and stored,
+          "the mesh's training step is not bit-equal to the host mesh's")
+    check(mesh_train_k == host_train_k and
+          mesh_train["launches"] == host_train["launches"],
+          f"mesh step launches {mesh_train_k}, host {host_train_k}")
+    check(train_c["calls"] == want_train,
+          f"mesh step collectives {train_c['calls']}, predicted {want_train}")
+    del hp, mp, host_train, mesh_train
+
+    # (b) prefill and decode
+    sshape = M.init_params(scfg, None, "meta")
+    one_call = SP.step_collectives(
+        sshape, SH.param_specs(sshape, pol), pol, gather_logits=True,
+        cache_shape=M.init_cache(scfg, MESH_SERVE["batch"],
+                                 MESH_SERVE["prompt"] + MESH_SERVE["tokens"]
+                                 + 8, device="meta"))
+    want_serve = [one_call, {k: v * (MESH_SERVE["tokens"] - 1)
+                             for k, v in one_call.items()}]
+    same_l = bool(torch.equal(mesh_l, host_l))
+    same_t = bool(torch.equal(mesh_t, host_t))
+    print(f"[mesh] (b) {scfg.name} full width, {scfg.n_layers} layers: "
+          f"{MESH_SERVE['batch']} x {MESH_SERVE['prompt']} prompt tokens "
+          f"prefilled and {MESH_SERVE['tokens'] - 1} decoded on the mesh vs "
+          f"the host mesh: logits bit-equal {same_l} (max |diff| "
+          f"{float((mesh_l - host_l).abs().max()):.3e}), tokens equal "
+          f"{same_t}; kernel launches {mesh_k} vs {host_k}; collectives "
+          f"prefill {mesh_c[0]['calls']} (predicted {want_serve[0]}), decode "
+          f"steps {mesh_c[1]['calls']} (predicted {want_serve[1]}); bytes "
+          f"prefill {mesh_c[0]['bytes']}, decode {mesh_c[1]['bytes']}; "
+          f"device ms prefill {ms(mesh_c[0])}, decode {ms(mesh_c[1])}")
+    check(same_l and same_t,
+          "the mesh's prefill and decode are not bit-equal to the host's")
+    check(mesh_k == host_k, f"mesh serve launches {mesh_k}, host {host_k}")
+    check([c["calls"] for c in mesh_c] == want_serve,
+          f"mesh serve collectives {[c['calls'] for c in mesh_c]}, "
+          f"predicted {want_serve}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[mesh] phase in {phase_s:.1f} s")
+    return dict(train=dict(collectives=train_c, launches=mesh_train_k),
+                serve=dict(prefill=mesh_c[0], decode=mesh_c[1],
+                           launches=mesh_k),
+                init_s=init_s, phase_s=phase_s)
+
+
 def main() -> int:
+    global PEAK_BYTES_S, PEAK_BF16_FLOP_S
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -6940,6 +7209,8 @@ def main() -> int:
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ternary as T
+    from repro_torch.launch import mesh as LM
+    PEAK_BYTES_S, PEAK_BF16_FLOP_S = LM.HBM_BW, LM.PEAK_FLOPS_BF16
 
     D.resolve("cuda")          # deterministic kernels, before cuBLAS starts
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7058,6 +7329,7 @@ def main() -> int:
     vlm_train = phase_train_prefixed(torch, K, T, smi, VLM_ARCH)
     nemotron = phase_train_nemotron(torch, K, T, smi)
     ssm_train = phase_train_ssm(torch, K, T, smi)
+    mesh = phase_mesh(torch, K, T)
 
     layer0, seq0 = rows[0], seq_rows[0]
     # a map's forward: one sequence launch per layer
@@ -7513,7 +7785,7 @@ def main() -> int:
                                        if k != "counts"},
                       "train_ssm": {k: v for k, v in ssm_train.items()
                                     if k not in ("counts", "profile")},
-                      "analysis": analysis,
+                      "analysis": analysis, "mesh": mesh,
                       "train_vlm": {k: v for k, v in vlm_train.items()
                                     if k != "counts"}}))
     print(smi)

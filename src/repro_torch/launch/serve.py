@@ -12,8 +12,13 @@ sort dispatch at the config's capacity factor, the reference's runtime;
 ssm layers through the chunked selective scan, plain torch; an encdec
 model's batches carry zero ``frames`` (the stubbed audio front end's
 output) and a vlm model's zero ``patches`` (the stubbed ViT's), which a vlm
-decode counts ahead of the prompt. Without ``--device cpu`` and without a
-card it raises: a run never drops to the CPU on its own.
+decode counts ahead of the prompt. As in the JAX package the steps are
+bound to the host mesh (``launch/mesh.py::make_host_mesh``) through
+``distributed/steps.py``'s ``bind_prefill`` and ``bind_decode``: one card,
+or under an initialised process group of N ranks a ``DeviceMesh`` (N, 1),
+whose steps shard the weights and the cache and split each batch's rows
+over the ranks (``distributed/spmd.py``). Without ``--device cpu`` and
+without a card it raises: a run never drops to the CPU on its own.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
       --device cpu --requests 8 --batch 4 --prompt 32 --tokens 16
@@ -38,8 +43,12 @@ import torch
 
 import repro_torch.configs as C
 from repro_torch import device as D
+from repro_torch.configs.base import InputShape
+from repro_torch.distributed import spmd as SP
+from repro_torch.distributed import steps as ST
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import rmsnorm as RN
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M
 from repro_torch.models.runtime import DEFAULT
 
@@ -89,8 +98,10 @@ def serve(cfg, *, requests: int, batch: int, prompt: int, tokens: int,
     """Serve ``requests`` prompts in batches of ``batch``: prefill, then
     ``tokens - 1`` greedy decode steps (each batch with
     ``extra_inputs``, the decode from position ``prefix_len + prompt``;
-    the cache holds the prefix too). Weights come from a
-    ``torch.Generator`` on the device seeded with ``seed``. Returns
+    the cache holds the prefix too), through ``bind_prefill`` and
+    ``bind_decode`` on the host mesh. Weights come from a
+    ``torch.Generator`` on the device seeded with ``seed`` (every rank of
+    a mesh draws the whole tree and keeps its shards). Returns
     ``{"tokens": int32 [requests, tokens] on the host, "launches":
     {"rmsnorm": n, "flash_attention": n, "rmsnorm_bwd": 0}, "prefill_s":
     [...], "decode_s":
@@ -100,10 +111,16 @@ def serve(cfg, *, requests: int, batch: int, prompt: int, tokens: int,
     if min(requests, batch, prompt, tokens) < 1:
         raise ValueError("requests, batch, prompt and tokens must be >= 1")
     dev = D.resolve(device)
+    mesh = make_host_mesh(dev)
     start = prefix_len(cfg) + prompt
     max_seq = start + tokens + 8
-    params = M.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    pre = ST.bind_prefill(mesh, cfg, DEFAULT,
+                          InputShape("prefill", start, batch, "prefill"))
+    dec = ST.bind_decode(mesh, cfg, DEFAULT,
+                         InputShape("serve", max_seq, batch, "decode"))
+    params = SP.put(mesh, M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev),
+        pre["param_specs"])
     prompts = make_prompts(cfg, requests, prompt, seed)
     launches0 = (RN.rmsnorm.launches, FA.flash_attention.launches,
                  RN.rmsnorm_bwd.launches)
@@ -114,19 +131,19 @@ def serve(cfg, *, requests: int, batch: int, prompt: int, tokens: int,
         batch_p = prompts[done:done + batch]
         batch_p += [np.zeros(prompt, np.int32)] * (batch - len(batch_p))
         toks = torch.from_numpy(np.stack(batch_p)).to(dev)
-        cache = M.init_cache(cfg, batch, max_seq, device=dev)
+        cache = SP.put(mesh, M.init_cache(cfg, batch, max_seq, device=dev),
+                       dec["cache_specs"])
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = M.prefill(params, cfg, DEFAULT,
-                                  {"tokens": toks,
-                                   **extra_inputs(cfg, batch, dev)}, cache)
+        logits, cache = pre["step"](params, {"tokens": toks,
+                                             **extra_inputs(cfg, batch, dev)},
+                                    cache)
         tok = greedy(logits)
         _sync(dev)
         t1 = time.perf_counter()
         outs = [tok]
         for t in range(tokens - 1):
-            logits, cache = M.decode_step(params, cfg, DEFAULT, tok, cache,
-                                          start + t)
+            logits, cache = dec["step"](params, cache, tok, start + t)
             tok = greedy(logits)
             outs.append(tok)
         gen = torch.stack(outs, dim=1).cpu()

@@ -27,8 +27,11 @@ backward; every RMSNorm the ``rmsnorm`` kernel forward and the
 ``rmsnorm_bwd`` kernel backward; a moe layer's router loss joins the loss
 at ``router_aux_weight``; an ssm layer's selective scan runs in plain torch
 under autograd; an encdec model's cross-attention runs plain, and its
-gradient reaches the encoder. The JAX package binds the step to a device
-mesh; the port runs it on one card.
+gradient reaches the encoder. As in the JAX package the step is bound to
+the host mesh (``launch/mesh.py::make_host_mesh``): one card, or, under an
+initialised process group of N ranks, a ``DeviceMesh`` (N, 1) whose step
+shards the parameters and optimizer state and splits each microbatch's
+rows over the ranks (``distributed/spmd.py``).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --paper --workers 3 --versions 3
@@ -56,11 +59,13 @@ from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.configs.base import InputShape
 from repro_torch.core.coordinator import Coordinator
 from repro_torch.core.mapreduce import TrainingProblem
+from repro_torch.distributed import spmd as SP
 from repro_torch.distributed import steps as ST
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import lstm_cell as K
 from repro_torch.kernels import rmsnorm as RN
 from repro_torch.kernels import ternary as T
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M
 from repro_torch.models.runtime import Runtime
 from repro_torch.optim import make as make_opt
@@ -137,19 +142,21 @@ def sample_batch(rng, spec, vocab: int, device):
 def setup_arch(cfg, *, batch: int = 8, seq: int = 64, micro: int = 4,
                lr: float = 1e-3, optimizer: str = "adamw", seed: int = 0,
                remat: bool = True, device=None) -> dict:
-    """What a run of ``cfg`` starts from: dict(device, bound
-    (``steps.bind_train``), params (random, from a ``torch.Generator`` on
-    the device seeded with ``seed``), opt_state, rng (the batches'
-    ``RandomState(seed)``)). ``device=None`` is the card (raises when
-    there is none)."""
+    """What a run of ``cfg`` starts from: dict(device, mesh (the host
+    mesh), bound (``steps.bind_train`` on it), params (random, from a
+    ``torch.Generator`` on the device seeded with ``seed``: every rank
+    draws the whole tree, and the first step keeps its shards), opt_state,
+    rng (the batches' ``RandomState(seed)``)). ``device=None`` is the card
+    (raises when there is none)."""
     dev = D.resolve(device)
+    mesh = make_host_mesh(dev)
     opt = make_opt(optimizer, lr)
-    bound = ST.bind_train(cfg, Runtime(remat=remat), opt,
+    bound = ST.bind_train(mesh, cfg, Runtime(remat=remat), opt,
                           InputShape("cli", seq, batch, "train"),
                           num_microbatches=micro)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                            dev)
-    return dict(device=dev, bound=bound, params=params,
+    return dict(device=dev, mesh=mesh, bound=bound, params=params,
                 opt_state=opt.init(params), rng=np.random.RandomState(seed))
 
 
@@ -172,7 +179,8 @@ def run_arch(cfg, *, steps: int = 20, ckpt=None, ckpt_every: int = 50,
     params, opt_state = run.pop("params"), run.pop("opt_state")
     n_params = sum(t.numel() for t in tree.leaves(params))
     print(f"[arch] {cfg.name} ({label}) params={n_params:,} "
-          f"micro={bound['n_micro']} device={dev}")
+          f"micro={bound['n_micro']} device={dev} "
+          f"mesh={tuple(run['mesh'].shape)}")
     store = CheckpointStore(ckpt) if ckpt else None
     losses, step_s, launches = [], [], []
     t0 = time.time()
@@ -200,10 +208,13 @@ def run_arch(cfg, *, steps: int = 20, ckpt=None, ckpt_every: int = 50,
                   f"({(time.time() - t0) / (step + 1):.2f}s/step; this step "
                   f"{step_s[-1]:.3f}s, kernel launches {launches[-1]})")
         if store and (step + 1) % ckpt_every == 0:
-            v = (store.latest() or 0) + 1
-            store.save(v, {"params": params, "opt": opt_state},
-                       meta={"step": step + 1})
-            print(f"  checkpoint v{v}")
+            state = SP.writer_copy(run["mesh"],
+                                   {"params": params, "opt": opt_state})
+            if state is not None:
+                v = (store.latest() or 0) + 1
+                store.save(v, state, meta={"step": step + 1})
+                print(f"  checkpoint v{v}")
+            del state
     if not np.isfinite(losses).all():
         raise RuntimeError(f"{cfg.name}: non-finite loss {losses}")
     print(f"[arch] loss {losses[0]:.4f} -> {losses[-1]:.4f} "

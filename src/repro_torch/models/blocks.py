@@ -26,6 +26,11 @@ family's decoder layers (drawn with ``cross=True``) add a cross-attention
 sublayer (``norm_x``, ``cross``) over the encoder's memory after the mixer,
 run wherever the tree holds one; their decode cache holds its projected
 k/v (``ck``/``cv``, ``[B, Se, Kv, hd]``), written once by the prefill.
+On a mesh (``rt.spmd``, ``distributed/spmd.py``) the stacked leaves arrive
+sharded and each unit's are gathered where the unit runs (inside the
+checkpoint under remat, so the recompute gathers again); a unit's cache is
+gathered along its sharded non-batch dims before the unit and each rank
+writes back its own slice after.
 """
 from __future__ import annotations
 
@@ -216,7 +221,10 @@ def apply_unit(up, x, cfg, rt, *, positions, pos, cache=None, memory=None,
                causal: bool = True, window: int = 0):
     """One unit's sublayers in order. Returns (x, cache, aux): the unit's
     cache given, updated in place, or None; aux the sublayers' router
-    losses summed, None without any."""
+    losses summed, None without any. On a mesh ``up``'s sharded leaves are
+    gathered here, at use."""
+    if rt.spmd is not None:
+        up = rt.spmd.gathered(up)
     aux = None
     for i in range(unit_size(cfg)):
         key = f"l{i}"
@@ -256,12 +264,16 @@ def scan_units(units_p, x, cfg, rt, *, positions, pos=None, cache=None,
                                  memory=memory, causal=causal, window=window,
                                  use_reentrant=False)
         else:
-            unit_cache = None
+            unit_cache = full = None
             if cache is not None:
                 unit_cache = tree.map(lambda c: c[u], cache)
+                full = unit_cache if rt.spmd is None else \
+                    rt.spmd.open_cache(unit_cache)
             x, _, a = apply_unit(unit, x, cfg, rt, positions=positions,
-                                 pos=pos, cache=unit_cache, memory=memory,
+                                 pos=pos, cache=full, memory=memory,
                                  causal=causal, window=window)
+            if full is not unit_cache:
+                rt.spmd.close_cache(unit_cache, full)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, cache, aux

@@ -17,7 +17,10 @@ picks remat, the moe dispatch and the scan's chunk; serving passes
 ``runtime.DEFAULT``, and decode always masks with ``cfg.sliding_window``.
 ``forward`` returns the moe layers' summed router loss beside the logits
 (0 without moe layers), which ``loss_fn`` adds at
-``cfg.moe.router_aux_weight``.
+``cfg.moe.router_aux_weight``. On a mesh (``rt.spmd``) the params arrive
+sharded: ``forward``, ``prefill`` and ``decode_step`` gather the embedding,
+the unembedding and the final norms at use, and ``blocks.scan_units`` the
+stacks (the encdec encoder's and decoder's too) a unit at a time.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tree
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 
@@ -100,6 +104,15 @@ def _positions(tokens, start: int = 0):
     return pos[None].expand(tokens.shape[0], -1)
 
 
+def _at_use(rt, params):
+    """On a mesh, params with every leaf outside the stacked units
+    gathered; the stacks stay sharded for ``scan_units``."""
+    if rt.spmd is None:
+        return params
+    return {k: v if k in SH._STACKED_ROOTS else rt.spmd.gathered(v)
+            for k, v in params.items()}
+
+
 def _encoder_cfg(cfg):
     """The encoder's stack: dense, ``n_encoder_layers`` deep, no RoPE."""
     return cfg.replace(n_layers=cfg.n_encoder_layers, family="dense",
@@ -147,6 +160,7 @@ def forward(params, cfg, rt, batch, *, start_pos: int = 0
     aux): aux the layers' router losses summed (fp32; 0 without moe
     layers)."""
     B.check_family(cfg)
+    params = _at_use(rt, params)
     x, positions, stack, extra = _inputs(cfg, rt, params, batch, start_pos)
     x, _, aux = B.scan_units(stack, x, cfg, rt, positions=positions,
                              **extra)
@@ -193,6 +207,7 @@ def prefill(params, cfg, rt, batch, cache) -> Tuple[torch.Tensor, Any]:
 
     Returns (last-token logits [B, V], cache)."""
     B.check_family(cfg)
+    params = _at_use(rt, params)
     x, positions, stack, extra = _inputs(cfg, rt, params, batch)
     x, cache, _ = B.scan_units(stack, x, cfg, rt, positions=positions,
                                pos=0, cache=cache, **extra)
@@ -207,6 +222,7 @@ def decode_step(params, cfg, rt, token, cache, pos: int
     the config has one; an encdec decoder adds the sinusoidal position and
     attends to the cached cross k/v. Returns (logits [B, V], cache)."""
     B.check_family(cfg)
+    params = _at_use(rt, params)
     x = _embed(cfg, params, token[:, None])
     positions = torch.full((token.shape[0], 1), pos, dtype=torch.int32,
                            device=token.device)

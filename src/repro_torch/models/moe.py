@@ -18,9 +18,13 @@ dense residual branch (Arctic) is the block's. The router is fp32 whatever
 the config's dtype, and the tree is the JAX package's (``router [D, E]``,
 ``experts.{wi, wg} [E, D, F]``, ``experts.wo [E, F, D]``,
 ``shared.{wi, wg} [D, S*F]``, ``shared.wo [S*F, D]``), so ``bridge`` carries
-weights across unchanged. The JAX package's expert-parallel sharding
-constraints (``expert_axis``, ``token_axes``) wait for ROADMAP Queue 1
-item 9.
+weights across unchanged. On a mesh (``rt.spmd``) a layer gathers its
+microbatch's tokens over the batch axes before the router and keeps its
+own rows after, so the capacity, the drops and the load-balance loss are
+the whole microbatch's, as in the JAX package; every expert runs on every
+rank. The JAX package's expert-parallel sharding constraints
+(``expert_axis``, ``token_axes``) wait for the expert-parallel dispatch
+(ROADMAP Queue 1 item 9, what is left of it).
 
 Every expert choice goes through ``route``, one module-level function, so
 a comparison can record one run's choices and replay them in another
@@ -198,15 +202,20 @@ def apply_moe(p, x, cfg, rt, with_aux: bool = True
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x [B, S, D] -> ([B, S, D], aux scalar; None unless ``with_aux``: a
     cached prefill or decode takes no loss), the shared experts added; a
-    dense residual branch is the block's."""
-    B, S, D = x.shape
-    xt = x.reshape(B * S, D)
+    dense residual branch is the block's. On a mesh x is this rank's rows,
+    and the routed experts run on every rank's."""
+    spmd = rt.spmd
+    xs = x if spmd is None else spmd.gather_rows(x)
+    B, S, D = xs.shape
+    xt = xs.reshape(B * S, D)
     if rt.moe_impl == "dense" or cfg.moe.num_experts <= 1:
         out, aux = apply_moe_dense(p, xt, cfg, with_aux)
     else:
         out, aux = apply_moe_sort(p, xt, cfg, cfg.moe.capacity_factor,
                                   with_aux)
     out = out.reshape(B, S, D)
+    if spmd is not None:
+        out = spmd.rows(out)
     if "shared" in p:
         out = out + _shared_ffn(p["shared"], x, cfg.mlp)
     return out, aux

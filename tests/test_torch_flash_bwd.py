@@ -238,7 +238,9 @@ def test_remat_runs_each_layers_flash_forward_twice(monkeypatch, remat,
     from repro_torch.configs.base import InputShape
     from repro_torch.distributed import steps as TST
     from repro_torch.optim import optimizers as TO
-    bound = TST.bind_train(cfg, Runtime(remat=remat), TO.sgd(0.1),
+    from repro_torch.launch.mesh import make_host_mesh
+    bound = TST.bind_train(make_host_mesh("cpu"), cfg, Runtime(remat=remat),
+                           TO.sgd(0.1),
                            InputShape("t", 8, 4, "train"),
                            num_microbatches=2)
     toks = torch.from_numpy(np.random.RandomState(0).randint(

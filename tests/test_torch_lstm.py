@@ -322,6 +322,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "qwen1.5-110b", "--requests", "1"])
+    from repro_torch.launch.mesh import make_host_mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_host_mesh()
     from repro_torch.core import gateway
     for mode in ("--serve", "--volunteer"):
         with pytest.raises(RuntimeError, match="no CUDA device"):

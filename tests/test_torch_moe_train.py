@@ -37,6 +37,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import rmsnorm as RN
 from repro_torch.launch import serve as S
 from repro_torch.launch import train as TRAIN
+from repro_torch.launch.mesh import make_host_mesh as t_host_mesh
 from repro_torch.models.runtime import Runtime
 from repro_torch.optim import optimizers as TO
 
@@ -102,7 +103,8 @@ def steps(models):
             0, jcfg.vocab, size=(T_BATCH, T_SEQ + 1)).astype(np.int32)
         jg, _, jm = _jax_step(jcfg, ident)(jax.tree.map(jnp.asarray, p), {},
                                             {"tokens": jnp.asarray(batch)})
-        bound = TST.bind_train(tcfg, Runtime(remat=True), TO.sgd(SGD_LR),
+        bound = TST.bind_train(t_host_mesh("cpu"), tcfg, Runtime(remat=True),
+                               TO.sgd(SGD_LR),
                                InputShape("t", T_SEQ, T_BATCH, "train"),
                                num_microbatches=MICRO)
         tg, tm = bound["grads"](bridge.params_from_jax(p, "cpu"),

@@ -48,6 +48,7 @@ from repro_torch.configs.base import InputShape
 from repro_torch.data import tokens as TT
 from repro_torch.distributed import steps as TST
 from repro_torch.launch import train as TRAIN
+from repro_torch.launch.mesh import make_host_mesh as t_host_mesh
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models.runtime import Runtime
@@ -110,8 +111,8 @@ def _grads_jax(jcfg, n_micro):
 
 
 def _bind_port(tcfg, opt, n_micro=MICRO):
-    return TST.bind_train(tcfg, Runtime(remat=True), opt,
-                          InputShape("t", SEQ, BATCH, "train"),
+    return TST.bind_train(t_host_mesh("cpu"), tcfg, Runtime(remat=True),
+                          opt, InputShape("t", SEQ, BATCH, "train"),
                           num_microbatches=n_micro)
 
 
@@ -329,7 +330,8 @@ def test_flash_path_matches_materialised_attention(arch, monkeypatch):
     batch = {"tokens": torch.from_numpy(_batches(cfg.vocab, 1)[0])}
 
     def grads(remat):
-        bound = TST.bind_train(cfg, Runtime(remat=remat), TO.sgd(0.1),
+        bound = TST.bind_train(t_host_mesh("cpu"), cfg, Runtime(remat=remat),
+                               TO.sgd(0.1),
                                InputShape("t", SEQ, BATCH, "train"),
                                num_microbatches=MICRO)
         return bound["grads"](params, batch)
