@@ -34,13 +34,20 @@ their steps to one under ``jax.jit``:
   axes' size (the mean over the global rows); the optimizer updates each
   rank's shards, its slots mirroring their weight's spec; the metrics are
   averaged over the batch axes; a serving step hands every rank the global
-  logits.
+  logits. Each module whose spec splits it over ``model`` computes the
+  rank's shard (``spmd.plan``: heads, FFN columns, experts, d_inner,
+  vocab) between Megatron's entry and exit.
+
+A policy's ``seq_parallel`` (as in the JAX package, the training step's
+alone: prefill and decode ignore it) keeps the residual stream between
+sublayers, the remat carry, as the rank's sequence shard over ``model``
+(``SH.activation_spec``): each sublayer normalizes its shard, gathers the
+norm's output once at entry and reduce-scatters its output at exit. A
+sequence that ``model`` does not divide raises ``ValueError`` at binding.
 
 With ``donate`` (the default, as in the JAX package) the training step
 empties the params and opt_state trees it is given and releases each
 leaf's old value once its new one is written: use the trees it returns.
-``seq_parallel`` raises: the port does not split activations over the
-model axis yet (ROADMAP Queue 1 item 9, what is left of it).
 """
 from __future__ import annotations
 
@@ -72,15 +79,14 @@ def _microbatch_count(shape, policy: SH.ShardingPolicy,
     return max(n, 1)
 
 
-def _layout(mesh, policy: SH.ShardingPolicy, split_batch: bool):
-    """The ``spmd.Layout`` a step on ``mesh`` runs through; None on one
-    device's host mesh."""
-    if policy.seq_parallel:
-        raise NotImplementedError(
-            "seq_parallel: the port does not split activations over the "
-            "model axis yet (ROADMAP Queue 1 item 9: seq_parallel execution)")
+def _layout(mesh, policy: SH.ShardingPolicy, split_batch: bool,
+            seq_parallel: bool = False):
+    """The ``spmd.Layout`` a step on ``mesh`` runs through (its residual
+    stream sequence-sharded with ``seq_parallel``); None on one device's
+    host mesh."""
     if SP.is_device_mesh(mesh):
-        return SP.Layout(mesh, policy, split_batch=split_batch)
+        return SP.Layout(mesh, policy, split_batch=split_batch,
+                         seq_parallel=seq_parallel)
     if getattr(mesh, "device", None) is None or any(
             s != 1 for s in mesh.shape):
         raise ValueError(f"{mesh}: an abstract mesh sizes specs and runs no "
@@ -284,7 +290,10 @@ def bind_train(mesh, cfg, rt, optimizer, shape, *,
     ospecs = SH.opt_state_specs(oshape, pspecs)
     bshape = M.train_batch_spec(cfg, shape)
     bspecs = SH.batch_specs(bshape, policy)
-    layout = _layout(mesh, policy, _splits(shape.global_batch, policy))
+    if policy.seq_parallel:
+        _check_seq(cfg, shape, policy)
+    layout = _layout(mesh, policy, _splits(shape.global_batch, policy),
+                     policy.seq_parallel)
     step, grads_fn, n_micro = make_train_step(
         cfg, rt, optimizer, shape, policy, num_microbatches=num_microbatches,
         layout=layout, param_specs=pspecs, donate=donate)
@@ -292,6 +301,20 @@ def bind_train(mesh, cfg, rt, optimizer, shape, *,
                 opt_specs=ospecs, batch_specs=bspecs, params_shape=pshape,
                 opt_shape=oshape, batch_shape=bshape, n_micro=n_micro,
                 policy=policy)
+
+
+def _check_seq(cfg, shape, policy: SH.ShardingPolicy) -> None:
+    """Raise unless ``model`` divides every sequence a ``seq_parallel``
+    step shards: the tokens' (with a vlm's patches) and an encdec
+    encoder's frames."""
+    m = policy.tp_size
+    seqs = {"sequence": shape.seq_len}
+    if cfg.family == "encdec":
+        seqs["encoder sequence"] = cfg.encoder_seq
+    for what, n in seqs.items():
+        if n % m:
+            raise ValueError(f"seq_parallel: a {what} of {n} does not split "
+                             f"over {policy.tp_axis} ({m})")
 
 
 def _serving(mesh, cfg, shape, policy):

@@ -28,9 +28,16 @@ run wherever the tree holds one; their decode cache holds its projected
 k/v (``ck``/``cv``, ``[B, Se, Kv, hd]``), written once by the prefill.
 On a mesh (``rt.spmd``, ``distributed/spmd.py``) the stacked leaves arrive
 sharded and each unit's are gathered where the unit runs (inside the
-checkpoint under remat, so the recompute gathers again); a unit's cache is
-gathered along its sharded non-batch dims before the unit and each rank
-writes back its own slice after.
+checkpoint under remat, so the recompute gathers again), each module by
+its plan: a module split over ``model`` gets the rank's shard and runs as
+one *part* of its sublayer (the mixer, the cross-attention, the
+feed-forward: a moe with its shared experts and any dense residual mlp)
+between the layout's entry and exit (``part_in`` / ``part_out``: under
+``seq_parallel`` the residual stream is the rank's sequence shard, each
+part gathers the norm's output along the sequence and returns its
+output's shard). A unit's cache is gathered along its sharded non-batch
+dims before the unit (a Mamba state keeps its d_inner shard) and each
+rank writes back its own slice after.
 """
 from __future__ import annotations
 
@@ -162,59 +169,104 @@ def init_cache(cfg, batch: int, max_seq: int, dtype, device, *,
 # sublayer / unit application
 # ---------------------------------------------------------------------------
 
+def _part(spmd, split, h, fn):
+    """``fn`` on a part's input from the normed ``h``, its output back to
+    the residual stream (``spmd.Layout.part_in`` / ``part_out``); plain
+    off a mesh."""
+    if spmd is None:
+        return fn(h)
+    return spmd.part_out(fn(spmd.part_in(h, split is not None)),
+                         split is not None)
+
+
+def _ffn_split(p, splits):
+    """The feed-forward part's split: its moe's and its mlp's, which must
+    agree (the part has one exit)."""
+    got = {k: splits.get(k) is not None for k in ("moe", "mlp") if k in p}
+    if len(set(got.values())) > 1:
+        raise ValueError(f"feed-forward modules split unlike: {got}")
+    return next((splits[k] for k in ("moe", "mlp") if splits.get(k)), None)
+
+
 def _apply_sublayer(p, x, cfg, rt, layer_idx: int, *, positions, pos,
                     cache: Optional[dict], memory=None, causal: bool = True,
-                    window: int = 0):
+                    window: int = 0, splits=None):
     """One layer; its new k/v or ssm state go into ``cache`` (a layer's
     slice) in place. A layer with a cross-attention attends to the
     encoder's ``memory`` [B, Se, D]: a prefill (cache and memory) projects
     it once into the cache's ``ck``/``cv`` (cast to the cache's dtype) and
     attends with the uncast k/v, as the JAX package does; a decode step
-    reads ``ck``/``cv``; training attends to ``memory`` itself. Returns (x,
-    aux): aux the router's load-balance loss (fp32), None without moe or
-    with a cache."""
+    reads ``ck``/``cv``; training attends to ``memory`` itself. ``splits``:
+    each module's ``spmd.Split`` (or None) on a mesh. Returns (x, aux): aux
+    the router's load-balance loss (fp32), None without moe or with a
+    cache."""
+    spmd, splits = rt.spmd, splits or {}
     h = L.apply_norm(cfg.norm, p["norm1"], x)
     if cfg.layer_kind(layer_idx) == "ssm":
-        if cache is None:
-            mix, _ = SSM.apply_ssm(p["ssm"], h, cfg)
-        else:
-            if x.shape[1] == 1:
-                mix, st = SSM.apply_ssm_step(p["ssm"], h, cfg, cache)
+        sp = splits.get("ssm")
+
+        def mixer(hh):
+            if cache is None:
+                return SSM.apply_ssm(p["ssm"], hh, cfg, split=sp)[0]
+            if hh.shape[1] == 1:
+                out, st = SSM.apply_ssm_step(p["ssm"], hh, cfg, cache,
+                                             split=sp)
             else:
-                mix, st = SSM.apply_ssm(p["ssm"], h, cfg, state=cache)
+                out, st = SSM.apply_ssm(p["ssm"], hh, cfg, state=cache,
+                                        split=sp)
             cache["conv"].copy_(st["conv"])
             cache["h"].copy_(st["h"])
+            return out
     else:
+        sp = splits.get("attn")
         attn_cache = None
         if cache is not None:
             attn_cache = {"k": cache["k"], "v": cache["v"], "pos": pos}
-        mix = L.self_attention(p["attn"], h, cfg, positions=positions,
-                               causal=causal, window=window,
-                               cache=attn_cache)
-    x = x + mix
+
+        def mixer(hh):
+            return L.self_attention(p["attn"], hh, cfg, positions=positions,
+                                    causal=causal, window=window,
+                                    cache=attn_cache, split=sp)
+    x = x + _part(spmd, sp, h, mixer)
     if "cross" in p:
         hx = L.apply_norm(cfg.norm, p["norm_x"], x)
-        if cache is not None and memory is not None:
-            _, ck, cv = L.attention_qkv(p["cross"], hx, xkv=memory)
-            cache["ck"].copy_(ck)
-            cache["cv"].copy_(cv)
-            x = x + L.cross_attention(p["cross"], hx, mem_kv=(ck, cv))
-        elif cache is not None:
-            x = x + L.cross_attention(p["cross"], hx,
-                                      mem_kv=(cache["ck"], cache["cv"]))
-        else:
-            x = x + L.cross_attention(p["cross"], hx, memory=memory)
+        sx = splits.get("cross")
+
+        def cross(hh):
+            mem = memory
+            if sx is not None and mem is not None:
+                mem = spmd.enter(mem)
+            if cache is not None and mem is not None:
+                _, ck, cv = L.attention_qkv(p["cross"], hh, xkv=mem,
+                                            split=sx)
+                ck, cv = L.whole_kv(ck, sx), L.whole_kv(cv, sx)
+                cache["ck"].copy_(ck)
+                cache["cv"].copy_(cv)
+                return L.cross_attention(p["cross"], hh, mem_kv=(ck, cv),
+                                         split=sx)
+            if cache is not None:
+                return L.cross_attention(p["cross"], hh, split=sx,
+                                         mem_kv=(cache["ck"], cache["cv"]))
+            return L.cross_attention(p["cross"], hh, memory=mem, split=sx)
+        x = x + _part(spmd, sx, hx, cross)
     if "norm2" not in p:
         return x, None
     h2 = L.apply_norm(cfg.norm, p["norm2"], x)
-    aux = y = None
-    if "moe" in p:
-        y, aux = MOE.apply_moe(p["moe"], h2, cfg, rt,
-                               with_aux=cache is None)
-    if "mlp" in p:
-        ym = L.apply_mlp(p["mlp"], h2, cfg.mlp)
-        y = ym if y is None else y + ym
-    return x + y, aux
+    sf = _ffn_split(p, splits)
+    aux = None
+
+    def ffn(hh):
+        nonlocal aux
+        y = None
+        if "moe" in p:
+            y, aux = MOE.apply_moe(p["moe"], hh, cfg, rt,
+                                   with_aux=cache is None,
+                                   split=splits.get("moe"))
+        if "mlp" in p:
+            ym = L.apply_mlp(p["mlp"], hh, cfg.mlp)
+            y = ym if y is None else y + ym
+        return y
+    return x + _part(spmd, sf, h2, ffn), aux
 
 
 def apply_unit(up, x, cfg, rt, *, positions, pos, cache=None, memory=None,
@@ -222,16 +274,21 @@ def apply_unit(up, x, cfg, rt, *, positions, pos, cache=None, memory=None,
     """One unit's sublayers in order. Returns (x, cache, aux): the unit's
     cache given, updated in place, or None; aux the sublayers' router
     losses summed, None without any. On a mesh ``up``'s sharded leaves are
-    gathered here, at use."""
+    gathered here, at use, each module by its plan."""
+    splits = {}
     if rt.spmd is not None:
-        up = rt.spmd.gathered(up)
+        gathered = {}
+        for key, sub in up.items():
+            gathered[key], splits[key] = rt.spmd.modules_at_use(sub)
+        up = gathered
     aux = None
     for i in range(unit_size(cfg)):
         key = f"l{i}"
         x, a = _apply_sublayer(up[key], x, cfg, rt, i, positions=positions,
                                pos=pos,
                                cache=None if cache is None else cache[key],
-                               memory=memory, causal=causal, window=window)
+                               memory=memory, causal=causal, window=window,
+                               splits=splits.get(key))
         if a is not None:
             aux = a if aux is None else aux + a
     return x, cache, aux

@@ -12,6 +12,14 @@ their plain versions on the CPU, under autograd where a gradient is wanted.
 LayerNorm, decode attention and cross-attention stay plain, as in the JAX
 package (which has no kernel for them: its flash kernel, like the port's,
 is self-attention only, Sq == Skv).
+
+On a mesh an attention split over ``model`` (``split``, a
+``distributed.spmd.Split``) gets the rank's query heads in ``wq``/``bq``/
+``wo`` and either the kv heads they use or every kv head (``kv_whole``),
+sliced here; its output is the rank's partial sum, which the block's exit
+sums. It writes a cache's new k/v whole (gathered over ``model``'s heads)
+and reads its own kv heads back. The MLP needs nothing of the split: its
+``wi``/``wg`` columns and ``wo`` rows are the rank's.
 """
 from __future__ import annotations
 
@@ -151,17 +159,40 @@ def _project(x, w):
     return (x @ w.reshape(D, N * hd)).reshape(*x.shape[:-1], N, hd)
 
 
-def attention_qkv(p, x, xkv=None):
+def _kv_heads(t, split, dim: int):
+    """A kv leaf (or cache) narrowed to the kv heads of the rank's query
+    heads along ``dim``; as it is off a split."""
+    if split is None:
+        return t
+    k0, nk = split.kv
+    return t.narrow(dim, k0, nk)
+
+
+def attention_qkv(p, x, xkv=None, split=None):
     """Project. x [B,S,D] -> q [B,S,H,hd]; k/v [B,Skv,Kv,hd] from ``xkv``
-    (the encoder's memory of a cross-attention), else from x."""
+    (the encoder's memory of a cross-attention), else from x. Under a
+    ``split``: the rank's heads."""
     xkv = x if xkv is None else xkv
-    q, k, v = (_project(x, p["wq"]), _project(xkv, p["wk"]),
-               _project(xkv, p["wv"]))
+    kv = split if split is not None and split.kv_whole else None
+    q, k, v = (_project(x, p["wq"]),
+               _project(xkv, _kv_heads(p["wk"], kv, 1)),
+               _project(xkv, _kv_heads(p["wv"], kv, 1)))
     if "bq" in p:
         q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        k = k + _kv_heads(p["bk"], kv, 0)
+        v = v + _kv_heads(p["bv"], kv, 0)
     return q, k, v
+
+
+def whole_kv(t, split):
+    """New k or v [B, S, kv heads of the rank, hd] as every kv head
+    (gathered over ``model``'s heads); as it is off a split."""
+    if split is None:
+        return t
+    t = split.layout.gather_model(t, 2)
+    if split.cache_heads is not None:
+        t = t[:, :, list(split.cache_heads)]
+    return t
 
 
 def attention_out(p, ctx):
@@ -171,8 +202,9 @@ def attention_out(p, ctx):
 
 
 def self_attention(p, x, cfg, *, positions, causal=True, window=0,
-                   cache=None):
-    """Self-attention with an optional KV cache. Returns out [B,S,D].
+                   cache=None, split=None):
+    """Self-attention with an optional KV cache. Returns out [B,S,D] (the
+    rank's partial sum under a ``split``).
 
     cache: dict(k [B,Smax,Kv,hd], v likewise, pos int) or None; the new k/v
     are written into ``cache["k"]``/``cache["v"]`` in place (the JAX package
@@ -181,15 +213,16 @@ def self_attention(p, x, cfg, *, positions, causal=True, window=0,
     against a cache (prefill, from position 0) run the flash kernel over the
     fresh k/v, as does a call without a cache (under autograd through
     ``FlashAttention``, its backward over kv chunks of ``ops.KV_CHUNK``)."""
-    q, k, v = attention_qkv(p, x)
+    q, k, v = attention_qkv(p, x, split=split)
     q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
     if cache is not None:
         pos, S = cache["pos"], x.shape[1]
         ck, cv = cache["k"], cache["v"]
-        ck[:, pos:pos + S] = k.to(ck.dtype)
-        cv[:, pos:pos + S] = v.to(cv.dtype)
+        ck[:, pos:pos + S] = whole_kv(k, split).to(ck.dtype)
+        cv[:, pos:pos + S] = whole_kv(v, split).to(cv.dtype)
         if S == 1:
+            ck, cv = _kv_heads(ck, split, 2), _kv_heads(cv, split, 2)
             kv_positions = torch.arange(ck.shape[1], dtype=torch.int32,
                                         device=x.device)
             out = plain_attention(q, ck, cv, positions, kv_positions,
@@ -201,14 +234,16 @@ def self_attention(p, x, cfg, *, positions, causal=True, window=0,
     return attention_out(p, out)
 
 
-def cross_attention(p, x, *, memory=None, mem_kv=None):
+def cross_attention(p, x, *, memory=None, mem_kv=None, split=None):
     """Decoder -> encoder attention, plain (non-causal, Sq != Skv). x
     [B,S,D]; memory [B,Se,D], or its projected ``mem_kv`` = (k, v)
-    [B,Se,Kv,hd] (the decode cache's ``ck``/``cv``). Returns [B,S,D]."""
+    [B,Se,Kv,hd] (the decode cache's ``ck``/``cv``, every kv head: under a
+    ``split`` the rank's are taken here, as are its query heads from the
+    split weights). Returns [B,S,D]."""
     if mem_kv is None:
-        _, k, v = attention_qkv(p, x, xkv=memory)
+        _, k, v = attention_qkv(p, x, xkv=memory, split=split)
     else:
-        k, v = mem_kv
+        k, v = (_kv_heads(t, split, 2) for t in mem_kv)
     q = _project(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]

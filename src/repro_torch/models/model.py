@@ -17,17 +17,26 @@ picks remat, the moe dispatch and the scan's chunk; serving passes
 ``runtime.DEFAULT``, and decode always masks with ``cfg.sliding_window``.
 ``forward`` returns the moe layers' summed router loss beside the logits
 (0 without moe layers), which ``loss_fn`` adds at
-``cfg.moe.router_aux_weight``. On a mesh (``rt.spmd``) the params arrive
-sharded: ``forward``, ``prefill`` and ``decode_step`` gather the embedding,
-the unembedding and the final norms at use, and ``blocks.scan_units`` the
-stacks (the encdec encoder's and decoder's too) a unit at a time.
+``cfg.moe.router_aux_weight``. The loss is ``cross_entropy``'s: the
+vocab-parallel form, which runs with no group off a mesh.
+
+On a mesh (``rt.spmd``) the params arrive sharded: ``forward``,
+``loss_fn``, ``prefill`` and ``decode_step`` gather the embedding, the
+unembedding and the final norms at use (``spmd.Layout.modules_at_use``),
+and ``blocks.scan_units`` the stacks (the encdec encoder's and decoder's
+too) a unit at a time. A vocab split over ``model`` (tied embeddings
+alike) looks up the rank's rows (masked; an exit sums the ranks') and
+computes the rank's logit columns: the training loss reduces them over
+``model`` (a max, then two sums), serving gathers them. Under
+``seq_parallel`` the embedded sequence (and the encoder's frames) is cut
+to the rank's shard before the units, and the final norm's shard is
+gathered for the logits (the encoder's for its memory).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import tree
 from repro_torch.distributed import sharding as SH
@@ -82,20 +91,56 @@ def init_params(cfg, generator: torch.Generator, device) -> Params:
 # forward
 # ---------------------------------------------------------------------------
 
-def _logits(cfg, p, x):
+def _logits(cfg, p, x, split=None):
     """fp32 logits: x and the unembedding are cast to fp32 and multiplied,
-    as the JAX package does."""
+    as the JAX package does. Under a ``split`` the rank's vocab columns
+    (x passed the unembedding's entry)."""
     w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
     logits = x.float() @ w.float()
     if cfg.padded_vocab != cfg.vocab:
         # mask the padding tail so the softmax matches the published vocab
-        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
+        lo = 0 if split is None else split.lo
+        pad = torch.arange(lo, lo + logits.shape[-1],
+                           device=x.device) >= cfg.vocab
         logits = logits.masked_fill(pad, -1e30)
     return logits
 
 
-def _embed(cfg, p, tokens):
-    return p["embed"][tokens.long()]
+def _embed(cfg, p, tokens, split=None):
+    """The tokens' embeddings; under a ``split`` the rank's vocab rows
+    looked up (zero for another rank's token) and summed over ``model``
+    by the exit."""
+    if split is None:
+        return p["embed"][tokens.long()]
+    t = tokens.long() - split.lo
+    inside = (t >= 0) & (t < split.n)
+    e = p["embed"][t.clamp(0, split.n - 1)]
+    e = torch.where(inside[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                      device=e.device))
+    return split.layout.exit(e)
+
+
+def cross_entropy(logits, labels, split=None):
+    """Mean next-token cross-entropy of fp32 ``logits`` [..., V] at the
+    global ``labels`` [...]: log(sum exp(z)) - z[label], z the logits less
+    their max. Under a ``split`` the logits are the rank's vocab columns
+    and the max, the sum and the label's z are reduced over ``model`` (the
+    max by an all-reduce with no gradient, the sums by exits); off one,
+    the same arithmetic with no group."""
+    lo = 0 if split is None else split.lo
+    top = logits.detach().amax(dim=-1)
+    if split is not None:
+        top = split.layout.max_model(top)
+    z = logits - top[..., None]
+    se = torch.exp(z).sum(dim=-1)
+    t = labels.long() - lo
+    inside = (t >= 0) & (t < z.shape[-1])
+    lab = torch.gather(z, -1, t.clamp(0, z.shape[-1] - 1)[..., None])[..., 0]
+    lab = torch.where(inside, lab, torch.zeros((), dtype=lab.dtype,
+                                               device=lab.device))
+    if split is not None:
+        se, lab = split.layout.exit(se), split.layout.exit(lab)
+    return torch.mean(torch.log(se) - lab)
 
 
 def _positions(tokens, start: int = 0):
@@ -105,12 +150,40 @@ def _positions(tokens, start: int = 0):
 
 
 def _at_use(rt, params):
-    """On a mesh, params with every leaf outside the stacked units
-    gathered; the stacks stay sharded for ``scan_units``."""
+    """(params, splits): on a mesh every leaf outside the stacked units
+    gathered by its module's plan, with each module's ``spmd.Split`` (the
+    stacks stay sharded for ``scan_units``); off one the params as they
+    are and no splits."""
     if rt.spmd is None:
-        return params
-    return {k: v if k in SH._STACKED_ROOTS else rt.spmd.gathered(v)
-            for k, v in params.items()}
+        return params, {}
+    out, splits = rt.spmd.modules_at_use(
+        {k: v for k, v in params.items() if k not in SH._STACKED_ROOTS})
+    out.update({k: v for k, v in params.items() if k in SH._STACKED_ROOTS})
+    return out, splits
+
+
+def _unembed_split(cfg, splits):
+    return splits.get("embed" if cfg.tie_embeddings else "unembed")
+
+
+def _shard_seq(rt, x):
+    """Under ``seq_parallel`` the rank's sequence shard of the stream x
+    (its gradient gathered back); x as it is otherwise."""
+    if rt.spmd is None or not rt.spmd.seq_parallel:
+        return x
+    return rt.spmd.seq_out(x, False)
+
+
+def _unshard_seq(rt, x, split):
+    """The final norm's output for the logits: under ``seq_parallel``
+    gathered along the sequence (its gradient reduce-scattered where the
+    logits are the rank's columns); else through the unembedding's entry
+    where it is split."""
+    if rt.spmd is None:
+        return x
+    if rt.spmd.seq_parallel:
+        return rt.spmd.seq_in(x, split is not None)
+    return rt.spmd.enter(x) if split is not None else x
 
 
 def _encoder_cfg(cfg):
@@ -127,31 +200,71 @@ def _with_sinusoids(x, positions):
 
 def _encode(cfg, rt, p, frames):
     """The whisper encoder over the stubbed frame embeddings [B, Se, D]:
-    sinusoidal positions, non-causal units, ``enc_norm``."""
+    sinusoidal positions, non-causal units, ``enc_norm`` (under
+    ``seq_parallel`` on the rank's shard, then gathered)."""
     positions = _positions(frames[..., 0])
-    x = _with_sinusoids(frames, positions)
+    x = _shard_seq(rt, _with_sinusoids(frames, positions))
     x, _, _ = B.scan_units(p["encoder"], x, _encoder_cfg(cfg), rt,
                            positions=positions, causal=False)
-    return L.apply_norm(cfg.norm, p["enc_norm"], x)
+    x = L.apply_norm(cfg.norm, p["enc_norm"], x)
+    if rt.spmd is not None and rt.spmd.seq_parallel:
+        x = rt.spmd.seq_in(x, False)
+    return x
 
 
-def _inputs(cfg, rt, params, batch, start_pos: int = 0):
+def _inputs(cfg, rt, params, splits, batch, start_pos: int = 0):
     """The first unit's input, its positions and what the units take
-    beside: (x [B, S, D], positions [B, S], the stack, {"memory": the
+    beside: (x [B, S, D] (the rank's sequence shard under
+    ``seq_parallel``), positions [B, S], the stack, {"memory": the
     encoder's output} for encdec, else {}). encdec: the token embeddings
     plus sinusoidal positions; vlm: the patches, then the token
     embeddings."""
     tokens = batch["tokens"]
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, splits.get("embed"))
     if cfg.family == "encdec":
         positions = _positions(tokens, start_pos)
         memory = _encode(cfg, rt, params, batch["frames"])
-        return (_with_sinusoids(x, positions), positions, params["decoder"],
-                {"memory": memory})
+        return (_shard_seq(rt, _with_sinusoids(x, positions)), positions,
+                params["decoder"], {"memory": memory})
     if cfg.family == "vlm":
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
-        return x, _positions(x[..., 0], start_pos), params["blocks"], {}
-    return x, _positions(tokens, start_pos), params["blocks"], {}
+        return (_shard_seq(rt, x), _positions(x[..., 0], start_pos),
+                params["blocks"], {})
+    return _shard_seq(rt, x), _positions(tokens, start_pos), \
+        params["blocks"], {}
+
+
+def _features(params, cfg, rt, batch, start_pos: int = 0):
+    """The final norm's output over the tokens, ready for the logits (the
+    unembedding's entry passed), the units' router losses and the
+    unembedding's split: (x [B, St, D], aux or None, params, split)."""
+    B.check_family(cfg)
+    params, splits = _at_use(rt, params)
+    x, positions, stack, extra = _inputs(cfg, rt, params, splits, batch,
+                                         start_pos)
+    x, _, aux = B.scan_units(stack, x, cfg, rt, positions=positions,
+                             **extra)
+    split = _unembed_split(cfg, splits)
+
+    def tokens_only(t):          # a vlm's patches carry no logits
+        return t[:, batch["patches"].shape[1]:] if cfg.family == "vlm" \
+            else t
+    if rt.spmd is not None and rt.spmd.seq_parallel:
+        # the norm on the rank's shard, its output gathered
+        x = L.apply_norm(cfg.norm, params["final_norm"], x)
+        x = tokens_only(_unshard_seq(rt, x, split))
+    else:
+        x = L.apply_norm(cfg.norm, params["final_norm"], tokens_only(x))
+        x = _unshard_seq(rt, x, split)
+    return x, aux, params, split
+
+
+def _gathered_logits(cfg, params, x, split):
+    """Logits over the whole vocab (a split's columns gathered over
+    ``model``)."""
+    logits = _logits(cfg, params, x, split)
+    return logits if split is None else \
+        split.layout.gather_model(logits, -1)
 
 
 def forward(params, cfg, rt, batch, *, start_pos: int = 0
@@ -159,31 +272,24 @@ def forward(params, cfg, rt, batch, *, start_pos: int = 0
     """Full-sequence forward. Returns (logits [B, St, V] over the tokens,
     aux): aux the layers' router losses summed (fp32; 0 without moe
     layers)."""
-    B.check_family(cfg)
-    params = _at_use(rt, params)
-    x, positions, stack, extra = _inputs(cfg, rt, params, batch, start_pos)
-    x, _, aux = B.scan_units(stack, x, cfg, rt, positions=positions,
-                             **extra)
-    if cfg.family == "vlm":
-        x = x[:, batch["patches"].shape[1]:]
-    x = L.apply_norm(cfg.norm, params["final_norm"], x)
+    x, aux, params, split = _features(params, cfg, rt, batch, start_pos)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _logits(cfg, params, x), aux
+    return _gathered_logits(cfg, params, x, split), aux
 
 
 def loss_fn(params, cfg, rt, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Next-token cross-entropy on ``tokens[:, :-1]`` -> ``tokens[:, 1:]``,
-    log-softmax over the fp32 logits, plus the router's aux term (0 for the
-    dense family). Returns (loss, {"ce", "aux"})."""
+    """Next-token cross-entropy on ``tokens[:, :-1]`` -> ``tokens[:, 1:]``
+    over the fp32 logits (``cross_entropy``: the rank's vocab columns on a
+    mesh whose ``model`` splits the vocab), plus the router's aux term (0
+    for the dense family). Returns (loss, {"ce", "aux"})."""
     tokens = batch["tokens"]
     inp = dict(batch)
     inp["tokens"] = tokens[:, :-1]
-    labels = tokens[:, 1:].long()
-    logits, aux = forward(params, cfg, rt, inp)
-    logp = F.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-    ce = torch.mean(nll)
+    x, aux, params, split = _features(params, cfg, rt, inp)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ce = cross_entropy(_logits(cfg, params, x, split), tokens[:, 1:], split)
     loss = ce + cfg.moe.router_aux_weight * aux
     return loss, {"ce": ce, "aux": aux}
 
@@ -207,12 +313,14 @@ def prefill(params, cfg, rt, batch, cache) -> Tuple[torch.Tensor, Any]:
 
     Returns (last-token logits [B, V], cache)."""
     B.check_family(cfg)
-    params = _at_use(rt, params)
-    x, positions, stack, extra = _inputs(cfg, rt, params, batch)
+    params, splits = _at_use(rt, params)
+    x, positions, stack, extra = _inputs(cfg, rt, params, splits, batch)
     x, cache, _ = B.scan_units(stack, x, cfg, rt, positions=positions,
                                pos=0, cache=cache, **extra)
     x = L.apply_norm(cfg.norm, params["final_norm"], x[:, -1:])
-    return _logits(cfg, params, x)[:, 0], cache
+    split = _unembed_split(cfg, splits)
+    return _gathered_logits(cfg, params, _unshard_seq(rt, x, split),
+                            split)[:, 0], cache
 
 
 def decode_step(params, cfg, rt, token, cache, pos: int
@@ -222,8 +330,8 @@ def decode_step(params, cfg, rt, token, cache, pos: int
     the config has one; an encdec decoder adds the sinusoidal position and
     attends to the cached cross k/v. Returns (logits [B, V], cache)."""
     B.check_family(cfg)
-    params = _at_use(rt, params)
-    x = _embed(cfg, params, token[:, None])
+    params, splits = _at_use(rt, params)
+    x = _embed(cfg, params, token[:, None], splits.get("embed"))
     positions = torch.full((token.shape[0], 1), pos, dtype=torch.int32,
                            device=token.device)
     stack = params["decoder" if cfg.family == "encdec" else "blocks"]
@@ -233,7 +341,9 @@ def decode_step(params, cfg, rt, token, cache, pos: int
                                pos=pos, cache=cache,
                                window=cfg.sliding_window)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
-    return _logits(cfg, params, x)[:, 0], cache
+    split = _unembed_split(cfg, splits)
+    return _gathered_logits(cfg, params, _unshard_seq(rt, x, split),
+                            split)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------

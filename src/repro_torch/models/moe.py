@@ -21,10 +21,18 @@ the config's dtype, and the tree is the JAX package's (``router [D, E]``,
 weights across unchanged. On a mesh (``rt.spmd``) a layer gathers its
 microbatch's tokens over the batch axes before the router and keeps its
 own rows after, so the capacity, the drops and the load-balance loss are
-the whole microbatch's, as in the JAX package; every expert runs on every
-rank. The JAX package's expert-parallel sharding constraints
-(``expert_axis``, ``token_axes``) wait for the expert-parallel dispatch
-(ROADMAP Queue 1 item 9, what is left of it).
+the whole microbatch's, as in the JAX package. Split over ``model``
+(``split``: the expert dim on ``model``, ``distributed/spmd.py``) every
+rank routes all those tokens alike (the router is replicated), fills the
+``[E/m, C, D]`` slots of its own experts, runs them and combines their
+outputs (and its shared experts' columns) into a partial sum, which the
+block's exit sums. A gate's gradient then comes only from the rank that
+owns its expert, so the gates pass an entry (their gradient all-reduced
+over ``model``); the router's own input gradient, the same on every rank,
+is scaled by 1/m before the part's entry sums it. The JAX package's
+expert-parallel sharding constraints (``expert_axis``, ``token_axes``)
+wait for the all-to-all dispatch (ROADMAP Queue 1 item 9, what is left of
+it).
 
 Every expert choice goes through ``route``, one module-level function, so
 a comparison can record one run's choices and replay them in another
@@ -120,14 +128,26 @@ def _gates(probs, k: int):
     return gate / torch.sum(gate, dim=-1, keepdim=True), idx
 
 
-def apply_moe_dense(p, x, cfg, with_aux: bool = True
+def _routed(x, split):
+    """(the router's input, the gates' tap): under a ``split`` the
+    router's input gradient scaled by 1/m and the gates entered (see the
+    module's docstring); as they are off one."""
+    if split is None:
+        return x, lambda g: g
+    layout = split.layout
+    return layout.grad_scale(x, 1.0 / split.size), layout.enter
+
+
+def apply_moe_dense(p, x, cfg, with_aux: bool = True, split=None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The oracle: every expert on every token. x [T, D] -> ([T, D],
-    aux; None unless ``with_aux``)."""
+    """The oracle: every expert on every token (under a ``split`` the
+    rank's experts: a partial sum). x [T, D] -> ([T, D], aux; None unless
+    ``with_aux``)."""
     m = cfg.moe
-    probs = router_probs(p, x)
+    xr, tap = _routed(x, split)
+    probs = router_probs(p, xr)
     gate, idx = _gates(probs, m.top_k)
-    gate = gate.to(x.dtype)
+    gate = tap(gate).to(x.dtype)
     ep = p["experts"]
     hT = torch.einsum("td,edf->etf", x, ep["wi"])
     if "wg" in ep:
@@ -139,6 +159,8 @@ def apply_moe_dense(p, x, cfg, with_aux: bool = True
     yT = torch.einsum("etf,efd->etd", hT, ep["wo"])          # [E, T, D]
     combine = torch.zeros((x.shape[0], m.num_experts), dtype=x.dtype,
                           device=x.device).scatter_add(1, idx, gate)
+    if split is not None:
+        combine = combine.narrow(1, split.lo, split.n)
     out = torch.einsum("te,etd->td", combine, yT)
     return out, (load_balance_loss(probs, idx, m.num_experts) if with_aux
                  else None)
@@ -170,18 +192,28 @@ def dispatch(idx, C: int):
     return order, sorted_e, token_of, keep, torch.clamp(pos_in_e, max=C - 1)
 
 
-def apply_moe_sort(p, x, cfg, capacity_factor: float, with_aux: bool = True
-                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def apply_moe_sort(p, x, cfg, capacity_factor: float, with_aux: bool = True,
+                   split=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Sort-based capacity dispatch. x [T, D] -> ([T, D], aux; None unless
-    ``with_aux``)."""
+    ``with_aux``). Under a ``split`` the slots and outputs of the rank's
+    experts alone (the capacity and the drops are the whole layer's): a
+    partial sum."""
     m = cfg.moe
     T, D = x.shape
     E, k = m.num_experts, m.top_k
     C = capacity(cfg, T, capacity_factor)
 
-    probs = router_probs(p, x)
+    xr, tap = _routed(x, split)
+    probs = router_probs(p, xr)
     gate, idx = _gates(probs, k)                              # [T, k]
+    gate = tap(gate)
     order, sorted_e, token_of, keep, pos_cl = dispatch(idx, C)
+    if split is not None:
+        # the rank's experts' assignments, their slots in its buffer
+        sorted_e = sorted_e - split.lo
+        keep = keep & (sorted_e >= 0) & (sorted_e < split.n)
+        sorted_e = sorted_e.clamp(0, split.n - 1)
+        E = split.n
 
     # dropped rows are zero, so adding them onto a kept slot changes nothing
     keep_x = keep[:, None].to(x.dtype)
@@ -195,24 +227,26 @@ def apply_moe_sort(p, x, cfg, capacity_factor: float, with_aux: bool = True
     g_sorted = gate.reshape(-1)[order].to(x.dtype)
     out = torch.zeros((T, D), dtype=x.dtype, device=x.device).index_add(
         0, token_of, y_sorted * g_sorted[:, None])
-    return out, load_balance_loss(probs, idx, E) if with_aux else None
+    return out, (load_balance_loss(probs, idx, m.num_experts) if with_aux
+                 else None)
 
 
-def apply_moe(p, x, cfg, rt, with_aux: bool = True
+def apply_moe(p, x, cfg, rt, with_aux: bool = True, split=None
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x [B, S, D] -> ([B, S, D], aux scalar; None unless ``with_aux``: a
     cached prefill or decode takes no loss), the shared experts added; a
     dense residual branch is the block's. On a mesh x is this rank's rows,
-    and the routed experts run on every rank's."""
+    and the routed experts run on every rank's (under a ``split``, the
+    rank's experts: a partial sum)."""
     spmd = rt.spmd
     xs = x if spmd is None else spmd.gather_rows(x)
     B, S, D = xs.shape
     xt = xs.reshape(B * S, D)
     if rt.moe_impl == "dense" or cfg.moe.num_experts <= 1:
-        out, aux = apply_moe_dense(p, xt, cfg, with_aux)
+        out, aux = apply_moe_dense(p, xt, cfg, with_aux, split=split)
     else:
         out, aux = apply_moe_sort(p, xt, cfg, cfg.moe.capacity_factor,
-                                  with_aux)
+                                  with_aux, split=split)
     out = out.reshape(B, S, D)
     if spmd is not None:
         out = spmd.rows(out)

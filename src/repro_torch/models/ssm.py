@@ -24,6 +24,16 @@ Decode carries O(1) state: the conv window ``[B, K-1, Di]`` in the cache's
 dtype and h ``[B, Di, N]`` in fp32. ``apply_ssm`` and ``apply_ssm_step``
 return the new state, as the JAX package does; ``models/blocks.py`` copies
 it into the stacked cache in place.
+
+Split over ``model`` (``split``: d_inner on ``model``,
+``distributed/spmd.py``) a rank runs its channels ``[lo, lo + n)``: it
+takes their columns of x and of z from the whole ``in_proj`` (the
+columns are ``[x | z]``, so a contiguous shard would hold x alone on the
+first ranks), and its ``conv``/``dt``/``A``/``D`` leaves, its decode state
+and its ``out_proj`` rows are its own. ``x_proj``'s rows contract over
+d_inner, so its partial (dt, B, C) is summed over ``model`` (both ways:
+its consumers are the rank's channels), and the output is a partial sum,
+which the block's exit sums.
 """
 from __future__ import annotations
 
@@ -85,11 +95,24 @@ def _causal_conv(x, w, b, conv_state=None):
     return y, new_state
 
 
-def _ssm_params(p, x_conv, cfg):
+def _in_proj(p, split):
+    """``in_proj`` [D, 2 Di], or under a ``split`` the rank's columns of x
+    and of z [D, 2 n] from the whole matrix."""
+    w = p["in_proj"]
+    if split is None:
+        return w
+    Di = w.shape[-1] // 2
+    return torch.cat([w.narrow(-1, split.lo, split.n),
+                      w.narrow(-1, Di + split.lo, split.n)], dim=-1)
+
+
+def _ssm_params(p, x_conv, cfg, split=None):
     """x_conv [..., Di] -> (dt [..., Di], B [..., N], C [..., N], A [Di, N]),
     all fp32: the projection is cast to fp32 and dt_proj with it."""
     N, R = cfg.ssm.d_state, cfg.dt_rank()
     proj = x_conv @ p["x_proj"]
+    if split is not None:
+        proj = split.layout.sum_model(proj)
     dt_in, Bm, Cm = torch.split(proj.float(), [R, N, N], dim=-1)
     dt = F.softplus(dt_in @ p["dt_proj"].float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])                                # [Di, N]
@@ -153,20 +176,20 @@ def _chunk(h, A, xch, dch, bch, cch):
     return h_last, torch.einsum("bldn,bln->bld", h_all, cch)
 
 
-def apply_ssm(p, x, cfg, state: Optional[dict] = None
+def apply_ssm(p, x, cfg, state: Optional[dict] = None, split=None
               ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Full-sequence (training, prefill) Mamba mixer. x [B, S, D].
 
     state: None for training; a prefill passes the (zeroed) cache to
-    receive the final state. Returns (y [B, S, D], the new state or
-    None)."""
+    receive the final state (under a ``split``, the rank's channels').
+    Returns (y [B, S, D], the new state or None)."""
     B, S, _ = x.shape
-    Di, N = cfg.d_inner(), cfg.ssm.d_state
-    xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    Di, N = p["A_log"].shape[0], cfg.ssm.d_state
+    xi, z = (x @ _in_proj(p, split)).chunk(2, dim=-1)
     conv_state = state["conv"] if state is not None else None
     xc, new_conv = _causal_conv(xi, p["conv_w"], p["conv_b"], conv_state)
     xc = F.silu(xc)
-    dt, Bm, Cm, A = _ssm_params(p, xc, cfg)                   # dt [B,S,Di]
+    dt, Bm, Cm, A = _ssm_params(p, xc, cfg, split)            # dt [B,S,Di]
 
     chunk = max(min(cfg.ssm.chunk, S), 1)
     nchunk = -(-S // chunk)
@@ -194,14 +217,16 @@ def apply_ssm(p, x, cfg, state: Optional[dict] = None
     return out, new_state
 
 
-def apply_ssm_step(p, x, cfg, state: dict) -> Tuple[torch.Tensor, dict]:
+def apply_ssm_step(p, x, cfg, state: dict, split=None
+                   ) -> Tuple[torch.Tensor, dict]:
     """One decode step. x [B, 1, D]; state {conv [B, K-1, Di], h [B, Di,
-    N]}. Returns (y [B, 1, D], the new state)."""
-    xi, z = (x[:, 0] @ p["in_proj"]).chunk(2, dim=-1)        # [B, Di]
+    N]} (under a ``split``, the rank's channels'). Returns (y [B, 1, D],
+    the new state)."""
+    xi, z = (x[:, 0] @ _in_proj(p, split)).chunk(2, dim=-1)  # [B, Di]
     window = torch.cat([state["conv"].to(xi.dtype), xi[:, None]], dim=1)
     xc = torch.einsum("bkd,kd->bd", window, p["conv_w"]) + p["conv_b"]
     xc = F.silu(xc)
-    dt, Bm, Cm, A = _ssm_params(p, xc, cfg)                   # dt [B, Di]
+    dt, Bm, Cm, A = _ssm_params(p, xc, cfg, split)            # dt [B, Di]
     a = torch.exp(dt[..., None] * A)                          # [B, Di, N]
     bbar = (dt * xc.float())[..., None] * Bm[:, None, :]
     h = a * state["h"].float() + bbar

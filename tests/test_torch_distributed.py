@@ -28,7 +28,9 @@
   within 2e-2 of max |g| of the JAX step's under the same policy.
 - Prefill and decode across the ranks give the host mesh's tokens and
   logits; the collectives a step issues are those ``spmd.step_collectives``
-  predicts from the specs.
+  predicts from the specs (on (2, 2) the modules split over ``model``
+  add their entries and exits; ``tests/test_torch_tensor_parallel.py``
+  holds that route, and ``seq_parallel``, to the JAX package).
 - Under the (4, 1) process group ``make_host_mesh`` is that DeviceMesh, and
   ``launch.serve.serve`` and ``launch.train.run_arch`` run on it: the host
   runs' tokens and losses, and one checkpoint (rank 0's) of the host run's
@@ -634,14 +636,6 @@ def test_train_step_without_donation(inputs, opt_name):
         {k: float(v) for k, v in m1.items()}
     params, state, _ = given[1]
     assert params == {} and state == {}
-
-
-def test_seq_parallel_raises():
-    cfg = R.config("stablelm-1.6b")
-    with pytest.raises(NotImplementedError, match="seq_parallel"):
-        TST.bind_train(TMESH.make_host_mesh("cpu"), cfg, Runtime(),
-                       TO.sgd(R.LR["sgd"]), R.train_shape(),
-                       policy=SH.ShardingPolicy(seq_parallel=True))
 
 
 def test_placements():

@@ -30,10 +30,20 @@ then the yardstick's cols launch. It is held against ``jax.grad`` at the
 same tolerances, at shapes where a warp or a block walks more than one row,
 and shown to differ from ``_kernel_model``'s order; the launcher's
 branches are held to the tiers and grids they were chosen as.
+
+``chip_smoke.py::rms_bwd_gate``, the rule that times the kernel against
+its yardstick on the card, is held here to the readings of two runs of an
+unchanged tree on the H100: it passes both (the first failed the former
+rule, the kernel's event median against the yardstick's fastest turn),
+and it fails a kernel whose median is the slower one.
 """
 from __future__ import annotations
 
+import functools
+import importlib.util
+import pathlib
 import re
+import statistics
 
 import jax
 import jax.numpy as jnp
@@ -395,3 +405,52 @@ def test_rmsnorm_bwd_yardstick_refuses_cpu_tensors():
         RN.rmsnorm_bwd_yardstick(x, s, dy)
     assert RN.rmsnorm_bwd.launches == before
     assert RN.build_bwd_yardstick.cache_info().currsize == 0
+
+
+@functools.cache
+def _chip_smoke():
+    """chip_smoke.py as a module (its top level imports the standard
+    library only; its phases run on the card alone)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# two runs on an unchanged tree (H100 80GB HBM3, 700.00 W) at [4096, 896]
+# bf16: wrapper-timed event turns (ms) of kernel and yardstick, and the
+# medians of the device windows. r1's turns are all recorded; of r2's, the
+# kernel's median and the yardstick's fastest and slowest turns
+GATE_READINGS = {
+    "r1": (dict(kernel=[0.05909, 0.05669, 0.05933, 0.05459, 0.05667,
+                        0.04436],
+                yardstick=[0.08571, 0.08248, 0.08947, 0.07898, 0.08626,
+                           0.04865]), 0.00873, 0.01443),
+    "r2": (dict(kernel=[0.04291], yardstick=[0.06140, 0.06253]),
+           0.00887, 0.01465),
+}
+
+
+@pytest.mark.parametrize("run", sorted(GATE_READINGS))
+def test_timing_gate_passes_the_unchanged_tree(run):
+    cs = _chip_smoke()
+    turns, dev, yard_dev = GATE_READINGS[run]
+    assert cs.rms_bwd_gate(cs.RMS_BWD_FASTER_AT, turns, dev, yard_dev)
+    # the former rule: the kernel's median below the yardstick's fastest
+    # turn, which r1's one fast yardstick turn failed
+    former = statistics.median(turns["kernel"]) < min(turns["yardstick"])
+    assert former == (run == "r2")
+
+
+def test_timing_gate_fails_a_slower_kernel():
+    cs = _chip_smoke()
+    turns, dev, yard_dev = GATE_READINGS["r1"]
+    swapped = dict(kernel=turns["yardstick"], yardstick=turns["kernel"])
+    shape = cs.RMS_BWD_FASTER_AT
+    assert not cs.rms_bwd_gate(shape, swapped, dev, yard_dev)
+    assert not cs.rms_bwd_gate(shape, turns, yard_dev, dev)
+    assert not cs.rms_bwd_gate(shape, turns, None, yard_dev)
+    # the other rows: by device time alone, no slower
+    assert cs.rms_bwd_gate((4096, 8192), swapped, dev, dev)
+    assert not cs.rms_bwd_gate((4096, 8192), turns, yard_dev, dev)

@@ -1,13 +1,15 @@
 """The ranks of the gloo meshes that ``tests/test_torch_distributed.py``
-runs, and the cases both sides share.
+and ``tests/test_torch_tensor_parallel.py`` run, and the cases both sides
+share.
 
 Run as a script, one process a rank: ``python tests/torch_mesh_ranks.py
 <job.json> <rank>``. A rank imports only torch, numpy and ``repro_torch``
 (the JAX side of each comparison runs in the test process). It joins a
 gloo process group through a file store (no TCP port to race for), with a
 timeout on every collective, builds the job's ``DeviceMesh`` over
-``("data", "model")``, runs every case of the job on the inputs the test
-wrote (``in_<arch>.npz``) and writes what it holds to
+``("data", "model")``, runs every case of the job (``"kind"``: the
+distributed file's, or ``"tp"``, the tensor-parallel file's) on the
+inputs the test wrote (``in_<case>.npz``) and writes what it holds to
 ``<case>_r<rank>.npz``.
 """
 from __future__ import annotations
@@ -52,9 +54,21 @@ MOE_CAPACITY = 0.5
 BF16_ARCH = "stablelm-1.6b"
 
 
+# the tensor-parallel cases: five smoke configs and one whose vocab 4 does
+# not divide (its embed and unembed fall back to d_model and compute
+# replicated); each trains with and without seq_parallel
+TP_MESHES = [(2, 2), (1, 4)]
+TP_CASES = ["stablelm-1.6b", "deepseek-moe-16b", "falcon-mamba-7b",
+            "whisper-base", "qwen1.5-110b", "internvl2-1b@511"]
+
+
 def config(arch):
-    """The smoke config both sides run (deepseek at ``MOE_CAPACITY``)."""
+    """The smoke config both sides run (deepseek at ``MOE_CAPACITY``; an
+    ``arch@V`` case at vocab V)."""
+    arch, _, vocab = arch.partition("@")
     cfg = C.get_smoke(arch)
+    if vocab:
+        cfg = cfg.replace(vocab=int(vocab))
     if cfg.moe.num_experts:
         cfg = cfg.replace(moe=dataclasses.replace(
             cfg.moe, capacity_factor=MOE_CAPACITY))
@@ -118,6 +132,54 @@ class FullLeaves:
     def __exit__(self, *exc):
         from torch.distributed.tensor import DTensor
         DTensor.full_tensor = self._orig
+
+
+class Widths:
+    """Records the widths that the model's modules compute with, by
+    module: attention's query heads (the flash kernel's or the plain
+    attention's q), an mlp's and shared experts' FFN columns, the experts a
+    moe layer runs, an ssm's d_inner channels, and the embedding's and the
+    logits' vocab; ``seen[what]`` is the set of widths."""
+
+    def __init__(self):
+        self.seen = {}
+
+    def _wrap(self, mod, name, what, width=None):
+        """Record ``width(*args)`` of each call of ``mod.name`` (None: its
+        output's last dim) under ``what``."""
+        orig = getattr(mod, name)
+
+        def recording(*args, **kwargs):
+            out = orig(*args, **kwargs)
+            w = out.shape[-1] if width is None else width(*args)
+            self.seen.setdefault(what, set()).add(int(w))
+            return out
+
+        setattr(mod, name, recording)
+        self._undo.append((mod, name, orig))
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.models import layers as L
+        from repro_torch.models import ssm as SSM
+        self._undo = []
+        self._wrap(ops, "attention", "attention", lambda q, *a: q.shape[2])
+        self._wrap(L, "plain_attention", "attention",
+                   lambda q, *a: q.shape[2])
+        self._wrap(L, "apply_mlp", "mlp", lambda p, *a: p["wi"].shape[-1])
+        self._wrap(MOE, "_expert_ffn", "experts", lambda ep, h, *a:
+                   h.shape[0])
+        self._wrap(MOE, "_shared_ffn", "shared", lambda sp, *a:
+                   sp["wi"].shape[-1])
+        self._wrap(SSM, "_causal_conv", "ssm", lambda x, w, *a: w.shape[-1])
+        self._wrap(M, "_embed", "embed", lambda cfg, p, *a:
+                   p["embed"].shape[0])
+        self._wrap(M, "_logits", "logits")
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in reversed(self._undo):
+            setattr(mod, name, orig)
 
 
 def train_case(mesh, cfg, params, batch, opt_name, policy=None):
@@ -185,6 +247,10 @@ def run_rank(job, rank: int) -> None:
         timeout=datetime.timedelta(seconds=job["timeout_s"]))
     try:
         mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        if job.get("kind") == "tp":
+            run_tp(out, mesh)
+            dist.barrier()
+            return
         coord = np.array(mesh.get_coordinate())
         for arch in ARCHS:
             cfg = config(arch)
@@ -255,6 +321,68 @@ def _drivers(out, rank, shape):
     np.savez(out / f"drivers_r{rank}.npz", tokens=served["tokens"].numpy(),
              losses=np.array(trained["losses"], np.float64),
              full_most=np.int64(full.most), full_calls=np.int64(full.calls))
+
+
+def _load(out, case):
+    data = np.load(out / f"in_{case}.npz")
+    leaves = [data[f"p{i}"] for i in range(int(data["n"]))]
+    batch = {k[2:]: torch.from_numpy(data[k]) for k in data.files
+             if k.startswith("b_")}
+    prompt = {k[2:]: torch.from_numpy(data[k]) for k in data.files
+              if k.startswith("q_")}
+    return leaves, batch, prompt
+
+
+def run_tp(out, mesh) -> None:
+    """The tensor-parallel cases: each of ``TP_CASES`` trains one step
+    with SGD and with AdamW, with and without ``seq_parallel``, and serves
+    (prefill and decode), recording its shards, metrics, drops,
+    collectives and the widths its modules computed with; then one
+    ``seq_parallel`` binding at a sequence ``model`` does not divide,
+    which must raise before any collective."""
+    rank = torch.distributed.get_rank()
+    for case in TP_CASES:
+        cfg = config(case)
+        leaves, batch, prompt = _load(out, case)
+        for sp in (False, True):
+            for opt_name in ("sgd", "adamw"):
+                policy = ShardingPolicy.for_mesh(mesh, seq_parallel=sp)
+                with Widths() as widths:
+                    p, s, m, drops, calls, _ = train_case(
+                        mesh, cfg, params_of(cfg, leaves), batch, opt_name,
+                        policy)
+                res = {**_flat("p", p),
+                       **{f"m_{k}": np.float32(v) for k, v in m.items()},
+                       "drops": np.array(drops, np.int64),
+                       **_calls("c_", calls), **_widths(widths)}
+                for slot in ("m", "v"):
+                    if slot in s:
+                        res.update(_flat(f"s{slot}_", s[slot]))
+                tag = "sp" if sp else "tp"
+                np.savez(out / f"{tag}_{case}_{opt_name}_r{rank}.npz", **res)
+        with Widths() as widths:
+            logits, toks, calls = serve_case(mesh, cfg, params_of(cfg, leaves),
+                                             prompt)
+        res = {"logits": logits.numpy(), "tokens": toks.numpy(),
+               **_widths(widths)}
+        for i, c in enumerate(calls):
+            res.update(_calls(f"c{i}_", c))
+        np.savez(out / f"serve_{case}_r{rank}.npz", **res)
+    cfg = config(TP_CASES[0])
+    SP.COLLECTIVES.reset()
+    try:
+        ST.bind_train(mesh, cfg, Runtime(), O.sgd(LR["sgd"]),
+                      InputShape("t", 4 * mesh.shape[1] + 1, BATCH, "train"),
+                      policy=ShardingPolicy.for_mesh(mesh, seq_parallel=True))
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    np.savez(out / f"refusal_r{rank}.npz", raised=np.array(raised),
+             calls=np.int64(sum(SP.COLLECTIVES.calls.values())))
+
+
+def _widths(w):
+    return {f"w_{k}": np.array(sorted(v), np.int64) for k, v in w.seen.items()}
 
 
 # the drivers' runs (both sides)
